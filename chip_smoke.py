@@ -17,7 +17,13 @@ Phases, each printing one JSON line:
                attention kernels (forward, dq, dk/dv) at the train shapes
                (batch 16, 16 heads, seq 2047, head_dim 128, causal, bf16) and
                once in f32 at batch 2, each of their outputs held to its own
-               bound, element by element and as a whole.
+               bound, element by element and as a whole. Ring attention's
+               block kernel (kernel 2) at the ring phase's shapes (q [1, 16,
+               8192, 128], k/v [1, 8, 8192, 128], bf16) on its three kinds of
+               block — the diagonal, one below it (every key visible) and one
+               above it (no key visible, checked for exact zeros) — and at
+               small ragged shapes with odd offsets, causal and not, GQA and
+               MHA, in f32 and bf16; o, m and l each held to their bounds.
   4. engine  — the serving engine at the full width of the serving model
                (vocab 32000, d_model 1024, 8 layers, 127M parameters, bf16,
                random weights from a seed): 64 requests x 128 new tokens, a warm
@@ -43,6 +49,17 @@ Phases, each printing one JSON line:
                zeroed just before; every loss finite, the last below the
                first, and every layer of every step launched the three flash
                kernels. One more step runs under torch.profiler.
+  8. ring    — sequence parallelism: the train configuration's width and depth
+               at 32768 tokens (batch 1, bf16, max_seq_len 32768) through
+               models.train_step.make_forward under use_mesh with a seq=4
+               mesh on [cuda:0] * 4 (8192 tokens per shard): a warm call, then
+               a timed call with kernel 2's launch counter zeroed just before
+               (8 layers x 16 blocks). Its logits against the same model's
+               flash branch (no mesh), and in f32 at 4096 tokens against the
+               einsum branch; the first three shards' logits bit-identical
+               when the last shard's tokens change; a call under autograd
+               raises (kernel 2 has no backward). One more call runs under
+               torch.profiler.
 
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -100,6 +117,35 @@ TRAIN_PARITY_BATCH = 2
 TRAIN_PARITY_BOUNDS = {"float32": (1e-5, 1e-5, 1e-4),
                        "bfloat16": (1e-3, 2e-3, 6e-2)}
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+# ring attention: the train configuration at 32768 tokens on a seq=4 mesh of
+# one card, 8192 tokens per shard. The path's three kinds of block, as
+# (q_offset, k_offset): shard 1 against its own keys, shard 2 against shard
+# 0's (every key visible) and shard 0 against shard 3's (none visible)
+RING_SEQ, RING_SHARDS = 32768, 4
+RING_T = RING_SEQ // RING_SHARDS
+RING_BLOCKS = {"diagonal": (RING_T, RING_T), "full": (2 * RING_T, 0),
+               "masked": (0, 3 * RING_T)}
+# small blocks, f32 and bf16: (heads, kv heads, Tq, Tk, q_offset, k_offset,
+# causal). "late_keys": the first query tile sees no key at all, and row 64,
+# the first of the second tile, sees none while the rest of its tile does
+RING_SMALL = {"odd_gqa": (16, 8, 333, 200, 101, 37, True),
+              "late_keys": (16, 8, 300, 129, 5, 70, True),
+              "non_causal_mha": (8, 8, 257, 190, 3, 11, False)}
+RING_SMALL_BATCH = 2
+# kernel 2's o (f32, unnormalised) is held to FLASH_BOUNDS: in bf16 it rounds
+# P to bf16 before P v, as the flash forward does. m and l are f32 in both
+# dtypes, from scores whose bf16 products are exact in f32: the same sums in
+# another order, so lse's bounds. Rows with no visible key must read exactly
+# o = 0, m = -1e30, l = 0
+RING_ML_BOUNDS = LSE_BOUNDS
+# ring logits against the model's other branch, relative L2 over all logits:
+# bf16 against the flash branch (the two round P and their attention
+# outputs to bf16 at different points, then 8 layers of bf16 activations);
+# f32 (TF32 off) against the einsum branch at RING_F32_SEQ tokens (the same
+# values summed in another order)
+RING_PARITY_BOUNDS = {"bfloat16": 2 ** -5, "float32": 1e-5}
+RING_F32_SEQ = 4096
 
 
 def emit(obj) -> None:
@@ -352,6 +398,121 @@ def phase_flash_kernel(torch, dev, timed=True):
     return rows
 
 
+def _ring_block_work(B, H, Hkv, Tq, Tk, q_offset, k_offset, causal, elt):
+    """(bytes, flops) of one block: 2*D flops per visible (query, key) pair
+    per product, two products; the inputs read once where any pair is
+    visible, the outputs (o, m, l in f32) written once."""
+    import numpy as np
+
+    if causal:
+        seen = np.clip(np.arange(Tq) + q_offset - k_offset + 1, 0, Tk)
+        visible = int(seen.sum())
+    else:
+        visible = Tq * Tk
+    D = FLASH_D
+    nbytes = B * H * Tq * (D + 2) * 4
+    if visible:
+        nbytes += (B * H * Tq + 2 * B * Hkv * Tk) * D * elt
+    return nbytes, 4 * D * B * H * visible
+
+
+def ring_block_check(torch, name, got, want, neg_inf):
+    """Kernel 2's (o, m, l) against the plain version's. Over the rows with
+    a visible key: o to FLASH_BOUNDS, m and l to RING_ML_BOUNDS (m with the
+    other rows set to 0 in both). The other rows must read exactly o = 0,
+    m = -1e30, l = 0 in the kernel's output."""
+    (o, m, l), (o_r, m_r, l_r) = got, want
+    live = m_r > neg_inf / 2
+    dead = ~live
+    dead_exact = bool((m[dead] == neg_inf).all() and (l[dead] == 0).all()
+                      and (o[dead] == 0).all())
+    readings = []
+    if bool(live.any()):
+        readings = [
+            _reading(torch, "o", o, o_r, FLASH_BOUNDS[name]),
+            _reading(torch, "m", torch.where(live, m, 0.0),
+                     torch.where(live, m_r, 0.0), RING_ML_BOUNDS),
+            _reading(torch, "l", l, l_r, RING_ML_BOUNDS)]
+    return {"outputs": readings, "dead_rows": int(dead.sum()),
+            "dead_rows_exact": dead_exact,
+            "max_abs_err": max([r["max_abs_err"] for r in readings]
+                               + [0.0]),
+            "ok": dead_exact and all(r["ok"] for r in readings)}
+
+
+def phase_ring_kernel(torch, dev):
+    """Kernel 2 against its plain version on the ring path's three kinds of
+    block (bf16, with times, bound and an SDPA yardstick) and on small
+    ragged blocks (f32 and bf16). The inputs are [B, T, H, D] tensors seen
+    as [B, H, T, D] views, as the ring passes the model's. Raises after
+    every check has printed if any is out of bounds."""
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    F = torch.nn.functional
+    H, KV, D = TRAIN["n_heads"], TRAIN["n_kv_heads"], FLASH_D
+    rows, failed = {}, []
+
+    def inputs(g, B, h, kv, tq, tk, dtype):
+        q = torch.randn((B, tq, h, D), generator=g, device=dev)
+        k, v = (torch.randn((B, tk, kv, D), generator=g, device=dev)
+                for _ in range(2))
+        return tuple(x.to(dtype).transpose(1, 2) for x in (q, k, v))
+
+    def check(label, dtype, qkv, q_off, k_off, causal):
+        name = str(dtype).replace("torch.", "")
+        got = ra.block_attention(*qkv, q_off, k_off, causal)
+        want = ra._block_attention_reference(*qkv, q_off, k_off, causal)
+        torch.cuda.synchronize()
+        result = ring_block_check(torch, name, got, want, ra.NEG_INF)
+        if not result["ok"]:
+            failed.append(f"{label} ({name})")
+        return result
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for label, (h, kv, tq, tk, q_off, k_off, causal) in RING_SMALL.items():
+            qkv = inputs(g, RING_SMALL_BATCH, h, kv, tq, tk, dtype)
+            emit({"phase": "kernel", "name": "ring_block_attention",
+                  "block": label, "dtype": name, "batch": RING_SMALL_BATCH,
+                  "heads": h, "kv_heads": kv, "tq": tq, "tk": tk,
+                  "q_offset": q_off, "k_offset": k_off, "causal": causal,
+                  **check(label, dtype, qkv, q_off, k_off, causal)})
+
+    q, k, v = inputs(g, 1, H, KV, RING_T, RING_T, torch.bfloat16)
+    for label, (q_off, k_off) in RING_BLOCKS.items():
+        row = {"block": label, "dtype": "bfloat16", "batch": 1, "heads": H,
+               "kv_heads": KV, "tq": RING_T, "tk": RING_T,
+               "q_offset": q_off, "k_offset": k_off, "causal": True,
+               **check(label, torch.bfloat16, (q, k, v), q_off, k_off, True)}
+        nbytes, flops = _ring_block_work(1, H, KV, RING_T, RING_T, q_off,
+                                         k_off, True, q.element_size())
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        row["ms"] = cuda_ms(torch, lambda i: ra.block_attention(
+            q, k, v, q_off, k_off), 10)
+        row["plain_ms"] = cuda_ms(torch, lambda i: (
+            ra._block_attention_reference(q, k, v, q_off, k_off, True)), 2)
+        # yardstick only (the port never calls it): one SDPA call on the
+        # same block, GQA unrepeated. It returns normalised o alone (no m,
+        # l), so it does slightly less; it has no counterpart of a block
+        # that sees no key
+        row["library_ms"] = None if label == "masked" else cuda_ms(
+            torch, lambda i: F.scaled_dot_product_attention(
+                q, k, v, is_causal=label == "diagonal", enable_gqa=True), 10)
+        row.update(bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=nbytes, flops=flops)
+        rows[label] = row
+        emit({"phase": "kernel", "name": "ring_block_attention", **row})
+    del q, k, v
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"ring block kernel vs plain out of bounds: "
+                             f"{failed}")
+    return rows
+
+
 def phase_engine(torch):
     """The main path: the engine at full width, bf16. Returns the
     paged-attention launches of the timed round."""
@@ -413,6 +574,7 @@ def phase_engine(torch):
 
 # device time grouped by kernel name (the rest is "other")
 KERNEL_GROUPS = (("flash attention", ("flash_",)),
+                 ("ring attention", ("ring_block",)),
                  ("paged attention", ("paged_decode",)),
                  ("matrix products", ("nvjet", "gemm", "xmma", "cutlass")))
 
@@ -425,12 +587,14 @@ def profile_call(torch, fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the wall time of fn() alone: the profiler's own start and stop
+        # (trace collection) lie outside it
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
@@ -653,6 +817,135 @@ def phase_train(torch):
     return launches
 
 
+def _logit_diff(torch, got, want):
+    """Relative L2 difference of two [B, S, V] logit tensors over every
+    element, the largest absolute difference, and the share of positions
+    whose argmax agrees; 1024 positions at a time, so no f32 copy of the
+    whole tensor."""
+    diff2 = ref2 = 0.0
+    max_abs, agree = 0.0, 0
+    for i in range(0, got.shape[1], 1024):
+        a, b = got[:, i:i + 1024].float(), want[:, i:i + 1024].float()
+        diff2 += float((a - b).square().sum())
+        ref2 += float(b.square().sum())
+        max_abs = max(max_abs, float((a - b).abs().max()))
+        agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+    return {"rel_l2": (diff2 / ref2) ** 0.5, "max_abs_err": max_abs,
+            "argmax_agree": agree / (got.shape[0] * got.shape[1])}
+
+
+def phase_ring(torch, dev):
+    """The ring main path: the train configuration's forward at 32768
+    tokens through make_forward under a seq=4 mesh on one card. Returns
+    kernel 2's launches in the timed call."""
+    from ray_tpu_torch.models.train_step import make_forward
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  init_params, param_count)
+    from ray_tpu_torch.ops import ring_attention as ra
+    from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh, use_mesh
+
+    mesh = make_mesh(MeshConfig(seq=RING_SHARDS), [dev] * RING_SHARDS)
+    cfg = TransformerConfig(dtype=torch.bfloat16, max_seq_len=RING_SEQ,
+                            ring_attention=True, **TRAIN)
+    gen = torch.Generator(device=dev)
+    params = init_params(cfg, gen.manual_seed(0))
+    n_params = param_count(params)
+    model = Transformer(cfg, device=dev).load_params(params)
+    del params
+    forward = make_forward(model)
+    tokens = torch.randint(0, cfg.vocab_size, (1, RING_SEQ),
+                           generator=gen.manual_seed(1), device=dev)
+    # the last shard's tokens replaced, the first three kept
+    cut = (RING_SHARDS - 1) * RING_T
+    tokens2 = tokens.clone()
+    tokens2[:, cut:] = torch.randint(0, cfg.vocab_size, (1, RING_T),
+                                     generator=gen.manual_seed(2),
+                                     device=dev)
+    with use_mesh(mesh):
+        forward(tokens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: the counter from zero, then one timed call
+        ra.block_attention.launches = 0
+        t0 = time.perf_counter()
+        logits = forward(tokens)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = ra.block_attention.launches
+        peak_mem = torch.cuda.max_memory_allocated()
+        logits2 = forward(tokens2)
+        breakdown = profile_call(torch, lambda: forward(tokens))
+        try:
+            with torch.enable_grad():
+                model(tokens[:, :RING_F32_SEQ])
+            grad_raises = None
+        except NotImplementedError as e:
+            grad_raises = str(e)
+    causal_exact = bool(torch.equal(logits[:, :cut], logits2[:, :cut]))
+    last_changed = not torch.equal(logits[:, cut:], logits2[:, cut:])
+    finite = bool(torch.isfinite(logits).all())
+    del logits2
+    flash = forward(tokens)   # no mesh: the flash branch
+    parity = {"bfloat16": _logit_diff(torch, logits, flash)}
+    shape = tuple(logits.shape)
+    del flash, logits, model, forward
+    torch.cuda.empty_cache()
+
+    # f32 (TF32 off): the ring against the einsum branch of one model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                flash_attention="off")
+    model32 = Transformer(cfg32, device=dev).load_params(
+        init_params(cfg32, gen.manual_seed(0)))
+    short = tokens[:, :RING_F32_SEQ]
+    forward32 = make_forward(model32)
+    with use_mesh(mesh):
+        ring32 = forward32(short)
+    parity["float32"] = _logit_diff(torch, ring32, forward32(short))
+    parity["float32"]["seq"] = RING_F32_SEQ
+    del model32, ring32
+    torch.cuda.empty_cache()
+    for name, reading in parity.items():
+        reading["bound"] = RING_PARITY_BOUNDS[name]
+        reading["ok"] = reading["rel_l2"] <= RING_PARITY_BOUNDS[name]
+
+    want = TRAIN["n_layers"] * RING_SHARDS ** 2
+    row = {"phase": "ring", "device": torch.cuda.get_device_name(),
+           "n_params": n_params, "batch": 1, "seq_len": RING_SEQ,
+           "seq_shards": RING_SHARDS, "mesh": mesh.shape,
+           "dtype": "bfloat16", "ms": dt * 1e3, "tokens_per_s": RING_SEQ / dt,
+           "block_launches": launches, "want_launches": want,
+           "logits_shape": list(shape), "finite": finite,
+           "peak_mem_bytes": peak_mem, "parity": parity,
+           "earlier_shards_bit_identical": causal_exact,
+           "last_shard_changed": last_changed,
+           "grad_raises": grad_raises,
+           # one call's reading: the profiled call's busy time over its own
+           # wall time. The profiler's host cost per eager op can starve
+           # the device in that call, so the profiled busy time over the
+           # timed call's wall (a ratio of two calls doing the same work)
+           # is given beside it, under its own name
+           "device_busy_share": (breakdown["device_busy_us"]
+                                 / breakdown["wall_us"]),
+           "device_busy_over_timed_wall": (breakdown["device_busy_us"]
+                                           / (dt * 1e6)),
+           "profile": breakdown}
+    emit(row)
+    problems = [what for what, bad in (
+        (f"launches {launches} != {want}", launches != want),
+        ("logits not finite", not finite),
+        (f"logits shape {shape}", shape != (1, RING_SEQ, cfg.vocab_size)),
+        ("earlier shards changed", not causal_exact),
+        ("last shard unchanged", not last_changed),
+        ("no raise under autograd", grad_raises is None),
+        *((f"{n} parity {r['rel_l2']} > {r['bound']}", not r["ok"])
+          for n, r in parity.items())) if bad]
+    if problems:
+        raise AssertionError(f"ring phase: {problems}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -677,10 +970,12 @@ def main() -> int:
 
     kernel_rows = phase_kernel(torch, dev)
     flash_rows = phase_flash_kernel(torch, dev)
+    ring_rows = phase_ring_kernel(torch, dev)
     launches = phase_engine(torch)
     phase_parity(torch)
     phase_train_parity(torch)
     train_launches = phase_train(torch)
+    ring_launches = phase_ring(torch, dev)
 
     main_row = kernel_rows["bfloat16"]
     table = [{
@@ -706,6 +1001,17 @@ def main() -> int:
             "replaces": replaces[name], "launches": train_launches[name],
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
+    # times and bound of the block below the diagonal (every key visible,
+    # the most work); the error is the worst of the path's three blocks
+    full = ring_rows["full"]
+    table.append({
+        "name": "ring_block_attention", "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/ring_attention.cu",
+        "replaces": "ray_tpu/ops/ring_attention.py:64",
+        "launches": ring_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in ring_rows.values()),
+        **{k: full[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,10 +15,14 @@ d_model]``), so a JAX checkpoint loads through numpy unchanged
 Attention takes the fused flash kernels (ops/flash.py, hand-written CUDA,
 forward and backward) for a causal call on a CUDA tensor with head_dim a
 multiple of 128, and the einsum path otherwise (always on the CPU, as the
-reference takes it off the TPU). ``remat`` checkpoints each block, fully
-or saving only matrix-product outputs ("dots"). Parameters are trainable
+reference takes it off the TPU). With ``ring_attention`` and a current mesh
+(parallel/mesh.py) whose ``seq`` axis is larger than 1, attention takes the
+ring instead (ops/ring_attention.py, kernel 2 on the card, forward only
+there); positions stay the global ``arange(S)``, since the in-process ring
+holds the whole sequence. ``remat`` checkpoints each block, fully or saving
+only matrix-product outputs ("dots"). Parameters are trainable
 (models/train_step.py); the serving engine reads them under
-``torch.no_grad()``. Ring attention and MoE are later slices.
+``torch.no_grad()``. MoE is a later slice.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch.ops.flash import flash_attention_bshk
+from ray_tpu_torch.ops.ring_attention import ring_attention_sharded
+from ray_tpu_torch.parallel.mesh import AXIS_SEQ, Mesh, current_mesh
 
 
 def resolve_device(device, who: str) -> torch.device:
@@ -79,10 +85,6 @@ class TransformerConfig:
             raise NotImplementedError(
                 "moe=True is not ported yet (ROADMAP.md, Queue A: MoE and "
                 "pipeline)")
-        if self.ring_attention:
-            raise NotImplementedError(
-                "ring_attention=True is not ported yet (ROADMAP.md, Queue "
-                "A: ring attention with kernel 2)")
 
     @property
     def head_dim(self) -> int:
@@ -131,6 +133,19 @@ def _flash_supported(x: torch.Tensor, head_dim: int) -> bool:
     return x.device.type == "cuda" and head_dim % 128 == 0
 
 
+def _ring_mesh(cfg: TransformerConfig, mask) -> Optional[Mesh]:
+    """The current mesh when attention takes the ring: ``ring_attention``
+    on, no explicit mask (the ring is causal only, so a mask takes the
+    standard path rather than being ignored) and a seq axis larger than 1,
+    as the reference decides (``ray_tpu/models/transformer.py:157-166``)."""
+    if not cfg.ring_attention or mask is not None:
+        return None
+    mesh = current_mesh()
+    if mesh is None or mesh.shape.get(AXIS_SEQ, 1) <= 1:
+        return None
+    return mesh
+
+
 def _param(shape, cfg: TransformerConfig, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype,
                                     device=device))
@@ -166,6 +181,12 @@ class Attention(nn.Module):
         v = torch.einsum("bsd,dhk->bshk", x, self.wv.to(cfg.dtype))
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
+        ring_mesh = _ring_mesh(cfg, mask)
+        if ring_mesh is not None:
+            # sequence parallelism: blockwise ring attention with the KV
+            # heads UNREPEATED on the ring (the block resolves GQA)
+            return self._project_out(ring_attention_sharded(
+                q, k, v, ring_mesh, causal=True))
         # GQA: repeat kv heads up to query heads (jnp.repeat order: head j
         # reads KV head j // rep); autograd sums dk/dv over each group
         rep = cfg.n_heads // cfg.n_kv_heads
@@ -183,7 +204,10 @@ class Attention(nn.Module):
             scores = scores.to(torch.float32).masked_fill(~mask, -1e30)
             probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
             out = torch.einsum("bhst,bthk->bshk", probs, v)
-        return torch.einsum("bshk,hkd->bsd", out, self.wo.to(cfg.dtype))
+        return self._project_out(out)
+
+    def _project_out(self, out):
+        return torch.einsum("bshk,hkd->bsd", out, self.wo.to(self.cfg.dtype))
 
 
 class MLP(nn.Module):

@@ -75,6 +75,11 @@ __device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
+// The tile routines from here to the kernels (tile_ld, ldmatrix_x4,
+// mma_bf16, warp_mma, zero, load_tile, store_acc, Shapes) have a copy in
+// ring_attention.cu; a fix to one belongs in the other. The copy stays
+// until both kernels share one header (ROADMAP.md, Queue A, item 1).
+
 // row stride of a shared-memory tile with `cols` columns: 16 bytes of pad
 template <typename T>
 __host__ __device__ constexpr int tile_ld(int cols) {

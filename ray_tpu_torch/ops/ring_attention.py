@@ -1,0 +1,255 @@
+"""Ring attention — sequence parallelism over a mesh's ``seq`` axis.
+
+Counterpart of ``ray_tpu/ops/ring_attention.py`` (Liu et al., Ring
+Attention with Blockwise Transformers, arXiv:2310.01889): the sequence is
+split into n shards, shard i holds its queries Q_i and sees each KV block
+(K_j, V_j) once as the blocks rotate around the ring, and an online-softmax
+merge of the per-block results gives exact attention. Causality uses the
+GLOBAL offsets of each block, so a block whose keys all follow its queries
+contributes exact zeros.
+
+The block step, ``block_attention``, is kernel 2: hand-written CUDA C++
+(``csrc/ring_attention.cu``) in place of the reference's Pallas
+``_block_kernel``. For a CPU tensor it takes its plain PyTorch version
+(``_block_attention_reference``); for a CUDA tensor it launches the kernel
+or raises, and counts its launches in ``block_attention.launches``. The
+kernel has no backward, as ``pallas_call`` has no VJP in the reference: on
+the card the ring is forward only, and a call that autograd would have to
+differentiate raises. On the CPU the plain version is differentiable.
+
+The reference runs the ring under ``shard_map`` on one controller that
+holds every device, with ``ppermute`` moving each KV shard to the next
+device. Here one process drives every shard in lockstep over the mesh's
+torch devices (parallel/mesh.py): the rotation is a move of each shard to
+its neighbour's device, a no-op where the devices repeat (a ``seq=4`` mesh
+on one card). So one call launches the block kernel n² times, n per
+device; every step runs its block, fully masked ones included, as the
+reference does. K and V travel unrepeated (grouped-query attention is
+resolved inside the block). Layouts follow the reference: the global
+entry takes [B, S, H, D]; a block takes [B, H, T, D] views.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import torch
+
+from ray_tpu_torch.parallel.mesh import AXIS_SEQ, Mesh
+
+NEG_INF = -1e30
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIM = 128
+_INT32_MAX = 2 ** 31 - 1
+
+
+# ----------------------------------------------------------------------
+# single-block attention: (o_unnorm f32, m, l) given global offsets
+# ----------------------------------------------------------------------
+
+def _block_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, q_offset: int, k_offset: int,
+                               causal: bool
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Kernel 2's function in plain ops, in f32 (the reference's
+    ``_block_attention_xla``). q [B, H, Tq, D], k/v [B, Hkv, Tk, D] with
+    Hkv dividing H (query head j reads KV head j // (H / Hkv)) ->
+    (o [B, H, Tq, D] unnormalised, m [B, H, Tq], l [B, H, Tq]). A row with
+    no visible key has o = 0, m = -1e30, l = 0."""
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
+        1.0 / math.sqrt(q.shape[-1]))
+    if causal:
+        rows = q_offset + torch.arange(q.shape[2], device=q.device)[:, None]
+        cols = k_offset + torch.arange(k.shape[2], device=q.device)[None, :]
+        s = s.masked_fill(rows < cols, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    # fully-masked rows: m == NEG_INF -> p would be exp(0)=1 per col; zero
+    p = torch.where((m > NEG_INF / 2)[..., None], p, 0.0)
+    l = p.sum(-1)
+    o = torch.matmul(p, v.float())
+    return o, m, l
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           q_offset: int, k_offset: int) -> None:
+    """What kernel 2 takes: one CUDA device and dtype, q [B, H, Tq, 128]
+    and k, v [B, Hkv, Tk, 128] with Hkv dividing H, unit head_dim stride,
+    16-byte aligned rows, and offsets that keep every position in int32."""
+    if q.device.type != "cuda":
+        raise ValueError(f"block_attention: no kernel for {q.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"block_attention: all tensors must be on "
+                         f"{q.device}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"block_attention: q, k, v must share one dtype of "
+                        f"{list(_DTYPE_CODES)}, got "
+                        f"{[q.dtype, k.dtype, v.dtype]}")
+    if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
+            or k.shape[0] != q.shape[0] or k.shape[-1] != q.shape[-1]
+            or q.shape[1] % k.shape[1]):
+        raise ValueError(f"block_attention: need q [B, H, Tq, D] and k, v "
+                         f"[B, Hkv, Tk, D] with Hkv dividing H, got "
+                         f"{[tuple(t.shape) for t in (q, k, v)]}")
+    if q.shape[-1] != _HEAD_DIM:
+        raise ValueError(f"block_attention: head_dim {q.shape[-1]} has no "
+                         f"kernel; kernel 2 is built for head_dim "
+                         f"{_HEAD_DIM} (ROADMAP.md, Queue B: kernel 2)")
+    vec = 16 // q.element_size()
+    for t in (q, k, v):
+        if (t.stride(-1) != 1 or any(s % vec for s in t.stride()[:3])
+                or t.data_ptr() % 16):
+            raise ValueError("block_attention: q, k and v need unit head_dim "
+                             "stride and 16-byte aligned rows")
+    if any(abs(off) + t > _INT32_MAX
+           for off, t in ((q_offset, q.shape[2]), (k_offset, k.shape[2]))):
+        raise ValueError("block_attention: offsets out of int32 range")
+
+
+def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_offset: int = 0, k_offset: int = 0,
+                    causal: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One blockwise attention step (kernel 2). q [B, H, Tq, D], k/v
+    [B, Hkv, Tk, D]; offsets are the GLOBAL sequence positions of the first
+    row and column (host ints). Returns (o unnormalised, m, l), all f32.
+    CPU tensor: the plain version (differentiable). CUDA tensor: the kernel,
+    forward only."""
+    if q.device.type == "cpu":
+        return _block_attention_reference(q, k, v, q_offset, k_offset, causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "block_attention: kernel 2 has no backward, so the ring is "
+            "forward only on the card (ROADMAP.md, Queue A: ring attention "
+            "backward kernel); call it under torch.no_grad()")
+    q_offset, k_offset = int(q_offset), int(k_offset)
+    _check(q, k, v, q_offset, k_offset)
+    from ray_tpu_torch.ops import _build
+
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    o = torch.empty((B, H, Tq, D), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    lib = _build.library("ring_attention", _SIGNATURES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.ring_block_attention(
+        *(t.data_ptr() for t in (q, k, v, o, m, l)), B, H, Hkv, Tq, Tk, D,
+        q_offset, k_offset, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], int(causal), _DTYPE_CODES[q.dtype],
+        q.device.index or 0, stream)
+    if rc != 0:
+        raise RuntimeError("ring_block_attention kernel launch failed: "
+                           + _build.error_string(lib, rc))
+    block_attention.launches += 1
+    return o, m, l
+
+
+block_attention.launches = 0
+
+# C signature of csrc/ring_attention.cu's entry point: q, k, v, o, m, l;
+# B, H, Hkv, Tq, Tk, D, q_offset, k_offset; the (batch, head, seq) strides
+# of q, k and v in elements; causal, dtype code, device index; stream.
+_SIGNATURES = {
+    "ring_block_attention": (
+        ctypes.c_int, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+}
+
+
+# ----------------------------------------------------------------------
+# the ring
+# ----------------------------------------------------------------------
+
+def _merge(acc, m, l, o_b, m_b, l_b):
+    m_new = torch.maximum(m, m_b)
+    # guard exp(-inf - -inf): fully-masked contributions scale to zero
+    a1 = torch.where(m > NEG_INF / 2, torch.exp(m - m_new), 0.0)
+    a2 = torch.where(m_b > NEG_INF / 2, torch.exp(m_b - m_new), 0.0)
+    acc = acc * a1[..., None] + o_b * a2[..., None]
+    l = l * a1 + l_b * a2
+    return acc, m_new, l
+
+
+def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mesh: Mesh, causal: bool = True) -> torch.Tensor:
+    """Global entry: q [B, S, H, D], k/v [B, S, Hkv, D] -> [B, S, H, D] in
+    q's dtype, on q's device. S is split into ``mesh.shape["seq"]`` shards,
+    shard i on the i-th device along the seq axis; at step t shard i holds
+    the KV block of shard (i - t) mod n. Only the seq axis may be larger
+    than 1: batch and head sharding come with sharded training."""
+    sizes = mesh.shape
+    others = {a: s for a, s in sizes.items() if a != AXIS_SEQ and s > 1}
+    if others:
+        raise NotImplementedError(
+            f"ring_attention_sharded: mesh axes {others} besides seq; batch "
+            "and head sharding wait for ROADMAP.md, Queue A: sharded "
+            "training on torch.distributed")
+    n = sizes[AXIS_SEQ]
+    B, S, H, D = q.shape
+    if S % n:
+        raise ValueError(f"ring_attention_sharded: sequence {S} does not "
+                         f"split into {n} seq shards")
+    s_loc = S // n
+    devices = list(mesh.devices.reshape(-1))   # seq order: other axes are 1
+    # a CUDA tensor under a CPU mesh would run its blocks on the host's
+    # plain version: the ring's devices must be of the tensors' kind
+    kinds = {t.device.type for t in (q, k, v)} | {d.type for d in devices}
+    if len(kinds) > 1:
+        raise ValueError(
+            f"ring_attention_sharded: q, k, v on {q.device}, {k.device}, "
+            f"{v.device} under a mesh of {sorted({str(d) for d in devices})}; "
+            "the mesh's devices must be of the tensors' kind")
+
+    def shard(x, i):
+        """Shard i as a [B, heads, s_loc, D] view on its device."""
+        x = x[:, i * s_loc:(i + 1) * s_loc]
+        if x.stride(-1) != 1:
+            x = x.contiguous()
+        return x.transpose(1, 2).to(devices[i])
+
+    qs = [shard(q, i) for i in range(n)]
+    ks = [shard(k, i) for i in range(n)]
+    vs = [shard(v, i) for i in range(n)]
+    acc = [torch.zeros((B, H, s_loc, D), dtype=torch.float32, device=d)
+           for d in devices]
+    m = [torch.full((B, H, s_loc), NEG_INF, dtype=torch.float32, device=d)
+         for d in devices]
+    l = [torch.zeros((B, H, s_loc), dtype=torch.float32, device=d)
+         for d in devices]
+    for t in range(n):
+        for i in range(n):
+            o_b, m_b, l_b = block_attention(
+                qs[i], ks[i], vs[i], q_offset=i * s_loc,
+                k_offset=(i - t) % n * s_loc, causal=causal)
+            acc[i], m[i], l[i] = _merge(acc[i], m[i], l[i], o_b, m_b, l_b)
+        if t + 1 < n:
+            # rotate: shard i receives the block its left neighbour held
+            ks = [ks[i - 1].to(devices[i]) for i in range(n)]
+            vs = [vs[i - 1].to(devices[i]) for i in range(n)]
+    out = [(acc[i] / torch.clamp(l[i], min=1e-30)[..., None])
+           .transpose(1, 2).to(q.device, q.dtype) for i in range(n)]
+    return torch.cat(out, dim=1)
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Plain single-device attention (the parity oracle). [B, S, H, D],
+    equal query and KV heads; f32 scores and softmax, in q's dtype."""
+    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * (
+        1.0 / math.sqrt(q.shape[-1]))
+    if causal:
+        sq = q.shape[1]
+        keep = torch.ones((sq, sq), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhst,bthd->bshd", p, v.float())
+    return o.to(q.dtype)

@@ -1,7 +1,10 @@
 """chip_smoke.py's check of a flash kernel output against its plain version,
 and flash_mutants.py's mutations, on the CPU: the check passes rounding at
 its dtype's level and rejects a small bias and a wrong row, and every
-mutation still finds the one place it breaks in the current source."""
+mutation still finds the one place it breaks in the current source. Also
+the ring block check (kernel 2's o, m, l, with exact rows where no key is
+visible), the work counted for a block's bound, and the logit comparison
+of the ring phase."""
 
 from pathlib import Path
 
@@ -55,3 +58,100 @@ def test_mutation_applies_once(name):
     _what, rel, text, _repl = flash_mutants.MUTANTS[name]
     source = (Path(flash_mutants.__file__).parent / rel).read_text()
     assert source.count(text) == 1
+
+
+def _block(seed=0, q_offset=0, k_offset=0, causal=True):
+    """The plain ring block's (o, m, l) on a small GQA block."""
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               for s in ((1, 4, 48, 128), (1, 2, 40, 128), (1, 2, 40, 128)))
+    return ra._block_attention_reference(q, k, v, q_offset, k_offset, causal)
+
+
+def _ring_case(name):
+    """(kernel outputs, plain outputs) for a named case: offsets 5, 20 leave
+    the first 15 query rows without a visible key."""
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    want = _block(q_offset=5, k_offset=20)
+    o, m, l = (t.clone() for t in want)
+    if name == "bf16_rounding":
+        o = o.to(torch.bfloat16).float()
+    elif name == "dead_row_live":
+        o[0, 0, 3] = 1e-3
+    elif name == "dead_row_m":
+        m[0, 1, 0] = 0.0
+    elif name == "m_shift":
+        m[0, 2, 30] += 1e-3
+    elif name == "l_low":
+        l = l * (1 - 1e-5)
+    elif name == "masked_exact":
+        want = _block(q_offset=0, k_offset=1000)
+        o, m, l = (t.clone() for t in want)
+    elif name == "masked_not_zero":
+        want = _block(q_offset=0, k_offset=1000)
+        o, m, l = (t.clone() for t in want)
+        l[0, 0, 0] = 1.0
+    else:
+        assert name == "exact"
+    assert bool((want[1] == ra.NEG_INF).any())
+    return (o, m, l), want
+
+
+@pytest.mark.parametrize("name, ok", [
+    ("exact", True), ("bf16_rounding", True), ("dead_row_live", False),
+    ("dead_row_m", False), ("m_shift", False), ("l_low", False),
+    ("masked_exact", True), ("masked_not_zero", False)])
+def test_ring_block_check(name, ok):
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    got, want = _ring_case(name)
+    r = chip_smoke.ring_block_check(torch, "bfloat16", got, want, ra.NEG_INF)
+    assert all(np.isfinite(x["err_over_bound"]) for x in r["outputs"])
+    assert r["dead_rows"] > 0
+    assert r["ok"] is ok, r
+
+
+@pytest.mark.parametrize("q_offset, k_offset, causal, pairs", [
+    (8, 8, True, 8 * 9 // 2),          # diagonal: T(T+1)/2
+    (16, 0, True, 64),                 # below: every key
+    (0, 8, True, 0),                   # above: none
+    (3, 0, True, 4 + 5 + 6 + 7 + 8 + 8 + 8 + 8),
+    (0, 8, False, 64)])
+def test_ring_block_work_counts_visible_pairs(q_offset, k_offset, causal,
+                                              pairs):
+    B, H, KV, T, D = 1, 4, 2, 8, chip_smoke.FLASH_D
+    nbytes, flops = chip_smoke._ring_block_work(B, H, KV, T, T, q_offset,
+                                                k_offset, causal, 2)
+    assert flops == 4 * D * B * H * pairs
+    out_bytes = B * H * T * (D + 2) * 4
+    in_bytes = (B * H * T + 2 * B * KV * T) * D * 2
+    assert nbytes == out_bytes + (in_bytes if pairs else 0)
+
+
+def test_ring_path_block_bounds():
+    """The ring phase's blocks at the path's shapes: 2.75e11 and 5.50e11
+    flops, and outputs only for the block that sees no key."""
+    H, KV, T = chip_smoke.TRAIN["n_heads"], chip_smoke.TRAIN["n_kv_heads"], \
+        chip_smoke.RING_T
+    work = {label: chip_smoke._ring_block_work(1, H, KV, T, T, qo, ko, True,
+                                               2)
+            for label, (qo, ko) in chip_smoke.RING_BLOCKS.items()}
+    assert work["diagonal"][1] == 4 * 128 * H * T * (T + 1) // 2
+    assert work["full"][1] == 4 * 128 * H * T * T
+    assert work["masked"] == (H * T * 130 * 4, 0)
+
+
+def test_logit_diff():
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.normal(size=(1, 2500, 16)).astype(np.float32))
+    same = chip_smoke._logit_diff(torch, a, a.clone())
+    assert same["rel_l2"] == 0.0 and same["argmax_agree"] == 1.0
+    b = a.clone()
+    b[0, 2100] *= 2.0
+    d = chip_smoke._logit_diff(torch, b, a)
+    want = float((b - a).norm() / a.norm())
+    assert abs(d["rel_l2"] - want) < 1e-6 * want
+    assert d["max_abs_err"] == float((b - a).abs().max())

@@ -166,7 +166,9 @@ def test_engine_rejects_oversized_and_empty(tiny):
 def test_port_imports_no_jax():
     code = ("import ray_tpu_torch, ray_tpu_torch.models.inference, "
             "ray_tpu_torch.models.train_step, ray_tpu_torch.ops.flash, "
-            "ray_tpu_torch.ops.paged_attention, ray_tpu_torch._private.perf; "
+            "ray_tpu_torch.ops.paged_attention, ray_tpu_torch._private.perf, "
+            "ray_tpu_torch.ops.ring_attention, ray_tpu_torch.parallel, "
+            "ray_tpu_torch.parallel.mesh; "
             "import sys; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
             "'ray_tpu.')) or m == 'ray_tpu' for m in sys.modules)")

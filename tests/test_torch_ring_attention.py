@@ -1,0 +1,221 @@
+"""ray_tpu_torch.ops.ring_attention against ray_tpu.ops.ring_attention, on
+the CPU.
+
+The block: the port's plain version (what kernel 2 is held against on the
+card) against the reference's XLA path and its Pallas kernel in interpret
+mode, f32, 1e-5 (the same sums in another order). The ring: the port's
+in-process ring over ``["cpu"] * n`` against JAX's ``shard_map`` ring on the
+8-device virtual CPU mesh (tests/conftest.py), seq 2 and 4, at the JAX
+test's tolerance 2e-5; its gradient against ``jax.grad`` through JAX's
+ring. Inputs are seeded numpy arrays handed to both.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from ray_tpu.parallel import mesh as jmesh  # noqa: E402
+from ray_tpu_torch.ops import ring_attention as tra  # noqa: E402
+from ray_tpu_torch.parallel import mesh as tmesh  # noqa: E402
+
+# the module (ray_tpu.ops re-exports a function of the same name)
+jra = importlib.import_module("ray_tpu.ops.ring_attention")
+
+BLOCK_ATOL = 1e-5
+RING_ATOL = 2e-5
+B, S, H, D = 2, 64, 4, 32
+
+# JAX mesh for each seq size: the JAX tests' fsdp=2, seq=2, tensor=2, and
+# fsdp=2, seq=4 (batch and heads sharded there too; the math is the same)
+JAX_MESHES = {2: dict(fsdp=2, seq=2, tensor=2), 4: dict(fsdp=2, seq=4)}
+
+
+def _normal(rng, *shape):
+    return (rng.normal(size=shape) * 0.3).astype(np.float32)
+
+
+def _qkv(seed, kv_heads=H, s=S):
+    rng = np.random.default_rng(seed)
+    return (_normal(rng, B, s, H, D), _normal(rng, B, s, kv_heads, D),
+            _normal(rng, B, s, kv_heads, D))
+
+
+@pytest.fixture(scope="module")
+def jax_meshes():
+    return {n: jmesh.make_mesh(jmesh.MeshConfig(**cfg),
+                               jax.devices()[:8])
+            for n, cfg in JAX_MESHES.items()}
+
+
+def _port_mesh(n):
+    return tmesh.make_mesh(tmesh.MeshConfig(seq=n), ["cpu"] * n)
+
+
+def _jax_ring(mesh, q, k, v, causal):
+    with mesh:
+        return np.asarray(jax.jit(lambda a, b, c: jra.ring_attention_sharded(
+            a, b, c, mesh, causal=causal))(q, k, v))
+
+
+# (q_offset, k_offset, Tq, Tk, kv_heads, causal)
+BLOCKS = {
+    "diagonal": (0, 0, 64, 64, H, True),
+    "below": (128, 0, 64, 64, H, True),
+    "ragged_gqa": (40, 8, 48, 80, H // 2, True),
+    "fully_masked": (0, 1000, 16, 16, H, True),
+    "non_causal": (0, 0, 64, 48, H // 2, False),
+}
+
+
+@pytest.mark.parametrize("case", list(BLOCKS))
+def test_block_matches_xla_and_pallas(case):
+    q_off, k_off, tq, tk, kv, causal = BLOCKS[case]
+    rng = np.random.default_rng(3)
+    q = _normal(rng, B, H, tq, D)
+    k, v = _normal(rng, B, kv, tk, D), _normal(rng, B, kv, tk, D)
+    got = tra.block_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), q_off, k_off, causal)
+    jargs = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_off, k_off,
+             causal)
+    for name, want in (
+            ("xla", jra._block_attention_xla(*jargs)),
+            ("pallas", jra._block_attention_pallas(*jargs, interpret=True))):
+        for out, g, w in zip(("o", "m", "l"), got, want):
+            assert g.dtype == torch.float32
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       atol=BLOCK_ATOL, rtol=BLOCK_ATOL,
+                                       err_msg=f"{out} vs {name}")
+
+
+def test_fully_masked_block_is_exactly_empty():
+    q_off, k_off, tq, tk, kv, causal = BLOCKS["fully_masked"]
+    q, k, v = (torch.from_numpy(a).transpose(1, 2)
+               for a in _qkv(4, s=16))
+    o, m, l = tra.block_attention(q, k, v, q_off, k_off, causal)
+    assert float(o.abs().max()) == 0.0 and float(l.abs().max()) == 0.0
+    assert bool((m == tra.NEG_INF).all())
+
+
+# (seed, kv_heads, causal)
+RINGS = {"causal": (0, H, True), "non_causal": (3, H, False),
+         "gqa_unrepeated": (7, H // 2, True)}
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("case", list(RINGS))
+def test_ring_matches_jax_ring(jax_meshes, n, case):
+    seed, kv, causal = RINGS[case]
+    q, k, v = _qkv(seed, kv_heads=kv)
+    got = tra.ring_attention_sharded(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v), _port_mesh(n),
+                                     causal=causal)
+    want = _jax_ring(jax_meshes[n], q, k, v, causal)
+    assert got.shape == (B, S, H, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=RING_ATOL,
+                               rtol=RING_ATOL)
+    # and both against plain attention on repeated heads
+    rep = H // kv
+    ref = tra.attention_reference(
+        *(torch.from_numpy(a) for a in (q, np.repeat(k, rep, 2),
+                                        np.repeat(v, rep, 2))), causal)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=RING_ATOL,
+                               rtol=RING_ATOL)
+
+
+def test_causality_holds_across_the_ring():
+    """Perturbing the last shard's keys and values leaves the first three
+    shards' outputs bit-identical: their blocks against it are fully masked
+    and contribute exact zeros."""
+    q, k, v = _qkv(5)
+    k2, v2 = k.copy(), v.copy()
+    k2[:, 48:] = np.random.default_rng(9).normal(size=k2[:, 48:].shape)
+    v2[:, 48:] = 0.0
+    mesh = _port_mesh(4)
+    o1, o2 = (tra.ring_attention_sharded(*(torch.from_numpy(a) for a in xs),
+                                         mesh, causal=True)
+              for xs in ((q, k, v), (q, k2, v2)))
+    np.testing.assert_array_equal(o1[:, :48].numpy(), o2[:, :48].numpy())
+    assert not np.allclose(o1[:, 48:].numpy(), o2[:, 48:].numpy())
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_gradient_matches_jax_grad(jax_meshes, n):
+    """On the CPU the ring is differentiable (the block's plain version and
+    the merge are plain ops): dq, dk, dv against jax.grad through JAX's
+    ring, GQA unrepeated."""
+    q, k, v = _qkv(11, kv_heads=H // 2)
+    w = np.random.default_rng(12).normal(size=(B, S, H, D)).astype(np.float32)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = tra.ring_attention_sharded(*ts, _port_mesh(n), causal=True)
+    (out * torch.from_numpy(w)).sum().backward()
+
+    mesh = jax_meshes[n]
+    with mesh:
+        grads = jax.jit(jax.grad(
+            lambda a, b, c: jnp.sum(jra.ring_attention_sharded(
+                a, b, c, mesh, causal=True) * w), argnums=(0, 1, 2)))(
+            q, k, v)
+    for name, t, g in zip("qkv", ts, grads):
+        assert t.grad.shape == g.shape
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g),
+                                   atol=RING_ATOL, rtol=RING_ATOL,
+                                   err_msg=f"d{name}")
+
+
+def test_cpu_path_launches_no_kernel():
+    before = tra.block_attention.launches
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, kv_heads=H // 2))
+    tra.ring_attention_sharded(q, k, v, _port_mesh(4))
+    tra.block_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2))
+    assert tra.block_attention.launches == before
+
+
+def test_block_raises_off_cpu_without_a_kernel():
+    """No fallback: a tensor that is not on the CPU gets the kernel or an
+    error, never the plain version; and the kernel has no backward, so a
+    call autograd would differentiate raises first."""
+    q = torch.empty((1, 4, 16, 128), device="meta")
+    kv = torch.empty((1, 2, 16, 128), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tra.block_attention(q, kv, kv)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tra.block_attention(q.requires_grad_(), kv, kv)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="no kernel"):
+            tra.block_attention(q, kv, kv)
+
+
+def test_ring_rejects_a_mesh_of_another_device_kind():
+    """No host detour: tensors off the CPU under a CPU mesh (and CPU tensors
+    under a mesh of other devices) raise instead of moving each shard to
+    the mesh's devices and running the plain version there."""
+    shape_q, shape_kv = (1, 32, 4, 128), (1, 32, 2, 128)
+    q = torch.empty(shape_q, device="meta")
+    kv = torch.empty(shape_kv, device="meta")
+    before = tra.block_attention.launches
+    with pytest.raises(ValueError, match="kind"):
+        tra.ring_attention_sharded(q, kv, kv, _port_mesh(2))
+    meta_mesh = tmesh.make_mesh(tmesh.MeshConfig(seq=2), ["meta"] * 2)
+    with pytest.raises(ValueError, match="kind"):
+        tra.ring_attention_sharded(torch.zeros(shape_q), torch.zeros(shape_kv),
+                                   torch.zeros(shape_kv), meta_mesh)
+    with pytest.raises(ValueError, match="kind"):
+        tra.ring_attention_sharded(torch.zeros(shape_q), kv, kv,
+                                   _port_mesh(2))
+    assert tra.block_attention.launches == before
+
+
+def test_ring_rejects_axes_other_than_seq():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2))
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(fsdp=2, seq=2), ["cpu"] * 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tra.ring_attention_sharded(q, k, v, mesh)
+    with pytest.raises(ValueError, match="split"):
+        tra.ring_attention_sharded(q[:, :63], k[:, :63], v[:, :63],
+                                   _port_mesh(2))

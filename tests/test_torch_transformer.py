@@ -87,8 +87,47 @@ def test_rope_rotates_interleaved_pairs_like_jax():
 def test_config_rejects_unported_options():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.TransformerConfig(moe=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.TransformerConfig(ring_attention=True)
+
+
+def test_config_builds_with_ring_attention():
+    cfg = tt.TransformerConfig(ring_attention=True)
+    assert cfg.ring_attention and not cfg.moe
+
+
+def test_ring_model_logits_match_jax_ring_model():
+    """Counterpart of tests/test_ring_attention.py::TestModelIntegration:
+    the flagship forward with ring attention on a seq=2 mesh (the port's
+    over two CPU devices, JAX's over fsdp=2, seq=2, tensor=2 of the virtual
+    CPU mesh) from the same flax params, against each other and against the
+    port's forward without the ring, at that test's 3e-4."""
+    from ray_tpu.parallel import mesh as jmesh
+    from ray_tpu_torch.parallel import mesh as tmesh
+
+    base = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4,
+                n_kv_heads=2, d_ff=176, max_seq_len=64)
+    tokens = np.random.default_rng(0).integers(0, 128, (2, 64)).astype(
+        np.int32)
+    jparams = JTransformer(JConfig(dtype=jnp.float32, **base)).init(
+        jax.random.PRNGKey(1), jnp.asarray(tokens))["params"]
+    jring = JTransformer(JConfig(dtype=jnp.float32, ring_attention=True,
+                                 **base))
+    jm = jmesh.make_mesh(jmesh.MeshConfig(fsdp=2, seq=2, tensor=2),
+                         jax.devices()[:8])
+    with jmesh.use_mesh(jm):
+        want = np.asarray(jax.jit(lambda p, t: jring.apply({"params": p}, t))(
+            jparams, jnp.asarray(tokens)))
+
+    params = tt.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    net = tt.model_from_params(
+        tt.TransformerConfig(dtype=torch.float32, ring_attention=True, **base),
+        params)
+    tm = tmesh.make_mesh(tmesh.MeshConfig(seq=2), ["cpu"] * 2)
+    with torch.no_grad():
+        with tmesh.use_mesh(tm):
+            got = net(torch.from_numpy(tokens)).numpy()
+        plain = net(torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(got, want, atol=3e-4, rtol=3e-4)
+    np.testing.assert_allclose(got, plain, atol=3e-4, rtol=3e-4)
 
 
 @pytest.mark.parametrize("toks", [[5, 9, 2, 40, 7, 1, 33, 12],
