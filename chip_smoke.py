@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of ray_tpu_torch on one NVIDIA GPU: build, check, serve, train.
 
-    python3 chip_smoke.py     # one card; exits 0 only if every phase passed
+    python3 chip_smoke.py            # one card; 0 only if every phase passed
+    python3 chip_smoke.py --kernels  # build, device and the attention
+                                     # kernels' checks and times; no ok line
 
 Phases, each printing one JSON line:
 
   1. build   — compile every CUDA kernel of the port from ray_tpu_torch/ops/csrc
-               with nvcc (sm_90a), into ray_tpu_torch/_build/.
+               with nvcc (sm_90a), into ray_tpu_torch/_build/; then check
+               that the bf16 forwards (kernel 2, kernel 3a) are the wgmma +
+               TMA design: HGMMA and UTMALDG in their SASS, no spills, the
+               registers setmaxnreg needs (phase build_sm90).
   2. device  — the card as nvidia-smi reports it (name, power limit).
   3. kernel  — each kernel against its plain PyTorch version at its main
                path's shapes, with its time, the plain version's, one PyTorch
@@ -70,6 +75,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -148,6 +155,16 @@ RING_PARITY_BOUNDS = {"bfloat16": 2 ** -5, "float32": 1e-5}
 RING_F32_SEQ = 4096
 
 
+# the bf16 forwards (kernel 2, kernel 3a) are instances of one wgmma + TMA
+# template (ops/csrc/attention_fwd_sm90.cuh) in these libraries. setmaxnreg
+# moves registers from its producer warpgroup (24 each) to its two consumer
+# warpgroups (240 each): the block must be built with at least the
+# average, or a consumer would wait for registers forever
+SM90_LIBS = ("ring_attention", "flash_attention")
+SM90_KERNEL = "attention_fwd_kernel"
+SM90_MIN_REGISTERS = (24 * 128 + 240 * 256) // 384
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -158,6 +175,46 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def sm90_build_check(build, libs):
+    """Each instance of the sm90 template: HGMMA (wgmma) and UTMALDG (TMA
+    loads) in its SASS, no spills, and the registers setmaxnreg needs.
+    Raises before any launch otherwise."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    rows, problems = {}, []
+    for lib in SM90_LIBS:
+        sass = subprocess.run([cuobjdump, "-sass", str(libs[lib])],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        funcs = [f for f in sass.split("Function : ")[1:]
+                 if SM90_KERNEL in f.split("\n", 1)[0]]
+        ptxas = {n: info for n, info in build.register_report(lib).items()
+                 if SM90_KERNEL in n}
+        row = {"instances": len(funcs),
+               "hgmma": all("HGMMA" in f for f in funcs),
+               "utmaldg": all("UTMALDG" in f for f in funcs),
+               "ptxas": ptxas,
+               # e.g. wgmma serialised, or setmaxnreg ignored
+               "ptxas_warnings": [
+                   line.strip() for line in build.build_log(lib).splitlines()
+                   if "warning" in line and ("wgmma" in line
+                                             or "setmaxnreg" in line)]}
+        regs = [int(m.group(1)) for info in ptxas.values()
+                for m in [re.search(r"(\d+) registers", info)] if m]
+        spills = sum(int(x) for info in ptxas.values()
+                     for x in re.findall(r"(\d+) bytes spill", info))
+        if not funcs or not row["hgmma"] or not row["utmaldg"]:
+            problems.append(f"{lib}: sm90 instances without HGMMA/UTMALDG")
+        if len(regs) != len(funcs) or min(regs) < SM90_MIN_REGISTERS:
+            problems.append(f"{lib}: sm90 registers {regs} (need "
+                            f"{SM90_MIN_REGISTERS})")
+        if spills:
+            problems.append(f"{lib}: sm90 instances spill {spills} bytes")
+        rows[lib] = row
+    emit({"phase": "build_sm90", "libraries": rows, "ok": not problems})
+    if problems:
+        raise AssertionError(f"sm90 kernels: {problems}")
 
 
 def cuda_ms(torch, fn, n_iter: int) -> float:
@@ -440,12 +497,13 @@ def ring_block_check(torch, name, got, want, neg_inf):
             "ok": dead_exact and all(r["ok"] for r in readings)}
 
 
-def phase_ring_kernel(torch, dev):
+def phase_ring_kernel(torch, dev, timed=True):
     """Kernel 2 against its plain version on the ring path's three kinds of
-    block (bf16, with times, bound and an SDPA yardstick) and on small
-    ragged blocks (f32 and bf16). The inputs are [B, T, H, D] tensors seen
-    as [B, H, T, D] views, as the ring passes the model's. Raises after
-    every check has printed if any is out of bounds."""
+    block (bf16, with times, bound and an SDPA yardstick; timed=False: the
+    checks alone) and on small ragged blocks (f32 and bf16). The inputs are
+    [B, T, H, D] tensors seen as [B, H, T, D] views, as the ring passes the
+    model's. Raises after every check has printed if any is out of
+    bounds."""
     from ray_tpu_torch.ops import ring_attention as ra
 
     F = torch.nn.functional
@@ -485,6 +543,9 @@ def phase_ring_kernel(torch, dev):
                "kv_heads": KV, "tq": RING_T, "tk": RING_T,
                "q_offset": q_off, "k_offset": k_off, "causal": True,
                **check(label, torch.bfloat16, (q, k, v), q_off, k_off, True)}
+        if not timed:
+            emit({"phase": "kernel", "name": "ring_block_attention", **row})
+            continue
         nbytes, flops = _ring_block_work(1, H, KV, RING_T, RING_T, q_off,
                                          k_off, True, q.element_size())
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -572,9 +633,10 @@ def phase_engine(torch):
     return launches
 
 
-# device time grouped by kernel name (the rest is "other")
-KERNEL_GROUPS = (("flash attention", ("flash_",)),
-                 ("ring attention", ("ring_block",)),
+# device time grouped by kernel name (the rest is "other"); the sm90
+# forwards are one template, told apart by their epilogue
+KERNEL_GROUPS = (("flash attention", ("flash_", "FlashFwdOut")),
+                 ("ring attention", ("ring_block", "RingBlockOut")),
                  ("paged attention", ("paged_decode",)),
                  ("matrix products", ("nvjet", "gemm", "xmma", "cutlass")))
 
@@ -961,12 +1023,23 @@ def main() -> int:
           "libraries": {n: str(p.relative_to(Path(__file__).resolve().parent))
                         for n, p in libs.items()},
           "ptxas": {n: _build.register_report(n) for n in libs}})
+    sm90_build_check(_build, libs)
 
     smi = nvidia_smi()
     dev = torch.device("cuda", torch.cuda.current_device())
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(dev),
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    if "--kernels" in sys.argv[1:]:
+        # the attention kernels' checks and times alone, no ok line
+        failed = []
+        for phase in (phase_flash_kernel, phase_ring_kernel):
+            try:
+                phase(torch, dev)
+            except AssertionError as e:
+                failed.append(str(e))
+        print(smi, flush=True)
+        return 1 if failed else 0
 
     kernel_rows = phase_kernel(torch, dev)
     flash_rows = phase_flash_kernel(torch, dev)
@@ -993,11 +1066,15 @@ def main() -> int:
                           ("flash_fwd", 758, "forward"),
                           ("flash_bwd_dq", 1456, "backward dq"),
                           ("flash_bwd_dkv", 1121, "backward dkv"))}
+    # the bf16 forwards are instances of the sm90 template, each built
+    # from its .cu with that file's epilogue
+    sm90_source = "ray_tpu_torch/ops/csrc/attention_fwd_sm90.cuh"
     for name in FLASH_NAMES:
         row = flash_rows[name]["bfloat16"]
         table.append({
             "name": name, "route": "cuda",
-            "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+            "source": (sm90_source if name == "flash_fwd" else
+                       "ray_tpu_torch/ops/csrc/flash_attention.cu"),
             "replaces": replaces[name], "launches": train_launches[name],
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
@@ -1006,7 +1083,7 @@ def main() -> int:
     full = ring_rows["full"]
     table.append({
         "name": "ring_block_attention", "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/ring_attention.cu",
+        "source": sm90_source,
         "replaces": "ray_tpu/ops/ring_attention.py:64",
         "launches": ring_launches,
         "max_abs_err": max(r["max_abs_err"] for r in ring_rows.values()),

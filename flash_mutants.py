@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Mutation check of chip_smoke.py's flash checks, on one NVIDIA GPU.
+"""Mutation check of chip_smoke.py's attention checks, on one NVIDIA GPU.
 
     python3 flash_mutants.py     # one card
 
 Copies ray_tpu_torch and chip_smoke.py once per variant into
 ray_tpu_torch/_build/mutants/<variant>/ (listed in .gitignore), breaks each
-copy in one place (MUTANTS), builds every copy's flash kernels at once, and
-runs chip_smoke's flash kernel checks (no timing) and its train_parity phase
-on each copy, one subprocess at a time. "sound" is the unbroken source, run
-the same way. Prints one JSON line per variant: which checks rejected it,
-and the worst reading of each output. Exits 0 when the sound copy passes
-both checks and every broken copy is rejected by at least one.
+copy in one place (MUTANTS), builds every copy's flash and ring kernels at
+once, and runs chip_smoke's flash kernel checks and ring block checks (no
+timing) and its train_parity phase on each copy, one subprocess at a time.
+"sound" is the unbroken source, run the same way. Prints one JSON line per
+variant: which checks rejected it, and the worst reading of each output.
+Exits 0 when the sound copy passes every check and every broken copy is
+rejected by at least one.
 """
 
 from __future__ import annotations
@@ -23,23 +24,28 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "ray_tpu_torch" / "_build" / "mutants"
-CU = "ray_tpu_torch/ops/csrc/flash_attention.cu"
+CSRC = "ray_tpu_torch/ops/csrc/"
+CU = CSRC + "flash_attention.cu"
+TILES = CSRC + "mma_tiles.cuh"        # the mma.sync kernels' routines
+SM90 = CSRC + "attention_fwd_sm90.cuh"   # the bf16 forwards (2 and 3a)
 
 # variant: (what it breaks, file, text, replacement)
 MUTANTS = {
     "sound": ("nothing", None, None, None),
     "mask_bulk": (
-        "query rows from 1024 on also see the next key (all three kernels)",
-        CU, "(!causal || key <= query)",
+        "queries at global position 1024 and on also see the next key "
+        "(every kernel: the bf16 and f32 forwards, dQ, dK/dV)",
+        TILES, "(!causal || key <= query)",
         "(!causal || key <= query + (query >= 1024))"),
     "bf16_cols": (
-        "bf16 products with a k-major B operand (P V, P^T dO, dS K, dS^T Q) "
-        "read n-tiles 2-3 and 6-7 from 0-1 and 4-5",
-        CU, "ldb + 8 * (n + (lm >> 1))", "ldb + 8 * ((n & 5) + (lm >> 1))"),
+        "mma.sync bf16 products with a k-major B operand (the backward's "
+        "P^T dO, dS K, dS^T Q) read n-tiles 2-3 and 6-7 from 0-1 and 4-5",
+        TILES, "ldb + 8 * (n + (lm >> 1))", "ldb + 8 * ((n & 5) + (lm >> 1))"),
     "p_high": (
-        "the forward's P is stored 1% high (o 1% high, lse right)",
-        CU, "ps[sr * Sh::ldp + sj + 4 * i] = from_float<T>(p);",
-        "ps[sr * Sh::ldp + sj + 4 * i] = from_float<T>(p * 1.01f);"),
+        "the bf16 forwards' P is 1% high in the P V product (o 1% high; "
+        "lse, m and l right)",
+        SM90, "__floats2bfloat162_rn(p0, p1)",
+        "__floats2bfloat162_rn(p0 * 1.01f, p1 * 1.01f)"),
     "dq_bulk": (
         "the dQ kernel's P is 2% low in query rows from 1024 on",
         CU, "? expf(sc[n][e] * scale - lse_s[r])",
@@ -48,6 +54,17 @@ MUTANTS = {
         "the autograd Function returns dv as k's gradient and dk as v's",
         "ray_tpu_torch/ops/flash.py", "return dq, dk, dv, None",
         "return dq, dv, dk, None"),
+    "dead_rows": (
+        "the bf16 forwards drop the guard of rows that have seen no key: "
+        "p = exp(0) = 1 for each of their masked columns",
+        SM90, "const bool live_lo = m_lo > 0.5f * kNegInf;\n"
+              "  const bool live_hi = m_hi > 0.5f * kNegInf;",
+        "const bool live_lo = true;\n  const bool live_hi = true;"),
+    "gqa_mod": (
+        "the bf16 forwards map query head h to KV head h % Hkv, not "
+        "h / (H / Hkv)",
+        SM90, "const int hk = h / pr.rep;",
+        "const int hk = h % (pr.H / pr.rep);"),
 }
 
 
@@ -69,7 +86,8 @@ def make_copy(name: str) -> Path:
 
 
 def child(root: str) -> int:
-    """In a copy: the flash kernel checks and train_parity, each caught."""
+    """In a copy: the flash kernel checks, the ring block checks and
+    train_parity, each caught."""
     sys.path.insert(0, root)
     import torch
 
@@ -83,6 +101,8 @@ def child(root: str) -> int:
     for check, fn in (
             ("kernel", lambda: chip_smoke.phase_flash_kernel(torch, dev,
                                                              timed=False)),
+            ("ring_kernel", lambda: chip_smoke.phase_ring_kernel(
+                torch, dev, timed=False)),
             ("train_parity", lambda: chip_smoke.phase_train_parity(torch))):
         try:
             fn()
@@ -96,13 +116,19 @@ def child(root: str) -> int:
 def summary(name: str, out: str) -> dict:
     """One line: the verdicts and the worst reading of each output."""
     row = {"variant": name, "breaks": MUTANTS[name][0], "kernel": {},
-           "train_parity": {}}
+           "ring_kernel": {}, "train_parity": {}}
     for line in out.splitlines():
         if not line.startswith("{"):
             continue
         obj = json.loads(line)
         if "verdict" in obj:
             row["verdict"] = obj["verdict"]
+        elif obj.get("name") == "ring_block_attention":
+            key = f"{obj['block']} {obj['dtype']}"
+            row["ring_kernel"][key] = {
+                "dead_rows_exact": obj["dead_rows_exact"], "ok": obj["ok"],
+                **{r["output"]: [r["err_over_bound"], r["rel_l2"]]
+                   for r in obj["outputs"]}}
         elif obj.get("phase") == "kernel":
             for r in obj["outputs"]:
                 key = (f"{obj['name']}.{r['output']} {obj['dtype']}"
@@ -126,7 +152,7 @@ def main() -> int:
     roots = {name: make_copy(name) for name in MUTANTS}
     build = ("import sys; sys.path.insert(0, sys.argv[1]); "
              "from ray_tpu_torch.ops import _build; "
-             "_build.build_all(['flash_attention'])")
+             "_build.build_all(['flash_attention', 'ring_attention'])")
     procs = [subprocess.Popen([sys.executable, "-c", build, str(r)])
              for r in roots.values()]
     if any(p.wait() for p in procs):

@@ -444,6 +444,8 @@ def param_count(params: Mapping[str, torch.Tensor]) -> int:
 def model_from_params(cfg: TransformerConfig,
                       params: Mapping[str, torch.Tensor],
                       device: Optional[torch.device] = None) -> Transformer:
-    """A ``Transformer`` on ``device`` holding a copy of ``params``."""
-    device = device or next(iter(params.values())).device
+    """A ``Transformer`` on ``device`` holding a copy of ``params``.
+    ``None`` means the current CUDA device, as for ``Transformer(cfg)``,
+    wherever ``params`` lie (``params_from_jax`` returns CPU tensors)."""
+    device = resolve_device(device, "model_from_params")
     return Transformer(cfg, device=device).load_params(params)

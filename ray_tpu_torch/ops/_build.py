@@ -98,9 +98,9 @@ def build_log(name: str) -> str:
 
 
 def _drop_arguments(signature: str) -> str:
-    """'void (anonymous namespace)::k<float, 128>(float const*, int)' ->
-    'k<float, 128>': the name without return type, namespace or the
-    trailing argument list."""
+    """'void (anonymous namespace)::k<float, (anonymous namespace)::E>(float
+    const*, int)' -> 'k<float, (anonymous namespace)::E>': the name without
+    return type, namespaces or the trailing argument list."""
     depth = 0
     for i in range(len(signature) - 1, -1, -1):
         if signature[i] == ")":
@@ -110,7 +110,16 @@ def _drop_arguments(signature: str) -> str:
             if depth == 0:
                 signature = signature[:i]
                 break
-    return signature.split("::")[-1].removeprefix("void ")
+    # the last '::' outside template arguments
+    depth, cut = 0, 0
+    for i, ch in enumerate(signature):
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth -= 1
+        elif depth == 0 and signature.startswith("::", i):
+            cut = i + 2
+    return signature[cut:].removeprefix("void ")
 
 
 def register_report(name: str) -> Dict[str, str]:

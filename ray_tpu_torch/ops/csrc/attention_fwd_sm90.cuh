@@ -1,0 +1,616 @@
+// Attention forward for Hopper (sm_90a): one kernel template for the bf16
+// path of ring attention's block kernel (kernel 2, ring_attention.cu) and
+// of the flash forward (kernel 3a, flash_attention.cu). Each file
+// instantiates it with its own epilogue; their f32 paths keep the mma.sync
+// kernels of mma_tiles.cuh (wgmma has no f32, only TF32).
+//
+// The function, for one (batch, head) and the global offsets of the first
+// query and key (both 0 for the flash forward):
+//   s = (q k^T) * scale, visible where key < Tk and, causal,
+//   q_offset + i >= k_offset + j; m = max_row(s) over visible keys;
+//   p = exp(s - m), 0 in a row with no visible key (m stays -1e30);
+//   l = sum_row(p); o = p v, P rounded to bf16 for the product.
+// The epilogue receives, per row, m (natural-log units), l and the
+// unnormalised f32 o.
+//
+// Bound: operations (two products of 2*D flops per visible pair, ~1000-4000
+// flops per byte at the main paths' shapes, above the H100's ~295).
+//
+// Design (a block per (b, h, 128-query tile); 3 warpgroups):
+//   - warpgroups 0 and 1 consume: each owns 64 query rows and runs both
+//     products on wgmma m64n128k16 with f32 accumulators in registers.
+//     S = Q K^T reads Q and K from shared memory (K-major); O += P V takes
+//     P from registers (the S accumulator converted to bf16: for 16-bit
+//     types the m64nNk16 accumulator layout is the A-fragment layout) and V
+//     from shared memory (MN-major, transposed).
+//   - warpgroup 2 produces: one thread issues TMA loads, Q once and K/V
+//     tiles of 128 keys into a ring of kStages stages with a full and an
+//     empty mbarrier each. setmaxnreg hands its registers to the consumers.
+//   - every tile is two 64-column boxes (128 bytes, the widest box that
+//     128-byte swizzling takes) of the 4-D [B, H, T, D] view, swizzled as
+//     wgmma's descriptors expect; rows past the tensor's end arrive as
+//     zeros and are masked by bounds.
+//   - softmax in registers: each row's max and sum live in the 4 threads of
+//     a quad; p = 2^((s - m) * scale * log2 e) in one ex2.approx, with m
+//     kept in the units of the raw products, so m * scale is the
+//     reference's m exactly. l is summed per thread and reduced over the
+//     quad at the end.
+//   - only tiles the diagonal (or the end of the keys) cuts are masked; the
+//     key loop stops after the last tile any row of the block can see, and
+//     a block that sees no key loads nothing.
+//   - blocks run in groups of 16 (batch, head) pairs, longest causal rows
+//     first inside a group, so a group's K and V stay in L2.
+//   - per tile, each consumer runs S = Q K^T, its softmax, then O += P V,
+//     waiting on each product; the two consumer warpgroups overlap each
+//     other. Deferring P V behind the next tile's S, with or without the
+//     warpgroups taking turns to issue, measured slower (PERF.md, section 6).
+//   - no atomics and no split over keys: a launch is deterministic.
+
+#pragma once
+
+#include <cuda.h>
+
+#include "mma_tiles.cuh"
+
+namespace {
+namespace sm90 {
+
+constexpr int kRows = 128;     // query rows per block: two warpgroups of 64
+constexpr int kKeys = 128;     // keys per K/V tile
+constexpr int kHalf = 64;      // head_dim columns per 128-byte box
+constexpr int kStages = 2;
+constexpr int kHeadGroup = 16; // (batch, head) pairs per group of blocks
+constexpr int kConsumers = 2;  // consumer warpgroups
+constexpr int kBlockThreads = 128 * (kConsumers + 1);
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBoxBytes = kKeys * kHalf * 2;   // one 128 x 64 bf16 box
+// cuTensorMapEncodeTiled's refusal, returned as 1000 + its CUresult
+constexpr int kEncodeError = 1000;
+
+struct alignas(1024) Smem {
+  bf16 q[2][kRows * kHalf];
+  bf16 k[kStages][2][kKeys * kHalf];
+  bf16 v[kStages][2][kKeys * kHalf];
+  uint64_t q_full;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+// the dynamic shared memory base is rounded up to 1024 bytes (the swizzle
+// atom) inside the kernel
+constexpr size_t kSmemBytes = sizeof(Smem) + 1024;
+
+// ----------------------------------------------------------------------
+// barriers, TMA, wgmma
+// ----------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 4-D tensor map at coordinates (d, t, h, b) -> shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int d, int t, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d),
+      "r"(t), "r"(h), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), layout 1 =
+// 128-byte swizzle. K-major tiles (Q, K): 8-row groups 1024 bytes apart,
+// the leading offset unused. MN-major (V): the leading offset steps to the
+// next 64 head_dim columns (the second box), the stride offset to the next
+// 8 keys.
+__device__ __forceinline__ uint64_t smem_desc(const void* p,
+                                              uint32_t leading_bytes,
+                                              uint32_t stride_bytes) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(leading_bytes >> 4) << 16 |
+         static_cast<uint64_t>(stride_bytes >> 4) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of an asynchronous
+// product's registers (accumulator or A operand) across its wait
+__device__ __forceinline__ void pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&a)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// d (+)= A B, A [64 x 16] and B [16 x 128] from shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d += A B, A [64 x 16] from registers (bf16 pairs in the accumulator
+// layout of m64nNk16), B [16 x 128] from shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// bf16 pair of probabilities, lower column in the low half
+__device__ __forceinline__ uint32_t pack_p(float p0, float p1) {
+  __nv_bfloat162 pair = __floats2bfloat162_rn(p0, p1);
+  return *reinterpret_cast<uint32_t*>(&pair);
+}
+
+// S = Q K^T for one warpgroup's 64 rows and a 128-key tile: head_dim in
+// two 64-column boxes, 16 columns per wgmma (32 bytes into each swizzled
+// 128-byte row)
+__device__ __forceinline__ void score_tile(float (&s)[64], const bf16* qa0,
+                                           const bf16* qa1, const bf16* kb0,
+                                           const bf16* kb1) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_ss(s, smem_desc(qa0 + kk * 16, 16, 1024),
+             smem_desc(kb0 + kk * 16, 16, 1024), kk);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_ss(s, smem_desc(qa1 + kk * 16, 16, 1024),
+             smem_desc(kb1 + kk * 16, 16, 1024), 1);
+  }
+}
+
+// O += P V: 16 keys per wgmma (two 8-key groups of 1024 bytes); N spans
+// both head_dim boxes of V, kBoxBytes apart
+__device__ __forceinline__ void value_tile(float (&o)[64],
+                                           const uint32_t (&pa)[32],
+                                           const bf16* vb) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    wgmma_rs(o, pa + 4 * kk, smem_desc(vb + kk * 16 * kHalf, kBoxBytes, 1024));
+  }
+}
+
+// 2^x in one special-function instruction (subnormal results flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online softmax of one tile's scores s (raw products; -1e30 where
+// masked) for the thread's two rows: updates the running maxima and this
+// thread's share of the sums, turns s into p and returns the factors that
+// rescale the rows' o. c = scale * log2(e).
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float& m_lo,
+                                             float& m_hi, float& l_lo,
+                                             float& l_hi, float& alpha_lo,
+                                             float& alpha_hi, float c) {
+  float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    mx_lo = fmaxf(mx_lo, fmaxf(s[4 * n], s[4 * n + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+  }
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+  alpha_lo = fast_exp2((m_lo - mx_lo) * c);
+  alpha_hi = fast_exp2((m_hi - mx_hi) * c);
+  m_lo = mx_lo;
+  m_hi = mx_hi;
+  // a row that has seen no visible key keeps m = -1e30 and adds nothing
+  // (its o and l are 0, so alpha = 1 changes nothing)
+  const bool live_lo = m_lo > 0.5f * kNegInf;
+  const bool live_hi = m_hi > 0.5f * kNegInf;
+  // such a row subtracts 0: its scores, all masked, give p = 0
+  const float mu_lo = live_lo ? m_lo : 0.f, mu_hi = live_hi ? m_hi : 0.f;
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    s[4 * n] = fast_exp2((s[4 * n] - mu_lo) * c);
+    s[4 * n + 1] = fast_exp2((s[4 * n + 1] - mu_lo) * c);
+    s[4 * n + 2] = fast_exp2((s[4 * n + 2] - mu_hi) * c);
+    s[4 * n + 3] = fast_exp2((s[4 * n + 3] - mu_hi) * c);
+    sum_lo += s[4 * n] + s[4 * n + 1];
+    sum_hi += s[4 * n + 2] + s[4 * n + 3];
+  }
+  l_lo = l_lo * alpha_lo + sum_lo;
+  l_hi = l_hi * alpha_hi + sum_hi;
+}
+
+// this warp is done with a stage: one arrival on its empty barrier
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+// ----------------------------------------------------------------------
+// the kernel
+// ----------------------------------------------------------------------
+
+// One launch's shapes. Query head h reads KV head h / rep (grouped-query
+// attention, K and V unrepeated); offsets are the global positions of the
+// first query and key.
+struct Problem {
+  int H, rep, Tq, Tk;
+  long long q_offset, k_offset;
+  float scale;
+};
+
+// Epilogue: out_scale(l) multiplies a row's o before store(); row_stats()
+// is called once per stored row with m in natural-log units (-1e30 for a
+// row that saw no key) and l; store() gets two adjacent columns of a row.
+template <bool CAUSAL, class Epilogue>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const Problem pr, const Epilogue epi) {
+  static_assert(kRows == kKeys, "Q and K/V tiles share one box shape");
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+
+  // Block order: heads in groups of kHeadGroup; inside a group the query
+  // tiles go longest rows first, all heads of the group at each tile. The
+  // group's K and V (1 MB per head at the train shape) stay in L2 while
+  // its tiles run, and the longest causal rows start first.
+  const int n_q = (pr.Tq + kRows - 1) / kRows;
+  const int n_bh = gridDim.x / n_q;
+  const int group = blockIdx.x / (kHeadGroup * n_q);
+  const int first = group * kHeadGroup;
+  const int width = min(kHeadGroup, n_bh - first);
+  const int r = blockIdx.x - first * n_q;
+  const int bh = first + r % width;
+  const int q0 = (n_q - 1 - r / width) * kRows;
+  const int b = bh / pr.H, h = bh % pr.H;
+  const int hk = h / pr.rep;
+  // key tiles up to the last one holding a key that the block's last row
+  // can see
+  const int n_k = (pr.Tk + kKeys - 1) / kKeys;
+  int kt_end = n_k;
+  if (CAUSAL) {
+    const long long last_key =
+        pr.q_offset + min(q0 + kRows, pr.Tq) - 1 - pr.k_offset;
+    kt_end = last_key < 0 ? 0
+                          : (int)min((long long)n_k, last_key / kKeys + 1);
+  }
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers * 4);   // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * 128 && kt_end > 0) {
+      mbar_expect_tx(&sm.q_full, 2 * kBoxBytes);
+      tma_load(sm.q[0], &q_map, &sm.q_full, 0, q0, h, b);
+      tma_load(sm.q[1], &q_map, &sm.q_full, kHalf, q0, h, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < kt_end; ++kt) {
+        const int k0 = kt * kKeys;
+        mbar_wait(&sm.empty[stage], phase ^ 1);
+        mbar_expect_tx(&sm.full[stage], 4 * kBoxBytes);
+        uint64_t* full = &sm.full[stage];
+        tma_load(sm.k[stage][0], &k_map, full, 0, k0, hk, b);
+        tma_load(sm.k[stage][1], &k_map, full, kHalf, k0, hk, b);
+        tma_load(sm.v[stage][0], &v_map, full, 0, k0, hk, b);
+        tma_load(sm.v[stage][1], &v_map, full, kHalf, k0, hk, b);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows r_wg .. r_wg + 63 of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r_wg = q0 + wg * 64;
+    const int row_lo = r_wg + warp * 16 + g, row_hi = row_lo + 8;
+    // global positions of the warpgroup's first and last stored rows
+    const long long wg_first = pr.q_offset + r_wg;
+    const long long wg_last = pr.q_offset + min(r_wg + 63, pr.Tq - 1);
+    const float c = pr.scale * kLog2e;
+    // accumulator element i: row g + 8 * ((i / 2) % 2) of the warp's 16,
+    // column 8 * (i / 4) + 2 * t + i % 2
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    // row maxima of the raw products q k (scale applied on output), and
+    // this thread's share of the row sums
+    float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+    const bf16* qa0 = sm.q[0] + wg * 64 * kHalf;
+    const bf16* qa1 = sm.q[1] + wg * 64 * kHalf;
+    if (kt_end > 0) mbar_wait(&sm.q_full, 0);
+
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < kt_end; ++kt) {
+      const int k0 = kt * kKeys;
+      const long long key_first = pr.k_offset + k0;
+      mbar_wait(&sm.full[stage], phase);
+      // a tile whose keys all follow this warpgroup's rows adds nothing
+      if (!CAUSAL || key_first <= wg_last) {
+        float s[64];
+        wgmma_fence();
+        score_tile(s, qa0, qa1, sm.k[stage][0], sm.k[stage][1]);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(s);
+        // mask only a tile that the end of the keys or the diagonal cuts
+        const bool cut = k0 + kKeys > pr.Tk ||
+                         (CAUSAL && key_first + kKeys - 1 > wg_first);
+        if (cut) {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+            const int row = (i & 2) ? row_hi : row_lo;
+            if (!(col < pr.Tk &&
+                  causal_visible(pr.q_offset + row, pr.k_offset + col,
+                                 CAUSAL))) {
+              s[i] = kNegInf;
+            }
+          }
+        }
+        float alpha_lo, alpha_hi;
+        softmax_tile(s, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, c);
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+          o[4 * n] *= alpha_lo;
+          o[4 * n + 1] *= alpha_lo;
+          o[4 * n + 2] *= alpha_hi;
+          o[4 * n + 3] *= alpha_hi;
+        }
+        // P as the A operand: keys 16kk..16kk+15 are accumulator n-tiles
+        // 2kk and 2kk+1
+        uint32_t pa[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) pa[i] = pack_p(s[2 * i], s[2 * i + 1]);
+        wgmma_fence();
+        value_tile(o, pa, sm.v[stage][0]);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(o);
+        pin(pa);
+      }
+      release(&sm.empty[stage], lane);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // epilogue: the quad's row sums, then each stored row
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? row_hi : row_lo;
+      const float m_raw = half ? m_hi : m_lo;
+      const float l = half ? l_hi : l_lo;
+      if (row < pr.Tq) {
+        if (t == 0) {
+          epi.row_stats(b, h, row,
+                        m_raw > 0.5f * kNegInf ? m_raw * pr.scale : kNegInf,
+                        l);
+        }
+        const float mul = epi.out_scale(l);
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+          epi.store(b, h, row, 8 * n + 2 * t, o[4 * n + 2 * half] * mul,
+                    o[4 * n + 2 * half + 1] * mul);
+        }
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------------------
+// host side
+// ----------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The TMA map of a bf16 [B, H, T, 128] tensor with byte strides (sb, sh,
+// st) over (batch, head, sequence) and unit stride over head_dim, read in
+// boxes of 128 rows x 64 columns, 128-byte swizzled, zeros past the end.
+// Returns 0, a cudaError_t, or kEncodeError + the encoder's CUresult.
+inline int encode_map(CUtensorMap* map, const void* base, int B, int H,
+                      int T, long long sb, long long sh, long long st) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) {
+      return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+    }
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)T, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st, (cuuint64_t)sh,
+                                 (cuuint64_t)sb};
+  const cuuint32_t box[4] = {kHalf, kKeys, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
+}
+
+inline const char* encode_error_string(int code) {
+  return code >= kEncodeError
+             ? "cuTensorMapEncodeTiled refused a TMA map (the code less 1000 "
+               "is its CUresult)"
+             : nullptr;
+}
+
+// maps for q [B, H, Tq, 128] and k, v [B, H / rep, Tk, 128], then one
+// launch of B * H * (128-query tiles) blocks
+template <bool CAUSAL, class Epilogue>
+int launch(const void* q, const void* k, const void* v, int B,
+           const long long (&sq)[3], const long long (&sk)[3],
+           const long long (&sv)[3], const Problem& pr, const Epilogue& epi,
+           cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  const int Hkv = pr.H / pr.rep;
+  int rc = encode_map(&q_map, q, B, pr.H, pr.Tq, sq[0], sq[1], sq[2]);
+  if (rc == 0) rc = encode_map(&k_map, k, B, Hkv, pr.Tk, sk[0], sk[1], sk[2]);
+  if (rc == 0) rc = encode_map(&v_map, v, B, Hkv, pr.Tk, sv[0], sv[1], sv[2]);
+  if (rc != 0) return rc;
+  auto kernel = attention_fwd_kernel<CAUSAL, Epilogue>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)B * pr.H * ((pr.Tq + kRows - 1) / kRows);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kBlockThreads, kSmemBytes, stream>>>(
+      q_map, k_map, v_map, pr, epi);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sm90
+}  // namespace

@@ -32,7 +32,7 @@
 // softmax (forward) or the dK/dV and dQ sums (backward) in VMEM scratch
 // across grid steps. Hopper runs blocks unordered on 132 SMs, so each block
 // owns one output tile and loops over the other axis itself:
-//   forward: block = (b, h, 64-query tile); loop over key tiles up to the
+//   forward: block = (b, h, query tile); loop over key tiles up to the
 //            diagonal; online softmax (m, l) per row; O in registers.
 //   dQ:      block = (b, h, 64-query tile); loop over key tiles up to the
 //            diagonal; dQ in registers.
@@ -41,176 +41,21 @@
 // Every output element is written by exactly one block and summed in a
 // fixed order: no atomics, so a launch is deterministic and the forward
 // recomputed under activation checkpointing is bit-identical.
-// Tiles are staged global -> shared memory with 16-byte loads (rows padded
-// by 16 bytes against bank conflicts); 8 warps each compute a 16-row slice
-// of every product. bf16 products run on the tensor cores with mma.sync
-// m16n8k16 (f32 accumulate); f32 products run as f32 FMAs in the same
-// register layout (no TF32). P and dS go through shared memory in the input
-// dtype, as the reference casts the probabilities to the compute dtype.
-// Operand fragments come from shared memory through ldmatrix (transposed
-// where the tile is stored k-major). Later work, not done here: wgmma and
-// TMA, warp specialisation, cp.async double buffering, register-resident P
-// (no shared-memory round trip).
+// The bf16 forward is flash_attention_fwd_sm90: the wgmma + TMA template
+// of attention_fwd_sm90.cuh (128-query blocks, 128-key tiles, P in
+// registers) with the epilogue FlashFwdOut below, which writes o / l in
+// bf16 and lse = m + log(l). The backward kernels, and the forward in f32,
+// stage tiles global -> shared memory with 16-byte loads; 8 warps each
+// compute a 16-row slice of every product (mma_tiles.cuh). bf16 products
+// run on the tensor cores with mma.sync m16n8k16 (f32 accumulate), fed by
+// ldmatrix; f32 products run as f32 FMAs in the same register layout (no
+// TF32). P and dS go through shared memory in the input dtype, as the
+// reference casts the probabilities to the compute dtype.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_fwd_sm90.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
-
-constexpr int kD = 128;
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-constexpr float kNegInf = -1e30f;
-
-using bf16 = __nv_bfloat16;
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// The tile routines from here to the kernels (tile_ld, ldmatrix_x4,
-// mma_bf16, warp_mma, zero, load_tile, store_acc, Shapes) have a copy in
-// ring_attention.cu; a fix to one belongs in the other. The copy stays
-// until both kernels share one header (ROADMAP.md, Queue A, item 1).
-
-// row stride of a shared-memory tile with `cols` columns: 16 bytes of pad
-template <typename T>
-__host__ __device__ constexpr int tile_ld(int cols) {
-  return cols + 16 / (int)sizeof(T);
-}
-
-// ----------------------------------------------------------------------
-// warp-level tile products. Each warp accumulates a 16 x (8*NT) tile
-//   acc += A[16 x K] * B[K x 8*NT]
-// in the mma.sync m16n8k16 accumulator layout: lane (g = lane/4,
-// t = lane%4) holds C(g, 8n+2t), C(g, 8n+2t+1), C(g+8, 8n+2t),
-// C(g+8, 8n+2t+1) in acc[n][0..3].
-//   A(i, k) = A_KC ? a[i*lda + k] : a[k*lda + i]
-//   B(k, j) = B_KC ? b[j*ldb + k] : b[k*ldb + j]
-// ----------------------------------------------------------------------
-
-// four 8x8 bf16 matrices from shared memory (ldmatrix): lanes 8m..8m+7
-// give the row addresses of matrix m; lane (g, t) receives, in r[m],
-// elements (g, 2t) and (g, 2t+1) of matrix m, or with TRANS (2t, g) and
-// (2t+1, g) — the mma.sync fragment layouts
-template <bool TRANS>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const bf16* row) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  if (TRANS) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-        "{%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-  } else {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-        "{%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// bf16: every operand tile is fed to mma.sync by ldmatrix. A is always
-// k-contiguous; B is read transposed when it is stored k-major.
-template <int NT, int K, bool A_KC, bool B_KC>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4],
-                                         const bf16* a, int lda,
-                                         const bf16* b, int ldb) {
-  static_assert(A_KC && NT % 2 == 0, "A k-contiguous, n-tiles in pairs");
-  const int lane = threadIdx.x & 31;
-  const int lr = lane & 7, lm = lane >> 3;   // row in, and index of, matrix
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    // a0..a3: rows 0-7 / 8-15 x k 0-7, then the same x k 8-15
-    uint32_t af[4];
-    ldmatrix_x4<false>(af, a + ((lm & 1) * 8 + lr) * lda + k0 + (lm >> 1) * 8);
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      // b0, b1 of n-tile n, then of n-tile n + 1
-      uint32_t bf[4];
-      if (B_KC) {
-        ldmatrix_x4<false>(
-            bf, b + (8 * (n + (lm >> 1)) + lr) * ldb + k0 + (lm & 1) * 8);
-      } else {
-        ldmatrix_x4<true>(
-            bf, b + (k0 + (lm & 1) * 8 + lr) * ldb + 8 * (n + (lm >> 1)));
-      }
-      mma_bf16(acc[n], af, bf[0], bf[1]);
-      mma_bf16(acc[n + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-template <int NT, int K, bool A_KC, bool B_KC>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4],
-                                         const float* a, int lda,
-                                         const float* b, int ldb) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float a0 = A_KC ? a[g * lda + k] : a[k * lda + g];
-    const float a1 = A_KC ? a[(g + 8) * lda + k] : a[k * lda + g + 8];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int j = 8 * n + 2 * t;
-      const float b0 = B_KC ? b[j * ldb + k] : b[k * ldb + j];
-      const float b1 = B_KC ? b[(j + 1) * ldb + k] : b[k * ldb + j + 1];
-      acc[n][0] = fmaf(a0, b0, acc[n][0]);
-      acc[n][1] = fmaf(a0, b1, acc[n][1]);
-      acc[n][2] = fmaf(a1, b0, acc[n][2]);
-      acc[n][3] = fmaf(a1, b1, acc[n][3]);
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  }
-}
-
-// rows [row0, row0 + ROWS) of one (b, h) slice -> shared tile [ROWS][kD],
-// 16-byte loads; rows at or past S are zero
-template <typename T, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long stride_s, int row0,
-                                          int S) {
-  constexpr int kVec = 16 / (int)sizeof(T);
-  constexpr int kVecPerRow = kD / kVec;
-  constexpr int ld = tile_ld<T>(kD);
-  for (int i = threadIdx.x; i < ROWS * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * kVec;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (row0 + r < S) {
-      val = *reinterpret_cast<const int4*>(src + (row0 + r) * stride_s + c);
-    }
-    *reinterpret_cast<int4*>(dst + r * ld + c) = val;
-  }
-}
 
 // f32 values of row vector `src` (length S, rows >= S read as 0) for the
 // tile's rows
@@ -221,61 +66,14 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-__device__ __forceinline__ void store_pair(float* p, float x0, float x1) {
-  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
-}
-__device__ __forceinline__ void store_pair(bf16* p, float x0, float x1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-}
-
-// a warp's 16 x 128 accumulator tile (rows r0.., columns c0..) times `mul`
-// -> global rows row0 + r (those < S) of one (b, h) slice
-template <typename T>
-__device__ __forceinline__ void store_acc(T* dst, long long stride_s,
-                                          const float (&acc)[8][4], int row0,
-                                          int r0, int c0, int S, float mul_lo,
-                                          float mul_hi) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = c0 + 8 * n + 2 * t;
-    const int lo = row0 + r0 + g, hi = lo + 8;
-    if (lo < S) {
-      store_pair(dst + lo * stride_s + c, acc[n][0] * mul_lo,
-                 acc[n][1] * mul_lo);
-    }
-    if (hi < S) {
-      store_pair(dst + hi * stride_s + c, acc[n][2] * mul_hi,
-                 acc[n][3] * mul_hi);
-    }
-  }
-}
-
 __device__ __forceinline__ bool visible(int query, int key, int S,
                                         bool causal) {
-  return query < S && key < S && (!causal || key <= query);
+  return query < S && key < S && causal_visible(query, key, causal);
 }
 
-template <typename T>
-struct Shapes {
-  static constexpr int ldd = tile_ld<T>(kD);        // q/k/v/do tiles
-  static constexpr int ldp = tile_ld<T>(kBlockK);   // p/ds tiles
-  static constexpr int lds = kBlockK + 4;           // f32 score tile
-  static constexpr int tile = kBlockQ * ldd;        // elements
-  static constexpr int ptile = kBlockQ * ldp;
-};
-
 // ----------------------------------------------------------------------
-// forward (3a): block = (64-query tile, b*H + h)
+// forward (3a), f32: block = (64-query tile, b*H + h)
 // ----------------------------------------------------------------------
-
-template <typename T>
-constexpr size_t fwd_smem() {
-  using Sh = Shapes<T>;
-  return (3 * Sh::tile + Sh::ptile) * sizeof(T) +
-         (kBlockQ * Sh::lds + kBlockQ) * sizeof(float);
-}
 
 template <typename T, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
@@ -630,13 +428,35 @@ cudaError_t check(int B, int H, int S, int D, int device) {
   return cudaSetDevice(device);
 }
 
+// forward (3a), bf16: the epilogue of the sm90 template. o / l in bf16 at
+// element strides (sb, sh, ss); lse [B, H, S] f32 contiguous.
+struct FlashFwdOut {
+  bf16* o;
+  float* lse;
+  int H, S;
+  long long sb, sh, ss;
+
+  __device__ __forceinline__ float out_scale(float l) const {
+    return 1.f / l;
+  }
+  __device__ __forceinline__ void row_stats(int b, int h, int row, float m,
+                                            float l) const {
+    lse[((long long)b * H + h) * S + row] = m + logf(l);
+  }
+  __device__ __forceinline__ void store(int b, int h, int row, int col,
+                                        float x0, float x1) const {
+    store_pair(o + b * sb + h * sh + row * ss + col, x0, x1);
+  }
+};
+
 }  // namespace
 
-// The three entry points. q, k, v, o/do/dq/dk/dv share the strides
+// The entry points. q, k, v, o/do/dq/dk/dv share the strides
 // (sb, sh, ss) in elements over (batch, head, seq); head_dim D must be 128;
 // lse and di are [B, H, S] f32. causal: 0 or 1. dtype: 0 = float32,
 // 1 = bfloat16. Each returns the launch's cudaError_t.
 
+// the forward in f32 (dtype 0); bf16 takes flash_attention_fwd_sm90
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
                                    int H, int S, int D, long long sb,
@@ -644,18 +464,35 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int dtype, int device, void* stream) {
   cudaError_t err = check(B, H, S, D, device);
   if (err != cudaSuccess) return (int)err;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   const Geometry g{B, H, S, sb, sh, ss};
   const float scale = 1.0f / sqrtf((float)D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CALL_FWD(T, C) launch_fwd<T, C>(q, k, v, o, lse, g, scale, s)
-  if (dtype == 0) {
-    return (int)(causal ? CALL_FWD(float, true) : CALL_FWD(float, false));
-  }
-  if (dtype == 1) {
-    return (int)(causal ? CALL_FWD(bf16, true) : CALL_FWD(bf16, false));
-  }
-#undef CALL_FWD
-  return (int)cudaErrorInvalidValue;
+  return (int)(causal ? launch_fwd<float, true>(q, k, v, o, lse, g, scale, s)
+                      : launch_fwd<float, false>(q, k, v, o, lse, g, scale,
+                                                 s));
+}
+
+// the forward in bf16: the same arguments without dtype, the strides in
+// BYTES (each a positive multiple of 16, bases 16-byte aligned: what TMA
+// takes). Returns a cudaError_t, or sm90::kEncodeError + the encoder's
+// CUresult when a TMA map is refused.
+extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
+                                        const void* v, void* o, void* lse,
+                                        int B, int H, int S, int D,
+                                        long long sb, long long sh,
+                                        long long ss, int causal, int device,
+                                        void* stream) {
+  cudaError_t err = check(B, H, S, D, device);
+  if (err != cudaSuccess) return (int)err;
+  const sm90::Problem pr{H, 1, S, S, 0, 0, 1.0f / sqrtf((float)D)};
+  const int elt = (int)sizeof(bf16);
+  const FlashFwdOut epi{static_cast<bf16*>(o), static_cast<float*>(lse),
+                        H, S, sb / elt, sh / elt, ss / elt};
+  const long long st[3] = {sb, sh, ss};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return causal ? sm90::launch<true>(q, k, v, B, st, st, st, pr, epi, s)
+                : sm90::launch<false>(q, k, v, B, st, st, st, pr, epi, s);
 }
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
@@ -708,5 +545,6 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
 }
 
 extern "C" const char* error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  const char* tma = sm90::encode_error_string(code);
+  return tma ? tma : cudaGetErrorString(static_cast<cudaError_t>(code));
 }

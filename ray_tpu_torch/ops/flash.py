@@ -11,10 +11,14 @@ its custom VJP. Here the three are hand-written CUDA C++
   - ``flash_bwd_dkv``: dk and dv from the same.
 
 ``di`` is computed in PyTorch between forward and backward, as the library
-computes it outside its kernels. Each of the three wrappers takes its plain
-PyTorch version (``_flash_fwd_reference``, ``_flash_bwd_dq_reference``,
-``_flash_bwd_dkv_reference``) for a CPU tensor, and for a CUDA tensor
-launches its kernel or raises: there is no fallback. Each counts its kernel
+computes it outside its kernels. The bf16 forward runs on the Hopper
+kernel shared with ring attention's block (``flash_attention_fwd_sm90``:
+wgmma, TMA-fed K/V tiles, byte strides); the f32 forward and both
+backward kernels on the mma.sync kernels. Each of the three wrappers
+takes its plain PyTorch version (``_flash_fwd_reference``,
+``_flash_bwd_dq_reference``, ``_flash_bwd_dkv_reference``) for a CPU
+tensor, and for a CUDA tensor launches its kernel or raises: there is no
+fallback. Each counts its kernel
 launches in ``.launches``. ``flash_attention_reference`` is the whole
 function in plain ops, its gradient autograd's: the tests' oracle.
 
@@ -39,6 +43,10 @@ NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIM = 128
+_TMA_MAX_STRIDE = 2 ** 40   # bytes
+# the device type the kernels run on (tests point it at "meta" to reach
+# the launch with a recording library)
+_KERNEL_DEVICE = "cuda"
 
 
 # ----------------------------------------------------------------------
@@ -102,12 +110,14 @@ def _flash_bwd_dkv_reference(q, k, v, do, lse, di, causal: bool = True
 # the kernel wrappers: plain version on the CPU, CUDA kernel on the card
 # ----------------------------------------------------------------------
 
-def _check(name: str, tensors, rows) -> None:
+def _check(name: str, tensors, rows, tma: bool = False) -> None:
     """What the kernels take: one CUDA device and dtype, [B, H, S, 128]
     with shared strides and unit head_dim stride, 16-byte aligned rows,
-    and contiguous f32 [B, H, S] row vectors."""
+    and contiguous f32 [B, H, S] row vectors. ``tma``: the tensors are
+    read through TMA, so every (batch, head, sequence) stride must also be
+    positive and below 2^40 bytes."""
     q = tensors[0]
-    if q.device.type != "cuda":
+    if q.device.type != _KERNEL_DEVICE:
         raise ValueError(f"{name}: no kernel for {q.device}")
     if any(t.device != q.device for t in (*tensors, *rows)):
         raise ValueError(f"{name}: all tensors must be on {q.device}")
@@ -131,6 +141,12 @@ def _check(name: str, tensors, rows) -> None:
         raise ValueError(f"{name}: q, k, v (and do) must share strides "
                          "with unit head_dim stride and 16-byte aligned "
                          "rows")
+    if tma and not all(0 < s * q.element_size() < _TMA_MAX_STRIDE
+                       for s in q.stride()[:3]):
+        raise ValueError(f"{name}: the bf16 kernel reads q, k and v through "
+                         f"TMA, which takes (batch, head, sequence) strides "
+                         f"of 16 to 2^40 bytes, got {q.stride()[:3]} "
+                         f"elements")
     B, H, S, _D = q.shape
     if any(r.dtype != torch.float32 or r.shape != (B, H, S)
            or not r.is_contiguous() for r in rows):
@@ -139,31 +155,43 @@ def _check(name: str, tensors, rows) -> None:
 
 
 def _launch(fn_name: str, tensors, rows, outs, causal: bool) -> None:
+    """One kernel launch. ``*_sm90`` entry points take byte strides and no
+    dtype code (they are bf16 only); the others element strides and the
+    dtype code."""
     from ray_tpu_torch.ops import _build
 
     q = tensors[0]
     B, H, S, D = q.shape
     lib = _build.library("flash_attention", _SIGNATURES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [t.data_ptr() for t in (*tensors, *rows, *outs)]
-    rc = getattr(lib, fn_name)(*ptrs, B, H, S, D, *q.stride()[:3],
-                               int(causal), _DTYPE_CODES[q.dtype],
-                               q.device.index or 0, stream)
+    if fn_name.endswith("_sm90"):
+        tail = (*(s * q.element_size() for s in q.stride()[:3]), int(causal))
+    else:
+        tail = (*q.stride()[:3], int(causal), _DTYPE_CODES[q.dtype])
+    rc = getattr(lib, fn_name)(*ptrs, B, H, S, D, *tail, q.device.index or 0,
+                               _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: "
                            + _build.error_string(lib, rc))
 
 
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 3a: (o, lse). o has q's dtype and strides."""
+    """Kernel 3a: (o, lse). o has q's dtype and strides. bf16 runs the
+    Hopper kernel, f32 the FMA kernel."""
     if q.device.type == "cpu":
         return _flash_fwd_reference(q, k, v, causal)
-    _check("flash_fwd", (q, k, v), ())
+    sm90 = q.dtype == torch.bfloat16
+    _check("flash_fwd", (q, k, v), (), tma=sm90)
     o = torch.empty_like(q)
     B, H, S, _D = q.shape
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd", (q, k, v), (), (o, lse), causal)
+    _launch("flash_attention_fwd_sm90" if sm90 else "flash_attention_fwd",
+            (q, k, v), (), (o, lse), causal)
     flash_fwd.launches += 1
     return o, lse
 
@@ -200,11 +228,16 @@ flash_bwd_dkv.launches = 0
 
 # C signatures of csrc/flash_attention.cu's entry points: the tensor
 # pointers; B, H, S, D; the (batch, head, seq) strides in elements; causal,
-# dtype code, device index; stream. Each returns the launch's cudaError_t.
+# dtype code, device index; stream. The bf16 forward (_sm90): strides in
+# bytes and no dtype code. Each returns the launch's cudaError_t.
 _TAIL = ([ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
          + [ctypes.c_void_p])
+_TAIL_SM90 = ([ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _SIGNATURES = {
     "flash_attention_fwd": (ctypes.c_int, [ctypes.c_void_p] * 5 + _TAIL),
+    "flash_attention_fwd_sm90": (ctypes.c_int,
+                                 [ctypes.c_void_p] * 5 + _TAIL_SM90),
     "flash_attention_bwd_dq": (ctypes.c_int, [ctypes.c_void_p] * 7 + _TAIL),
     "flash_attention_bwd_dkv": (ctypes.c_int,
                                 [ctypes.c_void_p] * 8 + _TAIL),

@@ -12,10 +12,13 @@ The block step, ``block_attention``, is kernel 2: hand-written CUDA C++
 (``csrc/ring_attention.cu``) in place of the reference's Pallas
 ``_block_kernel``. For a CPU tensor it takes its plain PyTorch version
 (``_block_attention_reference``); for a CUDA tensor it launches the kernel
-or raises, and counts its launches in ``block_attention.launches``. The
-kernel has no backward, as ``pallas_call`` has no VJP in the reference: on
-the card the ring is forward only, and a call that autograd would have to
-differentiate raises. On the CPU the plain version is differentiable.
+or raises, and counts its launches in ``block_attention.launches``. bf16
+goes to the Hopper kernel (``ring_block_attention_sm90``: wgmma, TMA-fed
+K/V tiles, byte strides), f32 to the FMA kernel
+(``ring_block_attention``). The kernel has no backward, as
+``pallas_call`` has no VJP in the reference: on the card the ring is
+forward only, and a call that autograd would have to differentiate
+raises. On the CPU the plain version is differentiable.
 
 The reference runs the ring under ``shard_map`` on one controller that
 holds every device, with ``ppermute`` moving each KV shard to the next
@@ -41,9 +44,13 @@ from ray_tpu_torch.parallel.mesh import AXIS_SEQ, Mesh
 
 NEG_INF = -1e30
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIM = 128
 _INT32_MAX = 2 ** 31 - 1
+_TMA_MAX_STRIDE = 2 ** 40   # bytes
+# the device type the kernel runs on (tests point it at "meta" to reach
+# the launch with a recording library)
+_KERNEL_DEVICE = "cuda"
 
 
 # ----------------------------------------------------------------------
@@ -83,15 +90,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_offset: int, k_offset: int) -> None:
     """What kernel 2 takes: one CUDA device and dtype, q [B, H, Tq, 128]
     and k, v [B, Hkv, Tk, 128] with Hkv dividing H, unit head_dim stride,
-    16-byte aligned rows, and offsets that keep every position in int32."""
-    if q.device.type != "cuda":
+    16-byte aligned rows, and offsets that keep every position in int32.
+    bf16 is read through TMA: every (batch, head, sequence) stride must
+    also be positive and below 2^40 bytes."""
+    if q.device.type != _KERNEL_DEVICE:
         raise ValueError(f"block_attention: no kernel for {q.device}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"block_attention: all tensors must be on "
                          f"{q.device}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"block_attention: q, k, v must share one dtype of "
-                        f"{list(_DTYPE_CODES)}, got "
+                        f"{list(_DTYPES)}, got "
                         f"{[q.dtype, k.dtype, v.dtype]}")
     if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
             or k.shape[0] != q.shape[0] or k.shape[-1] != q.shape[-1]
@@ -109,6 +118,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 or t.data_ptr() % 16):
             raise ValueError("block_attention: q, k and v need unit head_dim "
                              "stride and 16-byte aligned rows")
+        if q.dtype == torch.bfloat16 and not all(
+                0 < s * t.element_size() < _TMA_MAX_STRIDE
+                for s in t.stride()[:3]):
+            raise ValueError(f"block_attention: the bf16 kernel reads q, k "
+                             f"and v through TMA, which takes (batch, head, "
+                             f"sequence) strides of 16 to 2^40 bytes, got "
+                             f"{t.stride()[:3]} elements")
     if any(abs(off) + t > _INT32_MAX
            for off, t in ((q_offset, q.shape[2]), (k_offset, k.shape[2]))):
         raise ValueError("block_attention: offsets out of int32 range")
@@ -140,14 +156,19 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     lib = _build.library("ring_attention", _SIGNATURES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.ring_block_attention(
-        *(t.data_ptr() for t in (q, k, v, o, m, l)), B, H, Hkv, Tq, Tk, D,
-        q_offset, k_offset, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], int(causal), _DTYPE_CODES[q.dtype],
-        q.device.index or 0, stream)
+    if q.dtype == torch.bfloat16:
+        # the Hopper kernel takes byte strides (its TMA maps' unit)
+        fn = lib.ring_block_attention_sm90
+        strides = [s * t.element_size() for t in (q, k, v)
+                   for s in t.stride()[:3]]
+    else:
+        fn = lib.ring_block_attention
+        strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    rc = fn(*(t.data_ptr() for t in (q, k, v, o, m, l)), B, H, Hkv, Tq, Tk,
+            D, q_offset, k_offset, *strides, int(causal),
+            q.device.index or 0, _stream(q.device))
     if rc != 0:
-        raise RuntimeError("ring_block_attention kernel launch failed: "
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: "
                            + _build.error_string(lib, rc))
     block_attention.launches += 1
     return o, m, l
@@ -155,13 +176,21 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 block_attention.launches = 0
 
-# C signature of csrc/ring_attention.cu's entry point: q, k, v, o, m, l;
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# C signatures of csrc/ring_attention.cu's entry points: q, k, v, o, m, l;
 # B, H, Hkv, Tq, Tk, D, q_offset, k_offset; the (batch, head, seq) strides
-# of q, k and v in elements; causal, dtype code, device index; stream.
+# of q, k and v (elements for the f32 kernel, bytes for the bf16 one);
+# causal, device index; stream.
+_BLOCK_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+               + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
+               + [ctypes.c_void_p])
 _SIGNATURES = {
-    "ring_block_attention": (
-        ctypes.c_int, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-        + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "ring_block_attention": (ctypes.c_int, _BLOCK_ARGS),
+    "ring_block_attention_sm90": (ctypes.c_int, _BLOCK_ARGS),
 }
 
 

@@ -78,3 +78,16 @@ def test_build_failure_raises_with_nvcc_stderr(tmp_path, build_dir,
     with pytest.raises(RuntimeError, match="bad kernel"):
         _build.build_all(["paged_attention"])
     assert not _build.target("paged_attention").exists()
+
+
+@pytest.mark.parametrize("signature, name", [
+    ("void (anonymous namespace)::paged_decode_kernel<__nv_bfloat16, 128>"
+     "(__nv_bfloat16 const*, int)", "paged_decode_kernel<__nv_bfloat16, 128>"),
+    ("void (anonymous namespace)::sm90::attention_fwd_kernel<true, "
+     "(anonymous namespace)::RingBlockOut>(CUtensorMap_st, "
+     "(anonymous namespace)::sm90::Problem, "
+     "(anonymous namespace)::RingBlockOut)",
+     "attention_fwd_kernel<true, (anonymous namespace)::RingBlockOut>"),
+    ("void k(int)", "k")])
+def test_kernel_names_keep_namespaced_template_arguments(signature, name):
+    assert _build._drop_arguments(signature) == name

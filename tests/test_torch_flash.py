@@ -141,3 +141,81 @@ def test_wrappers_raise_off_cpu_without_a_kernel():
         tf.flash_bwd_dq(q, q, q, q, rows, rows)
     with pytest.raises(ValueError, match="no kernel"):
         tf.flash_bwd_dkv(q, q, q, q, rows, rows)
+
+
+class _RecordingLibrary:
+    """Stands in for a kernel library: records each entry point's name and
+    arguments and returns 0 (success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+
+        entry.__name__ = name
+        return entry
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """The wrappers on meta tensors reach their launches, which go to a
+    recording library instead of the card."""
+    from ray_tpu_torch.ops import _build
+
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(_build, "library", lambda name, signatures: lib)
+    monkeypatch.setattr(tf, "_KERNEL_DEVICE", "meta")
+    monkeypatch.setattr(tf, "_stream", lambda device: 0)
+    return lib
+
+
+def _model_view(dtype, S=37, heads=4, batch=2):
+    """The model's [B, S, H, 128] activations as the [B, H, S, 128] view
+    the flash branch passes."""
+    return torch.empty((batch, S, heads, 128), dtype=dtype,
+                       device="meta").transpose(1, 2)
+
+
+def test_bf16_forward_reaches_the_sm90_entry_with_byte_strides(recorded):
+    q, k, v = (_model_view(torch.bfloat16) for _ in range(3))
+    before = tf.flash_fwd.launches
+    o, lse = tf.flash_fwd(q, k, v)
+    assert tf.flash_fwd.launches == before + 1
+    (name, args), = recorded.calls
+    assert name == "flash_attention_fwd_sm90"
+    # B, H, S, D; byte strides of [B, S, H, D] bf16; causal, device, stream
+    assert args[5:] == (2, 4, 37, 128, 37 * 4 * 256, 256, 1024, 1, 0, 0)
+    assert o.dtype == torch.bfloat16 and o.stride() == q.stride()
+    assert lse.shape == (2, 4, 37) and lse.dtype == torch.float32
+
+
+def test_f32_forward_and_bf16_backward_reach_the_mma_kernels(recorded):
+    """f32 forwards take the FMA kernel (element strides, dtype code 0);
+    the backward kernels keep their entry points in bf16 (dtype code 1)."""
+    q, k, v = (_model_view(torch.float32) for _ in range(3))
+    tf.flash_fwd(q, k, v, causal=False)
+    qb, kb, vb, dob = (_model_view(torch.bfloat16) for _ in range(4))
+    rows = torch.empty((2, 4, 37), device="meta")
+    tf.flash_bwd_dq(qb, kb, vb, dob, rows, rows)
+    tf.flash_bwd_dkv(qb, kb, vb, dob, rows, rows)
+    names = [name for name, _args in recorded.calls]
+    assert names == ["flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"]
+    assert recorded.calls[0][1][5:] == (2, 4, 37, 128, 37 * 4 * 128, 128,
+                                        512, 0, 0, 0, 0)
+    assert recorded.calls[1][1][7:] == (2, 4, 37, 128, 37 * 4 * 128, 128,
+                                        512, 1, 1, 0, 0)
+
+
+def test_bf16_forward_rejects_strides_tma_cannot_take(recorded):
+    """A zero head stride (an expanded tensor) raises ValueError before any
+    launch; nothing else runs in the kernel's place."""
+    q = torch.empty((2, 1, 37, 128), dtype=torch.bfloat16,
+                    device="meta").expand(2, 4, 37, 128)
+    before = tf.flash_fwd.launches
+    with pytest.raises(ValueError, match="TMA"):
+        tf.flash_fwd(q, q, q)
+    assert not recorded.calls and tf.flash_fwd.launches == before

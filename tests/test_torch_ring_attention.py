@@ -219,3 +219,88 @@ def test_ring_rejects_axes_other_than_seq():
     with pytest.raises(ValueError, match="split"):
         tra.ring_attention_sharded(q[:, :63], k[:, :63], v[:, :63],
                                    _port_mesh(2))
+
+
+class _RecordingLibrary:
+    """Stands in for a kernel library: records each entry point's name and
+    arguments and returns 0 (success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+
+        entry.__name__ = name
+        return entry
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """block_attention on meta tensors reaches its launch, which goes to a
+    recording library instead of the card."""
+    from ray_tpu_torch.ops import _build
+
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(_build, "library", lambda name, signatures: lib)
+    monkeypatch.setattr(tra, "_KERNEL_DEVICE", "meta")
+    monkeypatch.setattr(tra, "_stream", lambda device: 0)
+    return lib
+
+
+def _ring_shard(dtype, heads, i=1, n=2, s=64, batch=2):
+    """Shard i of n of a [B, S, heads, 128] tensor, as the ring passes it:
+    a [B, heads, S / n, 128] view."""
+    x = torch.empty((batch, s, heads, 128), dtype=dtype, device="meta")
+    return x[:, i * s // n:(i + 1) * s // n].transpose(1, 2)
+
+
+def test_bf16_block_reaches_the_sm90_entry_with_byte_strides(recorded):
+    """A bf16 GQA ring shard goes to the Hopper kernel: dims, offsets,
+    H and Hkv (query head h reads KV head h / (H / Hkv)), and the view's
+    strides in bytes."""
+    q = _ring_shard(torch.bfloat16, 4)
+    k, v = _ring_shard(torch.bfloat16, 2), _ring_shard(torch.bfloat16, 2)
+    before = tra.block_attention.launches
+    o, m, l = tra.block_attention(q, k, v, 32, 0, True)
+    assert tra.block_attention.launches == before + 1
+    (name, args), = recorded.calls
+    assert name == "ring_block_attention_sm90"
+    assert args[6:14] == (2, 4, 2, 32, 32, 128, 32, 0)
+    # [B, S, H, D] bf16: batch 64*H*128*2 bytes, head 256, sequence H*256
+    assert args[14:23] == (65536, 256, 1024, 32768, 256, 512,
+                           32768, 256, 512)
+    assert args[23:] == (1, 0, 0)
+    assert o.shape == (2, 4, 32, 128) and m.shape == l.shape == (2, 4, 32)
+    assert {t.dtype for t in (o, m, l)} == {torch.float32}
+
+
+def test_f32_block_reaches_the_fma_entry_with_element_strides(recorded):
+    q = _ring_shard(torch.float32, 4, i=0)
+    k, v = (_ring_shard(torch.float32, 4, i=1) for _ in range(2))
+    tra.block_attention(q, k, v, 0, 32, False)
+    (name, args), = recorded.calls
+    assert name == "ring_block_attention"
+    assert args[6:14] == (2, 4, 4, 32, 32, 128, 0, 32)
+    assert args[14:23] == (32768, 128, 512) * 3
+    assert args[23:] == (0, 0, 0)
+
+
+@pytest.mark.parametrize("case", ["row_not_16_bytes", "zero_head_stride"])
+def test_bf16_block_rejects_strides_tma_cannot_take(recorded, case):
+    """Strides TMA cannot take raise ValueError before any launch, and
+    nothing else runs in the kernel's place."""
+    kv = _ring_shard(torch.bfloat16, 2)
+    if case == "row_not_16_bytes":
+        q = torch.empty((1, 4, 16, 132), dtype=torch.bfloat16,
+                        device="meta")[..., :128]
+        kv = kv[:1, :, :16]
+    else:
+        q = torch.empty((2, 1, 32, 128), dtype=torch.bfloat16,
+                        device="meta").expand(2, 4, 32, 128)
+    before = tra.block_attention.launches
+    with pytest.raises(ValueError, match="16"):
+        tra.block_attention(q, kv, kv)
+    assert not recorded.calls and tra.block_attention.launches == before

@@ -183,10 +183,23 @@ def test_entry_points_without_device_need_cuda(tiny):
         tperf.model_mfu(smoke=True)
 
 
+def test_model_from_params_without_device_needs_cuda(tiny):
+    """model_from_params with no device means the card, as Transformer(cfg)
+    does, even for params on the host (params_from_jax returns CPU
+    tensors): without a card it raises instead of building a CPU model."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    _model, _jparams, params = tiny
+    cfg = tt.TransformerConfig(dtype=torch.float32, **TINY)
+    assert all(p.device.type == "cpu" for p in params.values())
+    with pytest.raises(RuntimeError, match="model_from_params.*CUDA"):
+        tt.model_from_params(cfg, params)
+
+
 def test_explicit_devices_are_kept(tiny):
     _model, _jparams, params = tiny
     cfg = tt.TransformerConfig(dtype=torch.float32, **TINY)
-    net = tt.model_from_params(cfg, params)
+    net = tt.model_from_params(cfg, params, device="cpu")
     assert all(p.device.type == "cpu" and p.requires_grad
                for p in net.parameters())
     x = torch.zeros((1, 4, TINY["d_model"]))

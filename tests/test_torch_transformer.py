@@ -120,7 +120,7 @@ def test_ring_model_logits_match_jax_ring_model():
     params = tt.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
     net = tt.model_from_params(
         tt.TransformerConfig(dtype=torch.float32, ring_attention=True, **base),
-        params)
+        params, device="cpu")
     tm = tmesh.make_mesh(tmesh.MeshConfig(seq=2), ["cpu"] * 2)
     with torch.no_grad():
         with tmesh.use_mesh(tm):
@@ -136,7 +136,7 @@ def test_full_forward_matches_flax(tiny, toks):
     _jcfg, model, jparams, tcfg, params = tiny
     want = np.asarray(model.apply({"params": jparams},
                                   jnp.asarray([toks], jnp.int32)))
-    net = tt.model_from_params(tcfg, params)
+    net = tt.model_from_params(tcfg, params, device="cpu")
     with torch.no_grad():
         got = net(torch.tensor([toks], dtype=torch.int32)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL)
