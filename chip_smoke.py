@@ -9,9 +9,10 @@ Phases, each printing one JSON line:
 
   1. build   — compile every CUDA kernel of the port from ray_tpu_torch/ops/csrc
                with nvcc (sm_90a), into ray_tpu_torch/_build/; then check
-               that the bf16 forwards (kernel 2, kernel 3a) are the wgmma +
-               TMA design: HGMMA and UTMALDG in their SASS, no spills, the
-               registers setmaxnreg needs (phase build_sm90).
+               that the bf16 kernels (kernel 2, kernels 3a-3c) are the
+               wgmma + TMA design: HGMMA and UTMALDG in each instance's
+               SASS, no spills, the registers setmaxnreg needs (phase
+               build_sm90).
   2. device  — the card as nvidia-smi reports it (name, power limit).
   3. kernel  — each kernel against its plain PyTorch version at its main
                path's shapes, with its time, the plain version's, one PyTorch
@@ -22,7 +23,9 @@ Phases, each printing one JSON line:
                attention kernels (forward, dq, dk/dv) at the train shapes
                (batch 16, 16 heads, seq 2047, head_dim 128, causal, bf16) and
                once in f32 at batch 2, each of their outputs held to its own
-               bound, element by element and as a whole. Ring attention's
+               bound, element by element and as a whole, and two launches of
+               each bf16 kernel on the same inputs bit-identical. Ring
+               attention's
                block kernel (kernel 2) at the ring phase's shapes (q [1, 16,
                8192, 128], k/v [1, 8, 8192, 128], bf16) on its three kinds of
                block — the diagonal, one below it (every key visible) and one
@@ -113,6 +116,9 @@ FLASH_BATCH = {"bfloat16": TRAIN_BATCH, "float32": 2}
 FLASH_BOUNDS = {"bfloat16": (2 ** -6, 2 ** -6, 2 ** -7),
                 "float32": (2e-5, 2e-5, 1e-5)}
 LSE_BOUNDS = (1e-5, 1e-5, 1e-6)
+# small ragged shapes, both dtypes, causal and not: (batch, heads, seq). 37
+# is shorter than any tile; 333 ends inside a 64- and a 128-row tile
+FLASH_SMALL = {"seq37": (2, 3, 37), "seq333": (1, 4, 333)}
 FLASH_OUTPUTS = {"flash_fwd": ("o", "lse"), "flash_bwd_dq": ("dq",),
                  "flash_bwd_dkv": ("dk", "dv")}
 # the model's flash branch against its einsum branch at the train width:
@@ -155,13 +161,16 @@ RING_PARITY_BOUNDS = {"bfloat16": 2 ** -5, "float32": 1e-5}
 RING_F32_SEQ = 4096
 
 
-# the bf16 forwards (kernel 2, kernel 3a) are instances of one wgmma + TMA
-# template (ops/csrc/attention_fwd_sm90.cuh) in these libraries. setmaxnreg
-# moves registers from its producer warpgroup (24 each) to its two consumer
-# warpgroups (240 each): the block must be built with at least the
-# average, or a consumer would wait for registers forever
-SM90_LIBS = ("ring_attention", "flash_attention")
-SM90_KERNEL = "attention_fwd_kernel"
+# the bf16 kernels are instances of the wgmma + TMA templates: the forward
+# (kernel 2, kernel 3a: ops/csrc/attention_fwd_sm90.cuh) and the backward
+# (kernels 3c, 3b: ops/csrc/attention_bwd_sm90.cuh), by library. Each moves
+# registers by setmaxnreg from its producer warpgroup (24 each) to its two
+# consumer warpgroups (240 each): the block must be built with at least
+# the average, or a consumer would wait for registers forever
+SM90_KERNELS = {
+    "ring_attention": ("attention_fwd_kernel",),
+    "flash_attention": ("attention_fwd_kernel", "attention_bwd_dq_kernel",
+                        "attention_bwd_dkv_kernel")}
 SM90_MIN_REGISTERS = (24 * 128 + 240 * 256) // 384
 
 
@@ -177,42 +186,54 @@ def nvidia_smi() -> str:
     return out.strip().splitlines()[0]
 
 
+def sm90_instances(kernel, sass, ptxas, log):
+    """The instances of one sm90 template in a library: a row (instances,
+    HGMMA and UTMALDG in every one's SASS, ptxas's report, its wgmma and
+    setmaxnreg warnings) and the problems found. sass: cuobjdump -sass of
+    the library; ptxas: {instance: report}; log: ptxas's output."""
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if kernel in f.split("\n", 1)[0]]
+    report = {n: info for n, info in ptxas.items() if kernel in n}
+    row = {"instances": len(funcs),
+           "hgmma": all("HGMMA" in f for f in funcs),
+           "utmaldg": all("UTMALDG" in f for f in funcs),
+           "ptxas": report,
+           # e.g. wgmma serialised, or setmaxnreg ignored
+           "ptxas_warnings": [
+               line.strip() for line in log.splitlines()
+               if "warning" in line and ("wgmma" in line
+                                         or "setmaxnreg" in line)]}
+    regs = [int(m.group(1)) for info in report.values()
+            for m in [re.search(r"(\d+) registers", info)] if m]
+    spills = sum(int(x) for info in report.values()
+                 for x in re.findall(r"(\d+) bytes spill", info))
+    problems = []
+    if not funcs or not row["hgmma"] or not row["utmaldg"]:
+        problems.append(f"{kernel}: instances without HGMMA/UTMALDG")
+    if len(regs) != len(funcs) or not regs or min(regs) < SM90_MIN_REGISTERS:
+        problems.append(f"{kernel}: registers {regs} (need "
+                        f"{SM90_MIN_REGISTERS})")
+    if spills:
+        problems.append(f"{kernel}: instances spill {spills} bytes")
+    return row, problems
+
+
 def sm90_build_check(build, libs):
-    """Each instance of the sm90 template: HGMMA (wgmma) and UTMALDG (TMA
+    """Each instance of the sm90 templates: HGMMA (wgmma) and UTMALDG (TMA
     loads) in its SASS, no spills, and the registers setmaxnreg needs.
     Raises before any launch otherwise."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     rows, problems = {}, []
-    for lib in SM90_LIBS:
+    for lib, kernels in SM90_KERNELS.items():
         sass = subprocess.run([cuobjdump, "-sass", str(libs[lib])],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
-        funcs = [f for f in sass.split("Function : ")[1:]
-                 if SM90_KERNEL in f.split("\n", 1)[0]]
-        ptxas = {n: info for n, info in build.register_report(lib).items()
-                 if SM90_KERNEL in n}
-        row = {"instances": len(funcs),
-               "hgmma": all("HGMMA" in f for f in funcs),
-               "utmaldg": all("UTMALDG" in f for f in funcs),
-               "ptxas": ptxas,
-               # e.g. wgmma serialised, or setmaxnreg ignored
-               "ptxas_warnings": [
-                   line.strip() for line in build.build_log(lib).splitlines()
-                   if "warning" in line and ("wgmma" in line
-                                             or "setmaxnreg" in line)]}
-        regs = [int(m.group(1)) for info in ptxas.values()
-                for m in [re.search(r"(\d+) registers", info)] if m]
-        spills = sum(int(x) for info in ptxas.values()
-                     for x in re.findall(r"(\d+) bytes spill", info))
-        if not funcs or not row["hgmma"] or not row["utmaldg"]:
-            problems.append(f"{lib}: sm90 instances without HGMMA/UTMALDG")
-        if len(regs) != len(funcs) or min(regs) < SM90_MIN_REGISTERS:
-            problems.append(f"{lib}: sm90 registers {regs} (need "
-                            f"{SM90_MIN_REGISTERS})")
-        if spills:
-            problems.append(f"{lib}: sm90 instances spill {spills} bytes")
-        rows[lib] = row
-    emit({"phase": "build_sm90", "libraries": rows, "ok": not problems})
+        ptxas, log = build.register_report(lib), build.build_log(lib)
+        for kernel in kernels:
+            row, found = sm90_instances(kernel, sass, ptxas, log)
+            rows[f"{lib}/{kernel}"] = row
+            problems += [f"{lib}: {p}" for p in found]
+    emit({"phase": "build_sm90", "kernels": rows, "ok": not problems})
     if problems:
         raise AssertionError(f"sm90 kernels: {problems}")
 
@@ -361,12 +382,13 @@ def flash_readings(torch, fl, q, k, v, do, causal):
 
 
 def phase_flash_kernel(torch, dev, timed=True):
-    """The three flash attention kernels vs their plain versions at the
-    train step's attention shapes, on the same inputs, with their times
-    (timed=False: the checks alone). The inputs are the model's
-    [B, S, H, D] tensors seen as [B, H, S, D] views, as the train path
-    passes them. The f32 pass also checks the non-causal kernels. Raises
-    after every check has printed if any output is out of bounds."""
+    """The three flash attention kernels vs their plain versions on small
+    ragged shapes (FLASH_SMALL), then at the train step's attention shapes,
+    on the same inputs, with their times (timed=False: the checks alone).
+    The inputs are the model's [B, S, H, D] tensors seen as [B, H, S, D]
+    views, as the train path passes them. The f32 pass also checks the
+    non-causal kernels. Raises after every check has printed if any output
+    is out of bounds."""
     from ray_tpu_torch.ops import flash as fl
 
     F = torch.nn.functional
@@ -378,6 +400,22 @@ def phase_flash_kernel(torch, dev, timed=True):
         return {"outputs": readings,
                 "max_abs_err": max(r["max_abs_err"] for r in readings)}
 
+    g = torch.Generator(device=dev).manual_seed(4)
+    for label, (B, H, S) in FLASH_SMALL.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            q, k, v, do = (torch.randn((B, S, H, FLASH_D), generator=g,
+                                       device=dev).to(dtype).transpose(1, 2)
+                           for _ in range(4))
+            for causal in (True, False):
+                readings, _lse, _di = flash_readings(torch, fl, q, k, v, do,
+                                                     causal)
+                for kname in FLASH_NAMES:
+                    emit({"phase": "kernel", "name": kname, "dtype": name,
+                          "shape": label, "batch": B, "heads": H, "seq": S,
+                          "causal": causal,
+                          **check(kname, f"{name}, {label}", causal,
+                                  readings[kname])})
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
         B = FLASH_BATCH[name]
@@ -400,14 +438,24 @@ def phase_flash_kernel(torch, dev, timed=True):
                       "batch": B, "causal": True,
                       **check(kname, name, True, readings[kname])})
             continue
-        (o, lse), (o2, lse2) = fl.flash_fwd(q, k, v), fl.flash_fwd(q, k, v)
-        torch.cuda.synchronize()
-        # the recompute under remat must give the same bits
-        deterministic = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
-        if not deterministic:
-            failed.append(f"flash_fwd: two launches on the same inputs "
-                          f"differ ({name})")
-        del o, lse, o2, lse2
+        # two launches on the same inputs give the same bits (the forward's
+        # recompute under remat relies on it; the backward has no atomics)
+        twice = {
+            "flash_fwd": lambda: fl.flash_fwd(q, k, v),
+            "flash_bwd_dq": lambda: (fl.flash_bwd_dq(q, k, v, do, lse_ref,
+                                                     di),),
+            "flash_bwd_dkv": lambda: fl.flash_bwd_dkv(q, k, v, do, lse_ref,
+                                                      di)}
+        deterministic = {}
+        for kname, fn in twice.items():
+            first, second = fn(), fn()
+            torch.cuda.synchronize()
+            deterministic[kname] = all(
+                bool(torch.equal(a, b)) for a, b in zip(first, second))
+            if not deterministic[kname]:
+                failed.append(f"{kname}: two launches on the same inputs "
+                              f"differ ({name})")
+            del first, second
         # yardstick only (the port never calls it): SDPA forward, and its
         # backward alone (one call computing dq, dk and dv together)
         lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
@@ -444,8 +492,7 @@ def phase_flash_kernel(torch, dev, timed=True):
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "bytes": nbytes, "flops": flops}
-            if kname == "flash_fwd":
-                row["deterministic"] = deterministic
+            row["deterministic"] = deterministic[kname]
             rows.setdefault(kname, {})[name] = row
             emit({"phase": "kernel", "name": kname, **row})
         del q, k, v, do, lse_ref, di, readings, calls
@@ -634,11 +681,19 @@ def phase_engine(torch):
 
 
 # device time grouped by kernel name (the rest is "other"); the sm90
-# forwards are one template, told apart by their epilogue
-KERNEL_GROUPS = (("flash attention", ("flash_", "FlashFwdOut")),
+# forwards are one template, told apart by their epilogue, and the sm90
+# backward kernels are the flash backward's
+KERNEL_GROUPS = (("flash attention", ("flash_", "FlashFwdOut",
+                                      "attention_bwd_")),
                  ("ring attention", ("ring_block", "RingBlockOut")),
                  ("paged attention", ("paged_decode",)),
                  ("matrix products", ("nvjet", "gemm", "xmma", "cutlass")))
+
+
+def kernel_group(name):
+    """The KERNEL_GROUPS group of a device kernel's name, else "other"."""
+    return next((g for g, keys in KERNEL_GROUPS
+                 if any(k in name for k in keys)), "other")
 
 
 def profile_call(torch, fn):
@@ -670,8 +725,7 @@ def profile_call(torch, fn):
         by_name[name] = (total + end - start, count + 1)
     groups = {}
     for name, (total, _count) in by_name.items():
-        group = next((g for g, keys in KERNEL_GROUPS
-                      if any(k in name for k in keys)), "other")
+        group = kernel_group(name)
         groups[group] = groups.get(group, 0.0) + total
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {"wall_us": wall_us, "device_busy_us": busy,
@@ -1066,15 +1120,15 @@ def main() -> int:
                           ("flash_fwd", 758, "forward"),
                           ("flash_bwd_dq", 1456, "backward dq"),
                           ("flash_bwd_dkv", 1121, "backward dkv"))}
-    # the bf16 forwards are instances of the sm90 template, each built
-    # from its .cu with that file's epilogue
+    # the bf16 kernels are instances of the sm90 templates, each built from
+    # its .cu (the forward with that file's epilogue)
     sm90_source = "ray_tpu_torch/ops/csrc/attention_fwd_sm90.cuh"
     for name in FLASH_NAMES:
         row = flash_rows[name]["bfloat16"]
         table.append({
             "name": name, "route": "cuda",
             "source": (sm90_source if name == "flash_fwd" else
-                       "ray_tpu_torch/ops/csrc/flash_attention.cu"),
+                       "ray_tpu_torch/ops/csrc/attention_bwd_sm90.cuh"),
             "replaces": replaces[name], "launches": train_launches[name],
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})

@@ -25,9 +25,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "ray_tpu_torch" / "_build" / "mutants"
 CSRC = "ray_tpu_torch/ops/csrc/"
-CU = CSRC + "flash_attention.cu"
-TILES = CSRC + "mma_tiles.cuh"        # the mma.sync kernels' routines
+TILES = CSRC + "mma_tiles.cuh"        # the f32 kernels' routines, the mask
 SM90 = CSRC + "attention_fwd_sm90.cuh"   # the bf16 forwards (2 and 3a)
+BWD = CSRC + "attention_bwd_sm90.cuh"    # the bf16 backward (3c and 3b)
 
 # variant: (what it breaks, file, text, replacement)
 MUTANTS = {
@@ -37,19 +37,29 @@ MUTANTS = {
         "(every kernel: the bf16 and f32 forwards, dQ, dK/dV)",
         TILES, "(!causal || key <= query)",
         "(!causal || key <= query + (query >= 1024))"),
-    "bf16_cols": (
-        "mma.sync bf16 products with a k-major B operand (the backward's "
-        "P^T dO, dS K, dS^T Q) read n-tiles 2-3 and 6-7 from 0-1 and 4-5",
-        TILES, "ldb + 8 * (n + (lm >> 1))", "ldb + 8 * ((n & 5) + (lm >> 1))"),
+    "dk_lead": (
+        "the bf16 dK/dV kernel's dK += dS^T Q reads Q's second head_dim box "
+        "16 KB on (a 128-row box's size) instead of 8 KB (a 64-row box's): "
+        "the next stage's Q, or dO",
+        BWD, "value_tile(dk, dsa, sm.q[stage][0], kSmallBoxBytes);",
+        "value_tile(dk, dsa, sm.q[stage][0], kBoxBytes);"),
+    "lse_row": (
+        "the bf16 dK/dV kernel reads lse at its key row, not at the query "
+        "column",
+        BWD, "*reinterpret_cast<const float2*>(lse + 8 * n + 2 * t);",
+        "make_float2(lse[warp * 16 + g], lse[warp * 16 + g]);"),
     "p_high": (
-        "the bf16 forwards' P is 1% high in the P V product (o 1% high; "
-        "lse, m and l right)",
+        "every bf16 operand packed from registers is 1% high: the forwards' "
+        "P in P V (o 1% high; lse, m and l right) and the backward's P, dS "
+        "(pack_p, shared)",
         SM90, "__floats2bfloat162_rn(p0, p1)",
         "__floats2bfloat162_rn(p0 * 1.01f, p1 * 1.01f)"),
     "dq_bulk": (
-        "the dQ kernel's P is 2% low in query rows from 1024 on",
-        CU, "? expf(sc[n][e] * scale - lse_s[r])",
-        "? expf(sc[n][e] * scale - lse_s[r]) * (q0 + r < 1024 ? 1.f : 0.98f)"),
+        "the bf16 dQ kernel's P is 2% low in query rows from 1024 on",
+        BWD, "da[i] = pack_p(p0 * (dp[2 * i] - dr), p1 * (dp[2 * i + 1] - dr));",
+        "const float bulk = (hi ? row_hi : row_lo) < 1024 ? 1.f : 0.98f;\n"
+        "          da[i] = pack_p(bulk * p0 * (dp[2 * i] - dr),\n"
+        "                         bulk * p1 * (dp[2 * i + 1] - dr));"),
     "swap_dkdv": (
         "the autograd Function returns dv as k's gradient and dk as v's",
         "ray_tpu_torch/ops/flash.py", "return dq, dk, dv, None",
@@ -132,7 +142,8 @@ def summary(name: str, out: str) -> dict:
         elif obj.get("phase") == "kernel":
             for r in obj["outputs"]:
                 key = (f"{obj['name']}.{r['output']} {obj['dtype']}"
-                       f"{'' if obj['causal'] else ' non-causal'}")
+                       f"{'' if obj['causal'] else ' non-causal'}"
+                       f"{' ' + obj['shape'] if 'shape' in obj else ''}")
                 row["kernel"][key] = {k: r[k] for k in (
                     "max_abs_err", "err_over_bound", "rel_l2", "ok")}
         elif obj.get("phase") == "train_parity":

@@ -1,8 +1,9 @@
 // Attention forward for Hopper (sm_90a): one kernel template for the bf16
 // path of ring attention's block kernel (kernel 2, ring_attention.cu) and
 // of the flash forward (kernel 3a, flash_attention.cu). Each file
-// instantiates it with its own epilogue; their f32 paths keep the mma.sync
-// kernels of mma_tiles.cuh (wgmma has no f32, only TF32).
+// instantiates it with its own epilogue; their f32 paths keep the FMA
+// kernels of mma_tiles.cuh (wgmma has no f32, only TF32). The flash
+// backward (attention_bwd_sm90.cuh) is built on its primitives.
 //
 // The function, for one (batch, head) and the global offsets of the first
 // query and key (both 0 for the flash forward):
@@ -169,13 +170,15 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keeps the compiler from moving reads or writes of an asynchronous
 // product's registers (accumulator or A operand) across its wait
-__device__ __forceinline__ void pin(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void pin(uint32_t (&a)[32]) {
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&a)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(a[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // d (+)= A B, A [64 x 16] and B [16 x 128] from shared memory
@@ -212,6 +215,32 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (+)= A B, A [64 x 16] and B [16 x 64] from shared memory (the
+// backward's products over head_dim with 64 columns)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
@@ -259,10 +288,11 @@ __device__ __forceinline__ uint32_t pack_p(float p0, float p1) {
   return *reinterpret_cast<uint32_t*>(&pair);
 }
 
-// S = Q K^T for one warpgroup's 64 rows and a 128-key tile: head_dim in
-// two 64-column boxes, 16 columns per wgmma (32 bytes into each swizzled
-// 128-byte row)
-__device__ __forceinline__ void score_tile(float (&s)[64], const bf16* qa0,
+// S = Q K^T for one warpgroup's 64 rows and a tile of N/2 keys (N = 64:
+// 128 keys; N = 32: 64): head_dim in two 64-column boxes, 16 columns per
+// wgmma (32 bytes into each swizzled 128-byte row)
+template <int N>
+__device__ __forceinline__ void score_tile(float (&s)[N], const bf16* qa0,
                                            const bf16* qa1, const bf16* kb0,
                                            const bf16* kb1) {
 #pragma unroll
@@ -277,14 +307,17 @@ __device__ __forceinline__ void score_tile(float (&s)[64], const bf16* qa0,
   }
 }
 
-// O += P V: 16 keys per wgmma (two 8-key groups of 1024 bytes); N spans
-// both head_dim boxes of V, kBoxBytes apart
+// O += P V: 16 keys per wgmma (two 8-key groups of 1024 bytes), NA / 4
+// wgmmas; N spans both head_dim boxes of V, box_bytes apart (the size of
+// one box: kBoxBytes for 128-row boxes)
+template <int NA>
 __device__ __forceinline__ void value_tile(float (&o)[64],
-                                           const uint32_t (&pa)[32],
-                                           const bf16* vb) {
+                                           const uint32_t (&pa)[NA],
+                                           const bf16* vb,
+                                           uint32_t box_bytes) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    wgmma_rs(o, pa + 4 * kk, smem_desc(vb + kk * 16 * kHalf, kBoxBytes, 1024));
+  for (int kk = 0; kk < NA / 4; ++kk) {
+    wgmma_rs(o, pa + 4 * kk, smem_desc(vb + kk * 16 * kHalf, box_bytes, 1024));
   }
 }
 
@@ -498,7 +531,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int i = 0; i < 32; ++i) pa[i] = pack_p(s[2 * i], s[2 * i + 1]);
         wgmma_fence();
-        value_tile(o, pa, sm.v[stage][0]);
+        value_tile(o, pa, sm.v[stage][0], kBoxBytes);
         wgmma_commit();
         wgmma_wait<0>();
         pin(o);
@@ -551,10 +584,12 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 
 // The TMA map of a bf16 [B, H, T, 128] tensor with byte strides (sb, sh,
 // st) over (batch, head, sequence) and unit stride over head_dim, read in
-// boxes of 128 rows x 64 columns, 128-byte swizzled, zeros past the end.
+// boxes of box_rows rows x 64 columns, 128-byte swizzled, zeros past the
+// end.
 // Returns 0, a cudaError_t, or kEncodeError + the encoder's CUresult.
 inline int encode_map(CUtensorMap* map, const void* base, int B, int H,
-                      int T, long long sb, long long sh, long long st) {
+                      int T, long long sb, long long sh, long long st,
+                      int box_rows) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -571,7 +606,7 @@ inline int encode_map(CUtensorMap* map, const void* base, int B, int H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st, (cuuint64_t)sh,
                                  (cuuint64_t)sb};
-  const cuuint32_t box[4] = {kHalf, kKeys, 1, 1};
+  const cuuint32_t box[4] = {kHalf, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
@@ -597,9 +632,13 @@ int launch(const void* q, const void* k, const void* v, int B,
            cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
   const int Hkv = pr.H / pr.rep;
-  int rc = encode_map(&q_map, q, B, pr.H, pr.Tq, sq[0], sq[1], sq[2]);
-  if (rc == 0) rc = encode_map(&k_map, k, B, Hkv, pr.Tk, sk[0], sk[1], sk[2]);
-  if (rc == 0) rc = encode_map(&v_map, v, B, Hkv, pr.Tk, sv[0], sv[1], sv[2]);
+  int rc = encode_map(&q_map, q, B, pr.H, pr.Tq, sq[0], sq[1], sq[2], kRows);
+  if (rc == 0) {
+    rc = encode_map(&k_map, k, B, Hkv, pr.Tk, sk[0], sk[1], sk[2], kKeys);
+  }
+  if (rc == 0) {
+    rc = encode_map(&v_map, v, B, Hkv, pr.Tk, sv[0], sv[1], sv[2], kKeys);
+  }
   if (rc != 0) return rc;
   auto kernel = attention_fwd_kernel<CAUSAL, Epilogue>;
   cudaError_t err = cudaFuncSetAttribute(

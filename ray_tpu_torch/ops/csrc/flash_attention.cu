@@ -34,25 +34,28 @@
 // owns one output tile and loops over the other axis itself:
 //   forward: block = (b, h, query tile); loop over key tiles up to the
 //            diagonal; online softmax (m, l) per row; O in registers.
-//   dQ:      block = (b, h, 64-query tile); loop over key tiles up to the
+//   dQ:      block = (b, h, query tile); loop over key tiles up to the
 //            diagonal; dQ in registers.
-//   dK/dV:   block = (b, h, 64-key tile); loop over query tiles from the
+//   dK/dV:   block = (b, h, key tile); loop over query tiles from the
 //            diagonal on; dK and dV in registers.
 // Every output element is written by exactly one block and summed in a
 // fixed order: no atomics, so a launch is deterministic and the forward
 // recomputed under activation checkpointing is bit-identical.
-// The bf16 forward is flash_attention_fwd_sm90: the wgmma + TMA template
-// of attention_fwd_sm90.cuh (128-query blocks, 128-key tiles, P in
-// registers) with the epilogue FlashFwdOut below, which writes o / l in
-// bf16 and lse = m + log(l). The backward kernels, and the forward in f32,
-// stage tiles global -> shared memory with 16-byte loads; 8 warps each
-// compute a 16-row slice of every product (mma_tiles.cuh). bf16 products
-// run on the tensor cores with mma.sync m16n8k16 (f32 accumulate), fed by
-// ldmatrix; f32 products run as f32 FMAs in the same register layout (no
-// TF32). P and dS go through shared memory in the input dtype, as the
-// reference casts the probabilities to the compute dtype.
+// bf16 runs on wgmma + TMA:
+//   - the forward is flash_attention_fwd_sm90: the template of
+//     attention_fwd_sm90.cuh (128-query blocks, 128-key tiles, P in
+//     registers) with the epilogue FlashFwdOut below, which writes o / l
+//     in bf16 and lse = m + log(l);
+//   - the backward is flash_attention_bwd_dq_sm90 and
+//     flash_attention_bwd_dkv_sm90, the kernels of attention_bwd_sm90.cuh
+//     (128-query dQ blocks over 128-key tiles; 128-key dK/dV blocks over
+//     64-query tiles, computed transposed so that P^T and dS^T stay in
+//     registers).
+// f32 (all three kernels) stages 64-row tiles global -> shared memory with
+// 16-byte loads; 8 warps each compute a 16-row slice of every product as
+// f32 FMAs (mma_tiles.cuh, no TF32). P and dS go through shared memory.
 
-#include "attention_fwd_sm90.cuh"
+#include "attention_bwd_sm90.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
@@ -186,7 +189,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ----------------------------------------------------------------------
-// backward dQ (3c): block = (64-query tile, b*H + h)
+// backward dQ (3c), f32: block = (64-query tile, b*H + h)
 // ----------------------------------------------------------------------
 
 template <typename T>
@@ -267,7 +270,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ----------------------------------------------------------------------
-// backward dK/dV (3b): block = (64-key tile, b*H + h)
+// backward dK/dV (3b), f32: block = (64-key tile, b*H + h)
 // ----------------------------------------------------------------------
 
 template <typename T>
@@ -452,9 +455,13 @@ struct FlashFwdOut {
 }  // namespace
 
 // The entry points. q, k, v, o/do/dq/dk/dv share the strides
-// (sb, sh, ss) in elements over (batch, head, seq); head_dim D must be 128;
-// lse and di are [B, H, S] f32. causal: 0 or 1. dtype: 0 = float32,
-// 1 = bfloat16. Each returns the launch's cudaError_t.
+// (sb, sh, ss) over (batch, head, seq); head_dim D must be 128; lse and di
+// are [B, H, S] f32 contiguous. causal: 0 or 1. The f32 entries take the
+// strides in elements and a dtype code that must be 0 (float32); the
+// _sm90 entries (bf16 only) take them in BYTES (each a positive multiple
+// of 16, bases 16-byte aligned: what TMA takes). Each returns a
+// cudaError_t, the _sm90 entries also sm90::kEncodeError + the encoder's
+// CUresult when a TMA map is refused.
 
 // the forward in f32 (dtype 0); bf16 takes flash_attention_fwd_sm90
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -473,10 +480,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                                  s));
 }
 
-// the forward in bf16: the same arguments without dtype, the strides in
-// BYTES (each a positive multiple of 16, bases 16-byte aligned: what TMA
-// takes). Returns a cudaError_t, or sm90::kEncodeError + the encoder's
-// CUresult when a TMA map is refused.
+// the forward in bf16
 extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int B, int H, int S, int D,
@@ -495,6 +499,7 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
                 : sm90::launch<false>(q, k, v, B, st, st, st, pr, epi, s);
 }
 
+// backward dQ in f32 (dtype 0); bf16 takes flash_attention_bwd_dq_sm90
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* di,
@@ -504,21 +509,48 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       int device, void* stream) {
   cudaError_t err = check(B, H, S, D, device);
   if (err != cudaSuccess) return (int)err;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   const Geometry g{B, H, S, sb, sh, ss};
   const float scale = 1.0f / sqrtf((float)D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CALL_DQ(T, C) \
-  launch_dq<T, C>(q, k, v, dout, lse, di, dq, g, scale, s)
-  if (dtype == 0) {
-    return (int)(causal ? CALL_DQ(float, true) : CALL_DQ(float, false));
-  }
-  if (dtype == 1) {
-    return (int)(causal ? CALL_DQ(bf16, true) : CALL_DQ(bf16, false));
-  }
-#undef CALL_DQ
-  return (int)cudaErrorInvalidValue;
+  return (int)(causal ? launch_dq<float, true>(q, k, v, dout, lse, di, dq, g,
+                                                scale, s)
+                      : launch_dq<float, false>(q, k, v, dout, lse, di, dq,
+                                                 g, scale, s));
 }
 
+// the bf16 backward's problem: element strides for the outputs' stores
+static sm90::BwdProblem bwd_problem(int H, int S, int D, const void* lse,
+                                    const void* di, void* out0, void* out1,
+                                    long long sb, long long sh,
+                                    long long ss) {
+  const int elt = (int)sizeof(bf16);
+  return sm90::BwdProblem{H, S, 1.0f / sqrtf((float)D),
+                          static_cast<const float*>(lse),
+                          static_cast<const float*>(di),
+                          static_cast<bf16*>(out0), static_cast<bf16*>(out1),
+                          sb / elt, sh / elt, ss / elt};
+}
+
+// backward dQ in bf16
+extern "C" int flash_attention_bwd_dq_sm90(const void* q, const void* k,
+                                           const void* v, const void* dout,
+                                           const void* lse, const void* di,
+                                           void* dq, int B, int H, int S,
+                                           int D, long long sb, long long sh,
+                                           long long ss, int causal,
+                                           int device, void* stream) {
+  cudaError_t err = check(B, H, S, D, device);
+  if (err != cudaSuccess) return (int)err;
+  const sm90::BwdProblem pr =
+      bwd_problem(H, S, D, lse, di, dq, nullptr, sb, sh, ss);
+  const long long st[3] = {sb, sh, ss};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return causal ? sm90::launch_bwd<false, true>(q, k, v, dout, B, st, pr, s)
+                : sm90::launch_bwd<false, false>(q, k, v, dout, B, st, pr, s);
+}
+
+// backward dK/dV in f32 (dtype 0); bf16 takes flash_attention_bwd_dkv_sm90
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* di,
@@ -529,19 +561,33 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        void* stream) {
   cudaError_t err = check(B, H, S, D, device);
   if (err != cudaSuccess) return (int)err;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   const Geometry g{B, H, S, sb, sh, ss};
   const float scale = 1.0f / sqrtf((float)D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CALL_DKV(T, C) \
-  launch_dkv<T, C>(q, k, v, dout, lse, di, dk, dv, g, scale, s)
-  if (dtype == 0) {
-    return (int)(causal ? CALL_DKV(float, true) : CALL_DKV(float, false));
-  }
-  if (dtype == 1) {
-    return (int)(causal ? CALL_DKV(bf16, true) : CALL_DKV(bf16, false));
-  }
-#undef CALL_DKV
-  return (int)cudaErrorInvalidValue;
+  return (int)(causal ? launch_dkv<float, true>(q, k, v, dout, lse, di, dk,
+                                                 dv, g, scale, s)
+                      : launch_dkv<float, false>(q, k, v, dout, lse, di, dk,
+                                                  dv, g, scale, s));
+}
+
+// backward dK/dV in bf16
+extern "C" int flash_attention_bwd_dkv_sm90(const void* q, const void* k,
+                                            const void* v, const void* dout,
+                                            const void* lse, const void* di,
+                                            void* dk, void* dv, int B, int H,
+                                            int S, int D, long long sb,
+                                            long long sh, long long ss,
+                                            int causal, int device,
+                                            void* stream) {
+  cudaError_t err = check(B, H, S, D, device);
+  if (err != cudaSuccess) return (int)err;
+  const sm90::BwdProblem pr =
+      bwd_problem(H, S, D, lse, di, dk, dv, sb, sh, ss);
+  const long long st[3] = {sb, sh, ss};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return causal ? sm90::launch_bwd<true, true>(q, k, v, dout, B, st, pr, s)
+                : sm90::launch_bwd<true, false>(q, k, v, dout, B, st, pr, s);
 }
 
 extern "C" const char* error_string(int code) {

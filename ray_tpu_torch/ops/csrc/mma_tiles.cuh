@@ -1,12 +1,14 @@
-// Tile routines of the mma.sync attention kernels: the flash backward
-// kernels (flash_attention.cu: dQ, dK/dV) and the f32 instances of the
-// flash forward and of ring attention's block kernel (flash_attention.cu,
-// ring_attention.cu). The bf16 forwards run on attention_fwd_sm90.cuh.
+// Tile routines of the f32 attention kernels: the flash forward, dQ and
+// dK/dV (flash_attention.cu) and ring attention's block kernel
+// (ring_attention.cu) in f32. Every bf16 kernel runs on wgmma
+// (attention_fwd_sm90.cuh, attention_bwd_sm90.cuh); the constants, the
+// causal rule and the bf16 pair store here are shared with them.
 //
 // Shapes: head_dim kD = 128; a block owns a 64-row tile and loops over
 // 64-row tiles of the other operand; 8 warps, each computing a 16-row
-// slice of every product. Tiles are staged global -> shared memory with
-// 16-byte loads, rows padded by 16 bytes against bank conflicts.
+// slice of every product in the mma.sync m16n8 register layout, as f32
+// FMAs. Tiles are staged global -> shared memory with 16-byte loads, rows
+// padded by 16 bytes against bank conflicts.
 
 #pragma once
 
@@ -28,10 +30,6 @@ template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // whether a key at global position `key` is visible to a query at `query`
 __device__ __forceinline__ bool causal_visible(long long query,
@@ -54,70 +52,6 @@ __host__ __device__ constexpr int tile_ld(int cols) {
 //   A(i, k) = A_KC ? a[i*lda + k] : a[k*lda + i]
 //   B(k, j) = B_KC ? b[j*ldb + k] : b[k*ldb + j]
 // ----------------------------------------------------------------------
-
-// four 8x8 bf16 matrices from shared memory (ldmatrix): lanes 8m..8m+7
-// give the row addresses of matrix m; lane (g, t) receives, in r[m],
-// elements (g, 2t) and (g, 2t+1) of matrix m, or with TRANS (2t, g) and
-// (2t+1, g) — the mma.sync fragment layouts
-template <bool TRANS>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const bf16* row) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  if (TRANS) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-        "{%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-  } else {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-        "{%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// bf16: every operand tile is fed to mma.sync by ldmatrix. A is always
-// k-contiguous; B is read transposed when it is stored k-major.
-template <int NT, int K, bool A_KC, bool B_KC>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4],
-                                         const bf16* a, int lda,
-                                         const bf16* b, int ldb) {
-  static_assert(A_KC && NT % 2 == 0, "A k-contiguous, n-tiles in pairs");
-  const int lane = threadIdx.x & 31;
-  const int lr = lane & 7, lm = lane >> 3;   // row in, and index of, matrix
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    // a0..a3: rows 0-7 / 8-15 x k 0-7, then the same x k 8-15
-    uint32_t af[4];
-    ldmatrix_x4<false>(af, a + ((lm & 1) * 8 + lr) * lda + k0 + (lm >> 1) * 8);
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      // b0, b1 of n-tile n, then of n-tile n + 1
-      uint32_t bf[4];
-      if (B_KC) {
-        ldmatrix_x4<false>(
-            bf, b + (8 * (n + (lm >> 1)) + lr) * ldb + k0 + (lm & 1) * 8);
-      } else {
-        ldmatrix_x4<true>(
-            bf, b + (k0 + (lm & 1) * 8 + lr) * ldb + 8 * (n + (lm >> 1)));
-      }
-      mma_bf16(acc[n], af, bf[0], bf[1]);
-      mma_bf16(acc[n + 1], af, bf[2], bf[3]);
-    }
-  }
-}
 
 template <int NT, int K, bool A_KC, bool B_KC>
 __device__ __forceinline__ void warp_mma(float (&acc)[NT][4],

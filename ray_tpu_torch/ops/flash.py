@@ -11,10 +11,12 @@ its custom VJP. Here the three are hand-written CUDA C++
   - ``flash_bwd_dkv``: dk and dv from the same.
 
 ``di`` is computed in PyTorch between forward and backward, as the library
-computes it outside its kernels. The bf16 forward runs on the Hopper
-kernel shared with ring attention's block (``flash_attention_fwd_sm90``:
-wgmma, TMA-fed K/V tiles, byte strides); the f32 forward and both
-backward kernels on the mma.sync kernels. Each of the three wrappers
+computes it outside its kernels. In bf16 the three run on Hopper's wgmma
+with TMA-fed tiles and take byte strides: the forward on the kernel
+shared with ring attention's block (``flash_attention_fwd_sm90``), the
+backward on ``flash_attention_bwd_dq_sm90`` and
+``flash_attention_bwd_dkv_sm90`` (``csrc/attention_bwd_sm90.cuh``). In f32
+all three run on FMA kernels (wgmma has no f32). Each of the three wrappers
 takes its plain PyTorch version (``_flash_fwd_reference``,
 ``_flash_bwd_dq_reference``, ``_flash_bwd_dkv_reference``) for a CPU
 tensor, and for a CUDA tensor launches its kernel or raises: there is no
@@ -143,10 +145,15 @@ def _check(name: str, tensors, rows, tma: bool = False) -> None:
                          "rows")
     if tma and not all(0 < s * q.element_size() < _TMA_MAX_STRIDE
                        for s in q.stride()[:3]):
-        raise ValueError(f"{name}: the bf16 kernel reads q, k and v through "
+        raise ValueError(f"{name}: the bf16 kernel reads its inputs through "
                          f"TMA, which takes (batch, head, sequence) strides "
                          f"of 16 to 2^40 bytes, got {q.stride()[:3]} "
                          f"elements")
+    if torch.empty_like(q).stride() != q.stride():
+        raise ValueError(f"{name}: q, k, v (and do) must not overlap "
+                         f"(strides {q.stride()}): the outputs take q's "
+                         f"strides, and an overlapping q's cannot be "
+                         f"allocated")
     B, H, S, _D = q.shape
     if any(r.dtype != torch.float32 or r.shape != (B, H, S)
            or not r.is_contiguous() for r in rows):
@@ -197,12 +204,15 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_bwd_dq(q, k, v, do, lse, di, causal: bool = True) -> torch.Tensor:
-    """Kernel 3c: dq, in q's dtype and strides."""
+    """Kernel 3c: dq, in q's dtype and strides. bf16 runs the Hopper
+    kernel, f32 the FMA kernel."""
     if q.device.type == "cpu":
         return _flash_bwd_dq_reference(q, k, v, do, lse, di, causal)
-    _check("flash_bwd_dq", (q, k, v, do), (lse, di))
+    sm90 = q.dtype == torch.bfloat16
+    _check("flash_bwd_dq", (q, k, v, do), (lse, di), tma=sm90)
     dq = torch.empty_like(q)
-    _launch("flash_attention_bwd_dq", (q, k, v, do), (lse, di), (dq,),
+    _launch("flash_attention_bwd_dq_sm90" if sm90
+            else "flash_attention_bwd_dq", (q, k, v, do), (lse, di), (dq,),
             causal)
     flash_bwd_dq.launches += 1
     return dq
@@ -210,14 +220,17 @@ def flash_bwd_dq(q, k, v, do, lse, di, causal: bool = True) -> torch.Tensor:
 
 def flash_bwd_dkv(q, k, v, do, lse, di, causal: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 3b: (dk, dv), in q's dtype and strides."""
+    """Kernel 3b: (dk, dv), in q's dtype and strides. bf16 runs the Hopper
+    kernel, f32 the FMA kernel."""
     if q.device.type == "cpu":
         return _flash_bwd_dkv_reference(q, k, v, do, lse, di, causal)
-    _check("flash_bwd_dkv", (q, k, v, do), (lse, di))
+    sm90 = q.dtype == torch.bfloat16
+    _check("flash_bwd_dkv", (q, k, v, do), (lse, di), tma=sm90)
     dk = torch.empty_like(q)
     dv = torch.empty_like(q)
-    _launch("flash_attention_bwd_dkv", (q, k, v, do), (lse, di), (dk, dv),
-            causal)
+    _launch("flash_attention_bwd_dkv_sm90" if sm90
+            else "flash_attention_bwd_dkv", (q, k, v, do), (lse, di),
+            (dk, dv), causal)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -228,8 +241,9 @@ flash_bwd_dkv.launches = 0
 
 # C signatures of csrc/flash_attention.cu's entry points: the tensor
 # pointers; B, H, S, D; the (batch, head, seq) strides in elements; causal,
-# dtype code, device index; stream. The bf16 forward (_sm90): strides in
-# bytes and no dtype code. Each returns the launch's cudaError_t.
+# dtype code, device index; stream. The bf16 entries (_sm90): strides in
+# bytes and no dtype code. Each returns the launch's cudaError_t (the
+# _sm90 entries also 1000 + a CUresult for a refused TMA map).
 _TAIL = ([ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
          + [ctypes.c_void_p])
 _TAIL_SM90 = ([ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
@@ -239,8 +253,12 @@ _SIGNATURES = {
     "flash_attention_fwd_sm90": (ctypes.c_int,
                                  [ctypes.c_void_p] * 5 + _TAIL_SM90),
     "flash_attention_bwd_dq": (ctypes.c_int, [ctypes.c_void_p] * 7 + _TAIL),
+    "flash_attention_bwd_dq_sm90": (ctypes.c_int,
+                                    [ctypes.c_void_p] * 7 + _TAIL_SM90),
     "flash_attention_bwd_dkv": (ctypes.c_int,
                                 [ctypes.c_void_p] * 8 + _TAIL),
+    "flash_attention_bwd_dkv_sm90": (ctypes.c_int,
+                                     [ctypes.c_void_p] * 8 + _TAIL_SM90),
 }
 
 

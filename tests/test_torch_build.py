@@ -88,6 +88,14 @@ def test_build_failure_raises_with_nvcc_stderr(tmp_path, build_dir,
      "(anonymous namespace)::sm90::Problem, "
      "(anonymous namespace)::RingBlockOut)",
      "attention_fwd_kernel<true, (anonymous namespace)::RingBlockOut>"),
+    ("void (anonymous namespace)::sm90::attention_bwd_dq_kernel<true>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::sm90::BwdProblem)",
+     "attention_bwd_dq_kernel<true>"),
+    ("void (anonymous namespace)::sm90::attention_bwd_dkv_kernel<false>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::sm90::BwdProblem)",
+     "attention_bwd_dkv_kernel<false>"),
     ("void k(int)", "k")])
 def test_kernel_names_keep_namespaced_template_arguments(signature, name):
     assert _build._drop_arguments(signature) == name

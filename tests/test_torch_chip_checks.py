@@ -155,3 +155,72 @@ def test_logit_diff():
     want = float((b - a).norm() / a.norm())
     assert abs(d["rel_l2"] - want) < 1e-6 * want
     assert d["max_abs_err"] == float((b - a).abs().max())
+
+
+def _sass(*funcs):
+    """cuobjdump -sass text: one "Function : name" section per (name,
+    body)."""
+    return "".join(f"\tFunction : {name}\n{body}\n" for name, body in funcs)
+
+
+_BWD_DQ = "_ZN3sm9023attention_bwd_dq_kernelILb1EEEv"
+_BWD_DKV = "_ZN3sm9024attention_bwd_dkv_kernelILb1EEEv"
+
+
+@pytest.mark.parametrize("case, problems", [
+    ("sound", []),
+    ("no_hgmma", ["instances without HGMMA/UTMALDG"]),
+    ("spills", ["instances spill 8 bytes"]),
+    ("few_registers", ["registers [128] (need 168)"]),
+    ("missing", ["instances without HGMMA/UTMALDG", "registers [] (need 168)"]),
+])
+def test_sm90_instances(case, problems):
+    """The build check of one sm90 template's instances in a library: the
+    backward's dQ instance must carry HGMMA and UTMALDG, no spills and the
+    registers the setmaxnreg split needs; the dK/dV instance beside it is
+    not counted as dQ's."""
+    body = "UTMALDG.4D [UR8] ;\nHGMMA.64x128x16.F32.BF16 R24 ;"
+    regs, spill = 168, 0
+    if case == "no_hgmma":
+        body = "UTMALDG.4D [UR8] ;"
+    elif case == "spills":
+        spill = 8
+    elif case == "few_registers":
+        regs = 128
+    funcs = [(_BWD_DKV, "HGMMA UTMALDG")]
+    report = {"attention_bwd_dkv_kernel<true>": "Used 168 registers"}
+    if case != "missing":
+        funcs.append((_BWD_DQ, body))
+        report["attention_bwd_dq_kernel<true>"] = (
+            f"0 bytes stack frame, {spill} bytes spill stores, 0 bytes "
+            f"spill loads; Used {regs} registers, used 1 barriers")
+    log = "ptxas warning : setmaxnreg ignored" if case == "few_registers" else ""
+    row, found = chip_smoke.sm90_instances(
+        "attention_bwd_dq_kernel", _sass(*funcs), report, log)
+    assert [p.split(": ", 1)[1] for p in found] == problems
+    assert row["instances"] == (0 if case == "missing" else 1)
+    assert len(row["ptxas_warnings"]) == (case == "few_registers")
+
+
+def test_every_flash_kernel_is_checked_as_sm90():
+    assert chip_smoke.SM90_KERNELS["flash_attention"] == (
+        "attention_fwd_kernel", "attention_bwd_dq_kernel",
+        "attention_bwd_dkv_kernel")
+    assert chip_smoke.SM90_MIN_REGISTERS == 168
+
+
+@pytest.mark.parametrize("name, group", [
+    ("void (anonymous namespace)::sm90::attention_bwd_dq_kernel<true>"
+     "(CUtensorMap_st, CUtensorMap_st)", "flash attention"),
+    ("void (anonymous namespace)::sm90::attention_bwd_dkv_kernel<true>"
+     "(CUtensorMap_st)", "flash attention"),
+    ("void (anonymous namespace)::sm90::attention_fwd_kernel<true, "
+     "(anonymous namespace)::FlashFwdOut>(CUtensorMap_st)", "flash attention"),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<float, true>(float "
+     "const*)", "flash attention"),
+    ("void (anonymous namespace)::sm90::attention_fwd_kernel<true, "
+     "(anonymous namespace)::RingBlockOut>(CUtensorMap_st)", "ring attention"),
+    ("nvjet_hsh_256x128_64x4_1x2_h_bz_coopA_NTT", "matrix products"),
+    ("void at::native::elementwise_kernel<128, 2>", "other")])
+def test_kernel_group(name, group):
+    assert chip_smoke.kernel_group(name) == group

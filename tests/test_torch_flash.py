@@ -192,22 +192,50 @@ def test_bf16_forward_reaches_the_sm90_entry_with_byte_strides(recorded):
     assert lse.shape == (2, 4, 37) and lse.dtype == torch.float32
 
 
-def test_f32_forward_and_bf16_backward_reach_the_mma_kernels(recorded):
-    """f32 forwards take the FMA kernel (element strides, dtype code 0);
-    the backward kernels keep their entry points in bf16 (dtype code 1)."""
-    q, k, v = (_model_view(torch.float32) for _ in range(3))
-    tf.flash_fwd(q, k, v, causal=False)
-    qb, kb, vb, dob = (_model_view(torch.bfloat16) for _ in range(4))
+_BACKWARD = ("flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _call(kernel, dtype):
+    """One wrapper on the model's [B, 37, 4, 128] views: the forward on
+    (q, k, v), a backward kernel on (q, k, v, do, lse, di) whose lse/di head
+    rows are 37 * 4 = 148 bytes apart (not 16-byte aligned)."""
+    q, k, v, do = (_model_view(dtype) for _ in range(4))
+    if kernel == "flash_fwd":
+        return tf.flash_fwd(q, k, v)
     rows = torch.empty((2, 4, 37), device="meta")
-    tf.flash_bwd_dq(qb, kb, vb, dob, rows, rows)
-    tf.flash_bwd_dkv(qb, kb, vb, dob, rows, rows)
-    names = [name for name, _args in recorded.calls]
-    assert names == ["flash_attention_fwd", "flash_attention_bwd_dq",
-                     "flash_attention_bwd_dkv"]
-    assert recorded.calls[0][1][5:] == (2, 4, 37, 128, 37 * 4 * 128, 128,
-                                        512, 0, 0, 0, 0)
-    assert recorded.calls[1][1][7:] == (2, 4, 37, 128, 37 * 4 * 128, 128,
-                                        512, 1, 1, 0, 0)
+    return getattr(tf, kernel)(q, k, v, do, rows, rows)
+
+
+@pytest.mark.parametrize("dtype, kernel, entry, n_ptrs, tail", [
+    # bf16 backward: the sm90 entries, byte strides of [B, S, H, D] bf16,
+    # no dtype code; causal, device, stream
+    (torch.bfloat16, "flash_bwd_dq", "flash_attention_bwd_dq_sm90", 7,
+     (37 * 4 * 256, 256, 1024, 1, 0, 0)),
+    (torch.bfloat16, "flash_bwd_dkv", "flash_attention_bwd_dkv_sm90", 8,
+     (37 * 4 * 256, 256, 1024, 1, 0, 0)),
+    # f32: the FMA entries, element strides, dtype code 0
+    (torch.float32, "flash_fwd", "flash_attention_fwd", 5,
+     (37 * 4 * 128, 128, 512, 1, 0, 0, 0)),
+    (torch.float32, "flash_bwd_dq", "flash_attention_bwd_dq", 7,
+     (37 * 4 * 128, 128, 512, 1, 0, 0, 0)),
+    (torch.float32, "flash_bwd_dkv", "flash_attention_bwd_dkv", 8,
+     (37 * 4 * 128, 128, 512, 1, 0, 0, 0))])
+def test_kernels_reach_their_entries(recorded, dtype, kernel, entry, n_ptrs,
+                                     tail):
+    """bf16 dq and dk/dv reach the sm90 entries with byte strides; f32
+    stays on the FMA entries. Each wrapper counts one launch and returns
+    outputs in q's dtype and strides."""
+    wrapper = getattr(tf, kernel)
+    before = wrapper.launches
+    outs = _call(kernel, dtype)
+    assert wrapper.launches == before + 1
+    (name, args), = recorded.calls
+    assert name == entry and len(args) == n_ptrs + 4 + len(tail)
+    assert args[n_ptrs:] == (2, 4, 37, 128, *tail)
+    q = _model_view(dtype)
+    outs = (outs,) if kernel == "flash_bwd_dq" else outs
+    mats = outs if kernel != "flash_fwd" else outs[:1]
+    assert all(o.dtype == dtype and o.stride() == q.stride() for o in mats)
 
 
 def test_bf16_forward_rejects_strides_tma_cannot_take(recorded):
@@ -219,3 +247,35 @@ def test_bf16_forward_rejects_strides_tma_cannot_take(recorded):
     with pytest.raises(ValueError, match="TMA"):
         tf.flash_fwd(q, q, q)
     assert not recorded.calls and tf.flash_fwd.launches == before
+
+
+@pytest.mark.parametrize("kernel", _BACKWARD)
+def test_bf16_backward_rejects_strides_tma_cannot_take(recorded, kernel):
+    """The bf16 backward reads q, k, v and do through TMA: a zero head
+    stride raises ValueError before any launch, and no launch is counted."""
+    q = torch.empty((2, 1, 37, 128), dtype=torch.bfloat16,
+                    device="meta").expand(2, 4, 37, 128)
+    rows = torch.empty((2, 4, 37), device="meta")
+    wrapper = getattr(tf, kernel)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="TMA"):
+        wrapper(q, q, q, q, rows, rows)
+    assert not recorded.calls and wrapper.launches == before
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", *_BACKWARD])
+def test_f32_refuses_overlapping_inputs(recorded, kernel):
+    """The outputs take q's strides; an expanded q (head stride 0) has
+    strides no output can be allocated with, so the wrappers raise before
+    any launch rather than let every head write one place."""
+    q = torch.empty((2, 1, 37, 128), dtype=torch.float32,
+                    device="meta").expand(2, 4, 37, 128)
+    rows = torch.empty((2, 4, 37), device="meta")
+    wrapper = getattr(tf, kernel)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="overlap"):
+        if kernel == "flash_fwd":
+            wrapper(q, q, q)
+        else:
+            wrapper(q, q, q, q, rows, rows)
+    assert not recorded.calls and wrapper.launches == before
