@@ -5,9 +5,10 @@
 
 Copies ray_tpu_torch and chip_smoke.py once per variant into
 ray_tpu_torch/_build/mutants/<variant>/ (listed in .gitignore), breaks each
-copy in one place (MUTANTS), builds every copy's flash and ring kernels at
-once, and runs chip_smoke's flash kernel checks and ring block checks (no
-timing) and its train_parity phase on each copy, one subprocess at a time.
+copy in one place (MUTANTS), builds every copy's paged, flash and ring
+kernels at once, and runs chip_smoke's paged attention checks, flash kernel
+checks and ring block checks (no timing) and its train_parity phase on
+each copy, one subprocess at a time.
 "sound" is the unbroken source, run the same way. Prints one JSON line per
 variant: which checks rejected it, and the worst reading of each output.
 Exits 0 when the sound copy passes every check and every broken copy is
@@ -28,6 +29,7 @@ CSRC = "ray_tpu_torch/ops/csrc/"
 TILES = CSRC + "mma_tiles.cuh"        # the f32 kernels' routines, the mask
 SM90 = CSRC + "attention_fwd_sm90.cuh"   # the bf16 forwards (2 and 3a)
 BWD = CSRC + "attention_bwd_sm90.cuh"    # the bf16 backward (3c and 3b)
+PAGED = CSRC + "paged_attention.cu"      # kernel 1: split and merge
 
 # variant: (what it breaks, file, text, replacement)
 MUTANTS = {
@@ -75,6 +77,24 @@ MUTANTS = {
         "h / (H / Hkv)",
         SM90, "const int hk = h / pr.rep;",
         "const int hk = h % (pr.H / pr.rep);"),
+    "paged_merge_last": (
+        "kernel 1's merge leaves out the last split of every row",
+        PAGED, "for (int s = 0; s < S; ++s) {",
+        "for (int s = 0; s < S - 1; ++s) {"),
+    "paged_tail": (
+        "kernel 1's tail mask lets one token past seq_len through (within "
+        "the pages it loaded)",
+        PAGED, "const int n_tok = min(len - start, n_pages * page);",
+        "const int n_tok = min(len - start + 1, n_pages * page);"),
+    "paged_gqa_mod": (
+        "kernel 1 maps query head j to KV head j % KV, not j / G",
+        PAGED, "auto head = [&](int g) { return kvh * G + g; };",
+        "auto head = [&](int g) { return kvh + g * KV; };"),
+    "paged_table_late": (
+        "kernel 1 reads the page table one logical page late (the last "
+        "entry of the row for the last page)",
+        PAGED, "? page_table[(size_t)b * MP + first + lane]",
+        "? page_table[(size_t)b * MP + min(first + lane + 1, MP - 1)]"),
 }
 
 
@@ -96,8 +116,8 @@ def make_copy(name: str) -> Path:
 
 
 def child(root: str) -> int:
-    """In a copy: the flash kernel checks, the ring block checks and
-    train_parity, each caught."""
+    """In a copy: the paged attention checks, the flash kernel checks, the
+    ring block checks and train_parity, each caught."""
     sys.path.insert(0, root)
     import torch
 
@@ -109,6 +129,8 @@ def child(root: str) -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     verdict = {}
     for check, fn in (
+            ("paged_kernel", lambda: chip_smoke.phase_kernel(torch, dev,
+                                                             timed=False)),
             ("kernel", lambda: chip_smoke.phase_flash_kernel(torch, dev,
                                                              timed=False)),
             ("ring_kernel", lambda: chip_smoke.phase_ring_kernel(
@@ -125,14 +147,22 @@ def child(root: str) -> int:
 
 def summary(name: str, out: str) -> dict:
     """One line: the verdicts and the worst reading of each output."""
-    row = {"variant": name, "breaks": MUTANTS[name][0], "kernel": {},
-           "ring_kernel": {}, "train_parity": {}}
+    row = {"variant": name, "breaks": MUTANTS[name][0], "paged_kernel": {},
+           "kernel": {}, "ring_kernel": {}, "train_parity": {}}
     for line in out.splitlines():
         if not line.startswith("{"):
             continue
         obj = json.loads(line)
         if "verdict" in obj:
             row["verdict"] = obj["verdict"]
+        elif obj.get("name") == "paged_decode_attention":
+            key = obj["shape"] + (f" {obj['dtype']}" if "dtype" in obj
+                                  else "")
+            row["paged_kernel"][key] = {k: obj[k] for k in (
+                "max_abs_err", "failed", "deterministic",
+                "graph_bit_identical") if k in obj}
+            if "failed" in obj:
+                row["paged_kernel"][key]["failed"] = len(obj["failed"])
         elif obj.get("name") == "ring_block_attention":
             key = f"{obj['block']} {obj['dtype']}"
             row["ring_kernel"][key] = {
@@ -163,7 +193,8 @@ def main() -> int:
     roots = {name: make_copy(name) for name in MUTANTS}
     build = ("import sys; sys.path.insert(0, sys.argv[1]); "
              "from ray_tpu_torch.ops import _build; "
-             "_build.build_all(['flash_attention', 'ring_attention'])")
+             "_build.build_all(['paged_attention', 'flash_attention', "
+             "'ring_attention'])")
     procs = [subprocess.Popen([sys.executable, "-c", build, str(r)])
              for r in roots.values()]
     if any(p.wait() for p in procs):

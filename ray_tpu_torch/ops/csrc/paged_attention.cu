@@ -9,31 +9,53 @@
 //   q [B, H, D], k_pages/v_pages [P, KV, page, D] (bf16 or f32, one dtype),
 //   page_table [B, MP] int32, seq_lens [B] int32  ->  out [B, H, D] f32.
 //   Query head j reads KV head j / G (G = H / KV). Positions >= seq_len are
-//   masked; seq_len == 0 gives zeros (acc / max(l, 1e-30) with l = 0).
+//   masked (and positions past the table, >= MP * page); seq_len == 0 gives
+//   zeros (acc / max(l, 1e-30) with l = 0).
 //
 // Bound: bytes. A call must read the K and V rows of every valid token
 // (sum(seq_len) x KV x D x 2 tensors x dtype bytes) plus q, the page table
 // and the lengths, and write the f32 output. It does one multiply-add (2
 // flops) per K or V element for each query head of the group: with G = 2
 // and bf16 that is 2 flops per byte read, far below the H100's ~295
-// flops/byte balance point. The least time is therefore bytes / 3.35 TB/s.
+// flops/byte balance point. The least time is therefore bytes / 3.35 TB/s,
+// and tensor cores buy nothing: a wgmma tile of 64 query rows would be 97%
+// padding at G = 2. All the arithmetic is f32 FMA in registers.
 //
-// Design. The TPU kernel walks a sequential (batch, page) grid and carries
-// the online-softmax state across grid steps in VMEM scratch. Hopper runs
-// blocks in parallel and in no order, so here one thread block owns one
-// (sequence, KV head) and loops over the sequence's logical pages itself,
-// reading page_table[b, p] (there is no scalar prefetch). Each page's K and
-// V tiles (page x D: 16 x 128 bf16 = 4 KiB each) are staged into shared
-// memory with coalesced 16-byte loads. The G query heads that share the KV
-// head score each token with one warp per token (lanes split D, butterfly
-// shuffle reduction). The online softmax (m, l, acc) runs in f32 registers,
-// one thread per output column. The tail of the last page is masked by
-// seq_len. The kernel allocates nothing and launches on the caller's stream.
-//
-// Later work, not done here: split-K over pages (B x KV blocks is only 256
-// blocks for 132 SMs at the serving shape, and fewer for short batches),
-// and cp.async/TMA double-buffering so the next page's tiles load while the
-// current page's math runs.
+// Design (flash-decoding). The TPU kernel walks a sequential (sequence,
+// page) grid with its online-softmax state in VMEM. Here the grid is
+// S x KV x B blocks of 128 threads: block (s, kvh, b) owns the logical
+// pages [s * pps, (s + 1) * pps) of sequence b for KV head kvh and the G
+// query heads that read it. The wrapper picks pps (pages per split) and
+// S = ceil(MP / pps) from the shapes alone, never from seq_lens (which is
+// on the device), so the launch is the same for every length and can be
+// captured in a CUDA graph.
+//   - Copies: a (physical page, KV head) tile of K or V is one contiguous,
+//     16-byte-aligned run of page * D elements (4 KiB in bf16 at page 16),
+//     so it is one cp.async.bulk on the bulk-copy engine, completing on its
+//     own mbarrier; no tensor map. Lane p of warp 0 reads page p's table
+//     entry (while the length loads) and issues its K and V copies, all up
+//     front, while the other warps load q: scores start when the first K
+//     tile lands while the rest are in flight. Many small blocks per SM
+//     keep more copies in flight. At most 32 pages per split (one lane
+//     each).
+//   - Scores: 16 lanes per token, each holding 8 elements of the G query
+//     rows in f32 (q pre-scaled by log2(e) / sqrt(D)), one 16-byte
+//     shared-memory read of K per lane (two in f32), FMAs, a 4-step shuffle
+//     reduction over the 16 lanes; 8 tokens per pass of the block.
+//   - Softmax over the split's tokens, exact (all scores are in shared
+//     memory): one warp per query row, max, p = exp2(s - m), l = sum p.
+//   - P V: one output column per thread, G accumulators, V read from
+//     shared memory as each V tile lands.
+//   - S == 1: the block writes acc / max(l, 1e-30). S > 1: it writes the
+//     unnormalised f32 partial o [B, H, S, D] and m, l [B, H, S] (m in log2
+//     units) to a workspace the wrapper allocates, and a second kernel,
+//     paged_decode_merge_kernel, combines each (b, head)'s splits in the
+//     fixed order s = 0 .. S - 1. A split past its sequence's end writes
+//     the empty partial m = -1e30, l = 0, o = 0, which adds nothing. No
+//     atomics: two launches give the same bits.
+// The split kernel is instantiated per dtype and group size G = 1 .. 8, so
+// the G query rows take 8 * G registers a thread. The kernels allocate
+// nothing and launch on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,186 +63,390 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kHeadDim = 128;
+constexpr int kThreads = 128;            // one output column per thread
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 8;
+constexpr int kMaxPagesPerSplit = 32;    // one lane of warp 0 per page
+constexpr int kLanesPerToken = 16;       // 16 lanes x 8 elements = one row
+constexpr int kTokensPerPass = kThreads / kLanesPerToken;
 constexpr float kNegInf = -1e30f;
+static_assert(kHeadDim == kThreads, "one output column per thread");
+static_assert(kHeadDim == kLanesPerToken * 8, "8 elements per lane");
+
+// Shared memory of a split block: K tiles [pps][page][D], V tiles
+// [pps][page][D], probabilities [G][pps * page] f32, 2 * pps mbarriers (one
+// per K tile, then one per V tile), the G query rows' m and l, and the
+// sequence's length. Tiles
+// are multiples of 256 bytes, so each starts 16-byte aligned as
+// cp.async.bulk requires.
+struct Layout {
+  size_t v, probs, bars, rows, total;
+};
+
+__host__ __device__ inline Layout split_layout(int pps, int page, int G,
+                                               int elt) {
+  const size_t tile = (size_t)page * kHeadDim * elt;
+  Layout L;
+  L.v = (size_t)pps * tile;
+  L.probs = 2 * (size_t)pps * tile;
+  L.bars = L.probs + ((size_t)G * pps * page * sizeof(float) + 7) / 8 * 8;
+  L.rows = L.bars + 2 * (size_t)pps * sizeof(uint64_t);
+  L.total = L.rows + (2 * (size_t)G + 1) * sizeof(float);
+  return L;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of copies on this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// until phase 0 has completed (each barrier is used once)
+__device__ __forceinline__ void mbar_wait0(uint64_t* bar) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr)
+        : "memory");
+  }
+}
+
+// `bytes` contiguous bytes global -> shared on the bulk-copy engine,
+// completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T, int D>
+// 8 consecutive elements -> f32 (16-byte aligned: one 16-byte read in bf16,
+// two in f32)
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                    const T* __restrict__ v_pages,
-                    const int* __restrict__ page_table,
-                    const int* __restrict__ seq_lens, float* __restrict__ out,
-                    int H, int KV, int page, int MP, float scale) {
-  static_assert(D % 32 == 0, "head_dim must split evenly over a warp");
-  constexpr int kPerLane = D / 32;                           // score phase
-  constexpr int kPerThread = (D + kThreads - 1) / kThreads;  // output cols
-  const int G = H / KV;
-  const int b = blockIdx.x / KV;
-  const int kvh = blockIdx.x % KV;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+paged_decode_split_kernel(const T* __restrict__ q,
+                          const T* __restrict__ k_pages,
+                          const T* __restrict__ v_pages,
+                          const int* __restrict__ page_table,
+                          const int* __restrict__ seq_lens,
+                          float* __restrict__ out,
+                          float* __restrict__ work, int H, int KV, int page,
+                          int MP, int pps, float q_scale) {
+  constexpr int D = kHeadDim;
+  const int s = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int S = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the query head of group row g
+  auto head = [&](int g) { return kvh * G + g; };
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* k_tile = reinterpret_cast<T*>(smem);                    // [page][D]
-  T* v_tile = k_tile + page * D;                             // [page][D]
-  float* scores = reinterpret_cast<float*>(v_tile + page * D);  // [G][page]
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L = split_layout(pps, page, G, sizeof(T));
+  const int tile = page * D;
+  T* k_tiles = reinterpret_cast<T*>(smem);
+  T* v_tiles = reinterpret_cast<T*>(smem + L.v);
+  float* probs = reinterpret_cast<float*>(smem + L.probs);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  float* row_m = reinterpret_cast<float*>(smem + L.rows);
+  float* row_l = row_m + G;
 
-  // this lane's D-slice of the group's query rows, in f32
-  const T* qb = q + ((size_t)b * H + (size_t)kvh * G) * D;
-  float qr[kMaxGroup][kPerLane];
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      qr[g][j] = g < G ? to_float(qb[g * D + lane * kPerLane + j]) : 0.f;
+  // partials: o [B, H, S, D], then m [B, H, S], then l [B, H, S]
+  const size_t n_rows = (size_t)gridDim.z * H * S;
+  float* part_o = work;
+  float* part_m = work + n_rows * D;
+  float* part_l = part_m + n_rows;
+
+  const int first = s * pps;            // first logical page of the split
+  const int start = first * page;       // its first token
+  const int n_table = min(pps, MP - first);
+  // the pages to load for a length
+  auto pages_for = [&](int len) {
+    return len <= start ? 0 : min(n_table, (len - start + page - 1) / page);
+  };
+  int* len_s = reinterpret_cast<int*>(row_l + G);
+  if (warp == 0) {
+    // warp 0: lane p reads page p's table entry while the length loads,
+    // then issues page p's K tile (barrier p) and V tile (n_pages + p)
+    const int phys = lane < n_table
+                         ? page_table[(size_t)b * MP + first + lane]
+                         : 0;
+    const int len = seq_lens[b];
+    const int n_pages = pages_for(len);
+    if (lane == 0) {
+      *len_s = len;
+      for (int i = 0; i < 2 * n_pages; ++i) mbar_init(&bars[i]);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();
+    if (lane < n_pages) {
+      const size_t off = ((size_t)phys * KV + kvh) * (size_t)tile;
+      const uint32_t bytes = (uint32_t)(tile * sizeof(T));
+      mbar_expect_tx(&bars[lane], bytes);
+      bulk_load(k_tiles + (size_t)lane * tile, k_pages + off, bytes,
+                &bars[lane]);
+      mbar_expect_tx(&bars[n_pages + lane], bytes);
+      bulk_load(v_tiles + (size_t)lane * tile, v_pages + off, bytes,
+                &bars[n_pages + lane]);
     }
   }
-
-  float m[kMaxGroup], l[kMaxGroup], acc[kMaxGroup][kPerThread];
+  // this lane's 8 elements of the group's query rows, scaled so that
+  // exp2(q . k) = exp(q . k / sqrt(D))
+  const int chunk = tid % kLanesPerToken;
+  float qr[G][8];
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
+  for (int g = 0; g < G; ++g) {
+    load8(q + ((size_t)b * H + head(g)) * D + chunk * 8, qr[g]);
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) acc[g][j] = 0.f;
+    for (int j = 0; j < 8; ++j) qr[g][j] *= q_scale;
   }
 
-  const int len = seq_lens[b];
-  const int n_pages = len <= 0 ? 0 : min((len + page - 1) / page, MP);
-  const int tile_vecs = page * D * (int)sizeof(T) / 16;
-
-  for (int p = 0; p < n_pages; ++p) {
-    const int phys = page_table[(size_t)b * MP + p];
-    const int valid = min(len - p * page, page);
-    const size_t off = ((size_t)phys * KV + kvh) * (size_t)page * D;
-    const int4* ksrc = reinterpret_cast<const int4*>(k_pages + off);
-    const int4* vsrc = reinterpret_cast<const int4*>(v_pages + off);
-    int4* kdst = reinterpret_cast<int4*>(k_tile);
-    int4* vdst = reinterpret_cast<int4*>(v_tile);
-    for (int i = tid; i < tile_vecs; i += kThreads) {
-      kdst[i] = ksrc[i];
-      vdst[i] = vsrc[i];
-    }
-    __syncthreads();
-
-    // scores[g][t] = (q_g . k_t) * scale, one warp per token
-    for (int t = warp; t < valid; t += kWarps) {
-      const T* kt = k_tile + t * D + lane * kPerLane;
-      float kf[kPerLane];
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j) kf[j] = to_float(kt[j]);
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) {
-        if (g < G) {
-          float s = 0.f;
-#pragma unroll
-          for (int j = 0; j < kPerLane; ++j) s += qr[g][j] * kf[j];
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1) {
-            s += __shfl_xor_sync(0xffffffffu, s, o);
-          }
-          if (lane == 0) scores[g * page + t] = s * scale;
+  __syncthreads();  // the length is in shared memory, the barriers set up
+  const int len = *len_s;
+  if (len <= start) {
+    // nothing to attend: the empty partial (S > 1), zeros (S == 1)
+    for (int g = 0; g < G; ++g) {
+      const size_t row = (size_t)b * H + head(g);
+      if (S == 1) {
+        out[row * D + tid] = 0.f;
+      } else {
+        part_o[(row * S + s) * D + tid] = 0.f;
+        if (tid == 0) {
+          part_m[row * S + s] = kNegInf;
+          part_l[row * S + s] = 0.f;
         }
       }
     }
-    __syncthreads();
+    return;
+  }
+  // the pages loaded, and the tokens attended: the tail mask
+  const int n_pages = pages_for(len);
+  const int n_tok = min(len - start, n_pages * page);
+  const int n_max = pps * page;         // stride of a probability row
 
-    // online softmax over this page's valid tokens; every thread keeps the
-    // same (m, l) and its own output columns of acc
+  // scores, page by page as the K tiles land: probs[g][t] = q_g . k_t
+  for (int i = 0; i < n_pages; ++i) {
+    mbar_wait0(&bars[i]);
+    const int valid = min(n_tok - i * page, page);
+    const T* kt = k_tiles + (size_t)i * tile;
+    for (int t0 = 0; t0 < valid; t0 += kTokensPerPass) {
+      const int t = t0 + tid / kLanesPerToken;
+      const bool live = t < valid;
+      float kf[8];
+      if (live) {
+        load8(kt + (size_t)t * D + chunk * 8, kf);
+      } else {
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) {
-      if (g < G) {
-        const float* sg = scores + g * page;
-        float m_cur = kNegInf;
-        for (int t = 0; t < valid; ++t) m_cur = fmaxf(m_cur, sg[t]);
-        const float m_new = fmaxf(m[g], m_cur);
-        const float alpha = expf(m[g] - m_new);
-        float l_page = 0.f;
-        float pv[kPerThread];
+        for (int j = 0; j < 8; ++j) kf[j] = 0.f;
+      }
 #pragma unroll
-        for (int j = 0; j < kPerThread; ++j) pv[j] = 0.f;
-        for (int t = 0; t < valid; ++t) {
-          const float pr = expf(sg[t] - m_new);
-          l_page += pr;
+      for (int g = 0; g < G; ++g) {
+        float acc = 0.f;
 #pragma unroll
-          for (int j = 0; j < kPerThread; ++j) {
-            const int d = tid + j * kThreads;
-            if (d < D) pv[j] += pr * to_float(v_tile[t * D + d]);
-          }
+        for (int j = 0; j < 8; ++j) acc = fmaf(qr[g][j], kf[j], acc);
+#pragma unroll
+        for (int o = kLanesPerToken / 2; o > 0; o >>= 1) {
+          acc += __shfl_xor_sync(0xffffffffu, acc, o);
         }
-        l[g] = l[g] * alpha + l_page;
-#pragma unroll
-        for (int j = 0; j < kPerThread; ++j) acc[g][j] = acc[g][j] * alpha + pv[j];
-        m[g] = m_new;
+        if (live && chunk == 0) probs[g * n_max + i * page + t] = acc;
       }
     }
-    __syncthreads();  // the next page overwrites the tiles and scores
+  }
+  __syncthreads();
+
+  // softmax over the split's tokens, one warp per query row
+  for (int g = warp; g < G; g += kWarps) {
+    float* pg = probs + g * n_max;
+    float m = kNegInf;
+    for (int t = lane; t < n_tok; t += 32) m = fmaxf(m, pg[t]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    }
+    float l = 0.f;
+    for (int t = lane; t < n_tok; t += 32) {
+      const float p = exp2f(pg[t] - m);
+      pg[t] = p;
+      l += p;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (lane == 0) {
+      row_m[g] = m;
+      row_l[g] = l;
+    }
+  }
+  __syncthreads();
+
+  // P V, column tid, page by page as the V tiles land
+  float acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.f;
+  for (int i = 0; i < n_pages; ++i) {
+    mbar_wait0(&bars[n_pages + i]);
+    const int valid = min(n_tok - i * page, page);
+    const T* vt = v_tiles + (size_t)i * tile + tid;
+    const float* pi = probs + i * page;
+#pragma unroll 4
+    for (int t = 0; t < valid; ++t) {
+      const float v = to_float(vt[(size_t)t * D]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) acc[g] = fmaf(pi[g * n_max + t], v, acc[g]);
+    }
   }
 
-  float* ob = out + ((size_t)b * H + (size_t)kvh * G) * D;
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    if (g < G) {
-      const float denom = fmaxf(l[g], 1e-30f);
-#pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        const int d = tid + j * kThreads;
-        if (d < D) ob[g * D + d] = acc[g][j] / denom;
+  for (int g = 0; g < G; ++g) {
+    const size_t row = (size_t)b * H + head(g);
+    if (S == 1) {
+      out[row * D + tid] = acc[g] / fmaxf(row_l[g], 1e-30f);
+    } else {
+      part_o[(row * S + s) * D + tid] = acc[g];
+      if (tid == 0) {
+        part_m[row * S + s] = row_m[g];
+        part_l[row * S + s] = row_l[g];
       }
     }
   }
 }
 
-template <typename T, int D>
+// One block per (b, head), one column per thread: the splits' partials
+// combined in the fixed order s = 0 .. S - 1 (online: each step rescales
+// the sum by exp2(m - m_new) and the partial by exp2(m_s - m_new)). An
+// empty split (m = -1e30, l = 0, o = 0) adds nothing; a row with no token
+// at all gives 0 / 1e-30 = 0.
+__global__ void __launch_bounds__(kThreads)
+paged_decode_merge_kernel(const float* __restrict__ work,
+                          float* __restrict__ out, int n_rows, int S) {
+  constexpr int D = kHeadDim;
+  const size_t row = blockIdx.x;
+  const int d = threadIdx.x;
+  const float* part_o = work + row * S * D;
+  const float* part_m = work + (size_t)n_rows * S * D + row * S;
+  const float* part_l = part_m + (size_t)n_rows * S;
+  // a running max; the loads do not depend on it, so they issue together
+  float m = kNegInf, l = 0.f, acc = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < S; ++s) {
+    const float ms = part_m[s], ls = part_l[s];
+    const float os = part_o[(size_t)s * D + d];
+    const float m_new = fmaxf(m, ms);
+    const float alpha = exp2f(m - m_new), w = exp2f(ms - m_new);
+    acc = acc * alpha + w * os;
+    l = l * alpha + w * ls;
+    m = m_new;
+  }
+  out[row * D + d] = acc / fmaxf(l, 1e-30f);
+}
+
+// the split kernel's instance for group G = H / KV (1 .. kMaxGroup), then
+// the merge
+template <typename T, int G = 1>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const void* page_table, const void* seq_lens, void* out,
-                   int B, int H, int KV, int page, int MP,
-                   cudaStream_t stream) {
-  const int G = H / KV;
-  const size_t smem =
-      2 * (size_t)page * D * sizeof(T) + (size_t)G * page * sizeof(float);
-  const float scale = 1.0f / sqrtf((float)D);
-  paged_decode_kernel<T, D><<<B * KV, kThreads, smem, stream>>>(
+                   void* work, int B, int H, int KV, int page, int MP,
+                   int pps, cudaStream_t stream) {
+  if constexpr (G < kMaxGroup) {
+    if (H / KV != G) {
+      return launch<T, G + 1>(q, k_pages, v_pages, page_table, seq_lens, out,
+                              work, B, H, KV, page, MP, pps, stream);
+    }
+  }
+  const int S = (MP + pps - 1) / pps;
+  const size_t smem = split_layout(pps, page, G, sizeof(T)).total;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_decode_split_kernel<T, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const float q_scale = 1.4426950408889634f / sqrtf((float)kHeadDim);
+  paged_decode_split_kernel<T, G><<<dim3(S, KV, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), static_cast<const int*>(page_table),
-      static_cast<const int*>(seq_lens), static_cast<float*>(out), H, KV,
-      page, MP, scale);
+      static_cast<const int*>(seq_lens), static_cast<float*>(out),
+      static_cast<float*>(work), H, KV, page, MP, pps, q_scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return err;
+  paged_decode_merge_kernel<<<B * H, kThreads, 0, stream>>>(
+      static_cast<const float*>(work), static_cast<float*>(out), B * H, S);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim D must be 128 (the serving
-// model's). Returns the launch's cudaError_t.
+// model's). pps: pages per split; S = ceil(MP / pps) splits. work: f32
+// workspace of B * H * S * (D + 2) values when S > 1 (unused when S == 1).
+// Launches the split kernel and, when S > 1, the merge kernel on `stream`.
+// Returns the first failed launch's cudaError_t, else 0.
 extern "C" int paged_decode_attention(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const void* page_table,
-                                      const void* seq_lens, void* out, int B,
-                                      int H, int KV, int D, int page, int MP,
+                                      const void* seq_lens, void* out,
+                                      void* work, int B, int H, int KV,
+                                      int D, int page, int MP, int pps,
                                       int dtype, int device, void* stream) {
-  if (B <= 0 || KV <= 0 || H % KV != 0 || H / KV > kMaxGroup || page <= 0 ||
-      MP <= 0 || D != 128) {
+  if (B <= 0 || B > 65535 || KV <= 0 || KV > 65535 || H % KV != 0 ||
+      H / KV > kMaxGroup || page <= 0 || MP <= 0 || pps <= 0 || pps > MP ||
+      pps > kMaxPagesPerSplit || D != kHeadDim) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)launch<float, 128>(q, k_pages, v_pages, page_table, seq_lens,
-                                   out, B, H, KV, page, MP, s);
+    return (int)launch<float>(q, k_pages, v_pages, page_table, seq_lens, out,
+                              work, B, H, KV, page, MP, pps, s);
   }
   if (dtype == 1) {
-    return (int)launch<__nv_bfloat16, 128>(q, k_pages, v_pages, page_table,
-                                           seq_lens, out, B, H, KV, page, MP,
-                                           s);
+    return (int)launch<__nv_bfloat16>(q, k_pages, v_pages, page_table,
+                                      seq_lens, out, work, B, H, KV, page, MP,
+                                      pps, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -3,9 +3,11 @@ and flash_mutants.py's mutations, on the CPU: the check passes rounding at
 its dtype's level and rejects a small bias and a wrong row, and every
 mutation still finds the one place it breaks in the current source. Also
 the ring block check (kernel 2's o, m, l, with exact rows where no key is
-visible), the work counted for a block's bound, and the logit comparison
-of the ring phase."""
+visible), the work counted for a block's bound, the logit comparison of
+the ring phase, the SASS build check of the sm90 templates and of kernel
+1's bulk-copy kernels, and the paged sweep's shapes and lengths."""
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -220,7 +222,101 @@ def test_every_flash_kernel_is_checked_as_sm90():
      "const*)", "flash attention"),
     ("void (anonymous namespace)::sm90::attention_fwd_kernel<true, "
      "(anonymous namespace)::RingBlockOut>(CUtensorMap_st)", "ring attention"),
+    ("void (anonymous namespace)::paged_decode_split_kernel<__nv_bfloat16, "
+     "2>(__nv_bfloat16 const*)", "paged attention"),
+    ("(anonymous namespace)::paged_decode_merge_kernel(float const*, "
+     "float*, int, int)", "paged attention"),
     ("nvjet_hsh_256x128_64x4_1x2_h_bz_coopA_NTT", "matrix products"),
     ("void at::native::elementwise_kernel<128, 2>", "other")])
 def test_kernel_group(name, group):
     assert chip_smoke.kernel_group(name) == group
+
+
+_ANON = "_ZN51_GLOBAL__N__e929ddf8_18_paged_attention_cu_ad584a0a"
+_SPLIT = _ANON + "25paged_decode_split_kernelIfLi2EEEv"
+_MERGE = _ANON + "25paged_decode_merge_kernelEPKfPfii"
+
+
+@pytest.mark.parametrize("case, problems", [
+    ("sound", []),
+    ("no_bulk_copy", ["instances without UBLKCP"]),
+    ("spills", ["instances spill 4 bytes"]),
+    ("missing", ["instances without UBLKCP"]),
+])
+def test_bulk_kernel_instances(case, problems):
+    """Kernel 1's split kernel: UBLKCP (cp.async.bulk) in every instance's
+    SASS and no spills; its registers are not held to the sm90 templates'
+    setmaxnreg floor."""
+    body = ("SYNCS.EXCH.64 URZ, [UR4], UR6 ;\nUBLKCP.S.G [UR8], [UR10], UR12 ;"
+            if case != "no_bulk_copy" else "LDG.E.128 R4, [R2.64] ;")
+    spill = 4 if case == "spills" else 0
+    funcs = [(_MERGE, "LDG.E R2, [R4.64] ;")]
+    report = {"paged_decode_merge_kernel": "Used 32 registers"}
+    if case != "missing":
+        funcs.append((_SPLIT, body))
+        report["paged_decode_split_kernel<float, 2>"] = (
+            f"0 bytes stack frame, {spill} bytes spill stores, 0 bytes "
+            f"spill loads; Used 48 registers, used 1 barriers")
+    row, found = chip_smoke.sm90_instances(
+        "paged_decode_split_kernel", _sass(*funcs), report, "",
+        ops=("UBLKCP",), min_registers=None)
+    assert [p.split(": ", 1)[1] for p in found] == problems
+    assert row["instances"] == (0 if case == "missing" else 1)
+    assert row["ublkcp"] is (case != "no_bulk_copy")
+    assert "hgmma" not in row
+
+
+def test_merge_kernel_needs_only_an_instance_without_spills():
+    row, found = chip_smoke.sm90_instances(
+        "paged_decode_merge_kernel", _sass((_MERGE, "LDG.E R2 ;")),
+        {"paged_decode_merge_kernel": "0 bytes spill stores; Used 32 "
+                                      "registers"}, "", ops=(),
+        min_registers=None)
+    assert found == [] and row["instances"] == 1
+    _row, found = chip_smoke.sm90_instances(
+        "paged_decode_merge_kernel", _sass((_SPLIT, "UBLKCP")), {}, "",
+        ops=(), min_registers=None)
+    assert found == ["paged_decode_merge_kernel: no instances"]
+
+
+def test_paged_kernels_are_build_checked():
+    assert chip_smoke.BULK_KERNELS == {"paged_attention": {
+        "paged_decode_split_kernel": ("UBLKCP",),
+        "paged_decode_merge_kernel": ()}}
+
+
+@pytest.mark.parametrize("page, pps, MP", [(8, 2, 16), (16, 3, 7),
+                                           (32, 16, 16)])
+def test_paged_lengths_cut_every_edge(page, pps, MP):
+    """The card sweep's lengths: empty, one token, a page and one past,
+    a split and one past, the table and past it; eight sequences."""
+    lens = chip_smoke.paged_lengths(page, pps, MP)
+    assert len(lens) == 8 and lens[0] == 0 and lens[1] == 1
+    assert {page, page + 1, pps * page, pps * page + 1} <= set(lens)
+    assert max(lens) > MP * page
+
+
+def test_paged_sweep_covers_every_group_and_page():
+    sweep = chip_smoke.PAGED_SWEEP
+    assert {g for g, _p, _m in sweep} == {1, 2, 4, 8}
+    assert {p for _g, p, _m in sweep} == {8, 16, 32}
+    # 16 and a count of pages that 2 and 3 pages per split do not divide
+    assert {m for _g, _p, m in sweep} == {16, 7}
+    assert chip_smoke.PAGED_TOL == 1e-4
+
+
+def test_mutant_summary_reads_paged_rows():
+    out = "\n".join(json.dumps(r) for r in (
+        {"phase": "kernel", "name": "paged_decode_attention",
+         "shape": "sweep", "cases": 178, "max_abs_err": 0.3,
+         "failed": [{"err": 0.3}], "ok": False},
+        {"phase": "kernel", "name": "paged_decode_attention",
+         "shape": "serving", "dtype": "bfloat16", "max_abs_err": 0.2,
+         "deterministic": True, "graph_bit_identical": True},
+        {"verdict": {"paged_kernel": "rejected: x", "kernel": "passed"}}))
+    row = flash_mutants.summary("paged_tail", out)
+    assert row["paged_kernel"] == {
+        "sweep": {"max_abs_err": 0.3, "failed": 1},
+        "serving bfloat16": {"max_abs_err": 0.2, "deterministic": True,
+                             "graph_bit_identical": True}}
+    assert row["verdict"]["paged_kernel"].startswith("rejected")

@@ -4,7 +4,8 @@ Both engines get the same flax-initialised tiny f32 model (the config of
 tests/test_inference.py); the port runs with ``device="cpu"``, where its
 paged-attention wrapper takes the plain PyTorch path. Greedy token
 streams must be EXACTLY equal — ragged prompts, more requests than
-slots, streaming, and the prefill-export -> decode-import hand-off.
+slots, streaming, the prefill-export -> decode-import hand-off, and an
+EOS id inside a decode chunk and in the overrun past max_new.
 Also: the port imports no JAX, and without CUDA an engine with no
 ``device`` refuses to start.
 """
@@ -134,6 +135,50 @@ def test_prefill_export_to_decode_engine_matches_jax(tiny):
         dec.shutdown()
     assert got == want
     assert [kv["first_token"] for kv in kvs] == [w[0] for w in want]
+
+
+_EOS_PROMPTS = [[9, 2, 6, 5], [3, 14, 15], [1], [27, 18, 28, 18, 28]]
+_EOS_CHUNKS = dict(page_size=4, max_pages_per_seq=8, num_pages=32,
+                   prefill_buckets=(8,), decode_chunk=4)
+
+
+def _eos_at(tiny, prompts, at):
+    """(prompt index, token): the first of the prompts whose greedy stream
+    (the port's, no EOS) has a token at index `at` that it has not
+    emitted before, to serve as the EOS id."""
+    _jcfg, _jparams, tcfg, params = tiny
+    streams = _run(tinf.InferenceEngine(
+        params, tcfg, tinf.InferenceConfig(batch_size=len(prompts),
+                                           **_EOS_CHUNKS), device="cpu"),
+        prompts, at + 1)
+    which = next(i for i, s in enumerate(streams) if s[at] not in s[:at])
+    return which, streams[which]
+
+
+def test_eos_mid_chunk_matches_jax_engine(tiny):
+    """EOS at index 2 of a stream: the prefill gives index 0, the first
+    decode chunk (4 steps) indices 1-4, so the stream stops inside a
+    chunk, trimmed after the EOS. Four ragged prompts over two slots: the
+    other streams stop at their own first EOS, or run to max_new."""
+    which, stream = _eos_at(tiny, _EOS_PROMPTS[:2], 2)
+    icfg = jinf.InferenceConfig(batch_size=2, eos_id=stream[2],
+                                **_EOS_CHUNKS)
+    got, want, _ = _both(tiny, icfg, _EOS_PROMPTS, 12)
+    assert got == want
+    assert got[which] == stream[:3]
+    assert all(len(o) == 12 or o[-1] == stream[2] for o in got)
+
+
+def test_eos_in_the_overrun_is_not_honored_as_jax(tiny):
+    """max_new 4: the decode chunk covering the budget runs 4 steps after
+    the prefill token, one past max_new. An EOS first produced at index 4
+    lies in that overrun: the output is the 4-token budget, no EOS."""
+    which, stream = _eos_at(tiny, _EOS_PROMPTS, 4)
+    icfg = jinf.InferenceConfig(batch_size=1, eos_id=stream[4],
+                                **_EOS_CHUNKS)
+    got, want, port = _both(tiny, icfg, [_EOS_PROMPTS[which]], 4)
+    assert got == want == [stream[:4]]
+    assert port.decode_steps >= 4       # index 4 was decoded
 
 
 def test_engine_without_device_needs_cuda(tiny):
