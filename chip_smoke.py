@@ -39,6 +39,14 @@ Phases, each printing one JSON line:
                above it (no key visible, checked for exact zeros) — and at
                small ragged shapes with odd offsets, causal and not, GQA and
                MHA, in f32 and bf16; o, m and l each held to their bounds.
+               The scheduler (phase sched_kernel, ops/csrc/scheduler_tick.cu):
+               the CUDA tick stepped from the start on each BASELINE graph at
+               full size (1M-task fan-out, 64 waves of 1M tasks, map_reduce,
+               pipeline, actor_heavy, ppo, fanout) and held tick by tick to
+               the plain tick on the card, every output equal; assign with 64
+               classes, masks and SPREAD classes, and the gang pack, equal to
+               their plain versions and the numpy oracle. The build check
+               asks each scheduler kernel for no spills.
   4. engine  — the serving engine at the full width of the serving model
                (vocab 32000, d_model 1024, 8 layers, 127M parameters, bf16,
                random weights from a seed): 64 requests x 128 new tokens, a warm
@@ -75,6 +83,15 @@ Phases, each printing one JSON line:
                when the last shard's tokens change; a call under autograd
                raises (kernel 2 has no backward). One more call runs under
                torch.profiler.
+  9. north_star — the scheduler's main path: every BASELINE graph driven to
+               completion through benchmarks.run_graph (one Drive, eager and
+               then captured in a CUDA graph: device ms per replay, host ms
+               to the fetched tick count) and a gang batch through
+               pack_many_tiered, with the launch counters zeroed just before
+               and checked just after; beforehand two drives bit-identical,
+               the reference's tick counts, avail back at cap, and equal to
+               the plain drive on the card. One line per graph, then the 1M
+               fan-out's time against the north star's 10 ms.
 
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -178,6 +195,21 @@ RING_ML_BOUNDS = LSE_BOUNDS
 RING_PARITY_BOUNDS = {"bfloat16": 2 ** -5, "float32": 1e-5}
 RING_F32_SEQ = 4096
 
+# the scheduler (phases sched_kernel and north_star): the BASELINE graphs of
+# ray_tpu_torch/_private/benchmarks.py at their full sizes (64 nodes x 4
+# resources; ppo 16 nodes), threshold 0.99, and the ticks the reference's
+# jax_drive makes on each (its while_loop's count). The north star is the
+# 1M-task fan-out's scheduling time against BASELINE.json's 10 ms
+SCHED_THRESHOLD = 0.99
+SCHED_TICKS = {"fanout": 1, "map_reduce": 2, "pipeline": 4, "actor_heavy": 2,
+               "ppo": 20, "north_star": 1, "north_star_waves": 64}
+NORTH_STAR_TARGET_MS = 10.0
+SCHED_REPEATS = 20
+# the gang pack: PACK_GANGS gangs of PACK_BUNDLES bundles (1-4 CPUs, 0-1
+# accelerator each), three priority tiers, on 64 nodes of 4-16 CPUs and 0-2
+# accelerators; held exactly to the numpy oracle pack_gangs_tiered_np
+PACK_GANGS, PACK_BUNDLES, PACK_NODES = 256, 4, 64
+
 
 # the bf16 kernels are instances of the wgmma + TMA templates: the forward
 # (kernel 2, kernel 3a: ops/csrc/attention_fwd_sm90.cuh) and the backward
@@ -196,6 +228,11 @@ SM90_MIN_REGISTERS = (24 * 128 + 240 * 256) // 384
 # may spill. {library: {kernel: SASS ops each instance must hold}}
 BULK_KERNELS = {"paged_attention": {"paged_decode_split_kernel": ("UBLKCP",),
                                     "paged_decode_merge_kernel": ()}}
+# the scheduler's kernels (ops/csrc/scheduler_tick.cu) use neither wgmma
+# nor TMA: each must exist and spill nothing
+SCHED_KERNELS = {"scheduler_tick": {k: () for k in (
+    "sched_ready_kernel", "sched_plan_kernel", "sched_assign_kernel",
+    "sched_edge_kernel", "sched_pack_kernel")}}
 
 
 def emit(obj) -> None:
@@ -249,13 +286,14 @@ def sm90_instances(kernel, sass, ptxas, log, ops=("HGMMA", "UTMALDG"),
 def sm90_build_check(build, libs):
     """Each instance of the sm90 templates: HGMMA (wgmma) and UTMALDG (TMA
     loads) in its SASS, no spills, and the registers setmaxnreg needs;
-    each of BULK_KERNELS: its SASS ops, no spills. Raises before any
-    launch otherwise."""
+    each of BULK_KERNELS and SCHED_KERNELS: its SASS ops, no spills.
+    Raises before any launch otherwise."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     checks = [(lib, kernel, {}) for lib, kernels in SM90_KERNELS.items()
               for kernel in kernels]
     checks += [(lib, kernel, {"ops": ops, "min_registers": None})
-               for lib, kernels in BULK_KERNELS.items()
+               for table in (BULK_KERNELS, SCHED_KERNELS)
+               for lib, kernels in table.items()
                for kernel, ops in kernels.items()]
     rows, problems, sass = {}, [], {}
     for lib, kernel, how in checks:
@@ -771,6 +809,322 @@ def phase_ring_kernel(torch, dev, timed=True):
     return rows
 
 
+def sched_bytes(C, E, K, N, R, node_of=False):
+    """Bytes a tick or a drive must move at least: each input read once
+    (state 1 byte, indeg, cls and pin 4 bytes a task; src and dst 4 bytes
+    and consumed 1 an edge; demands, avail and cap), each output written
+    once (state, indeg, consumed, avail; node_of 4 bytes a task where the
+    caller gets it)."""
+    return (13 * C + 9 * E + 4 * (K * R + 2 * N * R)
+            + 5 * C + E + 4 * N * R + (4 * C if node_of else 0))
+
+
+def bound_row(nbytes):
+    """The bound of byte-bound work, as the kernel table's keys."""
+    return {"bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes}
+
+
+def pack_batch(seed=0):
+    """The gang batch of the pack checks: (demands [G, B, 4], tiers [G],
+    cap [N, 4]) as numpy, from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cap = np.zeros((PACK_NODES, 4), dtype=np.float32)
+    cap[:, 0] = rng.integers(4, 17, PACK_NODES)
+    cap[:, 1] = rng.integers(0, 3, PACK_NODES)
+    demands = np.zeros((PACK_GANGS, PACK_BUNDLES, 4), dtype=np.float32)
+    demands[..., 0] = rng.integers(1, 5, (PACK_GANGS, PACK_BUNDLES))
+    demands[..., 1] = rng.integers(0, 2, (PACK_GANGS, PACK_BUNDLES))
+    return demands, rng.integers(0, 3, PACK_GANGS), cap
+
+
+def pack_check(sk, dev, strict):
+    """pack_many_tiered on ``dev`` (None: its default, the card) against
+    the numpy oracle pack_gangs_tiered_np on pack_batch (every bundle
+    demands a CPU, so the oracle's exemption of empty bundles from
+    spreading never applies): node_of, ok and avail must be equal.
+    Returns (equal, the result)."""
+    import numpy as np
+
+    demands, tiers, cap = pack_batch()
+    want = sk.pack_gangs_tiered_np(demands, tiers, cap.copy(), cap,
+                                   spread=np.full(PACK_GANGS, strict))
+    got = sk.pack_many_tiered(demands, tiers, cap.copy(), cap,
+                              strict_spread=strict, device=dev)
+    got = tuple(x.cpu().numpy() for x in got)
+    return all(np.array_equal(a, b) for a, b in zip(got, want)), got
+
+
+def _sched_graphs():
+    from ray_tpu_torch._private import benchmarks as B
+
+    return {name: build() for name, build in B.CONFIGS.items()}
+
+
+def phase_sched_kernel(torch, dev, timed=True):
+    """The scheduler's kernels against their plain versions, on the card.
+    For each BASELINE graph at full size, the CUDA tick (instant) is
+    stepped from the start and held, tick by tick, to tick_reference on
+    the same inputs: state, indeg, avail, node_of and consumed equal; one
+    non-instant tick likewise. assign (64 classes, class masks, SPREAD
+    classes) against the plain version. pack_many, untiered and tiered,
+    against the plain version and the numpy oracle. timed: one instant
+    tick of the 1M fan-out (device time from CUDA-graph replays of the
+    wrapper call; eager; the plain version's) and the pack's times, each
+    with its bound. Raises after every check has printed if any failed."""
+    import numpy as np
+
+    from ray_tpu_torch._private import benchmarks as B
+    from ray_tpu_torch._private.scheduler import kernels as sk
+
+    problems, rows, avail_err = [], {}, 0.0
+    for name, g in _sched_graphs().items():
+        st = B.device_state(g, dev)
+        cur, ticks, bad = st, 0, None
+        while ticks < g.max_ticks and bool((cur[0] == sk.WAITING).any()):
+            got = sk.tick(*cur, threshold=SCHED_THRESHOLD,
+                          instant_completion=True)
+            want = sk.tick_reference(*cur, SCHED_THRESHOLD, True)
+            avail_err = max(avail_err, float((got[2] - want[2]).abs().max()))
+            same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+            if not all(same):
+                bad = {"tick": ticks, "equal": dict(zip(
+                    ("state", "indeg", "avail", "node_of", "consumed"),
+                    same))}
+                break
+            cur = (got[0], got[1], *cur[2:5], got[2], *cur[6:9], got[4])
+            ticks += 1
+        once = [bool(torch.equal(a, b)) for a, b in zip(
+            sk.tick(*st, threshold=SCHED_THRESHOLD),
+            sk.tick_reference(*st, SCHED_THRESHOLD, False))]
+        done = bool((cur[0] == sk.DONE).all())
+        row = {"graph": name, "tasks": len(g.indeg), "edges": len(g.src),
+               "ticks": ticks, "want_ticks": SCHED_TICKS[name],
+               "tick_by_tick_equal": bad is None, "first_difference": bad,
+               "non_instant_equal": all(once), "all_done": done}
+        emit({"phase": "kernel", "name": "scheduler_tick", **row})
+        problems += [f"{name}: {what}" for what, failed in (
+            (f"tick {ticks} differs: {bad}", bad is not None),
+            ("the non-instant tick differs", not all(once)),
+            (f"{ticks} ticks, want {SCHED_TICKS[name]}",
+             ticks != SCHED_TICKS[name]),
+            ("not every task DONE", not done)) if failed]
+        del st, cur
+
+    rng = np.random.default_rng(7)
+    K, C, N = 64, 4096, 64
+    demands = np.zeros((K, 4), dtype=np.float32)
+    demands[:, 0] = rng.integers(1, 4, K)
+    demands[:, 1] = rng.choice([0.0, 0.25, 0.5], K)
+    cls = rng.integers(0, K, C).astype(np.int32)
+    cap = np.zeros((N, 4), dtype=np.float32)
+    cap[:, 0] = rng.integers(16, 64, N)
+    cap[:, 1] = rng.integers(0, 4, N)
+    mask = rng.random((K, N)) < 0.8
+    spread = rng.random(K) < 0.25
+    got = sk.assign(cls, demands, cap.copy(), cap, 0.5, mask, spread,
+                    device="cuda")
+    want = sk.assign(cls, demands, cap.copy(), cap, 0.5, mask, spread,
+                     device="cpu")
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    emit({"phase": "kernel", "name": "scheduler_assign", "classes": K,
+          "tasks": C, "nodes": N, "assigned": int((got[0] >= 0).sum()),
+          "equal": same})
+    if not same:
+        problems.append("assign differs from its plain version")
+
+    for strict in (False, True):
+        oracle_ok, _got = pack_check(sk, dev, strict)
+        demands, _tiers, cap_np = pack_batch()
+        args = [torch.as_tensor(x, device=dev) for x in (demands, cap_np,
+                                                         cap_np)]
+        plain = sk.pack_many_reference(*args, strict)
+        kern = sk.pack_many(*args, strict_spread=strict)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(kern, plain))
+        row = {"strict_spread": strict, "gangs": PACK_GANGS,
+               "bundles": PACK_BUNDLES, "nodes": PACK_NODES,
+               "placed": int(kern[1].sum()), "equal_plain": same,
+               "equal_oracle": oracle_ok, "max_abs_err": float(
+                   (kern[2] - plain[2]).abs().max())}
+        if timed and not strict:
+            row["ms"] = cuda_ms(torch, lambda i: sk.pack_many(
+                *args, strict_spread=strict), 20)
+            row["plain_ms"] = cuda_ms(torch, lambda i: sk.pack_many_reference(
+                *args, strict), 1)
+            row.update(bound_row(
+                demands.nbytes + 3 * cap_np.nbytes + 4 * demands.shape[0]
+                * demands.shape[1] + demands.shape[0]))
+            rows["pack_many"] = row
+        emit({"phase": "kernel", "name": "pack_many", **row})
+        problems += [f"pack_many (strict_spread={strict}): {what}"
+                     for what, failed in (
+                         ("differs from its plain version", not same),
+                         ("differs from pack_gangs_tiered_np",
+                          not oracle_ok)) if failed]
+
+    if timed:
+        g = _sched_graphs()["north_star"]
+        st = B.device_state(g, dev)
+        (C, E), (N, R), K = (len(g.indeg), len(g.src)), g.cap.shape, \
+            g.demands.shape[0]
+        row = {"graph": "north_star", "tasks": C, "max_abs_err": avail_err,
+               "ms": graph_ms(torch, [lambda: sk.tick(
+                   *st, threshold=SCHED_THRESHOLD,
+                   instant_completion=True)])[0],
+               "eager_ms": cuda_ms(torch, lambda i: sk.tick(
+                   *st, threshold=SCHED_THRESHOLD, instant_completion=True),
+                   20),
+               "plain_ms": cuda_ms(torch, lambda i: sk.tick_reference(
+                   *st, SCHED_THRESHOLD, True), 5),
+               **bound_row(sched_bytes(C, E, K, N, R, node_of=True))}
+        rows["scheduler_tick"] = row
+        emit({"phase": "kernel", "name": "scheduler_tick", **row})
+    if problems:
+        raise AssertionError(f"scheduler kernels: {problems}")
+    return rows
+
+
+def sched_table(sched_rows, star_rows, launches):
+    """The scheduler's rows of the kernel table, from phase_sched_kernel's
+    rows, phase_north_star's rows and its launch counters: the tick (one
+    instant tick of the 1M fan-out), the drive (the north star) and the
+    gang pack. They replace XLA device paths, not Pallas kernels; integer
+    outputs are exact, so max_abs_err is avail's (f32). No one PyTorch
+    call computes any of them."""
+    source = "ray_tpu_torch/ops/csrc/scheduler_tick.cu"
+    ref = "ray_tpu/_private/scheduler/kernels.py"
+    tick, star, pack = (sched_rows["scheduler_tick"],
+                        star_rows["north_star"], sched_rows["pack_many"])
+    return [{"name": name, "route": "cuda", "source": source,
+             "replaces": f"{ref}:{line} (XLA)", "launches": launches[key],
+             "max_abs_err": row["max_abs_err"], "ms": row[ms],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": None}
+            for name, line, row, key, ms in (
+                ("scheduler_tick", 707, tick, "tick", "ms"),
+                ("scheduler_drive", 738, star, "drive", "device_ms"),
+                ("pack_many", 302, pack, "pack_many", "ms"))]
+
+
+def drive_breakdown(torch, sk, st, g):
+    """One CUDA-graph replay of g's drive (as run_graph captures it) under
+    torch.profiler: device time by kernel and the device's busy time
+    (profile_call)."""
+    drv = sk.Drive(*st, threshold=SCHED_THRESHOLD, max_ticks=g.max_ticks)
+    drv.launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        drv.launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    return profile_call(torch, graph.replay)
+
+
+def phase_north_star(torch, dev):
+    """The scheduler's main path: every BASELINE graph at full size driven
+    to completion on the card through benchmarks.run_graph (one Drive run
+    eagerly, captured in a CUDA graph, replayed), and the gang batch
+    admitted through pack_many_tiered, with the launch counters zeroed
+    just before and read just after. Beforehand, for each graph: two
+    kernels.drive calls bit-identical, every task DONE, the table's
+    ticks, avail back at cap, and equal to the plain drive on the card
+    (timed three times by the host clock; plain_ms is their median); the
+    device time with max_ticks cut to the ticks the graph needs
+    (tight_ms: the rest of device_ms is the empty ticks'); for the two
+    north-star graphs, one replay under torch.profiler. Prints one line
+    per graph and the north star's line. Returns (the launch counters,
+    the rows)."""
+    from ray_tpu_torch._private import benchmarks as B
+    from ray_tpu_torch._private.scheduler import kernels as sk
+
+    graphs = _sched_graphs()
+    problems, rows = [], {}
+    for name, g in graphs.items():
+        st = B.device_state(g, dev)
+        first = sk.drive(*st, threshold=SCHED_THRESHOLD,
+                         max_ticks=g.max_ticks)
+        second = sk.drive(*st, threshold=SCHED_THRESHOLD,
+                          max_ticks=g.max_ticks)
+        plain_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = sk.drive_reference(*st, SCHED_THRESHOLD, g.max_ticks)
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+        ticks = int(first[4])
+        (C, E), (N, R), K = (len(g.indeg), len(g.src)), g.cap.shape, \
+            g.demands.shape[0]
+        rows[name] = {
+            "graph": name, "tasks": C, "edges": E, "classes": K, "nodes": N,
+            "max_ticks": g.max_ticks, "ticks": ticks,
+            "want_ticks": SCHED_TICKS[name],
+            "plain_ms": sorted(plain_ms)[1], "plain_runs_ms": plain_ms,
+            "max_abs_err": float((first[2] - plain[2]).abs().max()),
+            "tight_ms": B.run_graph(
+                dataclasses.replace(g, max_ticks=max(ticks, 1)),
+                SCHED_THRESHOLD, device=dev,
+                repeats=SCHED_REPEATS)["scheduling_ms"],
+            **bound_row(sched_bytes(C, E, K, N, R))}
+        if name.startswith("north_star"):
+            rows[name]["profile"] = drive_breakdown(torch, sk, st, g)
+        problems += [f"{name}: {what}" for what, failed in (
+            (f"{ticks} ticks, want {SCHED_TICKS[name]}",
+             ticks != SCHED_TICKS[name]),
+            ("not every task DONE", not bool((first[0] == sk.DONE).all())),
+            ("avail not back at cap", not bool(torch.equal(first[2], st[6]))),
+            ("two drives differ", not all(bool(torch.equal(a, b))
+                                          for a, b in zip(first, second))),
+            ("differs from the plain drive", not all(
+                bool(torch.equal(a, b)) for a, b in zip(first, plain))))
+            if failed]
+        del st, first, second, plain
+    torch.cuda.empty_cache()
+
+    counters = (sk.tick, sk.drive, sk.pack_many, sk.pack_many_tiered)
+    # the main path: counters from zero, then every graph and the pack
+    for fn in counters:
+        fn.launches = 0
+    results = {name: B.run_graph(g, SCHED_THRESHOLD, device=dev,
+                                 repeats=SCHED_REPEATS)
+               for name, g in graphs.items()}
+    packed, _got = pack_check(sk, None, strict=False)   # the default card
+    launches = {fn.__name__: fn.launches for fn in counters}
+    runs = B.EAGER_RUNS + 1     # the eager launches and the capture
+    want = {"tick": runs * sum(g.max_ticks for g in graphs.values()),
+            "drive": runs * len(graphs), "pack_many": 1,
+            "pack_many_tiered": 1}
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    if not packed:
+        problems.append("pack_many_tiered differs from the oracle")
+    for name, r in results.items():
+        row = {**rows[name], "device_ms": r["scheduling_ms"],
+               "host_ms": r["host_ms"], "eager_host_ms": r["eager_host_ms"],
+               "tasks_per_sec": r["tasks_per_sec"], "device": r["device"]}
+        row["empty_ticks_ms"] = row["device_ms"] - row["tight_ms"]
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        rows[name] = row
+        emit({"phase": "north_star", **row})
+        if r["ticks"] != SCHED_TICKS[name]:
+            problems.append(f"{name}: run_graph made {r['ticks']} ticks")
+    star = rows["north_star"]
+    emit({"phase": "north_star", "metric":
+          "north_star_1M_fanout_scheduling_overhead",
+          "value_ms": star["device_ms"], "host_ms": star["host_ms"],
+          "target_ms": NORTH_STAR_TARGET_MS,
+          "met": star["device_ms"] < NORTH_STAR_TARGET_MS,
+          "waves_64_ms": rows["north_star_waves"]["device_ms"],
+          "launches": launches, "nvidia_smi": nvidia_smi(),
+          "ok": not problems})
+    if problems:
+        raise AssertionError(f"north_star phase: {problems}")
+    return launches, rows
+
+
 def phase_engine(torch):
     """The main path: the engine at full width, bf16. Returns the
     paged-attention launches of the timed round."""
@@ -837,6 +1191,7 @@ KERNEL_GROUPS = (("flash attention", ("flash_", "FlashFwdOut",
                                       "attention_bwd_")),
                  ("ring attention", ("ring_block", "RingBlockOut")),
                  ("paged attention", ("paged_decode",)),
+                 ("scheduler", ("sched_",)),
                  ("matrix products", ("nvjet", "gemm", "xmma", "cutlass")))
 
 
@@ -1237,7 +1592,8 @@ def main() -> int:
     if "--kernels" in sys.argv[1:]:
         # the attention kernels' checks and times alone, no ok line
         failed = []
-        for phase in (phase_kernel, phase_flash_kernel, phase_ring_kernel):
+        for phase in (phase_kernel, phase_flash_kernel, phase_ring_kernel,
+                      phase_sched_kernel):
             try:
                 phase(torch, dev)
             except AssertionError as e:
@@ -1248,11 +1604,13 @@ def main() -> int:
     kernel_rows = phase_kernel(torch, dev)
     flash_rows = phase_flash_kernel(torch, dev)
     ring_rows = phase_ring_kernel(torch, dev)
+    sched_rows = phase_sched_kernel(torch, dev)
     launches = phase_engine(torch)
     phase_parity(torch)
     phase_train_parity(torch)
     train_launches = phase_train(torch)
     ring_launches = phase_ring(torch, dev)
+    sched_launches, star_rows = phase_north_star(torch, dev)
 
     # kernel 1 and its yardstick by device time (graph replays): the eager
     # loop of wrapper calls times the host, not the kernels
@@ -1295,6 +1653,7 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in ring_rows.values()),
         **{k: full[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}})
+    table += sched_table(sched_rows, star_rows, sched_launches)
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

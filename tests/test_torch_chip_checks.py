@@ -5,9 +5,13 @@ mutation still finds the one place it breaks in the current source. Also
 the ring block check (kernel 2's o, m, l, with exact rows where no key is
 visible), the work counted for a block's bound, the logit comparison of
 the ring phase, the SASS build check of the sm90 templates and of kernel
-1's bulk-copy kernels, and the paged sweep's shapes and lengths."""
+1's bulk-copy kernels and of the scheduler's kernels, the paged sweep's
+shapes and lengths, and the scheduler phases' helpers: the bytes a tick or
+a drive moves, the tick counts the card must reproduce, the seeded gang
+batch and its oracle check."""
 
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -227,6 +231,8 @@ def test_every_flash_kernel_is_checked_as_sm90():
     ("(anonymous namespace)::paged_decode_merge_kernel(float const*, "
      "float*, int, int)", "paged attention"),
     ("nvjet_hsh_256x128_64x4_1x2_h_bz_coopA_NTT", "matrix products"),
+    ("(anonymous namespace)::sched_plan_kernel(int*, int*, float const*)",
+     "scheduler"),
     ("void at::native::elementwise_kernel<128, 2>", "other")])
 def test_kernel_group(name, group):
     assert chip_smoke.kernel_group(name) == group
@@ -320,3 +326,96 @@ def test_mutant_summary_reads_paged_rows():
         "serving bfloat16": {"max_abs_err": 0.2, "deterministic": True,
                              "graph_bit_identical": True}}
     assert row["verdict"]["paged_kernel"].startswith("rejected")
+
+
+# ----------------------------------------------------------------------
+# the scheduler phases (sched_kernel, north_star)
+# ----------------------------------------------------------------------
+
+def test_scheduler_kernels_are_build_checked():
+    """Every kernel of csrc/scheduler_tick.cu is in the build check, which
+    asks each for an instance and no spills (no wgmma, no TMA)."""
+    src = (Path(chip_smoke.__file__).parent / "ray_tpu_torch" / "ops"
+           / "csrc" / "scheduler_tick.cu").read_text()
+    kernels = chip_smoke.SCHED_KERNELS["scheduler_tick"]
+    assert list(chip_smoke.SCHED_KERNELS) == ["scheduler_tick"]
+    assert sorted(kernels) == sorted(re.findall(
+        r"__global__ void __launch_bounds__\([^)]*\) (\w+)\(", src))
+    assert all(ops == () for ops in kernels.values())
+
+
+@pytest.mark.parametrize("spill, problems", [
+    (0, []), (12, ["sched_plan_kernel: instances spill 12 bytes"])])
+def test_scheduler_kernel_spills_are_refused(spill, problems):
+    name = "_ZN27_GLOBAL__N__scheduler_tick17sched_plan_kernelEPiS0_"
+    _row, found = chip_smoke.sm90_instances(
+        "sched_plan_kernel", _sass((name, "BAR.SYNC.DEFER_BLOCKING 0x0 ;")),
+        {"sched_plan_kernel": f"8 bytes stack frame, {spill} bytes spill "
+                              f"stores; Used 32 registers"}, "", ops=(),
+        min_registers=None)
+    assert found == problems
+
+
+@pytest.mark.parametrize("C, E, node_of, want", [
+    (1_000_000, 0, False, 18_000_000 + 4 * (4 + 3 * 64 * 4)),
+    (1_000_000, 0, True, 22_000_000 + 4 * (4 + 3 * 64 * 4)),
+    (1_000_000, 984_375, False,
+     18_000_000 + 9_843_750 + 4 * (4 + 3 * 64 * 4))])
+def test_sched_bytes_reads_each_input_and_writes_each_output_once(
+        C, E, node_of, want):
+    assert chip_smoke.sched_bytes(C, E, 1, 64, 4, node_of) == want
+    row = chip_smoke.bound_row(want)
+    assert row["bound_by"] == "bytes"
+    assert row["bound_ms"] == pytest.approx(want / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.SCHED_TICKS))
+def test_sched_ticks_are_the_plain_drives_at_full_size(name):
+    """The card's tick counts are the plain drive's on the full graphs
+    (which equals jax_drive's: tests/test_torch_benchmarks.py)."""
+    from ray_tpu_torch._private import benchmarks as B
+
+    g = B.CONFIGS[name]()
+    *_rest, ticks = B.kernels.drive(*B.device_state(g, "cpu"),
+                                    threshold=chip_smoke.SCHED_THRESHOLD,
+                                    max_ticks=g.max_ticks)
+    assert int(ticks) == chip_smoke.SCHED_TICKS[name]
+
+
+def test_pack_batch_is_seeded_and_every_bundle_demands_a_cpu():
+    a, b = chip_smoke.pack_batch(), chip_smoke.pack_batch()
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    demands, tiers, cap = a
+    assert demands.shape == (chip_smoke.PACK_GANGS, chip_smoke.PACK_BUNDLES,
+                             4)
+    assert (demands[..., 0] >= 1).all() and set(tiers.tolist()) == {0, 1, 2}
+    assert cap.shape == (chip_smoke.PACK_NODES, 4)
+
+
+@pytest.mark.parametrize("strict", [False, True])
+def test_pack_check_holds_the_plain_pack_to_the_oracle(strict):
+    from ray_tpu_torch._private.scheduler import kernels as sk
+
+    equal, (node_of, ok, _avail) = chip_smoke.pack_check(
+        sk, torch.device("cpu"), strict)
+    assert equal and ok.any() and (node_of[ok] >= 0).all()
+
+
+def test_sched_table_rows_carry_every_key():
+    row = {"max_abs_err": 0.0, "plain_ms": 2.0, "bound_ms": 0.005,
+           "bound_by": "bytes"}
+    table = chip_smoke.sched_table(
+        {"scheduler_tick": {**row, "ms": 0.06},
+         "pack_many": {**row, "ms": 0.4}},
+        {"north_star": {**row, "device_ms": 0.08}},
+        {"tick": 464, "drive": 28, "pack_many": 1, "pack_many_tiered": 1})
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert [r["name"] for r in table] == ["scheduler_tick", "scheduler_drive",
+                                          "pack_many"]
+    assert all(set(r) == keys and r["route"] == "cuda" for r in table)
+    assert [r["launches"] for r in table] == [464, 28, 1]
+    assert [r["ms"] for r in table] == [0.06, 0.08, 0.4]
+    assert table[0]["replaces"] == \
+        "ray_tpu/_private/scheduler/kernels.py:707 (XLA)"

@@ -213,7 +213,9 @@ def test_port_imports_no_jax():
             "ray_tpu_torch.models.train_step, ray_tpu_torch.ops.flash, "
             "ray_tpu_torch.ops.paged_attention, ray_tpu_torch._private.perf, "
             "ray_tpu_torch.ops.ring_attention, ray_tpu_torch.parallel, "
-            "ray_tpu_torch.parallel.mesh; "
+            "ray_tpu_torch.parallel.mesh, "
+            "ray_tpu_torch._private.scheduler.kernels, "
+            "ray_tpu_torch._private.benchmarks; "
             "import sys; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
             "'ray_tpu.')) or m == 'ray_tpu' for m in sys.modules)")
