@@ -93,6 +93,21 @@ Phases, each printing one JSON line:
                the plain drive on the card. One line per graph, then the 1M
                fan-out's time against the north star's 10 ms.
 
+ 10. runtime — the port's runtime core on the scheduler's main path
+               (phase_runtime): BASELINE.json's configs through
+               ray_tpu_torch.init / remote / get with the TensorScheduler
+               assigning on the card (kernels.assign on its own CUDA
+               stream): the 10k fan-out under sched_backend cuda, numpy
+               and auto, unbatched and through map_remote, assign's
+               counter against the scheduler's device assigns; every
+               snapshot of a checking fan-out replayed through the numpy
+               oracle assign_np; the 100k map-reduce; 1k actors x 10
+               calls in call order; an engine actor (num_gpus=1) at
+               serve-127M whose greedy tokens equal a direct engine's,
+               with assign's times alone and beside it; the GPU count in
+               cluster_resources; and the numpy / cuda crossover of
+               TensorScheduler._assign that sets sched_device_min_batch.
+
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 ray_tpu_torch package beside this file, it exits non-zero and prints no result.
@@ -209,6 +224,33 @@ SCHED_REPEATS = 20
 # accelerator each), three priority tiers, on 64 nodes of 4-16 CPUs and 0-2
 # accelerators; held exactly to the numpy oracle pack_gangs_tiered_np
 PACK_GANGS, PACK_BUNDLES, PACK_NODES = 256, 4, 64
+
+
+# the runtime (phase runtime): BASELINE.json's configs through the port's
+# public API (ray_tpu_torch.init / remote / get, thread mode, 8 workers)
+# with the TensorScheduler assigning on the card through kernels.assign.
+# Config 1 (10k no-op tasks) at full size under each backend, unbatched
+# and through map_remote; config 2 (100k tasks: benchmarks.build_map_reduce's
+# 99,010 maps and 990 reducers of 100 maps each, passed as ObjectRefs) at
+# full size; config 4 cut to RUNTIME_ACTORS actors x RUNTIME_CALLS calls.
+# The crossover times TensorScheduler._assign at CROSSOVER_K ready tasks
+# on 64 nodes, numpy against cuda, on made-up snapshots of 1 and of 64
+# classes (crossover_snapshot). sched_device_min_batch's default is the
+# smallest k from which cuda takes under half numpy's time (the
+# calibration's own 2x margin) at every larger k, for some class count:
+# that is the 64-class mix, as no measured workload has many classes.
+# Under auto the calibration also waits for a numpy tick above 2 ms, so
+# the one-class runtime traffic above never reaches the device path
+RUNTIME_WORKERS = 8
+PROFILED_ASSIGNS = 20   # assign calls in one profiler session
+RUNTIME_FANOUT = 10_000
+RUNTIME_BACKENDS = ("cuda", "numpy", "auto")
+RUNTIME_TASKS, RUNTIME_FAN_IN = 100_000, 100
+RUNTIME_ACTORS, RUNTIME_CALLS = 1000, 10
+ENGINE_PROMPTS, ENGINE_NEW_TOKENS = 8, 32
+CROSSOVER_K = (64, 256, 1024, 4096, 16384, 65536)
+CROSSOVER_CLASSES = (1, 64)
+CROSSOVER_NODES = 64
 
 
 # the bf16 kernels are instances of the wgmma + TMA templates: the forward
@@ -1201,11 +1243,13 @@ def kernel_group(name):
                  if any(k in name for k in keys)), "other")
 
 
-def profile_call(torch, fn):
+def profile_call(torch, fn, allow_empty=False):
     """fn() once more under torch.profiler (one engine round, one train
     step): device time by kernel name and by group, from the device's own
     kernel and copy events (not the host ops that launched them), and the
-    device's busy time, the union of those events' intervals."""
+    device's busy time, the union of those events' intervals. A session
+    that recorded no device activity raises, or with allow_empty returns
+    None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1220,6 +1264,8 @@ def profile_call(torch, fn):
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
+        if allow_empty:
+            return None
         raise AssertionError("the profiler recorded no device activity")
     busy, reach, by_name = 0.0, float("-inf"), {}
     for start, end, name in spans:
@@ -1567,6 +1613,615 @@ def phase_ring(torch, dev):
     return launches
 
 
+class AssignRecorder:
+    """chip_smoke's own instrument on TensorScheduler and kernels._run (the
+    package is not changed): while ``snapshots`` is a list, every snapshot
+    _assign sees under sched_backend "cuda" is kept with its result; every
+    _device_assign call adds (start, k, host seconds, stream span ms,
+    kernel span ms) to ``calls``: the stream span between CUDA events
+    recorded on the scheduler's stream around the whole call (uploads,
+    the tick kernels, the fetch), the kernel span around the one launch
+    of the tick kernels (kernels._run) alone. remove() restores them."""
+
+    def __init__(self, torch, TS, sk, config):
+        self.TS, self.sk, self.snapshots, self.calls = TS, sk, None, []
+        self._assign, self._device_assign = TS._assign, TS._device_assign
+        self._run, self._kernel_events = sk._run, []
+        rec = self
+
+        def _run(*args, **kwargs):
+            events = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+            events[0].record()          # the current stream: the caller's
+            rec._run(*args, **kwargs)
+            events[1].record()
+            rec._kernel_events.append(events)
+
+        def _assign(sched, snapshot):
+            out = rec._assign(sched, snapshot)
+            if rec.snapshots is not None and config.sched_backend == "cuda":
+                rec.snapshots.append((snapshot, out[1].copy(),
+                                      out[2].copy()))
+            return out
+
+        def _device_assign(sched, ready_cls, *args):
+            stream, events = sched._stream, None
+            if stream is not None:
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                events[0].record(stream)
+            rec._kernel_events = []
+            t0 = time.perf_counter()
+            out = rec._device_assign(sched, ready_cls, *args)
+            host_s = time.perf_counter() - t0
+            span = kernel = None
+            if events is not None:
+                events[1].record(stream)
+                events[1].synchronize()
+                span = events[0].elapsed_time(events[1])
+            if rec._kernel_events:
+                k0, k1 = rec._kernel_events[0]
+                kernel = k0.elapsed_time(k1)
+            rec.calls.append((t0, len(ready_cls), host_s, span, kernel))
+            return out
+
+        TS._assign, TS._device_assign = _assign, _device_assign
+        sk._run = _run
+
+    def remove(self):
+        self.TS._assign = self._assign
+        self.TS._device_assign = self._device_assign
+        self.sk._run = self._run
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def assign_timing(calls, lo=float("-inf"), hi=float("inf")):
+    """Median host µs, stream span µs and kernel span µs of the recorded
+    device assigns that started in [lo, hi), with their count and median
+    batch size."""
+    sel = [c for c in calls if lo <= c[0] < hi]
+    spans = [c[3] for c in sel if c[3] is not None]
+    kernels = [c[4] for c in sel if c[4] is not None]
+    return {"assigns": len(sel), "median_k": _median([c[1] for c in sel]),
+            "host_us": (_median([c[2] for c in sel]) * 1e6
+                        if sel else None),
+            "stream_us": _median(spans) * 1e3 if spans else None,
+            "kernel_us": _median(kernels) * 1e3 if kernels else None}
+
+
+def assign_agrees(got, want, ready_cls, spread):
+    """The reference's contract between the device path and assign_np
+    (tests/test_tensor_scheduler.py, TestManyClasses): avail equal, and
+    node_of equal task for task, except in SPREAD classes, whose tasks
+    are interchangeable and must land the same count on every node (the
+    device path water-fills where assign_np deals round-robin)."""
+    import numpy as np
+
+    node_got, node_want = np.asarray(got[0]), np.asarray(want[0])
+    if not np.array_equal(got[1], want[1]):
+        return False
+    spread_task = np.asarray(spread, dtype=bool)[ready_cls]
+    if not np.array_equal(node_got[~spread_task], node_want[~spread_task]):
+        return False
+    n = len(got[1]) + 1
+    for c in np.unique(ready_cls[spread_task]):
+        sel = ready_cls == c
+        if not np.array_equal(np.bincount(node_got[sel] + 1, minlength=n),
+                              np.bincount(node_want[sel] + 1, minlength=n)):
+            return False
+    return True
+
+
+def replay_oracle(sk, snapshots, threshold):
+    """Each recorded snapshot through assign_np, given the full class table
+    as _assign's numpy branch builds it: the number of snapshots whose
+    node_of or avail the device path did not match (assign_agrees)."""
+    import numpy as np
+
+    bad = 0
+    for snap, node_of, avail in snapshots:
+        ready_idx, ready_cls, demands, avail0, cap, mask, spread = snap[:7]
+        cls_full = np.zeros(int(ready_idx.max()) + 1, dtype=np.int32)
+        cls_full[ready_idx] = ready_cls
+        want = sk.assign_np(ready_idx, cls_full, demands, avail0, cap,
+                            threshold, mask, spread)
+        bad += not assign_agrees((node_of, avail), want, ready_cls, spread)
+    return bad
+
+
+def runtime_fanout(ray, n):
+    """n no-op tasks through .remote(), then get: (seconds, results)."""
+    @ray.remote
+    def _noop():
+        return None
+
+    t0 = time.perf_counter()
+    out = ray.get([_noop.remote() for _ in range(n)], timeout=600)
+    return time.perf_counter() - t0, out
+
+
+def runtime_map_reduce(ray):
+    """BASELINE config 2 through @remote, as build_map_reduce shapes it:
+    map i returns i; reducer j sums maps [j * fan_in, (j + 1) * fan_in),
+    passed as ObjectRef arguments. Returns (seconds, tasks, the reduced
+    total, the expected total)."""
+    @ray.remote
+    def _map(i):
+        return i
+
+    @ray.remote
+    def _reduce(*xs):
+        return sum(xs)
+
+    n_reduce = RUNTIME_TASKS // (RUNTIME_FAN_IN + 1)
+    n_map = RUNTIME_TASKS - n_reduce
+    t0 = time.perf_counter()
+    maps = _map.map_remote([(i,) for i in range(n_map)])
+    reds = [_reduce.remote(*maps[j * RUNTIME_FAN_IN:(j + 1) * RUNTIME_FAN_IN])
+            for j in range(n_reduce)]
+    total = sum(ray.get(reds, timeout=900))
+    last = n_reduce * RUNTIME_FAN_IN
+    return (time.perf_counter() - t0, n_map + n_reduce, total,
+            last * (last - 1) // 2)
+
+
+def runtime_actors(ray):
+    """BASELINE config 4, cut: RUNTIME_ACTORS actors, RUNTIME_CALLS calls
+    each from this caller. Returns (seconds, actors whose results are not
+    1..RUNTIME_CALLS in call order)."""
+    @ray.remote
+    class _Counter:
+        def __init__(self):
+            self.n = 0
+
+        def inc(self):
+            self.n += 1
+            return self.n
+
+    t0 = time.perf_counter()
+    actors = [_Counter.remote() for _ in range(RUNTIME_ACTORS)]
+    refs = [[a.inc.remote() for _ in range(RUNTIME_CALLS)] for a in actors]
+    got = ray.get([r for rs in refs for r in rs], timeout=900)
+    dt = time.perf_counter() - t0
+    want = list(range(1, RUNTIME_CALLS + 1))
+    bad = sum(got[i * RUNTIME_CALLS:(i + 1) * RUNTIME_CALLS] != want
+              for i in range(RUNTIME_ACTORS))
+    for a in actors:
+        ray.kill(a)
+    return dt, bad
+
+
+def crossover_snapshot(k, n_classes, seed=0):
+    """A TensorScheduler snapshot of k ready tasks over n_classes classes
+    on CROSSOVER_NODES nodes: dyadic demands (1-2 CPUs, 0 / 0.25 / 0.5
+    GPU), capacities 16-63 CPUs and 0-3 GPUs; with many classes a random
+    80% class mask and a quarter of the classes SPREAD."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    N, K = CROSSOVER_NODES, n_classes
+    demands = np.zeros((K, 4), dtype=np.float32)
+    demands[:, 0] = rng.integers(1, 3, K)
+    demands[:, 1] = rng.choice([0.0, 0.25, 0.5], K)
+    cap = np.zeros((N, 4), dtype=np.float32)
+    cap[:, 0] = rng.integers(16, 64, N)
+    cap[:, 1] = rng.integers(0, 4, N)
+    mask = (rng.random((K, N)) < 0.8) if K > 1 else np.ones((K, N), bool)
+    spread = (rng.random(K) < 0.25) if K > 1 else np.zeros(K, bool)
+    ready_idx = np.arange(k, dtype=np.int64)
+    ready_cls = rng.integers(0, K, k).astype(np.int32)
+    return (ready_idx, ready_cls, demands, cap.copy(), cap, mask, spread,
+            None)
+
+
+def phase_crossover(torch, sched, config):
+    """TensorScheduler._assign on crossover snapshots: the median wall time
+    of numpy's and cuda's (after two warm calls), and whether they agree
+    (assign_agrees). Returns (rows, {class count: the smallest k from
+    which cuda wins by 2x at every larger k, or None})."""
+    import numpy as np
+
+    rows, wins = [], {}
+    for K in CROSSOVER_CLASSES:
+        for k in CROSSOVER_K:
+            snap = crossover_snapshot(k, K)
+            times, outs = {}, {}
+            for backend, reps in (("numpy", 5), ("cuda", 20)):
+                config.set("sched_backend", backend)
+                for _ in range(2):
+                    outs[backend] = sched._assign(snap)
+                ts = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    sched._assign(snap)
+                    ts.append(time.perf_counter() - t0)
+                times[backend] = _median(ts) * 1e3
+            equal = assign_agrees(outs["cuda"][1:], outs["numpy"][1:],
+                                  snap[1], snap[6])
+            win = times["cuda"] < 0.5 * times["numpy"]
+            wins.setdefault(k, []).append(win)
+            rows.append({"k": k, "classes": K, "nodes": CROSSOVER_NODES,
+                         "numpy_ms": times["numpy"], "cuda_ms": times["cuda"],
+                         "cuda_wins_2x": win, "equal": equal})
+    from_k = {}
+    for i, K in enumerate(CROSSOVER_CLASSES):
+        from_k[K] = None
+        for k in reversed(CROSSOVER_K):
+            if not wins[k][i]:
+                break
+            from_k[K] = k
+    return rows, from_k
+
+
+def assign_bytes(k, K, N, R=4):
+    """Bytes assign must move at least: the batch's classes (4 a task),
+    demands, avail and cap, the class mask and spread flags read once;
+    node_of (4 a task) and avail written once."""
+    return 4 * k + 4 * K * R + 2 * 4 * N * R + K * N + K + 4 * k + 4 * N * R
+
+
+def phase_runtime(torch):
+    """The runtime's main path on the card (see RUNTIME_*): ray_tpu_torch.init
+    with scheduler="tensor", sched_device "cuda", 8 workers.
+
+    - fan-out: e2e_task_throughput(10k), unbatched and through map_remote,
+      under sched_backend cuda, numpy and auto; kernels.assign's counter
+      zeroed just before each and read just after: equal to the
+      scheduler's device assigns, > 0 under cuda and 0 under numpy.
+    - oracle: a checking 10k fan-out under cuda with every snapshot
+      _assign saw kept, each replayed through assign_np: node_of and
+      avail equal.
+    - map_reduce (config 2, full) and actors (config 4, cut) under cuda:
+      the reduced total, every actor's results in call order.
+    - engine: an actor (num_gpus=1) holding InferenceEngine at serve-127M
+      generates ENGINE_PROMPTS prompts one after another through
+      .remote(); its greedy tokens equal a direct engine.generate on the
+      same parameters, and paged_attention's counter advanced. Assign's
+      host time, stream span and kernel span (AssignRecorder) from a 10k
+      fan-out alone, then from one started while the actor decodes: the
+      device path runs on the scheduler's own stream.
+    - resources: cluster_resources()["GPU"] == torch.cuda.device_count().
+    - crossover: phase_crossover's table and the k it gives.
+    - stream: stream_check, the device assign beside a busy default
+      stream.
+    Returns (assign's launches on the cuda fan-out, the kernel table's row
+    for kernels.assign)."""
+    import ray_tpu_torch as ray
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch._private.perf import e2e_task_throughput
+    from ray_tpu_torch._private.scheduler import kernels as sk
+    from ray_tpu_torch._private.scheduler.local import NodeState
+    from ray_tpu_torch._private.scheduler.tensor import TensorScheduler
+
+    smi = nvidia_smi()
+    problems, fanout = [], {}
+    main_launches = None
+    for backend in RUNTIME_BACKENDS:
+        for batched in (False, True):
+            sk.assign.launches = 0      # the main path: counted from zero
+            r = e2e_task_throughput(
+                RUNTIME_FANOUT, num_workers=RUNTIME_WORKERS, batched=batched,
+                system_config={"sched_backend": backend,
+                               "sched_device": "cuda"})
+            launches = sk.assign.launches
+            key = f"{backend}{'_batched' if batched else ''}"
+            fanout[key] = {**r, "assign_launches": launches}
+            emit({"phase": "runtime", "part": "fanout", "backend": backend,
+                  "batched": batched, "tasks_per_sec": r["tasks_per_sec"],
+                  "seconds": r["seconds"], "budget_us": r["budget_us"],
+                  "sched_ticks": r["sched_ticks"],
+                  "tasks_per_tick": r["tasks_per_tick"],
+                  "assign_launches": launches,
+                  "device_assigns": r["device_assigns_total"],
+                  "device_assign_errors": r["device_assign_errors"],
+                  "nvidia_smi": smi})
+            if backend == "cuda" and not batched:
+                main_launches = launches
+            problems += [f"fanout {key}: {what}" for what, failed in (
+                ("assign launches != device assigns",
+                 launches != r["device_assigns_total"]),
+                ("no device assign", backend == "cuda" and launches == 0),
+                ("a device assign under numpy",
+                 backend == "numpy" and launches != 0),
+                ("device assign errors", r["device_assign_errors"] != 0))
+                if failed]
+
+    rec = AssignRecorder(torch, TensorScheduler, sk, GLOBAL_CONFIG)
+    try:
+        ray.init(num_workers=RUNTIME_WORKERS, scheduler="tensor",
+                 _system_config={"sched_backend": "cuda",
+                                 "sched_device": "cuda"})
+        try:
+            gpus = ray.cluster_resources().get("GPU")
+            if gpus != torch.cuda.device_count():
+                problems.append(f"cluster_resources GPU {gpus}")
+            # GPU detection in a fresh process leaves CUDA uninitialised
+            fresh = subprocess.run(
+                [sys.executable, "-c", "import torch; from ray_tpu_torch."
+                 "_private.worker import _detect_gpu_count as d; n = d(); "
+                 "print(n, torch.cuda.is_initialized())"],
+                capture_output=True, text=True, timeout=120,
+                cwd=Path(__file__).resolve().parent).stdout.split()
+            emit({"phase": "runtime", "part": "resources", "gpu": gpus,
+                  "fresh_process_detect": fresh})
+            if fresh != [f"{float(torch.cuda.device_count())}", "False"]:
+                problems.append(f"GPU detection in a fresh process: {fresh}")
+            runtime_fanout(ray, 200)                     # warm
+            rec.snapshots = []
+            dt, out = runtime_fanout(ray, RUNTIME_FANOUT)
+            snapshots, rec.snapshots = rec.snapshots, None
+            bad = replay_oracle(sk, snapshots,
+                                GLOBAL_CONFIG.sched_hybrid_threshold)
+            ks = [len(s[0][0]) for s in snapshots]
+            median_snap = sorted(snapshots, key=lambda s: len(s[0][0]))[
+                len(snapshots) // 2][0] if snapshots else None
+            emit({"phase": "runtime", "part": "oracle",
+                  "snapshots": len(snapshots), "differ": bad,
+                  "k_min": min(ks, default=None), "k_median": _median(ks),
+                  "k_max": max(ks, default=None), "seconds": dt})
+            if not snapshots or bad or out != [None] * RUNTIME_FANOUT:
+                problems.append(f"oracle: {bad} of {len(snapshots)} "
+                                "snapshots differ from assign_np")
+
+            dt, tasks, total, want = runtime_map_reduce(ray)
+            emit({"phase": "runtime", "part": "map_reduce", "tasks": tasks,
+                  "seconds": dt, "tasks_per_sec": tasks / dt,
+                  "total": total, "want": want})
+            if total != want:
+                problems.append(f"map_reduce total {total} != {want}")
+
+            dt, bad = runtime_actors(ray)
+            emit({"phase": "runtime", "part": "actors",
+                  "actors": RUNTIME_ACTORS, "calls": RUNTIME_CALLS,
+                  "seconds": dt,
+                  "calls_per_sec": RUNTIME_ACTORS * RUNTIME_CALLS / dt,
+                  "out_of_order_actors": bad,
+                  "cut": f"{RUNTIME_CALLS} calls an actor, not 1000"})
+            if bad:
+                problems.append(f"actors: {bad} out of call order")
+
+            problems += runtime_engine(torch, ray, rec, smi, "cuda")
+            stats = ray._worker.get_worker().scheduler.stats()
+            if stats["device_assign_errors"]:
+                problems.append("device assign errors")
+        finally:
+            ray.shutdown()
+        # the same actor beside a numpy-assigned fan-out: what the host
+        # alone costs the decoding actor, without the device path
+        ray.init(num_workers=RUNTIME_WORKERS, scheduler="tensor",
+                 _system_config={"sched_backend": "numpy"})
+        try:
+            problems += runtime_engine(torch, ray, rec, smi, "numpy")
+        finally:
+            ray.shutdown()
+    finally:
+        rec.remove()
+
+    sched = TensorScheduler([NodeState((8.0, 1.0, 1e18, 0.0))],
+                            lambda task: None)
+    try:
+        rows, from_k = phase_crossover(torch, sched, GLOBAL_CONFIG)
+        for row in rows:
+            emit({"phase": "runtime", "part": "crossover", **row,
+                  "nvidia_smi": smi})
+        ks = [k for k in from_k.values() if k is not None]
+        emit({"phase": "runtime", "part": "crossover_verdict",
+              "cuda_wins_2x_from_k": {str(K): k for K, k in from_k.items()},
+              "crossover_k": min(ks, default=None),
+              "sched_device_min_batch": GLOBAL_CONFIG.sched_device_min_batch,
+              "nvidia_smi": smi})
+        problems += [f"crossover k={r['k']} K={r['classes']}: cuda "
+                     "disagrees with numpy" for r in rows if not r["equal"]]
+        snap = median_snap or crossover_snapshot(4096, 1)
+        stream = stream_check(torch, sched, snap,
+                              GLOBAL_CONFIG.sched_hybrid_threshold)
+        emit({"phase": "runtime", "part": "stream", **stream,
+              "nvidia_smi": smi})
+        if not stream["independent"]:
+            problems.append(f"the device assign waited on the default "
+                            f"stream: {stream}")
+        row = assign_row(torch, sk, median_snap, main_launches,
+                         GLOBAL_CONFIG.sched_hybrid_threshold)
+    finally:
+        sched.shutdown()
+        GLOBAL_CONFIG.reset()
+    emit({"phase": "runtime", "part": "assign_kernel", **row,
+          "ok": not problems, "nvidia_smi": smi})
+    if problems:
+        raise AssertionError(f"runtime phase: {problems}")
+    return row
+
+
+def runtime_engine(torch, ray, rec, smi, backend):
+    """The model through the runtime (initialised with sched_backend
+    ``backend``): an engine actor at serve-127M, its tokens against a
+    direct engine on the same parameters, the actor's time alone and
+    beside a 10k fan-out, and (cuda) assign's times alone and beside the
+    decoding actor. Returns the problems."""
+    from ray_tpu_torch.models.inference import (InferenceConfig,
+                                                InferenceEngine)
+    from ray_tpu_torch.models.transformer import (TransformerConfig,
+                                                  init_params)
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    mcfg = TransformerConfig(dtype=torch.bfloat16, **SERVE)
+    params = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
+    icfg = InferenceConfig(batch_size=SLOTS, page_size=PAGE,
+                           max_pages_per_seq=MAX_PAGES, num_pages=NUM_PAGES,
+                           prefill_buckets=(16,),
+                           max_new_tokens=ENGINE_NEW_TOKENS)
+    prompts = [[i + 1, 2 * i + 3, 7] for i in range(ENGINE_PROMPTS)]
+
+    @ray.remote(num_gpus=1)
+    class _Engine:
+        def __init__(self, params, mcfg, icfg):
+            self.engine = InferenceEngine(params, mcfg, icfg)
+
+        def generate(self, prompts, n):
+            # one after another: each prompt alone in the batch, as the
+            # direct engine below runs them
+            return [self.engine.generate(p, n) for p in prompts]
+
+        def stop(self):
+            self.engine.shutdown()
+
+    problems = []
+    actor = _Engine.remote(params, mcfg, icfg)
+    try:
+        ray.get(actor.generate.remote(prompts[:1], 4), timeout=600)  # warm
+        t0 = time.perf_counter()
+        ray.get(actor.generate.remote(prompts, ENGINE_NEW_TOKENS),
+                timeout=600)
+        actor_alone_s = time.perf_counter() - t0
+        alone0 = time.perf_counter()
+        runtime_fanout(ray, RUNTIME_FANOUT)
+        fanout_alone_s = time.perf_counter() - alone0
+        alone = assign_timing(rec.calls, alone0)
+        launches0 = pa.paged_attention.launches
+        t0 = time.perf_counter()
+        ref = actor.generate.remote(prompts, ENGINE_NEW_TOKENS)
+        dt_fan, _out = runtime_fanout(ray, RUNTIME_FANOUT)
+        t_fan = time.perf_counter()
+        got = ray.get(ref, timeout=600)
+        t1 = time.perf_counter()
+        beside = assign_timing(rec.calls, t0, min(t_fan, t1))
+        actor_launches = pa.paged_attention.launches - launches0
+        ray.get(actor.stop.remote(), timeout=120)
+    finally:
+        ray.kill(actor)
+    engine = InferenceEngine(params, mcfg, icfg)
+    try:
+        want = [engine.generate(p, ENGINE_NEW_TOKENS) for p in prompts]
+    finally:
+        engine.shutdown()
+    emit({"phase": "runtime", "part": "engine", "backend": backend,
+          "prompts": ENGINE_PROMPTS,
+          "new_tokens": ENGINE_NEW_TOKENS, "actor_seconds": t1 - t0,
+          "actor_seconds_alone": actor_alone_s,
+          "fanout_seconds_alone": fanout_alone_s,
+          "fanout_seconds_beside_actor": dt_fan,
+          "fanout_ended_before_actor": t_fan < t1,
+          "tokens_equal_direct": got == want,
+          "paged_attention_launches": actor_launches,
+          "assign_alone": alone, "assign_beside_actor": beside,
+          "nvidia_smi": smi})
+    if got != want:
+        problems.append("engine actor tokens != direct engine tokens")
+    if actor_launches <= 0:
+        problems.append("the engine actor launched no paged attention")
+    if backend == "cuda" and not beside["assigns"]:
+        problems.append("no device assign while the actor decoded")
+    return problems
+
+
+def stream_check(torch, sched, snap, threshold, spin_ms=300.0):
+    """The device path's own stream against the default stream: with a
+    spin kernel of ~spin_ms queued on the default stream (as a model's
+    work would be), one TensorScheduler._device_assign must return while
+    the spin still runs, in a small part of its time."""
+    args = (snap[1], snap[2], snap[3], snap[4], threshold, snap[5],
+            snap[6])
+    sched._device_assign(*args)       # warm; makes the scheduler's stream
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    end.synchronize()
+    cycles = int(1_000_000 * spin_ms / start.elapsed_time(end))
+    spun = torch.cuda.Event()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)         # the default stream, busy
+    spun.record()
+    t1 = time.perf_counter()
+    sched._device_assign(*args)
+    t2 = time.perf_counter()
+    spin_running = not spun.query()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    assign_ms = (t2 - t1) * 1e3
+    return {"k": len(snap[1]), "spin_ms": (t3 - t0) * 1e3,
+            "assign_ms_beside_spin": assign_ms,
+            "spin_running_after_assign": spin_running,
+            "independent": spin_running and assign_ms < spin_ms / 10}
+
+
+def assign_row(torch, sk, snap, launches, threshold):
+    """kernels.assign's row of the kernel table, at the runtime fan-out's
+    median snapshot (a crossover snapshot if none was recorded): ms is the
+    span of the tick kernels' one launch (kernels._run, CUDA events,
+    median of 20 calls; the uploads and the fetch around it are in
+    host_ms, the call's wall time), profiled_busy_ms the device's busy
+    time a call over PROFILED_ASSIGNS more calls under torch.profiler (the
+    profiler can miss a short session's kernels entirely: up to three
+    sessions, and "not measured" when none recorded any),
+    plain_ms scan_classes_reference on the same inputs on the card (what
+    kernels.assign runs for CPU tensors), the bound bytes over 3.35 TB/s."""
+    import numpy as np
+
+    if snap is None:
+        snap = crossover_snapshot(4096, 1)
+    ready_idx, ready_cls, demands, avail, cap, mask, spread = snap[:7]
+    uniq, inv = np.unique(ready_cls, return_inverse=True)
+    args = (inv.astype(np.int32), demands[uniq], avail, cap, threshold,
+            mask[uniq], spread[uniq])
+    got = sk.assign(*args, device="cuda")
+    k, K, N = len(inv), len(uniq), len(avail)
+    t = [torch.as_tensor(np.asarray(x), device="cuda") for x in
+         (args[0], args[1], args[2], args[3], args[5], args[6])]
+    ready = torch.ones(k, dtype=torch.bool, device="cuda")
+    thr = torch.tensor(threshold, dtype=torch.float32, device="cuda")
+
+    def plain():
+        return sk.scan_classes_reference(ready, t[0], t[1], t[2], t[3], thr,
+                                         N, k, t[4], t[5])
+
+    want = plain()
+    host, spans, run = [], [], sk._run
+
+    def timed_run(*a, **kw):       # the tick kernels' span, by events
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        run(*a, **kw)
+        events[1].record()
+        spans.append(events)
+
+    sk._run = timed_run
+    try:
+        for _ in range(20):
+            t0 = time.perf_counter()
+            sk.assign(*args, device="cuda")
+            host.append(time.perf_counter() - t0)
+    finally:
+        sk._run = run
+    prof = None
+    for _ in range(3):
+        prof = profile_call(torch, lambda: [
+            sk.assign(*args, device="cuda")
+            for _ in range(PROFILED_ASSIGNS)], allow_empty=True)
+        if prof is not None:
+            break
+    equal = (np.array_equal(got[0], want[0].cpu().numpy())
+             and np.array_equal(got[1], want[2].cpu().numpy()))
+    if not equal:
+        raise AssertionError("assign differs from its plain version")
+    return {"k": k, "classes": K, "nodes": N, "equal_plain": equal,
+            "max_abs_err": float(np.abs(got[1] - want[2].cpu().numpy()).max()),
+            "ms": _median([a.elapsed_time(b) for a, b in spans]),
+            "host_ms": _median(host) * 1e3,
+            "profiled_busy_ms": (prof["device_busy_us"] / 1e3
+                                 / PROFILED_ASSIGNS if prof else None),
+            "plain_ms": cuda_ms(torch, lambda i: plain(), 5),
+            "launches": launches,
+            **bound_row(assign_bytes(k, K, N)),
+            "profile": prof or "not measured: the profiler recorded no "
+                               "device activity"}
+
+
 def main() -> int:
     import torch
 
@@ -1611,6 +2266,7 @@ def main() -> int:
     train_launches = phase_train(torch)
     ring_launches = phase_ring(torch, dev)
     sched_launches, star_rows = phase_north_star(torch, dev)
+    assign = phase_runtime(torch)
 
     # kernel 1 and its yardstick by device time (graph replays): the eager
     # loop of wrapper calls times the host, not the kernels
@@ -1654,6 +2310,16 @@ def main() -> int:
         **{k: full[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}})
     table += sched_table(sched_rows, star_rows, sched_launches)
+    # the runtime's batched assignment (jax_assign's counterpart): its
+    # launches on the runtime's cuda fan-out, its time at the median batch
+    table.append({"name": "scheduler_assign", "route": "cuda",
+                  "source": "ray_tpu_torch/ops/csrc/scheduler_tick.cu",
+                  "replaces": "ray_tpu/_private/scheduler/kernels.py:652 "
+                              "(XLA)",
+                  **{k: assign[k] for k in ("launches", "max_abs_err", "ms",
+                                            "plain_ms", "bound_ms",
+                                            "bound_by")},
+                  "library_ms": None})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

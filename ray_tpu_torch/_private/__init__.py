@@ -1,1 +1,3 @@
-"""Internal measurement helpers of the port (``perf.model_mfu``)."""
+"""The port's internals: the thread-mode runtime (``worker``, the
+scheduler, the object and control planes) and measurement helpers
+(``perf``, ``benchmarks``)."""

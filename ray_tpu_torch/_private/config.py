@@ -1,0 +1,268 @@
+"""Typed config registry with environment-variable overrides.
+
+TPU-native equivalent of the reference's RAY_CONFIG macro table
+(ray: src/ray/common/ray_config_def.h + ray_config.h): every knob is a
+typed entry, overridable via ``RAY_TPU_TORCH_<name>`` env vars or an init-time
+``_system_config`` dict, and a frozen snapshot can be exported for
+device-visible kernel parameters (tick sizes, bin-pack weights).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import threading
+from typing import Any, Callable, Dict
+
+# the port's own prefix: the JAX package's registry reads RAY_TPU_*, and
+# the two registries in one process must never configure each other
+_ENV_PREFIX = "RAY_TPU_TORCH_"
+
+
+def _parse_bool(s: str) -> bool:
+    return s.strip().lower() in ("1", "true", "yes", "on")
+
+
+_PARSERS: Dict[type, Callable[[str], Any]] = {
+    bool: _parse_bool,
+    int: lambda s: int(s, 0),
+    float: float,
+    str: str,
+}
+
+
+@dataclasses.dataclass
+class _Entry:
+    name: str
+    type: type
+    default: Any
+    doc: str
+    value: Any = None
+
+    def __post_init__(self):
+        self.value = self.default
+
+
+class ConfigRegistry:
+    """All runtime knobs. Resolution order: explicit set > env var > default."""
+
+    def __init__(self):
+        self._entries: Dict[str, _Entry] = {}
+        self._lock = threading.Lock()
+        self._frozen = False
+
+    def define(self, name: str, type_: type, default: Any, doc: str = "") -> None:
+        with self._lock:
+            if name in self._entries:
+                raise ValueError(f"config {name!r} already defined")
+            entry = _Entry(name, type_, default, doc)
+            env = os.environ.get(_ENV_PREFIX + name.upper())
+            if env is not None:
+                entry.value = _PARSERS[type_](env)
+            self._entries[name] = entry
+
+    def get(self, name: str) -> Any:
+        return self._entries[name].value
+
+    def entry(self, name: str) -> "_Entry":
+        """Live entry handle for hot paths: holders read `.value`
+        directly, skipping the per-access __getattr__ dict walk while
+        still observing later set()s."""
+        return self._entries[name]
+
+    def set(self, name: str, value: Any) -> None:
+        with self._lock:
+            if self._frozen:
+                raise RuntimeError(
+                    "config is frozen after ray_tpu_torch.init(); pass _system_config "
+                    "to init() instead"
+                )
+            entry = self._entries[name]
+            if not isinstance(value, entry.type) and entry.type is not str:
+                value = entry.type(value)
+            entry.value = value
+
+    def apply_system_config(self, system_config: Dict[str, Any] | str) -> None:
+        if isinstance(system_config, str):
+            system_config = json.loads(system_config)
+        for k, v in system_config.items():
+            self.set(k, v)
+
+    def freeze(self) -> None:
+        self._frozen = True
+
+    def unfreeze(self) -> None:
+        self._frozen = False
+
+    def reset(self) -> None:
+        """Restore every knob to default (env overrides re-applied).
+        Called at runtime shutdown: ``_system_config`` is scoped to one
+        init/shutdown cycle, like the reference's per-cluster config."""
+        with self._lock:
+            if self._frozen:
+                raise RuntimeError("cannot reset a frozen config")
+            for entry in self._entries.values():
+                env = os.environ.get(_ENV_PREFIX + entry.name.upper())
+                entry.value = (_PARSERS[entry.type](env)
+                               if env is not None else entry.default)
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {k: e.value for k, e in self._entries.items()}
+
+    def __getattr__(self, name: str) -> Any:
+        entries = object.__getattribute__(self, "_entries")
+        if name in entries:
+            return entries[name].value
+        raise AttributeError(name)
+
+
+GLOBAL_CONFIG = ConfigRegistry()
+_d = GLOBAL_CONFIG.define
+
+# -- core ------------------------------------------------------------------
+_d("num_workers", int, 0, "worker threads/processes; 0 = os.cpu_count()")
+_d("gc_tuning", bool, True,
+   "tune CPython cyclic GC at init: gc.freeze() the pre-init heap "
+   "(jax/XLA imports dominate it) and raise collection thresholds so "
+   "submit bursts of 10k+ specs/refs don't rescan the live graph every "
+   "~700 allocations (measured 26% task-throughput cost at 50k tasks). "
+   "CAVEAT: freeze() exempts objects alive at init() from cycle "
+   "collection until shutdown() (which unfreezes) — cyclic garbage "
+   "formed from PRE-init objects is not reclaimed while the runtime is "
+   "up. Call init() early, or disable this knob if your program builds "
+   "large discardable cyclic structures before init")
+_d("worker_mode", str, "thread",
+   "worker execution backend: thread (process is not ported: init "
+   "refuses it)")
+_d("gcs_journal_path", str, "",
+   "write-ahead journal for GCS table mutations (reference: Redis "
+   "persistence); a restarted head replays it and re-adopts rejoining "
+   "node daemons. Empty = no persistence (head is a SPOF)")
+_d("gcs_journal_compact_every", int, 1000,
+   "appended ops between journal snapshot-compactions (the WAL is "
+   "rewritten as one snapshot record, so a long-lived head's journal "
+   "stays bounded by table size, not mutation count); 0 disables")
+_d("gcs_journal_fsync", bool, False,
+   "fsync the journal after EVERY append: survives MACHINE crash, not "
+   "just process crash, at per-mutation disk-latency cost (the "
+   "reference's Redis tier makes the same durability trade via its "
+   "appendfsync policy). Independently of this knob, critical ops — "
+   "node/actor registration and actor state transitions — always "
+   "fsync, so the failover contract never depends on the page cache")
+_d("gcs_journal_compact_bytes", int, 16 * 1024 * 1024,
+   "journal size threshold that auto-triggers snapshot compaction in "
+   "addition to the op-count path (gcs_journal_compact_every): a "
+   "lease-heavy workload with large specs stays bounded by bytes, not "
+   "just record count; 0 disables the size trigger")
+_d("worker_pipeline_depth", int, 0,
+   "dispatch-window factor: tasks leased per worker beyond its free "
+   "resources, queued at the bounded thread pool (reference: "
+   "max_tasks_in_flight_per_worker); 0 = auto from the worker-count / "
+   "host-core ratio (1 on unoversubscribed hosts)")
+_d("inline_object_max_bytes", int, 100 * 1024,
+   "objects at or under this size are stored in the owner's in-process "
+   "memory store (reference inlines <100KB into task specs)")
+_d("max_direct_call_object_size", int, 100 * 1024,
+   "reference-API alias of inline_object_max_bytes: overriding it "
+   "flows into the real knob at init() unless inline_object_max_bytes "
+   "was itself overridden")
+
+# -- scheduler (device-resident kernel parameters) -------------------------
+_d("sched_tick_interval_s", float, 0.0,
+   "min seconds between scheduler ticks: an event burst arriving within "
+   "the interval coalesces into one tick (0 = tick immediately)")
+_d("sched_arena_capacity", int, 4096,
+   "TensorScheduler starting task-arena slot count (arrays double on "
+   "overflow; raise for sustained million-task graphs to avoid regrow "
+   "copies)")
+_d("sched_num_resources", int, 4,
+   "width R of the resource vectors (cpu, gpu, mem, custom)")
+_d("sched_hybrid_threshold", float, 0.5,
+   "prefer-local until node load exceeds this fraction (hybrid policy analog)")
+_d("scheduler", str, "tensor",
+   "scheduler implementation: tensor (device-array batched, default) | "
+   "event (per-event oracle)")
+_d("sched_backend", str, "auto",
+   "TensorScheduler assignment backend: auto | cuda | numpy (numpy for "
+   "tiny batches; cuda = kernels.assign on sched_device for every batch)")
+_d("sched_device_min_batch", int, 64,
+   "below this many ready tasks the numpy assignment is used (auto "
+   "mode). The default is where kernels.assign first beat numpy by 2x "
+   "on an H100 at 64 scheduling classes on 64 nodes (chip_smoke.py "
+   "phase runtime, PERF.md); at one class it never did, and auto also "
+   "waits for a numpy tick above 2 ms before it times the device")
+_d("sched_device", str, "cuda",
+   "device of the TensorScheduler's device path (kernels.assign): cuda "
+   "launches the hand-written kernels on the card's own stream; cpu runs "
+   "their plain PyTorch version (the tests)")
+_d("qos", bool, False,
+   "multi-tenant QoS plane (tenant fair share, priority tiers, "
+   "preemption). Not ported: init refuses True")
+
+# -- fault tolerance -------------------------------------------------------
+_d("task_max_retries", int, 3, "default retries for tasks on worker failure")
+_d("actor_max_restarts", int, 0, "default actor restarts")
+_d("max_lineage_bytes", int, 64 * 1024 * 1024, "owner lineage cap")
+_d("memory_usage_threshold", float, 0.95,
+   "host memory fraction above which the monitor kills the newest "
+   "running task with a retriable OutOfMemoryError; 0 disables")
+_d("memory_monitor_interval_s", float, 0.25, "memory monitor poll period")
+_d("health_check_period_s", float, 0.2,
+   "control-plane health probe period (GCS liveness loop)")
+_d("health_check_timeout_s", float, 0.6,
+   "wall-clock budget of consecutive failed liveness probes before a "
+   "node is declared dead (probe count = timeout / period; the "
+   "defaults keep the historical 3-probe grace)")
+_d("node_heartbeat_timeout_s", float, 5.0,
+   "mark a node dead after this many seconds without a heartbeat, even "
+   "if its daemon connection stays up (a hung-but-connected node must "
+   "not stall the cluster); heartbeats are recorded only when the "
+   "node's liveness probe actually succeeds")
+_d("task_retry_delay_s", float, 0.05,
+   "base delay before the first task retry; doubles per attempt "
+   "(exponential backoff) so a flapping node is not hammered with "
+   "immediate resubmissions. 0 = retry immediately (pre-backoff "
+   "behavior)")
+_d("task_retry_max_delay_s", float, 2.0,
+   "exponential retry backoff is capped at this delay")
+_d("task_retry_jitter", bool, True,
+   "multiply each retry delay by a seeded jitter factor in [0.5, 1.0) "
+   "to decorrelate retry storms")
+
+# -- logging / observability ----------------------------------------------
+_d("log_dir", str, "", "session log dir; empty = $TMPDIR/ray_tpu_torch/session_*/logs")
+_d("log_capture", bool, True,
+   "capture worker stdout/stderr into per-process session log files; "
+   "off = no session log dir, no driver streaming, no list_logs/get_log "
+   "(the bench's capture-off baseline)")
+_d("log_to_driver_rate", int, 2000,
+   "max captured log lines re-emitted on the driver per second; "
+   "excess lines are dropped with a surfaced drop count")
+_d("metrics_export_port", int, 0,
+   "prometheus text endpoint port; 0 = disabled. Not ported: init "
+   "refuses another value")
+_d("event_buffer_size", int, 65536, "profile/trace event ring size per worker")
+_d("task_events_max", int, 16384,
+   "bounded ring of FINISHED/FAILED task event records kept head-side "
+   "(feeds state.list_tasks(detail=True) and ray_tpu_torch.timeline()); "
+   "eviction drops finished records before failed ones so failures "
+   "outlive successes; 0 disables task event recording entirely (the "
+   "bench A/B baseline)")
+_d("trace_sample_rate", float, 1.0,
+   "fraction of root submissions stamped with a sampled TraceContext "
+   "(children always inherit the root's decision); 0 disables the trace "
+   "plane entirely — no context stamping, no span records (the bench "
+   "A/B baseline)")
+_d("traces_max", int, 512,
+   "bounded number of distinct traces kept head-side by the trace "
+   "aggregator (oldest trace evicted wholesale); 0 disables the trace "
+   "plane like trace_sample_rate=0")
+_d("profile_hz", float, 0.0,
+   "continuous-profiler sampling rate of the profile/utilization "
+   "plane; 0 disables it. Not ported: init refuses a rate above 0")
+
+# -- testing / fault injection --------------------------------------------
+_d("testing_inject_task_failure_prob", float, 0.0,
+   "probability a task raises a simulated worker failure (chaos testing)")
+_d("testing_tick_delay_s", float, 0.0, "artificial scheduler tick delay")

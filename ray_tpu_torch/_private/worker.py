@@ -1,0 +1,1944 @@
+"""Core worker: task submission + execution engine + object access.
+
+Reference surfaces: ray src/ray/core_worker/core_worker.cc (CoreWorker:
+SubmitTask/Put/Get/Wait, ownership), task_manager.cc (TaskManager:
+pending tasks, retries, lineage), python/ray/_private/worker.py (the
+module-level API: init/shutdown/get/put/wait/cancel).
+
+Single-process architecture (phase P1): the driver and all workers share
+one process; workers are threads in an executor pool; the scheduler is
+pluggable (event-driven oracle or device-tensor scheduler). The port has
+thread mode only: process workers, the shm object store, remote nodes,
+the ray:// client and the head server, and the optional planes (profile,
+metrics, QoS) raise NotImplementedError naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import collections
+import heapq
+import logging
+import os
+import sys
+import threading
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from ray_tpu_torch import exceptions as rex
+from ray_tpu_torch._private.analysis import runtime_sanitizer
+from ray_tpu_torch._private.chaos import get_controller as _chaos_controller
+from ray_tpu_torch._private.config import GLOBAL_CONFIG
+from ray_tpu_torch._private.ids import (ActorID, JobID, NodeID, ObjectID, TaskID,
+                                  WorkerID, _Counter)
+from ray_tpu_torch._private.object_ref import ObjectRef
+from ray_tpu_torch._private.object_store import MemoryStore
+from ray_tpu_torch._private.ref_counting import ReferenceCounter
+from ray_tpu_torch._private.scheduler.base import PendingTask, SchedulerBase
+from ray_tpu_torch._private.scheduler.local import EventScheduler, NodeState
+from ray_tpu_torch._private.task_spec import TaskSpec, TaskType
+from ray_tpu_torch._private import trace_plane
+
+logger = logging.getLogger(__name__)
+
+global_worker: Optional["Worker"] = None
+
+# what the port does not have yet, and the ROADMAP.md item that brings it
+_UNPORTED = {
+    "process": "worker_mode='process' and the shm object store are not "
+               "ported yet (ROADMAP.md Queue A: the runtime's next items, "
+               "process mode first)",
+    "remote": "remote nodes, the head server and ray:// clients are not "
+              "ported yet (ROADMAP.md Queue A: the runtime's next items, "
+              "the multi-node plane and the client)",
+    "planes": "the profile plane, the metrics server and the QoS plane "
+              "are not ported yet (ROADMAP.md Queue A: the runtime's "
+              "next items, the optional planes)",
+}
+_init_lock = threading.Lock()
+_gc_tuned = False
+_gc_saved_threshold = (700, 10, 10)
+
+
+def _noop_exec(task, node_index) -> None:
+    """Placeholder PendingTask.execute (dispatch goes through the
+    worker's dispatcher, not the task) — shared, not a per-task lambda."""
+
+
+def _task_error_type(exc: BaseException) -> str:
+    """Error-type label for task event records: unwrap one chaining
+    level so TaskError(ValueError) reports "ValueError", not the
+    wrapper."""
+    cause = getattr(exc, "__cause__", None)
+    return type(cause).__name__ if cause is not None else type(exc).__name__
+
+
+class _TaskContext(threading.local):
+    """Per-thread execution context (reference: WorkerContext)."""
+
+    def __init__(self):
+        self.task_id: Optional[TaskID] = None
+        self.put_counter = 0
+        self.actor_id: Optional[ActorID] = None
+        self.cancel_requested = False
+
+
+class TaskManager:
+    """Owner-side pending-task table: retries + lineage.
+
+    Reference: src/ray/core_worker/task_manager.cc — AddPendingTask,
+    retry-on-failure resubmission, lineage kept while returned objects
+    remain in scope (capped by max_lineage_bytes).
+    """
+
+    def __init__(self, worker: "Worker"):
+        self._worker = worker
+        self._lock = threading.RLock()
+        self._pending: Dict[TaskID, Tuple[TaskSpec, List[ObjectID]]] = {}
+        # original-id -> current retry id for in-flight retries
+        self._pending_origin: Dict[TaskID, TaskID] = {}
+        self._lineage: Dict[TaskID, TaskSpec] = {}
+        self._lineage_bytes = 0
+        self._lineage_cap = GLOBAL_CONFIG.entry("max_lineage_bytes")
+        self.num_retries = 0
+
+    def add_pending(self, spec: TaskSpec, deps: List[ObjectID]) -> None:
+        with self._lock:
+            self._pending[spec.task_id] = (spec, deps)
+
+    def add_pending_batch(self, specs: List[TaskSpec]) -> None:
+        """One lock hold; deps must already be memoized on each spec."""
+        with self._lock:
+            pending = self._pending
+            for spec in specs:
+                pending[spec.task_id] = (spec, spec._deps_memo)
+
+    def filter_not_pending(self, object_ids: List[ObjectID]) -> List[ObjectID]:
+        """Ids whose producing task is NOT in flight (one lock hold) —
+        the recovery path's bulk pre-filter."""
+        with self._lock:
+            pending = self._pending
+            origin = self._pending_origin
+            out = []
+            for oid in object_ids:
+                tid = oid.task_id()
+                if tid in pending or origin.get(tid) in pending:
+                    continue
+                out.append(oid)
+            return out
+
+    def rekey_pending(self, old_id: TaskID, spec: TaskSpec,
+                      deps: List[ObjectID]) -> None:
+        """A retry gets a fresh attempt id: move the pending entry (the
+        old id would otherwise leak and shadow lineage lookups forever)
+        and remember the ORIGINAL id — return ids derive from it, and
+        recovery/lineage must resolve through it."""
+        with self._lock:
+            self._pending.pop(old_id, None)
+            self._pending[spec.task_id] = (spec, deps)
+            rr = getattr(spec, "_retry_return_ids", None)
+            origin = rr[0].task_id() if rr else old_id
+            self._pending_origin[origin] = spec.task_id
+        plane = self._worker.qos_plane
+        if plane is not None:
+            plane.note_rekeyed(old_id, spec.task_id)
+
+    def pending_spec_for_object(self, oid: ObjectID) -> Optional[TaskSpec]:
+        """The in-flight spec that will produce oid, or None if its
+        task already completed (return ids derive from the ORIGINAL
+        task id, so retries resolve through _pending_origin)."""
+        with self._lock:
+            tid = oid.task_id()
+            tid = self._pending_origin.get(tid, tid)
+            entry = self._pending.get(tid)
+            return entry[0] if entry else None
+
+    def complete(self, task_id: TaskID) -> None:
+        with self._lock:
+            self._complete_locked(task_id)
+
+    def complete_batch(self, task_ids: List[TaskID]) -> None:
+        """One lock hold for a drain-loop's worth of completions (the
+        fast-path executor defers these — lineage bookkeeping never
+        gates scheduling, unlike the finished-notification)."""
+        with self._lock:
+            for task_id in task_ids:
+                self._complete_locked(task_id)
+
+    def complete_batch_with_refs(self, pairs,
+                                 has_reference) -> None:
+        """Deferred completion for the fast path: ``pairs`` is
+        [(task_id, return_oid)]. Because these completions run AFTER
+        the object-ready notification, the return ref may already be
+        dead — its out-of-scope eviction would then have run before
+        this lineage insert, stranding the spec in ``_lineage``
+        forever. Checking liveness under the table lock closes that
+        window (a concurrent eviction blocks on this same lock)."""
+        plane = self._worker.qos_plane
+        with self._lock:
+            for task_id, oid in pairs:
+                entry = self._pending.pop(task_id, None)
+                if entry is None:
+                    continue
+                if plane is not None:
+                    plane.note_done(task_id)
+                spec, _ = entry
+                rr = getattr(spec, "_retry_return_ids", None)
+                key = rr[0].task_id() if rr else task_id
+                self._pending_origin.pop(key, None)
+                if not has_reference(oid):
+                    continue  # returns already dead: nothing to recover
+                if key not in self._lineage:
+                    self._lineage_bytes += 256
+                self._lineage[key] = spec
+                if self._lineage_bytes > self._lineage_cap.value:
+                    self._evict_lineage_locked()
+
+    def _complete_locked(self, task_id: TaskID) -> None:
+        entry = self._pending.pop(task_id, None)
+        if entry is not None:
+            plane = self._worker.qos_plane
+            if plane is not None:
+                plane.note_done(task_id)
+            spec, _ = entry
+            # retain lineage for reconstruction while returns in
+            # scope — keyed by the id the RETURN ids derive from, so
+            # recovery of a retried/reconstructed task's outputs
+            # still finds the spec
+            rr = getattr(spec, "_retry_return_ids", None)
+            key = rr[0].task_id() if rr else task_id
+            self._pending_origin.pop(key, None)
+            if key not in self._lineage:  # overwrites don't grow
+                self._lineage_bytes += 256  # coarse estimate per spec
+            self._lineage[key] = spec
+            if self._lineage_bytes > self._lineage_cap.value:
+                self._evict_lineage_locked()
+
+    def should_retry(self, spec: TaskSpec, exc: BaseException) -> bool:
+        if spec.attempt_number >= spec.max_retries:
+            return False
+        if isinstance(exc, (rex.WorkerCrashedError, rex.OutOfMemoryError,
+                            rex.NodeDiedError, rex.TaskTimeoutError)):
+            return True  # system failures always retriable up to max_retries
+        retry_exc = spec.retry_exceptions
+        if retry_exc is True:
+            return True
+        if isinstance(retry_exc, (list, tuple)):
+            return isinstance(exc, tuple(retry_exc))
+        return False
+
+    def get_lineage(self, task_id: TaskID) -> Optional[TaskSpec]:
+        with self._lock:
+            return self._lineage.get(task_id)
+
+    def get_pending_spec(self, task_id: TaskID) -> Optional[TaskSpec]:
+        with self._lock:
+            entry = self._pending.get(task_id)
+            if entry is None:
+                # the task may be in flight under a retry id
+                current = self._pending_origin.get(task_id)
+                if current is not None:
+                    entry = self._pending.get(current)
+            return entry[0] if entry is not None else None
+
+    def evict_lineage(self, task_id: TaskID) -> None:
+        with self._lock:
+            if self._lineage.pop(task_id, None) is not None:
+                self._lineage_bytes -= 256
+
+    def evict_lineage_batch(self, object_ids: List[ObjectID]) -> None:
+        """One lock hold for a whole out-of-scope drain."""
+        with self._lock:
+            pop = self._lineage.pop
+            for oid in object_ids:
+                if pop(oid.task_id(), None) is not None:
+                    self._lineage_bytes -= 256
+
+    def _evict_lineage_locked(self):
+        while self._lineage_bytes > self._lineage_cap.value // 2 \
+                and self._lineage:
+            self._lineage.pop(next(iter(self._lineage)))
+            self._lineage_bytes -= 256
+
+    def num_pending(self) -> int:
+        with self._lock:
+            return len(self._pending)
+
+
+class _Dispatcher:
+    """Scheduler -> execution boundary. Callable for one task (every
+    scheduler supports this); dispatch_many lets batch-aware schedulers
+    hand a whole tick's grants over at once (per-worker message
+    coalescing in the process pools)."""
+
+    __slots__ = ("_worker",)
+
+    def __init__(self, worker: "Worker"):
+        self._worker = worker
+
+    def __call__(self, pending) -> None:
+        plane = self._worker.qos_plane
+        if plane is not None:
+            plane.note_dispatched(pending.spec.task_id)
+        self._worker._dispatch(pending)
+
+    def dispatch_many(self, pendings) -> None:
+        plane = self._worker.qos_plane
+        if plane is not None:
+            for pending in pendings:
+                plane.note_dispatched(pending.spec.task_id)
+        self._worker._dispatch_many(pendings)
+
+
+class _WorkQueue:
+    """Purpose-built thread-pool for the execution hot path.
+
+    ThreadPoolExecutor pays, per submission, a Future (one Condition
+    allocation), a set_result notify, and an unconditional queue notify
+    — all discarded by the dispatcher, which never reads the Future.
+    This pool is fire-and-forget: no Future, and the wake notify is
+    skipped whenever no thread is parked (under load none are)."""
+
+    def __init__(self, nworkers: int, name: str = "ray_tpu_worker"):
+        self.num_threads = nworkers
+        self._cv = threading.Condition()
+        self._q: collections.deque = collections.deque()
+        self._idle = 0
+        self._stop = False
+        self._threads = [
+            threading.Thread(target=self._run, daemon=True,
+                             name=f"{name}_{i}") for i in range(nworkers)]
+        for t in self._threads:
+            t.start()
+        # ThreadPoolExecutor's non-daemon threads drained the queue at
+        # interpreter exit; daemon threads need an explicit atexit drain
+        # to keep that guarantee (unregistered by shutdown())
+        import atexit
+        atexit.register(self._drain_at_exit)
+
+    def _drain_at_exit(self) -> None:
+        if not self._stop:
+            self.shutdown(wait=True)
+
+    def submit(self, fn, *args) -> None:
+        with self._cv:
+            if self._stop:
+                raise RuntimeError(
+                    "cannot schedule new futures after shutdown")
+            self._q.append((fn, args))
+            if self._idle:
+                self._cv.notify()
+
+    def submit_many(self, items) -> None:
+        """Enqueue [(fn, args), ...] under ONE lock acquisition."""
+        with self._cv:
+            if self._stop:
+                raise RuntimeError(
+                    "cannot schedule new futures after shutdown")
+            self._q.extend(items)
+            if self._idle:
+                self._cv.notify(min(len(items), self._idle))
+
+    def _run(self) -> None:
+        cv, q = self._cv, self._q
+        while True:
+            with cv:
+                while not q and not self._stop:
+                    self._idle += 1
+                    cv.wait()
+                    self._idle -= 1
+                if not q:
+                    return  # stopping and drained
+                fn, args = q.popleft()
+            try:
+                fn(*args)
+            except BaseException:  # noqa: BLE001
+                logger.exception("executor task failed")
+
+    def shutdown(self, wait: bool = False,
+                 cancel_futures: bool = False) -> None:
+        with self._cv:
+            self._stop = True
+            if cancel_futures:
+                self._q.clear()
+            self._cv.notify_all()
+        import atexit
+        atexit.unregister(self._drain_at_exit)
+        if wait:
+            # workers drain the remaining queue before exiting (the run
+            # loop only returns once stopped AND empty), so joining them
+            # gives ThreadPoolExecutor's shutdown(wait=True) semantics
+            me = threading.current_thread()
+            for t in self._threads:
+                if t is not me:
+                    t.join()
+
+
+class Worker:
+    """The in-process runtime: one per driver/worker process."""
+
+    def __init__(self, *, num_cpus: Optional[float] = None,
+                 num_workers: Optional[int] = None,
+                 scheduler_factory: Optional[Callable] = None,
+                 job_id: Optional[JobID] = None,
+                 resources: Optional[Dict[str, float]] = None,
+                 log_to_driver: bool = True):
+        self.job_id = job_id or JobID.from_random()
+        self.worker_id = WorkerID.from_random()
+        self.alive = True
+        self._context = _TaskContext()
+        self._driver_task_id = TaskID.of(self.job_id)
+        self._task_seq = _Counter()
+        # ONE random 8-byte namespace for this worker's task ids; the
+        # sequence provides uniqueness within it (an os.urandom syscall
+        # per task id was a measurable slice of the submission path)
+        self._task_unique = os.urandom(8)
+
+        self.memory_store = MemoryStore()
+        self._oos_q: collections.deque = collections.deque()
+        self.reference_counter = ReferenceCounter(self._on_object_out_of_scope)
+        # declared before the task manager / scheduler exist: both read
+        # it on their hot paths (None = QoS plane off)
+        self.qos_plane = None
+        self.task_manager = TaskManager(self)
+
+        nworkers = num_workers or GLOBAL_CONFIG.num_workers or os.cpu_count() or 4
+        self.num_workers = nworkers
+        capacity_cpu = num_cpus if num_cpus is not None else float(nworkers)
+        self._pool = _WorkQueue(nworkers)
+
+        # log plane: resolve the session log directory BEFORE any pool
+        # can exec a worker — spawners name each child's capture files
+        # inside it. A `log_dir` knob that is set but unusable raises
+        # (loud by design); the default /tmp path degrades to
+        # capture-off with a warning.
+        from ray_tpu_torch._private import log_plane
+        self.session_log_dir: Optional[str] = None
+        if GLOBAL_CONFIG.log_capture:
+            try:
+                self.session_log_dir = log_plane.resolve_session_log_dir(
+                    GLOBAL_CONFIG.log_dir)
+            except OSError as e:
+                logger.warning("log capture disabled: cannot create "
+                               "session log dir (%s)", e)
+        log_plane.set_session_log_dir(self.session_log_dir)
+
+        # thread mode only: no process workers (the monitors that look
+        # for a process pool see none)
+        self.process_pool = None
+
+        # node 0 = "this node"; virtual cluster tests add more. Named
+        # custom resources must be DECLARED (init(resources={...})) to be
+        # schedulable here — an undeclared name parks tasks as infeasible
+        # until a node providing it joins (reference semantics).
+        self.node_id = NodeID.from_random()
+        head_custom = dict(resources or {})
+        # thread mode gets a dispatch window too: the bounded executor
+        # (max_workers=n) queues over-dispatched tasks while running at
+        # most n concurrently — the same guarantee the process pool's
+        # worker pipes give
+        win = auto_pipeline_depth(nworkers)
+        node = NodeState((capacity_cpu, _detect_gpu_count(), 1e18,
+                          sum(head_custom.values())),
+                         node_id=self.node_id,
+                         custom_resources=head_custom,
+                         window_factor=win)
+        contains = self.memory_store.contains
+        dispatcher = _Dispatcher(self)
+        if scheduler_factory is not None:
+            self.scheduler: SchedulerBase = scheduler_factory(
+                [node], dispatcher, contains)
+        else:
+            self.scheduler = EventScheduler([node], dispatcher, contains)
+
+        # control plane (node/actor/job tables, KV, pubsub, health checks)
+        from ray_tpu_torch._private.gcs import GcsJournal, GcsService
+        journal = None
+        if GLOBAL_CONFIG.gcs_journal_path:
+            journal = GcsJournal(GLOBAL_CONFIG.gcs_journal_path)
+        self.gcs = GcsService(self, journal=journal)
+        self.gcs.register_node(
+            self.node_id, 0,
+            {"CPU": capacity_cpu, "GPU": _detect_gpu_count(),
+             **head_custom},
+            kind="local", pool=None)
+        self.gcs.register_job(self.job_id)
+        # per-node worker pools of the reference's virtual multi-node
+        # clusters; always empty here (the monitors iterate it)
+        self._node_pools: Dict[int, Any] = {}
+
+        # placement groups (bundle reservation over the scheduler)
+        from ray_tpu_torch._private.placement_groups import PlacementGroupManager
+        self.placement_groups = PlacementGroupManager(self)
+
+        # lineage reconstruction for lost objects
+        from ray_tpu_torch._private.object_recovery import ObjectRecoveryManager
+        self.object_recovery = ObjectRecoveryManager(self)
+
+        # observability: task profile events + optional Prometheus port
+        from ray_tpu_torch._private.events import EventBuffer
+        self.events = EventBuffer()
+        # task event plane: cluster-wide lifecycle records (None when
+        # task_events_max=0 — every producer hook is a None check)
+        from ray_tpu_torch._private.task_events import TaskEventAggregator
+        self.task_events = (TaskEventAggregator()
+                            if GLOBAL_CONFIG.task_events_max != 0
+                            else None)
+        self.scheduler.task_events = self.task_events
+        self.scheduler.fail_tasks = self._fail_unassigned
+        # trace plane: causal spans keyed by trace_id (None when
+        # trace_sample_rate=0 or traces_max=0 — specs are never stamped
+        # and every producer hook is a None check)
+        from ray_tpu_torch._private.trace_plane import TraceAggregator
+        self.trace_plane = (TraceAggregator()
+                            if (GLOBAL_CONFIG.trace_sample_rate > 0
+                                and GLOBAL_CONFIG.traces_max != 0)
+                            else None)
+        # log plane: announce the session dir in the GCS KV (clients /
+        # tools discover it there), mirror control-plane log records
+        # into logs/gcs.out, and start the driver-streaming monitor
+        self.log_to_driver = log_to_driver
+        self.log_monitor = None
+        self._gcs_log_handler = None
+        if self.session_log_dir is not None:
+            self.gcs.kv_put(b"session_log_dir",
+                            self.session_log_dir.encode(),
+                            namespace="session")
+            import logging as _logging
+            try:
+                h = _logging.FileHandler(
+                    os.path.join(self.session_log_dir, "gcs.out"),
+                    delay=True)
+                h.setFormatter(_logging.Formatter(
+                    "%(asctime)s %(levelname)s %(name)s: %(message)s"))
+                h.setLevel(_logging.INFO)
+                _logging.getLogger("ray_tpu_torch").addHandler(h)
+                self._gcs_log_handler = h
+            except OSError:
+                pass
+            if log_to_driver:
+                from ray_tpu_torch._private.log_monitor import LogMonitor
+                self.log_monitor = LogMonitor(self, self.session_log_dir)
+
+        # actors: ActorID -> _ActorRuntime (see actor.py)
+        self.actors: Dict[ActorID, Any] = {}
+        self.dead_actors: set = set()
+        self._actors_lock = runtime_sanitizer.wrap_lock(
+            threading.Lock(), "_private.worker.Worker._actors_lock")
+
+        # id -> False (running) | True (cancelled) | "timeout" (the
+        # deadline watcher failed this attempt; its results are zombie)
+        self._running_tasks: Dict[TaskID, Any] = {}
+        # cancelled while window-leased but not yet executing (queued in
+        # the executor): flagged here, honored at execution start
+        self._precancelled: set = set()
+        # deadline expired while executor-queued: timed out at exec start
+        self._pretimeout: set = set()
+        self._running_lock = runtime_sanitizer.wrap_lock(
+            threading.Lock(), "_private.worker.Worker._running_lock")
+        if runtime_sanitizer._ENABLED:
+            # leak-ledger attribution: the task context current at each
+            # shm allocation (the id the task-event plane records under)
+            runtime_sanitizer.set_owner_provider(
+                lambda: f"task {self.current_task_id.hex()[:16]}")
+
+        # chaos plane: every injection decision flows through the
+        # process-wide seeded controller (see _private/chaos.py)
+        self._chaos = _chaos_controller()
+        self._tick_delay_entry = GLOBAL_CONFIG.entry("testing_tick_delay_s")
+        # per-task deadlines (spec.timeout_s): a lazily-started watcher
+        # cancels attempts past their deadline; each expiry counts
+        # against max_retries and surfaces TaskTimeoutError
+        self._deadline_cv = threading.Condition()
+        self._deadline_heap: List[tuple] = []
+        self._deadline_seq = _Counter()
+        self._deadline_thread: Optional[threading.Thread] = None
+
+        # the QoS plane is not ported (init refuses config.qos):
+        # self.qos_plane stays None, and every QoS hook is a
+        # `plane is not None` check
+
+        # deferred unref queue: ObjectRef.__del__ may fire during GC while
+        # runtime locks are held, so deletions drain on a dedicated thread
+        self._unref_queue: collections.deque = collections.deque()
+        self._unref_event = threading.Event()
+        self._unref_thread = threading.Thread(
+            target=self._unref_loop, daemon=True, name="ray_tpu_unref")
+        self._unref_thread.start()
+
+        # memory monitor LAST: its thread scans worker state
+        # (_running_tasks, _node_pools) that must exist before the first
+        # tick can fire
+        from ray_tpu_torch._private.memory_monitor import MemoryMonitor
+        self.memory_monitor = MemoryMonitor(self)
+
+    # ------------------------------------------------------------------
+    # Context helpers
+    # ------------------------------------------------------------------
+    @property
+    def needs_serialized_funcs(self) -> bool:
+        """True when tasks may cross a process boundary, so
+        RemoteFunction should attach its cached pickled-function blob
+        to specs (thread-only mode skips the pickle entirely)."""
+        return False  # thread mode only
+
+    @property
+    def current_task_id(self) -> TaskID:
+        return self._context.task_id or self._driver_task_id
+
+    def next_task_id(self) -> TaskID:
+        return TaskID.of(self.job_id, unique=self._task_unique,
+                         seq=self._task_seq.next())
+
+    # -- cluster KV (same surface as ClientWorker.kv_*, so code using
+    # `w.kv_put(...)` works in both driver and client mode) -----------
+    def kv_get(self, key: bytes, namespace: str = ""):
+        return self.gcs.kv_get(key, namespace=namespace)
+
+    def kv_put(self, key: bytes, value: bytes, namespace: str = "") -> None:
+        self.gcs.kv_put(key, value, namespace=namespace)
+
+    def kv_del(self, key: bytes, namespace: str = "") -> bool:
+        return self.gcs.kv_del(key, namespace=namespace)
+
+    def kv_keys(self, prefix: bytes = b"", namespace: str = ""):
+        return self.gcs.kv_keys(prefix, namespace=namespace)
+
+    def next_put_id(self) -> ObjectID:
+        self._context.put_counter += 1
+        return ObjectID.for_put(self.current_task_id, self._context.put_counter)
+
+    # ------------------------------------------------------------------
+    # Object plane: put / get / wait
+    # ------------------------------------------------------------------
+    def put(self, value: Any) -> ObjectRef:
+        self._drain_out_of_scope()
+        if isinstance(value, ObjectRef):
+            raise TypeError(
+                "Calling put() on an ObjectRef is not allowed: the ref can be "
+                "passed around directly (reference semantics).")
+        object_id = self.next_put_id()
+        self.reference_counter.add_owned_object(object_id)
+        # thread mode: the value itself, by reference (a CUDA tensor
+        # stays on its device; the shm arena path is not ported)
+        self.memory_store.put(object_id, value)
+        return ObjectRef(object_id, self.worker_id)
+
+    def _entry_value(self, object_id: ObjectID, entry) -> Any:
+        """Resolve a memory-store entry. Thread mode stores values by
+        reference, so this is the value itself (the reference also
+        resolves shm and remote placeholders here, which the port does
+        not have)."""
+        return entry.value
+
+    def get(self, refs: Sequence[ObjectRef], timeout: Optional[float]) -> List[Any]:
+        self._drain_out_of_scope()
+        ids = [r.object_id() for r in refs]
+        # lost objects (freed/evicted while still referenced) reconstruct
+        # from lineage before we block on the store
+        missing = self.memory_store.missing_of(ids)
+        if missing:
+            self._check_env_lock_deadlock(missing)
+            self.object_recovery.recover_all(missing)
+        try:
+            entries = self.memory_store.wait_and_get(ids, timeout)
+        except TimeoutError as e:
+            raise rex.GetTimeoutError(str(e)) from None
+        out = []
+        for oid, entry in zip(ids, entries):
+            if entry.is_exception:
+                exc = entry.value
+                if isinstance(exc, rex.TaskError):
+                    raise exc.as_instanceof_cause()
+                raise exc
+            out.append(self._entry_value(oid, entry))
+        return out
+
+    def _env_lock_blocked_specs(self, missing: List[ObjectID]) -> List[TaskSpec]:
+        """Pending producers of `missing` that need the thread-mode
+        runtime-env lock, when the CALLING thread holds it — those
+        tasks can never run until the caller finishes (thread workers
+        serialize env'd tasks under one lock)."""
+        if Worker._env_lock_owner != threading.get_ident():
+            return []
+        blocked = []
+        for oid in missing:
+            spec = self.task_manager.pending_spec_for_object(oid)
+            env = spec.runtime_env if spec is not None else None
+            if env and (env.get("working_dir_pkg") or env.get("pip")):
+                blocked.append(spec)
+        return blocked
+
+    def _check_env_lock_deadlock(self, missing: List[ObjectID]) -> None:
+        """Fail loudly where a thread-mode env'd task would deadlock
+        blocking on another env'd task (fire-and-forget nested env'd
+        tasks remain legal — they run after the blocker releases)."""
+        blocked = self._env_lock_blocked_specs(missing)
+        if blocked:
+            raise RuntimeError(
+                f"deadlock: task {blocked[0].name} needs the "
+                "thread-mode runtime-env lock held by the task blocking "
+                "on it (thread workers serialize env'd tasks). Use "
+                "process workers for nested runtime environments, or "
+                "don't block on env'd children from an env'd task.")
+
+    def wait(self, refs: Sequence[ObjectRef], num_returns: int,
+             timeout: Optional[float]) -> Tuple[List[ObjectRef], List[ObjectRef]]:
+        self._drain_out_of_scope()
+        ids = [r.object_id() for r in refs]
+        if timeout is None:
+            # deadlock only if the wait CANNOT be satisfied without an
+            # env-lock-blocked producer: refs already ready or produced
+            # by plain tasks still count toward num_returns
+            missing = [oid for oid in ids
+                       if not self.memory_store.contains(oid)]
+            blocked = self._env_lock_blocked_specs(missing)
+            if blocked and len(ids) - len(blocked) < num_returns:
+                raise RuntimeError(
+                    f"deadlock: wait(num_returns={num_returns}) cannot "
+                    f"complete without task {blocked[0].name}, which "
+                    "needs the thread-mode runtime-env lock held by the "
+                    "waiting task. Use process workers for nested "
+                    "runtime environments.")
+        ready_set = self.memory_store.wait(ids, num_returns, timeout)
+        ready, not_ready = [], []
+        for r in refs:
+            (ready if r.object_id() in ready_set and len(ready) < num_returns
+             else not_ready).append(r)
+        return ready, not_ready
+
+    def run_callback_when_ready(self, object_id: ObjectID, cb: Callable[[], None]):
+        self.memory_store.add_ready_callback(object_id, cb)
+
+    # ------------------------------------------------------------------
+    # Task submission
+    # ------------------------------------------------------------------
+    def prepare_runtime_env(self, runtime_env: Optional[dict]
+                            ) -> Optional[dict]:
+        """Driver-side half of the env agent: package working_dir into
+        a content-addressed zip in the GCS KV (once per content), so
+        every node can fetch it on demand. Returns the env with the
+        path replaced by its package hash."""
+        if not runtime_env or "working_dir" not in runtime_env:
+            return runtime_env
+        from ray_tpu_torch._private import runtime_envs as rte
+
+        pkg_hash, data = rte.package_working_dir(runtime_env["working_dir"])
+        key = rte.kv_key(pkg_hash)
+        if self.gcs.kv_get(key) is None:
+            self.gcs.kv_put(key, data)
+        out = dict(runtime_env)
+        out.pop("working_dir")
+        out["working_dir_pkg"] = pkg_hash
+        return out
+
+    def submit_task(self, spec: TaskSpec) -> List[ObjectRef]:
+        if spec.runtime_env and "working_dir" in spec.runtime_env:
+            spec.runtime_env = self.prepare_runtime_env(spec.runtime_env)
+        return_ids = spec.return_ids()
+        for oid in return_ids:
+            self.reference_counter.add_owned_object(oid, lineage_task=spec.task_id)
+
+        deps = _top_level_deps(spec.args, spec.kwargs)
+        spec._deps_memo = deps  # args never change; reused at completion
+        if deps:
+            self.reference_counter.add_submitted_task_references(deps)
+        self.task_manager.add_pending(spec, deps)
+        if self.qos_plane is not None:
+            self.qos_plane.note_queued(spec.task_id, spec.tenant,
+                                       spec.priority)
+        self.events.record(spec.task_id, spec.name, "submitted",
+                           attempt=spec.attempt_number)
+        # trace stamping runs BEFORE the task-event record so the
+        # event plane's detail rows can carry the spec's trace context
+        if (self.trace_plane is not None
+                and spec.task_type == TaskType.NORMAL_TASK):
+            self.trace_plane.on_submit(spec)
+        if (self.task_events is not None
+                and spec.task_type == TaskType.NORMAL_TASK):
+            self.task_events.record_submitted(spec)
+        if spec.timeout_s:
+            self._register_deadline(spec)
+
+        # drop deps already available locally; a missing dep with no
+        # pending producer was LOST and must reconstruct or the task
+        # waits forever
+        unresolved = []
+        for d in deps:
+            if self.memory_store.contains(d):
+                continue
+            unresolved.append(d)
+            self.object_recovery.maybe_recover(d)
+        pending = PendingTask(spec=spec, deps=unresolved, execute=_noop_exec)
+        self.scheduler.submit(pending)
+        return [ObjectRef(oid, self.worker_id) for oid in return_ids]
+
+    def submit_task_batch(self, specs: List[TaskSpec]) -> List[List[ObjectRef]]:
+        """Vectorized submit: per-task work hoisted to per-batch — one
+        refcount lock hold, one task-manager lock hold, one scheduler
+        wakeup (reference: the lease-amortization idea of SURVEY §3.2's
+        hot-loops note, applied to the submit side). Per-task return
+        value shape matches submit_task."""
+        self._drain_out_of_scope()
+        store_contains = self.memory_store.contains
+        owned: List[tuple] = []
+        all_deps: List[ObjectID] = []
+        for spec in specs:
+            # env packaging does GCS I/O — never under a refcount lock
+            if spec.runtime_env and "working_dir" in spec.runtime_env:
+                spec.runtime_env = self.prepare_runtime_env(
+                    spec.runtime_env)
+            for oid in spec.return_ids():  # id-keyed memo inside
+                owned.append((oid, spec.task_id))
+            deps = (_top_level_deps(spec.args, spec.kwargs)
+                    if (spec.args or spec.kwargs) else [])
+            spec._deps_memo = deps
+            all_deps.extend(deps)
+        self.reference_counter.register_submit_batch(owned, all_deps)
+        self.task_manager.add_pending_batch(specs)
+        if self.qos_plane is not None:
+            for spec in specs:
+                self.qos_plane.note_queued(spec.task_id, spec.tenant,
+                                           spec.priority)
+        self.events.record_batch(((s.task_id, s.name) for s in specs),
+                                 "submitted")
+        # trace stamping BEFORE the task-event records (detail rows
+        # carry the trace context stamped here)
+        if self.trace_plane is not None:
+            self.trace_plane.on_submit_batch(
+                s for s in specs if s.task_type == TaskType.NORMAL_TASK)
+        if self.task_events is not None:
+            self.task_events.record_submitted_batch(
+                s for s in specs if s.task_type == TaskType.NORMAL_TASK)
+        pendings: List[PendingTask] = []
+        out: List[List[ObjectRef]] = []
+        for spec in specs:
+            unresolved = []
+            for d in spec._deps_memo:
+                if store_contains(d):
+                    continue
+                unresolved.append(d)
+                self.object_recovery.maybe_recover(d)
+            pendings.append(PendingTask(spec=spec, deps=unresolved,
+                                        execute=_noop_exec))
+            if spec.timeout_s:
+                self._register_deadline(spec)
+            refs = []
+            for oid in spec.return_ids():
+                ref = ObjectRef(oid, self.worker_id, _register=False)
+                ref._weak = False  # counted in register_submit_batch
+                if runtime_sanitizer._ENABLED:
+                    runtime_sanitizer.track_ref(ref)
+                refs.append(ref)
+            out.append(refs)
+        self.scheduler.submit_many(pendings)
+        return out
+
+    def cancel_task(self, ref: ObjectRef, force: bool = False) -> None:
+        task_id = ref.task_id()
+        if self.scheduler.cancel(task_id):
+            err = rex.TaskCancelledError(task_id)
+            # resolve ALL the task's return refs, not just the one passed
+            # in — a get() on a sibling return must not hang forever
+            spec = self.task_manager.get_pending_spec(task_id)
+            return_ids = (spec.return_ids() if spec is not None
+                          else [ref.object_id()])
+            for oid in return_ids:
+                self.memory_store.put(oid, err, is_exception=True)
+                self.scheduler.notify_object_ready(oid)
+            self.task_manager.complete(task_id)
+            return
+        with self._running_lock:
+            running = task_id in self._running_tasks
+            if running:
+                # cooperative flag read via was_current_task_cancelled
+                self._running_tasks[task_id] = True
+            elif self.task_manager.get_pending_spec(task_id) is not None:
+                # leased through the dispatch window but still queued in
+                # the executor: mark for cancellation at execution start
+                self._precancelled.add(task_id)
+        if running and force:
+            _async_raise_in_task(task_id)
+
+    def was_current_task_cancelled(self) -> bool:
+        task_id = self._context.task_id
+        if task_id is None:
+            return False
+        # dict.get is GIL-atomic; the value is a plain bool flag
+        return bool(self._running_tasks.get(task_id, False))
+
+    # ------------------------------------------------------------------
+    # Execution (dispatcher target)
+    # ------------------------------------------------------------------
+    def _chaos_tick(self) -> None:
+        """Dispatch-path injection point: the testing_tick_delay_s knob
+        (re-read live) plus the chaos ``sched_tick`` site, both
+        simulating a slow scheduling node."""
+        d = self._tick_delay_entry.value
+        if d > 0.0:
+            time.sleep(d)
+        fault = self._chaos.poll("sched_tick")
+        if fault is not None:
+            time.sleep(fault.get("delay_s", 0.05))
+
+    def _dispatch(self, pending: PendingTask) -> None:
+        self._chaos_tick()
+        self.events.record(pending.spec.task_id, pending.spec.name,
+                           "dispatched", pending.node_index,
+                           attempt=pending.spec.attempt_number)
+        te = self.task_events
+        if te is not None:
+            te.record_dispatched_batch(
+                ((pending.spec.task_id, pending.node_index),))
+        if self.trace_plane is not None:
+            self.trace_plane.record_dispatched_batch(
+                ((pending.spec.task_id, pending.node_index),))
+        boot = getattr(pending.spec, "_actor_boot", None)
+        if boot is not None:
+            self._pool.submit(self._boot_actor, pending, boot)
+        else:
+            self._pool.submit(self._execute_task, pending)
+
+    def _dispatch_many(self, pendings: List[PendingTask]) -> None:
+        """One tick's grants: plain normal tasks take the shared drain
+        fast path, everything else the per-task path (the reference also
+        batches grants per process pool, which the port does not have)."""
+        self._chaos_tick()
+        local: List[tuple] = []
+        fast: List[PendingTask] = []
+        te = self.task_events
+        tp = self.trace_plane
+        te_rows: List[tuple] = []
+        # profile-event rows batch per node (record_batch takes one
+        # node): one ring append pass per tick, not one call per task
+        ev_rows: Dict[int, List[tuple]] = {}
+        for pending in pendings:
+            spec = pending.spec
+            if (getattr(spec, "_actor_boot", None) is not None
+                    or spec.task_type != TaskType.NORMAL_TASK):
+                self._dispatch(pending)
+            else:
+                # host-thread execution. Plain tasks (no deps to
+                # resolve, no runtime env, no placement group, single
+                # return) take the drain fast path: a SHARED deque that
+                # every executor thread pulls from one task at a time —
+                # work stealing is preserved (pre-chunking per thread
+                # would let a blocking task head-of-line its chunk;
+                # worst case: deadlock a producer queued behind its own
+                # consumer) while completion bookkeeping amortizes
+                # per-drain instead of per-task
+                if (not spec.runtime_env
+                        and spec.placement_group_id is None
+                        and spec.num_returns == 1
+                        and not spec.kwargs
+                        and not getattr(spec, "_deps_memo", None)):
+                    fast.append(pending)
+                else:
+                    ev_rows.setdefault(pending.node_index, []).append(
+                        (spec.task_id, spec.name))
+                    if te is not None or tp is not None:
+                        te_rows.append((spec.task_id,
+                                        pending.node_index))
+                    local.append((self._execute_task, (pending,)))
+        for node, rows in ev_rows.items():
+            self.events.record_batch(rows, "dispatched", node)
+        if te_rows or fast:
+            all_rows = te_rows + [(p.spec.task_id, p.node_index)
+                                  for p in fast]
+            if te is not None:
+                te.record_dispatched_batch(all_rows)
+            if tp is not None:
+                tp.record_dispatched_batch(all_rows)
+        if fast:
+            self.events.record_batch(
+                ((p.spec.task_id, p.spec.name) for p in fast),
+                "dispatched")
+            dq: collections.deque = collections.deque(fast)
+            k = min(self._pool.num_threads, len(fast))
+            self._pool.submit_many(
+                [(self._drain_local_batch, (dq,))] * k)
+        if local:
+            self._pool.submit_many(local)
+
+    def _drain_local_batch(self, dq) -> None:
+        """Fast-path executor drain: plain no-dep NORMAL tasks from one
+        tick's grants. Per task it does only the irreducible work —
+        cancel-registry bracket, the user function, the result put, and
+        the scheduler notification (slot release must never wait on a
+        batch, or a blocked sibling could deadlock dependants).
+        Everything deferrable — task-manager lineage completion — is
+        flushed per drain. The deque is SHARED with the other executor
+        threads: each pops one task at a time, so a blocking task
+        stalls only itself (see _dispatch_many)."""
+        running = self._running_tasks
+        rlock = self._running_lock
+        record = self.events.record
+        put = self.memory_store.put
+        notify = self.scheduler.notify_batch
+        ctx = self._context
+        prev_task = ctx.task_id
+        prev_put = ctx.put_counter
+        complete = self.task_manager.complete_batch_with_refs
+        has_ref = self.reference_counter.has_reference
+        done: List[tuple] = []
+        te = self.task_events
+        te_done: List[tuple] = []
+        tp = self.trace_plane
+        tp_done: List[tuple] = []
+        wkey = threading.get_ident()
+        try:
+            while True:
+                try:
+                    pending = dq.popleft()
+                except IndexError:
+                    break
+                spec = pending.spec
+                exec_id = spec.task_id
+                pre_timed_out = False
+                with rlock:
+                    running[exec_id] = False
+                    if self._precancelled \
+                            and exec_id in self._precancelled:
+                        self._precancelled.discard(exec_id)
+                        running[exec_id] = True
+                    elif self._pretimeout \
+                            and exec_id in self._pretimeout:
+                        self._pretimeout.discard(exec_id)
+                        pre_timed_out = True
+                ctx.task_id = exec_id
+                ctx.put_counter = 0
+                record(exec_id, spec.name, "started", pending.node_index)
+                rids = (getattr(spec, "_retry_return_ids", None)
+                        or spec.return_ids())  # id-keyed memo inside
+                retry_task = None
+                ready = ()
+                try:
+                    if pre_timed_out:
+                        # deadline expired while executor-queued: fail
+                        # the attempt (retriably) without running it
+                        if self._claim_task_completion(exec_id) != "timeout":
+                            retry_task = self._handle_task_failure(
+                                spec, rids, rex.TaskTimeoutError(
+                                    f"task {spec.name} timed out after "
+                                    f"{spec.timeout_s}s before starting",
+                                    task_id=exec_id,
+                                    timeout_s=spec.timeout_s))
+                    elif running.get(exec_id) == "timeout":
+                        pass  # watcher already failed/retried it
+                    elif running.get(exec_id):
+                        self._store_error(
+                            spec, rids, rex.TaskCancelledError(exec_id))
+                    else:
+                        try:
+                            self._maybe_inject_failure()
+                            t0 = time.time()
+                            with trace_plane.parent_scope(
+                                    spec.trace_ctx if tp is not None
+                                    else None):
+                                result = spec.func(*spec.args)
+                            t1 = time.time()
+                        except BaseException as e:  # noqa: BLE001
+                            flag = self._claim_task_completion(exec_id)
+                            if flag == "timeout":
+                                pass  # watcher already failed/retried it
+                            elif flag:
+                                # cancelled mid-run: never retry
+                                self._store_error(
+                                    spec, rids,
+                                    rex.TaskCancelledError(exec_id))
+                            else:
+                                retry_task = self._handle_task_failure(
+                                    spec, rids, e)
+                        else:
+                            flag = self._claim_task_completion(exec_id)
+                            if flag == "timeout":
+                                pass  # retry owns the return ids now
+                            elif flag:
+                                # cancel landed mid-run: drop the result
+                                self._store_error(
+                                    spec, rids,
+                                    rex.TaskCancelledError(exec_id))
+                            else:
+                                put(rids[0], result)
+                                ready = (rids[0],)
+                                done.append((exec_id, rids[0]))
+                                if te is not None:
+                                    te_done.append(
+                                        (exec_id, (t0, t1), wkey,
+                                         pending.node_index))
+                                if (tp is not None
+                                        and spec.trace_ctx is not None
+                                        and spec.trace_ctx[3]):
+                                    tp_done.append(
+                                        (exec_id, (t0, t1), wkey,
+                                         pending.node_index))
+                finally:
+                    with rlock:
+                        running.pop(exec_id, None)
+                    record(exec_id, spec.name, "finished",
+                           pending.node_index)
+                    notify(ready, ((exec_id, pending.node_index,
+                                    spec.resources),))
+                    if retry_task is not None:
+                        # finished-notification already out: the
+                        # scheduler sees the slot release before the
+                        # retry (same ordering as _execute_task)
+                        if done:
+                            complete(done, has_ref)
+                            done = []
+                        self._submit_retry(retry_task)
+                if len(done) >= 256:
+                    complete(done, has_ref)
+                    done = []
+                if len(te_done) >= 256:
+                    te.record_finished_batch(te_done)
+                    te_done = []
+                if len(tp_done) >= 256:
+                    tp.record_finished_batch(tp_done)
+                    tp_done = []
+        finally:
+            ctx.task_id = prev_task
+            ctx.put_counter = prev_put
+            if done:
+                complete(done, has_ref)
+            if te_done:
+                te.record_finished_batch(te_done)
+            if tp_done:
+                tp.record_finished_batch(tp_done)
+            self.placement_groups.poke()
+
+    def _boot_actor(self, pending: PendingTask, boot) -> None:
+        try:
+            boot(pending, pending.node_index)
+        except Exception:
+            logger.exception("actor bootstrap failed")
+
+    # ------------------------------------------------------------------
+    # Virtual multi-node (reference: python/ray/cluster_utils.py): every
+    # added node runs worker processes or a remote node daemon, and the
+    # head serves ray:// clients over TCP — none of it is ported yet
+    # ------------------------------------------------------------------
+    def add_cluster_node(self, *args, **kwargs):
+        raise NotImplementedError(_UNPORTED["process"])
+
+    def add_remote_cluster_node(self, *args, **kwargs):
+        raise NotImplementedError(_UNPORTED["remote"])
+
+    def enable_head_endpoint(self, *args, **kwargs):
+        raise NotImplementedError(_UNPORTED["remote"])
+
+    def _execute_task(self, pending: PendingTask) -> None:
+        spec = pending.spec
+        # retries keep the ORIGINAL return ids so existing refs resolve
+        return_ids = getattr(spec, "_retry_return_ids", None) or spec.return_ids()
+        # capture the id this execution runs under: a retry mutates
+        # spec.task_id, and the scheduler must be notified for THIS id
+        # (and only after the retry has a fresh id) or its slot leaks
+        exec_task_id = spec.task_id
+        pre_timed_out = False
+        with self._running_lock:
+            # value is the cancellation flag: False = running, flipped
+            # to True by cancel_task (an Event per task cost ~2us each)
+            self._running_tasks[exec_task_id] = False
+            if self._precancelled and exec_task_id in self._precancelled:
+                self._precancelled.discard(exec_task_id)
+                self._running_tasks[exec_task_id] = True
+            elif self._pretimeout and exec_task_id in self._pretimeout:
+                self._pretimeout.discard(exec_task_id)
+                pre_timed_out = True
+
+        prev_task = self._context.task_id
+        prev_put = self._context.put_counter
+        self._context.task_id = exec_task_id
+        self._context.put_counter = 0
+        self.events.record(exec_task_id, spec.name, "started",
+                           pending.node_index)
+        retry_task: Optional[PendingTask] = None
+        ready_oids: List[ObjectID] = []
+        pg_token = None
+        if spec.placement_group_id is not None \
+                and spec.placement_group_capture_child_tasks:
+            from ray_tpu_torch.util.placement_group import _current_pg
+            pg_token = _current_pg.set(spec.placement_group_id)
+        # runtime_env env_vars: set for the task's duration. NOTE thread
+        # mode shares one process environment — concurrent tasks with
+        # conflicting env_vars can observe each other mid-flight
+        # (process workers are the isolated path, as in the reference);
+        # depth-counted push/pop guarantees the final restore is correct
+        env_vars = (spec.runtime_env.get("env_vars")
+                    if spec.runtime_env else None)
+        if env_vars:
+            env_vars_push(env_vars)
+        env_ctx = None
+        try:
+            if pre_timed_out:
+                # deadline expired while executor-queued: fail the
+                # attempt (retriably) without running it
+                if self._claim_task_completion(exec_task_id) != "timeout":
+                    retry_task = self._handle_task_failure(
+                        spec, return_ids, rex.TaskTimeoutError(
+                            f"task {spec.name} timed out after "
+                            f"{spec.timeout_s}s before starting",
+                            task_id=exec_task_id,
+                            timeout_s=spec.timeout_s))
+                return
+            try:
+                # INSIDE the try: an env build failure (bad pip spec,
+                # missing package) must fail the TASK — store the error
+                # and let the finally release the slot (the process-
+                # worker twin does the same)
+                env_ctx = self._enter_runtime_env(spec.runtime_env)
+            except Exception as e:
+                self._store_error(spec, return_ids, e)
+                return
+            args, kwargs, dep_error, requeue_deps = self._resolve_args(spec)
+            if requeue_deps:
+                # lost deps are reconstructing: give the slot back and
+                # wait for them through the normal dependency machinery
+                # (the finally block releases this execution first)
+                self.reference_counter.add_submitted_task_references(
+                    getattr(spec, "_deps_memo", None)
+                    or _top_level_deps(spec.args, spec.kwargs))
+                retry_task = PendingTask(spec=spec, deps=requeue_deps,
+                                         execute=_noop_exec)
+                return
+            if dep_error is not None:
+                self._store_error(spec, return_ids, dep_error)
+                return
+            flag = self._running_tasks.get(exec_task_id)
+            if flag == "timeout":
+                return  # watcher already failed/retried this attempt
+            if flag:
+                self._store_error(spec, return_ids,
+                                  rex.TaskCancelledError(exec_task_id))
+                return
+            try:
+                self._maybe_inject_failure()
+                t0 = time.time()
+                with trace_plane.parent_scope(
+                        spec.trace_ctx if self.trace_plane is not None
+                        else None):
+                    result = spec.func(*args, **kwargs)
+                t1 = time.time()
+            except BaseException as e:  # noqa: BLE001
+                flag = self._claim_task_completion(exec_task_id)
+                if flag == "timeout":
+                    return  # watcher already failed/retried the attempt
+                if flag:
+                    # cancelled mid-run: the failure is moot, and a
+                    # cancelled task must never retry
+                    self._store_error(spec, return_ids,
+                                      rex.TaskCancelledError(exec_task_id))
+                    return
+                retry_task = self._handle_task_failure(spec,
+                                                       return_ids, e)
+                return
+            finally:
+                # tear the env down BEFORE results publish: a caller
+                # unblocked by _store_returns may submit a follow-up
+                # task that must not see this env's modules/sys.path
+                if env_ctx is not None:
+                    env_ctx.__exit__(None, None, None)
+                    env_ctx = None
+            flag = self._claim_task_completion(exec_task_id)
+            if flag == "timeout":
+                # the deadline fired mid-run: the watcher already
+                # failed/retried the attempt, and the retry owns the
+                # return ids now — suppress this zombie's results
+                return
+            if flag:
+                # cancel landed while the func ran (thread mode is
+                # cooperative): discard the result
+                self._store_error(spec, return_ids,
+                                  rex.TaskCancelledError(exec_task_id))
+                return
+            ready_oids = self._store_returns(spec, return_ids, result)
+            if self.task_events is not None:
+                # no-op for records _store_returns already failed
+                # (num_returns mismatch -> _store_error finalized them)
+                self.task_events.record_finished_batch(
+                    ((exec_task_id, (t0, t1), threading.get_ident(),
+                      pending.node_index),))
+            if self.trace_plane is not None:
+                self.trace_plane.record_finished_batch(
+                    ((exec_task_id, (t0, t1), threading.get_ident(),
+                      pending.node_index),))
+        finally:
+            if env_ctx is not None:
+                env_ctx.__exit__(None, None, None)
+            if env_vars:
+                env_vars_pop(env_vars)
+            if pg_token is not None:
+                from ray_tpu_torch.util.placement_group import _current_pg
+                _current_pg.reset(pg_token)
+            self._context.task_id = prev_task
+            self._context.put_counter = prev_put
+            with self._running_lock:
+                self._running_tasks.pop(exec_task_id, None)
+            self.events.record(exec_task_id, spec.name, "finished",
+                               pending.node_index)
+            deps = getattr(spec, "_deps_memo", None)
+            if deps is None:
+                deps = _top_level_deps(spec.args, spec.kwargs)
+            if deps:
+                self.reference_counter.remove_submitted_task_references(deps)
+            # object-ready + task-finished in ONE scheduler wakeup
+            self.scheduler.notify_batch(
+                ready_oids,
+                [(exec_task_id, pending.node_index, spec.resources)])
+            self.placement_groups.poke()
+            # resubmit AFTER the finished notification so the scheduler
+            # releases this execution's slot before seeing the retry
+            if retry_task is not None:
+                self._submit_retry(retry_task)
+
+    # serializes thread-mode env'd tasks: sys.path / sys.modules are
+    # process-global, and two concurrent tasks with DIFFERENT
+    # working_dirs would resolve each other's imports (env_vars gets a
+    # depth-counted push/pop; import visibility cannot be layered the
+    # same way, so env'd tasks take turns — process workers are the
+    # isolated path, as in the reference)
+    _env_serial_lock = threading.Lock()
+    _env_lock_owner: Optional[int] = None  # thread ident holding the lock
+
+    def _enter_runtime_env(self, runtime_env: Optional[dict]):
+        """Thread-mode env application: working_dir extraction +
+        pip-venv site-packages on sys.path for the task's duration
+        (no chdir — one process cwd is shared across thread workers,
+        same documented caveat as thread-mode env_vars)."""
+        if not runtime_env or not (runtime_env.get("working_dir_pkg")
+                                   or runtime_env.get("pip")):
+            return None
+        from ray_tpu_torch._private import runtime_envs as rte
+
+        Worker._env_serial_lock.acquire()
+        Worker._env_lock_owner = threading.get_ident()
+        try:
+            mgr = rte.get_manager()
+            wd_path = None
+            pkg = runtime_env.get("working_dir_pkg")
+            if pkg:
+                wd_path = mgr.ensure_working_dir(
+                    pkg, lambda: self.gcs.kv_get(rte.kv_key(pkg)))
+            sp = None
+            if runtime_env.get("pip"):
+                sp = mgr.ensure_pip(list(runtime_env["pip"]))
+            ctx = rte.applied_env(wd_path, sp, use_cwd=False)
+            ctx.__enter__()
+        except BaseException:
+            Worker._env_lock_owner = None
+            Worker._env_serial_lock.release()
+            raise
+
+        class _LockedEnv:
+            """applied_env + the serialization lock, released together."""
+
+            def __exit__(self, *exc):
+                try:
+                    ctx.__exit__(*exc)
+                finally:
+                    Worker._env_lock_owner = None
+                    Worker._env_serial_lock.release()
+                return False
+
+        return _LockedEnv()
+
+    def _resolve_args(self, spec: TaskSpec):
+        """Replace top-level ObjectRefs by values (reference semantics: only
+        top-level args are awaited/inlined; nested refs pass through).
+
+        Returns (args, kwargs, dep_error, requeue_deps): requeue_deps
+        lists LOST deps now under lineage reconstruction — the caller
+        re-queues the task to wait for them instead of blocking an
+        executor thread (which the reconstruction itself may need)."""
+        if not spec.args and not spec.kwargs:
+            return (), {}, None, None
+        dep_error = None
+        requeue_deps: List[ObjectID] = []
+
+        def resolve(v):
+            nonlocal dep_error
+            if isinstance(v, ObjectRef):
+                oid = v.object_id()
+                entry = self.memory_store.get_entry(oid)
+                if entry is None:
+                    # scheduler guaranteed readiness, so the object was
+                    # LOST since: reconstruct from lineage
+                    if self.object_recovery.maybe_recover(oid):
+                        requeue_deps.append(oid)
+                        return None
+                    # unrecoverable: a tombstoned loss stored its error
+                    entry = self.memory_store.get_entry(oid)
+                if entry is None:
+                    dep_error = rex.ObjectLostError(v.hex())
+                    return None
+                if entry.is_exception:
+                    dep_error = entry.value
+                    return None
+                return self._entry_value(oid, entry)
+            return v
+
+        args = tuple(resolve(a) for a in spec.args)
+        kwargs = {k: resolve(v) for k, v in spec.kwargs.items()}
+        return args, kwargs, dep_error, requeue_deps
+
+    def _store_returns(self, spec: TaskSpec, return_ids: List[ObjectID],
+                       result) -> List[ObjectID]:
+        """Store results; returns the stored oids — the CALLER delivers
+        the object-ready notifications (batched with task-finished)."""
+        if spec.num_returns == 1:
+            values = [result]
+        else:
+            values = list(result) if result is not None else []
+            if len(values) != spec.num_returns:
+                err = ValueError(
+                    f"task {spec.name} declared num_returns={spec.num_returns} "
+                    f"but returned {len(values)} values")
+                self._store_error(spec, return_ids, err)
+                return []
+        for oid, v in zip(return_ids, values):
+            self.memory_store.put(oid, v)
+        self.task_manager.complete(spec.task_id)
+        return return_ids
+
+    def _handle_task_failure(self, spec: TaskSpec, return_ids,
+                             exc: BaseException) -> Optional[PendingTask]:
+        """Store the error, or build the retry task for the caller to submit
+        once this execution's finished-notification has gone out."""
+        if self.task_manager.should_retry(spec, exc):
+            spec.attempt_number += 1
+            old_id = spec.task_id
+            spec.task_id = self.next_task_id()  # retries get a fresh attempt id
+            self.task_manager.num_retries += 1
+            logger.warning("retrying task %s (attempt %d/%d): %s", spec.name,
+                           spec.attempt_number, spec.max_retries, exc)
+            msg = str(exc)
+            if "(chaos" in msg:
+                # an injected fault reached the retry machinery: count
+                # the recovery against its site
+                self._chaos.note_recovery(
+                    "worker" if "chaos worker kill" in msg else "task")
+            # resubmit under the ORIGINAL return ids
+            spec._retry_return_ids = return_ids  # type: ignore[attr-defined]
+            spec._backoff = True  # failure retry: _submit_retry delays it
+            deps = _top_level_deps(spec.args, spec.kwargs)
+            self.task_manager.rekey_pending(old_id, spec, deps)
+            if self.task_events is not None:
+                # old attempt -> failed ring (flagged retried); the new
+                # attempt id opens its own record
+                self.task_events.record_retry(
+                    old_id, _task_error_type(exc), spec)
+            if self.trace_plane is not None:
+                # same logical span (spec.trace_ctx is untouched by the
+                # in-place retry): the attempts link under one span
+                self.trace_plane.record_retry(
+                    old_id, _task_error_type(exc), spec)
+            unresolved = [d for d in deps if not self.memory_store.contains(d)]
+            return PendingTask(spec=spec, deps=unresolved,
+                               execute=_noop_exec)
+        if isinstance(exc, rex.TaskCancelledError):
+            self._store_error(spec, return_ids, exc)
+        elif isinstance(exc, rex.TaskTimeoutError):
+            # exhausted deadline retries: one summary error chaining the
+            # last per-attempt timeout (`raise ... from last_err`)
+            final = rex.TaskTimeoutError(
+                f"task {spec.name} timed out after {spec.attempt_number + 1} "
+                f"attempt(s) of {spec.timeout_s}s each",
+                task_id=spec.task_id, timeout_s=spec.timeout_s)
+            final.__cause__ = exc
+            self._store_error(spec, return_ids, final)
+        else:
+            tb = "".join(traceback.format_exception(type(exc), exc,
+                                                    exc.__traceback__))
+            err = rex.TaskError(spec.name, exc, tb)
+            err.__cause__ = exc  # retry exhaustion chains the last failure
+            self._store_error(spec, return_ids, err)
+        return None
+
+    def _store_error(self, spec: TaskSpec, return_ids, exc: BaseException):
+        if self.task_events is not None:
+            # terminal failure (retries, if any, were exhausted)
+            self.task_events.record_failed(
+                spec.task_id, _task_error_type(exc), name=spec.name,
+                attempt=spec.attempt_number)
+        if self.trace_plane is not None:
+            self.trace_plane.record_failed(spec.task_id,
+                                           _task_error_type(exc))
+        for oid in return_ids:
+            self.memory_store.put(oid, exc, is_exception=True)
+            self.scheduler.notify_object_ready(oid)
+        self.task_manager.complete(spec.task_id)
+
+    def _fail_unassigned(self, tasks: List[PendingTask],
+                         exc: BaseException) -> None:
+        """The scheduler's fail_tasks hook: its batched device assignment
+        raised, so these tasks fail with SchedulingError carrying the
+        cause (the port never retries the batch on another backend)."""
+        for pending in tasks:
+            spec = pending.spec
+            return_ids = (getattr(spec, "_retry_return_ids", None)
+                          or spec.return_ids())
+            err = rex.SchedulingError(
+                f"task {spec.name} was not scheduled: the scheduler's "
+                f"device assignment raised {exc!r}")
+            err.__cause__ = exc
+            deps = getattr(spec, "_deps_memo", None)
+            if deps:
+                self.reference_counter.remove_submitted_task_references(deps)
+            self._store_error(spec, return_ids, err)
+
+    def _maybe_inject_failure(self):
+        """Thread-mode ``task`` injection site. The controller also
+        honors the live testing_inject_task_failure_prob knob."""
+        fault = self._chaos.poll("task")
+        if fault is None:
+            return
+        if fault["kind"] == "hang":
+            time.sleep(fault.get("hang_s", 0.2))
+            return
+        raise rex.WorkerCrashedError("injected failure (chaos)")
+
+    # ------------------------------------------------------------------
+    # Supervision: retry backoff + per-task deadlines
+    # ------------------------------------------------------------------
+    def _claim_task_completion(self, exec_task_id: TaskID):
+        """Atomically end an attempt's cancellable window and return the
+        flag it finished under: "timeout" means the deadline watcher
+        already failed/retried the attempt (suppress the zombie's
+        results), True means cancel_task flipped it mid-run (store
+        TaskCancelledError, never retry), False/None is a clean finish."""
+        with self._running_lock:
+            return self._running_tasks.pop(exec_task_id, None)
+
+    def _submit_retry(self, retry_task: PendingTask) -> None:
+        """Resubmit a failed attempt's retry after exponential backoff
+        (base delay doubling per attempt, capped, with seeded jitter) so
+        a flapping node is not hammered with immediate resubmissions.
+        Dep-requeues (no attempt bump) resubmit immediately. Call AFTER
+        the attempt's finished-notification, like scheduler.submit."""
+        spec = retry_task.spec
+        if not getattr(spec, "_backoff", False):
+            self.scheduler.submit(retry_task)
+            return
+        spec._backoff = False
+        base = GLOBAL_CONFIG.task_retry_delay_s
+        delay = 0.0
+        if base > 0.0:
+            delay = min(base * (2 ** max(spec.attempt_number - 1, 0)),
+                        GLOBAL_CONFIG.task_retry_max_delay_s)
+            if GLOBAL_CONFIG.task_retry_jitter:
+                delay *= self._chaos.backoff_jitter(spec.attempt_number,
+                                                    spec.name)
+        # per-attempt delays kept on the spec so tests can assert growth
+        delays = getattr(spec, "_retry_delays", None)
+        if delays is None:
+            delays = spec._retry_delays = []  # type: ignore[attr-defined]
+        delays.append(delay)
+        if delay <= 0.0:
+            self._submit_retry_now(retry_task)
+            return
+        t = threading.Timer(delay, self._submit_retry_now, (retry_task,))
+        t.daemon = True
+        t.start()
+
+    def _submit_retry_now(self, retry_task: PendingTask) -> None:
+        if not self.alive:
+            return
+        spec = retry_task.spec
+        try:
+            if spec.timeout_s:
+                self._register_deadline(spec)
+            self.scheduler.submit(retry_task)
+        except Exception:
+            logger.exception("retry submission failed for %s", spec.name)
+
+    def _register_deadline(self, spec: TaskSpec) -> None:
+        """Arm the per-attempt deadline for spec's CURRENT task id; the
+        watcher thread starts lazily with the first armed deadline."""
+        if not spec.timeout_s or spec.timeout_s <= 0:
+            return
+        with self._deadline_cv:
+            heapq.heappush(self._deadline_heap,
+                           (time.monotonic() + spec.timeout_s,
+                            self._deadline_seq.next(), spec.task_id, spec))
+            if self._deadline_thread is None:
+                self._deadline_thread = threading.Thread(
+                    target=self._deadline_loop, daemon=True,
+                    name="ray_tpu_deadline")
+                self._deadline_thread.start()
+            self._deadline_cv.notify()
+
+    def _deadline_loop(self) -> None:
+        while self.alive:
+            with self._deadline_cv:
+                if not self._deadline_heap:
+                    self._deadline_cv.wait(timeout=0.5)
+                    continue
+                now = time.monotonic()
+                due_at = self._deadline_heap[0][0]
+                if due_at > now:
+                    self._deadline_cv.wait(
+                        timeout=min(due_at - now, 0.5))
+                    continue
+                _, _, tid, spec = heapq.heappop(self._deadline_heap)
+            try:
+                self._on_task_deadline(spec, tid)
+            except Exception:
+                logger.exception("deadline enforcement failed for %s",
+                                 spec.name)
+
+    def _on_task_deadline(self, spec: TaskSpec, tid: TaskID) -> None:
+        """One expired deadline. ``tid`` is the attempt the deadline was
+        armed for; a later attempt id on the spec means that attempt
+        already resolved (each retry re-arms its own deadline)."""
+        if spec.task_id is not tid and spec.task_id != tid:
+            return
+        if self.task_manager.get_pending_spec(tid) is None:
+            return  # attempt completed under the wire
+        err = rex.TaskTimeoutError(
+            f"task {spec.name} exceeded its {spec.timeout_s}s deadline "
+            f"(attempt {spec.attempt_number + 1})",
+            task_id=tid, timeout_s=spec.timeout_s)
+        return_ids = (getattr(spec, "_retry_return_ids", None)
+                      or spec.return_ids())
+        # (a) still queued in the scheduler: pull it out (no slot held,
+        #     so no finished-notification is owed)
+        if self.scheduler.cancel(tid):
+            retry = self._handle_task_failure(spec, return_ids, err)
+            if retry is not None:
+                self._submit_retry(retry)
+            return
+        # (b) thread mode: running (flag the attempt as timed out and
+        #     fail it now — the zombie thread's results are suppressed)
+        #     or executor-queued (timed out at execution start). The
+        #     reference first force-kills attempts leased to process or
+        #     remote pools, which the port does not have.
+        synthesize = False
+        with self._running_lock:
+            flag = self._running_tasks.get(tid)
+            if flag is False:
+                self._running_tasks[tid] = "timeout"
+                synthesize = True
+            elif flag is None and spec.task_id == tid \
+                    and self.task_manager.get_pending_spec(tid) is not None:
+                self._pretimeout.add(tid)
+        if synthesize:
+            retry = self._handle_task_failure(spec, return_ids, err)
+            if retry is not None:
+                self._submit_retry(retry)
+
+    # ------------------------------------------------------------------
+    # Lifecycle
+    # ------------------------------------------------------------------
+    def defer_unref(self, object_id: ObjectID) -> None:
+        self._unref_queue.append(object_id)
+        self._unref_event.set()
+
+    def _unref_loop(self) -> None:
+        while self.alive:
+            self._unref_event.wait(timeout=0.5)
+            self._unref_event.clear()
+            while self._unref_queue:
+                try:
+                    oid = self._unref_queue.popleft()
+                except IndexError:
+                    break
+                try:
+                    self.reference_counter.remove_local_reference(oid)
+                except Exception:
+                    logger.exception("unref failed for %s", oid)
+
+    def free_objects(self, refs: Sequence[ObjectRef]) -> None:
+        """Drop stored values WITHOUT touching reference counts — the
+        analog of ray._private.internal_api.free (and of losing the
+        objects to eviction/node death). A later get() reconstructs them
+        from lineage if their producing tasks are still recoverable."""
+        for r in refs:
+            oid = r.object_id()
+            self.object_recovery.note_freed(oid)
+            self.memory_store.delete([oid])
+
+    def _on_object_out_of_scope(self, object_id: ObjectID) -> None:
+        # Deferred batch free: __del__-driven releases arrive one at a
+        # time (e.g. 50k refs dying after a batched get), and freeing
+        # per object pays store/lineage lock acquisitions per oid. A
+        # zero-refcount object can never regain references, so deferral
+        # is safe; the size threshold plus drains at the API entry
+        # points bound how long reclaim can lag.
+        q = self._oos_q
+        q.append(object_id)
+        if len(q) >= 128:
+            # the reference also reclaims arena- and remote-resident
+            # objects at once; thread mode has only in-process entries
+            self._drain_out_of_scope()
+
+    def _drain_out_of_scope(self) -> None:
+        q = self._oos_q
+        if not q:
+            return
+        batch: List[ObjectID] = []
+        while True:
+            try:
+                batch.append(q.popleft())
+            except IndexError:
+                break
+        if not batch:
+            return
+        self.memory_store.delete(batch)
+        self.task_manager.evict_lineage_batch(batch)
+
+    def shutdown(self) -> None:
+        self.alive = False
+        with self._deadline_cv:
+            self._deadline_cv.notify_all()  # release the watcher promptly
+        if self.log_monitor is not None:
+            # stop BEFORE the pools die: the final sweep re-emits any
+            # trailing captured output while the files still matter
+            self.log_monitor.stop()
+        if self._gcs_log_handler is not None:
+            import logging as _logging
+            _logging.getLogger("ray_tpu_torch").removeHandler(
+                self._gcs_log_handler)
+            try:
+                self._gcs_log_handler.close()
+            except Exception:
+                pass
+            self._gcs_log_handler = None
+        from ray_tpu_torch._private import log_plane
+        if log_plane.get_session_log_dir() == self.session_log_dir:
+            log_plane.set_session_log_dir(None)
+        self._drain_out_of_scope()
+        self.placement_groups.shutdown()
+        with self._actors_lock:
+            actors = list(self.actors.values())
+        for rt in actors:
+            try:
+                rt.stop(no_restart=True)
+            except Exception:
+                pass
+        self.scheduler.shutdown()
+        self.gcs.shutdown()
+        self.memory_monitor.shutdown()
+        self._pool.shutdown(wait=False, cancel_futures=True)
+        if runtime_sanitizer._ENABLED:
+            # lock-witness diff + leak ledgers, while the refcount table
+            # still distinguishes live objects from leaked segments
+            runtime_sanitizer.report_at_shutdown(
+                self.reference_counter.snapshot())
+
+
+def _top_level_deps(args, kwargs) -> List[ObjectID]:
+    deps = [a.object_id() for a in args if isinstance(a, ObjectRef)]
+    if kwargs:
+        deps.extend(v.object_id() for v in kwargs.values()
+                    if isinstance(v, ObjectRef))
+    return deps
+
+
+def _likely_large(value: Any) -> bool:
+    """Cheap size probe deciding whether a put should try the shm path
+    (avoids serializing every small put twice). Arrays/bytes report real
+    sizes; other objects are assumed small and stay in the memory store.
+    The port's thread mode stores every put by reference; this is the
+    seam the shm store takes when process mode is ported."""
+    import numpy as _np
+    if isinstance(value, _np.ndarray):
+        return value.nbytes > GLOBAL_CONFIG.inline_object_max_bytes
+    if isinstance(value, (bytes, bytearray, memoryview)):
+        return len(value) > GLOBAL_CONFIG.inline_object_max_bytes
+    t = type(value)
+    if ((t.__module__ or "").split(".")[0] == "pyarrow"
+            and hasattr(value, "nbytes")):
+        # Arrow tables/arrays: data-plane blocks — workers must read
+        # them zero-copy from the arena, not over the task pipe
+        return value.nbytes > GLOBAL_CONFIG.inline_object_max_bytes
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(value, torch.Tensor):
+        # a CUDA tensor counts its device bytes: serializing it copies
+        # them to the host (see serialization.py)
+        return (value.numel() * value.element_size()
+                > GLOBAL_CONFIG.inline_object_max_bytes)
+    return False
+
+
+def _detect_gpu_count() -> float:
+    """CUDA devices visible to this process, without creating a CUDA
+    context: ``torch.cuda.device_count()`` asks the driver for the count
+    and leaves torch's CUDA state uninitialised
+    (``torch.cuda.is_initialized()`` stays False), so a CPU-only run never
+    touches a card. 0 without a CUDA build."""
+    import torch
+
+    if not torch.backends.cuda.is_built():
+        return 0.0
+    return float(torch.cuda.device_count())
+
+
+def auto_pipeline_depth(num_workers: int) -> int:
+    """Lease-pipeline depth for a pool of num_workers workers: the
+    configured value, or (auto) the worker/core oversubscription ratio
+    capped at 8 — 1 on hosts with a core per worker. (The reference
+    keeps this in its process pool, which is not ported.)"""
+    depth = GLOBAL_CONFIG.worker_pipeline_depth
+    if depth <= 0:
+        depth = max(1, min(8, -(-num_workers // (os.cpu_count() or 1))))
+    return depth
+
+
+# runtime_env env_vars in THREAD mode share one process environment.
+# Depth-counted apply/restore: concurrent env-bearing tasks may observe
+# each other mid-flight (documented caveat), but completion always
+# restores the TRUE pre-task value — naive save/restore interleaving
+# would leak a task's value into the process forever.
+_env_state_lock = threading.Lock()
+_env_depth: Dict[str, Tuple[int, Optional[str]]] = {}
+
+
+def env_vars_push(env_vars: Dict[str, str]) -> None:
+    with _env_state_lock:
+        for k, v in env_vars.items():
+            depth, orig = _env_depth.get(k, (0, os.environ.get(k)))
+            _env_depth[k] = (depth + 1, orig)
+            os.environ[k] = v
+
+
+def env_vars_pop(env_vars: Dict[str, str]) -> None:
+    with _env_state_lock:
+        for k in env_vars:
+            entry = _env_depth.pop(k, None)
+            if entry is None:
+                continue
+            depth, orig = entry
+            if depth > 1:
+                _env_depth[k] = (depth - 1, orig)
+            elif orig is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = orig
+
+
+def _async_raise_in_task(task_id: TaskID) -> None:
+    """Best-effort forced cancellation in thread mode."""
+    # thread-level force-kill is unsafe; cooperative cancellation only.
+    logger.warning("force cancel requested for %s; thread workers support "
+                   "cooperative cancellation only", task_id)
+
+
+# ----------------------------------------------------------------------
+# Module-level API used by ray_tpu_torch/__init__.py
+# ----------------------------------------------------------------------
+
+def init(num_cpus: Optional[float] = None, num_workers: Optional[int] = None,
+         scheduler: Optional[str] = None, ignore_reinit_error: bool = False,
+         resources: Optional[Dict[str, float]] = None,
+         address: Optional[str] = None,
+         log_to_driver: bool = True,
+         _system_config: Optional[dict] = None, **kwargs) -> "Worker":
+    global global_worker
+    with _init_lock:
+        if global_worker is not None and global_worker.alive:
+            if ignore_reinit_error:
+                return global_worker
+            raise RuntimeError("ray_tpu_torch.init() called twice; pass "
+                               "ignore_reinit_error=True to allow")
+        if address is not None:
+            # the reference connects a ray:// client or joins a head here
+            raise NotImplementedError(_UNPORTED["remote"])
+        try:
+            scheduler_factory = _configure(scheduler, _system_config)
+        except BaseException:
+            # a refused init leaves no setting behind for the next one
+            GLOBAL_CONFIG.unfreeze()
+            GLOBAL_CONFIG.reset()
+            raise
+        GLOBAL_CONFIG.freeze()
+        global_worker = Worker(num_cpus=num_cpus, num_workers=num_workers,
+                               scheduler_factory=scheduler_factory,
+                               resources=resources,
+                               log_to_driver=log_to_driver)
+        if GLOBAL_CONFIG.gc_tuning:
+            # see the config knob's docstring (including the freeze
+            # caveat); shutdown() undoes both, restoring the HOST
+            # program's thresholds, not CPython defaults
+            import gc
+            global _gc_tuned, _gc_saved_threshold
+            _gc_saved_threshold = gc.get_threshold()
+            gc.collect()
+            gc.freeze()
+            gc.set_threshold(20_000, 20, 20)
+            _gc_tuned = True
+        return global_worker
+
+
+def _configure(scheduler: Optional[str],
+               system_config: Optional[dict]) -> Optional[Callable]:
+    """Apply init's ``_system_config``, refuse what the port cannot run,
+    and return the scheduler factory (None = the event scheduler)."""
+    if system_config:
+        GLOBAL_CONFIG.unfreeze()
+        GLOBAL_CONFIG.apply_system_config(system_config)
+    _check_ported()
+    # max_direct_call_object_size is the reference API's name for
+    # inline_object_max_bytes: an override of the alias (env or
+    # _system_config) flows into the real knob, unless the real
+    # knob was itself overridden — then the specific name wins
+    alias = GLOBAL_CONFIG.entry("max_direct_call_object_size")
+    inline = GLOBAL_CONFIG.entry("inline_object_max_bytes")
+    if alias.value != alias.default and inline.value == inline.default:
+        inline.value = int(alias.value)
+    # Two separate knobs (previously conflated): ``scheduler`` picks the
+    # scheduler CLASS (tensor = device-array north star, the default;
+    # event = per-event oracle); ``sched_backend`` picks the tensor
+    # scheduler's assignment backend (auto|cuda|numpy).
+    impl = scheduler or GLOBAL_CONFIG.scheduler
+    if impl == "event":
+        return None
+    if impl != "tensor":
+        raise ValueError(f"unknown scheduler {impl!r}: tensor | event")
+    from ray_tpu_torch._private.scheduler.tensor import (
+        TensorScheduler, check_device)
+    check_device()  # raises before any thread starts
+    return (lambda nodes, dispatch, contains:
+            TensorScheduler(nodes, dispatch, contains))
+
+
+def _check_ported() -> None:
+    """Refuse, before anything starts, the knobs whose code the port
+    does not have: running them degraded would hide that."""
+    if GLOBAL_CONFIG.worker_mode != "thread":
+        raise NotImplementedError(_UNPORTED["process"])
+    if (GLOBAL_CONFIG.profile_hz > 0 or GLOBAL_CONFIG.metrics_export_port
+            or GLOBAL_CONFIG.qos):
+        raise NotImplementedError(_UNPORTED["planes"])
+
+
+def shutdown() -> None:
+    global global_worker, _gc_tuned
+    with _init_lock:
+        if global_worker is not None:
+            global_worker.shutdown()
+            global_worker = None
+        if _gc_tuned:
+            import gc
+            gc.unfreeze()
+            gc.set_threshold(*_gc_saved_threshold)
+            _gc_tuned = False
+        GLOBAL_CONFIG.unfreeze()
+        # _system_config is scoped to one init/shutdown cycle; a leaked
+        # worker_mode=process would silently re-route the next runtime
+        GLOBAL_CONFIG.reset()
+        # chaos schedules are scoped the same way: an armed plan must
+        # not leak into the next runtime's fault decisions
+        _chaos_controller().reset()
+
+
+def is_initialized() -> bool:
+    return global_worker is not None and global_worker.alive
+
+
+def get_worker(auto_init: bool = True) -> Worker:
+    if global_worker is None or not global_worker.alive:
+        if not auto_init:
+            raise RuntimeError("ray_tpu_torch.init() has not been called")
+        init()
+    return global_worker  # type: ignore

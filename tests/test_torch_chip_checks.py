@@ -8,7 +8,9 @@ the ring phase, the SASS build check of the sm90 templates and of kernel
 1's bulk-copy kernels and of the scheduler's kernels, the paged sweep's
 shapes and lengths, and the scheduler phases' helpers: the bytes a tick or
 a drive moves, the tick counts the card must reproduce, the seeded gang
-batch and its oracle check."""
+batch and its oracle check; and the runtime phase's helpers: the assign
+oracle's agreement rule and replay, the crossover snapshots and verdict,
+the recorder's timing summary and assign's bytes."""
 
 import json
 import re
@@ -419,3 +421,111 @@ def test_sched_table_rows_carry_every_key():
     assert [r["ms"] for r in table] == [0.06, 0.08, 0.4]
     assert table[0]["replaces"] == \
         "ray_tpu/_private/scheduler/kernels.py:707 (XLA)"
+
+
+def _device_cpu(sk, snap, threshold=0.5):
+    """What TensorScheduler._device_assign returns for snap, on the host."""
+    ready_cls, demands, avail, cap, mask, spread = (snap[1], snap[2],
+                                                    snap[3], snap[4],
+                                                    snap[5], snap[6])
+    uniq, inv = np.unique(ready_cls, return_inverse=True)
+    return sk.assign(inv.astype(np.int32), demands[uniq], avail, cap,
+                     threshold, mask[uniq], spread[uniq], device="cpu")
+
+
+@pytest.mark.parametrize("n_classes", [1, 64])
+def test_replay_oracle_accepts_the_device_path_and_rejects_a_swap(n_classes):
+    from ray_tpu_torch._private.scheduler import kernels as sk
+
+    snaps = []
+    for seed in range(3):
+        snap = chip_smoke.crossover_snapshot(512, n_classes, seed)
+        node_of, avail = _device_cpu(sk, snap)
+        snaps.append((snap, node_of, avail))
+    assert chip_smoke.replay_oracle(sk, snaps, 0.5) == 0
+    snap, node_of, avail = snaps[0]
+    plain = ~snap[6][snap[1]]                 # tasks of non-SPREAD classes
+    i, j = np.flatnonzero(plain & (node_of >= 0))[:2]
+    bad = node_of.copy()
+    bad[i], bad[j] = node_of[j], node_of[i]
+    if bad[i] == bad[j]:
+        bad[i] = -1
+    assert chip_smoke.replay_oracle(sk, [(snap, bad, avail)], 0.5) == 1
+    assert chip_smoke.replay_oracle(
+        sk, [(snap, node_of, avail + 1)], 0.5) == 1
+
+
+def test_assign_agrees_holds_spread_classes_to_node_counts():
+    cls = np.asarray([0, 0, 1, 1], dtype=np.int32)
+    spread = np.asarray([False, True])
+    avail = np.zeros((2, 4), np.float32)
+    want = (np.asarray([0, 1, 0, 1]), avail)
+    swapped = (np.asarray([0, 1, 1, 0]), avail)   # spread tasks swapped
+    assert chip_smoke.assign_agrees(swapped, want, cls, spread)
+    moved = (np.asarray([0, 1, 1, 1]), avail)     # a spread count changes
+    assert not chip_smoke.assign_agrees(moved, want, cls, spread)
+    plain = (np.asarray([1, 0, 0, 1]), avail)     # a plain task moved
+    assert not chip_smoke.assign_agrees(plain, want, cls, spread)
+
+
+def test_crossover_snapshots_are_seeded_and_dyadic():
+    a = chip_smoke.crossover_snapshot(1024, 64, seed=3)
+    b = chip_smoke.crossover_snapshot(1024, 64, seed=3)
+    assert all(np.array_equal(x, y) for x, y in zip(a[:7], b[:7]))
+    assert a[2].shape == (64, 4) and a[4].shape == (
+        chip_smoke.CROSSOVER_NODES, 4)
+    assert np.all(a[2] * 4 == np.round(a[2] * 4))   # quarters: exact in f32
+    one = chip_smoke.crossover_snapshot(64, 1)
+    assert one[5].all() and not one[6].any()
+
+
+def test_crossover_verdict_is_the_smallest_k_of_a_winning_run():
+    """phase_crossover's verdict per class count, with the timings
+    replaced by a fake _assign whose cost depends on backend and k."""
+    class Config:
+        sched_backend = "numpy"
+
+        def set(self, name, value):
+            setattr(self, name, value)
+
+    class Sched:
+        def __init__(self, config):
+            self.config = config
+
+        def _assign(self, snap):
+            k, K = len(snap[0]), snap[2].shape[0]
+            cuda = self.config.sched_backend == "cuda"
+            # cuda wins by 2x at 64 classes from k = 256; never at 1 class
+            slow = (K > 1 and k < 256) or K == 1
+            time.sleep(0.0 if not cuda else (0.002 if slow else 0.0))
+            if not cuda:
+                time.sleep(0.001 if K > 1 else 0.0)
+            node_of = np.full(k, -1, dtype=np.int32)
+            return snap[0], node_of, snap[3]
+
+    import time
+
+    config = Config()
+    rows, from_k = chip_smoke.phase_crossover(torch, Sched(config), config)
+    assert len(rows) == len(chip_smoke.CROSSOVER_K) * len(
+        chip_smoke.CROSSOVER_CLASSES)
+    assert all(r["equal"] for r in rows)
+    assert from_k == {1: None, 64: 256}
+
+
+def test_assign_timing_medians_a_window():
+    calls = [(0.0, 10, 1e-3, 1.0, 0.1), (1.0, 20, 2e-3, 2.0, 0.2),
+             (2.0, 30, 3e-3, 3.0, 0.3), (3.0, 40, 4e-3, None, None)]
+    got = chip_smoke.assign_timing(calls, 1.0, 3.5)
+    assert got == {"assigns": 3, "median_k": 30, "host_us": 3000.0,
+                   "stream_us": 3000.0, "kernel_us": 300.0}
+    assert chip_smoke.assign_timing([], 0.0)["host_us"] is None
+
+
+def test_assign_bytes_read_inputs_and_write_outputs_once():
+    k, K, N = 4096, 3, 64
+    want = (4 * k                       # the batch's classes, int32
+            + 4 * K * 4 + 2 * 4 * N * 4   # demands, avail, cap (f32)
+            + K * N + K                 # class mask and spread (bool)
+            + 4 * k + 4 * N * 4)        # node_of and the new avail
+    assert chip_smoke.assign_bytes(k, K, N) == want

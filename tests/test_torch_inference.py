@@ -209,15 +209,34 @@ def test_engine_rejects_oversized_and_empty(tiny):
 
 
 def test_port_imports_no_jax():
-    code = ("import ray_tpu_torch, ray_tpu_torch.models.inference, "
+    """Every module of the port imports, and the runtime runs init, a
+    task, an actor and shutdown (the scheduler's device path on the host:
+    sched_device "cpu"), with no jax and no ray_tpu module loaded; the
+    package's import leaves CUDA uninitialised."""
+    code = ("import torch, ray_tpu_torch as ray\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "import ray_tpu_torch.models.inference, "
             "ray_tpu_torch.models.train_step, ray_tpu_torch.ops.flash, "
             "ray_tpu_torch.ops.paged_attention, ray_tpu_torch._private.perf, "
             "ray_tpu_torch.ops.ring_attention, ray_tpu_torch.parallel, "
             "ray_tpu_torch.parallel.mesh, "
             "ray_tpu_torch._private.scheduler.kernels, "
-            "ray_tpu_torch._private.benchmarks; "
-            "import sys; "
+            "ray_tpu_torch._private.scheduler.tensor, "
+            "ray_tpu_torch._private.benchmarks, ray_tpu_torch.util, "
+            "ray_tpu_torch._private.serialization, "
+            "ray_tpu_torch._private.runtime_envs\n"
+            "ray.init(num_workers=2, scheduler='tensor', "
+            "_system_config={'sched_device': 'cpu'})\n"
+            "f = ray.remote(lambda x: x + 1)\n"
+            "assert ray.get(f.remote(1), timeout=30) == 2\n"
+            "@ray.remote\n"
+            "class A:\n"
+            "    def m(self):\n"
+            "        return 3\n"
+            "assert ray.get(A.remote().m.remote(), timeout=30) == 3\n"
+            "ray.shutdown()\n"
+            "import sys\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
-            "'ray_tpu.')) or m == 'ray_tpu' for m in sys.modules)")
+            "'ray_tpu.')) or m == 'ray_tpu' for m in sys.modules)\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
