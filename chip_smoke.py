@@ -107,8 +107,26 @@ Phases, each printing one JSON line:
                with assign's times alone and beside it; the GPU count in
                cluster_resources; and the numpy / cuda crossover of
                TensorScheduler._assign that sets sched_device_min_batch.
+ 11. serve   — Serve on the runtime (phase_serve): ray_tpu_torch.init (8
+               workers, scheduler "tensor"), the serving model at full width
+               in bf16, its parameters shared by every replica. The mono app
+               (build_llm_app, one replica) and the split pools
+               (run_disagg_llm, one prefill and one decode replica): a warm
+               round, then 64 concurrent streams x 128 tokens through the
+               SSE driver path, with TTFT and latency per request, tokens/s,
+               the engine's max_concurrent, and kernel 1's launches zeroed
+               before each timed round: 8 layers x the decode engines'
+               decode steps. A JSON and an SSE request through start_http;
+               a profiled mono round (device busy share, kernel 1's share);
+               16 follow-up turns on the sessions the decode replica's KV
+               cache holds, each an affinity hit and a cached replay with
+               kv_bytes unchanged; phase parity's prompts in f32 through
+               both apps under phase parity's rule; after each
+               serve.shutdown() no engine thread or object is left and the
+               card's bytes are back.
 
-Then the kernel table as one JSON line, the nvidia-smi line, and last
+Then the kernel table as one JSON line (kernel 1's launches: the Serve
+path's, mono and split, with phase engine's beside them), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 ray_tpu_torch package beside this file, it exits non-zero and prints no result.
 """
@@ -251,6 +269,26 @@ ENGINE_PROMPTS, ENGINE_NEW_TOKENS = 8, 32
 CROSSOVER_K = (64, 256, 1024, 4096, 16384, 65536)
 CROSSOVER_CLASSES = (1, 64)
 CROSSOVER_NODES = 64
+
+# Serve (phase serve): ray_tpu_torch.serve on the runtime (thread mode, 8
+# workers, scheduler "tensor") with the serve-127M model at full width in
+# bf16 and phase engine's config (SLOTS slots, NEW_TOKENS new tokens). The
+# mono app (one replica) and the split pools (one prefill, one decode
+# replica): a warm round, then a timed round of SERVE_STREAMS concurrent
+# streams (prompts [i+1]*4, one client thread each) through the SSE
+# driver path; then SERVE_FOLLOWUPS follow-up turns on the sessions the
+# decode replica's KV cache holds (serve_kv_cache_sessions), each a
+# cached replay. Phase parity's prompts run in f32 through both.
+SERVE_STREAMS, SERVE_FOLLOWUPS = SLOTS, 16
+ENGINE_THREAD = "ray_tpu_torch_llm_engine"
+# memory_allocated may stay this far above its level before a deployment
+# once Serve has shut down and cuBLAS's per-thread workspaces are freed
+# (an engine's pages are 268 MB)
+SERVE_MEM_SLACK = 8 << 20
+# phase parity's prompts, tokens and near-tie rule (a mismatch passes only
+# where the reference's top-2 logits lie closer than this)
+PARITY_PROMPTS = ([1, 2, 3, 4], [5] * 4, [17, 300, 9000, 31999, 12], [7])
+PARITY_NEW, PARITY_TIE_GAP = 16, 1e-3
 
 
 # the bf16 kernels are instances of the wgmma + TMA templates: the forward
@@ -1285,11 +1323,43 @@ def profile_call(torch, fn, allow_empty=False):
                     for name, (total, count) in top]}
 
 
-def phase_parity(torch):
-    """f32 greedy parity: the engine (through the kernel) vs the
-    full-context model (no kernel), re-run at every step."""
-    from ray_tpu_torch.models.inference import (InferenceConfig,
-                                                InferenceEngine)
+def greedy_parity(torch, logits_of, prompts, outs, n_new,
+                  tie_gap=PARITY_TIE_GAP):
+    """Each of outs against the greedy tokens of logits_of(tokens) (the
+    last position's logits), re-run at every step. A mismatch passes only
+    at a true near-tie (top-2 gap below tie_gap), after which the
+    continuations diverge and that prompt's comparison stops. Returns
+    (tokens compared, near ties); raises on any other mismatch."""
+    compared, ties = 0, []
+    for prompt, out in zip(prompts, outs):
+        if len(out) != n_new:
+            raise AssertionError(f"{len(out)} tokens for prompt {prompt}, "
+                                 f"not {n_new}")
+        toks = list(prompt)
+        for step in range(n_new):
+            logits = logits_of(toks)
+            want = int(torch.argmax(logits))
+            compared += 1
+            if out[step] != want:
+                top2 = torch.topk(logits, 2).values
+                gap = float(top2[0] - top2[1])
+                if gap >= tie_gap:
+                    raise AssertionError(
+                        f"greedy mismatch for prompt {prompt} at step "
+                        f"{step}: got {out[step]}, model {want}, "
+                        f"top-2 gap {gap}")
+                ties.append({"prompt": prompt, "step": step, "gap": gap})
+                break  # the continuations diverge after a near-tie
+            toks.append(want)
+    return compared, ties
+
+
+def parity_setup(torch):
+    """Phase parity's f32 model (TF32 off) with its seeded params (seed 1),
+    its engine config (batch 4) and its oracle: the full-context model
+    without a kernel ("auto" would route its attention through the flash
+    kernel on the card), as logits_of for greedy_parity."""
+    from ray_tpu_torch.models.inference import InferenceConfig
     from ray_tpu_torch.models.transformer import (TransformerConfig,
                                                   init_params,
                                                   model_from_params)
@@ -1298,41 +1368,36 @@ def phase_parity(torch):
     torch.backends.cudnn.allow_tf32 = False
     mcfg = TransformerConfig(dtype=torch.float32, **SERVE)
     params = init_params(mcfg, torch.Generator(device="cuda").manual_seed(1))
-    n_new = 16
-    prompts = [[1, 2, 3, 4], [5] * 4, [17, 300, 9000, 31999, 12], [7]]
-    engine = InferenceEngine(params, mcfg, InferenceConfig(
-        batch_size=4, page_size=PAGE, max_pages_per_seq=MAX_PAGES,
-        num_pages=128, prefill_buckets=(16,), max_new_tokens=n_new))
-    try:
-        got = [f.result(timeout=600)
-               for f in [engine.submit(p, n_new) for p in prompts]]
-    finally:
-        engine.shutdown()
-    # the oracle is the full-context model without a kernel: "auto" would
-    # route its attention through the flash kernel on the card
+    icfg = InferenceConfig(batch_size=len(PARITY_PROMPTS), page_size=PAGE,
+                           max_pages_per_seq=MAX_PAGES, num_pages=128,
+                           prefill_buckets=(16,), max_new_tokens=PARITY_NEW)
     model = model_from_params(
         dataclasses.replace(mcfg, flash_attention="off"), params)
-    compared, ties = 0, []
-    with torch.no_grad():
-        for prompt, out in zip(prompts, got):
-            toks = list(prompt)
-            for step in range(n_new):
-                logits = model(torch.tensor([toks], device="cuda"))[0, -1]
-                want = int(torch.argmax(logits))
-                compared += 1
-                if out[step] != want:
-                    top2 = torch.topk(logits, 2).values
-                    gap = float(top2[0] - top2[1])
-                    if gap >= 1e-3:
-                        raise AssertionError(
-                            f"greedy mismatch for prompt {prompt} at step "
-                            f"{step}: engine {out[step]}, model {want}, "
-                            f"top-2 gap {gap}")
-                    ties.append({"prompt": prompt, "step": step, "gap": gap})
-                    break  # the continuations diverge after a near-tie
-                toks.append(want)
-    emit({"phase": "parity", "dtype": "float32", "prompts": len(prompts),
-          "tokens_compared": compared, "near_ties": ties})
+
+    @torch.no_grad()
+    def logits_of(toks):
+        return model(torch.tensor([toks], device="cuda"))[0, -1]
+
+    return mcfg, params, icfg, logits_of
+
+
+def phase_parity(torch):
+    """f32 greedy parity: the engine (through the kernel) vs the
+    full-context model (no kernel), re-run at every step."""
+    from ray_tpu_torch.models.inference import InferenceEngine
+
+    mcfg, params, icfg, logits_of = parity_setup(torch)
+    engine = InferenceEngine(params, mcfg, icfg)
+    try:
+        got = [f.result(timeout=600) for f in
+               [engine.submit(p, PARITY_NEW) for p in PARITY_PROMPTS]]
+    finally:
+        engine.shutdown()
+    compared, ties = greedy_parity(torch, logits_of, PARITY_PROMPTS, got,
+                                   PARITY_NEW)
+    emit({"phase": "parity", "dtype": "float32",
+          "prompts": len(PARITY_PROMPTS), "tokens_compared": compared,
+          "near_ties": ties})
 
 
 def _train_setup(torch, dtype, batch):
@@ -2222,6 +2287,404 @@ def assign_row(torch, sk, snap, launches, threshold):
                                "device activity"}
 
 
+def quantiles(xs):
+    """p50, p95 and max of xs, nearest rank (the rule by which Serve's
+    TTFT window reads its quantiles: sorted[min(n - 1, int(q * n))])."""
+    xs = sorted(xs)
+    if not xs:
+        raise AssertionError("no samples")
+    n = len(xs)
+    return {"p50": xs[min(n - 1, int(0.5 * n))],
+            "p95": xs[min(n - 1, int(0.95 * n))], "max": xs[-1]}
+
+
+def stream_record(frames, t0, clock=time.perf_counter):
+    """Drain one stream's frames, opened at t0: (tokens, TTFT seconds to
+    the first frame with tokens, latency seconds to the done frame)."""
+    tokens, ttft = [], None
+    for frame in frames:
+        if frame.get("tokens") and ttft is None:
+            ttft = clock() - t0
+        tokens.extend(frame.get("tokens") or ())
+        if frame.get("done"):
+            if ttft is None:
+                raise AssertionError("a stream ended without a token")
+            return tokens, ttft, clock() - t0
+    raise AssertionError("a stream ended without its done frame")
+
+
+def serve_round(open_stream, prompts, timeout=600.0):
+    """One client thread per prompt, released together: each opens its
+    stream (open_stream(i, prompt) -> frames) and drains it with
+    stream_record. Returns ([(tokens, ttft_s, latency_s)], wall seconds
+    from the release to the last done frame); raises if any client failed
+    or hung."""
+    import threading
+
+    n = len(prompts)
+    results, errors = [None] * n, []
+    go = threading.Event()
+
+    def client(i):
+        go.wait()
+        try:
+            t0 = time.perf_counter()
+            results[i] = stream_record(open_stream(i, prompts[i]), t0)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(f"stream {i}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    go.set()
+    for t in threads:
+        t.join(timeout=max(0.0, t0 + timeout - time.perf_counter()))
+    dt = time.perf_counter() - t0
+    hung = sum(t.is_alive() for t in threads)
+    if errors or hung:
+        raise AssertionError(f"serve round: {hung} hung, {errors[:4]}")
+    return results, dt
+
+
+def round_summary(results, dt, n_new, vocab):
+    """A round's end-to-end figures: TTFT and latency quantiles (s),
+    tokens/s; raises on a stream of the wrong length or out of vocab."""
+    bad = [i for i, (toks, _, _) in enumerate(results)
+           if len(toks) != n_new or not all(0 <= t < vocab for t in toks)]
+    if bad:
+        raise AssertionError(f"{len(bad)} malformed streams: {bad[:8]}")
+    tokens = sum(len(r[0]) for r in results)
+    return {"requests": len(results), "tokens": tokens, "seconds": dt,
+            "tokens_per_s": tokens / dt,
+            "ttft_s": quantiles([r[1] for r in results]),
+            "latency_s": quantiles([r[2] for r in results])}
+
+
+def launch_rule(launches, n_layers, decode_steps):
+    """Kernel 1 on the Serve path: a round's paged_attention launches must
+    be n_layers x the decode steps summed over the decode engines, and
+    > 0. Returns the problem, or None."""
+    if launches > 0 and launches == n_layers * decode_steps:
+        return None
+    return (f"paged_attention launches {launches} != {n_layers} layers x "
+            f"{decode_steps} decode steps")
+
+
+def engine_params(torch, mcfg, seed):
+    """init_params (seeded, f32) cast once to the engine's compute dtypes
+    (norm scales f32, the rest mcfg.dtype), so that every engine's own
+    cast is a no-op and the replicas share these tensors."""
+    from ray_tpu_torch.models.transformer import init_params
+
+    params = init_params(mcfg,
+                         torch.Generator(device="cuda").manual_seed(seed))
+    return {k: v if k.endswith("/scale") else v.to(mcfg.dtype)
+            for k, v in params.items()}
+
+
+def serve_released(torch, base, timeout=30.0):
+    """After serve.shutdown(): wait until no engine loop thread is alive
+    and the card's allocated bytes are back within SERVE_MEM_SLACK of base
+    (a retired replica's threads exit, then its engine is collected), and
+    no InferenceEngine object is left. cuBLAS keeps a 32 MiB workspace for
+    each thread's handle, which a replica's actor threads leave behind:
+    those are freed first and counted apart. Returns (readings, problem
+    or None)."""
+    import gc
+    import threading
+
+    from ray_tpu_torch.models.inference import InferenceEngine
+
+    deadline = time.monotonic() + timeout
+    while True:
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        torch._C._cuda_clearCublasWorkspaces()
+        above = torch.cuda.memory_allocated() - base
+        threads = sum(t.name == ENGINE_THREAD for t in threading.enumerate())
+        engines = sum(isinstance(o, InferenceEngine)
+                      for o in gc.get_objects())
+        if (not threads and not engines and above <= SERVE_MEM_SLACK
+                or time.monotonic() > deadline):
+            break
+        time.sleep(0.1)
+    readings = {"engine_threads": threads, "engines": engines,
+                "bytes_above_base": above,
+                "cublas_workspace_bytes": held - above}
+    ok = not threads and not engines and above <= SERVE_MEM_SLACK
+    return readings, None if ok else f"after serve.shutdown: {readings}"
+
+
+def serve_http(port, n_new):
+    """One JSON request (POST /llm) and one SSE request (POST /llm/stream)
+    over loopback. The JSON route calls the deployment's __call__, which
+    LLMDeployment does not define: the reference's ingress answers 500
+    with that error. Returns the readings."""
+    import http.client
+
+    def post(path, body):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        return conn, conn.getresponse()
+
+    conn, resp = post("/llm", {"prompt": [1, 2, 3, 4]})
+    reply = json.loads(resp.read())
+    # the error's last line (the replica's traceback is above it)
+    json_reply = (resp.status, {k: str(v).strip().splitlines()[-1]
+                                for k, v in reply.items()})
+    conn.close()
+    conn, resp = post("/llm/stream", {"prompt": [1, 2, 3, 4],
+                                      "max_new_tokens": n_new})
+    sse = {"status": resp.status, "type": resp.getheader("Content-Type")}
+    events = [json.loads(raw[len("data: "):]) for raw in
+              resp.read().decode().split("\n\n") if raw]
+    conn.close()
+    sse.update(events=len(events),
+               tokens=sum(len(e.get("tokens") or ()) for e in events),
+               done=bool(events) and events[-1].get("done") is True,
+               errors=[e["error"] for e in events if "error" in e])
+    problems = []
+    if json_reply[0] != 500 or "not callable" not in json_reply[1].get(
+            "error", ""):
+        problems.append(f"JSON route: {json_reply}")
+    if (sse["status"] != 200 or sse["type"] != "text/event-stream"
+            or sse["tokens"] != n_new or not sse["done"] or sse["errors"]):
+        problems.append(f"SSE route: {sse}")
+    return {"json_status": json_reply[0], "json_reply": json_reply[1],
+            "sse": sse}, problems
+
+
+def phase_serve(torch):
+    """Serve on the card (see SERVE_*): ray_tpu_torch.init(8 workers,
+    scheduler "tensor"), the serve-127M model in bf16 whose parameters
+    every replica shares, and:
+
+    - mono: serve.run(build_llm_app(...)), one replica; a warm round and
+      a timed round of SERVE_STREAMS streams through core._frames_for
+      ("llm"), the SSE route's driver (start_stream / next_tokens polls);
+      TTFT and latency per request, the TTFT window's quantiles, the
+      engine's max_concurrent and decode steps, kernel 1's launches
+      (launch_rule); a JSON and an SSE request through start_http(0); one
+      more round under torch.profiler (device busy share, kernel 1's).
+    - disagg: run_disagg_llm(one prefill, one decode replica); the same
+      rounds through handle.stream_frames with a session each, kv_bytes;
+      then a follow-up turn of the SERVE_FOLLOWUPS sessions the decode
+      replica's KV cache holds: every one an affinity hit and a cached
+      replay, kv_bytes unchanged, its tokens the first turn's.
+    - parity: phase parity's prompts in f32 through the mono app (batch 4)
+      and the split pools, each held to greedy_parity.
+    - after each serve.shutdown(): no engine thread, the card's bytes
+      back (serve_released).
+    Returns the row; raises on any problem."""
+    import gc
+    import threading
+
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.models.inference import InferenceConfig
+    from ray_tpu_torch.models.transformer import (TransformerConfig,
+                                                  param_count)
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.serve import core
+    from ray_tpu_torch.serve.llm import build_llm_app, run_disagg_llm
+
+    smi = nvidia_smi()
+    mcfg = TransformerConfig(dtype=torch.bfloat16, **SERVE)
+    params = engine_params(torch, mcfg, 0)
+    param_bytes = sum(t.nbytes for t in params.values())
+    icfg = InferenceConfig(batch_size=SLOTS, page_size=PAGE,
+                           max_pages_per_seq=MAX_PAGES, num_pages=NUM_PAGES,
+                           prefill_buckets=(16,), max_new_tokens=NEW_TOKENS)
+    page_bytes = (2 * mcfg.n_layers * NUM_PAGES * mcfg.n_kv_heads * PAGE
+                  * mcfg.head_dim * 2)
+    prompts = [[i + 1] * 4 for i in range(SERVE_STREAMS)]
+    L = mcfg.n_layers
+    problems = []
+    # what earlier phases leave in the process shares its GIL and heap
+    row = {"phase": "serve", "model": "serve-127M", "dtype": "bfloat16",
+           "n_params": param_count(params), "param_bytes": param_bytes,
+           "engine_page_bytes": page_bytes, "streams": SERVE_STREAMS,
+           "new_tokens": NEW_TOKENS, "replica_max_concurrency": 8,
+           "threads_at_start": threading.active_count(),
+           "python_objects_at_start": len(gc.get_objects()),
+           "nvidia_smi": smi}
+
+    def engine_stats(name):
+        return ray.get(core.get_app_handle(name).engine_stats.remote(),
+                       timeout=120)
+
+    def added_bytes(base):
+        """The bytes the deployment's replicas added: one engine's pages,
+        and no second copy of the weights."""
+        torch.cuda.synchronize()
+        added = torch.cuda.memory_allocated() - base
+        if added > page_bytes + param_bytes // 2:
+            problems.append(f"the replicas added {added} bytes: a second "
+                            "copy of the weights")
+        return added
+
+    t_phase = time.perf_counter()
+    seconds = row["seconds_by_part"] = {}
+
+    def lap(part, t0):
+        seconds[part] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    ray.init(num_workers=RUNTIME_WORKERS, scheduler="tensor")
+    try:
+        # -- mono -----------------------------------------------------
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        serve.run(build_llm_app(params, mcfg, icfg))
+        mono = {"replica_bytes": added_bytes(base)}
+
+        def mono_stream(_i, prompt):
+            return core._frames_for("llm", prompt, NEW_TOKENS)
+
+        serve_round(mono_stream, prompts)                          # warm
+        s0 = engine_stats("llm")
+        core.metrics.reset()
+        pa.paged_attention.launches = 0      # the main path: from zero
+        results, dt = serve_round(mono_stream, prompts)
+        launches = pa.paged_attention.launches
+        s1 = engine_stats("llm")
+        steps = s1["decode_steps"] - s0["decode_steps"]
+        problems.append(launch_rule(launches, L, steps))
+        mono.update(round_summary(results, dt, NEW_TOKENS, mcfg.vocab_size),
+                    decode_steps=steps, paged_attention_launches=launches,
+                    max_concurrent=s1["max_concurrent"],
+                    ms_per_decode_step=dt / steps * 1e3,
+                    window_ttft_s={"p50": core.metrics.ttft_quantile(0.5),
+                                   "p95": core.metrics.ttft_quantile(0.95)})
+        mono["http"], http_problems = serve_http(serve.start_http(0),
+                                                 NEW_TOKENS)
+        problems += http_problems
+        breakdown = profile_call(torch, lambda: serve_round(mono_stream,
+                                                            prompts))
+        paged_us = breakdown["device_us_by_group"].get("paged attention", 0)
+        # the profiled round does the timed round's work; its wall time is
+        # inflated by the profiler, so the share uses the timed wall
+        mono.update(device_busy_share=breakdown["device_busy_us"]
+                    / (dt * 1e6),
+                    paged_share_of_busy=paged_us
+                    / breakdown["device_busy_us"],
+                    profile=breakdown)
+        serve.shutdown()
+        mono["released"], problem = serve_released(torch, base)
+        problems.append(problem)
+        row["mono"] = mono
+        t0 = lap("mono", t0)
+
+        # -- disaggregated ----------------------------------------------
+        handle = run_disagg_llm(params, mcfg, icfg, prefill_replicas=1,
+                                decode_replicas=1)
+        disagg = {"replica_bytes": added_bytes(base)}
+        dec_state = core.get_app_handle("llm_decode")._state()
+
+        def split_stream(tag):
+            return lambda i, prompt: handle.stream_frames(
+                prompt, NEW_TOKENS, session_id=f"{tag}{i}")
+
+        serve_round(split_stream("warm"), prompts)
+        d0 = engine_stats("llm_decode")
+        core.metrics.reset()
+        pa.paged_attention.launches = 0
+        results, dt = serve_round(split_stream("s"), prompts)
+        launches = pa.paged_attention.launches
+        d1 = engine_stats("llm_decode")
+        p1 = engine_stats("llm_prefill")
+        steps = d1["decode_steps"] - d0["decode_steps"]
+        problems.append(launch_rule(launches, L, steps))
+        snap = core.metrics.snapshot()
+        # K and V of each prompt's tokens, every layer, bf16
+        want_kv = sum(2 * L * len(p) * mcfg.n_kv_heads * mcfg.head_dim * 2
+                      for p in prompts)
+        if snap["kv_bytes"] != want_kv:
+            problems.append(f"kv_bytes {snap['kv_bytes']} != {want_kv}")
+        disagg.update(round_summary(results, dt, NEW_TOKENS,
+                                    mcfg.vocab_size),
+                      decode_steps=steps, paged_attention_launches=launches,
+                      max_concurrent=d1["max_concurrent"],
+                      prefill_decode_steps=p1["decode_steps"],
+                      kv_bytes=snap["kv_bytes"],
+                      window_ttft_s={"p50": core.metrics.ttft_quantile(0.5),
+                                     "p95": core.metrics.ttft_quantile(0.95)})
+        first = {f"s{i}": r[0] for i, r in enumerate(results)}
+
+        # the follow-up turn: the sessions the decode replica's KV cache
+        # holds, read from the replica through its generic call path
+        held = list(ray.get(dec_state.submit(
+            "__getattribute__", ("_kv_cache",), {}), timeout=60))
+        if (len(held) != SERVE_FOLLOWUPS
+                or GLOBAL_CONFIG.serve_kv_cache_sessions != SERVE_FOLLOWUPS
+                or not set(held) <= set(first)):
+            problems.append(f"decode KV cache holds {held}")
+        snap0, c0 = core.metrics.snapshot(), d1["cached_replays"]
+        results, dt_f = serve_round(
+            lambda i, prompt: handle.stream_frames(
+                prompt, NEW_TOKENS, session_id=held[i]),
+            [prompts[int(sid[1:])] for sid in held])
+        snap1 = core.metrics.snapshot()
+        replays = engine_stats("llm_decode")["cached_replays"] - c0
+        hits = snap1["affinity_hit"] - snap0["affinity_hit"]
+        same = sum(r[0] == first[sid] for r, sid in zip(results, held))
+        disagg["followup"] = {
+            **round_summary(results, dt_f, NEW_TOKENS, mcfg.vocab_size),
+            "sessions": len(held), "affinity_hits": hits,
+            "affinity_misses": snap1["affinity_miss"]
+            - snap0["affinity_miss"],
+            "cached_replays": replays,
+            "kv_bytes_added": snap1["kv_bytes"] - snap0["kv_bytes"],
+            "tokens_equal_first_turn": same}
+        if (hits != len(held) or replays != len(held)
+                or snap1["kv_bytes"] != snap0["kv_bytes"]
+                or same != len(held)):
+            problems.append(f"follow-up turn: {disagg['followup']}")
+        serve.shutdown()
+        disagg["released"], problem = serve_released(torch, base)
+        problems.append(problem)
+        row["disagg"] = disagg
+        t0 = lap("disagg", t0)
+
+        # -- f32 greedy parity through both apps ---------------------------
+        pcfg, pparams, picfg, logits_of = parity_setup(torch)
+        serve.run(build_llm_app(pparams, pcfg, picfg))
+        mono_outs, _ = serve_round(
+            lambda _i, p: core._frames_for("llm", p, PARITY_NEW),
+            PARITY_PROMPTS)
+        serve.shutdown()
+        handle = run_disagg_llm(pparams, pcfg, picfg, prefill_replicas=1,
+                                decode_replicas=1)
+        split_outs, _ = serve_round(
+            lambda _i, p: handle.stream_frames(p, PARITY_NEW),
+            PARITY_PROMPTS)
+        serve.shutdown()
+        row["parity"] = {}
+        for name, outs in (("mono", mono_outs), ("disagg", split_outs)):
+            compared, ties = greedy_parity(
+                torch, logits_of, PARITY_PROMPTS, [o[0] for o in outs],
+                PARITY_NEW)
+            row["parity"][name] = {"tokens_compared": compared,
+                                   "near_ties": ties}
+        lap("parity", t0)
+    finally:
+        serve.shutdown()
+        ray.shutdown()
+    seconds["phase"] = time.perf_counter() - t_phase
+    problems = [p for p in problems if p]
+    row["ok"] = not problems
+    emit(row)
+    if problems:
+        raise AssertionError(f"serve phase: {problems}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2267,6 +2730,7 @@ def main() -> int:
     ring_launches = phase_ring(torch, dev)
     sched_launches, star_rows = phase_north_star(torch, dev)
     assign = phase_runtime(torch)
+    served = phase_serve(torch)
 
     # kernel 1 and its yardstick by device time (graph replays): the eager
     # loop of wrapper calls times the host, not the kernels
@@ -2275,7 +2739,13 @@ def main() -> int:
         "name": "paged_decode_attention", "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:76",
-        "launches": launches, "max_abs_err": main_row["max_abs_err"],
+        "launches": (served["mono"]["paged_attention_launches"]
+                     + served["disagg"]["paged_attention_launches"]),
+        "launches_by_path": {
+            "engine": launches,
+            "serve_mono": served["mono"]["paged_attention_launches"],
+            "serve_disagg": served["disagg"]["paged_attention_launches"]},
+        "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["device_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_device_ms"]}]

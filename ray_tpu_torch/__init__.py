@@ -9,10 +9,12 @@ Ported so far: the runtime core in thread mode (``init``, ``remote``,
 ``get``, ``put``, ``wait``, ``cancel``, ``ObjectRef``, actors, placement
 groups, the thread worker pool) on the array-state scheduler, whose
 batched assignment and whole-DAG tick run as hand-written CUDA kernels
-(``ops/csrc/scheduler_tick.cu``); the LLM serving engine; the training
-step; and ring attention (sequence parallelism over a mesh's ``seq``
-axis), with every TPU kernel of the JAX package as a hand-written CUDA
-kernel.
+(``ops/csrc/scheduler_tick.cu``); Serve on that runtime (deployments,
+the router, HTTP/SSE and gRPC ingress, the disaggregated prefill/decode
+pools, the Prometheus metrics plane); the LLM serving engine; the
+training step; and ring attention (sequence parallelism over a mesh's
+``seq`` axis), with every TPU kernel of the JAX package as a
+hand-written CUDA kernel.
 
     import ray_tpu_torch as ray
 
@@ -31,6 +33,27 @@ kernel.
 
         def generate(self, prompt, n):
             return self.engine.generate(prompt, max_new_tokens=n)
+
+Serve puts one engine (and with it the paged-attention kernel) behind
+each replica actor; in thread mode every replica shares the caller's
+parameter tensors:
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import build_llm_app, run_disagg_llm
+
+    handle = serve.run(build_llm_app(params, cfg, icfg))   # engines on "cuda"
+    ray.get(handle.generate.remote([1, 2, 3], 16))
+    port = serve.start_http(0)          # POST /llm, POST /llm/stream (SSE)
+    serve.shutdown()                    # stops every replica's engine
+
+    split = run_disagg_llm(params, cfg, icfg, prefill_replicas=1,
+                           decode_replicas=1)
+    for frame in split.stream_frames([1, 2, 3], 16, session_id="s1"):
+        print(frame["tokens"])          # first token straight off prefill
+
+``init(_system_config={"metrics_export_port": port})`` serves the
+Prometheus text endpoint (Serve's families included); the deployments
+take ``device="cpu"`` to run their engines' plain path on the host.
 
 On a host without CUDA, ``init`` raises unless the scheduler's device
 path is told to run its plain version on the host:

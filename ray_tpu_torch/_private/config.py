@@ -239,9 +239,7 @@ _d("log_capture", bool, True,
 _d("log_to_driver_rate", int, 2000,
    "max captured log lines re-emitted on the driver per second; "
    "excess lines are dropped with a surfaced drop count")
-_d("metrics_export_port", int, 0,
-   "prometheus text endpoint port; 0 = disabled. Not ported: init "
-   "refuses another value")
+_d("metrics_export_port", int, 0, "prometheus text endpoint port; 0 = disabled")
 _d("event_buffer_size", int, 65536, "profile/trace event ring size per worker")
 _d("task_events_max", int, 16384,
    "bounded ring of FINISHED/FAILED task event records kept head-side "
@@ -261,6 +259,20 @@ _d("traces_max", int, 512,
 _d("profile_hz", float, 0.0,
    "continuous-profiler sampling rate of the profile/utilization "
    "plane; 0 disables it. Not ported: init refuses a rate above 0")
+
+# -- serving at scale ------------------------------------------------------
+_d("serve_slo_ttft_p95_s", float, 0.0,
+   "SLO-aware admission target: when > 0 and the recent p95 "
+   "time-to-first-token exceeds it while streams are in flight, new "
+   "streams are shed at ingress (503 / AdmissionShedError) instead of "
+   "timing out mid-stream; 0 disables shedding")
+_d("serve_ttft_window", int, 256,
+   "TTFT samples kept in the sliding window that admission and the "
+   "ttft-mode pool autoscaler read their quantiles from")
+_d("serve_kv_cache_sessions", int, 16,
+   "per-decode-replica LRU bound on cached session KV handoffs "
+   "(cache-affinity routing: a follow-up turn that re-sends the same "
+   "prompt replays from this cache with zero prefill work)")
 
 # -- testing / fault injection --------------------------------------------
 _d("testing_inject_task_failure_prob", float, 0.0,

@@ -51,9 +51,9 @@ _UNPORTED = {
     "remote": "remote nodes, the head server and ray:// clients are not "
               "ported yet (ROADMAP.md Queue A: the runtime's next items, "
               "the multi-node plane and the client)",
-    "planes": "the profile plane, the metrics server and the QoS plane "
-              "are not ported yet (ROADMAP.md Queue A: the runtime's "
-              "next items, the optional planes)",
+    "planes": "the profile plane and the QoS plane are not ported yet "
+              "(ROADMAP.md Queue A: the runtime's next items, the "
+              "optional planes)",
 }
 _init_lock = threading.Lock()
 _gc_tuned = False
@@ -388,6 +388,7 @@ class Worker:
         self.alive = True
         self._context = _TaskContext()
         self._driver_task_id = TaskID.of(self.job_id)
+        self._driver_put_seq = _Counter()
         self._task_seq = _Counter()
         # ONE random 8-byte namespace for this worker's task ids; the
         # sequence provides uniqueness within it (an os.urandom syscall
@@ -494,6 +495,19 @@ class Worker:
                             if (GLOBAL_CONFIG.trace_sample_rate > 0
                                 and GLOBAL_CONFIG.traces_max != 0)
                             else None)
+        self.metrics_server = None
+        if GLOBAL_CONFIG.metrics_export_port:
+            from ray_tpu_torch._private.metrics import MetricsServer
+            try:
+                self.metrics_server = MetricsServer(
+                    self, GLOBAL_CONFIG.metrics_export_port)
+            except OSError as e:
+                # a port conflict degrades to metrics-disabled; it must
+                # not fail init and leak the already-started runtime
+                logger.warning("metrics endpoint disabled: cannot bind "
+                               "port %d (%s)",
+                               GLOBAL_CONFIG.metrics_export_port, e)
+
         # log plane: announce the session dir in the GCS KV (clients /
         # tools discover it there), mirror control-plane log records
         # into logs/gcs.out, and start the driver-streaming monitor
@@ -605,8 +619,17 @@ class Worker:
         return self.gcs.kv_keys(prefix, namespace=namespace)
 
     def next_put_id(self) -> ObjectID:
+        if self._context.task_id is None:
+            # outside a task (the driver, an actor method, a client
+            # thread), every thread puts under the driver's task id: one
+            # counter for all of them. The reference counts per thread
+            # there, so concurrent actor calls that put got the same id
+            # and read each other's objects back
+            return ObjectID.for_put(self._driver_task_id,
+                                    self._driver_put_seq.next())
         self._context.put_counter += 1
-        return ObjectID.for_put(self.current_task_id, self._context.put_counter)
+        return ObjectID.for_put(self._context.task_id,
+                                self._context.put_counter)
 
     # ------------------------------------------------------------------
     # Object plane: put / get / wait
@@ -1719,6 +1742,8 @@ class Worker:
         self.scheduler.shutdown()
         self.gcs.shutdown()
         self.memory_monitor.shutdown()
+        if self.metrics_server is not None:
+            self.metrics_server.shutdown()
         self._pool.shutdown(wait=False, cancel_futures=True)
         if runtime_sanitizer._ENABLED:
             # lock-witness diff + leak ledgers, while the refcount table
@@ -1907,8 +1932,7 @@ def _check_ported() -> None:
     does not have: running them degraded would hide that."""
     if GLOBAL_CONFIG.worker_mode != "thread":
         raise NotImplementedError(_UNPORTED["process"])
-    if (GLOBAL_CONFIG.profile_hz > 0 or GLOBAL_CONFIG.metrics_export_port
-            or GLOBAL_CONFIG.qos):
+    if GLOBAL_CONFIG.profile_hz > 0 or GLOBAL_CONFIG.qos:
         raise NotImplementedError(_UNPORTED["planes"])
 
 

@@ -473,12 +473,16 @@ class _ActorRuntime:
         self.death_cause = self.death_cause or cause or rex.ActorDiedError(
             "actor killed via ray_tpu_torch.kill()", actor_id=self.actor_id)
         self._stopped.set()
+        # fail the queued calls first, then wake each thread with its
+        # sentinel: draining after the sentinels (as the reference does)
+        # swallows them, and the threads then block forever, holding the
+        # instance (and whatever it holds on the card)
+        self._drain_with_error()
         for _ in self._threads:
             self.inbox.put(None)
         for g, n in self._group_sizes.items():
             for _ in range(n):
                 self._group_inboxes[g].put(None)
-        self._drain_with_error()
         # lifetime-held resources released at death
         if self._explicit_resources:
             self.worker.scheduler.notify_task_finished(

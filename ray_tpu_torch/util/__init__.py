@@ -1,8 +1,8 @@
 """ray_tpu_torch.util — utility APIs (reference: python/ray/util/).
 
-Ported: placement groups, scheduling strategies and ``ActorPool``. The
-state API (``util.state``) and user metrics (``util.metrics``) of the
-reference are not ported yet (ROADMAP.md, the runtime's next items)."""
+Ported: placement groups, scheduling strategies, user metrics
+(``util.metrics``) and ``ActorPool``. The state API (``util.state``) of
+the reference is not ported yet (ROADMAP.md, the runtime's next items)."""
 
 from ray_tpu_torch.util.placement_group import (placement_group,  # noqa: F401
                                                 placement_group_table,
@@ -11,11 +11,12 @@ from ray_tpu_torch.util.placement_group import (placement_group,  # noqa: F401
                                                 PlacementGroup)
 from ray_tpu_torch.util.scheduling_strategies import (  # noqa: F401
     NodeAffinitySchedulingStrategy, PlacementGroupSchedulingStrategy)
+from ray_tpu_torch.util import metrics  # noqa: F401
 from ray_tpu_torch.util.actor_pool import ActorPool  # noqa: F401
 
 __all__ = [
     "placement_group", "remove_placement_group", "placement_group_table",
     "get_current_placement_group", "PlacementGroup",
     "PlacementGroupSchedulingStrategy", "NodeAffinitySchedulingStrategy",
-    "ActorPool",
+    "metrics", "ActorPool",
 ]

@@ -10,7 +10,10 @@ shapes and lengths, and the scheduler phases' helpers: the bytes a tick or
 a drive moves, the tick counts the card must reproduce, the seeded gang
 batch and its oracle check; and the runtime phase's helpers: the assign
 oracle's agreement rule and replay, the crossover snapshots and verdict,
-the recorder's timing summary and assign's bytes."""
+the recorder's timing summary and assign's bytes; and the serve phase's
+helpers: the quantile rule (Serve's own), TTFT and latency of a stream,
+a round's summary, kernel 1's launch rule on the Serve path, and the
+greedy-parity near-tie rule it shares with phase parity."""
 
 import json
 import re
@@ -529,3 +532,106 @@ def test_assign_bytes_read_inputs_and_write_outputs_once():
             + K * N + K                 # class mask and spread (bool)
             + 4 * k + 4 * N * 4)        # node_of and the new avail
     assert chip_smoke.assign_bytes(k, K, N) == want
+
+
+@pytest.mark.parametrize("n", [1, 2, 19, 20, 64, 100])
+def test_quantiles_are_servings_nearest_rank(n):
+    """Client-side quantiles read a sample list as Serve's TTFT window
+    reads its own (sorted[min(n - 1, int(q * n))])."""
+    from ray_tpu_torch.serve.core import _ServeMetrics
+
+    xs = [float(x) for x in np.random.default_rng(n).permutation(n)]
+    window = _ServeMetrics()
+    for x in xs:
+        window._window.append(x)
+    got = chip_smoke.quantiles(xs)
+    assert got == {"p50": window.ttft_quantile(0.5),
+                   "p95": window.ttft_quantile(0.95), "max": float(n - 1)}
+    with pytest.raises(AssertionError):
+        chip_smoke.quantiles([])
+
+
+def test_stream_record_takes_ttft_at_the_first_token():
+    clock = iter([1.0, 3.0, 5.0, 8.0]).__next__
+    frames = [{"tokens": [], "done": False}, {"tokens": [7], "done": False},
+              {"tokens": [8, 9], "done": False}, {"tokens": [], "done": True}]
+    assert chip_smoke.stream_record(iter(frames), 0.5, clock) == (
+        [7, 8, 9], 0.5, 2.5)
+    with pytest.raises(AssertionError, match="done"):
+        chip_smoke.stream_record(iter(frames[:3]), 0.0, iter(
+            [1.0, 2.0]).__next__)
+    with pytest.raises(AssertionError, match="without a token"):
+        chip_smoke.stream_record(iter([{"tokens": [], "done": True}]), 0.0,
+                                 iter([1.0]).__next__)
+
+
+def test_serve_round_runs_every_stream_and_summarises():
+    def open_stream(i, prompt):
+        return iter([{"tokens": [i, prompt[0]], "done": False},
+                     {"tokens": [1], "done": True}])
+
+    results, dt = chip_smoke.serve_round(open_stream, [[5], [6], [7]])
+    assert [r[0] for r in results] == [[0, 5, 1], [1, 6, 1], [2, 7, 1]]
+    assert all(0 <= r[1] <= r[2] <= dt for r in results)
+    row = chip_smoke.round_summary(results, dt, 3, 10)
+    assert row["requests"] == 3 and row["tokens"] == 9
+    assert row["ttft_s"]["max"] <= row["latency_s"]["max"]
+    with pytest.raises(AssertionError, match="malformed"):
+        chip_smoke.round_summary(results, dt, 3, 7)   # 7 is out of vocab
+    with pytest.raises(AssertionError, match="malformed"):
+        chip_smoke.round_summary(results, dt, 4, 10)
+
+
+def test_serve_round_raises_when_a_stream_fails():
+    def open_stream(i, prompt):
+        if i == 1:
+            raise RuntimeError("replica gone")
+        return iter([{"tokens": [1], "done": True}])
+
+    with pytest.raises(AssertionError, match="replica gone"):
+        chip_smoke.serve_round(open_stream, [[1], [2], [3]])
+
+
+@pytest.mark.parametrize("launches, steps, ok", [
+    (8 * 256, 256, True), (8 * 256 - 1, 256, False), (0, 0, False),
+    (8 * 384, 256 + 128, True), (8 * 256, 257, False)])
+def test_serve_launch_rule(launches, steps, ok):
+    """8 layers x the decode steps summed over the decode engines, and
+    more than none."""
+    problem = chip_smoke.launch_rule(launches, 8, steps)
+    assert (problem is None) is ok, problem
+
+
+def _logits_of(table):
+    """A model whose next-token logits depend on the last token only."""
+    def logits_of(toks):
+        return torch.tensor(table[toks[-1]], dtype=torch.float32)
+    return logits_of
+
+
+# vocab 4: after 0 comes 1, after 1 comes 2 (a near-tie with 3: 1e-4
+# apart), after 2 comes 3 (clear), after 3 comes 0
+_TABLE = [[0.0, 1.0, 0.0, 0.0], [0.0, 0.0, 2.0, 2.0 - 1e-4],
+          [0.0, 0.0, 0.0, 5.0], [9.0, 0.0, 0.0, 0.0]]
+
+
+def test_greedy_parity_exact_stream():
+    compared, ties = chip_smoke.greedy_parity(
+        torch, _logits_of(_TABLE), [[0]], [[1, 2, 3, 0]], 4)
+    assert (compared, ties) == (4, [])
+
+
+def test_greedy_parity_passes_a_near_tie_and_stops_there():
+    """At the tie after token 1 the output took 3 where the model says 2:
+    allowed (gap 1e-4 < 1e-3), and the diverged rest is not compared."""
+    compared, ties = chip_smoke.greedy_parity(
+        torch, _logits_of(_TABLE), [[0]], [[1, 3, 3, 3]], 4)
+    assert compared == 2 and len(ties) == 1
+    assert ties[0]["step"] == 1 and ties[0]["gap"] == pytest.approx(1e-4,
+                                                                    rel=1e-2)
+
+
+@pytest.mark.parametrize("out", [[1, 2, 0, 0], [2, 2, 3, 0], [1, 2, 3]])
+def test_greedy_parity_rejects_a_clear_mismatch_or_a_short_stream(out):
+    with pytest.raises(AssertionError):
+        chip_smoke.greedy_parity(torch, _logits_of(_TABLE), [[0]], [out], 4)

@@ -212,7 +212,8 @@ def test_port_imports_no_jax():
     """Every module of the port imports, and the runtime runs init, a
     task, an actor and shutdown (the scheduler's device path on the host:
     sched_device "cpu"), with no jax and no ray_tpu module loaded; the
-    package's import leaves CUDA uninitialised."""
+    package's import, and Serve's and the metrics plane's, leave CUDA
+    uninitialised."""
     code = ("import torch, ray_tpu_torch as ray\n"
             "assert not torch.cuda.is_initialized()\n"
             "import ray_tpu_torch.models.inference, "
@@ -224,7 +225,10 @@ def test_port_imports_no_jax():
             "ray_tpu_torch._private.scheduler.tensor, "
             "ray_tpu_torch._private.benchmarks, ray_tpu_torch.util, "
             "ray_tpu_torch._private.serialization, "
-            "ray_tpu_torch._private.runtime_envs\n"
+            "ray_tpu_torch._private.runtime_envs, ray_tpu_torch.serve, "
+            "ray_tpu_torch.serve.core, ray_tpu_torch.serve.llm, "
+            "ray_tpu_torch._private.metrics, ray_tpu_torch.util.metrics\n"
+            "assert not torch.cuda.is_initialized()\n"
             "ray.init(num_workers=2, scheduler='tensor', "
             "_system_config={'sched_device': 'cpu'})\n"
             "f = ray.remote(lambda x: x + 1)\n"

@@ -419,6 +419,70 @@ def test_kill_and_named_actor(rt):
         ray.get_actor("counter1")
 
 
+def test_kill_ends_the_actors_threads_and_frees_its_instance(rt):
+    """Every thread of a killed actor exits and its instance is freed:
+    an actor holding a model must not keep it (and its device memory)
+    after kill. The reference's stop() drains its inbox after queueing
+    the threads' sentinels, which swallows them."""
+    import gc
+    import weakref
+
+    import torch
+
+    @ray.remote(max_concurrency=4)
+    class Holder:
+        def __init__(self):
+            self.model = torch.zeros(1 << 16)
+
+        def ref(self):
+            return weakref.ref(self.model)
+
+    a = Holder.remote()
+    held = ray.get(a.ref.remote(), timeout=T)
+    prefix = f"actor-{a._actor_id.hex()[:8]}"
+    assert any(t.name.startswith(prefix) for t in threading.enumerate())
+    ray.kill(a)
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline and (
+            held() is not None
+            or any(t.name.startswith(prefix) for t in threading.enumerate())):
+        gc.collect()
+        time.sleep(0.02)
+    assert not any(t.name.startswith(prefix) for t in threading.enumerate())
+    assert held() is None
+
+
+def test_concurrent_puts_outside_tasks_get_their_own_objects(rt):
+    """put() from concurrent actor calls (max_concurrency > 1) and from
+    plain driver threads: every ref reads back its own value. Outside a
+    task the reference numbers puts per thread under the driver's task
+    id, so two threads' first puts share an id and one reads the other's
+    object (serve's prefill replicas put each session's KV this way)."""
+    @ray.remote(max_concurrency=8)
+    class Putter:
+        def put(self, i):
+            time.sleep(0.001 * (i % 3))
+            return ray.put(("actor", i))
+
+    a = Putter.remote()
+    refs = ray.get([a.put.remote(i) for i in range(64)], timeout=T)
+    out = {}
+
+    def driver_thread(i):
+        out[i] = ray.put(("thread", i))
+
+    threads = [threading.Thread(target=driver_thread, args=(i,))
+               for i in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=T)
+    assert ray.get(refs, timeout=T) == [("actor", i) for i in range(64)]
+    assert ray.get([out[i] for i in range(16)], timeout=T) == [
+        ("thread", i) for i in range(16)]
+    assert len({r.object_id() for r in refs + list(out.values())}) == 80
+
+
 def test_actor_handle_serialized_and_passed_to_task(rt):
     @ray.remote
     def use_actor(handle):
@@ -600,8 +664,7 @@ def test_tensor_scheduler_needs_cuda_unless_cpu():
 
 
 @pytest.mark.parametrize("knobs", [
-    {"worker_mode": "process"}, {"qos": True}, {"profile_hz": 10.0},
-    {"metrics_export_port": 9}])
+    {"worker_mode": "process"}, {"qos": True}, {"profile_hz": 10.0}])
 def test_unported_modes_raise(knobs):
     ray.shutdown()
     try:
@@ -649,7 +712,7 @@ def test_refused_init_leaves_no_setting_behind(refused):
 @pytest.mark.parametrize("knob", [
     "worker_tpu_access", "control_ring", "object_spill_dir", "actor_p2p",
     "scheduler_locality", "tenant_quotas", "data_op_inflight",
-    "serve_ttft_window", "profile_stacks_max"])
+    "control_ring_slots", "profile_stacks_max"])
 def test_reference_knobs_without_code_are_unknown(knob):
     """Knobs of planes the port does not have are not defined: setting
     one raises instead of being accepted and ignored."""
