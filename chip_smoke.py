@@ -107,7 +107,25 @@ Phases, each printing one JSON line:
                with assign's times alone and beside it; the GPU count in
                cluster_resources; and the numpy / cuda crossover of
                TensorScheduler._assign that sets sched_device_min_batch.
- 11. serve   — Serve on the runtime (phase_serve): ray_tpu_torch.init (8
+ 11. process — process mode (phase_process): ray_tpu_torch.init with
+               worker_mode "process", 8 exec'd workers, the TensorScheduler
+               assigning on the card and leasing each batch to the workers:
+               start-up; every worker loads no jax, flax or ray_tpu module
+               and sees no card; the 10k fan-out unbatched and through
+               map_remote, a 10k map-reduce, 16 actor processes x 100
+               calls, each with tasks/s, assign's counter equal to the
+               scheduler's device assigns and every snapshot equal to
+               assign_np; a 64 MiB tensor put, reduced by a worker and read
+               back by the driver as a view inside the arena that holds its
+               pin; a CUDA tensor put back as an equal CPU tensor; 3 x 32
+               MiB through a 64 MiB arena, spilled and restored exactly;
+               and, under worker_gpu_access, an engine actor (num_gpus=1) at
+               serve-127M in its own process: its greedy tokens equal a
+               direct engine's, its own kernel-1 launches = 8 x its decode
+               steps, its time alone and beside a 10k fan-out, its process
+               in nvidia-smi, and after ray.kill and shutdown the process
+               gone and the card's memory back.
+ 12. serve   — Serve on the runtime (phase_serve): ray_tpu_torch.init (8
                workers, scheduler "tensor"), the serving model at full width
                in bf16, its parameters shared by every replica. The mono app
                (build_llm_app, one replica) and the split pools
@@ -266,6 +284,22 @@ RUNTIME_BACKENDS = ("cuda", "numpy", "auto")
 RUNTIME_TASKS, RUNTIME_FAN_IN = 100_000, 100
 RUNTIME_ACTORS, RUNTIME_CALLS = 1000, 10
 ENGINE_PROMPTS, ENGINE_NEW_TOKENS = 8, 32
+# process mode (phase process): the runtime with worker_mode="process", 8
+# exec'd workers, the TensorScheduler assigning on the card and leasing the
+# batches to the workers. Cut from phase runtime's sizes because each
+# worker and each actor is a process: map-reduce 10k tasks (thread mode
+# took 42.6-49.6 s at 100k), 16 actors x 100 calls (not 1k actors).
+PROCESS_TASKS, PROCESS_ACTORS, PROCESS_CALLS = 10_000, 16, 100
+# the arena: a 64 MiB CPU tensor read zero-copy by a worker and the
+# driver; a 16 MiB CUDA tensor through put/get; 3 x 32 MiB objects
+# through a 64 MiB arena (spill and restore)
+ARENA_TENSOR_BYTES, CUDA_PUT_BYTES = 64 << 20, 16 << 20
+SPILL_ARENA_BYTES, SPILL_OBJECT_BYTES, SPILL_OBJECTS = 64 << 20, 32 << 20, 3
+# the engine actor's process: nvidia-smi's memory.used may stay this far
+# above its level before the actor once the actor is killed (a CUDA
+# context alone holds ~500 MiB of the card)
+PROCESS_MEM_SLACK_MIB = 64
+REF_MODULES = ("jax", "flax", "ray_tpu")
 CROSSOVER_K = (64, 256, 1024, 4096, 16384, 65536)
 CROSSOVER_CLASSES = (1, 64)
 CROSSOVER_NODES = 64
@@ -1809,11 +1843,11 @@ def runtime_fanout(ray, n):
     return time.perf_counter() - t0, out
 
 
-def runtime_map_reduce(ray):
+def runtime_map_reduce(ray, n_tasks=RUNTIME_TASKS):
     """BASELINE config 2 through @remote, as build_map_reduce shapes it:
     map i returns i; reducer j sums maps [j * fan_in, (j + 1) * fan_in),
-    passed as ObjectRef arguments. Returns (seconds, tasks, the reduced
-    total, the expected total)."""
+    passed as ObjectRef arguments; n_tasks maps and reducers in all.
+    Returns (seconds, tasks, the reduced total, the expected total)."""
     @ray.remote
     def _map(i):
         return i
@@ -1822,8 +1856,8 @@ def runtime_map_reduce(ray):
     def _reduce(*xs):
         return sum(xs)
 
-    n_reduce = RUNTIME_TASKS // (RUNTIME_FAN_IN + 1)
-    n_map = RUNTIME_TASKS - n_reduce
+    n_reduce = n_tasks // (RUNTIME_FAN_IN + 1)
+    n_map = n_tasks - n_reduce
     t0 = time.perf_counter()
     maps = _map.map_remote([(i,) for i in range(n_map)])
     reds = [_reduce.remote(*maps[j * RUNTIME_FAN_IN:(j + 1) * RUNTIME_FAN_IN])
@@ -1834,10 +1868,10 @@ def runtime_map_reduce(ray):
             last * (last - 1) // 2)
 
 
-def runtime_actors(ray):
-    """BASELINE config 4, cut: RUNTIME_ACTORS actors, RUNTIME_CALLS calls
-    each from this caller. Returns (seconds, actors whose results are not
-    1..RUNTIME_CALLS in call order)."""
+def runtime_actors(ray, n_actors=RUNTIME_ACTORS, n_calls=RUNTIME_CALLS):
+    """BASELINE config 4, cut: n_actors actors, n_calls calls each from
+    this caller. Returns (seconds, actors whose results are not
+    1..n_calls in call order)."""
     @ray.remote
     class _Counter:
         def __init__(self):
@@ -1848,13 +1882,13 @@ def runtime_actors(ray):
             return self.n
 
     t0 = time.perf_counter()
-    actors = [_Counter.remote() for _ in range(RUNTIME_ACTORS)]
-    refs = [[a.inc.remote() for _ in range(RUNTIME_CALLS)] for a in actors]
+    actors = [_Counter.remote() for _ in range(n_actors)]
+    refs = [[a.inc.remote() for _ in range(n_calls)] for a in actors]
     got = ray.get([r for rs in refs for r in rs], timeout=900)
     dt = time.perf_counter() - t0
-    want = list(range(1, RUNTIME_CALLS + 1))
-    bad = sum(got[i * RUNTIME_CALLS:(i + 1) * RUNTIME_CALLS] != want
-              for i in range(RUNTIME_ACTORS))
+    want = list(range(1, n_calls + 1))
+    bad = sum(got[i * n_calls:(i + 1) * n_calls] != want
+              for i in range(n_actors))
     for a in actors:
         ray.kill(a)
     return dt, bad
@@ -2128,8 +2162,11 @@ def runtime_engine(torch, ray, rec, smi, backend):
 
         def generate(self, prompts, n):
             # one after another: each prompt alone in the batch, as the
-            # direct engine below runs them
-            return [self.engine.generate(p, n) for p in prompts]
+            # direct engine below runs them; with the clock at the end
+            # (this process's: the caller reads the result only after
+            # its own fan-out)
+            out = [self.engine.generate(p, n) for p in prompts]
+            return out, time.perf_counter()
 
         def stop(self):
             self.engine.shutdown()
@@ -2151,9 +2188,9 @@ def runtime_engine(torch, ray, rec, smi, backend):
         ref = actor.generate.remote(prompts, ENGINE_NEW_TOKENS)
         dt_fan, _out = runtime_fanout(ray, RUNTIME_FANOUT)
         t_fan = time.perf_counter()
-        got = ray.get(ref, timeout=600)
+        got, t_end = ray.get(ref, timeout=600)
         t1 = time.perf_counter()
-        beside = assign_timing(rec.calls, t0, min(t_fan, t1))
+        beside = assign_timing(rec.calls, t0, min(t_fan, t_end))
         actor_launches = pa.paged_attention.launches - launches0
         ray.get(actor.stop.remote(), timeout=120)
     finally:
@@ -2165,11 +2202,14 @@ def runtime_engine(torch, ray, rec, smi, backend):
         engine.shutdown()
     emit({"phase": "runtime", "part": "engine", "backend": backend,
           "prompts": ENGINE_PROMPTS,
-          "new_tokens": ENGINE_NEW_TOKENS, "actor_seconds": t1 - t0,
+          "new_tokens": ENGINE_NEW_TOKENS,
+          # to the actor's own end, and to the caller's get, which comes
+          # only after the caller's fan-out
+          "actor_seconds": t_end - t0, "actor_seconds_to_result": t1 - t0,
           "actor_seconds_alone": actor_alone_s,
           "fanout_seconds_alone": fanout_alone_s,
           "fanout_seconds_beside_actor": dt_fan,
-          "fanout_ended_before_actor": t_fan < t1,
+          "fanout_ended_before_actor": t_fan < t_end,
           "tokens_equal_direct": got == want,
           "paged_attention_launches": actor_launches,
           "assign_alone": alone, "assign_beside_actor": beside,
@@ -2181,6 +2221,527 @@ def runtime_engine(torch, ray, rec, smi, backend):
     if backend == "cuda" and not beside["assigns"]:
         problems.append("no device assign while the actor decoded")
     return problems
+
+
+def runtime_fanout_batched(ray, n):
+    """n no-op tasks through map_remote, then get: (seconds, results)."""
+    @ray.remote
+    def _noop():
+        return None
+
+    t0 = time.perf_counter()
+    out = ray.get(_noop.map_remote([() for _ in range(n)]), timeout=600)
+    return time.perf_counter() - t0, out
+
+
+def compute_apps(text):
+    """nvidia-smi --query-compute-apps=pid,used_memory --format=csv,
+    noheader as [(pid, MiB)], one row a process holding a CUDA context."""
+    rows = []
+    for line in text.strip().splitlines():
+        pid, mem = (f.strip() for f in line.split(","))
+        rows.append((int(pid), int(mem.split()[0])))
+    return rows
+
+
+def smi_query(*args):
+    return subprocess.run(["nvidia-smi", *args, "--format=csv,noheader"],
+                          capture_output=True, text=True,
+                          timeout=60).stdout
+
+
+def card_state():
+    """(compute-app rows, the card's memory.used in MiB)."""
+    used = smi_query("--query-gpu=memory.used").strip().split()[0]
+    return (compute_apps(smi_query("--query-compute-apps=pid,used_memory")),
+            int(used))
+
+
+def shows_process(rows_before, rows_with, pid):
+    """Whether nvidia-smi shows the process pid started: its pid among
+    the rows, or, where nvidia-smi reports every process under one pid
+    of another pid namespace, one row more than before it started, all
+    rows under that one pid. Returns (shown, by) with by "pid" or
+    "row"."""
+    pids = {p for p, _ in rows_with}
+    if pid in pids:
+        return True, "pid"
+    if len(rows_with) == len(rows_before) + 1 and len(pids) == 1:
+        return True, "row"
+    return False, None
+
+
+def released_rule(rows_before, used_before, rows_after, used_after,
+                  alive, slack_mib=PROCESS_MEM_SLACK_MIB):
+    """After ray.kill and shutdown: the actor's process is gone, nvidia-smi
+    lists no more processes than before it started, and the card's
+    memory.used is back within slack_mib of its level then. Returns
+    the problem, or None."""
+    if (not alive and len(rows_after) <= len(rows_before)
+            and used_after <= used_before + slack_mib):
+        return None
+    return (f"engine actor not released: alive {alive}, compute apps "
+            f"{rows_before} -> {rows_after}, memory.used {used_before} -> "
+            f"{used_after} MiB")
+
+
+def pid_alive(pid):
+    """True while pid runs (a zombie counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def arena_holds(ptr, nbytes, base, size):
+    """Whether [ptr, ptr + nbytes) lies inside the arena's mapping."""
+    return base <= ptr and ptr + nbytes <= base + size
+
+
+def wait_workers_ready(pool, timeout=300.0):
+    """Seconds until every worker of pool has dialed back (its ready)."""
+    t0 = time.perf_counter()
+    while not all(h.ready for h in pool._handles):
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError("process workers never all came up")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def worker_modules(ray, n_workers):
+    """One sleeping task a worker: {pid: (modules of REF_MODULES loaded,
+    CUDA_VISIBLE_DEVICES)} over the workers that ran one."""
+    @ray.remote
+    def _modules():
+        import os
+        import sys
+        import time as _time
+
+        _time.sleep(0.3)              # hold this worker: one task each
+        return (os.getpid(),
+                sorted(m for m in sys.modules
+                       if m.split(".")[0] in REF_MODULES),
+                os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+    got = ray.get([_modules.remote() for _ in range(n_workers)],
+                  timeout=300)
+    return {pid: (mods, cvd) for pid, mods, cvd in got}
+
+
+def process_arena(torch, ray, w):
+    """The arena through the public API: a 64 MiB CPU tensor put, reduced
+    by a worker, read back by the driver as a view inside the arena's
+    mapping that holds the arena pin while it lives; a CUDA tensor put
+    comes back as an equal CPU tensor. Returns (row, problems)."""
+    import ctypes
+    import gc
+
+    @ray.remote
+    def _total(t):
+        return int(t.sum())
+
+    n = ARENA_TENSOR_BYTES // 8
+    t = torch.arange(n, dtype=torch.int64)
+    want = n * (n - 1) // 2
+    t0 = time.perf_counter()
+    ref = ray.put(t)
+    put_s = time.perf_counter() - t0
+    worker_total = ray.get(_total.remote(ref), timeout=300)
+    t0 = time.perf_counter()
+    v = ray.get(ref, timeout=300)
+    get_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    driver_total = int(v.sum())
+    read_s = time.perf_counter() - t0
+    arena = w.shm_store.arena
+    base = ctypes.addressof(ctypes.c_char.from_buffer(arena._shm.buf))
+    inside = arena_holds(v.data_ptr(), v.numel() * v.element_size(),
+                         base, arena.size)
+    oid = ref.object_id()
+    pinned = w.shm_store._pins.get(oid, 0)
+    # the driver's memory store memoizes the view too: once the ref and
+    # the view die, the pin drops and the arena range frees
+    del v, ref
+    deadline = time.monotonic() + 30
+    while True:
+        w._drain_out_of_scope()     # as the API entry points do
+        gc.collect()
+        unpinned = (w.shm_store._pins.get(oid, 0) == 0
+                    and not w.shm_store.contains(oid))
+        if unpinned or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    c = torch.randn(CUDA_PUT_BYTES // 4, device="cuda", generator=g)
+    back = ray.get(ray.put(c), timeout=300)
+    cuda_ok = back.device.type == "cpu" and torch.equal(back, c.cpu())
+    row = {"bytes": ARENA_TENSOR_BYTES, "put_s": put_s,
+           "put_bytes_per_s": ARENA_TENSOR_BYTES / put_s,
+           "get_s": get_s, "read_s": read_s,
+           "read_bytes_per_s": ARENA_TENSOR_BYTES / (get_s + read_s),
+           "worker_total_equal": worker_total == want,
+           "driver_total_equal": driver_total == want,
+           "view_inside_arena": inside, "pins_while_view": pinned,
+           "unpinned_and_freed_after": unpinned,
+           "cuda_put_returns_equal_cpu_tensor": cuda_ok}
+    problems = [f"arena: {k}" for k in (
+        "worker_total_equal", "driver_total_equal", "view_inside_arena",
+        "unpinned_and_freed_after", "cuda_put_returns_equal_cpu_tensor")
+        if not row[k]]
+    if not pinned:
+        problems.append("arena: the view held no pin")
+    return row, problems
+
+
+def process_spill(torch, ray):
+    """SPILL_OBJECTS tensors of SPILL_OBJECT_BYTES through an arena of
+    SPILL_ARENA_BYTES (init'ed by the caller): some spill to disk, each
+    restores with exact values, in the driver and as a worker's task
+    argument. Returns (row, problems)."""
+    @ray.remote
+    def _total(t):
+        return int(t.sum())
+
+    w = ray._worker.get_worker()
+    n = SPILL_OBJECT_BYTES // 8
+    ts = [torch.arange(n, dtype=torch.int64) + i for i in
+          range(SPILL_OBJECTS)]
+    refs = [ray.put(t) for t in ts]
+    spilled = w.shm_store.num_spilled_objects()
+    worker_ok = ray.get([_total.remote(r) for r in refs], timeout=300) == [
+        int(t.sum()) for t in ts]
+    driver_ok = all(torch.equal(ray.get(r, timeout=300), t)
+                    for r, t in zip(refs, ts))
+    row = {"arena_bytes": SPILL_ARENA_BYTES,
+           "objects": SPILL_OBJECTS, "object_bytes": SPILL_OBJECT_BYTES,
+           "spilled": spilled, "restored": w.shm_store.num_restored,
+           "worker_values_equal": worker_ok,
+           "driver_values_equal": driver_ok}
+    problems = [f"spill: {k}" for k in ("worker_values_equal",
+                                        "driver_values_equal")
+                if not row[k]]
+    if spilled < 1:
+        problems.append("spill: nothing spilled")
+    return row, problems
+
+
+def process_engine(torch, ray, rec, smi):
+    """runtime_engine in process mode (init'ed by the caller with
+    worker_gpu_access): the engine actor (num_gpus=1) in its own process
+    builds serve-127M bf16 from the seeded generator there, generates
+    ENGINE_PROMPTS prompts one after another, and returns its own kernel-1
+    launches and decode steps. Its tokens against a direct engine in the
+    driver on the same seeded parameters; its time alone and beside a
+    process-mode 10k fan-out; nvidia-smi showing its process, and after
+    ray.kill and shutdown the process gone and the card's memory back.
+    Returns (row, problems, kernel-1 launches); shuts the runtime down."""
+    import gc
+
+    from ray_tpu_torch.models.inference import (InferenceConfig,
+                                                InferenceEngine)
+    from ray_tpu_torch.models.transformer import (TransformerConfig,
+                                                  init_params)
+
+    mcfg = TransformerConfig(dtype=torch.bfloat16, **SERVE)
+    icfg = InferenceConfig(batch_size=SLOTS, page_size=PAGE,
+                           max_pages_per_seq=MAX_PAGES, num_pages=NUM_PAGES,
+                           prefill_buckets=(16,),
+                           max_new_tokens=ENGINE_NEW_TOKENS)
+    prompts = [[i + 1, 2 * i + 3, 7] for i in range(ENGINE_PROMPTS)]
+    params = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
+    engine = InferenceEngine(params, mcfg, icfg)
+    try:
+        want = [engine.generate(p, ENGINE_NEW_TOKENS) for p in prompts]
+    finally:
+        engine.shutdown()
+    del engine, params
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rows0, used0 = card_state()
+
+    @ray.remote(num_gpus=1)
+    class _ProcessEngine:
+        def __init__(self, serve, icfg):
+            import torch as _torch
+
+            from ray_tpu_torch.models.inference import InferenceEngine as IE
+            from ray_tpu_torch.models.transformer import (
+                TransformerConfig as TC, init_params as ip)
+
+            cfg = TC(dtype=_torch.bfloat16, **serve)
+            self.n_layers = cfg.n_layers
+            self.engine = IE(ip(cfg, _torch.Generator(
+                device="cuda").manual_seed(0)), cfg, icfg)
+
+        def generate(self, prompts, n):
+            # one after another, each prompt alone in the batch; kernel
+            # 1's launches, the decode steps, this process's CPU seconds
+            # and the wall clock at the call's start and end, taken in
+            # this process (the driver's counter never sees them)
+            import time as _time
+
+            from ray_tpu_torch.ops import paged_attention as pa
+
+            l0, s0 = pa.paged_attention.launches, self.engine.decode_steps
+            c0, w0 = _time.process_time(), _time.time()
+            out = [self.engine.generate(p, n) for p in prompts]
+            return {"tokens": out,
+                    "launches": pa.paged_attention.launches - l0,
+                    "decode_steps": self.engine.decode_steps - s0,
+                    "cpu_s": _time.process_time() - c0,
+                    "wall": (w0, _time.time())}
+
+        def pid(self):
+            import os
+
+            return os.getpid()
+
+        def stop(self):
+            self.engine.shutdown()
+
+    problems = []
+    t_create = time.perf_counter()
+    actor = _ProcessEngine.remote(SERVE, icfg)
+    try:
+        pid = ray.get(actor.pid.remote(), timeout=600)
+        ray.get(actor.generate.remote(prompts[:1], 4), timeout=600)  # warm
+        warm_s = time.perf_counter() - t_create
+        rows1, used1 = card_state()
+        w_alone = time.time()
+        alone_run = ray.get(
+            actor.generate.remote(prompts, ENGINE_NEW_TOKENS), timeout=600)
+        actor_alone_s = alone_run["wall"][1] - w_alone
+        got, launches, steps = (alone_run["tokens"], alone_run["launches"],
+                                alone_run["decode_steps"])
+        alone0 = time.perf_counter()
+        runtime_fanout(ray, RUNTIME_FANOUT)
+        fanout_alone_s = time.perf_counter() - alone0
+        alone = assign_timing(rec.calls, alone0)
+        t0, w_call = time.perf_counter(), time.time()
+        ref = actor.generate.remote(prompts, ENGINE_NEW_TOKENS)
+        dt_fan, _out = runtime_fanout(ray, RUNTIME_FANOUT)
+        w_fan = time.time()
+        beside_run = ray.get(ref, timeout=600)
+        w_got = time.time()
+        got_beside = beside_run["tokens"]
+        actor_beside_s = beside_run["wall"][1] - w_call
+        beside = assign_timing(rec.calls, t0,
+                               t0 + min(actor_beside_s, w_fan - w_call))
+        ray.get(actor.stop.remote(), timeout=120)
+    finally:
+        ray.kill(actor)
+        ray.shutdown()
+    deadline = time.monotonic() + 60
+    while True:
+        torch.cuda.empty_cache()
+        rows2, used2 = card_state()
+        alive = pid_alive(pid)
+        problem = released_rule(rows0, used0, rows2, used2, alive)
+        if problem is None or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    shown, shown_by = shows_process(rows0, rows1, pid)
+    row = {"pid": pid, "prompts": ENGINE_PROMPTS,
+           "new_tokens": ENGINE_NEW_TOKENS,
+           "create_and_warm_seconds": warm_s,
+           # from the call to the actor's own end, on the wall clock the
+           # two processes share; the caller reads the result only after
+           # its own fan-out (actor_seconds_to_result)
+           "actor_seconds_alone": actor_alone_s,
+           "actor_seconds_beside_fanout": actor_beside_s,
+           "slowdown_beside_fanout": actor_beside_s / actor_alone_s,
+           "actor_seconds_to_result": w_got - w_call,
+           "actor_cpu_seconds_alone": alone_run["cpu_s"],
+           "actor_cpu_seconds_beside_fanout": beside_run["cpu_s"],
+           # where the time beside the fan-out went, on the wall clock the
+           # two processes share: the call reaching the actor, its run
+           # there, its result reaching the caller
+           "beside_call_to_actor_start_s": beside_run["wall"][0] - w_call,
+           "beside_actor_run_s": beside_run["wall"][1]
+           - beside_run["wall"][0],
+           "beside_actor_end_to_result_s": w_got - beside_run["wall"][1],
+           "beside_fanout_end_to_result_s": w_got - w_fan,
+           "fanout_seconds_alone": fanout_alone_s,
+           "fanout_seconds_beside_actor": dt_fan,
+           "fanout_ended_before_actor": w_fan < beside_run["wall"][1],
+           "tokens_equal_direct": got == want and got_beside == want,
+           "paged_attention_launches": launches, "decode_steps": steps,
+           "compute_apps_before": rows0, "compute_apps_with_actor": rows1,
+           "compute_apps_after": rows2,
+           "memory_used_mib": [used0, used1, used2],
+           "nvidia_smi_shows_actor": shown, "shown_by": shown_by,
+           "process_alive_after": alive,
+           "assign_alone": alone, "assign_beside_actor": beside,
+           "nvidia_smi": smi}
+    if got != want or got_beside != want:
+        problems.append("process engine actor tokens != direct engine")
+    problem = launch_rule(launches, mcfg.n_layers, steps)
+    if problem:
+        problems.append(f"process engine actor: {problem}")
+    if not shown:
+        problems.append(f"nvidia-smi does not show the actor: {rows0} -> "
+                        f"{rows1}")
+    if problem := released_rule(rows0, used0, rows2, used2, alive):
+        problems.append(problem)
+    if not beside["assigns"]:
+        problems.append("no device assign while the actor decoded")
+    return row, problems, launches
+
+
+def phase_process(torch):
+    """Process mode on the card (see PROCESS_*): ray_tpu_torch.init with
+    worker_mode "process", 8 workers, scheduler "tensor", sched_backend
+    "cuda": the TensorScheduler assigns each batch through
+    scheduler_tick.cu on its own stream and leases it to exec'd workers.
+
+    - startup: seconds until all 8 workers dialed back.
+    - workers: each worker loads no jax, flax or ray_tpu module and sees
+      no card (CUDA_VISIBLE_DEVICES ""); the head advertises no GPU.
+    - fanout (10k, unbatched and through map_remote), map_reduce (10k),
+      actors (16 processes x 100 calls): tasks/s; kernels.assign's
+      counter zeroed just before each and read just after, equal to the
+      scheduler's device assigns; every recorded snapshot equal to
+      assign_np.
+    - arena: process_arena; spill: process_spill in a 64 MiB arena.
+    - engine: process_engine under worker_gpu_access.
+    Returns (kernel 1's launches in the engine actor, assign's launches
+    on the unbatched fan-out)."""
+    import ray_tpu_torch as ray
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch._private.scheduler import kernels as sk
+    from ray_tpu_torch._private.scheduler.tensor import TensorScheduler
+
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    cfg = {"worker_mode": "process", "sched_backend": "cuda",
+           "sched_device": "cuda"}
+    problems, snapshots, launches_fanout = [], [], None
+    rec = AssignRecorder(torch, TensorScheduler, sk, GLOBAL_CONFIG)
+    try:
+        t0 = time.perf_counter()
+        ray.init(num_workers=RUNTIME_WORKERS, scheduler="tensor",
+                 _system_config=cfg)
+        w = ray._worker.get_worker()
+        try:
+            init_s = time.perf_counter() - t0
+            ready_s = wait_workers_ready(w.process_pool)
+            emit({"phase": "process", "part": "startup",
+                  "workers": RUNTIME_WORKERS, "init_seconds": init_s,
+                  "all_ready_seconds": init_s + ready_s,
+                  "nvidia_smi": smi})
+            mods = worker_modules(ray, RUNTIME_WORKERS)
+            gpus = ray.cluster_resources().get("GPU", 0.0)
+            emit({"phase": "process", "part": "workers",
+                  "pids": sorted(mods), "modules": {
+                      str(p): m for p, (m, _c) in mods.items()},
+                  "cuda_visible_devices": sorted(
+                      {str(c) for _m, c in mods.values()}),
+                  "head_gpu": gpus})
+            if any(m for m, _c in mods.values()):
+                problems.append(f"a worker loaded {REF_MODULES}: {mods}")
+            if any(c != "" for _m, c in mods.values()):
+                problems.append("a worker sees the card without "
+                                "worker_gpu_access")
+            if gpus:
+                problems.append(f"head advertises {gpus} GPU without "
+                                "worker_gpu_access")
+            runtime_fanout(ray, 200)                     # warm
+            parts = (
+                ("fanout", lambda: runtime_fanout(ray, RUNTIME_FANOUT)),
+                ("fanout_batched",
+                 lambda: runtime_fanout_batched(ray, RUNTIME_FANOUT)),
+                ("map_reduce",
+                 lambda: runtime_map_reduce(ray, PROCESS_TASKS)),
+                ("actors", lambda: runtime_actors(ray, PROCESS_ACTORS,
+                                                  PROCESS_CALLS)))
+            for part, run in parts:
+                rec.snapshots = []
+                a0 = w.scheduler.stats()["device_assigns"]
+                sk.assign.launches = 0      # the main path, from zero
+                out = run()
+                launches = sk.assign.launches
+                assigns = w.scheduler.stats()["device_assigns"] - a0
+                snaps, rec.snapshots = rec.snapshots, None
+                snapshots += snaps
+                row = {"phase": "process", "part": part,
+                       "seconds": out[0], "assign_launches": launches,
+                       "device_assigns": assigns,
+                       "snapshots": len(snaps), "nvidia_smi": smi}
+                if part.startswith("fanout"):
+                    row["tasks_per_sec"] = RUNTIME_FANOUT / out[0]
+                    ok = out[1] == [None] * RUNTIME_FANOUT
+                elif part == "map_reduce":
+                    row.update(tasks=out[1], tasks_per_sec=out[1] / out[0],
+                               total=out[2], want=out[3],
+                               cut=f"{PROCESS_TASKS} tasks, not 100k")
+                    ok = out[2] == out[3]
+                else:
+                    n = PROCESS_ACTORS * PROCESS_CALLS
+                    row.update(actors=PROCESS_ACTORS, calls=PROCESS_CALLS,
+                               calls_per_sec=n / out[0],
+                               out_of_order_actors=out[1],
+                               cut=f"{PROCESS_ACTORS} actor processes x "
+                                   f"{PROCESS_CALLS} calls, not 1k actors")
+                    ok = out[1] == 0
+                emit(row)
+                if part == "fanout":
+                    launches_fanout = launches
+                problems += [f"{part}: {what}" for what, failed in (
+                    ("wrong results", not ok),
+                    ("assign launches != device assigns",
+                     launches != assigns),
+                    ("no device assign", part != "actors"
+                     and launches == 0)) if failed]
+            bad = replay_oracle(sk, snapshots,
+                                GLOBAL_CONFIG.sched_hybrid_threshold)
+            ks = [len(s[0][0]) for s in snapshots]
+            emit({"phase": "process", "part": "oracle",
+                  "snapshots": len(snapshots), "differ": bad,
+                  "k_min": min(ks, default=None), "k_median": _median(ks),
+                  "k_max": max(ks, default=None)})
+            if not snapshots or bad:
+                problems.append(f"oracle: {bad} of {len(snapshots)} "
+                                "snapshots differ from assign_np")
+            row, found = process_arena(torch, ray, w)
+            emit({"phase": "process", "part": "arena", **row,
+                  "nvidia_smi": smi})
+            problems += found
+            if w.scheduler.stats()["device_assign_errors"]:
+                problems.append("device assign errors")
+        finally:
+            ray.shutdown()
+
+        ray.init(num_workers=2, scheduler="tensor", _system_config={
+            **cfg, "object_store_memory": SPILL_ARENA_BYTES})
+        try:
+            row, found = process_spill(torch, ray)
+            emit({"phase": "process", "part": "spill", **row})
+            problems += found
+        finally:
+            ray.shutdown()
+
+        ray.init(num_workers=RUNTIME_WORKERS, scheduler="tensor",
+                 _system_config={**cfg, "worker_gpu_access": True})
+        gpus = ray.cluster_resources().get("GPU")
+        if gpus != torch.cuda.device_count():
+            problems.append(f"with worker_gpu_access the head advertises "
+                            f"{gpus} GPU")
+        row, found, engine_launches = process_engine(torch, ray, rec, smi)
+        emit({"phase": "process", "part": "engine", **row,
+              "head_gpu": gpus})
+        problems += found
+    finally:
+        rec.remove()
+        ray.shutdown()
+        GLOBAL_CONFIG.reset()
+    emit({"phase": "process", "part": "done",
+          "seconds": time.perf_counter() - t_phase, "ok": not problems,
+          "nvidia_smi": smi})
+    if problems:
+        raise AssertionError(f"process phase: {problems}")
+    return engine_launches, launches_fanout
 
 
 def stream_check(torch, sched, snap, threshold, spin_ms=300.0):
@@ -2730,6 +3291,7 @@ def main() -> int:
     ring_launches = phase_ring(torch, dev)
     sched_launches, star_rows = phase_north_star(torch, dev)
     assign = phase_runtime(torch)
+    process_launches, process_assigns = phase_process(torch)
     served = phase_serve(torch)
 
     # kernel 1 and its yardstick by device time (graph replays): the eager
@@ -2743,6 +3305,7 @@ def main() -> int:
                      + served["disagg"]["paged_attention_launches"]),
         "launches_by_path": {
             "engine": launches,
+            "process_engine_actor": process_launches,
             "serve_mono": served["mono"]["paged_attention_launches"],
             "serve_disagg": served["disagg"]["paged_attention_launches"]},
         "max_abs_err": main_row["max_abs_err"],
@@ -2789,6 +3352,8 @@ def main() -> int:
                   **{k: assign[k] for k in ("launches", "max_abs_err", "ms",
                                             "plain_ms", "bound_ms",
                                             "bound_by")},
+                  "launches_by_path": {"runtime_fanout": assign["launches"],
+                                       "process_fanout": process_assigns},
                   "library_ms": None})
     emit({"kernels": table})
     print(smi, flush=True)

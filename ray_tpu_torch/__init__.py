@@ -5,11 +5,13 @@ stays the reference it is tested against. Module names follow
 ``ray_tpu``'s so each counterpart is easy to find. The port imports
 ``torch`` and never ``jax``, ``flax`` or anything under ``ray_tpu``.
 
-Ported so far: the runtime core in thread mode (``init``, ``remote``,
-``get``, ``put``, ``wait``, ``cancel``, ``ObjectRef``, actors, placement
-groups, the thread worker pool) on the array-state scheduler, whose
-batched assignment and whole-DAG tick run as hand-written CUDA kernels
-(``ops/csrc/scheduler_tick.cu``); Serve on that runtime (deployments,
+Ported so far: the runtime core (``init``, ``remote``, ``get``, ``put``,
+``wait``, ``cancel``, ``ObjectRef``, actors, placement groups) with the
+thread worker pool and, under ``worker_mode="process"``, exec'd worker
+processes and a shared-memory object store, on the array-state
+scheduler, whose batched assignment and whole-DAG tick run as
+hand-written CUDA kernels (``ops/csrc/scheduler_tick.cu``); Serve on that
+runtime (deployments,
 the router, HTTP/SSE and gRPC ingress, the disaggregated prefill/decode
 pools, the Prometheus metrics plane); the LLM serving engine; the
 training step; and ring attention (sequence parallelism over a mesh's
@@ -50,6 +52,18 @@ parameter tensors:
                            decode_replicas=1)
     for frame in split.stream_frames([1, 2, 3], 16, session_id="s1"):
         print(frame["tokens"])          # first token straight off prefill
+
+Process mode runs tasks and single-threaded actors in worker processes
+(large values travel through the shared-memory arena; ``get`` returns a
+CPU tensor viewing the arena, a CUDA tensor put comes back on the host).
+Workers see no CUDA device unless ``worker_gpu_access`` is set; only then
+does the node offer GPUs, so a ``num_gpus`` actor owns the card in its
+own process:
+
+    ray.init(_system_config={"worker_mode": "process",
+                             "worker_gpu_access": True})
+    server = Server.remote(params, cfg, icfg)   # in its own process; the
+                                                # params go through the arena
 
 ``init(_system_config={"metrics_export_port": port})`` serves the
 Prometheus text endpoint (Serve's families included); the deployments

@@ -6,7 +6,7 @@ Everything here is zero-cost when disarmed: ``wrap_lock`` returns the
 raw lock unchanged, the ledger/track entry points are a single module-
 global branch, and no state accumulates.
 
-Two recorders, each the dynamic witness of a static pass of the
+Three recorders, each the dynamic witness of a static pass of the
 reference's raylint (not ported yet: ROADMAP.md, the runtime's next
 items):
 
@@ -26,8 +26,12 @@ items):
   registered ``ObjectRef``\\ s catches the inverse bug — a refcount row
   held up by a decref that never happened (local > 0 with zero live
   handles).
-  The reference also checks live wire messages against the static
-  channel table; the port has no wire (thread mode only) and drops it.
+- **wire schema** (mirrors ``wire_protocol``): each recv dispatcher of
+  the process pool feeds live messages (pipe frames and the tagged
+  tuples rebuilt from ring slots) through :func:`check_wire`. The
+  reference compiles the tag -> arity table from raylint's static
+  channel table; without raylint the port keeps the table by hand
+  (``WIRE_SCHEMA``, the send sites of ``runtime/worker_process.py``).
 
 Violations are RECORDED, never raised: a sanitizer that kills a daemon
 thread mid-soak hides every later violation. ``last_report()`` exposes
@@ -66,8 +70,9 @@ def disarm() -> None:
 
 def reset() -> None:
     global _observed_edges, _ledger, _external, _live_refs
-    global _owner_provider, _last_report
+    global _owner_provider, _last_report, _wire_violations
     _observed_edges = {}
+    _wire_violations = []
     _ledger = {}
     _external = set()
     _live_refs = {}
@@ -297,6 +302,56 @@ def ref_leaks(counter_snapshot: Dict) -> List[str]:
 
 
 # ---------------------------------------------------------------------------
+# wire-message schema assertions
+# ---------------------------------------------------------------------------
+
+#: channel -> tag -> the arities its senders produce (worker -> owner: the
+#: pipe frames of runtime/worker_process.py, and the ring's "cenv" slot
+#: rebuilt as a tagged tuple by the pool's drain)
+WIRE_SCHEMA: Dict[str, Dict[str, Set[int]]] = {
+    "worker_to_owner": {
+        "ready": {2}, "done": {4}, "err": {5}, "rpc": {4}, "many": {2},
+        "cring": {1}, "cenv": {2},
+    },
+}
+_wire_violations: List[str] = []
+_MAX_WIRE_VIOLATIONS = 100
+
+
+def check_wire(channel: str, msg) -> None:
+    """Validate one received message against the channel's schema;
+    violations are recorded, never raised."""
+    if not _ENABLED:
+        return
+    table = WIRE_SCHEMA.get(channel, {})
+    if not isinstance(msg, tuple) or not msg \
+            or not isinstance(msg[0], str):
+        _record_wire(f"[{channel}] non-tagged frame {type(msg).__name__}")
+        return
+    tag = msg[0]
+    arities = table.get(tag)
+    if arities is None:
+        _record_wire(f"[{channel}] tag {tag!r} not in the channel table")
+    elif len(msg) not in arities:
+        _record_wire(f"[{channel}] tag {tag!r} arrived with arity "
+                     f"{len(msg)}, senders produce {sorted(arities)}")
+    if tag == "many" and len(msg) > 1 and isinstance(msg[1],
+                                                     (list, tuple)):
+        for sub in msg[1]:
+            check_wire(channel, sub)
+
+
+def _record_wire(violation: str) -> None:
+    if len(_wire_violations) < _MAX_WIRE_VIOLATIONS \
+            and violation not in _wire_violations:
+        _wire_violations.append(violation)
+
+
+def wire_violations() -> List[str]:
+    return list(_wire_violations)
+
+
+# ---------------------------------------------------------------------------
 # shutdown report
 # ---------------------------------------------------------------------------
 
@@ -316,8 +371,10 @@ def report_at_shutdown(counter_snapshot: Dict,
         "lock_uncharted": uncharted,
         "shm_leaks": shm_leaks({oid.hex() for oid in counter_snapshot}),
         "ref_leaks": ref_leaks(counter_snapshot),
+        "wire_violations": wire_violations(),
     }
-    for section in ("lock_inversions", "shm_leaks", "ref_leaks"):
+    for section in ("lock_inversions", "shm_leaks", "ref_leaks",
+                    "wire_violations"):
         for v in report[section]:
             logger.warning("sanitizer [%s] %s", section, v)
     _last_report = report
@@ -335,7 +392,7 @@ def clean(report: Optional[Dict] = None) -> bool:
     if r is None:
         return True
     return not (r["lock_inversions"] or r["shm_leaks"]
-                or r["ref_leaks"])
+                or r["ref_leaks"] or r["wire_violations"])
 
 
 reset()

@@ -132,9 +132,7 @@ _d("gc_tuning", bool, True,
    "formed from PRE-init objects is not reclaimed while the runtime is "
    "up. Call init() early, or disable this knob if your program builds "
    "large discardable cyclic structures before init")
-_d("worker_mode", str, "thread",
-   "worker execution backend: thread (process is not ported: init "
-   "refuses it)")
+_d("worker_mode", str, "thread", "worker execution backend: thread | process")
 _d("gcs_journal_path", str, "",
    "write-ahead journal for GCS table mutations (reference: Redis "
    "persistence); a restarted head replays it and re-adopts rejoining "
@@ -155,11 +153,36 @@ _d("gcs_journal_compact_bytes", int, 16 * 1024 * 1024,
    "addition to the op-count path (gcs_journal_compact_every): a "
    "lease-heavy workload with large specs stays bounded by bytes, not "
    "just record count; 0 disables the size trigger")
+_d("worker_gpu_access", bool, False,
+   "give process workers the card (the counterpart of the reference's "
+   "worker_tpu_access). Default: workers start with "
+   "CUDA_VISIBLE_DEVICES=\"\" (each process that touches the card "
+   "makes a CUDA context of its own), and a process-backed node "
+   "advertises no GPU, so a num_gpus task or actor never runs there")
 _d("worker_pipeline_depth", int, 0,
-   "dispatch-window factor: tasks leased per worker beyond its free "
-   "resources, queued at the bounded thread pool (reference: "
-   "max_tasks_in_flight_per_worker); 0 = auto from the worker-count / "
-   "host-core ratio (1 on unoversubscribed hosts)")
+   "max tasks in flight per process-worker pipe, and in thread mode the "
+   "dispatch-window factor queued at the bounded thread pool (lease "
+   "pipelining, reference: max_tasks_in_flight_per_worker); 0 = auto "
+   "from the worker-count / host-core ratio (1 on unoversubscribed "
+   "hosts)")
+_d("control_ring", bool, True,
+   "ship task-lease envelopes and completion batches to local process "
+   "workers over per-worker shared-memory SPSC rings (pipe kept as "
+   "doorbell + fallback); off = pre-ring per-message pipe transport")
+_d("control_ring_slots", int, 64,
+   "slots per control ring (one task ring + one completion ring per "
+   "local process worker); a power of two keeps the modulo cheap")
+_d("control_ring_slot_bytes", int, 16 * 1024,
+   "bytes per control-ring slot; an envelope larger than one slot "
+   "falls back to the pipe (rings carry single-slot messages only)")
+_d("object_store_memory", int, 256 * 1024 * 1024,
+   "shared-memory object store arena bytes per node")
+_d("object_spill_dir", str, "",
+   "directory for spilled objects; empty = a fresh directory under TMPDIR")
+_d("object_spill_threshold", float, 0.8,
+   "when a full arena forces a spill, evict down to this fraction of "
+   "capacity (hysteresis: the next create shouldn't immediately spill "
+   "again); >= 1.0 frees only what the triggering allocation needs")
 _d("inline_object_max_bytes", int, 100 * 1024,
    "objects at or under this size are stored in the owner's in-process "
    "memory store (reference inlines <100KB into task specs)")
@@ -236,6 +259,10 @@ _d("log_capture", bool, True,
    "capture worker stdout/stderr into per-process session log files; "
    "off = no session log dir, no driver streaming, no list_logs/get_log "
    "(the bench's capture-off baseline)")
+_d("log_rotation_bytes", int, 64 * 1024 * 1024,
+   "rotate a worker capture file when it exceeds this size; 0 = never")
+_d("log_rotation_backups", int, 3,
+   "rotated generations kept per capture file (file.1 .. file.N)")
 _d("log_to_driver_rate", int, 2000,
    "max captured log lines re-emitted on the driver per second; "
    "excess lines are dropped with a surfaced drop count")
@@ -256,6 +283,11 @@ _d("traces_max", int, 512,
    "bounded number of distinct traces kept head-side by the trace "
    "aggregator (oldest trace evicted wholesale); 0 disables the trace "
    "plane like trace_sample_rate=0")
+_d("trace_log_markers", bool, False,
+   "emit a '== trace <id> span <id> task <id> ==' marker line into the "
+   "worker's capture file at exec start of each sampled task, so "
+   "get_log output correlates with spans; off by default to keep "
+   "capture files byte-stable for log-plane consumers")
 _d("profile_hz", float, 0.0,
    "continuous-profiler sampling rate of the profile/utilization "
    "plane; 0 disables it. Not ported: init refuses a rate above 0")

@@ -7,10 +7,9 @@ Reference surfaces:
     per-node shared-memory arena with create→seal lifecycle and eviction.
 
 Here the MemoryStore is the always-present in-process tier; a node-level
-shared-memory store holds large objects for multi-process mode (the
-reference's ``_private/runtime/shm_store.py``, not ported yet). Errors
-are stored as first-class values so ray.get re-raises them (reference:
-RayError in the object store).
+shared-memory store (``_private/runtime/shm_store.py``) holds large
+objects for multi-process mode. Errors are stored as first-class values
+so ray.get re-raises them (reference: RayError in the object store).
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@
    (``f.remote()`` -> ``get``), including submit(), the arena, locks,
    the scheduler's assignment (``kernels.assign`` on the card under
    ``sched_backend="cuda"``), dispatch and result plumbing. Counterpart
-   of ``e2e_task_throughput`` in ``ray_tpu/_private/perf.py``, thread
-   mode only.
+   of ``e2e_task_throughput`` in ``ray_tpu/_private/perf.py``, in
+   thread or process mode.
 
 2. ``model_mfu`` — train-step performance of the flagship transformer on
    one device. The same defaults as the reference's (the repo's training
@@ -60,9 +60,9 @@ def e2e_task_throughput(n_tasks: int = 10_000,
     scheduler tick -> dispatch -> execution -> result store -> get.
     batched=True submits through map_remote (the vectorized path the
     libraries use); best_of>1 keeps the fastest trial. ``system_config``
-    goes to ``init`` (e.g. ``{"sched_backend": "cuda"}``). Thread mode
-    only: the reference's ``mode`` argument is gone, as process mode is
-    not ported.
+    goes to ``init`` (e.g. ``{"sched_backend": "cuda"}``, or
+    ``{"worker_mode": "process"}`` in place of the reference's ``mode``
+    argument).
     """
     import resource
 
@@ -110,7 +110,7 @@ def e2e_task_throughput(n_tasks: int = 10_000,
     driver_cpu = (ru1.ru_utime - ru0.ru_utime) + (ru1.ru_stime - ru0.ru_stime)
     return {
         "n_tasks": n_tasks,
-        "mode": "thread",
+        "mode": (system_config or {}).get("worker_mode", "thread"),
         "scheduler": scheduler,
         "seconds": dt,
         "tasks_per_sec": n_tasks / dt,

@@ -5,12 +5,14 @@ SubmitTask/Put/Get/Wait, ownership), task_manager.cc (TaskManager:
 pending tasks, retries, lineage), python/ray/_private/worker.py (the
 module-level API: init/shutdown/get/put/wait/cancel).
 
-Single-process architecture (phase P1): the driver and all workers share
-one process; workers are threads in an executor pool; the scheduler is
-pluggable (event-driven oracle or device-tensor scheduler). The port has
-thread mode only: process workers, the shm object store, remote nodes,
-the ray:// client and the head server, and the optional planes (profile,
-metrics, QoS) raise NotImplementedError naming their ROADMAP.md item.
+Two worker modes: in thread mode the driver and all workers share one
+process and workers are threads in an executor pool; in process mode
+(``worker_mode="process"``, and every node ``add_cluster_node`` adds)
+tasks and sync actors run in exec'd worker processes, with large objects
+in a shared-memory arena (``runtime/``). The scheduler is pluggable
+(event-driven oracle or device-tensor scheduler). Remote nodes, the
+ray:// client and the head server, and the profile and QoS planes raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -45,9 +47,6 @@ global_worker: Optional["Worker"] = None
 
 # what the port does not have yet, and the ROADMAP.md item that brings it
 _UNPORTED = {
-    "process": "worker_mode='process' and the shm object store are not "
-               "ported yet (ROADMAP.md Queue A: the runtime's next items, "
-               "process mode first)",
     "remote": "remote nodes, the head server and ray:// clients are not "
               "ported yet (ROADMAP.md Queue A: the runtime's next items, "
               "the multi-node plane and the client)",
@@ -354,6 +353,10 @@ class _WorkQueue:
                 fn(*args)
             except BaseException:  # noqa: BLE001
                 logger.exception("executor task failed")
+            # drop the call's references before parking: an idle thread
+            # would otherwise hold its last batch (and the ObjectRefs in
+            # its specs' args) until its next task
+            fn = args = None
 
     def shutdown(self, wait: bool = False,
                  cancel_futures: bool = False) -> None:
@@ -424,9 +427,19 @@ class Worker:
                                "session log dir (%s)", e)
         log_plane.set_session_log_dir(self.session_log_dir)
 
-        # thread mode only: no process workers (the monitors that look
-        # for a process pool see none)
+        # process mode: exec'd worker processes + the shm object store
+        # (reference: raylet WorkerPool + plasma). Thread mode keeps the
+        # single-process semantics as the conformance oracle.
+        self.shm_store = None
         self.process_pool = None
+        if GLOBAL_CONFIG.worker_mode == "process":
+            from ray_tpu_torch._private.runtime.process_pool import (
+                ProcessWorkerPool)
+            from ray_tpu_torch._private.runtime.shm_store import (
+                ShmObjectStore)
+            self.shm_store = ShmObjectStore(GLOBAL_CONFIG.object_store_memory)
+            self.process_pool = ProcessWorkerPool(self, nworkers,
+                                                  self.shm_store)
 
         # node 0 = "this node"; virtual cluster tests add more. Named
         # custom resources must be DECLARED (init(resources={...})) to be
@@ -438,8 +451,18 @@ class Worker:
         # (max_workers=n) queues over-dispatched tasks while running at
         # most n concurrently — the same guarantee the process pool's
         # worker pipes give
-        win = auto_pipeline_depth(nworkers)
-        node = NodeState((capacity_cpu, _detect_gpu_count(), 1e18,
+        from ray_tpu_torch._private.runtime.process_pool import (
+            auto_pipeline_depth)
+        win = (self.process_pool._pipeline_depth
+               if self.process_pool is not None
+               else auto_pipeline_depth(nworkers))
+        # the head's GPUs: the card the driver sees, unless its work runs
+        # in worker processes that are not given the card (then none: a
+        # num_gpus task or actor must not run on the host's CPU)
+        gpus = (_detect_gpu_count()
+                if self.process_pool is None
+                or GLOBAL_CONFIG.worker_gpu_access else 0.0)
+        node = NodeState((capacity_cpu, gpus, 1e18,
                           sum(head_custom.values())),
                          node_id=self.node_id,
                          custom_resources=head_custom,
@@ -460,13 +483,15 @@ class Worker:
         self.gcs = GcsService(self, journal=journal)
         self.gcs.register_node(
             self.node_id, 0,
-            {"CPU": capacity_cpu, "GPU": _detect_gpu_count(),
-             **head_custom},
-            kind="local", pool=None)
+            {"CPU": capacity_cpu, "GPU": gpus, **head_custom},
+            kind="process" if self.process_pool is not None else "local",
+            pool=self.process_pool)
         self.gcs.register_job(self.job_id)
-        # per-node worker pools of the reference's virtual multi-node
-        # clusters; always empty here (the monitors iterate it)
+        # per-node worker pools (row -> ProcessWorkerPool); node 0's pool
+        # is process_pool
         self._node_pools: Dict[int, Any] = {}
+        if self.process_pool is not None:
+            self._node_pools[0] = self.process_pool
 
         # placement groups (bundle reservation over the scheduler)
         from ray_tpu_torch._private.placement_groups import PlacementGroupManager
@@ -594,7 +619,7 @@ class Worker:
         """True when tasks may cross a process boundary, so
         RemoteFunction should attach its cached pickled-function blob
         to specs (thread-only mode skips the pickle entirely)."""
-        return False  # thread mode only
+        return self.process_pool is not None or bool(self._node_pools)
 
     @property
     def current_task_id(self) -> TaskID:
@@ -642,17 +667,59 @@ class Worker:
                 "passed around directly (reference semantics).")
         object_id = self.next_put_id()
         self.reference_counter.add_owned_object(object_id)
-        # thread mode: the value itself, by reference (a CUDA tensor
-        # stays on its device; the shm arena path is not ported)
+        if self.shm_store is not None and _likely_large(value):
+            # large puts go straight to the shm arena (plasma path) so
+            # worker processes read them zero-copy; the driver resolves
+            # the placeholder lazily on first get. A CUDA tensor is
+            # copied to the host here, once (serialize), and comes back
+            # from get as a CPU tensor
+            from ray_tpu_torch._private.object_store import (
+                ObjectStoreFullError)
+            from ray_tpu_torch._private.runtime.process_pool import (
+                _PLACEHOLDER)
+            from ray_tpu_torch._private.serialization import serialize
+            sobj = serialize(value)
+            if sobj.framed_nbytes() > GLOBAL_CONFIG.inline_object_max_bytes:
+                try:
+                    # a full arena evicts/spills internally; only a DISK
+                    # failure can surface here
+                    self.shm_store.put_serialized(object_id, sobj)
+                    self.memory_store.put(object_id, _PLACEHOLDER)
+                    return ObjectRef(object_id, self.worker_id)
+                except (ObjectStoreFullError, OSError) as e:
+                    logger.warning(
+                        "shm store rejected %d-byte object (%s); storing "
+                        "in the host memory store",
+                        sobj.framed_nbytes(), e)
+        # otherwise the value itself, by reference (in thread mode a CUDA
+        # tensor stays on its device)
         self.memory_store.put(object_id, value)
         return ObjectRef(object_id, self.worker_id)
 
     def _entry_value(self, object_id: ObjectID, entry) -> Any:
-        """Resolve a memory-store entry. Thread mode stores values by
-        reference, so this is the value itself (the reference also
-        resolves shm and remote placeholders here, which the port does
-        not have)."""
-        return entry.value
+        """Resolve a memory-store entry, deserializing shm-resident bytes
+        zero-copy on first access (plasma client get analog): a tensor
+        or array read from the arena is a view of its bytes there, and
+        the arena range stays pinned while any view of it lives."""
+        from ray_tpu_torch._private.runtime.process_pool import ShmPlaceholder
+        value = entry.value
+        if isinstance(value, ShmPlaceholder):
+            from ray_tpu_torch._private.serialization import (
+                deserialize, deserialize_with_release)
+            sobj, pinned = self.shm_store.get_serialized_for_view(object_id)
+            if sobj is None:
+                raise rex.ObjectLostError(object_id.hex())
+            if pinned:
+                # the arena range stays pinned until the LAST view that
+                # aliases it (incl. later-taken sub-views) is collected;
+                # the helper owns the release even on deserialize errors
+                value = deserialize_with_release(
+                    sobj,
+                    lambda oid=object_id: self.shm_store.unpin(oid))
+            else:
+                value = deserialize(sobj)  # spill read: copied bytes
+            entry.value = value  # memoize the zero-copy view object
+        return value
 
     def get(self, refs: Sequence[ObjectRef], timeout: Optional[float]) -> List[Any]:
         self._drain_out_of_scope()
@@ -689,8 +756,33 @@ class Worker:
             spec = self.task_manager.pending_spec_for_object(oid)
             env = spec.runtime_env if spec is not None else None
             if env and (env.get("working_dir_pkg") or env.get("pip")):
+                if self._spec_fits_process_pool(spec):
+                    # mixed topology: a process-backed node can satisfy
+                    # this producer's demands, and its workers apply
+                    # runtime envs WITHOUT the thread-mode lock — the
+                    # task is not necessarily stuck behind the caller,
+                    # so flagging it would be a spurious deadlock error
+                    continue
                 blocked.append(spec)
         return blocked
+
+    def _spec_fits_process_pool(self, spec: TaskSpec) -> bool:
+        """True when some process-backed node's declared resources cover
+        the spec's demands (i.e. the scheduler CAN run it off the local
+        thread pool). Heuristic on purpose: the grant may still land on
+        local threads, but erring toward not-raising beats failing a
+        program that can make progress."""
+        if not self._node_pools:
+            return False
+        demands = dict(spec.resources or {})
+        demands.setdefault("CPU", 0.0)
+        for entry in self.gcs.node_table():
+            if entry.pool is None or entry.kind == "local":
+                continue
+            caps = entry.resources
+            if all(caps.get(k, 0.0) >= v for k, v in demands.items()):
+                return True
+        return False
 
     def _check_env_lock_deadlock(self, missing: List[ObjectID]) -> None:
         """Fail loudly where a thread-mode env'd task would deadlock
@@ -871,6 +963,9 @@ class Worker:
                 self.scheduler.notify_object_ready(oid)
             self.task_manager.complete(task_id)
             return
+        for pool in list(self._node_pools.values()):
+            if pool.cancel(task_id, force):
+                return  # running in a worker process: flagged or killed there
         with self._running_lock:
             running = task_id in self._running_tasks
             if running:
@@ -893,6 +988,17 @@ class Worker:
     # ------------------------------------------------------------------
     # Execution (dispatcher target)
     # ------------------------------------------------------------------
+    def pool_for_node(self, node_index: int):
+        """ProcessWorkerPool backing a scheduler row (bundle rows resolve
+        through their parent node), or None for host-local execution."""
+        pool = self._node_pools.get(node_index)
+        if pool is not None:
+            return pool
+        ns = self.scheduler.node_state(node_index)
+        if ns is not None and ns.is_bundle and ns.parent >= 0:
+            return self._node_pools.get(ns.parent)
+        return None
+
     def _chaos_tick(self) -> None:
         """Dispatch-path injection point: the testing_tick_delay_s knob
         (re-read live) plus the chaos ``sched_tick`` site, both
@@ -917,16 +1023,28 @@ class Worker:
             self.trace_plane.record_dispatched_batch(
                 ((pending.spec.task_id, pending.node_index),))
         boot = getattr(pending.spec, "_actor_boot", None)
+        pool = self.pool_for_node(pending.node_index)
         if boot is not None:
             self._pool.submit(self._boot_actor, pending, boot)
+        elif (pool is not None
+              and pending.spec.task_type == TaskType.NORMAL_TASK):
+            # lease grant: the decision becomes a payload shipped to a
+            # worker process on the ASSIGNED node (payload build + pipe
+            # send run OFF the tick thread: a full pipe buffer blocks
+            # the send, and a blocked tick thread would stall all
+            # scheduling — the batch path amortizes the executor hop)
+            self._pool.submit(pool.run_task, pending)
         else:
             self._pool.submit(self._execute_task, pending)
 
     def _dispatch_many(self, pendings: List[PendingTask]) -> None:
-        """One tick's grants: plain normal tasks take the shared drain
-        fast path, everything else the per-task path (the reference also
-        batches grants per process pool, which the port does not have)."""
+        """One tick's grants: normal tasks bound for process pools batch
+        into per-pool lease grants (one executor hop and one pipe or
+        ring message per worker per tick, instead of per task); plain
+        host-thread tasks take the shared drain fast path; everything
+        else the per-task path."""
         self._chaos_tick()
+        groups: Dict[Any, List[PendingTask]] = {}
         local: List[tuple] = []
         fast: List[PendingTask] = []
         te = self.task_events
@@ -937,9 +1055,16 @@ class Worker:
         ev_rows: Dict[int, List[tuple]] = {}
         for pending in pendings:
             spec = pending.spec
+            pool = self.pool_for_node(pending.node_index)
             if (getattr(spec, "_actor_boot", None) is not None
                     or spec.task_type != TaskType.NORMAL_TASK):
                 self._dispatch(pending)
+            elif pool is not None:
+                ev_rows.setdefault(pending.node_index, []).append(
+                    (spec.task_id, spec.name))
+                if te is not None or tp is not None:
+                    te_rows.append((spec.task_id, pending.node_index))
+                groups.setdefault(pool, []).append(pending)
             else:
                 # host-thread execution. Plain tasks (no deps to
                 # resolve, no runtime env, no placement group, single
@@ -982,6 +1107,8 @@ class Worker:
                 [(self._drain_local_batch, (dq,))] * k)
         if local:
             self._pool.submit_many(local)
+        for pool, batch in groups.items():
+            self._pool.submit(self._run_pool_batch, pool, batch)
 
     def _drain_local_batch(self, dq) -> None:
         """Fast-path executor drain: plain no-dep NORMAL tasks from one
@@ -1130,6 +1257,13 @@ class Worker:
                 tp.record_finished_batch(tp_done)
             self.placement_groups.poke()
 
+    def _run_pool_batch(self, pool, batch: List[PendingTask]) -> None:
+        try:
+            pool.run_task_batch(batch)
+        except Exception:
+            logger.exception("batch dispatch failed on node %d",
+                             batch[0].node_index)
+
     def _boot_actor(self, pending: PendingTask, boot) -> None:
         try:
             boot(pending, pending.node_index)
@@ -1137,18 +1271,77 @@ class Worker:
             logger.exception("actor bootstrap failed")
 
     # ------------------------------------------------------------------
-    # Virtual multi-node (reference: python/ray/cluster_utils.py): every
-    # added node runs worker processes or a remote node daemon, and the
-    # head serves ray:// clients over TCP — none of it is ported yet
+    # Virtual multi-node (reference: python/ray/cluster_utils.py — each
+    # added node is a REAL per-node runtime: its own exec'd worker
+    # processes behind its own pool, with declared resources). Remote
+    # node daemons and the head's ray:// server are not ported yet.
     # ------------------------------------------------------------------
-    def add_cluster_node(self, *args, **kwargs):
-        raise NotImplementedError(_UNPORTED["process"])
+    def add_cluster_node(self, num_cpus: float = 4.0, num_gpus: float = 0.0,
+                         num_workers: Optional[int] = None,
+                         resources: Optional[Dict[str, float]] = None):
+        """A process-backed node: its own pool of exec'd workers on this
+        host, sharing the head's arena. ``num_gpus`` > 0 needs
+        ``worker_gpu_access``: a node whose workers cannot see the card
+        advertises no GPU, so this raises instead."""
+        from ray_tpu_torch._private.runtime.process_pool import (
+            ProcessWorkerPool, auto_pipeline_depth)
+        from ray_tpu_torch._private.runtime.shm_store import ShmObjectStore
+
+        if num_gpus and not GLOBAL_CONFIG.worker_gpu_access:
+            raise ValueError(
+                f"add_cluster_node(num_gpus={num_gpus}): the node's worker "
+                "processes cannot see the card; set worker_gpu_access=True "
+                "to give them it")
+        if self.shm_store is None:
+            # thread-mode head: the cluster's shared object arena appears
+            # with the first process-backed node
+            self.shm_store = ShmObjectStore(GLOBAL_CONFIG.object_store_memory)
+        custom = sum((resources or {}).values())
+        node_id = NodeID.from_random()
+        nw = num_workers or max(int(num_cpus), 1)
+        state = NodeState((num_cpus, num_gpus, 1e18, custom),
+                          node_id=node_id, custom_resources=resources,
+                          window_factor=auto_pipeline_depth(nw))
+        row = self.scheduler.add_node(state, wake=False)
+        pool = ProcessWorkerPool(self, nw, self.shm_store, node_index=row)
+        self._node_pools[row] = pool
+        self.scheduler.poke()
+        entry = self.gcs.register_node(
+            node_id, row, {"CPU": num_cpus, "GPU": num_gpus,
+                           **(resources or {})},
+            kind="process", pool=pool)
+        self.gcs.start_health_checks()
+        return entry
 
     def add_remote_cluster_node(self, *args, **kwargs):
         raise NotImplementedError(_UNPORTED["remote"])
 
     def enable_head_endpoint(self, *args, **kwargs):
         raise NotImplementedError(_UNPORTED["remote"])
+
+    def on_node_failure(self, node_id: NodeID, reason: str = "") -> None:
+        """Node death (a process-backed node whose workers all died):
+        mark it dead, stop scheduling to it, reschedule its placement-
+        group bundles, and fail or retry its queued and running work
+        (reference: NodeManager/GcsNodeManager death handling; its
+        remote-node half, object directory and lease reconciliation,
+        comes with the multi-node plane)."""
+        entry = None
+        for e in self.gcs.node_table():
+            if e.node_id == node_id:
+                entry = e
+                break
+        if entry is None or entry.state == "DEAD":
+            return
+        self.gcs.mark_node_dead(node_id, reason)
+        self.scheduler.remove_node(entry.index)
+        self.placement_groups.on_node_dead(entry.index)
+        pool = self._node_pools.pop(entry.index, None)
+        if pool is not None:
+            # monitors drive per-task retries; actor runtimes observe
+            # their worker's death and restart elsewhere or go DEAD
+            pool.fail_node(reason or "node removed")
+        self.placement_groups.poke()
 
     def _execute_task(self, pending: PendingTask) -> None:
         spec = pending.spec
@@ -1631,11 +1824,14 @@ class Worker:
             if retry is not None:
                 self._submit_retry(retry)
             return
-        # (b) thread mode: running (flag the attempt as timed out and
+        # (b) leased to a process pool: force-kill the attempt there,
+        #     classified as a timeout (retriable)
+        for pool in list(self._node_pools.values()):
+            if pool.cancel_for_timeout(tid):
+                return  # pool failure path raises TaskTimeoutError
+        # (c) thread mode: running (flag the attempt as timed out and
         #     fail it now — the zombie thread's results are suppressed)
-        #     or executor-queued (timed out at execution start). The
-        #     reference first force-kills attempts leased to process or
-        #     remote pools, which the port does not have.
+        #     or executor-queued (timed out at execution start)
         synthesize = False
         with self._running_lock:
             flag = self._running_tasks.get(tid)
@@ -1680,6 +1876,8 @@ class Worker:
             oid = r.object_id()
             self.object_recovery.note_freed(oid)
             self.memory_store.delete([oid])
+            if self.shm_store is not None:
+                self.shm_store.free_object(oid)
 
     def _on_object_out_of_scope(self, object_id: ObjectID) -> None:
         # Deferred batch free: __del__-driven releases arrive one at a
@@ -1690,9 +1888,11 @@ class Worker:
         # points bound how long reclaim can lag.
         q = self._oos_q
         q.append(object_id)
-        if len(q) >= 128:
-            # the reference also reclaims arena- and remote-resident
-            # objects at once; thread mode has only in-process entries
+        if len(q) >= 128 or (self.shm_store is not None
+                             and self.shm_store.contains(object_id)):
+            # arena-resident objects are the memory that matters —
+            # reclaim those immediately; only small in-process entries
+            # ride the deferred batch
             self._drain_out_of_scope()
 
     def _drain_out_of_scope(self) -> None:
@@ -1708,6 +1908,9 @@ class Worker:
         if not batch:
             return
         self.memory_store.delete(batch)
+        if self.shm_store is not None:
+            for oid in batch:
+                self.shm_store.free_object(oid)
         self.task_manager.evict_lineage_batch(batch)
 
     def shutdown(self) -> None:
@@ -1744,12 +1947,16 @@ class Worker:
         self.memory_monitor.shutdown()
         if self.metrics_server is not None:
             self.metrics_server.shutdown()
+        for pool in list(self._node_pools.values()):
+            pool.shutdown()
         self._pool.shutdown(wait=False, cancel_futures=True)
         if runtime_sanitizer._ENABLED:
             # lock-witness diff + leak ledgers, while the refcount table
             # still distinguishes live objects from leaked segments
             runtime_sanitizer.report_at_shutdown(
                 self.reference_counter.snapshot())
+        if self.shm_store is not None:
+            self.shm_store.shutdown()
 
 
 def _top_level_deps(args, kwargs) -> List[ObjectID]:
@@ -1764,8 +1971,8 @@ def _likely_large(value: Any) -> bool:
     """Cheap size probe deciding whether a put should try the shm path
     (avoids serializing every small put twice). Arrays/bytes report real
     sizes; other objects are assumed small and stay in the memory store.
-    The port's thread mode stores every put by reference; this is the
-    seam the shm store takes when process mode is ported."""
+    Only the shm store asks (thread mode stores every put by
+    reference)."""
     import numpy as _np
     if isinstance(value, _np.ndarray):
         return value.nbytes > GLOBAL_CONFIG.inline_object_max_bytes
@@ -1797,17 +2004,6 @@ def _detect_gpu_count() -> float:
     if not torch.backends.cuda.is_built():
         return 0.0
     return float(torch.cuda.device_count())
-
-
-def auto_pipeline_depth(num_workers: int) -> int:
-    """Lease-pipeline depth for a pool of num_workers workers: the
-    configured value, or (auto) the worker/core oversubscription ratio
-    capped at 8 — 1 on hosts with a core per worker. (The reference
-    keeps this in its process pool, which is not ported.)"""
-    depth = GLOBAL_CONFIG.worker_pipeline_depth
-    if depth <= 0:
-        depth = max(1, min(8, -(-num_workers // (os.cpu_count() or 1))))
-    return depth
 
 
 # runtime_env env_vars in THREAD mode share one process environment.
@@ -1930,8 +2126,9 @@ def _configure(scheduler: Optional[str],
 def _check_ported() -> None:
     """Refuse, before anything starts, the knobs whose code the port
     does not have: running them degraded would hide that."""
-    if GLOBAL_CONFIG.worker_mode != "thread":
-        raise NotImplementedError(_UNPORTED["process"])
+    if GLOBAL_CONFIG.worker_mode not in ("thread", "process"):
+        raise ValueError(f"unknown worker_mode {GLOBAL_CONFIG.worker_mode!r}:"
+                         " thread | process")
     if GLOBAL_CONFIG.profile_hz > 0 or GLOBAL_CONFIG.qos:
         raise NotImplementedError(_UNPORTED["planes"])
 

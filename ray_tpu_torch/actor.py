@@ -494,6 +494,367 @@ class _ActorRuntime:
         self.worker.gcs.update_actor_state(self.actor_id, "DEAD")
 
 
+class _ProcessActorRuntime(_ActorRuntime):
+    """Actor whose instance lives in a DEDICATED worker process
+    (reference: every actor is its own worker process; the GCS actor
+    scheduler leases one at creation — src/ray/gcs/gcs_server/
+    gcs_actor_scheduler.cc). The driver keeps the FSM + ordered inbox;
+    __init__ and method calls ship over the worker's pipe; large
+    arguments/results move through the shm arena. Worker-process death
+    is detected by the pool monitor and drives restart (max_restarts)
+    or DEAD — real crash detection, not only explicit kill()."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._pool = (self.worker.pool_for_node(self._creation_node_index)
+                      or self.worker.process_pool)
+        self._h = None
+        self._round_done = threading.Event()
+        self._round_result = None
+        self._restart_lock = threading.Lock()
+
+    def _select_pool(self):
+        """Pool to (re)spawn the actor worker on.
+
+        Same node while it lives (resources stay charged there). On node
+        death: a placement-grouped actor follows its (rescheduled) bundle
+        rows; a plain actor moves to an alive node that can ACCEPT its
+        resource charge (scheduler.try_allocate) so the replacement node
+        is never overcommitted. Returns None when nothing qualifies."""
+        w = self.worker
+        spec = self._creation_spec
+        if self._pool is not None and not self._pool._node_dead:
+            return self._pool
+        if spec.placement_group_id is not None:
+            entry = w.placement_groups.get(spec.placement_group_id)
+            if entry is None or entry.state != "CREATED":
+                return None
+            bindex = spec.placement_group_bundle_index
+            rows = entry.rows if bindex < 0 else (
+                [entry.rows[bindex]] if bindex < len(entry.rows) else [])
+            for r in rows:
+                ns = w.scheduler.node_state(r)
+                if ns is None or ns.defunct:
+                    continue
+                pool = w.pool_for_node(r)
+                if pool is None or pool._node_dead:
+                    continue
+                if not self._explicit_resources \
+                        or w.scheduler.try_allocate(r, spec.resources):
+                    self._current_node_index = r
+                    return pool
+            return None
+        for e in w.gcs.alive_process_nodes():
+            if e.pool is None or e.pool._node_dead:
+                continue
+            if not self._explicit_resources \
+                    or w.scheduler.try_allocate(e.index, spec.resources):
+                self._current_node_index = e.index
+                return e.pool
+        return None
+
+    def start(self):
+        self._h = self._pool.spawn_actor_worker(self)
+        super().start()
+
+    # -- pool reader/monitor callbacks -------------------------------------
+    def _on_worker_ready(self, h):
+        pass  # readiness observed by polling h.ready in _create_remote
+
+    def _on_remote_done(self, task_id, entries, timing=None):
+        self._round_result = ("done", entries, timing)
+        self._round_done.set()
+
+    def _on_remote_err(self, task_id, blob, tb):
+        self._round_result = ("err", blob, tb)
+        self._round_done.set()
+
+    def _on_process_died(self, h, cause):
+        if h is not self._h:
+            return  # an already-replaced worker
+        self._round_result = ("died", cause)
+        self._round_done.set()
+        # crash detection: restart (or die) off the monitor thread
+        threading.Thread(
+            target=self.stop,
+            kwargs=dict(no_restart=False,
+                        cause=rex.ActorDiedError(
+                            f"actor worker process died: {cause}",
+                            actor_id=self.actor_id)),
+            daemon=True).start()
+
+    # -- remote rounds ------------------------------------------------------
+    def _remote_round(self, kind: str, payload: dict):
+        self._round_done.clear()
+        self._round_result = None
+        h = self._h
+        try:
+            self._pool.send_to(h, (kind, payload))
+        except (OSError, ValueError, AttributeError) as e:
+            return ("died", e)
+        # poll the handle while waiting: kill() releases the worker
+        # without a monitor notification, and the event-set in stop()
+        # can race a concurrent clear
+        while not self._round_done.wait(timeout=0.25):
+            if h.dead and not self._round_done.is_set():
+                return ("died", "worker released")
+        return self._round_result
+
+    def _build_payload(self, h, task_id, return_ids, args, kwargs,
+                       extra: dict):
+        import cloudpickle
+
+        from ray_tpu_torch._private.runtime.process_pool import _dumps_collect_refs
+
+        # actor calls BLOCK on not-yet-ready args (the direct-path
+        # semantics of the base runtime's _resolve), unlike normal tasks
+        # whose readiness the scheduler guarantees
+        for v in list(args) + list(kwargs.values()):
+            if isinstance(v, ObjectRef) and \
+                    self.worker.memory_store.get_entry(v.object_id()) is None:
+                self.worker.memory_store.wait_and_get([v.object_id()], None)
+        sargs = tuple(self._pool._resolve_for_ship(a) for a in args)
+        skw = {k: self._pool._resolve_for_ship(v) for k, v in kwargs.items()}
+        args_blob, contained = _dumps_collect_refs((sargs, skw))
+        payload = dict(
+            task_id=task_id.binary(),
+            name=f"{self.cls.__name__}",
+            args_blob=args_blob,
+            num_returns=max(1, len(return_ids)),
+            return_ids=[o.binary() for o in return_ids],
+        )
+        payload.update(extra)
+        # borrows are keyed by the worker registered AT BUILD TIME — a
+        # restart swaps self._h, and removal must target the original
+        borrows = []
+        for r in contained:
+            self.worker.reference_counter.add_borrower(
+                r.object_id(), h.worker_id)
+            borrows.append((r.object_id(), h.worker_id))
+        return payload, borrows
+
+    def _remove_borrows(self, h, borrows) -> None:
+        for oid, wid in borrows:
+            self.worker.reference_counter.remove_borrower(oid, wid)
+        # puts issued from inside the actor during this round (tracked on
+        # the handle by _rpc_put) are released the same way normal-task
+        # workers release them in _release()
+        if h is not None:
+            for oid in h.borrows:
+                self.worker.reference_counter.remove_borrower(
+                    oid, h.worker_id)
+            h.borrows = set()
+
+    def _create_remote(self):
+        """Returns True on success or the causing exception."""
+        import cloudpickle
+        import time as _time
+
+        deadline = _time.monotonic() + 60
+        while self._h is None or not self._h.ready:
+            if _time.monotonic() > deadline:
+                return TimeoutError("actor worker never registered")
+            _time.sleep(0.005)
+        creation_oid = _creation_object_id(self.actor_id)
+        h = self._h
+        extra = dict(cls_blob=cloudpickle.dumps(self.cls))
+        renv = self._creation_spec.runtime_env or {}
+        if renv.get("working_dir_pkg"):
+            # the actor OWNS its worker process: the env applies for
+            # its whole lifetime (reference: per-actor runtime_env)
+            extra["actor_working_dir_pkg"] = renv["working_dir_pkg"]
+        if renv.get("pip"):
+            extra["actor_pip"] = list(renv["pip"])
+        env_vars = (self._creation_spec.runtime_env or {}).get("env_vars")
+        if env_vars:
+            # the actor OWNS its worker process: env_vars apply for its
+            # whole lifetime (reference: per-actor runtime_env).
+            # "actor_env_vars", NOT "env_vars": the generic task key is
+            # save/restored per payload, which would undo them after
+            # __init__
+            extra["actor_env_vars"] = dict(env_vars)
+        try:
+            payload, borrows = self._build_payload(
+                h, self._creation_spec.task_id, [creation_oid],
+                self.init_args, self.init_kwargs, extra)
+        except Exception as e:
+            return e
+        res = self._remote_round("actor_create", payload)
+        self._remove_borrows(h, borrows)
+        if res[0] == "done":
+            return True
+        if res[0] == "err":
+            try:
+                return cloudpickle.loads(res[1])
+            except Exception:
+                return RuntimeError("actor __init__ failed (undecodable)")
+        return rex.ActorDiedError(
+            f"worker died during __init__: {res[1]}",
+            actor_id=self.actor_id)
+
+    def _run_init(self) -> bool:
+        try:
+            res = self._create_remote()
+            if res is True:
+                self.state = ActorState.ALIVE
+                self.worker.memory_store.put(
+                    _creation_object_id(self.actor_id), "ALIVE")
+                return True
+            exc = res if isinstance(res, BaseException) else RuntimeError(res)
+            if not isinstance(exc, rex.TaskError):
+                exc = rex.TaskError(f"{self.cls.__name__}.__init__", exc, "")
+            self.death_cause = exc
+            self.state = ActorState.DEAD
+            self.worker.memory_store.put(
+                _creation_object_id(self.actor_id), exc, is_exception=True)
+            # don't leak the dedicated worker of a failed creation
+            h, self._h = self._h, None
+            if h is not None:
+                self._pool.release_actor_worker(h, kill=True)
+            return False
+        finally:
+            self.init_done.set()
+            if not self._explicit_resources:
+                self.worker.scheduler.notify_task_finished(
+                    self._creation_spec.task_id, self._current_node_index,
+                    self._creation_spec.resources)
+
+    def _execute_call(self, call: _Call):
+        import cloudpickle
+        import time as _time
+
+        max_task_retries = int(self.opts.get("max_task_retries", 0))
+        attempt = 0
+        failed_h = None
+        while True:
+            # a restart may be in flight; calls queue until it settles.
+            # After a died round, ALSO wait for the handle to actually
+            # change: the failing send can observe the old handle before
+            # stop() swaps it, and instant retries would burn every
+            # attempt against the same dead worker.
+            deadline = _time.monotonic() + 60
+            while (self.state == ActorState.RESTARTING or self._h is None
+                   or self._h is failed_h) \
+                    and self.state != ActorState.DEAD \
+                    and _time.monotonic() < deadline:
+                _time.sleep(0.005)
+            if self.state == ActorState.DEAD:
+                self._store_error(call, self.death_cause
+                                  or rex.ActorDiedError(
+                                      actor_id=self.actor_id))
+                return
+            h = self._h
+            if h is None:
+                self._store_error(call, rex.ActorUnavailableError(
+                    f"actor worker unavailable for {call.method_name}"))
+                return
+            extra = dict(method=call.method_name)
+            if call.trace_ctx is not None and call.trace_ctx[3]:
+                # same payload-dict carriage as normal task leases
+                extra["trace"] = call.trace_ctx
+            try:
+                payload, borrows = self._build_payload(
+                    h, call.task_id, call.return_ids, call.args, call.kwargs,
+                    extra)
+            except Exception as e:
+                self._store_error(call, e)
+                return
+            res = self._remote_round("actor_call", payload)
+            if res[0] == "done":
+                self._pool.store_result_entries(call.return_ids, res[1])
+                self._trace_done(call,
+                                 res[2] if len(res) > 2 else None,
+                                 worker_key=h.worker_id.hex())
+            elif res[0] == "err":
+                try:
+                    exc = cloudpickle.loads(res[1])
+                except Exception:
+                    exc = RuntimeError("actor call failed (undecodable)")
+                self._store_error(call, exc)
+                self._trace_failed(call, exc)
+            elif attempt < max_task_retries:
+                # worker died mid-call (restart driven by
+                # _on_process_died): retry on the restarted instance
+                # (reference: max_task_retries re-runs actor tasks after
+                # restart, ray: python/ray/actor.py)
+                attempt += 1
+                failed_h = h
+                self._remove_borrows(h, borrows)
+                continue
+            else:
+                self._store_error(call, rex.ActorDiedError(
+                    f"actor worker died during {call.method_name}: "
+                    f"{res[1]}", actor_id=self.actor_id))
+            # results registered first, THEN borrows dropped (a returned
+            # ref gets its driver-side local ref before the borrow goes
+            # away)
+            self._remove_borrows(h, borrows)
+            self.num_executed += 1
+            return
+
+    def stop(self, no_restart: bool = True,
+             cause: Optional[BaseException] = None):
+        with self._restart_lock:
+            if self.state == ActorState.DEAD:
+                return
+            max_restarts = _effective_max_restarts(self.opts)
+            can_restart = (not no_restart
+                           and (max_restarts == -1
+                                or self.num_restarts < max_restarts))
+            h, self._h = self._h, None
+            if h is not None:
+                self._pool.release_actor_worker(h, kill=True)
+                # an in-flight call is blocked in _remote_round; the
+                # monitor won't notify (we marked the handle released),
+                # so unblock it here or its return refs never resolve
+                if not self._round_done.is_set():
+                    self._round_result = ("died", cause or "killed")
+                    self._round_done.set()
+            if can_restart:
+                pool = self._select_pool()
+                if pool is None:
+                    cause = cause or rex.ActorDiedError(
+                        "no alive node to restart the actor on",
+                        actor_id=self.actor_id)
+                else:
+                    self.num_restarts += 1
+                    self.state = ActorState.RESTARTING
+                    self._pool = pool
+                    self._h = pool.spawn_actor_worker(self)
+                    res = self._create_remote()
+                    if res is True:
+                        self.state = ActorState.ALIVE
+                        self.worker.gcs.update_actor_state(
+                            self.actor_id, "ALIVE", pool.node_index)
+                        return
+                    self.death_cause = (
+                        res if isinstance(res, BaseException)
+                        else rex.TaskError(
+                            f"{self.cls.__name__}.__init__ (restart)",
+                            res, ""))
+            self.state = ActorState.DEAD
+            self.death_cause = self.death_cause or cause \
+                or rex.ActorDiedError("actor killed via ray_tpu_torch.kill()",
+                                      actor_id=self.actor_id)
+            self._stopped.set()
+            # fail the queued calls first, then wake each thread with its
+            # sentinel (see _ActorRuntime.stop)
+            self._drain_with_error()
+            for _ in self._threads:
+                self.inbox.put(None)
+            for g, n in self._group_sizes.items():
+                for _ in range(n):
+                    self._group_inboxes[g].put(None)
+            if self._explicit_resources:
+                self.worker.scheduler.notify_task_finished(
+                    self._creation_spec.task_id, self._current_node_index,
+                    self._creation_spec.resources)
+            with self.worker._actors_lock:
+                self.worker.actors.pop(self.actor_id, None)
+                self.worker.dead_actors.add(self.actor_id)
+            self.worker.gcs.update_actor_state(self.actor_id, "DEAD")
+
+
 def _creation_object_id(actor_id: ActorID) -> ObjectID:
     return ObjectID.for_task_return(TaskID.for_actor_task(actor_id, 0), 0)
 
@@ -574,6 +935,11 @@ class ActorHandle:
 
     def _submit_method(self, method_name, args, kwargs, num_returns):
         worker = worker_mod.get_worker()
+        if not hasattr(worker, "actors"):
+            # inside a process worker: the actor runtime tables live
+            # with the owner — route the call over the pipe RPC
+            return worker.actor_call(self._actor_id, method_name, args,
+                                     kwargs, num_returns)
         rt = self._runtime()
         with self._seq_lock:
             self._seq += 1
@@ -724,6 +1090,8 @@ class ActorClass:
                                  spec.resources)
 
         cls, copts = self._cls, dict(opts)
+        is_async = any(inspect.iscoroutinefunction(m) for _, m in
+                       inspect.getmembers(cls, inspect.isfunction))
         # actor registry: the GCS actor table is the source of truth
         # (reference: GcsActorManager). DETACHED actors additionally
         # journal a recovery payload: they are meant to outlive their
@@ -745,10 +1113,17 @@ class ActorClass:
                                   recovery=recovery)
 
         def create(pending, node_index, _worker=worker):
-            # thread mode only: every actor runs host-side in its own
-            # threads (the process-actor runtime is not ported yet)
-            rt = _ActorRuntime(_worker, actor_id, cls, args, kwargs, copts,
-                               spec, node_index)
+            # process mode: sync single-threaded actors get a dedicated
+            # worker process on the ASSIGNED node (reference behavior);
+            # async/threaded actors stay host-side (their event loop /
+            # thread pool lives with the driver, as in the reference)
+            rt_cls = _ActorRuntime
+            if (_worker.pool_for_node(node_index) is not None
+                    and not is_async
+                    and int(copts.get("max_concurrency", 1)) == 1):
+                rt_cls = _ProcessActorRuntime
+            rt = rt_cls(_worker, actor_id, cls, args, kwargs, copts,
+                        spec, node_index)
             with _worker._actors_lock:
                 _worker.actors[actor_id] = rt
             rt.start()

@@ -635,3 +635,90 @@ def test_greedy_parity_passes_a_near_tie_and_stops_there():
 def test_greedy_parity_rejects_a_clear_mismatch_or_a_short_stream(out):
     with pytest.raises(AssertionError):
         chip_smoke.greedy_parity(torch, _logits_of(_TABLE), [[0]], [out], 4)
+
+
+# -- phase process's checks ----------------------------------------------
+
+def test_compute_apps_parses_nvidia_smi_rows():
+    text = "1, 774 MiB\n1, 2316 MiB\n"
+    assert chip_smoke.compute_apps(text) == [(1, 774), (1, 2316)]
+    assert chip_smoke.compute_apps("") == []
+
+
+@pytest.mark.parametrize("before, with_actor, pid, want", [
+    # nvidia-smi reports the actor's own pid
+    ([(10, 700)], [(10, 700), (641, 1700)], 641, (True, "pid")),
+    # it reports every process under one pid of another namespace: the
+    # actor shows as one row more
+    ([(1, 780)], [(1, 2480), (1, 2480)], 641, (True, "row")),
+    # no new row, or rows under several foreign pids: not shown
+    ([(1, 780)], [(1, 2480)], 641, (False, None)),
+    ([(1, 780)], [(1, 2480), (7, 2480)], 641, (False, None)),
+])
+def test_shows_process(before, with_actor, pid, want):
+    assert chip_smoke.shows_process(before, with_actor, pid) == want
+
+
+@pytest.mark.parametrize("rows_after, used_after, alive, ok", [
+    ([(1, 780)], 789, False, True),
+    ([(1, 780)], 789 + chip_smoke.PROCESS_MEM_SLACK_MIB, False, True),
+    ([(1, 780)], 790 + chip_smoke.PROCESS_MEM_SLACK_MIB, False, False),
+    ([(1, 2480), (1, 2480)], 789, False, False),
+    ([(1, 780)], 789, True, False),
+])
+def test_released_rule(rows_after, used_after, alive, ok):
+    problem = chip_smoke.released_rule([(1, 780)], 789, rows_after,
+                                       used_after, alive)
+    assert (problem is None) == ok
+
+
+def test_arena_holds():
+    assert chip_smoke.arena_holds(100, 10, 100, 10)
+    assert not chip_smoke.arena_holds(99, 10, 100, 20)
+    assert not chip_smoke.arena_holds(105, 10, 100, 10)
+
+
+def test_pid_alive():
+    import os
+    import subprocess
+    import sys
+
+    assert chip_smoke.pid_alive(os.getpid())
+    p = subprocess.Popen([sys.executable, "-c", "pass"])
+    p.wait()
+    assert not chip_smoke.pid_alive(p.pid)
+
+
+def test_process_phase_sizes():
+    """The cuts phase process states: 10k map-reduce tasks, 16 actor
+    processes x 100 calls, 3 x 32 MiB through a 64 MiB arena."""
+    assert chip_smoke.PROCESS_TASKS == 10_000
+    assert (chip_smoke.PROCESS_ACTORS, chip_smoke.PROCESS_CALLS) == (16, 100)
+    assert chip_smoke.SPILL_OBJECTS * chip_smoke.SPILL_OBJECT_BYTES \
+        > chip_smoke.SPILL_ARENA_BYTES == 64 << 20
+    assert chip_smoke.ARENA_TENSOR_BYTES == 64 << 20
+    assert chip_smoke.REF_MODULES == ("jax", "flax", "ray_tpu")
+
+
+def test_process_phase_helpers_run_on_the_host():
+    """The fan-out, map-reduce, actor and spill helpers of phase process
+    through a 2-worker process-mode runtime at small sizes (the card's
+    parts, the CUDA put and the engine actor, run only there)."""
+    import ray_tpu_torch as ray
+
+    ray.shutdown()
+    ray.init(num_workers=2, scheduler="tensor", _system_config={
+        "worker_mode": "process", "sched_device": "cpu",
+        "object_store_memory": 4 << 20})
+    try:
+        w = ray._worker.get_worker()
+        assert chip_smoke.wait_workers_ready(w.process_pool) < 120
+        mods = chip_smoke.worker_modules(ray, 2)
+        assert all(m == [] and c == "" for m, c in mods.values())
+        dt, out = chip_smoke.runtime_fanout_batched(ray, 50)
+        assert out == [None] * 50 and dt > 0
+        _dt, tasks, total, want = chip_smoke.runtime_map_reduce(ray, 505)
+        assert tasks == 505 and total == want
+        assert chip_smoke.runtime_actors(ray, 2, 5)[1] == 0
+    finally:
+        ray.shutdown()

@@ -211,10 +211,11 @@ def test_engine_rejects_oversized_and_empty(tiny):
 def test_port_imports_no_jax():
     """Every module of the port imports, and the runtime runs init, a
     task, an actor and shutdown (the scheduler's device path on the host:
-    sched_device "cpu"), with no jax and no ray_tpu module loaded; the
-    package's import, and Serve's and the metrics plane's, leave CUDA
-    uninitialised."""
-    code = ("import torch, ray_tpu_torch as ray\n"
+    sched_device "cpu"), in thread mode and then a task in process mode,
+    with no jax and no ray_tpu module loaded in the driver or the worker
+    process; the package's import, and Serve's, the metrics plane's and
+    the process runtime's, leave CUDA uninitialised."""
+    code = ("import os, torch, ray_tpu_torch as ray\n"
             "assert not torch.cuda.is_initialized()\n"
             "import ray_tpu_torch.models.inference, "
             "ray_tpu_torch.models.train_step, ray_tpu_torch.ops.flash, "
@@ -227,7 +228,12 @@ def test_port_imports_no_jax():
             "ray_tpu_torch._private.serialization, "
             "ray_tpu_torch._private.runtime_envs, ray_tpu_torch.serve, "
             "ray_tpu_torch.serve.core, ray_tpu_torch.serve.llm, "
-            "ray_tpu_torch._private.metrics, ray_tpu_torch.util.metrics\n"
+            "ray_tpu_torch._private.metrics, ray_tpu_torch.util.metrics, "
+            "ray_tpu_torch._private.runtime.process_pool, "
+            "ray_tpu_torch._private.runtime.worker_process, "
+            "ray_tpu_torch._private.runtime.shm_store, "
+            "ray_tpu_torch._private.spawn_env, "
+            "ray_tpu_torch._private.protocol, ray_tpu_torch._native\n"
             "assert not torch.cuda.is_initialized()\n"
             "ray.init(num_workers=2, scheduler='tensor', "
             "_system_config={'sched_device': 'cpu'})\n"
@@ -239,6 +245,17 @@ def test_port_imports_no_jax():
             "        return 3\n"
             "assert ray.get(A.remote().m.remote(), timeout=30) == 3\n"
             "ray.shutdown()\n"
+            "ray.init(num_workers=1, scheduler='tensor', _system_config="
+            "{'sched_device': 'cpu', 'worker_mode': 'process'})\n"
+            "@ray.remote\n"
+            "def mods():\n"
+            "    import os, sys\n"
+            "    return os.getpid(), [m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'flax', 'ray_tpu')]\n"
+            "pid, loaded = ray.get(mods.remote(), timeout=60)\n"
+            "assert pid != os.getpid() and loaded == [], loaded\n"
+            "ray.shutdown()\n"
+            "assert not torch.cuda.is_initialized()\n"
             "import sys\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
             "'ray_tpu.')) or m == 'ray_tpu' for m in sys.modules)\n")

@@ -664,7 +664,9 @@ def test_tensor_scheduler_needs_cuda_unless_cpu():
 
 
 @pytest.mark.parametrize("knobs", [
-    {"worker_mode": "process"}, {"qos": True}, {"profile_hz": 10.0}])
+    # process workers run no profile sampler yet
+    {"worker_mode": "process", "profile_hz": 10.0},
+    {"qos": True}, {"profile_hz": 10.0}])
 def test_unported_modes_raise(knobs):
     ray.shutdown()
     try:
@@ -686,9 +688,10 @@ def test_refused_init_leaves_no_setting_behind(refused):
     if refused == "cuda" and torch.cuda.is_available():
         pytest.skip("a CUDA device is present: sched_backend=cuda runs")
     kwargs, exc = {
+        # process mode runs now; with the unported QoS plane it is refused
         "process": ({"scheduler": "event", "_system_config": {
-            "task_max_retries": 7, "worker_mode": "process"}},
-            NotImplementedError),
+            "task_max_retries": 7, "worker_mode": "process",
+            "qos": True}}, NotImplementedError),
         "cuda": ({"scheduler": "tensor", "_system_config": {
             "task_max_retries": 7, "sched_backend": "cuda"}}, RuntimeError),
         "unknown_knob": ({"scheduler": "event", "_system_config": {
@@ -710,9 +713,10 @@ def test_refused_init_leaves_no_setting_behind(refused):
 
 
 @pytest.mark.parametrize("knob", [
-    "worker_tpu_access", "control_ring", "object_spill_dir", "actor_p2p",
-    "scheduler_locality", "tenant_quotas", "data_op_inflight",
-    "control_ring_slots", "profile_stacks_max"])
+    "worker_tpu_access", "daemon_rejoin_timeout_s",
+    "client_reconnect_timeout_s", "actor_p2p", "scheduler_locality",
+    "tenant_quotas", "data_op_inflight", "local_dispatch",
+    "profile_stacks_max"])
 def test_reference_knobs_without_code_are_unknown(knob):
     """Knobs of planes the port does not have are not defined: setting
     one raises instead of being accepted and ignored."""
@@ -731,10 +735,13 @@ def test_remote_nodes_and_clients_raise():
             ray.init(address="ray://127.0.0.1:1?key=x")
         ray.init(num_workers=2, scheduler="event")
         w = worker_mod.get_worker()
-        for call in (w.add_cluster_node, w.add_remote_cluster_node,
-                     w.enable_head_endpoint):
+        for call in (w.add_remote_cluster_node, w.enable_head_endpoint):
             with pytest.raises(NotImplementedError, match="ROADMAP.md"):
                 call()
+        # process-backed nodes run now (tests/test_torch_process_mode.py);
+        # one that declares GPUs its workers cannot see is refused
+        with pytest.raises(ValueError, match="worker_gpu_access"):
+            w.add_cluster_node(num_cpus=1, num_gpus=1)
     finally:
         ray.shutdown()
 
