@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of ray_tpu_torch on one NVIDIA GPU: build, check, serve, train.
+"""Smoke run of ray_tpu_torch on one NVIDIA GPU: build, check, serve, train,
+data, cluster.
 
     python3 chip_smoke.py            # one card; 0 only if every phase passed
     python3 chip_smoke.py --kernels  # build, device and every kernel's
@@ -142,6 +143,32 @@ Phases, each printing one JSON line:
                both apps under phase parity's rule; after each
                serve.shutdown() no engine thread or object is left and the
                card's bytes are back.
+
+ 13. data    — Ray Data on the runtime (phase_data), the TensorScheduler
+               assigning on the card: BASELINE config 3
+               (perf.data_pipeline_throughput, 100k blocks x 10 rows, after
+               a warm pass of 1k blocks) in thread mode with blocks/s, rows/s,
+               the stages and the exact count; a checking run of 2k blocks
+               whose rows are exact and whose every snapshot equals
+               assign_np; the same in process mode at 10k blocks (the cut),
+               no worker loading jax, flax or ray_tpu; random_shuffle(seed=0)
+               over 100k rows in 1k blocks through the port's native
+               exchange library, a permutation and the same order twice;
+               iter_torch_batches(batch_size=4096, device="cuda") over a 1M-row
+               int64 column, every batch on the card and the sum exact.
+               kernels.assign's counter zeroed just before each timed run,
+               equal to its device assigns and > 0.
+ 14. cluster — the local virtual cluster (phase_cluster): a Cluster head
+               (2 CPUs, TensorScheduler on the card) and five process nodes
+               of 4 CPUs and 2 workers: remove_node while 200 tasks of 50
+               ms run (results exact, the node DEAD, every snapshot after
+               the removal equal to assign_np with no task on the dead row);
+               kill_worker_processes on another node (DEAD within the
+               health check's budget, results exact); a soft-pinned actor
+               restarting off a removed node; a 4-CPU placement-group
+               bundle moving off one; the Autoscaler against a 1-CPU head
+               (12 x 0.4 s tasks: an upscale, then a downscale once idle);
+               after shutdown no worker process alive.
 
 Then the kernel table as one JSON line (kernel 1's launches: the Serve
 path's, mono and split, with phase engine's beside them), the nvidia-smi line, and last
@@ -300,6 +327,25 @@ SPILL_ARENA_BYTES, SPILL_OBJECT_BYTES, SPILL_OBJECTS = 64 << 20, 32 << 20, 3
 # context alone holds ~500 MiB of the card)
 PROCESS_MEM_SLACK_MIB = 64
 REF_MODULES = ("jax", "flax", "ray_tpu")
+# Data (phase data): BASELINE config 3 at the reference's own size
+# (data_pipeline_throughput: 100k blocks x 10 rows, after a warm pass of
+# 1k blocks), a checking run of 2k blocks with every assignment replayed
+# through assign_np, the same pipeline in process mode cut to 10k blocks
+# (each block is a lease to another process, as phase process cut its
+# map-reduce), the PRP shuffle and torch batches on the card
+DATA_WORKERS, DATA_ROWS_PER_BLOCK = 8, 10
+DATA_BLOCKS, DATA_WARM_BLOCKS, DATA_CHECK_BLOCKS = 100_000, 1_000, 2_000
+DATA_PROCESS_BLOCKS = 10_000
+SHUFFLE_ROWS, SHUFFLE_BLOCKS = 100_000, 1_000
+BATCH_ROWS, BATCH_SIZE = 1_000_000, 4096
+# the local virtual cluster (phase cluster): a 2-CPU head and process
+# nodes of 4 CPUs and 2 workers each; CLUSTER_TASKS 50 ms tasks with 5
+# retries through remove_node, half as many through kill_worker_processes;
+# then the autoscaler against a 1-CPU head (the reference's test case)
+CLUSTER_HEAD = dict(num_cpus=2, num_workers=2, scheduler="tensor")
+CLUSTER_NODE = dict(num_cpus=4, num_workers=2)
+CLUSTER_TASKS, CLUSTER_TASK_S = 200, 0.05
+AUTOSCALE_TASKS, AUTOSCALE_TASK_S = 12, 0.4
 CROSSOVER_K = (64, 256, 1024, 4096, 16384, 65536)
 CROSSOVER_CLASSES = (1, 64)
 CROSSOVER_NODES = 64
@@ -3246,6 +3292,529 @@ def phase_serve(torch):
     return row
 
 
+def data_pipeline(data, blocks):
+    """BASELINE config 3's pipeline (perf.data_pipeline_throughput's) at
+    ``blocks`` blocks of DATA_ROWS_PER_BLOCK rows."""
+    return data.range(blocks * DATA_ROWS_PER_BLOCK,
+                      parallelism=blocks).map_batches(
+        lambda b: [x * 2 for x in b])
+
+
+def native_exchange(shuffle_mod, package_dir):
+    """The path of the exchange library _shuffle loaded, and whether it
+    is the port's own build (under ray_tpu_torch/_build/)."""
+    lib = shuffle_mod._lib()
+    path = getattr(lib, "_name", None)
+    ok = path is not None and Path(path).parent == \
+        Path(package_dir) / "_build" and \
+        Path(path).name.startswith("native_exchange-")
+    return path, ok
+
+
+def data_shuffle(data, shuffle_mod, package_dir):
+    """random_shuffle(seed=0) over SHUFFLE_ROWS rows in SHUFFLE_BLOCKS
+    list blocks, twice: (row, problems)."""
+    path, native = native_exchange(shuffle_mod, package_dir)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        rows = data.range(SHUFFLE_ROWS, parallelism=SHUFFLE_BLOCKS) \
+            .random_shuffle(seed=0).take_all()
+        runs.append((time.perf_counter() - t0, rows))
+    (dt, a), (dt2, b) = runs
+    row = {"rows": SHUFFLE_ROWS, "blocks": SHUFFLE_BLOCKS,
+           "seconds": [dt, dt2], "rows_per_sec": SHUFFLE_ROWS / dt2,
+           "native_library": path, "native": native,
+           "permutation": sorted(a) == list(range(SHUFFLE_ROWS)),
+           "same_order": a == b, "moved": a != list(range(SHUFFLE_ROWS))}
+    problems = [f"shuffle: {what}" for key, what in (
+        ("native", "the native exchange library is not loaded"),
+        ("permutation", "not a permutation"),
+        ("same_order", "two runs with seed 0 differ"),
+        ("moved", "the rows stayed in order")) if not row[key]]
+    return row, problems
+
+
+def data_batches(data, dev):
+    """iter_torch_batches(batch_size=BATCH_SIZE, device=dev) over a
+    BATCH_ROWS-row int64 numpy column: (row, problems)."""
+    import numpy as np
+
+    col = np.arange(BATCH_ROWS, dtype=np.int64)
+    want = int(col.sum())
+    t0 = time.perf_counter()
+    total, devices, n = 0, set(), 0
+    for b in data.from_numpy(col).iter_torch_batches(batch_size=BATCH_SIZE,
+                                                     device=dev):
+        devices.add(str(b.device))
+        total += int(b.sum())
+        n += 1
+    dt = time.perf_counter() - t0
+    row = {"rows": BATCH_ROWS, "batch_size": BATCH_SIZE, "batches": n,
+           "seconds": dt, "rows_per_sec": BATCH_ROWS / dt,
+           "devices": sorted(devices), "sum": total, "want": want}
+    problems = [f"batches: {what}" for what, bad in (
+        (f"on {sorted(devices)}, not {dev}", devices != {str(dev)}),
+        (f"sum {total} != {want}", total != want)) if bad]
+    return row, problems
+
+
+def phase_data(torch, dev):
+    """Ray Data on the runtime, the TensorScheduler assigning on ``dev``
+    (sched_backend "cuda"), 8 workers (see DATA_*).
+
+    - thread mode: BASELINE config 3, data_pipeline_throughput at 100k
+      blocks x 10 rows after a warm pass of 1k blocks: blocks/s, rows/s,
+      the stages, the exact count; kernels.assign's counter zeroed just
+      before and read just after, equal to the timed run's device
+      assigns and > 0. A checking run of 2k blocks: take_all equal to
+      [2 * i for i in range(20000)], every snapshot _assign saw replayed
+      through assign_np with no mismatch. random_shuffle(seed=0) through
+      the port's native exchange library; iter_torch_batches on dev.
+    - process mode: the same at 10k blocks (the cut), with the same
+      checks, and no worker loading jax, flax or ray_tpu.
+    Returns assign's launches in the timed runs: {"thread": n,
+    "process": n}."""
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import data
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch._private.perf import data_pipeline_throughput
+    from ray_tpu_torch._private.scheduler import kernels as sk
+    from ray_tpu_torch._private.scheduler.tensor import TensorScheduler
+    from ray_tpu_torch.data import _shuffle
+
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    package_dir = Path(ray.__file__).resolve().parent
+    problems, launches = [], {}
+    rec = AssignRecorder(torch, TensorScheduler, sk, GLOBAL_CONFIG)
+    try:
+        for mode, blocks in (("thread", DATA_BLOCKS),
+                             ("process", DATA_PROCESS_BLOCKS)):
+            ray.init(num_workers=DATA_WORKERS, scheduler="tensor",
+                     _system_config={"sched_backend": "cuda",
+                                     "sched_device": dev.type,
+                                     "worker_mode": mode})
+            try:
+                w = ray._worker.get_worker()
+                threshold = GLOBAL_CONFIG.sched_hybrid_threshold
+                if mode == "process":
+                    wait_workers_ready(w.process_pool)
+                    mods = worker_modules(ray, DATA_WORKERS)
+                    emit({"phase": "data", "part": "process_workers",
+                          "pids": sorted(mods), "modules": {
+                              str(p): m for p, (m, _c) in mods.items()}})
+                    if any(m for m, _c in mods.values()):
+                        problems.append(f"a worker loaded {REF_MODULES}")
+                data_pipeline_throughput(DATA_WARM_BLOCKS,
+                                         DATA_ROWS_PER_BLOCK,
+                                         own_runtime=False)
+                # process mode holds its timed run to the oracle too
+                rec.snapshots = [] if mode == "process" else None
+                sk.assign.launches = 0          # the main path, from zero
+                t_lo = time.perf_counter()
+                r = data_pipeline_throughput(blocks, DATA_ROWS_PER_BLOCK,
+                                             own_runtime=False)
+                n = sk.assign.launches
+                # the assigns' host and kernel times (AssignRecorder), and
+                # the kernel spans' share of the run: the card's busy time
+                timing = assign_timing(rec.calls, t_lo, time.perf_counter())
+                kernel_ms = sum(c[4] for c in rec.calls
+                                if c[0] >= t_lo and c[4] is not None)
+                snaps, rec.snapshots = rec.snapshots or [], None
+                launches[mode] = n
+                want = blocks * DATA_ROWS_PER_BLOCK
+                emit({"phase": "data", "part": f"pipeline_{mode}",
+                      **{k: r[k] for k in (
+                          "mode", "num_blocks", "rows", "count", "seconds",
+                          "blocks_per_sec", "rows_per_sec", "stages",
+                          "device_assigns")},
+                      "assign_launches": n, "assign": timing,
+                      "kernel_busy_share": kernel_ms / 1e3 / r["seconds"],
+                      **({} if blocks == DATA_BLOCKS else {
+                          "cut": f"{blocks} blocks, not 100k"}),
+                      "nvidia_smi": smi})
+                problems += [f"{mode} pipeline: {what}" for what, bad in (
+                    (f"count {r['count']} != {want}", r["count"] != want),
+                    (f"assign launches {n} != device assigns "
+                     f"{r['device_assigns']}", n != r["device_assigns"]),
+                    ("no device assign", n == 0)) if bad]
+
+                rec.snapshots = []
+                a0 = w.scheduler.stats()["device_assigns"]
+                sk.assign.launches = 0
+                t0 = time.perf_counter()
+                out = data_pipeline(data, DATA_CHECK_BLOCKS).take_all()
+                dt = time.perf_counter() - t0
+                n = sk.assign.launches
+                assigns = w.scheduler.stats()["device_assigns"] - a0
+                snaps += rec.snapshots
+                rec.snapshots = None
+                bad = replay_oracle(sk, snaps, threshold)
+                exact = out == [2 * i for i in
+                                range(DATA_CHECK_BLOCKS * DATA_ROWS_PER_BLOCK)]
+                emit({"phase": "data", "part": f"oracle_{mode}",
+                      "blocks": DATA_CHECK_BLOCKS, "seconds": dt,
+                      "exact": exact, "assign_launches": n,
+                      "device_assigns": assigns, "snapshots": len(snaps),
+                      "differ": bad})
+                problems += [f"{mode} check: {what}" for what, failed in (
+                    ("take_all not exact", not exact),
+                    (f"assign launches {n} != device assigns {assigns}",
+                     n != assigns), ("no device assign", n == 0),
+                    (f"{bad} of {len(snaps)} snapshots differ from "
+                     "assign_np", bad or not snaps)) if failed]
+
+                if mode == "thread":
+                    row, found = data_shuffle(data, _shuffle, package_dir)
+                    emit({"phase": "data", "part": "shuffle", **row})
+                    problems += found
+                    row, found = data_batches(data, dev)
+                    emit({"phase": "data", "part": "torch_batches", **row})
+                    problems += found
+                if w.scheduler.stats()["device_assign_errors"]:
+                    problems.append(f"{mode}: device assign errors")
+            finally:
+                ray.shutdown()
+    finally:
+        rec.remove()
+        ray.shutdown()
+        GLOBAL_CONFIG.reset()
+    emit({"phase": "data", "part": "done",
+          "seconds": time.perf_counter() - t_phase, "ok": not problems,
+          "nvidia_smi": smi})
+    if problems:
+        raise AssertionError(f"data phase: {problems}")
+    return launches
+
+
+def dead_row_check(sk, snapshots, dead_rows, threshold):
+    """The snapshots taken after the rows in dead_rows were removed (their
+    capacity is zero in the snapshot): (how many, how many put a task on
+    a dead row, how many differ from assign_np)."""
+    import numpy as np
+
+    rows = sorted(dead_rows)
+    after = [s for s in snapshots if s[0][4].shape[0] > max(rows)
+             and not s[0][4][rows].any()]
+    on_dead = sum(bool(np.isin(node_of, rows).any())
+                  for _snap, node_of, _avail in after)
+    return len(after), on_dead, replay_oracle(sk, after, threshold)
+
+
+def wait_running_on(w, node_index, timeout=60.0):
+    """Seconds until a task runs on scheduler row node_index."""
+    t0 = time.perf_counter()
+    while not any(r["node_index"] == node_index and r["state"] == "RUNNING"
+                  for r in w.scheduler.task_table()):
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"no task ever ran on row {node_index}")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def detection_deadline(config):
+    """The most seconds the GCS health check may take to mark a node whose
+    workers were all killed DEAD: its failure budget plus 5 periods."""
+    return config.health_check_timeout_s + 5 * config.health_check_period_s
+
+
+def phase_cluster(torch, dev):
+    """The local virtual cluster (see CLUSTER_*): a Cluster whose head runs
+    the TensorScheduler assigning on ``dev`` (sched_backend "cuda"), and
+    five process-backed nodes.
+
+    - remove_node while CLUSTER_TASKS 50 ms tasks (max_retries=5) run:
+      results exact, the node DEAD, every snapshot taken after the removal
+      equal to assign_np's and giving the dead row no task; seconds.
+    - kill_worker_processes on another node: the health check marks it
+      DEAD within detection_deadline, its tasks finish exactly.
+    - a max_restarts=2 actor soft-pinned to a node answers again from a
+      survivor after remove_node; a 4-CPU placement-group bundle moves
+      off its removed node.
+    - the Autoscaler (VirtualNodeProvider) against a 1-CPU head: 12 x
+      0.4 s tasks give an upscale, then a downscale once idle; both times.
+    - after shutdown no worker process of any node is alive.
+    In every part kernels.assign's counter is zeroed just before and read
+    just after: equal to the scheduler's device assigns. Returns the
+    launches over the parts."""
+    import ray_tpu_torch as ray
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch._private.scheduler import kernels as sk
+    from ray_tpu_torch._private.scheduler.tensor import TensorScheduler
+    from ray_tpu_torch.autoscaler import (Autoscaler, AutoscalerConfig,
+                                          VirtualNodeProvider)
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.util import (NodeAffinitySchedulingStrategy,
+                                    placement_group, placement_group_table)
+
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    system = {"sched_backend": "cuda", "sched_device": dev.type}
+    problems, pids, total = [], set(), [0]
+    rec = AssignRecorder(torch, TensorScheduler, sk, GLOBAL_CONFIG)
+
+    def part(name, fn):
+        """fn() with the counter zeroed just before and read just after,
+        and every snapshot kept: (fn's result, snapshots)."""
+        w = ray._worker.get_worker()
+        rec.snapshots = []
+        a0 = w.scheduler.stats()["device_assigns"]
+        sk.assign.launches = 0
+        out = fn()
+        n = sk.assign.launches
+        assigns = w.scheduler.stats()["device_assigns"] - a0
+        snaps, rec.snapshots = rec.snapshots, None
+        total[0] += n
+        if n != assigns:
+            problems.append(f"{name}: assign launches {n} != device "
+                            f"assigns {assigns}")
+        return out, snaps, {"assign_launches": n, "device_assigns": assigns}
+
+    def removal_checks(name, snaps, rows):
+        after, on_dead, differ = dead_row_check(
+            sk, snaps, rows, GLOBAL_CONFIG.sched_hybrid_threshold)
+        problems.extend(f"{name}: {what}" for what, bad in (
+            ("no snapshot after the removal", after == 0),
+            (f"{on_dead} snapshots put a task on the dead row", on_dead),
+            (f"{differ} snapshots differ from assign_np", differ)) if bad)
+        return {"snapshots_after": after, "on_dead_row": on_dead,
+                "differ": differ}
+
+    try:
+        cluster = Cluster(initialize_head=True, head_node_args=dict(
+            CLUSTER_HEAD, _system_config=system))
+        try:
+            w = ray._worker.get_worker()
+            t0 = time.perf_counter()
+            nodes = [cluster.add_node(**CLUSTER_NODE) for _ in range(5)]
+            for node in nodes:
+                wait_workers_ready(node._entry.pool)
+                pids.update(node.worker_pids())
+            emit({"phase": "cluster", "part": "startup", "nodes": len(nodes),
+                  "node": CLUSTER_NODE, "head": CLUSTER_HEAD,
+                  "all_ready_seconds": time.perf_counter() - t0,
+                  "worker_pids": len(pids), "nvidia_smi": smi})
+
+            @ray.remote(max_retries=5)
+            def task(i):
+                time.sleep(CLUSTER_TASK_S)
+                return i
+
+            victim = nodes[0]
+
+            def run_remove():
+                t0 = time.perf_counter()
+                refs = [task.remote(i) for i in range(CLUSTER_TASKS)]
+                wait_running_on(w, victim.index)
+                t_rm = time.perf_counter()
+                cluster.remove_node(victim)
+                out = ray.get(refs, timeout=300)
+                return (time.perf_counter() - t0,
+                        time.perf_counter() - t_rm, out)
+
+            (dt, after_s, out), snaps, counts = part("remove_node",
+                                                     run_remove)
+            row = {"tasks": CLUSTER_TASKS, "seconds": dt,
+                   "seconds_after_removal": after_s,
+                   "exact": out == list(range(CLUSTER_TASKS)),
+                   "state": victim.state, "dead_row": victim.index,
+                   **counts, **removal_checks("remove_node", snaps,
+                                              {victim.index})}
+            emit({"phase": "cluster", "part": "remove_node", **row})
+            problems += [f"remove_node: {what}" for what, bad in (
+                ("results not exact", not row["exact"]),
+                (f"node {victim.state}", victim.state != "DEAD"),
+                ("no device assign", counts["assign_launches"] == 0))
+                if bad]
+
+            victim = nodes[1]
+
+            def run_kill():
+                refs = [task.remote(i) for i in range(CLUSTER_TASKS // 2)]
+                wait_running_on(w, victim.index)
+                t0 = time.perf_counter()
+                victim.kill_worker_processes()
+                while victim.state != "DEAD" \
+                        and time.perf_counter() - t0 < 60:
+                    time.sleep(0.005)
+                detect = time.perf_counter() - t0
+                out = ray.get(refs, timeout=300)
+                return detect, time.perf_counter() - t0, out
+
+            (detect, dt, out), snaps, counts = part("kill", run_kill)
+            deadline = detection_deadline(GLOBAL_CONFIG)
+            row = {"tasks": CLUSTER_TASKS // 2, "detect_seconds": detect,
+                   "deadline_seconds": deadline, "seconds": dt,
+                   "exact": out == list(range(CLUSTER_TASKS // 2)),
+                   "state": victim.state, "dead_row": victim.index,
+                   **counts, **removal_checks("kill", snaps,
+                                              {victim.index})}
+            emit({"phase": "cluster", "part": "kill_worker_processes",
+                  **row})
+            problems += [f"kill: {what}" for what, bad in (
+                ("results not exact", not row["exact"]),
+                (f"node {victim.state}", victim.state != "DEAD"),
+                (f"detected in {detect} s > {deadline} s",
+                 detect > deadline)) if bad]
+
+            victim = nodes[2]
+
+            @ray.remote
+            class Counter:
+                def __init__(self):
+                    self.n = 0
+
+                def incr(self):
+                    self.n += 1
+                    return self.n
+
+            def run_actor():
+                a = Counter.options(
+                    max_restarts=2, max_task_retries=2,
+                    scheduling_strategy=NodeAffinitySchedulingStrategy(
+                        node_id=victim.node_id, soft=True)).remote()
+                first = ray.get(a.incr.remote(), timeout=120)
+                on = w.actors[a._actor_id]._pool.node_index
+                t0 = time.perf_counter()
+                cluster.remove_node(victim)
+                again = ray.get(a.incr.remote(), timeout=120)
+                dt = time.perf_counter() - t0
+                rt = w.actors[a._actor_id]
+                out = (first, on, again, dt, rt._pool.node_index,
+                       rt.state.name)
+                ray.kill(a)
+                return out
+
+            (first, on, again, dt, now_on, state), _s, counts = part(
+                "actor", run_actor)
+            emit({"phase": "cluster", "part": "actor_restart",
+                  "first": first, "on_row": on, "after_restart": again,
+                  "restart_seconds": dt, "now_on_row": now_on,
+                  "state": state, **counts})
+            problems += [f"actor: {what}" for what, bad in (
+                (f"first call gave {first}", first != 1),
+                (f"created on row {on}, not {victim.index}",
+                 on != victim.index),
+                (f"after the restart gave {again}", again != 1),
+                ("still on the dead row", now_on == victim.index),
+                (f"state {state}", state != "ALIVE")) if bad]
+
+            def run_pg():
+                pg = placement_group([{"CPU": 4}], strategy="PACK")
+                if not pg.wait(60):
+                    raise AssertionError("the 4-CPU bundle never placed")
+                states = w.scheduler._node_states
+                parent = states[w.placement_groups.get(pg.id).rows[0]].parent
+                dead = next(n for n in nodes if n.index == parent)
+                t0 = time.perf_counter()
+                cluster.remove_node(dead)
+                while time.perf_counter() - t0 < 60:
+                    if placement_group_table()[pg.id.hex()]["state"] \
+                            == "CREATED" and states[w.placement_groups.get(
+                                pg.id).rows[0]].parent != dead.index:
+                        break
+                    time.sleep(0.005)
+                dt = time.perf_counter() - t0
+                now = states[w.placement_groups.get(pg.id).rows[0]].parent
+                return parent, now, dt, placement_group_table()[
+                    pg.id.hex()]["state"]
+
+            (before, now, dt, state), _s, counts = part("pg", run_pg)
+            emit({"phase": "cluster", "part": "pg_reschedule",
+                  "parent_before": before, "parent_after": now,
+                  "seconds": dt, "state": state, **counts})
+            if state != "CREATED" or now == before:
+                problems.append(f"pg: bundle on row {now} ({state}) after "
+                                f"row {before} died")
+            for e in w.gcs.node_table():
+                if e.pool is not None:
+                    pids.update(e.pool.pids())
+        finally:
+            cluster.shutdown()
+
+        ray.init(num_cpus=1, num_workers=2, scheduler="tensor",
+                 _system_config=system)
+        try:
+            w = ray._worker.get_worker()
+            scaler = Autoscaler(
+                w, VirtualNodeProvider(w, num_cpus=4, num_workers=2),
+                AutoscalerConfig(min_nodes=0, max_nodes=2, upscale_ticks=2,
+                                 idle_timeout_s=0.6, poll_interval_s=0.1))
+            scaler.start()
+
+            @ray.remote
+            def slow(i):
+                time.sleep(AUTOSCALE_TASK_S)
+                return i
+
+            def run_scale():
+                t0 = time.perf_counter()
+                refs = [slow.remote(i) for i in range(AUTOSCALE_TASKS)]
+                while scaler.num_upscales == 0 \
+                        and time.perf_counter() - t0 < 60:
+                    time.sleep(0.005)
+                up = time.perf_counter() - t0
+                out = ray.get(refs, timeout=300)
+                t_idle = time.perf_counter()
+                while scaler.num_downscales == 0 \
+                        and time.perf_counter() - t_idle < 60:
+                    time.sleep(0.005)
+                down = time.perf_counter() - t_idle
+                # the node table after the downscale still runs work
+                after = ray.get([slow.remote(i) for i in range(4)],
+                                timeout=120)
+                return up, down, out, after
+
+            (up, down, out, after), snaps, counts = part("autoscaler",
+                                                         run_scale)
+            scaler.stop()
+            dead = {e.index for e in w.gcs.node_table()
+                    if e.state == "DEAD"}
+            for e in w.gcs.node_table():
+                if e.pool is not None:
+                    pids.update(e.pool.pids())
+            row = {"tasks": AUTOSCALE_TASKS, "upscale_seconds": up,
+                   "downscale_seconds_after_idle": down,
+                   "upscales": scaler.num_upscales,
+                   "downscales": scaler.num_downscales,
+                   "exact": out == list(range(AUTOSCALE_TASKS))
+                   and after == list(range(4)), **counts,
+                   **(removal_checks("autoscaler", snaps, dead)
+                      if dead else {})}
+            emit({"phase": "cluster", "part": "autoscaler", **row})
+            problems += [f"autoscaler: {what}" for what, bad in (
+                ("no upscale", scaler.num_upscales < 1),
+                ("no downscale", scaler.num_downscales < 1),
+                ("results not exact", not row["exact"]),
+                ("no device assign", counts["assign_launches"] == 0))
+                if bad]
+            if w.scheduler.stats()["device_assign_errors"]:
+                problems.append("device assign errors")
+        finally:
+            ray.shutdown()
+        t0 = time.perf_counter()
+        while any(pid_alive(p) for p in pids) \
+                and time.perf_counter() - t0 < 30:
+            time.sleep(0.05)
+        alive = sorted(p for p in pids if pid_alive(p))
+        emit({"phase": "cluster", "part": "shutdown",
+              "worker_pids": len(pids), "alive": alive,
+              "seconds": time.perf_counter() - t0})
+        if alive or not pids:
+            problems.append(f"shutdown: worker processes alive {alive}")
+    finally:
+        rec.remove()
+        ray.shutdown()
+        GLOBAL_CONFIG.reset()
+    emit({"phase": "cluster", "part": "done",
+          "seconds": time.perf_counter() - t_phase, "ok": not problems,
+          "launches": total[0], "nvidia_smi": smi})
+    if problems:
+        raise AssertionError(f"cluster phase: {problems}")
+    return total[0]
+
+
 def main() -> int:
     import torch
 
@@ -3293,6 +3862,8 @@ def main() -> int:
     assign = phase_runtime(torch)
     process_launches, process_assigns = phase_process(torch)
     served = phase_serve(torch)
+    data_launches = phase_data(torch, dev)
+    cluster_launches = phase_cluster(torch, dev)
 
     # kernel 1 and its yardstick by device time (graph replays): the eager
     # loop of wrapper calls times the host, not the kernels
@@ -3353,7 +3924,11 @@ def main() -> int:
                                             "plain_ms", "bound_ms",
                                             "bound_by")},
                   "launches_by_path": {"runtime_fanout": assign["launches"],
-                                       "process_fanout": process_assigns},
+                                       "process_fanout": process_assigns,
+                                       "data_thread": data_launches["thread"],
+                                       "data_process":
+                                           data_launches["process"],
+                                       "cluster": cluster_launches},
                   "library_ms": None})
     emit({"kernels": table})
     print(smi, flush=True)

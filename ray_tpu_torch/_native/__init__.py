@@ -1,13 +1,15 @@
 """Native (C++) host components of the runtime, loaded through ctypes.
 
 The reference's hot runtime paths are C++ (plasma allocator, raylet);
-here the shm arena's allocator core is C++ too (``allocator.cc``),
+here the shm arena's allocator core (``allocator.cc``) and Data's
+shuffle gathers (``exchange.cc``) are C++ too, each
 compiled with ``g++`` at first use into ``ray_tpu_torch/_build/``
 (listed in .gitignore), cached by a hash of its source and flags, and
 installed with a per-pid temporary and ``os.replace`` so concurrent
 builders never load each other's half-written output. A missing compiler
 degrades to ``shm_store.PyFreeList``, whose first-fit semantics are
-identical (tests hold the two to the same offsets).
+identical (tests hold the two to the same offsets), and to the numpy
+PRP of ``data/_shuffle.py``, which gives the same permutation.
 
 Nothing here runs at import.
 """
@@ -86,6 +88,21 @@ def load_native_lib(name: str) -> Optional[ctypes.CDLL]:
             return None
         _libs[name] = lib
         return lib
+
+
+def load_exchange_lib() -> Optional[ctypes.CDLL]:
+    """The PRP shuffle kernels (``exchange.cc``), or None (the numpy
+    PRP in ``data/_shuffle.py`` then does the same work)."""
+    lib = load_native_lib("exchange")
+    if lib is not None and not getattr(lib, "_sigs_set", False):
+        u64, u32 = ctypes.c_uint64, ctypes.c_uint32
+        vp = ctypes.c_void_p
+        lib.prp_gather.restype = None
+        lib.prp_gather.argtypes = [vp, vp, u32, u64, u64, u64, vp]
+        lib.prp_indices.restype = None
+        lib.prp_indices.argtypes = [vp, u64, u64, u64, vp]
+        lib._sigs_set = True  # AFTER signatures: other threads race here
+    return lib
 
 
 def load_allocator_lib() -> Optional[ctypes.CDLL]:

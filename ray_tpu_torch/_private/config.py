@@ -231,6 +231,23 @@ _d("memory_usage_threshold", float, 0.95,
    "host memory fraction above which the monitor kills the newest "
    "running task with a retriable OutOfMemoryError; 0 disables")
 _d("memory_monitor_interval_s", float, 0.25, "memory monitor poll period")
+_d("data_op_inflight", int, 8,
+   "ray_tpu_torch.data: max in-flight tasks per streaming operator")
+_d("data_buffer_blocks", int, 32,
+   "ray_tpu_torch.data: max live blocks across the pipeline "
+   "(backpressure)")
+_d("data_buffer_bytes", int, 256 * 1024 * 1024,
+   "ray_tpu_torch.data: max BYTES of buffered arena-resident blocks "
+   "across the pipeline (bytes-based backpressure; sizes known for "
+   "shm-stored blocks)")
+_d("data_split_queue_blocks", int, 8,
+   "ray_tpu_torch.data streaming_split: max buffered blocks PER "
+   "CONSUMER queue (per-consumer backpressure — one slow consumer "
+   "stalls only its own lane, not the whole split)")
+_d("data_split_queue_bytes", int, 64 * 1024 * 1024,
+   "ray_tpu_torch.data streaming_split: max buffered BYTES per consumer "
+   "queue (sizes known for arena-resident blocks; inline blocks fall "
+   "back to the block-count budget)")
 _d("health_check_period_s", float, 0.2,
    "control-plane health probe period (GCS liveness loop)")
 _d("health_check_timeout_s", float, 0.6,

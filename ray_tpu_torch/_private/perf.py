@@ -7,7 +7,11 @@
    of ``e2e_task_throughput`` in ``ray_tpu/_private/perf.py``, in
    thread or process mode.
 
-2. ``model_mfu`` — train-step performance of the flagship transformer on
+2. ``data_pipeline_throughput`` — BASELINE config 3: a ``map_batches``
+   pipeline through the public ``ray_tpu_torch.data`` API (the streaming
+   executor on the runtime above), in blocks/s and rows/s.
+
+3. ``model_mfu`` — train-step performance of the flagship transformer on
    one device. The same defaults as the reference's (the repo's training
    configuration: vocab 32768, d_model 2048, 8 layers, 16 query / 8 KV
    heads, d_ff 5632, seq 2048, batch 16, remat "dots"), the same halving
@@ -126,6 +130,60 @@ def e2e_task_throughput(n_tasks: int = 10_000,
         "device_assigns": assigns,
         "device_assigns_total": stats.get("device_assigns", 0),
         "device_assign_errors": stats.get("device_assign_errors", 0),
+    }
+
+
+def data_pipeline_throughput(num_blocks: int = 100_000,
+                             rows_per_block: int = 10,
+                             num_workers: int = 8,
+                             system_config: Optional[Dict[str, Any]] = None,
+                             own_runtime: bool = True) -> Dict[str, Any]:
+    """BASELINE config 3 through the REAL library: a map_batches pipeline
+    over num_blocks blocks via the public ray_tpu_torch.data API
+    (streaming executor, backpressure, fused read+map), not a synthetic
+    DAG. ``system_config`` goes to ``init`` (e.g. ``{"sched_backend":
+    "cuda"}`` or ``{"worker_mode": "process"}``). ``own_runtime=False``
+    runs on the caller's runtime (warmed and checked by the caller)
+    instead of starting and shutting down one; ``num_workers`` and
+    ``system_config`` are then unused. Counterpart of
+    ``data_pipeline_throughput`` in ``ray_tpu/_private/perf.py``."""
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    if own_runtime:
+        ray_tpu_torch.shutdown()
+        ray_tpu_torch.init(num_workers=num_workers, scheduler="tensor",
+                           _system_config=system_config)
+    try:
+        sched = worker_mod.global_worker.scheduler
+        assigns0 = sched.stats().get("device_assigns", 0)
+        n_rows = num_blocks * rows_per_block
+        ds = data.range(n_rows, parallelism=num_blocks).map_batches(
+            lambda b: [x * 2 for x in b])
+        t0 = time.perf_counter()
+        total = ds.count()
+        dt = time.perf_counter() - t0
+        assert total == n_rows, (total, n_rows)
+        stats = ds.stats()
+        sched_stats = sched.stats()
+        mode = GLOBAL_CONFIG.worker_mode
+    finally:
+        if own_runtime:
+            ray_tpu_torch.shutdown()
+    return {
+        "num_blocks": num_blocks,
+        "rows": n_rows,
+        "count": total,
+        "mode": mode,
+        "seconds": dt,
+        "blocks_per_sec": num_blocks / dt,
+        "rows_per_sec": n_rows / dt,
+        "stages": stats["stages"] if stats else None,
+        # the timed pipeline's device assignments; the session's errors
+        "device_assigns": sched_stats.get("device_assigns", 0) - assigns0,
+        "device_assign_errors": sched_stats.get("device_assign_errors", 0),
     }
 
 

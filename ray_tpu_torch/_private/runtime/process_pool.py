@@ -169,6 +169,7 @@ class ProcessWorkerPool:
         self._shm = shm_store
         self.node_index = node_index   # scheduler row this pool serves
         self._node_dead = False        # node died: fail, don't respawn
+        self._respawn_disabled = False  # machine gone: no self-heal
         self._lock = threading.Lock()
         self._idle: Deque[_Handle] = collections.deque()
         self._queue: Deque[Tuple[PendingTask, dict]] = collections.deque()
@@ -406,6 +407,17 @@ class ProcessWorkerPool:
             if h.proc is not None and h.proc.poll() is None:
                 n += 1
         return n
+
+    def simulate_machine_death(self) -> None:
+        """Chaos helper: the machine is gone — workers die and the pool
+        cannot self-heal (a lone worker crash respawns a replacement; a
+        dead machine cannot). The control plane is NOT told; the GCS
+        health checker must detect it."""
+        self._respawn_disabled = True
+        with self._lock:
+            handles = list(self._handles) + list(self._actor_handles)
+        for h in handles:
+            self._kill_handle(h)
 
     def fail_node(self, reason: str) -> None:
         """The node this pool backs died: fail queued work retriably, kill
@@ -1259,7 +1271,8 @@ class ProcessWorkerPool:
                 with self._lock:
                     self._by_task.pop(exec_id, None)
         self._free_rings(h)
-        if not shutting_down and not self._node_dead:
+        if not shutting_down and not self._node_dead \
+                and not self._respawn_disabled:
             # replacement worker keeps the pool at capacity (with its
             # own fresh rings — _spawn re-initializes the geometry)
             replacement = self._spawn()

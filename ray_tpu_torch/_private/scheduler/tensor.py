@@ -899,6 +899,19 @@ class TensorScheduler(SchedulerBase):
         # scheduling class, never compacted), and the kernel's scan
         # length is its leading dim
         uniq, inv = np.unique(ready_cls, return_inverse=True)
+        # and the node axis to the rows that can take a task: a removed
+        # node's row (or a drained bundle's) keeps its index with zero
+        # capacity, so rows pile up as nodes come and go while the
+        # kernel takes at most kernels.MAX_NODES. No implementation ever
+        # assigns to an all-zero row, so dropping them changes nothing;
+        # row 0 stays, the hybrid policy's local node
+        rows = None
+        keep = cap.any(axis=1)
+        keep[:1] = True
+        if not keep.all():
+            rows = np.flatnonzero(keep)
+            full_avail, avail, cap = avail, avail[rows], cap[rows]
+            class_mask = class_mask[:, rows]
         args = (inv.astype(np.int32), demands[uniq], avail, cap, threshold,
                 class_mask[uniq], class_spread[uniq])
         device = torch.device(GLOBAL_CONFIG.sched_device)
@@ -914,7 +927,13 @@ class TensorScheduler(SchedulerBase):
             self._num_device_assign_errors += 1
             raise
         self._num_device_assigns += 1
-        return out
+        if rows is None:
+            return out
+        node_of, sub_avail = out
+        new_avail = full_avail.copy()
+        new_avail[rows] = sub_avail
+        return (np.where(node_of >= 0, rows[np.maximum(node_of, 0)], -1)
+                .astype(node_of.dtype), new_avail)
 
     def _fail_batch(self, ready_idx, exc: BaseException) -> None:
         """Release the slots of a batch whose assignment raised and hand

@@ -722,3 +722,110 @@ def test_process_phase_helpers_run_on_the_host():
         assert chip_smoke.runtime_actors(ray, 2, 5)[1] == 0
     finally:
         ray.shutdown()
+
+
+# -- the data and cluster phases' helpers ---------------------------------------
+
+def _removed(snap, rows):
+    """snap with the scheduler rows in ``rows`` zeroed, as remove_node
+    leaves them."""
+    ready_idx, ready_cls, demands, avail, cap, mask, spread, tiers = snap
+    avail, cap = avail.copy(), cap.copy()
+    avail[rows], cap[rows] = 0.0, 0.0
+    return (ready_idx, ready_cls, demands, avail, cap, mask, spread, tiers)
+
+
+def test_dead_row_check_counts_only_snapshots_after_the_removal():
+    """Snapshots whose dead rows still have capacity were taken before the
+    removal and are not counted; after it, the device path's choices
+    pass, and a task placed on the dead row is caught (and differs from
+    assign_np, which never uses an all-zero row)."""
+    from ray_tpu_torch._private.scheduler import kernels as sk
+
+    before = chip_smoke.crossover_snapshot(256, 4, seed=1)
+    after = _removed(chip_smoke.crossover_snapshot(256, 4, seed=2), [3])
+    snaps = [(s, *_device_cpu(sk, s)) for s in (before, after)]
+    assert chip_smoke.dead_row_check(sk, snaps, {3}, 0.5) == (1, 0, 0)
+    _snap, node_of, avail = snaps[1]
+    bad = node_of.copy()
+    bad[np.flatnonzero(bad >= 0)[0]] = 3
+    assert chip_smoke.dead_row_check(
+        sk, [(after, bad, avail)], {3}, 0.5) == (1, 1, 1)
+    # a snapshot from before the node existed has no such row
+    assert chip_smoke.dead_row_check(sk, snaps, {64}, 0.5)[0] == 0
+
+
+def test_detection_deadline_is_the_budget_plus_five_periods():
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    assert chip_smoke.detection_deadline(GLOBAL_CONFIG) == pytest.approx(
+        GLOBAL_CONFIG.health_check_timeout_s
+        + 5 * GLOBAL_CONFIG.health_check_period_s)
+
+
+def test_native_exchange_names_the_ports_own_build(tmp_path):
+    class Lib:
+        _name = str(tmp_path / "_build" / "native_exchange-0123.so")
+
+    class Shuffle:
+        def __init__(self, lib):
+            self._lib = lambda: lib
+
+    assert chip_smoke.native_exchange(Shuffle(Lib()), tmp_path) == (
+        Lib._name, True)
+    assert not chip_smoke.native_exchange(Shuffle(None), tmp_path)[1]
+    other = Lib()
+    other._name = str(tmp_path / "ray_tpu" / "_native" / "_exchange.so")
+    assert not chip_smoke.native_exchange(Shuffle(other), tmp_path)[1]
+    from ray_tpu_torch.data import _shuffle
+
+    repo = Path(chip_smoke.__file__).resolve().parent
+    assert chip_smoke.native_exchange(_shuffle, repo / "ray_tpu_torch")[1]
+
+
+def test_wait_running_on_polls_the_task_table():
+    class Sched:
+        def __init__(self):
+            self.calls = 0
+
+        def task_table(self):
+            self.calls += 1
+            state = "RUNNING" if self.calls > 3 else "WAITING"
+            return [{"node_index": 0, "state": "RUNNING"},
+                    {"node_index": 2, "state": state}]
+
+    class W:
+        scheduler = Sched()
+
+    assert chip_smoke.wait_running_on(W(), 2) >= 0
+    with pytest.raises(AssertionError, match="row 5"):
+        chip_smoke.wait_running_on(W(), 5, timeout=0.05)
+
+
+def test_data_helpers_on_the_port_runtime():
+    """data_pipeline is BASELINE config 3's pipeline; data_shuffle and
+    data_batches pass on the host at the phase's own sizes."""
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import data
+    from ray_tpu_torch.data import _shuffle
+
+    ray.shutdown()
+    ray.init(num_workers=4, scheduler="tensor",
+             _system_config={"sched_device": "cpu"})
+    try:
+        rows = chip_smoke.data_pipeline(data, 20).take_all()
+        assert rows == [2 * i for i in range(20 * chip_smoke.
+                                             DATA_ROWS_PER_BLOCK)]
+        row, problems = chip_smoke.data_batches(data, torch.device("cpu"))
+        assert not problems and row["sum"] == row["want"]
+        assert row["batches"] == 248    # 8 blocks of 125k rows
+        saved = chip_smoke.SHUFFLE_ROWS, chip_smoke.SHUFFLE_BLOCKS
+        chip_smoke.SHUFFLE_ROWS, chip_smoke.SHUFFLE_BLOCKS = 5000, 50
+        try:
+            row, problems = chip_smoke.data_shuffle(
+                data, _shuffle, Path(ray.__file__).resolve().parent)
+        finally:
+            chip_smoke.SHUFFLE_ROWS, chip_smoke.SHUFFLE_BLOCKS = saved
+        assert not problems and row["native"] and row["same_order"]
+    finally:
+        ray.shutdown()

@@ -211,11 +211,12 @@ def test_engine_rejects_oversized_and_empty(tiny):
 def test_port_imports_no_jax():
     """Every module of the port imports, and the runtime runs init, a
     task, an actor and shutdown (the scheduler's device path on the host:
-    sched_device "cpu"), in thread mode and then a task in process mode,
-    with no jax and no ray_tpu module loaded in the driver or the worker
-    process; the package's import, and Serve's, the metrics plane's and
-    the process runtime's, leave CUDA uninitialised."""
-    code = ("import os, torch, ray_tpu_torch as ray\n"
+    sched_device "cpu"), in thread mode and then a task and a Data
+    map_batches in process mode, with no jax and no ray_tpu module loaded
+    in the driver or the worker processes; the package's import, and
+    Serve's, the metrics plane's, the process runtime's, Data's, the
+    cluster's and the autoscaler's, leave CUDA uninitialised."""
+    code = ("import os, sys, torch, ray_tpu_torch as ray\n"
             "assert not torch.cuda.is_initialized()\n"
             "import ray_tpu_torch.models.inference, "
             "ray_tpu_torch.models.train_step, ray_tpu_torch.ops.flash, "
@@ -233,7 +234,10 @@ def test_port_imports_no_jax():
             "ray_tpu_torch._private.runtime.worker_process, "
             "ray_tpu_torch._private.runtime.shm_store, "
             "ray_tpu_torch._private.spawn_env, "
-            "ray_tpu_torch._private.protocol, ray_tpu_torch._native\n"
+            "ray_tpu_torch._private.protocol, ray_tpu_torch._native, "
+            "ray_tpu_torch.data, ray_tpu_torch.data._streaming, "
+            "ray_tpu_torch.data._shuffle, ray_tpu_torch.cluster_utils, "
+            "ray_tpu_torch.autoscaler\n"
             "assert not torch.cuda.is_initialized()\n"
             "ray.init(num_workers=2, scheduler='tensor', "
             "_system_config={'sched_device': 'cpu'})\n"
@@ -254,6 +258,13 @@ def test_port_imports_no_jax():
             "m.split('.')[0] in ('jax', 'flax', 'ray_tpu')]\n"
             "pid, loaded = ray.get(mods.remote(), timeout=60)\n"
             "assert pid != os.getpid() and loaded == [], loaded\n"
+            "from ray_tpu_torch import data\n"
+            "got = data.range(100, parallelism=4).map_batches(lambda b: "
+            "[(x * 2, os.getpid(), [m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'flax', 'ray_tpu')]) for x in b])"
+            ".take_all()\n"
+            "assert [g[0] for g in got] == [2 * i for i in range(100)]\n"
+            "assert all(g[1] != os.getpid() and g[2] == [] for g in got)\n"
             "ray.shutdown()\n"
             "assert not torch.cuda.is_initialized()\n"
             "import sys\n"

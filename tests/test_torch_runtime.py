@@ -715,7 +715,7 @@ def test_refused_init_leaves_no_setting_behind(refused):
 @pytest.mark.parametrize("knob", [
     "worker_tpu_access", "daemon_rejoin_timeout_s",
     "client_reconnect_timeout_s", "actor_p2p", "scheduler_locality",
-    "tenant_quotas", "data_op_inflight", "local_dispatch",
+    "tenant_quotas", "preempt_grace_s", "local_dispatch",
     "profile_stacks_max"])
 def test_reference_knobs_without_code_are_unknown(knob):
     """Knobs of planes the port does not have are not defined: setting
