@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of ray_tpu_torch on one NVIDIA GPU: build, check, serve, train,
-data, cluster.
+data, cluster, RLlib, Train.
 
     python3 chip_smoke.py            # one card; 0 only if every phase passed
     python3 chip_smoke.py --kernels  # build, device and every kernel's
@@ -169,6 +169,33 @@ Phases, each printing one JSON line:
                bundle moving off one; the Autoscaler against a 1-CPU head
                (12 x 0.4 s tasks: an upscale, then a downscale once idle);
                after shutdown no worker process alive.
+ 15. rllib   — RLlib on the runtime (phase_rllib), 8 workers, the
+               TensorScheduler assigning on the card: BASELINE config 5
+               (perf.rl_rollout_throughput: IMPALA, 4 runners x 8 envs x
+               64 steps, 8 updates an iteration, the V-trace learner on
+               the card) with env-steps/s, learner ms an update and the
+               return, kernels.assign's counter zeroed just before and
+               equal to its device assigns, every snapshot equal to
+               assign_np; PPO on CartPole (the reference's learning
+               test) to 1.5 x max(first, 20) within 17 iterations, then
+               a runner killed and one more iteration; one iteration each
+               of config 5 and of that PPO under torch.profiler (the
+               device's busy share); one PPO update on the card against
+               the CPU (TF32 off) within 1e-5, both timed; process mode (8 workers): PPO's first batch
+               bit-identical to thread mode's, no runner process with
+               jax, flax or ray_tpu or a card, the learner on the card;
+               IMPALA, APPO, DQN and SAC iterations with finite losses.
+ 16. train_lib — Train on the runtime (phase_train_lib): a Trainer whose
+               loop trains the flagship configuration (445M, bf16, remat
+               "dots"; the batch cut to [4, 2048]) 4 steps through
+               make_optimizer / make_train_step, saving model and AdamW
+               state with save_torch_checkpoint after step 1, failing at
+               step 2 and resumed by FailureConfig(max_failures=1): the
+               resumed losses within 1e-6 of an uninterrupted run, the
+               checkpoint's bytes, save and load seconds, the flash
+               launches (3 kernels x layers x steps) and assign's; then
+               a 2-worker Trainer's get_dataset_shard over 10k rows,
+               disjoint and whole.
 
 Then the kernel table as one JSON line (kernel 1's launches: the Serve
 path's, mono and split, with phase engine's beside them), the nvidia-smi line, and last
@@ -346,6 +373,32 @@ CLUSTER_HEAD = dict(num_cpus=2, num_workers=2, scheduler="tensor")
 CLUSTER_NODE = dict(num_cpus=4, num_workers=2)
 CLUSTER_TASKS, CLUSTER_TASK_S = 200, 0.05
 AUTOSCALE_TASKS, AUTOSCALE_TASK_S = 12, 0.4
+# RLlib (phase rllib): BASELINE config 5 through the port's RLlib
+# (perf.rl_rollout_throughput at the reference's sizes: 4 runners x 8 envs
+# x 64 steps, 8 updates an iteration, 8 workers) for RL_ITERS timed
+# iterations after a warm one; PPO on CartPole at the reference's learning
+# test (RL_PPO) to 1.5 x max(first, 20) within RL_PPO_ITERS iterations;
+# one PPO update on the card against the CPU on a minibatch of PPO's own
+# size (2 x 4 x 256 rows / 4), held to the CPU tests' f32 bound; process
+# mode for RL_PROCESS_ITERS iterations, the first batch's RL_BATCH_KEYS
+# bit-identical to thread mode's
+RL_WORKERS, RL_ITERS = 8, 4
+RL_PPO = dict(num_env_runners=2, num_envs_per_runner=4, rollout_len=256,
+              seed=0)
+RL_PPO_ITERS, RL_PROCESS_ITERS = 17, 2
+RL_MINIBATCH, RL_UPDATE_REPEATS, RL_UPDATE_BOUND = 512, 50, 1e-5
+RL_BATCH_KEYS = ("obs", "actions", "logp", "rewards", "dones")
+# rl_rollout_throughput's IMPALA configuration (the reference's), built
+# once more for one profiled iteration after a warm one
+RL_CONFIG5 = dict(num_env_runners=4, num_envs_per_runner=8, rollout_len=64,
+                  updates_per_iter=8, seed=0)
+# Train (phase train_lib): the flagship train configuration (phase train's
+# width and depth) in a Trainer's loop, the batch cut to TRAIN_LIB_BATCH
+# rows; TRAIN_LIB_STEPS steps, a checkpoint after step FAIL_STEP - 1, a
+# failure at FAIL_STEP; resumed losses within TRAIN_LIB_REL of an
+# uninterrupted run; then TRAIN_LIB_ROWS rows split over 2 workers
+TRAIN_LIB_BATCH, TRAIN_LIB_STEPS, TRAIN_LIB_FAIL_STEP = 4, 4, 2
+TRAIN_LIB_REL, TRAIN_LIB_ROWS = 1e-6, 10_000
 CROSSOVER_K = (64, 256, 1024, 4096, 16384, 65536)
 CROSSOVER_CLASSES = (1, 64)
 CROSSOVER_NODES = 64
@@ -3815,6 +3868,563 @@ def phase_cluster(torch, dev):
     return total[0]
 
 
+def tree_on(tree, dev):
+    """Whether every tensor of a parameter tree lies on dev."""
+    from ray_tpu_torch.rllib.optim import tree_leaves
+
+    return all(t.device == dev for t in tree_leaves(tree))
+
+
+def rl_first_batches(algo):
+    """Wrap algo._collect so that the batches of its first call are kept:
+    the returned list holds them once train() has run."""
+    kept, collect = [], algo._collect
+
+    def _collect():
+        out = collect()
+        if not kept:
+            kept.append(out)
+        return out
+
+    algo._collect = _collect
+    return kept
+
+
+def rl_recording_env_maker(out_dir):
+    """CartPoleEnv(seed), and a file out_dir/<pid>.json a process naming
+    the REF_MODULES it has loaded and its CUDA_VISIBLE_DEVICES."""
+    def maker(seed):
+        import json as _json
+        import os as _os
+        import sys as _sys
+
+        from ray_tpu_torch.rllib.env import CartPoleEnv
+
+        path = _os.path.join(out_dir, f"{_os.getpid()}.json")
+        if not _os.path.exists(path):
+            with open(path, "w") as f:
+                _json.dump({"modules": sorted(
+                    m for m in _sys.modules
+                    if m.split(".")[0] in REF_MODULES),
+                    "cuda_visible_devices": _os.environ.get(
+                        "CUDA_VISIBLE_DEVICES")}, f)
+        return CartPoleEnv(seed)
+
+    return maker
+
+
+def rl_update_parity(torch, module, cfg, params, opt_state, dev):
+    """One PPO update (ppo._make_update at cfg's settings) on dev and on
+    the CPU from the same params, optimizer state and a seeded minibatch
+    of RL_MINIBATCH rows, TF32 off: loss, pre-clip grad norm and every
+    updated parameter within RL_UPDATE_BOUND (relative L2 per leaf), and
+    each side's time a call (RL_UPDATE_REPEATS calls, synchronised)."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.core import to_device
+    from ray_tpu_torch.rllib.optim import tree_leaves
+    from ray_tpu_torch.rllib.ppo import _make_update
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    n = RL_MINIBATCH
+    host = (rng.normal(size=(n, 4)).astype(np.float32),
+            rng.integers(0, 2, n).astype(np.int64),
+            rng.normal(-0.7, 0.1, n).astype(np.float32),
+            rng.normal(size=n).astype(np.float32),
+            rng.normal(size=n).astype(np.float32))
+    _opt, update = _make_update(cfg.lr, cfg.clip, cfg.vf_coeff,
+                                cfg.ent_coeff, cfg.max_grad_norm, module)
+    out, ms = {}, {}
+    for where in (dev, torch.device("cpu")):
+        p, s = to_device(params, where), to_device(opt_state, where)
+        args = [torch.as_tensor(x, device=where) for x in host]
+        out[where.type] = update(p, s, *args)
+        sync = (lambda: torch.cuda.synchronize(where)) \
+            if where.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(RL_UPDATE_REPEATS):
+            r = update(p, s, *args)
+        float(r[2])
+        sync()
+        ms[where.type] = (time.perf_counter() - t0) / RL_UPDATE_REPEATS * 1e3
+    (pd, _sd, ld, ad), (pc, _sc, lc, ac) = out[dev.type], out["cpu"]
+    leaf = max(float(torch.linalg.vector_norm(a.cpu() - b)
+                     / torch.linalg.vector_norm(b))
+               for a, b in zip(tree_leaves(pd), tree_leaves(pc)))
+    row = {"loss_card": float(ld), "loss_cpu": float(lc),
+           "loss_diff": abs(float(ld) - float(lc)),
+           "grad_norm_card": float(ad[3]), "grad_norm_cpu": float(ac[3]),
+           "grad_norm_rel_diff": abs(float(ad[3]) - float(ac[3]))
+           / float(ac[3]),
+           "worst_param_rel_l2": leaf, "bound": RL_UPDATE_BOUND,
+           "minibatch": n, "ms_card": ms[dev.type], "ms_cpu": ms["cpu"],
+           "faster": dev.type if ms[dev.type] < ms["cpu"] else "cpu"}
+    row["ok"] = (row["loss_diff"] <= RL_UPDATE_BOUND * max(1.0, abs(float(lc)))
+                 and row["grad_norm_rel_diff"] <= RL_UPDATE_BOUND
+                 and leaf <= RL_UPDATE_BOUND)
+    return row
+
+
+def rl_profiled(torch, make):
+    """One warm iteration of the algorithm make() builds, then one under
+    torch.profiler (profile_call): wall, device busy time and share, the
+    top kernels."""
+    algo = make()
+    try:
+        algo.train()
+        prof = profile_call(torch, algo.train)
+    finally:
+        algo.stop()
+    return {**prof, "device_busy_share": prof["device_busy_us"]
+            / prof["wall_us"]}
+
+
+def rl_learns(R, dev, dev_arg):
+    """PPO on CartPole (RL_PPO, the reference's learning test) until
+    episode_return_mean > 1.5 x max(first, 20), at most RL_PPO_ITERS
+    iterations; then ray.kill of one runner and one more iteration.
+    (row, problems, the first iteration's batches, the algorithm)."""
+    import ray_tpu_torch as ray
+
+    algo = R.PPOConfig(**RL_PPO, device=dev_arg).build()
+    first_batches = rl_first_batches(algo)
+    problems, returns, learner_ms, steps = [], [], [], 0
+    t0 = time.perf_counter()
+    while len(returns) < RL_PPO_ITERS:
+        m = algo.train()
+        returns.append(m["episode_return_mean"])
+        learner_ms.append(m["learner_ms"])
+        steps += m["num_env_steps"]
+        if len(returns) > 1 and returns[-1] > 1.5 * max(returns[0], 20):
+            break
+    dt = time.perf_counter() - t0
+    reached = len(returns) > 1 and returns[-1] > 1.5 * max(returns[0], 20)
+    ray.kill(algo._runners[0])
+    it = algo.iteration
+    after = algo.train()
+    row = {"iterations": len(returns), "returns": returns,
+           "threshold": 1.5 * max(returns[0], 20), "reached": reached,
+           "env_steps_per_sec": steps / dt,
+           "learner_ms_per_update": sum(learner_ms) / len(learner_ms),
+           "learner_ms_by_iteration": learner_ms,
+           "learner_device": str(algo.device),
+           "after_kill": {k: after[k] for k in (
+               "training_iteration", "num_env_steps",
+               "episode_return_mean")}}
+    problems += [f"ppo: {what}" for what, bad in (
+        (f"no {row['threshold']} within {RL_PPO_ITERS} iterations: "
+         f"{returns}", not reached),
+        (f"learner on {algo.device}, not {dev}", algo.device != dev),
+        ("params off the learner's device",
+         not tree_on(algo.params, dev)),
+        ("no training after a runner's kill",
+         after["training_iteration"] != it + 1
+         or after["num_env_steps"] <= 0)) if bad]
+    return row, problems, first_batches, algo
+
+
+def rl_other_algorithms(R, dev, dev_arg):
+    """IMPALA and APPO one iteration each, DQN and SAC (Pendulum) two each,
+    at their default configs: every loss of an iteration that updated
+    finite, at least one update each, the params on dev after."""
+    import math
+
+    rows, problems = {}, []
+    cases = (("IMPALA", R.IMPALAConfig(device=dev_arg), 1, "loss"),
+             ("APPO", R.APPOConfig(device=dev_arg), 1, "loss"),
+             ("DQN", R.DQNConfig(device=dev_arg), 2, "loss"),
+             ("SAC", R.SACConfig(env_maker=lambda s: R.PendulumEnv(s),
+                                 device=dev_arg), 2, "q_loss"))
+    for name, cfg, iters, key in cases:
+        algo = cfg.build()
+        try:
+            t0 = time.perf_counter()
+            losses = [algo.train()[key] for _ in range(iters)]
+            dt = time.perf_counter() - t0
+            on_dev = tree_on(algo.params, dev)
+        finally:
+            algo.stop()
+        ran = [x for x in losses if not math.isnan(x)]
+        rows[name] = {"iterations": iters, key: losses, "seconds": dt,
+                      "params_on": str(dev) if on_dev else "elsewhere"}
+        problems += [f"{name}: {what}" for what, bad in (
+            ("no update ran", not ran),
+            (f"a loss not finite: {losses}",
+             not all(math.isfinite(x) for x in ran)),
+            (f"params not on {dev}", not on_dev)) if bad]
+    return rows, problems
+
+
+def phase_rllib(torch, dev):
+    """BASELINE config 5 and RLlib on the card (see RL_*): the runtime
+    with 8 workers, the TensorScheduler assigning on ``dev``.
+
+    (a) perf.rl_rollout_throughput(iters=4) at the reference's sizes, the
+        learner on dev: env-steps/s, learner ms an update, the return;
+        kernels.assign's counter zeroed just before and read just after,
+        equal to the device assigns and > 0, every snapshot equal to
+        assign_np.
+    (b) PPO on CartPole (the reference's learning test) to 1.5 x
+        max(first, 20) within 17 iterations, the learner from
+        ``device=None``; a runner killed, the next iteration trains.
+        One iteration each of config 5's IMPALA and of this PPO, after a
+        warm one, under torch.profiler: the device's busy share.
+    (c) one PPO update on dev against the same update on the CPU (TF32
+        off): loss, grad norm, every parameter within RL_UPDATE_BOUND;
+        both timed.
+    (d) process mode, 8 workers: PPO at (b)'s seed, 2 iterations; the
+        first batch bit-identical to (b)'s; no runner process with jax,
+        flax or ray_tpu, none seeing a card; the learner on dev; assign's
+        counter as in (a).
+    (e) IMPALA, APPO (1 iteration), DQN, SAC (2 iterations): losses
+        finite, params on dev.
+    Returns assign's launches: {"thread": (a)'s, "process": (d)'s}."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import rllib as R
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch._private.perf import rl_rollout_throughput
+    from ray_tpu_torch._private.scheduler import kernels as sk
+    from ray_tpu_torch._private.scheduler.tensor import TensorScheduler
+    from ray_tpu_torch.rllib.core import host_copy
+
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    # None means the card: the entry points' own default, on the card
+    dev_arg = None if dev.type == "cuda" else str(dev)
+    system = {"sched_backend": "cuda", "sched_device": dev.type}
+    problems, launches = [], {}
+    rec = AssignRecorder(torch, TensorScheduler, sk, GLOBAL_CONFIG)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_rllib_")
+    try:
+        ray.init(num_workers=RL_WORKERS, scheduler="tensor",
+                 _system_config=system)
+        try:
+            threshold = GLOBAL_CONFIG.sched_hybrid_threshold
+            rec.snapshots = []
+            sk.assign.launches = 0          # the main path, from zero
+            r = rl_rollout_throughput(iters=RL_ITERS, device=dev_arg)
+            n = sk.assign.launches
+            snaps, rec.snapshots = rec.snapshots, None
+            bad = replay_oracle(sk, snaps, threshold)
+            launches["thread"] = n
+            emit({"phase": "rllib", "part": "config5_impala",
+                  "runners": 4, "envs_per_runner": 8, "rollout_len": 64,
+                  "updates_per_iter": 8, "iters": RL_ITERS, **r,
+                  "assign_launches": n, "snapshots": len(snaps),
+                  "differ": bad, "nvidia_smi": smi})
+            problems += [f"config 5: {what}" for what, failed in (
+                (f"learner on {r['learner_device']}",
+                 r["learner_device"] != str(dev)),
+                (f"assign launches {n} != device assigns "
+                 f"{r['device_assigns']}", n != r["device_assigns"]),
+                ("no device assign", n == 0),
+                (f"{bad} of {len(snaps)} snapshots differ from assign_np",
+                 bad or not snaps)) if failed]
+
+            if dev.type == "cuda":
+                emit({"phase": "rllib", "part": "config5_profile",
+                      **rl_profiled(torch, lambda: R.IMPALAConfig(
+                          **RL_CONFIG5, device=dev_arg).build())})
+            row, found, thread_batches, algo = rl_learns(R, dev, dev_arg)
+            emit({"phase": "rllib", "part": "ppo_cartpole", **row,
+                  "config": RL_PPO})
+            if dev.type == "cuda":
+                emit({"phase": "rllib", "part": "ppo_profile",
+                      **rl_profiled(torch, lambda: R.PPOConfig(
+                          **RL_PPO, device=dev_arg).build())})
+            problems += found
+            row = rl_update_parity(torch, algo.module, algo.config,
+                                   host_copy(algo.params),
+                                   algo.opt_state, dev)
+            algo.stop()
+            emit({"phase": "rllib", "part": "update_card_vs_cpu", **row})
+            if not row["ok"]:
+                problems.append("the card's PPO update is out of the f32 "
+                                "bound of the CPU's")
+            rows, found = rl_other_algorithms(R, dev, dev_arg)
+            emit({"phase": "rllib", "part": "algorithms", **rows})
+            problems += found
+            if ray._worker.get_worker().scheduler.stats()[
+                    "device_assign_errors"]:
+                problems.append("thread: device assign errors")
+        finally:
+            ray.shutdown()
+
+        ray.init(num_workers=RL_WORKERS, scheduler="tensor",
+                 _system_config={**system, "worker_mode": "process"})
+        try:
+            w = ray._worker.get_worker()
+            threshold = GLOBAL_CONFIG.sched_hybrid_threshold
+            wait_workers_ready(w.process_pool)
+            rec.snapshots = []
+            a0 = w.scheduler.stats()["device_assigns"]
+            sk.assign.launches = 0
+            t0 = time.perf_counter()
+            algo = R.PPOConfig(**RL_PPO, device=dev_arg,
+                               env_maker=rl_recording_env_maker(out_dir)
+                               ).build()
+            try:
+                batches = rl_first_batches(algo)
+                its = [algo.train() for _ in range(RL_PROCESS_ITERS)]
+                on_dev = algo.device == dev and tree_on(algo.params,
+                                                        dev)
+            finally:
+                algo.stop()
+            dt = time.perf_counter() - t0
+            n = sk.assign.launches
+            assigns = w.scheduler.stats()["device_assigns"] - a0
+            snaps, rec.snapshots = rec.snapshots, None
+            bad = replay_oracle(sk, snaps, threshold)
+            launches["process"] = n
+            same = [all(np.array_equal(p[k], t[k]) for k in RL_BATCH_KEYS)
+                    for p, t in zip(batches[0], thread_batches[0])]
+            procs = {}
+            for name in os.listdir(out_dir):
+                pid = int(name.split(".")[0])
+                if pid != os.getpid():
+                    with open(os.path.join(out_dir, name)) as f:
+                        procs[pid] = json.load(f)
+            emit({"phase": "rllib", "part": "process_mode",
+                  "workers": RL_WORKERS, "iterations": RL_PROCESS_ITERS,
+                  "seconds": dt, "returns": [m["episode_return_mean"]
+                                             for m in its],
+                  "first_batch_bit_identical": same,
+                  "runner_processes": {str(p): v for p, v in procs.items()},
+                  "learner_on": str(dev) if on_dev else "elsewhere",
+                  "assign_launches": n, "device_assigns": assigns,
+                  "snapshots": len(snaps), "differ": bad})
+            problems += [f"process: {what}" for what, failed in (
+                (f"first batch differs from thread mode's: {same}",
+                 len(same) != RL_PPO["num_env_runners"] or not all(same)),
+                (f"runner processes {sorted(procs)}",
+                 len(procs) < RL_PPO["num_env_runners"]),
+                (f"a runner loaded {REF_MODULES}",
+                 any(v["modules"] for v in procs.values())),
+                ("a runner sees a card", any(
+                    v["cuda_visible_devices"] != "" for v in procs.values())),
+                (f"learner not on {dev}", not on_dev),
+                (f"assign launches {n} != device assigns {assigns}",
+                 n != assigns), ("no device assign", n == 0),
+                (f"{bad} of {len(snaps)} snapshots differ from assign_np",
+                 bad or not snaps)) if failed]
+        finally:
+            ray.shutdown()
+    finally:
+        rec.remove()
+        ray.shutdown()
+        GLOBAL_CONFIG.reset()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "rllib", "part": "done",
+          "seconds": time.perf_counter() - t_phase, "ok": not problems,
+          "nvidia_smi": smi})
+    if problems:
+        raise AssertionError(f"rllib phase: {problems}")
+    return launches
+
+
+def train_lib_loop(torch, dev, side):
+    """Trainer's train_loop_per_worker for phase train_lib: the flagship
+    model (_train_setup at TRAIN_LIB_BATCH) through make_optimizer /
+    make_train_step on dev, TRAIN_LIB_STEPS steps from the checkpoint it
+    is given, if any. With config["fail"], the model and AdamW state are
+    saved after step 1 and the first attempt raises at
+    TRAIN_LIB_FAIL_STEP. Times and bytes go to ``side``."""
+    import os
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import train_step as ts
+    from ray_tpu_torch.models.transformer import Transformer
+
+    def loop(config):
+        cfg, params, tokens = _train_setup(torch, torch.bfloat16,
+                                           TRAIN_LIB_BATCH)
+        model = Transformer(cfg, device=dev).load_params(params)
+        del params
+        opt = ts.make_optimizer(model.parameters())
+        step = ts.make_train_step(model, opt)
+        start, ckpt = 0, train.get_checkpoint()
+        if ckpt is not None:
+            t0 = time.perf_counter()
+            state = train.load_torch_checkpoint(ckpt, map_location=dev)
+            model.load_state_dict(state["model"])
+            opt.load_state_dict(state["optim"])
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            side["load_s"] = time.perf_counter() - t0
+            start = state["step"] + 1
+            del state
+        for s in range(start, TRAIN_LIB_STEPS):
+            if (config["fail"] and s == TRAIN_LIB_FAIL_STEP
+                    and not os.path.exists(config["marker"])):
+                open(config["marker"], "w").close()
+                raise RuntimeError("injected worker failure")
+            loss = float(step({"tokens": tokens})["loss"])
+            side.setdefault("losses", {})[s] = loss
+            saved = None
+            if config["fail"] and s == TRAIN_LIB_FAIL_STEP - 1:
+                t0 = time.perf_counter()
+                saved = train.save_torch_checkpoint(
+                    config["dir"], {"model": model.state_dict(),
+                                    "optim": opt.state_dict(), "step": s})
+                side["save_s"] = time.perf_counter() - t0
+                side["bytes"] = sum(
+                    os.path.getsize(os.path.join(saved.path, f))
+                    for f in os.listdir(saved.path))
+            train.report({"step": s, "loss": loss, "resumed_from": start},
+                         checkpoint=saved)
+
+    return loop
+
+
+def phase_train_lib(torch, dev):
+    """Train on the card (see TRAIN_LIB_*): the runtime with 8 workers,
+    the TensorScheduler assigning on ``dev``.
+
+    - a 1-worker Trainer whose loop trains the flagship model (phase
+      train's width and depth, 445M parameters, bf16, remat "dots"; the
+      batch cut to [4, 2048]) for 4 steps, saves model and AdamW state
+      with save_torch_checkpoint after step 1 and raises at step 2 on
+      its first attempt; FailureConfig(max_failures=1) restarts it from
+      the checkpoint. The flash counters and kernels.assign's counter
+      zeroed just before fit() and read just after: 3 kernels x layers
+      x the steps run, and assign's launches equal to the device assigns
+      and > 0. An uninterrupted run from the same seeds: the resumed
+      losses of steps 2-3 within TRAIN_LIB_REL of it (and whether
+      bit-equal); the checkpoint's bytes, save and load seconds.
+    - a 2-worker Trainer on CPU loops over get_dataset_shard of a
+      10k-row data.range: the shards disjoint, their union every row.
+    Returns assign's launches in the flagship fit."""
+    import math
+    import os
+    import tempfile
+
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import data, train
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch._private.scheduler import kernels as sk
+
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    problems = []
+    kernels = _flash_kernels()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    ray.init(num_workers=RL_WORKERS, scheduler="tensor",
+             _system_config={"sched_backend": "cuda",
+                             "sched_device": dev.type})
+    try:
+        w = ray._worker.get_worker()
+        side = {}
+        a0 = w.scheduler.stats()["device_assigns"]
+        for kern in kernels.values():
+            kern.launches = 0
+        sk.assign.launches = 0              # the main path, from zero
+        t0 = time.perf_counter()
+        resumed = train.Trainer(
+            train_lib_loop(torch, dev, side),
+            train_loop_config={"fail": True,
+                               "dir": os.path.join(root, "ckpt"),
+                               "marker": os.path.join(root, "failed")},
+            scaling_config=train.ScalingConfig(num_workers=1),
+            run_config=train.RunConfig(
+                failure_config=train.FailureConfig(max_failures=1))).fit()
+        dt = time.perf_counter() - t0
+        n = sk.assign.launches
+        assigns = w.scheduler.stats()["device_assigns"] - a0
+        flash = {k: kern.launches for k, kern in kernels.items()}
+        # steps 0 to FAIL_STEP - 1, then FAIL_STEP to STEPS - 1 resumed
+        steps_run = TRAIN_LIB_STEPS
+        layers = TRAIN["n_layers"]
+        want = {"flash_fwd": 2 * layers * steps_run,
+                "flash_bwd_dq": layers * steps_run,
+                "flash_bwd_dkv": layers * steps_run}
+        first_losses = dict(side["losses"])
+        whole_side = {}
+        torch.cuda.empty_cache()
+        whole = train.Trainer(
+            train_lib_loop(torch, dev, whole_side),
+            train_loop_config={"fail": False},
+            scaling_config=train.ScalingConfig(num_workers=1)).fit()
+        got = {m["step"]: m["loss"] for m in resumed.metrics_history}
+        ref = {m["step"]: m["loss"] for m in whole.metrics_history}
+        resumed_steps = list(range(TRAIN_LIB_FAIL_STEP, TRAIN_LIB_STEPS))
+        rel = {s: abs(got[s] - ref[s]) / abs(ref[s]) for s in resumed_steps
+               if s in got and s in ref}
+        emit({"phase": "train_lib", "part": "resume",
+              "n_layers": layers, "dtype": "bfloat16",
+              "remat_policy": "dots", "batch": [TRAIN_LIB_BATCH, TRAIN_SEQ],
+              "cut": f"batch [{TRAIN_LIB_BATCH}, {TRAIN_SEQ}], not "
+                     f"[{TRAIN_BATCH}, {TRAIN_SEQ}]",
+              "steps": TRAIN_LIB_STEPS, "fail_step": TRAIN_LIB_FAIL_STEP,
+              "losses_every_attempt": first_losses,
+              "losses_resumed": got, "losses_uninterrupted": ref,
+              "rel_diff": rel, "bound": TRAIN_LIB_REL,
+              "bit_equal": all(got.get(s) == ref.get(s)
+                               for s in resumed_steps),
+              "resumed_from": resumed.metrics.get("resumed_from"),
+              "checkpoint_bytes": side.get("bytes"),
+              "save_s": side.get("save_s"), "load_s": side.get("load_s"),
+              "fit_seconds": dt, "flash_launches": flash,
+              "flash_want": want, "assign_launches": n,
+              "device_assigns": assigns, "nvidia_smi": smi})
+        problems += [f"resume: {what}" for what, bad in (
+            (f"resumed from {resumed.metrics.get('resumed_from')}",
+             resumed.metrics.get("resumed_from") != TRAIN_LIB_FAIL_STEP),
+            (f"resumed losses {got} vs {ref} beyond {TRAIN_LIB_REL}",
+             len(rel) != len(resumed_steps)
+             or any(v > TRAIN_LIB_REL for v in rel.values())),
+            ("a loss not finite", not all(
+                math.isfinite(x) for x in list(got.values())
+                + list(ref.values()))),
+            (f"flash launches {flash} != {want}", flash != want),
+            (f"assign launches {n} != device assigns {assigns}",
+             n != assigns), ("no device assign", n == 0)) if bad]
+        del resumed, whole
+        torch.cuda.empty_cache()
+
+        def shard_loop(config):
+            rank = train.get_context().get_world_rank()
+            rows = list(train.get_dataset_shard("train").iter_rows())
+            with open(os.path.join(config["dir"], f"rank{rank}.json"),
+                      "w") as f:
+                json.dump(rows, f)
+            train.report({"rows": len(rows)})
+
+        t0 = time.perf_counter()
+        train.Trainer(shard_loop, train_loop_config={"dir": root},
+                      scaling_config=train.ScalingConfig(num_workers=2),
+                      datasets={"train": data.range(
+                          TRAIN_LIB_ROWS, parallelism=20)}).fit()
+        parts = []
+        for r in (0, 1):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                parts.append(json.load(f))
+        disjoint = not set(parts[0]) & set(parts[1])
+        union = sorted(parts[0] + parts[1]) == list(range(TRAIN_LIB_ROWS))
+        emit({"phase": "train_lib", "part": "dataset_shards",
+              "rows": TRAIN_LIB_ROWS, "per_rank": [len(p) for p in parts],
+              "disjoint": disjoint, "union_is_every_row": union,
+              "seconds": time.perf_counter() - t0})
+        problems += [f"shards: {what}" for what, bad in (
+            ("overlap", not disjoint), ("rows missing", not union)) if bad]
+    finally:
+        ray.shutdown()
+        GLOBAL_CONFIG.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "train_lib", "part": "done",
+          "seconds": time.perf_counter() - t_phase, "ok": not problems})
+    if problems:
+        raise AssertionError(f"train_lib phase: {problems}")
+    return n
+
+
 def main() -> int:
     import torch
 
@@ -3864,6 +4474,8 @@ def main() -> int:
     served = phase_serve(torch)
     data_launches = phase_data(torch, dev)
     cluster_launches = phase_cluster(torch, dev)
+    rllib_launches = phase_rllib(torch, dev)
+    train_lib_launches = phase_train_lib(torch, dev)
 
     # kernel 1 and its yardstick by device time (graph replays): the eager
     # loop of wrapper calls times the host, not the kernels
@@ -3928,7 +4540,12 @@ def main() -> int:
                                        "data_thread": data_launches["thread"],
                                        "data_process":
                                            data_launches["process"],
-                                       "cluster": cluster_launches},
+                                       "cluster": cluster_launches,
+                                       "rllib_thread":
+                                           rllib_launches["thread"],
+                                       "rllib_process":
+                                           rllib_launches["process"],
+                                       "train": train_lib_launches},
                   "library_ms": None})
     emit({"kernels": table})
     print(smi, flush=True)

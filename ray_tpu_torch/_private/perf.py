@@ -11,7 +11,12 @@
    pipeline through the public ``ray_tpu_torch.data`` API (the streaming
    executor on the runtime above), in blocks/s and rows/s.
 
-3. ``model_mfu`` — train-step performance of the flagship transformer on
+3. ``rl_rollout_throughput`` — BASELINE config 5 through the port's
+   RLlib: IMPALA's actor-to-learner stream (runner actors stepping
+   CartPole on the host, the V-trace learner on the card), in
+   env-steps/s and learner ms per update.
+
+4. ``model_mfu`` — train-step performance of the flagship transformer on
    one device. The same defaults as the reference's (the repo's training
    configuration: vocab 32768, d_model 2048, 8 layers, 16 query / 8 KV
    heads, d_ff 5632, seq 2048, batch 16, remat "dots"), the same halving
@@ -182,6 +187,54 @@ def data_pipeline_throughput(num_blocks: int = 100_000,
         "rows_per_sec": n_rows / dt,
         "stages": stats["stages"] if stats else None,
         # the timed pipeline's device assignments; the session's errors
+        "device_assigns": sched_stats.get("device_assigns", 0) - assigns0,
+        "device_assign_errors": sched_stats.get("device_assign_errors", 0),
+    }
+
+
+def rl_rollout_throughput(iters: int = 4, device=None) -> Dict[str, Any]:
+    """BASELINE config 5 through the REAL library: IMPALA's async
+    pipeline under load, env-steps/s streamed from runner actors through
+    the object store into the V-trace learner on ``device`` (None: the
+    card, raising without one). The reference's sizes: 4 runners x 8
+    envs x 64 steps, 8 updates an iteration; one warm iteration, then
+    ``iters`` timed. It runs on the caller's runtime, which the
+    reference's configuration starts as ``init(num_workers=8,
+    scheduler="tensor")``; ``device_assigns`` counts the whole call, the
+    algorithm's build included. Counterpart of ``rl_rollout_throughput``
+    in ``ray_tpu/_private/perf.py``, which starts and stops that runtime
+    itself."""
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.rllib import IMPALAConfig
+
+    sched = worker_mod.global_worker.scheduler
+    assigns0 = sched.stats().get("device_assigns", 0)
+    algo = IMPALAConfig(num_env_runners=4, num_envs_per_runner=8,
+                        rollout_len=64, updates_per_iter=8, seed=0,
+                        device=device).build()
+    try:
+        algo.train()  # warm the pipeline
+        steps, secs, returns, learner_ms = 0, 0.0, [], []
+        for _ in range(iters):
+            m = algo.train()
+            steps += m["num_env_steps"]
+            secs += m["num_env_steps"] / m["env_steps_per_sec"]
+            learner_ms.append(m["learner_ms"])
+            if m["num_episodes"]:
+                returns.append(m["episode_return_mean"])
+        dev = str(algo.device)
+    finally:
+        algo.stop()
+    sched_stats = sched.stats()
+    return {
+        "env_steps_per_sec": steps / max(secs, 1e-9),
+        "env_steps": steps,
+        "seconds": secs,
+        "episode_return_mean": (sum(returns) / len(returns)
+                                if returns else None),
+        "learner_ms_per_update": sum(learner_ms) / len(learner_ms),
+        "learner_ms_by_iteration": learner_ms,
+        "learner_device": dev,
         "device_assigns": sched_stats.get("device_assigns", 0) - assigns0,
         "device_assign_errors": sched_stats.get("device_assign_errors", 0),
     }

@@ -215,7 +215,9 @@ def test_port_imports_no_jax():
     map_batches in process mode, with no jax and no ray_tpu module loaded
     in the driver or the worker processes; the package's import, and
     Serve's, the metrics plane's, the process runtime's, Data's, the
-    cluster's and the autoscaler's, leave CUDA uninitialised."""
+    cluster's, the autoscaler's, RLlib's (each submodule) and Train's,
+    leave CUDA uninitialised; a PPO iteration with its learner on the
+    host loads no jax or ray_tpu module either."""
     code = ("import os, sys, torch, ray_tpu_torch as ray\n"
             "assert not torch.cuda.is_initialized()\n"
             "import ray_tpu_torch.models.inference, "
@@ -237,7 +239,14 @@ def test_port_imports_no_jax():
             "ray_tpu_torch._private.protocol, ray_tpu_torch._native, "
             "ray_tpu_torch.data, ray_tpu_torch.data._streaming, "
             "ray_tpu_torch.data._shuffle, ray_tpu_torch.cluster_utils, "
-            "ray_tpu_torch.autoscaler\n"
+            "ray_tpu_torch.autoscaler, ray_tpu_torch.rllib, "
+            "ray_tpu_torch.rllib.core, ray_tpu_torch.rllib.env, "
+            "ray_tpu_torch.rllib.connectors, ray_tpu_torch.rllib.optim, "
+            "ray_tpu_torch.rllib.runner_group, ray_tpu_torch.rllib.ppo, "
+            "ray_tpu_torch.rllib.impala, ray_tpu_torch.rllib.dqn, "
+            "ray_tpu_torch.rllib.sac, ray_tpu_torch.rllib.offline, "
+            "ray_tpu_torch.rllib.multi_agent, ray_tpu_torch.train, "
+            "ray_tpu_torch.train.api\n"
             "assert not torch.cuda.is_initialized()\n"
             "ray.init(num_workers=2, scheduler='tensor', "
             "_system_config={'sched_device': 'cpu'})\n"
@@ -248,6 +257,11 @@ def test_port_imports_no_jax():
             "    def m(self):\n"
             "        return 3\n"
             "assert ray.get(A.remote().m.remote(), timeout=30) == 3\n"
+            "from ray_tpu_torch.rllib import PPOConfig\n"
+            "a = PPOConfig(num_env_runners=1, num_envs_per_runner=2, "
+            "rollout_len=8, device='cpu').build()\n"
+            "assert a.train()['num_env_steps'] == 16\n"
+            "a.stop()\n"
             "ray.shutdown()\n"
             "ray.init(num_workers=1, scheduler='tensor', _system_config="
             "{'sched_device': 'cpu', 'worker_mode': 'process'})\n"
