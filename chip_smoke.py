@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of ray_tpu_torch on one NVIDIA GPU: build, check, serve, train,
-data, cluster, RLlib, Train.
+data, cluster, RLlib, Train, MoE, the compiled DAG, Tune, workflow.
 
     python3 chip_smoke.py            # one card; 0 only if every phase passed
     python3 chip_smoke.py --kernels  # build, device and every kernel's
@@ -196,6 +196,41 @@ Phases, each printing one JSON line:
                launches (3 kernels x layers x steps) and assign's; then
                a 2-worker Trainer's get_dataset_shard over 10k rows,
                disjoint and whole.
+ 17. moe     — the Switch MoE at the flagship's width (phase_moe): phase
+               train's configuration with moe=True (8 experts, capacity
+               factor 1.25, ~1.64B parameters), bf16, remat "dots", the
+               batch cut to [4, 2048] (dispatch grows as T²), through
+               make_optimizer / make_train_step: one MoE layer at this
+               shape in f32 on the card against the CPU (dispatch
+               identical, max abs error within 1e-4); a warm step; a
+               no-grad forward on the first timed step's params and batch,
+               whose cross-entropy + 0.01 x its aux terms must equal that
+               step's loss within 1e-5; 4 timed steps with the flash
+               counters zeroed just before (64 / 32 / 32), losses finite
+               and falling; step ms, tokens/s, peak memory, each layer's
+               dropped share and the device's busy share (no MFU: 6·N
+               would count all 8 experts).
+ 18. dag     — the compiled DAG (phase_dag): preprocess -> the serve-127M
+               forward (bf16, [8, 512]) -> argmax, interpreted, compiled
+               direct and compiled fused (one CUDA graph, replayed):
+               tokens equal, logits within 1e-6 rel L2, flash_fwd's
+               counter 8 an interpreted or direct execute, 16 for the
+               fused first execute, 0 a replay; ms per execute each way; a
+               diamond runs its shared model once; an actor holding the
+               model runs the direct path; a node that syncs the host
+               raises DAGCaptureError naming it.
+ 19. tune    — Tune on the card (phase_tune): trials train a 2-layer
+               model (head_dim 128): ASHA over lr x seed (8 trials, 4 at
+               a time, at least one stopped), PBT whose checkpoints hold
+               CUDA tensors (an exploited trial's state bit-equal to its
+               donor's checkpoint), Tuner.restore re-running only the
+               trials whose results were lost; every trial's tensors on
+               the card; the flash launches = the steps run x 2 layers.
+ 20. workflow — a workflow of steps on the card, interrupted and resumed
+               (no journaled step runs again, the result equal to the
+               direct computation), and 512 CUDA tensors through a
+               util.queue.Queue from a producer task to a consumer task,
+               in order (items/s).
 
 Then the kernel table as one JSON line (kernel 1's launches: the Serve
 path's, mono and split, with phase engine's beside them), the nvidia-smi line, and last
@@ -422,6 +457,44 @@ SERVE_MEM_SLACK = 8 << 20
 # where the reference's top-2 logits lie closer than this)
 PARITY_PROMPTS = ([1, 2, 3, 4], [5] * 4, [17, 300, 9000, 31999, 12], [7])
 PARITY_NEW, PARITY_TIE_GAP = 16, 1e-3
+# MoE (phase moe): the flagship train configuration (phase train's widths
+# and depth) with a Switch expert layer in each block, the reference's
+# defaults (8 experts, capacity factor 1.25), bf16, remat "dots"; the batch
+# cut to MOE_BATCH rows because the dense dispatch and combine tensors
+# [T, E, C] grow as T² (T = MOE_BATCH x 2047 tokens; at phase train's 16
+# rows dispatch alone would take ~5.4 GB a layer). MOE_WARMUP steps, then
+# MOE_STEPS timed. The step's loss equals a no-grad forward's cross-entropy
+# + 0.01 x the layers' aux terms within MOE_AUX_REL; one MoE layer at this
+# shape in f32 (TF32 off) on the card equals the CPU's within MOE_LAYER_TOL
+# with dispatch identical
+MOE_EXPERTS, MOE_CF = 8, 1.25
+MOE_BATCH, MOE_WARMUP, MOE_STEPS = 4, 1, 4
+MOE_AUX_REL, MOE_LAYER_TOL = 1e-5, 1e-4
+# the compiled DAG (phase dag): preprocess -> the serve-127M forward (bf16,
+# DAG_BATCH x DAG_SEQ tokens) -> postprocess (argmax), interpreted,
+# compiled direct and compiled fused (a CUDA-graph replay), DAG_REPEATS
+# executes each; fused logits within DAG_REL_L2 of the direct path's
+DAG_BATCH, DAG_SEQ, DAG_REPEATS, DAG_REL_L2 = 8, 512, 20, 1e-6
+# Tune (phase tune): trials train a 2-layer dense model (head_dim 128, so
+# flash runs; no remat: each step launches each flash kernel once a layer)
+# for TUNE_STEPS steps on a fixed [TUNE_BATCH, TUNE_SEQ + 1] batch; ASHA
+# over lr x seed (8 trials, 4 at a time), PBT over 4 trials whose
+# checkpoints hold the model's and AdamW's CUDA tensors (an exploited
+# trial then runs TUNE_STEPS more steps from its donor's), and a 4-trial
+# sweep restored after losing its last two trials' results
+TUNE_MODEL = dict(vocab_size=4096, d_model=256, n_layers=2, n_heads=2,
+                  n_kv_heads=1, d_ff=704, max_seq_len=256)
+TUNE_BATCH, TUNE_SEQ, TUNE_STEPS = 8, 256, 12
+TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
+# the flash kernels at the shapes the moe, dag and tune paths give them
+# ((batch, heads after the model repeats the KV heads, seq), bf16, causal),
+# held to their plain versions by phase kernel on the same inputs
+FLASH_PATHS = {"moe": (MOE_BATCH, TRAIN["n_heads"], TRAIN_SEQ - 1),
+               "dag": (DAG_BATCH, SERVE["n_heads"], DAG_SEQ),
+               "tune": (TUNE_BATCH, TUNE_MODEL["n_heads"], TUNE_SEQ)}
+# workflow and queue (phase workflow): WORKFLOW_N x WORKFLOW_N f32 steps on
+# the card; QUEUE_ITEMS CUDA tensors of QUEUE_SHAPE through a util.queue
+WORKFLOW_N, QUEUE_ITEMS, QUEUE_SHAPE = 2048, 512, (256, 256)
 
 
 # the bf16 kernels are instances of the wgmma + TMA templates: the forward
@@ -784,7 +857,8 @@ def flash_readings(torch, fl, q, k, v, do, causal):
 
 def phase_flash_kernel(torch, dev, timed=True):
     """The three flash attention kernels vs their plain versions on small
-    ragged shapes (FLASH_SMALL), then at the train step's attention shapes,
+    ragged shapes (FLASH_SMALL), at the moe, dag and tune paths' shapes
+    (FLASH_PATHS, bf16, causal), then at the train step's attention shapes,
     on the same inputs, with their times (timed=False: the checks alone).
     The inputs are the model's [B, S, H, D] tensors seen as [B, H, S, D]
     views, as the train path passes them. The f32 pass also checks the
@@ -817,6 +891,18 @@ def phase_flash_kernel(torch, dev, timed=True):
                           "causal": causal,
                           **check(kname, f"{name}, {label}", causal,
                                   readings[kname])})
+    for label, (B, H, S) in FLASH_PATHS.items():
+        q, k, v, do = (torch.randn((B, S, H, FLASH_D), generator=g,
+                                   device=dev).to(torch.bfloat16)
+                       .transpose(1, 2) for _ in range(4))
+        readings, _lse, _di = flash_readings(torch, fl, q, k, v, do, True)
+        for kname in FLASH_NAMES:
+            emit({"phase": "kernel", "name": kname, "dtype": "bfloat16",
+                  "shape": label, "batch": B, "heads": H, "seq": S,
+                  "causal": True,
+                  **check(kname, f"bfloat16, {label}", True,
+                          readings[kname])})
+        del q, k, v, do, readings, _lse, _di
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
         B = FLASH_BATCH[name]
@@ -4425,6 +4511,672 @@ def phase_train_lib(torch, dev):
     return n
 
 
+def moe_layer_check(torch, dev):
+    """One MoE layer (moe_ffn_reference) at the main path's shape, f32 with
+    TF32 off, on the card and on the CPU from the same seeded tensors: the
+    max abs difference of the outputs, the aux terms, and whether the two
+    dispatch tensors are identical. Also the card's ms for the layer."""
+    import math
+
+    from ray_tpu_torch.ops import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, D, Fd, E = MOE_BATCH * (TRAIN_SEQ - 1), TRAIN["d_model"], \
+        TRAIN["d_ff"], MOE_EXPERTS
+    gen = torch.Generator().manual_seed(2)
+    host = {"x": torch.randn(T, D, generator=gen),
+            "router": torch.randn(D, E, generator=gen) / math.sqrt(D),
+            "w_in": torch.randn(E, D, Fd, generator=gen) / math.sqrt(D),
+            "w_out": torch.randn(E, Fd, D, generator=gen) / math.sqrt(Fd)}
+    card = {k: v.to(dev) for k, v in host.items()}
+    cap = moe.capacity(T, E, MOE_CF)
+    args = ("x", "router", "w_in", "w_out")
+    y_cpu, aux_cpu = moe.moe_ffn_reference(*(host[k] for k in args), MOE_CF)
+    d_cpu = moe.top1_dispatch(host["x"] @ host["router"], cap)[0]
+    y_gpu, aux_gpu = moe.moe_ffn_reference(*(card[k] for k in args), MOE_CF)
+    d_gpu = moe.top1_dispatch(card["x"] @ card["router"], cap)[0]
+    same_dispatch = bool(torch.equal(d_gpu.cpu(), d_cpu))
+    err = float((y_gpu.cpu() - y_cpu).abs().max())
+    kept = float(d_cpu.sum())
+    del d_cpu, d_gpu
+    ms = cuda_ms(torch, lambda _i: moe.moe_ffn_reference(
+        *(card[k] for k in args), MOE_CF), 3)
+    return {"tokens": T, "capacity": cap, "max_abs_err": err,
+            "bound": MOE_LAYER_TOL, "aux_cpu": float(aux_cpu),
+            "aux_card": float(aux_gpu), "dispatch_identical": same_dispatch,
+            "dropped_share": 1.0 - kept / T, "card_ms_f32": ms}
+
+
+def moe_dropped_shares(torch, model, tokens):
+    """The share of tokens each MoE layer drops in a no-grad forward of
+    ``tokens``: 1 - the layer's dispatch sum / T, its routing rebuilt by
+    ``top1_dispatch`` from the layer's input in a forward hook."""
+    from ray_tpu_torch.ops import moe
+
+    cfg = model.cfg
+    shares = []
+
+    def hook(layer, inputs, _output):
+        x = inputs[0]
+        flat = x.reshape(-1, x.shape[-1]).to(cfg.dtype)
+        cap = moe.capacity(flat.shape[0], cfg.moe_num_experts,
+                           cfg.moe_capacity_factor)
+        dispatch = moe.top1_dispatch(flat @ layer.router.to(cfg.dtype),
+                                     cap)[0]
+        shares.append(1.0 - float(dispatch.sum()) / flat.shape[0])
+
+    handles = [getattr(model, f"layer_{i}").MoEMLP_0.register_forward_hook(
+        hook) for i in range(cfg.n_layers)]
+    try:
+        with torch.no_grad():
+            model(tokens)
+    finally:
+        for h in handles:
+            h.remove()
+    return shares
+
+
+def phase_moe(torch, dev):
+    """The Switch MoE at the flagship's width on the card (see MOE_*),
+    through make_optimizer / make_train_step: one MoE layer on the card
+    against the CPU; a warm step; a no-grad forward on the next step's
+    params and batch (cross-entropy and each layer's aux term, the dropped
+    shares); the flash counters zeroed; MOE_STEPS timed steps; one more
+    step under torch.profiler. Returns the flash launches of the timed
+    steps."""
+    import math
+
+    from ray_tpu_torch.models import train_step as ts
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  cross_entropy_loss,
+                                                  init_params, param_count)
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    layer = moe_layer_check(torch, dev)
+    emit({"phase": "moe", "part": "layer", **layer, "nvidia_smi": smi})
+    problems = [f"layer: {what}" for what, bad in (
+        (f"max abs err {layer['max_abs_err']} > {MOE_LAYER_TOL}",
+         not layer["max_abs_err"] <= MOE_LAYER_TOL),
+        ("dispatch differs from the CPU's", not layer["dispatch_identical"]),
+        ("aux differs", abs(layer["aux_cpu"] - layer["aux_card"]) > 1e-6))
+        if bad]
+    torch.cuda.empty_cache()
+
+    kernels = _flash_kernels()
+    cfg = TransformerConfig(
+        dtype=torch.bfloat16, max_seq_len=TRAIN_SEQ, remat=True,
+        remat_policy="dots", moe=True, moe_num_experts=MOE_EXPERTS,
+        moe_capacity_factor=MOE_CF, **TRAIN)
+    gen = torch.Generator(device=dev)
+    params = init_params(cfg, gen.manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_BATCH, TRAIN_SEQ),
+                           generator=gen.manual_seed(1), device=dev)
+    n_params = param_count(params)
+    model = Transformer(cfg, device=dev).load_params(params)
+    del params
+    step = ts.make_train_step(model, ts.make_optimizer(model.parameters()))
+    batch = {"tokens": tokens}
+    for _ in range(MOE_WARMUP):
+        step(batch)
+    # the first timed step's loss from its own params and batch, no grad
+    with torch.no_grad():
+        logits, aux = model(tokens[:, :-1], return_aux=True)
+        ce = float(cross_entropy_loss(logits, tokens[:, 1:]))
+        aux_means = [float(a.mean()) for a in aux]
+        del logits, aux
+    dropped = moe_dropped_shares(torch, model, tokens[:, :-1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.values():
+        kern.launches = 0                    # the main path, from zero
+    t0 = time.perf_counter()
+    metrics = [step(batch) for _ in range(MOE_STEPS)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / MOE_STEPS
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak_mem = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    grad_norms = [float(m["grad_norm"]) for m in metrics]
+    breakdown = profile_call(torch, lambda: step(batch))
+    layers = TRAIN["n_layers"]
+    want = {"flash_fwd": 2 * layers * MOE_STEPS,
+            "flash_bwd_dq": layers * MOE_STEPS,
+            "flash_bwd_dkv": layers * MOE_STEPS}
+    expected = ce + 0.01 * sum(aux_means)
+    aux_rel = abs(losses[0] - expected) / abs(expected)
+    n_tokens = MOE_BATCH * (TRAIN_SEQ - 1)
+    emit({"phase": "moe", "part": "train",
+          "device": torch.cuda.get_device_name(dev), "n_params": n_params,
+          "experts": MOE_EXPERTS, "capacity_factor": MOE_CF,
+          "batch": [MOE_BATCH, TRAIN_SEQ],
+          "cut": f"batch [{MOE_BATCH}, {TRAIN_SEQ}], not [{TRAIN_BATCH}, "
+                 f"{TRAIN_SEQ}]: dispatch and combine grow as T^2",
+          "dtype": "bfloat16", "remat_policy": "dots",
+          "step_ms": dt * 1e3, "tokens_per_sec": n_tokens / dt,
+          "peak_mem_bytes": peak_mem, "losses": losses,
+          "grad_norms": grad_norms, "ce_first": ce, "aux_first": aux_means,
+          "loss_vs_ce_plus_aux_rel": aux_rel, "aux_bound": MOE_AUX_REL,
+          "dropped_share_by_layer": dropped, "launches": launches,
+          "launches_want": want, "steps": MOE_STEPS,
+          "device_busy_share": breakdown["device_busy_us"] / (dt * 1e6),
+          "profile": breakdown, "nvidia_smi": smi})
+    problems += [what for what, bad in (
+        (f"flash launches {launches} != {want}", launches != want),
+        (f"non-finite loss or grad norm {losses} {grad_norms}",
+         not all(math.isfinite(x) for x in losses + grad_norms)),
+        (f"loss did not fall: {losses}", not losses[-1] < losses[0]),
+        (f"loss {losses[0]} != ce + 0.01 x aux {expected} (rel {aux_rel})",
+         not aux_rel <= MOE_AUX_REL),
+        (f"{len(aux_means)} aux terms for {layers} layers",
+         len(aux_means) != layers)) if bad]
+    del model, step, metrics
+    torch.cuda.empty_cache()
+    emit({"phase": "moe", "part": "done", "ok": not problems,
+          "seconds": time.perf_counter() - t_phase})
+    if problems:
+        raise AssertionError(f"moe phase: {problems}")
+    return launches
+
+
+def phase_dag(torch, dev):
+    """The compiled DAG around the serve-127M forward on the card (see
+    DAG_*): preprocess -> forward -> postprocess (argmax), its outputs the
+    next tokens and the logits (a MultiOutputNode). Interpreted
+    (dag.execute, one task a node), compiled direct (fuse_jit "never") and
+    compiled fused (a CUDA-graph replay): the fused outputs against the
+    direct path's, flash_fwd's counter per execute (8 interpreted or
+    direct, 16 for the fused path's first execute, 0 a replay), ms per
+    execute for each; a diamond through the model runs it once; an actor
+    holding the model takes the direct path under "auto"; a node that
+    syncs the host raises DAGCaptureError naming it. Returns flash_fwd's
+    launches over the phase's executes."""
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import dag
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  init_params)
+    from ray_tpu_torch.ops import flash
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    fwd_kernel = flash.flash_fwd
+    layers = SERVE["n_layers"]
+    cfg = TransformerConfig(dtype=torch.bfloat16, **SERVE)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    model = Transformer(cfg, device=dev).load_params(params)
+    tokens = torch.randint(0, 1 << 20, (DAG_BATCH, DAG_SEQ), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(1))
+    problems, rows = [], {}
+
+    @ray.remote
+    def preprocess(t):
+        return t.remainder(cfg.vocab_size)
+
+    @ray.remote
+    def forward(t):
+        with torch.no_grad():
+            return model(t)
+
+    @ray.remote
+    def postprocess(logits):
+        return logits.argmax(-1)
+
+    @ray.remote
+    def halve(x):
+        return x * 0.5
+
+    @ray.remote
+    def add(a, b):
+        return a + b
+
+    @ray.remote
+    class Holder:
+        def __init__(self, p):
+            self.model = Transformer(cfg, device=dev).load_params(p)
+
+        def forward(self, t):
+            with torch.no_grad():
+                return self.model(t)
+
+    def count(fn):
+        before = fwd_kernel.launches
+        out = fn()
+        torch.cuda.synchronize()
+        return out, fwd_kernel.launches - before
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        for _ in range(DAG_REPEATS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / DAG_REPEATS * 1e3
+
+    ray.init(num_workers=4, scheduler="tensor",
+             _system_config={"sched_device": dev.type})
+    try:
+        fwd_kernel.launches = 0              # the main path, from zero
+        with dag.InputNode() as inp:
+            logits = forward.bind(preprocess.bind(inp))
+            graph = dag.MultiOutputNode([postprocess.bind(logits), logits])
+        direct = graph.experimental_compile(fuse_jit="never")
+        fused = graph.experimental_compile()
+        if direct.fuses((tokens,)) or not fused.fuses((tokens,)):
+            problems.append("fuse decision")
+        want, n_direct = count(lambda: direct.execute(tokens))
+        got_i, n_interp = count(lambda: graph.execute(tokens))
+        got_f, n_first = count(lambda: fused.execute(tokens))
+        got_r, n_replay = count(lambda: fused.execute(tokens))
+        diff = {way: _logit_diff(torch, out[1], want[1])
+                for way, out in (("interpreted", got_i),
+                                 ("fused_first", got_f),
+                                 ("fused_replay", got_r))}
+        same_tokens = {way: bool(torch.equal(out[0], want[0]))
+                       for way, out in (("interpreted", got_i),
+                                        ("fused_first", got_f),
+                                        ("fused_replay", got_r))}
+        del got_i, got_f, got_r
+        ms = {"interpreted": timed(lambda: graph.execute(tokens)),
+              "direct": timed(lambda: direct.execute(tokens)),
+              "fused": timed(lambda: fused.execute(tokens))}
+        replays, n_timed = count(lambda: [fused.execute(tokens)
+                                          for _ in range(DAG_REPEATS)])
+        rows["chain"] = {
+            "flash_fwd_launches": {"direct": n_direct,
+                                   "interpreted": n_interp,
+                                   "fused_first": n_first,
+                                   "fused_replay": n_replay,
+                                   f"fused_{DAG_REPEATS}_replays": n_timed},
+            "same_tokens": same_tokens,
+            "logits_rel_l2": {k: v["rel_l2"] for k, v in diff.items()},
+            "ms_per_execute": ms, "graphs": len(fused._graphs)}
+        problems += [f"chain: {what}" for what, bad in (
+            (f"launches direct {n_direct}, interpreted {n_interp} != "
+             f"{layers}", n_direct != layers or n_interp != layers),
+            (f"fused first execute {n_first} != {2 * layers}",
+             n_first != 2 * layers),
+            (f"replays launched {n_replay} + {n_timed}",
+             n_replay or n_timed),
+            (f"tokens differ {same_tokens}", not all(same_tokens.values())),
+            (f"logits rel L2 {diff}",
+             any(v["rel_l2"] > DAG_REL_L2 for v in diff.values()))) if bad]
+        del replays, want
+
+        with dag.InputNode() as inp:
+            shared = forward.bind(preprocess.bind(inp))
+            diamond = add.bind(halve.bind(shared), halve.bind(shared))
+        d_out, n_diamond = count(lambda: diamond.execute(tokens))
+        d_direct, n_diamond_direct = count(
+            lambda: diamond.experimental_compile("never").execute(tokens))
+        rows["diamond"] = {"flash_fwd_launches": {
+            "interpreted": n_diamond, "direct": n_diamond_direct},
+            "equal": bool(torch.equal(d_out, d_direct))}
+        problems += [f"diamond: {what}" for what, bad in (
+            (f"shared node ran {n_diamond} / {n_diamond_direct} launches",
+             n_diamond != layers or n_diamond_direct != layers),
+            ("outputs differ", not rows["diamond"]["equal"])) if bad]
+        del d_out, d_direct
+
+        holder = Holder.remote(params)
+        with dag.InputNode() as inp:
+            actor_graph = postprocess.bind(holder.forward.bind(
+                preprocess.bind(inp)))
+        compiled = actor_graph.experimental_compile()
+        a_out, n_actor = count(lambda: compiled.execute(tokens))
+        f_out = fused.execute(tokens)[0]
+        rows["actor"] = {"fuses": compiled.fuses((tokens,)),
+                         "flash_fwd_launches": n_actor,
+                         "same_tokens": bool(torch.equal(a_out, f_out))}
+        problems += [f"actor: {what}" for what, bad in (
+            ("fused", rows["actor"]["fuses"]),
+            (f"{n_actor} launches", n_actor != layers),
+            ("tokens differ", not rows["actor"]["same_tokens"])) if bad]
+        ray.kill(holder)
+
+        @ray.remote
+        def syncs_the_host(x):
+            return x * float(x.sum())
+
+        with dag.InputNode() as inp:
+            bad_graph = syncs_the_host.bind(inp)
+        try:
+            bad_graph.experimental_compile().execute(tokens.float())
+            raised = None
+        except dag.DAGCaptureError as e:
+            raised = str(e)
+        rows["capture_error"] = {"raised": raised}
+        if raised is None or "syncs_the_host" not in raised:
+            problems.append(f"capture error: {raised!r}")
+        total = fwd_kernel.launches
+    finally:
+        ray.shutdown()
+        GLOBAL_CONFIG.reset()
+    emit({"phase": "dag", **rows, "model": "serve-127M", "dtype": "bfloat16",
+          "tokens": [DAG_BATCH, DAG_SEQ], "repeats": DAG_REPEATS,
+          "flash_fwd_launches_total": total, "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_phase, "ok": not problems})
+    if problems:
+        raise AssertionError(f"dag phase: {problems}")
+    return total
+
+
+def tune_trainable(torch, dev, log):
+    """A Tune trainable for phase tune: the TUNE_MODEL model on ``dev``
+    from config["seed"], AdamW at config["lr"], TUNE_STEPS steps on a
+    fixed batch, each reported with its loss; with config["ckpt"] each
+    report carries a checkpoint (clones of the model's and AdamW's
+    tensors, on the card). A trial started from a checkpoint loads it
+    and records whether its state then equals the checkpoint bit for bit.
+    Every step and every placement goes into ``log``."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import train_step as ts
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  init_params)
+
+    from torch.utils import _pytree as pytree
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **TUNE_MODEL)
+
+    def clone(tree):
+        return pytree.tree_map_only(torch.Tensor,
+                                    lambda t: t.detach().clone(), tree)
+
+    def leaves(tree):
+        return [x for x in pytree.tree_leaves(tree)
+                if isinstance(x, torch.Tensor)]
+
+    def trainable(config):
+        gen = torch.Generator(device=dev).manual_seed(config["seed"])
+        model = Transformer(cfg, device=dev).load_params(
+            init_params(cfg, gen))
+        opt = ts.make_optimizer(model.parameters(),
+                                learning_rate=config["lr"])
+        step = ts.make_train_step(model, opt)
+        tokens = torch.randint(0, cfg.vocab_size, (TUNE_BATCH, TUNE_SEQ + 1),
+                               generator=gen, device=dev)
+        done, ckpt = 0, tune.get_checkpoint()
+        if ckpt is not None:
+            model.load_state_dict(ckpt["model"])
+            opt.load_state_dict(clone(ckpt["optim"]))
+            for group in opt.param_groups:
+                group["lr"] = config["lr"]
+            done = ckpt["step"]
+            now = {"model": model.state_dict(), "optim": opt.state_dict()}
+            pairs = list(zip(leaves(now), leaves({k: ckpt[k] for k in now})))
+            # AdamW keeps its step counts as 0-dim CPU tensors; every
+            # other tensor of the checkpoint lies on the card
+            log["restored"].append({
+                "equal": len(pairs) > 0 and all(
+                    a.shape == b.shape and bool(torch.equal(a, b))
+                    for a, b in pairs),
+                "tensors": len(pairs), "from_step": done,
+                "on_cuda": all(b.is_cuda for _, b in pairs if b.dim()),
+                "cpu_step_counts": sum(not b.is_cuda for _, b in pairs)})
+        log["placed"].append(all(p.is_cuda for p in model.parameters())
+                             and tokens.is_cuda)
+        for s in range(done, done + TUNE_STEPS):
+            loss = float(step({"tokens": tokens})["loss"])
+            log["steps"].append(1)
+            report = {"loss": loss, "step": s + 1}
+            if config.get("ckpt"):
+                tune.report(report, checkpoint=clone({
+                    "model": model.state_dict(), "optim": opt.state_dict(),
+                    "step": s + 1}))
+            else:
+                tune.report(report)
+
+    return trainable
+
+
+def phase_tune(torch, dev):
+    """Tune sweeps whose trials train on the card (see TUNE_*), on the
+    runtime (8 workers, the TensorScheduler assigning on the card): ASHA
+    over lr x seed, PBT with CUDA checkpoints, and Tuner.restore of a
+    sweep that lost its last two trials' results. The flash counters are
+    zeroed just before the sweeps and read just after: each kernel once a
+    layer a step, over every step the trials ran. Returns the launches."""
+    import os
+    import tempfile
+
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import tune
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    kernels = _flash_kernels()
+    log = {"steps": [], "placed": [], "restored": []}
+    trainable = tune_trainable(torch, dev, log)
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    problems, rows = [], {}
+    ray.init(num_workers=8, scheduler="tensor",
+             _system_config={"sched_device": dev.type})
+    try:
+        for kern in kernels.values():
+            kern.launches = 0                # the main path, from zero
+        t0 = time.perf_counter()
+        asha = tune.Tuner(
+            trainable,
+            param_space={"lr": tune.grid_search(list(TUNE_LRS)),
+                         "seed": tune.grid_search([0, 1])},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", max_concurrent_trials=4,
+                scheduler=tune.ASHAScheduler(
+                    metric="loss", mode="min", max_t=TUNE_STEPS,
+                    grace_period=2, reduction_factor=2))).fit()
+        best = asha.get_best_result("loss", "min")
+        rows["asha"] = {"trials": len(asha),
+                        "stopped": sum(r.terminated_early for r in asha),
+                        "best_config": best.config,
+                        "best_loss": best.metrics["loss"],
+                        "seconds": time.perf_counter() - t0}
+
+        t0 = time.perf_counter()
+        pbt_sched = tune.PopulationBasedTraining(
+            metric="loss", mode="min", perturbation_interval=3,
+            hyperparam_mutations={"lr": tune.uniform(1e-4, 3e-3)},
+            quantile_fraction=0.34, seed=0)
+        pbt = tune.Tuner(
+            trainable,
+            param_space={"lr": tune.grid_search(list(TUNE_LRS)),
+                         "seed": 0, "ckpt": True},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        scheduler=pbt_sched,
+                                        max_concurrent_trials=4)).fit()
+        rows["pbt"] = {"trials": len(pbt),
+                       "perturbations": pbt_sched.num_perturbations,
+                       "restored": list(log["restored"]),
+                       "best_loss": pbt.get_best_result(
+                           "loss", "min").metrics["loss"],
+                       "seconds": time.perf_counter() - t0}
+
+        t0 = time.perf_counter()
+        storage = os.path.join(root, "restore")
+        space = {"lr": tune.grid_search(list(TUNE_LRS)), "seed": 2}
+        first = tune.Tuner(trainable, param_space=space,
+                           tune_config=tune.TuneConfig(
+                               metric="loss", mode="min",
+                               max_concurrent_trials=2),
+                           storage_path=storage).fit()
+        runs_first = len(log["placed"])
+        # the sweep's directory as a crash after its first two trials
+        # leaves it: the last two trials' results never written
+        for tid in (2, 3):
+            os.remove(os.path.join(storage, f"trial_{tid}.pkl"))
+        again = tune.Tuner.restore(storage, trainable).fit()
+        reran = len(log["placed"]) - runs_first
+        kept = all(again[i].metrics == first[i].metrics for i in (0, 1))
+        rows["restore"] = {"trials": len(again), "reran": reran,
+                           "kept_first_results": kept,
+                           "seconds": time.perf_counter() - t0}
+        dt = time.perf_counter() - t_phase
+        launches = {n: k.launches for n, k in kernels.items()}
+        steps = len(log["steps"])
+        layers = TUNE_MODEL["n_layers"]
+        want = {n: layers * steps for n in kernels}
+    finally:
+        ray.shutdown()
+        GLOBAL_CONFIG.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    problems += [what for what, bad in (
+        ("a trial's tensors off the card", not all(log["placed"])),
+        ("ASHA stopped no trial", rows["asha"]["stopped"] == 0),
+        ("PBT exploited no trial", not log["restored"]),
+        (f"an exploited trial's state differs from its donor's checkpoint "
+         f"{log['restored']}", not all(r["equal"] and r["on_cuda"]
+                                       for r in log["restored"])),
+        (f"restore re-ran {reran} trials, not 2", reran != 2),
+        ("restore changed a completed trial's result", not kept),
+        (f"flash launches {launches} != {want}", launches != want)) if bad]
+    emit({"phase": "tune", **rows, "model": TUNE_MODEL, "dtype": "bfloat16",
+          "steps_run": steps, "trial_runs": len(log["placed"]),
+          "launches": launches, "launches_want": want,
+          "sweep_seconds": dt, "nvidia_smi": smi, "problems": problems,
+          "ok": not problems})
+    if problems:
+        raise AssertionError(f"tune phase: {problems}")
+    return launches
+
+
+def phase_workflow(torch, dev):
+    """A workflow whose steps run on the card (WORKFLOW_N x WORKFLOW_N
+    f32), interrupted at a gated step and resumed: no journaled step runs
+    again, the result on the card and equal to the same work done
+    directly. Then QUEUE_ITEMS CUDA tensors from a producer task to a
+    consumer task through a util.queue.Queue, every item in order and
+    equal; items/s."""
+    import os
+    import tempfile
+
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.util.queue import Queue
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    root = tempfile.mkdtemp(prefix="chip_smoke_workflow_")
+    gate = os.path.join(root, "gate")
+    ran_log = os.path.join(root, "ran.log")
+    problems = []
+
+    def ran(name):
+        # a file, not a closure: resume() runs steps unpickled from the
+        # journal, with copies of whatever they close over
+        with open(ran_log, "a") as f:
+            f.write(name + "\n")
+
+    def runs():
+        with open(ran_log) as f:
+            names = f.read().split()
+        return {n: names.count(n) for n in sorted(set(names))}
+
+    @workflow.step
+    def make(seed):
+        ran("make")
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(WORKFLOW_N, WORKFLOW_N, device=dev, generator=g)
+
+    @workflow.step
+    def square(a):
+        ran("square")
+        return (a @ a) / WORKFLOW_N
+
+    @workflow.step
+    def gated(a, path):
+        ran("gated")
+        if not os.path.exists(path):
+            raise RuntimeError("gate closed")
+        return a + torch.tanh(a)
+
+    @workflow.step
+    def scale(a):
+        ran("scale")
+        return a * 0.5
+
+    ray.init(num_workers=4, scheduler="tensor",
+             _system_config={"sched_device": dev.type})
+    try:
+        node = scale.step(gated.step(square.step(make.step(0)), gate))
+        t0 = time.perf_counter()
+        try:
+            node.run("wf_card", root)
+            failed = False
+        except Exception:  # noqa: BLE001 - the interruption under test
+            failed = True
+        before = runs()
+        open(gate, "w").close()
+        out = workflow.resume("wf_card", storage=root)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wf_s = time.perf_counter() - t0
+        now = runs()
+        after = {k: now[k] - before.get(k, 0) for k in now}
+        g = torch.Generator(device=dev).manual_seed(0)
+        a = torch.randn(WORKFLOW_N, WORKFLOW_N, device=dev, generator=g)
+        a = (a @ a) / WORKFLOW_N
+        want = (a + torch.tanh(a)) * 0.5
+        status = workflow.get_status("wf_card", root)
+        steps = workflow.list_steps("wf_card", root)
+        row = {"interrupted": failed, "runs_first": before,
+               "runs_on_resume": after, "status": status["status"],
+               "cached_steps": status.get("cached_steps"),
+               "journaled_steps": steps, "on_cuda": out.is_cuda,
+               "equal_direct": bool(torch.equal(out, want)),
+               "seconds": wf_s}
+        problems += [f"workflow: {what}" for what, bad in (
+            ("not interrupted", not failed),
+            (f"first run {before}",
+             before != {"make": 1, "square": 1, "gated": 1}),
+            (f"resume ran {after}, not only the unjournaled steps",
+             after != {"make": 0, "square": 0, "gated": 1, "scale": 1}),
+            ("result off the card", not out.is_cuda),
+            ("result differs from the direct computation",
+             not row["equal_direct"]),
+            (f"status {status}", status["status"] != "SUCCEEDED")) if bad]
+
+        @ray.remote
+        def producer(q, n):
+            for i in range(n):
+                q.put(torch.full(QUEUE_SHAPE, float(i), device=dev))
+            return n
+
+        @ray.remote
+        def consumer(q, n):
+            got = [q.get(timeout=60) for _ in range(n)]
+            return ([int(t[0, 0]) for t in got],
+                    all(t.is_cuda and bool((t == t[0, 0]).all())
+                        for t in got))
+
+        q = Queue(maxsize=64)
+        t0 = time.perf_counter()
+        got_ref = consumer.remote(q, QUEUE_ITEMS)
+        sent = ray.get(producer.remote(q, QUEUE_ITEMS), timeout=300)
+        order, whole = ray.get(got_ref, timeout=300)
+        q_s = time.perf_counter() - t0
+        q.shutdown()
+        qrow = {"items": sent, "in_order": order == list(range(QUEUE_ITEMS)),
+                "items_whole_on_cuda": whole, "seconds": q_s,
+                "items_per_sec": QUEUE_ITEMS / q_s,
+                "item_shape": list(QUEUE_SHAPE)}
+        problems += [f"queue: {what}" for what, bad in (
+            ("out of order", not qrow["in_order"]),
+            ("an item changed or left the card", not whole)) if bad]
+    finally:
+        ray.shutdown()
+        GLOBAL_CONFIG.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "workflow", "workflow": row, "queue": qrow,
+          "nvidia_smi": smi, "seconds": time.perf_counter() - t_phase,
+          "ok": not problems})
+    if problems:
+        raise AssertionError(f"workflow phase: {problems}")
+
+
 def main() -> int:
     import torch
 
@@ -4476,6 +5228,10 @@ def main() -> int:
     cluster_launches = phase_cluster(torch, dev)
     rllib_launches = phase_rllib(torch, dev)
     train_lib_launches = phase_train_lib(torch, dev)
+    moe_launches = phase_moe(torch, dev)
+    dag_launches = phase_dag(torch, dev)
+    tune_launches = phase_tune(torch, dev)
+    phase_workflow(torch, dev)
 
     # kernel 1 and its yardstick by device time (graph replays): the eager
     # loop of wrapper calls times the host, not the kernels
@@ -4512,6 +5268,10 @@ def main() -> int:
             "source": (sm90_source if name == "flash_fwd" else
                        "ray_tpu_torch/ops/csrc/attention_bwd_sm90.cuh"),
             "replaces": replaces[name], "launches": train_launches[name],
+            "launches_by_path": {
+                "train": train_launches[name], "moe": moe_launches[name],
+                "dag": dag_launches if name == "flash_fwd" else 0,
+                "tune": tune_launches[name]},
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
     # times and bound of the block below the diagonal (every key visible,

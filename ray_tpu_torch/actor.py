@@ -878,9 +878,9 @@ class ActorMethod:
 
     def bind(self, *args, **kwargs):
         """DAG-building (reference: ray.dag actor-method nodes)."""
-        raise NotImplementedError(
-            "the DAG is not ported yet (ROADMAP.md Queue A item 6: the "
-            "libraries on the runtime)")
+        from ray_tpu_torch.dag import ActorMethodNode
+
+        return ActorMethodNode(self, args, kwargs)
 
     def remote(self, *args, **kwargs):
         return self._handle._submit_method(self._method_name, args, kwargs,

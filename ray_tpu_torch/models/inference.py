@@ -275,6 +275,11 @@ class InferenceEngine:
                  mode: str = "both", device=None):
         if mode not in ("both", "prefill", "decode"):
             raise ValueError(f"unknown engine mode {mode!r}")
+        if model_cfg.moe:
+            raise ValueError(
+                "InferenceEngine serves dense models only: its layers read "
+                "MLP_0, as the reference's engine does, and a MoE model "
+                "has MoEMLP_0")
         self.device = resolve_device(device, "InferenceEngine")
         # cast once to the compute dtype (the reference casts per use —
         # numerically the same); norm scales stay f32 as the reference

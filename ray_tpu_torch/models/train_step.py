@@ -42,17 +42,21 @@ def make_train_step(model: Transformer, optimizer: torch.optim.Optimizer
     """Returns ``train_step(batch) -> {"loss", "grad_norm"}`` with batch =
     {"tokens": [B, S] int} (next-token LM: the model sees
     ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``). ``grad_norm`` is the
-    global L2 norm of the gradients before the update. The step updates
-    the model's parameters in place; both metrics are 0-dim tensors on the
+    global L2 norm of the gradients before the update. A MoE model's loss
+    adds ``0.01 * sum(mean(aux))`` over its layers' load-balancing terms,
+    as the reference does; a dense model has none. The step updates the
+    model's parameters in place; both metrics are 0-dim tensors on the
     model's device (reading them syncs the host)."""
     params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         tokens = batch["tokens"]
         optimizer.zero_grad(set_to_none=True)
-        logits = model(tokens[:, :-1])
+        logits, aux_terms = model(tokens[:, :-1], return_aux=True)
         loss = cross_entropy_loss(logits, tokens[:, 1:])
         del logits
+        if aux_terms:
+            loss = loss + 0.01 * sum(torch.mean(a) for a in aux_terms)
         loss.backward()
         gnorm = _global_norm([p.grad for p in params if p.grad is not None])
         optimizer.step()

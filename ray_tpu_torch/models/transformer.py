@@ -20,9 +20,12 @@ reference takes it off the TPU). With ``ring_attention`` and a current mesh
 ring instead (ops/ring_attention.py, kernel 2 on the card, forward only
 there); positions stay the global ``arange(S)``, since the in-process ring
 holds the whole sequence. ``remat`` checkpoints each block, fully or saving
-only matrix-product outputs ("dots"). Parameters are trainable
+only matrix-product outputs ("dots"). With ``moe`` each block's MLP is the
+Switch-routed expert layer ``MoEMLP_0`` (ops/moe.py, the single-device
+path); its load-balancing aux term comes back through the block's outputs,
+so a block recomputed under remat gives it once. Parameters are trainable
 (models/train_step.py); the serving engine reads them under
-``torch.no_grad()``. MoE is a later slice.
+``torch.no_grad()`` (dense models only).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,8 +43,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch.ops.flash import flash_attention_bshk
+from ray_tpu_torch.ops.moe import moe_ffn_reference
 from ray_tpu_torch.ops.ring_attention import ring_attention_sharded
-from ray_tpu_torch.parallel.mesh import AXIS_SEQ, Mesh, current_mesh
+from ray_tpu_torch.parallel.mesh import (AXIS_EXPERT, AXIS_SEQ, Mesh,
+                                         current_mesh)
 
 
 def resolve_device(device, who: str) -> torch.device:
@@ -79,12 +84,6 @@ class TransformerConfig:
     moe_num_experts: int = 8
     moe_capacity_factor: float = 1.25
     flash_attention: str = "auto"   # "auto" | "off"
-
-    def __post_init__(self):
-        if self.moe:
-            raise NotImplementedError(
-                "moe=True is not ported yet (ROADMAP.md, Queue A: MoE and "
-                "pipeline)")
 
     @property
     def head_dim(self) -> int:
@@ -226,7 +225,41 @@ class MLP(nn.Module):
         return h @ self.w_down.to(dt)
 
 
+class MoEMLP(nn.Module):
+    """Switch-routed expert MLP (reference ``MoEMLP``): top-1 capacity
+    routing and the expert FFNs through ``moe_ffn_reference``. Returns (y
+    in the compute dtype, the aux load-balancing term, f32). A mesh whose
+    ``expert`` axis is larger than 1 raises: the ``all_to_all`` path waits
+    for sharded training."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        E, D, Fd = cfg.moe_num_experts, cfg.d_model, cfg.d_ff
+        self.router = _param((D, E), cfg, device)
+        self.w_in = _param((E, D, Fd), cfg, device)
+        self.w_out = _param((E, Fd, D), cfg, device)
+
+    def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        mesh = current_mesh()
+        if mesh is not None and mesh.shape.get(AXIS_EXPERT, 1) > 1:
+            raise NotImplementedError(
+                f"MoEMLP under a mesh with expert={mesh.shape[AXIS_EXPERT]}: "
+                "the all_to_all path waits for ROADMAP.md, Queue A: sharded "
+                "training on torch.distributed")
+        b, s, d = x.shape
+        dt = cfg.dtype
+        y, aux = moe_ffn_reference(
+            x.reshape(b * s, d).to(dt), self.router.to(dt), self.w_in.to(dt),
+            self.w_out.to(dt), cfg.moe_capacity_factor)
+        return y.reshape(b, s, d).to(dt), aux
+
+
 class Block(nn.Module):
+    """Returns (x, aux): aux is the MoE layer's load-balancing term, None
+    for a dense block."""
+
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.RMSNorm_0 = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.param_dtype,
@@ -234,11 +267,18 @@ class Block(nn.Module):
         self.Attention_0 = Attention(cfg, device)
         self.RMSNorm_1 = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.param_dtype,
                                  device)
-        self.MLP_0 = MLP(cfg, device)
+        if cfg.moe:
+            self.MoEMLP_0 = MoEMLP(cfg, device)
+        else:
+            self.MLP_0 = MLP(cfg, device)
 
     def forward(self, x, positions, mask=None):
         x = x + self.Attention_0(self.RMSNorm_0(x), positions, mask)
-        return x + self.MLP_0(self.RMSNorm_1(x))
+        h = self.RMSNorm_1(x)
+        if hasattr(self, "MoEMLP_0"):
+            y, aux = self.MoEMLP_0(h)
+            return x + y, aux
+        return x + self.MLP_0(h), None
 
 
 class Transformer(nn.Module):
@@ -264,23 +304,32 @@ class Transformer(nn.Module):
         self.load_state_dict(state, strict=True)
         return self
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, return_aux: bool = False):
+        """logits; with ``return_aux``, (logits, the MoE layers' aux terms
+        in layer order, empty for a dense model), what the reference's
+        ``mutable=["intermediates"]`` gives its loss."""
         cfg = self.cfg
         embed = self.embedding.to(cfg.dtype)
         x = embed[tokens]
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         remat = cfg.remat and torch.is_grad_enabled()
+        aux_terms: List[torch.Tensor] = []
         for i in range(cfg.n_layers):
             block = getattr(self, f"layer_{i}")
             if remat:
-                x = checkpoint(block, x, positions, use_reentrant=False,
-                               **_REMAT_KWARGS[cfg.remat_policy])
+                # aux is one of the checkpoint's outputs: the recompute in
+                # backward rebuilds it without adding a second term
+                x, aux = checkpoint(block, x, positions, use_reentrant=False,
+                                    **_REMAT_KWARGS[cfg.remat_policy])
             else:
-                x = block(x, positions)
+                x, aux = block(x, positions)
+            if aux is not None:
+                aux_terms.append(aux)
         x = self.final_norm(x)
         # logits stay in the compute dtype; the loss casts inside its
         # reductions (cross_entropy_loss)
-        return torch.einsum("bsd,vd->bsv", x, embed)
+        logits = torch.einsum("bsd,vd->bsv", x, embed)
+        return (logits, aux_terms) if return_aux else logits
 
 
 # "dots" saves the outputs of matrix products and recomputes the rest, as
@@ -407,8 +456,9 @@ def _lecun_fan_in(shape) -> int:
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device=None) -> Dict[str, torch.Tensor]:
     """Random parameters at the flax initialisers' scales: embedding
-    normal(0.02), weights lecun_normal, norm scales ones. Drawn from
-    ``generator`` on its own device, returned in f32 on ``device``
+    normal(0.02), weights lecun_normal (an expert stack [E, D, F] takes
+    fan-in D·E, as flax's variance_scaling does), norm scales ones. Drawn
+    from ``generator`` on its own device, returned in f32 on ``device``
     (default: the generator's device). Not bit-equal to flax's draw;
     parity tests load flax's params through ``params_from_jax``."""
     device = device or generator.device
@@ -430,9 +480,15 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         params[f"{pre}/Attention_0/wv"] = lecun((D, KV, hd))
         params[f"{pre}/Attention_0/wo"] = lecun((H, hd, D))
         params[f"{pre}/RMSNorm_1/scale"] = torch.ones(D, device=device)
-        params[f"{pre}/MLP_0/w_gate"] = lecun((D, Fd))
-        params[f"{pre}/MLP_0/w_up"] = lecun((D, Fd))
-        params[f"{pre}/MLP_0/w_down"] = lecun((Fd, D))
+        if cfg.moe:
+            E = cfg.moe_num_experts
+            params[f"{pre}/MoEMLP_0/router"] = lecun((D, E))
+            params[f"{pre}/MoEMLP_0/w_in"] = lecun((E, D, Fd))
+            params[f"{pre}/MoEMLP_0/w_out"] = lecun((E, Fd, D))
+        else:
+            params[f"{pre}/MLP_0/w_gate"] = lecun((D, Fd))
+            params[f"{pre}/MLP_0/w_up"] = lecun((D, Fd))
+            params[f"{pre}/MLP_0/w_down"] = lecun((Fd, D))
     params["final_norm/scale"] = torch.ones(D, device=device)
     return params
 

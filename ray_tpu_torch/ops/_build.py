@@ -33,6 +33,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches``, the wrapper's launch counter. Under a
+    lock: ``+=`` on an attribute is a read and then a write, and the
+    wrappers launch from several threads at once (Tune's trials, Serve's
+    replicas)."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def _nvcc() -> str:

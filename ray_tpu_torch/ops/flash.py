@@ -41,6 +41,8 @@ from typing import Tuple
 
 import torch
 
+from ray_tpu_torch.ops import _build
+
 NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -165,8 +167,6 @@ def _launch(fn_name: str, tensors, rows, outs, causal: bool) -> None:
     """One kernel launch. ``*_sm90`` entry points take byte strides and no
     dtype code (they are bf16 only); the others element strides and the
     dtype code."""
-    from ray_tpu_torch.ops import _build
-
     q = tensors[0]
     B, H, S, D = q.shape
     lib = _build.library("flash_attention", _SIGNATURES)
@@ -199,7 +199,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd_sm90" if sm90 else "flash_attention_fwd",
             (q, k, v), (), (o, lse), causal)
-    flash_fwd.launches += 1
+    _build.count_launch(flash_fwd)
     return o, lse
 
 
@@ -214,7 +214,7 @@ def flash_bwd_dq(q, k, v, do, lse, di, causal: bool = True) -> torch.Tensor:
     _launch("flash_attention_bwd_dq_sm90" if sm90
             else "flash_attention_bwd_dq", (q, k, v, do), (lse, di), (dq,),
             causal)
-    flash_bwd_dq.launches += 1
+    _build.count_launch(flash_bwd_dq)
     return dq
 
 
@@ -231,7 +231,7 @@ def flash_bwd_dkv(q, k, v, do, lse, di, causal: bool = True
     _launch("flash_attention_bwd_dkv_sm90" if sm90
             else "flash_attention_bwd_dkv", (q, k, v, do), (lse, di),
             (dk, dv), causal)
-    flash_bwd_dkv.launches += 1
+    _build.count_launch(flash_bwd_dkv)
     return dk, dv
 
 

@@ -274,7 +274,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if rc != 0:
         raise RuntimeError("paged_attention kernel launch failed: "
                            + _build.error_string(lib, rc))
-    paged_attention.launches += 1
+    _build.count_launch(paged_attention)
     return out
 
 

@@ -144,8 +144,9 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "block_attention: kernel 2 has no backward, so the ring is "
-            "forward only on the card (ROADMAP.md, Queue A: ring attention "
-            "backward kernel); call it under torch.no_grad()")
+            "forward only on the card, as the reference's Pallas block is "
+            "on its chip (ROADMAP.md, Queue C); call it under "
+            "torch.no_grad()")
     q_offset, k_offset = int(q_offset), int(k_offset)
     _check(q, k, v, q_offset, k_offset)
     from ray_tpu_torch.ops import _build
@@ -170,7 +171,7 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: "
                            + _build.error_string(lib, rc))
-    block_attention.launches += 1
+    _build.count_launch(block_attention)
     return o, m, l
 
 

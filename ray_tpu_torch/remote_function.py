@@ -94,9 +94,9 @@ class RemoteFunction:
     def bind(self, *args, **kwargs):
         """DAG-building (reference: ray.dag): returns a node; compose
         with other .bind() results and experimental_compile()."""
-        raise NotImplementedError(
-            "the DAG is not ported yet (ROADMAP.md Queue A item 6: the "
-            "libraries on the runtime)")
+        from ray_tpu_torch.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

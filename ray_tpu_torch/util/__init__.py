@@ -1,7 +1,8 @@
 """ray_tpu_torch.util — utility APIs (reference: python/ray/util/).
 
 Ported: placement groups, scheduling strategies, user metrics
-(``util.metrics``) and ``ActorPool``. The state API (``util.state``) of
+(``util.metrics``), ``ActorPool`` and the queue (``util.queue``, import it
+by name). The state API (``util.state``) of
 the reference is not ported yet (ROADMAP.md, the runtime's next items)."""
 
 from ray_tpu_torch.util.placement_group import (placement_group,  # noqa: F401

@@ -13,7 +13,8 @@ oracle's agreement rule and replay, the crossover snapshots and verdict,
 the recorder's timing summary and assign's bytes; and the serve phase's
 helpers: the quantile rule (Serve's own), TTFT and latency of a stream,
 a round's summary, kernel 1's launch rule on the Serve path, and the
-greedy-parity near-tie rule it shares with phase parity."""
+greedy-parity near-tie rule it shares with phase parity; and phase moe's
+dropped share a layer."""
 
 import json
 import re
@@ -829,3 +830,27 @@ def test_data_helpers_on_the_port_runtime():
         assert not problems and row["native"] and row["same_order"]
     finally:
         ray.shutdown()
+
+
+@pytest.mark.parametrize("cf", [0.5, 4.0])
+def test_moe_dropped_shares_respect_capacity(cf):
+    """Phase moe's dropped share a layer: one share per MoE layer, and
+    bounded by the capacity alone. At cf = 0.5 the experts hold half the
+    tokens at most, so each layer drops at least half; at cf = E (4) each
+    expert has a slot for every token, so none is dropped."""
+    from ray_tpu_torch.models import transformer as tt
+
+    cfg = tt.TransformerConfig(
+        vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
+        d_ff=64, max_seq_len=64, dtype=torch.float32, moe=True,
+        moe_num_experts=4, moe_capacity_factor=cf)
+    model = tt.Transformer(cfg, device="cpu").load_params(tt.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    tokens = torch.randint(0, 64, (3, 40),
+                           generator=torch.Generator().manual_seed(1))
+    got = chip_smoke.moe_dropped_shares(torch, model, tokens)
+    assert len(got) == cfg.n_layers
+    if cf < 1.0:
+        assert all(0.5 <= share < 1.0 for share in got)
+    else:
+        assert got == [0.0] * cfg.n_layers

@@ -215,8 +215,9 @@ def test_port_imports_no_jax():
     map_batches in process mode, with no jax and no ray_tpu module loaded
     in the driver or the worker processes; the package's import, and
     Serve's, the metrics plane's, the process runtime's, Data's, the
-    cluster's, the autoscaler's, RLlib's (each submodule) and Train's,
-    leave CUDA uninitialised; a PPO iteration with its learner on the
+    cluster's, the autoscaler's, RLlib's (each submodule), Train's, and
+    those of MoE, Tune, workflow, the DAG and the queue, leave CUDA
+    uninitialised; a PPO iteration with its learner on the
     host loads no jax or ray_tpu module either."""
     code = ("import os, sys, torch, ray_tpu_torch as ray\n"
             "assert not torch.cuda.is_initialized()\n"
@@ -246,7 +247,10 @@ def test_port_imports_no_jax():
             "ray_tpu_torch.rllib.impala, ray_tpu_torch.rllib.dqn, "
             "ray_tpu_torch.rllib.sac, ray_tpu_torch.rllib.offline, "
             "ray_tpu_torch.rllib.multi_agent, ray_tpu_torch.train, "
-            "ray_tpu_torch.train.api\n"
+            "ray_tpu_torch.train.api, ray_tpu_torch.ops.moe, "
+            "ray_tpu_torch.tune, ray_tpu_torch.tune.tuner, "
+            "ray_tpu_torch.tune.search, ray_tpu_torch.workflow, "
+            "ray_tpu_torch.dag, ray_tpu_torch.util.queue\n"
             "assert not torch.cuda.is_initialized()\n"
             "ray.init(num_workers=2, scheduler='tensor', "
             "_system_config={'sched_device': 'cpu'})\n"

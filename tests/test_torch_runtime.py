@@ -285,8 +285,12 @@ def test_remote_function_direct_call_raises(rt):
     with pytest.raises(TypeError):
         f()
     assert f.func() == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        f.bind()
+    # .bind builds a DAG node (ray_tpu_torch.dag) instead of calling f
+    from ray_tpu_torch.dag import FunctionNode
+
+    node = f.bind()
+    assert isinstance(node, FunctionNode) and node.func is f.func
+    assert node.execute() == 1
 
 
 def test_resources_api(rt):

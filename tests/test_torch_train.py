@@ -8,7 +8,7 @@ with equal results.
 
 Not mirrored here: ``test_group_downsizes_after_node_death`` needs
 ``Cluster.add_node(remote=True)``, the multi-node plane, which the port
-does not have yet (ROADMAP Queue A item 5); it comes with that plane.
+does not have yet (ROADMAP Queue A item 4); it comes with that plane.
 """
 
 import json

@@ -85,8 +85,28 @@ def test_rope_rotates_interleaved_pairs_like_jax():
 
 
 def test_config_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.TransformerConfig(moe=True)
+    """moe=True builds a model with the expert layer in place of the dense
+    MLP, and its engine and its expert-parallel path are what the port
+    refuses: the engine raises ValueError (the reference's reads MLP_0),
+    and a forward under a mesh with expert > 1 raises NotImplementedError
+    naming ROADMAP.md (the all_to_all path waits for sharded training)."""
+    from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh, use_mesh
+
+    cfg = tt.TransformerConfig(dtype=torch.float32, moe=True,
+                               moe_num_experts=4, **TINY)
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    model = tt.Transformer(cfg, device="cpu").load_params(params)
+    assert hasattr(model.layer_0, "MoEMLP_0")
+    assert not hasattr(model.layer_0, "MLP_0")
+    assert params["layer_1/MoEMLP_0/w_in"].shape == (4, 32, 64)
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    assert torch.isfinite(model(tokens)).all()
+    with pytest.raises(ValueError, match="MLP_0"):
+        tinf.InferenceEngine(params, cfg, device="cpu")
+    with use_mesh(make_mesh(MeshConfig(expert=2), ["cpu"] * 2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            model(tokens)
 
 
 def test_config_builds_with_ring_attention():
