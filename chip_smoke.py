@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of ray_tpu_torch on one NVIDIA GPU: build, check, serve, train,
-data, cluster, RLlib, Train, MoE, the compiled DAG, Tune, workflow.
+data, cluster, RLlib, Train, MoE, the compiled DAG, Tune, workflow, the
+multi-node plane and the ray:// client.
 
     python3 chip_smoke.py            # one card; 0 only if every phase passed
     python3 chip_smoke.py --kernels  # build, device and every kernel's
@@ -231,6 +232,21 @@ Phases, each printing one JSON line:
                direct computation), and 512 CUDA tensors through a
                util.queue.Queue from a producer task to a consumer task,
                in order (items/s).
+ 21. multinode — the multi-node plane (phase_multinode): a thread-mode
+               head on the card's scheduler and three node daemons over
+               localhost TCP (two CPU nodes, one GPU node): registration
+               seconds with no torch, jax or CUDA in a daemon; a 10k
+               fan-out; nested tasks admitted on their node (head-skip
+               share >= 0.9); a 64 MiB object pulled node to node and to
+               the head, both arenas freed after; locality on and off;
+               p2p actor calls; the serve-127M engine actor on the GPU
+               node (tokens equal to a direct engine's, kernel 1 = 8 x
+               its decode steps in its process); a machine death and a
+               link flap under load, every task once; a ray:// client
+               process whose task runs the serve-127M forward on the
+               head's card (flash_fwd 8, argmax equal to the driver's);
+               assign's launches = device assigns and every snapshot
+               equal to assign_np in every part.
 
 Then the kernel table as one JSON line (kernel 1's launches: the Serve
 path's, mono and split, with phase engine's beside them), the nvidia-smi line, and last
@@ -242,6 +258,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -486,11 +503,49 @@ TUNE_MODEL = dict(vocab_size=4096, d_model=256, n_layers=2, n_heads=2,
                   n_kv_heads=1, d_ff=704, max_seq_len=256)
 TUNE_BATCH, TUNE_SEQ, TUNE_STEPS = 8, 256, 12
 TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
-# the flash kernels at the shapes the moe, dag and tune paths give them
+# the multi-node plane (phase multinode): a thread-mode head (2 CPUs,
+# TensorScheduler on the card, worker_gpu_access) and three remote nodes,
+# each a node-daemon process with an arena of its own reached over TCP on
+# localhost: two CPU nodes of MN_CPU_NODE and one GPU node of MN_GPU_NODE.
+# MN_FANOUT small tasks; a task on a CPU node submitting MN_ROUNDS rounds
+# of MN_NESTED nested tasks (no-op, retry-carrying and node-resident-ref
+# leaves, the reference's default-config mix; a round stays within the
+# daemon's local_queue_depth, as the reference's test does); an
+# MN_OBJECT_BYTES array
+# made on one node, read on the other and by the head; MN_LOCALITY
+# consumers of MN_LOCALITY_BYTES arguments with scheduler_locality on,
+# then off; MN_P2P_CALLS actor calls between the CPU nodes; the
+# serve-127M engine actor on the GPU node (phase process's prompts);
+# machine death under MN_DEATH_TASKS tasks of MN_DEATH_TASK_S; a chaos
+# node flap under MN_FLAP_TASKS tasks; a ray:// client process
+MN_HEAD = dict(num_cpus=2, num_workers=2, scheduler="tensor",
+               resources={"mn_head": 4.0})
+MN_CPU_NODE = dict(num_cpus=4, num_workers=4)
+MN_GPU_NODE = dict(num_cpus=2, num_workers=2, num_gpus=1)
+MN_FANOUT, MN_ROUNDS, MN_NESTED = 10_000, 8, 12
+MN_HEAD_SKIP_BOUND = 0.9           # the reference's bound
+MN_OBJECT_BYTES = 64 << 20
+# (with perf.locality_ab's spillback depth: a consumer waits for the
+# holder while it has fewer than 32 leases outstanding)
+MN_LOCALITY, MN_LOCALITY_BYTES, MN_LOCALITY_SPILL_DEPTH = 8, 1 << 20, 32
+MN_P2P_CALLS = 200
+MN_DEATH_TASKS, MN_DEATH_TASK_S = 200, 0.05
+MN_FLAP_TASKS, MN_FLAP_TASK_S = 40, 0.1
+# the client: a 16 MiB put/get, MN_CLIENT_TASKS round trips, a named
+# actor and serve-127M's forward at [CLIENT_BATCH, CLIENT_SEQ] on the
+# head's card (tokens from seed CLIENT_SEED)
+MN_CLIENT_PUT_BYTES, MN_CLIENT_TASKS = 16 << 20, 200
+CLIENT_BATCH, CLIENT_SEQ, CLIENT_SEED = 8, 512, 3
+# a node daemon must map none of these libraries (no torch, no jax, no
+# CUDA context)
+DAEMON_BANNED_LIBS = ("libtorch", "libcuda", "jaxlib", "xla_extension")
+# the flash kernels at the shapes the moe, dag, tune and client paths give
+# them
 # ((batch, heads after the model repeats the KV heads, seq), bf16, causal),
 # held to their plain versions by phase kernel on the same inputs
 FLASH_PATHS = {"moe": (MOE_BATCH, TRAIN["n_heads"], TRAIN_SEQ - 1),
                "dag": (DAG_BATCH, SERVE["n_heads"], DAG_SEQ),
+               "client": (CLIENT_BATCH, SERVE["n_heads"], CLIENT_SEQ),
                "tune": (TUNE_BATCH, TUNE_MODEL["n_heads"], TUNE_SEQ)}
 # workflow and queue (phase workflow): WORKFLOW_N x WORKFLOW_N f32 steps on
 # the card; QUEUE_ITEMS CUDA tensors of QUEUE_SHAPE through a util.queue
@@ -2013,6 +2068,16 @@ def replay_oracle(sk, snapshots, threshold):
         cls_full[ready_idx] = ready_cls
         want = sk.assign_np(ready_idx, cls_full, demands, avail0, cap,
                             threshold, mask, spread)
+        if snap[7] is not None:
+            # a tick with a locality matrix ran assign_np on the host
+            # (kernels.assign has no locality column): hold it to the same
+            # call with that matrix
+            from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+            want = sk.assign_np(
+                ready_idx, cls_full, demands, avail0, cap, threshold, mask,
+                spread, locality=snap[7], outstanding=snap[8],
+                spill_depth=GLOBAL_CONFIG.locality_spillback_queue_depth)
         bad += not assign_agrees((node_of, avail), want, ready_cls, spread)
     return bad
 
@@ -2099,7 +2164,7 @@ def crossover_snapshot(k, n_classes, seed=0):
     ready_idx = np.arange(k, dtype=np.int64)
     ready_cls = rng.integers(0, K, k).astype(np.int32)
     return (ready_idx, ready_cls, demands, cap.copy(), cap, mask, spread,
-            None)
+            None, None, None)
 
 
 def phase_crossover(torch, sched, config):
@@ -5177,6 +5242,939 @@ def phase_workflow(torch, dev):
         raise AssertionError(f"workflow phase: {problems}")
 
 
+def mapped_libs(pid):
+    """Basenames of the shared objects process pid maps."""
+    with open(f"/proc/{pid}/maps") as f:
+        return sorted({line.split()[-1].rsplit("/", 1)[-1] for line in f
+                       if "/" in line.split()[-1]})
+
+
+def daemon_modules():
+    """The modules a node daemon's import path loads, of torch and
+    REF_MODULES: a fresh interpreter imports the daemon's module as
+    ``python -m`` does."""
+    code = ("import sys, ray_tpu_torch._private.runtime.node_daemon; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch',) + " + repr(REF_MODULES) + "))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=str(Path(__file__).resolve().parent))
+    if out.returncode != 0:
+        raise AssertionError(f"daemon import probe failed: {out.stderr}")
+    return json.loads(out.stdout.strip().replace("'", '"'))
+
+
+def mark_leaf(key, path, sleep_s):
+    """Sleep, then append key to the marks file (O_APPEND: atomic for a
+    short write): a killed attempt leaves no mark, so the file counts
+    completions. Returns key's sha256."""
+    import hashlib
+    import os
+
+    time.sleep(sleep_s)
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+    try:
+        os.write(fd, (key + "\n").encode())
+    finally:
+        os.close(fd)
+    return hashlib.sha256(key.encode()).hexdigest()
+
+
+def read_marks(path):
+    try:
+        with open(path) as f:
+            return f.read().split()
+    except FileNotFoundError:
+        return []
+
+
+def client_forward(serve, batch, seq, seed, device="cuda"):
+    """serve-127M's forward (bf16, params from the seeded generator on
+    the card) on seeded tokens [batch, seq]: the argmax tokens, on the
+    host. The client's task runs this on the head; the driver runs it
+    directly for the tokens to compare."""
+    import torch
+
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  init_params)
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **serve)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    model = Transformer(cfg, device=device).load_params(params)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(seed))
+    with torch.no_grad():
+        logits = model(tokens)
+    out = logits.argmax(-1).int().cpu().numpy()
+    del model, params, logits
+    return out
+
+
+# the ray:// client process (phase multinode): argv[1] the connect string,
+# argv[2] JSON {put_bytes, tasks, serve, batch, seq, seed}; prints one JSON
+# line. It sees no card (CUDA_VISIBLE_DEVICES=""); the forward runs on the
+# head as a task pinned to the head's resource
+CLIENT_SRC = r'''
+import json, sys, time
+import numpy as np
+import ray_tpu_torch as ray
+
+address, p = sys.argv[1], json.loads(sys.argv[2])
+t0 = time.perf_counter()
+ray.init(address=address)
+out = {"connect_s": time.perf_counter() - t0}
+data = np.random.default_rng(0).integers(0, 255, p["put_bytes"],
+                                         dtype=np.uint8)
+t0 = time.perf_counter()
+back = ray.get(ray.put(data), timeout=300)
+out["put_get_s"] = time.perf_counter() - t0
+out["put_get_equal"] = bool(np.array_equal(back, data))
+
+
+@ray.remote
+def inc(x):
+    return x + 1
+
+
+lat, exact = [], True
+for i in range(p["tasks"]):
+    t0 = time.perf_counter()
+    exact &= ray.get(inc.remote(i), timeout=300) == i + 1
+    lat.append(time.perf_counter() - t0)
+lat.sort()
+out.update(tasks=p["tasks"], tasks_exact=bool(exact),
+           task_p50_ms=lat[len(lat) // 2] * 1e3,
+           task_p99_ms=lat[int(len(lat) * 0.99)] * 1e3)
+
+
+@ray.remote
+class Named:
+    def __init__(self):
+        self.n = 0
+
+    def bump(self):
+        self.n += 1
+        return self.n
+
+
+a = Named.options(name="mn_client_named").remote()
+ray.get(a.bump.remote(), timeout=300)
+out["named_actor"] = ray.get(ray.get_actor("mn_client_named").bump.remote(),
+                             timeout=300)
+ray.kill(a)
+forward = ray.remote(FORWARD).options(num_gpus=p["gpus"],
+                                     resources={"mn_head": 1.0})
+t0 = time.perf_counter()
+tokens = ray.get(forward.remote(p["serve"], p["batch"], p["seq"], p["seed"],
+                                p["device"]), timeout=600)
+out["forward_s"] = time.perf_counter() - t0
+out["tokens"] = np.asarray(tokens).tolist()
+import torch
+
+out["modules"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "flax", "ray_tpu"))
+out["cuda"] = bool(torch.cuda.is_initialized() or torch.cuda.device_count())
+ray.shutdown()
+print(json.dumps(out), flush=True)
+'''
+
+
+def client_script():
+    """CLIENT_SRC with client_forward's source as its FORWARD (defined in
+    the client's __main__, so it travels to the head by value)."""
+    import inspect
+
+    return (inspect.getsource(client_forward)
+            + "\n\nFORWARD = client_forward\n" + CLIENT_SRC)
+
+
+def phase_multinode(torch, dev):
+    """The multi-node plane and the ray:// client (see MN_*): a Cluster
+    whose thread-mode head runs the TensorScheduler on ``dev``
+    (sched_backend "cuda", worker_gpu_access) and three remote nodes
+    through Cluster.add_node(remote=True), each a node daemon with its
+    own arena over TCP: two CPU nodes and one GPU node.
+
+    - start-up: each daemon's registration seconds; no daemon maps torch,
+      jax or a CUDA library, none adds a CUDA context (nvidia-smi's
+      rows), and the daemon's import path loads none of torch, jax,
+      flax, ray_tpu.
+    - fanout: MN_FANOUT small tasks: exact, a share on remote rows > 0;
+      tasks/s.
+    - two_level: nested submissions from tasks on a CPU node: the
+      head-skip share (node-local admissions over them and the spills)
+      >= MN_HEAD_SKIP_BOUND, exact.
+    - objects: a 64 MiB array made on node A: the head holds a
+      placeholder and no bytes crossed; a task on B reads it through a
+      peer pull, equal; the head's get equal; once the ref dies both
+      arenas' bytes come back; GB/s node to node and node to head.
+    - locality: consumers of objects on B, scheduler_locality on then
+      off: on, every consumer on B and fewer bytes pulled; sums equal;
+      locality_host_assigns > 0 and equal to the ticks whose snapshot
+      carried a locality matrix.
+    - p2p: MN_P2P_CALLS calls from a task on A to an actor on B: order
+      exact, >= 90% peer-to-peer, no head fallback; calls/s.
+    - gpu_node: the serve-127M engine actor (num_gpus=1) on the GPU node:
+      tokens equal a direct engine's on the head, kernel 1's launches in
+      its process = 8 x its decode steps > 0, nvidia-smi shows its
+      process, after ray.kill the process gone and the card's memory
+      back; tokens/s.
+    - machine_death: node A's daemon tree SIGKILLed under MN_DEATH_TASKS
+      tasks with retries: DEAD within the health check's budget, every
+      result exact and run once (the marks file), a sole-copy object
+      rebuilt from lineage, every snapshot after the death equal to
+      assign_np with no task on the dead row; seconds.
+    - link_flap: a chaos node flap of B under load: exactly once, B
+      ALIVE again; seconds.
+    - client: enable_head_endpoint, a client process (no card) that
+      connects through ray://: put/get 16 MiB, round trips, a named
+      actor, serve-127M's forward on the head's card with argmax equal
+      to the driver's and flash_fwd 8 launches; no jax or card in it.
+    - shutdown: no daemon or worker process alive, the card's memory
+      back.
+    In every part kernels.assign's counter is zeroed just before and read
+    just after: equal to the scheduler's device assigns; every snapshot
+    equals assign_np. Returns {"assign": launches over the parts,
+    "engine_actor": kernel 1 in the actor, "client_forward": flash_fwd}."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch._private.runtime.process_pool import RemotePlaceholder
+    from ray_tpu_torch._private.scheduler import kernels as sk
+    from ray_tpu_torch._private.scheduler.tensor import TensorScheduler
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.models.inference import InferenceConfig
+    from ray_tpu_torch.ops import flash
+    from ray_tpu_torch.util import NodeAffinitySchedulingStrategy
+
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    system = {"sched_backend": "cuda", "sched_device": dev.type,
+              "worker_gpu_access": True,
+              # node death here is the daemon link's EOF; a long heartbeat
+              # budget only keeps a busy host from false deaths
+              "node_heartbeat_timeout_s": 20.0,
+              "health_check_timeout_s": 5.0}
+    problems, pids, total = [], set(), [0]
+    out = {"engine_actor": 0, "client_forward": 0}
+    rec = AssignRecorder(torch, TensorScheduler, sk, GLOBAL_CONFIG)
+    marks_dir = tempfile.mkdtemp(prefix="chip_smoke_multinode_")
+
+    def part(name, fn):
+        """fn() with the counter zeroed just before and read just after,
+        every snapshot kept and replayed through assign_np: (fn's result,
+        snapshots, counts)."""
+        w = ray._worker.get_worker()
+        rec.snapshots = []
+        st0 = w.scheduler.stats()
+        sk.assign.launches = 0
+        res = fn()
+        n = sk.assign.launches
+        st1 = w.scheduler.stats()
+        snaps, rec.snapshots = rec.snapshots, None
+        total[0] += n
+        assigns = st1["device_assigns"] - st0["device_assigns"]
+        counts = {"assign_launches": n, "device_assigns": assigns,
+                  "locality_host_assigns": st1["locality_host_assigns"]
+                  - st0["locality_host_assigns"],
+                  "snapshots": len(snaps),
+                  "snapshots_with_locality": sum(
+                      s[0][7] is not None for s in snaps),
+                  "snapshots_differ": replay_oracle(
+                      sk, snaps, GLOBAL_CONFIG.sched_hybrid_threshold)}
+        problems.extend(f"{name}: {what}" for what, bad in (
+            (f"assign launches {n} != device assigns {assigns}",
+             n != assigns),
+            (f"{counts['snapshots_differ']} snapshots differ from "
+             "assign_np", counts["snapshots_differ"])) if bad)
+        return res, snaps, counts
+
+    def two_level_delta(before):
+        now = ray._worker.get_worker().two_level_stats
+        return {k: now.get(k, 0) - before.get(k, 0)
+                for k in ("local_dispatch", "spillback", "p2p",
+                          "head_fallback", "local_retry", "node_deaths",
+                          "orphan_retried")}
+
+    # this process's own card work first (the direct engine, the driver's
+    # forward), so the baseline holds its context and libraries and the
+    # release check sees only what the cluster's processes leave
+    engine_want = direct_engine_tokens(torch, dev)
+    client_want = client_forward(SERVE, CLIENT_BATCH, CLIENT_SEQ,
+                                 CLIENT_SEED, dev.type).tolist()
+    release_card(torch, dev)
+    rows0, used0 = card_state()
+    cluster, daemons = None, {}
+    try:
+        cluster = Cluster(initialize_head=True, head_node_args=dict(
+            MN_HEAD, _system_config=system))
+        w = ray._worker.get_worker()
+        # -- start-up -----------------------------------------------------
+        nodes, reg = {}, {}
+        for name, args in (("a", MN_CPU_NODE), ("b", MN_CPU_NODE),
+                           ("gpu", MN_GPU_NODE)):
+            t0 = time.perf_counter()
+            nodes[name] = cluster.add_node(
+                remote=True, resources={f"mn_{name}": 100.0, "mn_r": 100.0},
+                **args)
+            reg[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for node in nodes.values():
+            wait_workers_ready(node._entry.pool)
+            pids.update(node.worker_pids())
+        ready_s = time.perf_counter() - t0
+        daemons = {n: node._entry.pool._daemon_proc.pid
+                   for n, node in nodes.items()}
+        rows1, _used1 = card_state()
+        banned = {n: [lib for lib in mapped_libs(pid)
+                      if any(b in lib for b in DAEMON_BANNED_LIBS)]
+                  for n, pid in daemons.items()}
+        mods = daemon_modules()
+        ctx = {n: any(p == pid for p, _ in rows1)
+               for n, pid in daemons.items()}
+        emit({"phase": "multinode", "part": "startup",
+              "registration_seconds": reg, "workers_ready_seconds": ready_s,
+              "daemon_pids": daemons, "worker_pids": len(pids),
+              "daemon_banned_libraries": banned,
+              "daemon_import_modules": mods,
+              "compute_apps_before": rows0, "compute_apps_after": rows1,
+              "daemon_in_compute_apps": ctx, "nvidia_smi": smi})
+        problems += [f"startup: {what}" for what, bad in (
+            (f"daemons map {banned}", any(banned.values())),
+            (f"a daemon's import path loads {mods}", mods),
+            (f"daemons hold a CUDA context: {ctx}, {rows0} -> {rows1}",
+             any(ctx.values()) or len(rows1) > len(rows0))) if bad]
+        remote_pids = {n: set(node.worker_pids())
+                       for n, node in nodes.items()}
+        all_remote = set().union(*remote_pids.values())
+
+        # -- fan-out ------------------------------------------------------
+        @ray.remote
+        def square(i):
+            import os
+            return i * i, os.getpid()
+
+        def run_fanout():
+            t0 = time.perf_counter()
+            res = ray.get([square.remote(i) for i in range(MN_FANOUT)],
+                          timeout=300)
+            return time.perf_counter() - t0, res
+
+        (dt, res), _snaps, counts = part("fanout", run_fanout)
+        exact = [r[0] for r in res] == [i * i for i in range(MN_FANOUT)]
+        on_remote = sum(r[1] in all_remote for r in res) / MN_FANOUT
+        emit({"phase": "multinode", "part": "fanout", "tasks": MN_FANOUT,
+              "seconds": dt, "tasks_per_s": MN_FANOUT / dt,
+              "remote_share": on_remote, "exact": exact, **counts})
+        problems += [f"fanout: {what}" for what, bad in (
+            ("results not exact", not exact),
+            ("no task ran on a remote row", on_remote == 0),
+            ("no device assign", counts["assign_launches"] == 0)) if bad]
+
+        # -- two-level dispatch ------------------------------------------
+        @ray.remote(max_retries=0)
+        def nested_noop():
+            return 1
+
+        @ray.remote  # default task_max_retries: retry-carrying
+        def nested_retry():
+            return 1
+
+        @ray.remote(max_retries=0)
+        def nested_ref(blob):
+            return 1 if blob else 0
+
+        @ray.remote(resources={"mn_a": 1.0})
+        def submitter(rounds, n):
+            import ray_tpu_torch
+            # over inline_object_max_bytes: sealed in node A's arena
+            data = ray_tpu_torch.put(b"x" * (256 * 1024))
+            out = []
+            for _ in range(rounds):
+                refs = [nested_ref.remote(data) if i % 3 == 2
+                        else (nested_noop, nested_retry)[i % 3].remote()
+                        for i in range(n)]
+                out.append(sum(ray_tpu_torch.get(refs, timeout=300)))
+            return out
+
+        def run_two_level():
+            before = dict(w.two_level_stats)
+            t0 = time.perf_counter()
+            got = ray.get(submitter.remote(MN_ROUNDS, MN_NESTED),
+                          timeout=600)
+            dt = time.perf_counter() - t0
+            deadline = time.monotonic() + 30
+            want = MN_ROUNDS * MN_NESTED
+            while time.monotonic() < deadline:
+                d = two_level_delta(before)
+                if d["local_dispatch"] + d["spillback"] >= want:
+                    break
+                time.sleep(0.05)
+            return got, dt, two_level_delta(before)
+
+        (got, dt, d), _snaps, counts = part("two_level", run_two_level)
+        ld, sb = d["local_dispatch"], d["spillback"]
+        skip = ld / (ld + sb) if ld + sb else 0.0
+        emit({"phase": "multinode", "part": "two_level",
+              "rounds": MN_ROUNDS, "nested": MN_NESTED, "seconds": dt,
+              "nested_per_s": MN_ROUNDS * MN_NESTED / dt,
+              "head_skip": skip, "two_level": d,
+              "spill_reasons": dict(nodes["a"]._entry.pool.spill_reasons),
+              "exact": got == [MN_NESTED] * MN_ROUNDS, **counts})
+        problems += [f"two_level: {what}" for what, bad in (
+            ("results not exact", got != [MN_NESTED] * MN_ROUNDS),
+            (f"head-skip share {skip} < {MN_HEAD_SKIP_BOUND}",
+             skip < MN_HEAD_SKIP_BOUND)) if bad]
+
+        # -- cross-node objects ------------------------------------------
+        n_elem = MN_OBJECT_BYTES // 4
+
+        @ray.remote(resources={"mn_a": 1.0})
+        def make_array():
+            import numpy as _np
+            return _np.arange(n_elem, dtype=_np.float32)
+
+        @ray.remote(resources={"mn_b": 1.0})
+        def digest(x):
+            import hashlib
+            return hashlib.sha256(memoryview(x).cast("B")).hexdigest()
+
+        def run_objects():
+            import hashlib
+
+            want = hashlib.sha256(memoryview(
+                np.arange(n_elem, dtype=np.float32)).cast("B")).hexdigest()
+            relayed0 = dict(w.transfer_stats)
+            ref = make_array.remote()
+            ray.wait([ref], timeout=300)
+            entry = w.memory_store.get_entry(ref.object_id())
+            placeholder = isinstance(entry.value, RemotePlaceholder)
+            locs = w.gcs.object_locations(ref.object_id())
+            crossed = {k: w.transfer_stats[k] - relayed0[k]
+                       for k in ("head_relayed_bytes", "bytes_pulled")}
+            t0 = time.perf_counter()
+            on_b = ray.get(digest.remote(ref), timeout=300)
+            n2n_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            val = ray.get(ref, timeout=300)
+            n2h_s = time.perf_counter() - t0
+            head_equal = hashlib.sha256(memoryview(val).cast(
+                "B")).hexdigest() == want
+            stats_with = {n: nodes[n]._entry.pool.store_stats()
+                          for n in ("a", "b")}
+            oid = ref.object_id()
+            del ref, val, entry
+            gc.collect()
+            ray.get(ray.put(0))          # an API entry drains dying refs
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                stats = {n: nodes[n]._entry.pool.store_stats()
+                         for n in ("a", "b")}
+                if not w.gcs.object_locations(oid) and all(
+                        s["used_bytes"] < MN_OBJECT_BYTES
+                        for s in stats.values()):
+                    break
+                time.sleep(0.05)
+            return {"placeholder": placeholder, "locations": locs,
+                    "crossed_before_read": crossed,
+                    "node_to_node_equal": on_b == want,
+                    "head_equal": head_equal,
+                    "node_to_node_seconds": n2n_s,
+                    "node_to_node_gb_per_s": MN_OBJECT_BYTES / n2n_s / 1e9,
+                    "node_to_head_seconds": n2h_s,
+                    "node_to_head_gb_per_s": MN_OBJECT_BYTES / n2h_s / 1e9,
+                    "store_stats_with": stats_with, "store_stats_after": stats,
+                    "locations_after": w.gcs.object_locations(oid)}
+
+        row, _snaps, counts = part("objects", run_objects)
+        emit({"phase": "multinode", "part": "objects",
+              "bytes": MN_OBJECT_BYTES, **row, **counts})
+        freed = all(s["used_bytes"] < MN_OBJECT_BYTES
+                    for s in row["store_stats_after"].values())
+        problems += [f"objects: {what}" for what, bad in (
+            ("the head holds no placeholder", not row["placeholder"]),
+            (f"locations {row['locations']}",
+             row["locations"] != [nodes["a"].index]),
+            (f"bytes crossed before a read {row['crossed_before_read']}",
+             any(row["crossed_before_read"].values())),
+            ("node B's read differs", not row["node_to_node_equal"]),
+            ("the head's get differs", not row["head_equal"]),
+            (f"arena bytes not back {row['store_stats_after']}",
+             not freed or row["locations_after"])) if bad]
+
+        # -- locality -----------------------------------------------------
+        n_loc = MN_LOCALITY_BYTES // 8
+
+        @ray.remote(resources={"mn_b": 1.0})
+        def produce(i):
+            import numpy as _np
+            return _np.full(n_loc, float(i))
+
+        @ray.remote(resources={"mn_r": 1.0})
+        def consume(x):
+            import os
+            return float(x[0]) * len(x), os.getpid()
+
+        # the knobs are set on the live head for this part (init froze
+        # them) and restored after it, the replay of its snapshots included
+        locality_entry = GLOBAL_CONFIG.entry("scheduler_locality")
+        depth_entry = GLOBAL_CONFIG.entry("locality_spillback_queue_depth")
+        loc_rows = {}
+        for on in (True, False):
+            def run_locality():
+                refs = [produce.remote(i) for i in range(MN_LOCALITY)]
+                ray.wait(refs, num_returns=len(refs), timeout=300)
+                p0 = w.transfer_stats["bytes_pulled"]
+                got = ray.get([consume.remote(r) for r in refs],
+                              timeout=300)
+                return got, w.transfer_stats["bytes_pulled"] - p0
+
+            locality_entry.value = on
+            depth_entry.value = MN_LOCALITY_SPILL_DEPTH
+            try:
+                (got, pulled), _snaps, counts = part(f"locality_{on}",
+                                                     run_locality)
+            finally:
+                locality_entry.value = locality_entry.default
+                depth_entry.value = depth_entry.default
+            on_b = sum(pid in remote_pids["b"] for _s, pid in got)
+            loc_rows[on] = {"sum": sum(s for s, _pid in got),
+                            "bytes_pulled": pulled,
+                            "consumers_on_holder": on_b, **counts}
+            emit({"phase": "multinode", "part": "locality",
+                  "scheduler_locality": on, "consumers": MN_LOCALITY,
+                  "arg_bytes": MN_LOCALITY_BYTES, **loc_rows[on]})
+        on_row, off_row = loc_rows[True], loc_rows[False]
+        problems += [f"locality: {what}" for what, bad in (
+            ("sums differ", on_row["sum"] != off_row["sum"]),
+            (f"{on_row['consumers_on_holder']} of {MN_LOCALITY} consumers "
+             "on the holder", on_row["consumers_on_holder"] != MN_LOCALITY),
+            (f"bytes pulled on {on_row['bytes_pulled']} not below off "
+             f"{off_row['bytes_pulled']}",
+             on_row["bytes_pulled"] >= off_row["bytes_pulled"]),
+            ("no host assign with a locality matrix",
+             on_row["locality_host_assigns"] == 0),
+            (f"locality host assigns {on_row['locality_host_assigns']} != "
+             f"snapshots with a matrix {on_row['snapshots_with_locality']}",
+             on_row["locality_host_assigns"]
+             != on_row["snapshots_with_locality"]),
+            ("locality matrix with the knob off",
+             off_row["snapshots_with_locality"])) if bad]
+
+        # -- p2p actor calls ---------------------------------------------
+        @ray.remote(resources={"mn_b": 1.0})
+        class Acc:
+            def __init__(self):
+                self.total = 0
+
+            def bump(self, x):
+                self.total += x
+                return self.total
+
+        @ray.remote(resources={"mn_a": 1.0})
+        def caller(h, n):
+            import time as _t
+
+            import ray_tpu_torch
+            t0 = _t.perf_counter()
+            seen = [ray_tpu_torch.get(h.bump.remote(1), timeout=120)
+                    for _ in range(n)]
+            return seen, _t.perf_counter() - t0
+
+        def run_p2p():
+            actor = Acc.remote()
+            ray.get(actor.bump.remote(0), timeout=300)   # placed, live
+            before = dict(w.two_level_stats)
+            seen, dt = ray.get(caller.remote(actor, MN_P2P_CALLS),
+                               timeout=600)
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                d = two_level_delta(before)
+                if d["p2p"] + d["head_fallback"] >= MN_P2P_CALLS - 1:
+                    break
+                time.sleep(0.05)
+            ray.kill(actor)
+            return seen, dt, two_level_delta(before)
+
+        (seen, dt, d), _snaps, counts = part("p2p", run_p2p)
+        emit({"phase": "multinode", "part": "p2p", "calls": MN_P2P_CALLS,
+              "seconds": dt, "calls_per_s": MN_P2P_CALLS / dt,
+              "two_level": d,
+              "order_exact": seen == list(range(1, MN_P2P_CALLS + 1)),
+              **counts})
+        problems += [f"p2p: {what}" for what, bad in (
+            ("calls out of order", seen != list(range(1, MN_P2P_CALLS + 1))),
+            (f"{d['p2p']} of {MN_P2P_CALLS} calls peer-to-peer",
+             d["p2p"] < 0.9 * MN_P2P_CALLS - 1),
+            (f"{d['head_fallback']} head fallbacks",
+             d["head_fallback"])) if bad]
+
+        # -- the engine actor on the GPU node ------------------------------
+        def run_gpu():
+            return multinode_engine(torch, ray, dev, engine_want)
+
+        (row, gpu_problems, launches), _snaps, counts = part("gpu_node",
+                                                             run_gpu)
+        out["engine_actor"] = launches
+        emit({"phase": "multinode", "part": "gpu_node",
+              "node": nodes["gpu"].index, **row, **counts})
+        problems += [f"gpu_node: {p}" for p in gpu_problems]
+
+        # -- machine death ------------------------------------------------
+        victim = nodes["a"]
+        marks = str(Path(marks_dir) / "death")
+        leaf = ray.remote(mark_leaf).options(max_retries=3)
+
+        @ray.remote(max_retries=2)
+        def sole_copy():
+            import numpy as _np
+            return _np.full(MN_LOCALITY_BYTES // 8, 7.0)
+
+        def run_death():
+            lineage = sole_copy.options(
+                scheduling_strategy=NodeAffinitySchedulingStrategy(
+                    victim.node_id, soft=True)).remote()
+            ray.wait([lineage], timeout=300)
+            lineage_locs = w.gcs.object_locations(lineage.object_id())
+            keys = [f"death-{i}" for i in range(MN_DEATH_TASKS)]
+            before = dict(w.two_level_stats)
+            t0 = time.perf_counter()
+            refs = [leaf.remote(k, marks, MN_DEATH_TASK_S) for k in keys]
+            wait_running_on(w, victim.index)
+            t_kill = time.perf_counter()
+            victim._entry.pool.simulate_machine_death()
+            while victim.state != "DEAD" \
+                    and time.perf_counter() - t_kill < 60:
+                time.sleep(0.005)
+            to_dead = time.perf_counter() - t_kill
+            vals = ray.get(refs, timeout=600)
+            to_last = time.perf_counter() - t_kill
+            rebuilt = ray.get(lineage, timeout=300)
+            return {"keys": keys, "vals": vals, "to_dead": to_dead,
+                    "to_last": to_last, "seconds": time.perf_counter() - t0,
+                    "lineage_locations_before": lineage_locs,
+                    "lineage_equal": bool(
+                        len(rebuilt) == MN_LOCALITY_BYTES // 8
+                        and (rebuilt == 7.0).all()),
+                    "two_level": two_level_delta(before)}
+
+        res, snaps, counts = part("machine_death", run_death)
+        import hashlib
+
+        keys = res.pop("keys")
+        vals = res.pop("vals")
+        exact = vals == [hashlib.sha256(k.encode()).hexdigest()
+                         for k in keys]
+        marked = read_marks(marks)
+        once = sorted(marked) == sorted(keys)
+        after, on_dead, differ = dead_row_check(
+            sk, snaps, {victim.index}, GLOBAL_CONFIG.sched_hybrid_threshold)
+        budget = 0.5 + detection_deadline(GLOBAL_CONFIG)
+        emit({"phase": "multinode", "part": "machine_death",
+              "tasks": MN_DEATH_TASKS, "task_s": MN_DEATH_TASK_S,
+              "dead_row": victim.index, "state": victim.state,
+              "seconds_to_dead": res["to_dead"], "budget_seconds": budget,
+              "seconds_to_last_result": res["to_last"],
+              "seconds": res["seconds"], "exact": exact,
+              "exactly_once": once, "marks": len(marked),
+              "lineage_locations_before": res["lineage_locations_before"],
+              "lineage_rebuilt_equal": res["lineage_equal"],
+              "two_level": res["two_level"], "snapshots_after": after,
+              "on_dead_row": on_dead, "differ_after": differ, **counts})
+        problems += [f"machine_death: {what}" for what, bad in (
+            (f"node {victim.state}", victim.state != "DEAD"),
+            (f"DEAD after {res['to_dead']} s > {budget}",
+             res["to_dead"] > budget),
+            ("results not exact", not exact),
+            (f"{len(marked)} marks for {len(keys)} tasks", not once),
+            (f"sole copy not on the victim: "
+             f"{res['lineage_locations_before']}",
+             res["lineage_locations_before"] != [victim.index]),
+            ("lineage rebuild differs", not res["lineage_equal"]),
+            ("no snapshot after the death", after == 0),
+            (f"{on_dead} snapshots put a task on the dead row", on_dead),
+            (f"{differ} snapshots after the death differ", differ)) if bad]
+
+        # -- link flap ----------------------------------------------------
+        flapped = nodes["b"]
+        marks = str(Path(marks_dir) / "flap")
+        flap_leaf = ray.remote(mark_leaf).options(
+            resources={"mn_b": 1.0}, max_retries=3)
+
+        def run_flap():
+            pool = flapped._entry.pool
+            replayed0 = pool.outbox_replayed
+            keys = [f"flap-{i}" for i in range(MN_FLAP_TASKS)]
+            refs = [flap_leaf.remote(k, marks, MN_FLAP_TASK_S) for k in keys]
+            wait_running_on(w, flapped.index)
+            chaos.arm(chaos.FaultPlan(11, faults=[
+                ("node", 1, "flap", {"node": flapped.index})]))
+            t0 = time.perf_counter()
+            fired, left_alive = None, None
+            try:
+                while time.perf_counter() - t0 < 60:
+                    if fired is None and flapped.state != "ALIVE":
+                        fired = time.perf_counter() - t0
+                    if fired is not None and flapped.state == "ALIVE":
+                        left_alive = time.perf_counter() - t0
+                        break
+                    time.sleep(0.002)
+                vals = ray.get(refs, timeout=300)
+                injected = chaos.counters()["injected"].get("node", 0)
+            finally:
+                chaos.disarm()
+            return {"keys": keys, "vals": vals, "injected": injected,
+                    "down_at": fired, "alive_at": left_alive,
+                    "seconds": time.perf_counter() - t0,
+                    "outbox_replayed": pool.outbox_replayed - replayed0}
+
+        res, _snaps, counts = part("link_flap", run_flap)
+        keys, vals = res.pop("keys"), res.pop("vals")
+        marked = read_marks(marks)
+        exact = vals == [hashlib.sha256(k.encode()).hexdigest()
+                         for k in keys]
+        once = sorted(marked) == sorted(keys)
+        emit({"phase": "multinode", "part": "link_flap",
+              "tasks": MN_FLAP_TASKS, "state": flapped.state,
+              "exact": exact, "exactly_once": once, **res, **counts})
+        problems += [f"link_flap: {what}" for what, bad in (
+            ("no flap injected", not res["injected"]),
+            (f"node {flapped.state} after the flap",
+             flapped.state != "ALIVE"),
+            ("results not exact", not exact),
+            (f"{len(marked)} marks for {len(keys)} tasks", not once)) if bad]
+
+        # -- the ray:// client --------------------------------------------
+        def run_client():
+            server = w.enable_head_endpoint()
+            host, port = server.address
+            address = f"ray://{host}:{port}?key={server.authkey.hex()}"
+            env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                       PYTHONPATH=os.pathsep.join(
+                           [str(Path(__file__).resolve().parent)]
+                           + [p for p in sys.path if p]))
+            params = {"put_bytes": MN_CLIENT_PUT_BYTES,
+                      "tasks": MN_CLIENT_TASKS, "serve": SERVE,
+                      "batch": CLIENT_BATCH, "seq": CLIENT_SEQ,
+                      "seed": CLIENT_SEED, "device": dev.type,
+                      "gpus": 1 if dev.type == "cuda" else 0}
+            flash.flash_fwd.launches = 0
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", client_script(), address,
+                 json.dumps(params)],
+                capture_output=True, text=True, timeout=600, env=env)
+            dt = time.perf_counter() - t0
+            launches = flash.flash_fwd.launches
+            if proc.returncode != 0:
+                raise AssertionError(f"client process failed: "
+                                     f"{proc.stderr[-3000:]}")
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            return got, client_want, launches, dt
+
+        (got, want, launches, dt), _snaps, counts = part("client",
+                                                         run_client)
+        out["client_forward"] = launches
+        tokens = got.pop("tokens")
+        emit({"phase": "multinode", "part": "client", "seconds": dt,
+              "forward_tokens_equal": tokens == want,
+              "flash_fwd_launches": launches, **got, **counts})
+        problems += [f"client: {what}" for what, bad in (
+            ("put/get differs", not got["put_get_equal"]),
+            ("task results not exact", not got["tasks_exact"]),
+            (f"named actor answered {got['named_actor']}",
+             got["named_actor"] != 2),
+            ("forward tokens differ from the driver's", tokens != want),
+            (f"flash_fwd launches {launches} != {SERVE['n_layers']}",
+             launches != SERVE["n_layers"]),
+            (f"client loaded {got['modules']}", got["modules"]),
+            ("the client sees a card", got["cuda"])) if bad]
+        errors = w.scheduler.stats()["device_assign_errors"]
+        if errors:
+            problems.append(f"{errors} device assign errors")
+    finally:
+        chaos.disarm()
+        if cluster is not None:
+            cluster.shutdown()
+        ray.shutdown()
+        rec.remove()
+        GLOBAL_CONFIG.reset()
+    # -- shutdown ---------------------------------------------------------
+    t0 = time.perf_counter()
+    watch = pids | set(daemons.values())
+    while any(pid_alive(p) for p in watch) and time.perf_counter() - t0 < 30:
+        time.sleep(0.05)
+    alive = sorted(p for p in watch if pid_alive(p))
+    deadline = time.monotonic() + 60
+    while True:
+        release_card(torch, dev)
+        rows2, used2 = card_state()
+        if (len(rows2) <= len(rows0)
+                and used2 <= used0 + PROCESS_MEM_SLACK_MIB) \
+                or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    emit({"phase": "multinode", "part": "shutdown",
+          "processes": len(watch), "alive": alive,
+          "compute_apps": [rows0, rows2], "memory_used_mib": [used0, used2],
+          "seconds": time.perf_counter() - t0})
+    if alive:
+        problems.append(f"shutdown: processes alive {alive}")
+    if len(rows2) > len(rows0) or used2 > used0 + PROCESS_MEM_SLACK_MIB:
+        problems.append(f"shutdown: card not released: {rows0} -> {rows2}, "
+                        f"{used0} -> {used2} MiB")
+    shutil.rmtree(marks_dir, ignore_errors=True)
+    emit({"phase": "multinode", "part": "done",
+          "seconds": time.perf_counter() - t_phase, "ok": not problems,
+          "assign_launches": total[0], **out, "nvidia_smi": smi})
+    if problems:
+        raise AssertionError(f"multinode phase: {problems}")
+    out["assign"] = total[0]
+    return out
+
+
+def multinode_engine_config(torch):
+    """(model config, engine config, prompts) of phase multinode's engine
+    actor: serve-127M bf16, phase process's prompts."""
+    from ray_tpu_torch.models.inference import InferenceConfig
+    from ray_tpu_torch.models.transformer import TransformerConfig
+
+    mcfg = TransformerConfig(dtype=torch.bfloat16, **SERVE)
+    icfg = InferenceConfig(batch_size=SLOTS, page_size=PAGE,
+                           max_pages_per_seq=MAX_PAGES, num_pages=NUM_PAGES,
+                           prefill_buckets=(16,),
+                           max_new_tokens=ENGINE_NEW_TOKENS)
+    return mcfg, icfg, [[i + 1, 2 * i + 3, 7] for i in range(ENGINE_PROMPTS)]
+
+
+def direct_engine_tokens(torch, dev):
+    """The engine actor's tokens from an engine in this process on the
+    same seeded parameters."""
+    from ray_tpu_torch.models.inference import InferenceEngine
+    from ray_tpu_torch.models.transformer import init_params
+
+    mcfg, icfg, prompts = multinode_engine_config(torch)
+    params = init_params(mcfg, torch.Generator(device=dev).manual_seed(0))
+    engine = InferenceEngine(params, mcfg, icfg, device=dev.type)
+    try:
+        return [engine.generate(p, ENGINE_NEW_TOKENS) for p in prompts]
+    finally:
+        engine.shutdown()
+
+
+def release_card(torch, dev):
+    """Give back what this process cached on the card (allocator blocks,
+    cuBLAS's per-thread workspaces) before nvidia-smi is read."""
+    import gc
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+
+def multinode_engine(torch, ray, dev, want):
+    """The engine actor (num_gpus=1) on the remote GPU node: it builds
+    serve-127M bf16 from the seeded generator in its own process (a
+    worker of the GPU node's daemon) and generates ENGINE_PROMPTS prompts;
+    its tokens against ``want``, a direct engine's on the head on the
+    same seeded parameters; its kernel-1 launches and decode steps, read
+    in its process; nvidia-smi shows its process; after ray.kill the
+    process is gone and the card's memory back. Returns (row, problems,
+    launches)."""
+    mcfg, icfg, prompts = multinode_engine_config(torch)
+    release_card(torch, dev)
+    rows0, used0 = card_state()
+
+    @ray.remote(num_gpus=1, resources={"mn_gpu": 1.0})
+    class _RemoteEngine:
+        def __init__(self, serve, icfg, device):
+            import torch as _torch
+
+            from ray_tpu_torch.models.inference import InferenceEngine as IE
+            from ray_tpu_torch.models.transformer import (
+                TransformerConfig as TC, init_params as ip)
+
+            cfg = TC(dtype=_torch.bfloat16, **serve)
+            self.engine = IE(ip(cfg, _torch.Generator(
+                device=device).manual_seed(0)), cfg, icfg, device=device)
+
+        def generate(self, prompts, n):
+            # kernel 1's launches and the decode steps, in this process
+            import time as _time
+
+            from ray_tpu_torch.ops import paged_attention as pa
+
+            l0, s0 = pa.paged_attention.launches, self.engine.decode_steps
+            t0 = _time.perf_counter()
+            out = [self.engine.generate(p, n) for p in prompts]
+            return {"tokens": out, "seconds": _time.perf_counter() - t0,
+                    "launches": pa.paged_attention.launches - l0,
+                    "decode_steps": self.engine.decode_steps - s0}
+
+        def where(self):
+            import os
+
+            return os.getpid(), os.environ.get("CUDA_VISIBLE_DEVICES")
+
+        def stop(self):
+            self.engine.shutdown()
+
+    problems = []
+    t0 = time.perf_counter()
+    actor = _RemoteEngine.remote(SERVE, icfg, dev.type)
+    try:
+        pid, cvd = ray.get(actor.where.remote(), timeout=600)
+        ray.get(actor.generate.remote(prompts[:1], 4), timeout=600)  # warm
+        warm_s = time.perf_counter() - t0
+        rows1, used1 = card_state()
+        run = ray.get(actor.generate.remote(prompts, ENGINE_NEW_TOKENS),
+                      timeout=600)
+        ray.get(actor.stop.remote(), timeout=120)
+    finally:
+        ray.kill(actor)
+    deadline = time.monotonic() + 60
+    while True:
+        torch.cuda.empty_cache()
+        rows2, used2 = card_state()
+        alive = pid_alive(pid)
+        problem = released_rule(rows0, used0, rows2, used2, alive)
+        if problem is None or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    shown, shown_by = shows_process(rows0, rows1, pid)
+    tokens = sum(len(t) for t in run["tokens"])
+    row = {"pid": pid, "cuda_visible_devices": cvd,
+           "prompts": ENGINE_PROMPTS, "new_tokens": ENGINE_NEW_TOKENS,
+           "create_and_warm_seconds": warm_s, "seconds": run["seconds"],
+           "tokens_per_s": tokens / run["seconds"],
+           "tokens_equal_direct": run["tokens"] == want,
+           "paged_attention_launches": run["launches"],
+           "decode_steps": run["decode_steps"],
+           "compute_apps": [rows0, rows1, rows2],
+           "memory_used_mib": [used0, used1, used2],
+           "nvidia_smi_shows_actor": shown, "shown_by": shown_by,
+           "process_alive_after": alive}
+    if run["tokens"] != want:
+        problems.append("engine actor tokens != direct engine")
+    if problem := launch_rule(run["launches"], mcfg.n_layers,
+                              run["decode_steps"]):
+        problems.append(problem)
+    if not shown:
+        problems.append(f"nvidia-smi does not show the actor: {rows0} -> "
+                        f"{rows1}")
+    if problem := released_rule(rows0, used0, rows2, used2, alive):
+        problems.append(problem)
+    return row, problems, run["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -5232,6 +6230,7 @@ def main() -> int:
     dag_launches = phase_dag(torch, dev)
     tune_launches = phase_tune(torch, dev)
     phase_workflow(torch, dev)
+    multinode = phase_multinode(torch, dev)
 
     # kernel 1 and its yardstick by device time (graph replays): the eager
     # loop of wrapper calls times the host, not the kernels
@@ -5246,7 +6245,8 @@ def main() -> int:
             "engine": launches,
             "process_engine_actor": process_launches,
             "serve_mono": served["mono"]["paged_attention_launches"],
-            "serve_disagg": served["disagg"]["paged_attention_launches"]},
+            "serve_disagg": served["disagg"]["paged_attention_launches"],
+            "multinode_engine_actor": multinode["engine_actor"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["device_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -5271,7 +6271,9 @@ def main() -> int:
             "launches_by_path": {
                 "train": train_launches[name], "moe": moe_launches[name],
                 "dag": dag_launches if name == "flash_fwd" else 0,
-                "tune": tune_launches[name]},
+                "tune": tune_launches[name],
+                "client_forward": (multinode["client_forward"]
+                                   if name == "flash_fwd" else 0)},
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
     # times and bound of the block below the diagonal (every key visible,
@@ -5305,7 +6307,8 @@ def main() -> int:
                                            rllib_launches["thread"],
                                        "rllib_process":
                                            rllib_launches["process"],
-                                       "train": train_lib_launches},
+                                       "train": train_lib_launches,
+                                       "multinode": multinode["assign"]},
                   "library_ms": None})
     emit({"kernels": table})
     print(smi, flush=True)

@@ -211,6 +211,8 @@ def available_resources() -> dict:
     """Cluster-wide free resources over PHYSICAL nodes (placement-group
     bundle rows are reservations, not new capacity)."""
     w = _worker.get_worker()
+    if getattr(w, "is_client", False):
+        return w.state("available_resources")
     stats = w.scheduler.stats()
     out: dict = {}
     from ray_tpu_torch._private.task_spec import RESOURCE_NAMES
@@ -228,6 +230,8 @@ def available_resources() -> dict:
 
 def cluster_resources() -> dict:
     w = _worker.get_worker()
+    if getattr(w, "is_client", False):
+        return w.state("cluster_resources")
     stats = w.scheduler.stats()
     out: dict = {}
     from ray_tpu_torch._private.task_spec import RESOURCE_NAMES
@@ -245,6 +249,8 @@ def cluster_resources() -> dict:
 
 def nodes() -> List[dict]:
     w = _worker.get_worker()
+    if getattr(w, "is_client", False):
+        return w.state("nodes")
     stats = w.scheduler.stats()
     from ray_tpu_torch._private.task_spec import RESOURCE_NAMES
     return [

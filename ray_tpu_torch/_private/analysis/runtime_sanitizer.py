@@ -307,11 +307,27 @@ def ref_leaks(counter_snapshot: Dict) -> List[str]:
 
 #: channel -> tag -> the arities its senders produce (worker -> owner: the
 #: pipe frames of runtime/worker_process.py, and the ring's "cenv" slot
-#: rebuilt as a tagged tuple by the pool's drain)
+#: rebuilt as a tagged tuple by the pool's drain; daemon <-> head: the
+#: send sites of runtime/node_daemon.py and runtime/remote_pool.py, an
+#: outbox "seq" envelope checked again for its inner report)
 WIRE_SCHEMA: Dict[str, Dict[str, Set[int]]] = {
     "worker_to_owner": {
         "ready": {2}, "done": {4}, "err": {5}, "rpc": {4}, "many": {2},
         "cring": {1}, "cenv": {2},
+    },
+    "daemon_to_head": {
+        "seq": {5}, "w": {3}, "worker_died": {3, 4}, "fetched": {4},
+        "pong": {3}, "log": {3}, "pulled": {2}, "log_listed": {3},
+        "log_data": {4}, "clock": {3}, "local_lease": {3},
+        "local_retry": {3}, "p2p_done": {3}, "p2p_fallback": {3},
+        "aresolve": {2}, "fault": {2}, "store_stats": {3},
+    },
+    "head_to_daemon": {
+        "spawn": {2, 3}, "to_w": {3}, "to_ctrl": {3}, "kill": {2},
+        "fetch": {3}, "stage": {2}, "free": {2}, "ping": {2},
+        "log_list": {2}, "log_read": {4}, "store_stats": {2},
+        "resview": {2}, "aroute": {3}, "node_dead": {2}, "fence": {2},
+        "ack": {2}, "exit": {1}, "error": {2},
     },
 }
 _wire_violations: List[str] = []

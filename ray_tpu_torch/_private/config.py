@@ -153,6 +153,22 @@ _d("gcs_journal_compact_bytes", int, 16 * 1024 * 1024,
    "addition to the op-count path (gcs_journal_compact_every): a "
    "lease-heavy workload with large specs stays bounded by bytes, not "
    "just record count; 0 disables the size trigger")
+_d("daemon_rejoin_timeout_s", float, 20.0,
+   "how long an orphaned node daemon (head connection lost without an "
+   "exit) retries reconnecting to the head address before giving up "
+   "and dying; 0 = die immediately (pre-FT behavior)")
+_d("daemon_rejoin_grace_s", float, 10.0,
+   "head-side grace window after a daemon link drops before the node "
+   "is declared dead: the node sits in REJOINING state and its "
+   "in-flight leases are kept alive; a daemon that re-dials within "
+   "the window re-attaches with outbox replay and nothing is lost. "
+   "0 = declare death immediately (pre-failover behavior)")
+_d("client_reconnect_timeout_s", float, 30.0,
+   "ray:// client session-resumption budget: on a dropped connection "
+   "the client re-dials the head address with the SAME session token, "
+   "re-issuing idempotent in-flight ops (get/wait/state/kv), so a "
+   "driver blocked in get() across a head restart resolves late; "
+   "0 = fail pending ops immediately (pre-failover behavior)")
 _d("worker_gpu_access", bool, False,
    "give process workers the card (the counterpart of the reference's "
    "worker_tpu_access). Default: workers start with "
@@ -186,6 +202,9 @@ _d("object_spill_threshold", float, 0.8,
 _d("inline_object_max_bytes", int, 100 * 1024,
    "objects at or under this size are stored in the owner's in-process "
    "memory store (reference inlines <100KB into task specs)")
+_d("object_transfer_timeout_s", float, 120.0,
+   "give up on a cross-node object fetch after this (guards a hung node "
+   "daemon; sized for multi-GB transfers, not as a liveness probe)")
 _d("max_direct_call_object_size", int, 100 * 1024,
    "reference-API alias of inline_object_max_bytes: overriding it "
    "flows into the real knob at init() unless inline_object_max_bytes "
@@ -219,6 +238,53 @@ _d("sched_device", str, "cuda",
    "device of the TensorScheduler's device path (kernels.assign): cuda "
    "launches the hand-written kernels on the card's own stream; cpu runs "
    "their plain PyTorch version (the tests)")
+_d("scheduler_locality", bool, True,
+   "score candidate nodes by resident-arg-bytes and prefer the node "
+   "holding the most input data when it is feasible (reference: "
+   "bottom-up locality-aware placement, Ray OSDI '18); SPREAD and "
+   "placement-group strategies override locality as before. Off = "
+   "pre-locality placement, byte-for-byte")
+_d("locality_spillback_queue_depth", int, 4,
+   "spillback bound for locality preference: a task waits for its "
+   "preferred (most-resident-bytes) node only while that node has "
+   "fewer than this many leases outstanding; beyond it the task "
+   "spills to the normal least-loaded choice so a hot node never "
+   "serializes the cluster")
+_d("local_dispatch", bool, True,
+   "bottom-up two-level scheduling (reference: Ray OSDI '18): a remote "
+   "node's daemon admits worker-submitted tasks from a bounded local "
+   "queue against a head-refreshed resource view, leases them to its "
+   "own workers without a head round-trip (retries included: the "
+   "daemon re-leases a failed attempt locally up to task_max_retries "
+   "with per-attempt accounting), and reports lease + completion "
+   "through the sequenced outbox (exactly-once across head restarts). "
+   "Ref-carrying args admit when the bytes are resident on the node; "
+   "tasks that still do not fit — non-resident refs, custom "
+   "resources, placement groups, full queue — spill upward to the "
+   "head scheduler, which stays the single placement authority "
+   "(per-reason counters: ray_tpu_sched_spillback_total{reason=...}). "
+   "Off = every submission goes through the head, byte-for-byte "
+   "pre-two-level behavior")
+_d("local_queue_depth", int, 16,
+   "bound on locally-admitted leases in flight per node daemon; at the "
+   "bound new submissions spill upward to the head scheduler")
+_d("actor_p2p", bool, True,
+   "peer-to-peer actor calls: once the head publishes an actor's "
+   "(node, worker) route, worker-originated calls ship the call "
+   "envelope caller-daemon -> peer-daemon over the peer link and only "
+   "a sequenced completion receipt flows to the head for lineage/ref-"
+   "counting; peer-link failure or actor restart falls back to the "
+   "head path with the same attempt token (retries stay exactly-"
+   "once). Off = every actor call routes through the head, byte-for-"
+   "byte pre-p2p behavior")
+_d("resview_gossip_s", float, 1.0,
+   "period of daemon-to-daemon resource-view gossip over the peer "
+   "lanes: each daemon re-shares the freshest (highest-version) view "
+   "it holds so local admission stays current when the head is slow "
+   "or rejoining; the head's direct push remains the authoritative "
+   "tiebreaker (equal versions never overwrite a head-pushed view). "
+   "0 disables gossip; gossip also requires local_dispatch or "
+   "actor_p2p to be on")
 _d("qos", bool, False,
    "multi-tenant QoS plane (tenant fair share, priority tiers, "
    "preemption). Not ported: init refuses True")

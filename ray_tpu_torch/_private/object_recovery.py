@@ -83,10 +83,12 @@ class ObjectRecoveryManager:
             return True  # still running; the result will arrive
         spec = w.task_manager.get_lineage(producer)
         if spec is None:
-            # not in the lineage table: never seen, evicted, or a put()
-            # object (the reference also consults the local-lease records
-            # of remote nodes here, which the port does not have yet)
-            return False
+            # not in the head-path lineage table — but the producer may
+            # have been a LOCALLY-dispatched nested task the head never
+            # built a spec for; its retained lease record can still
+            # reconstruct (even though the submitting owner died with
+            # the same node)
+            return self._recover_local_lease(object_id, producer)
         if spec.attempt_number >= spec.max_retries:
             logger.warning(
                 "cannot reconstruct %s: task %s exhausted its %d retries",
@@ -145,6 +147,47 @@ class ObjectRecoveryManager:
         w.reference_counter.add_submitted_task_references(deps)
         w.scheduler.submit(PendingTask(spec=spec, deps=unresolved,
                                        execute=lambda t, n: None))
+        return True
+
+    def _recover_local_lease(self, object_id: ObjectID,
+                             producer: TaskID) -> bool:
+        """Reconstruct through a completed local-lease record: the
+        node's LocalScheduler admitted the producer without a head
+        round-trip, so no TaskSpec ever existed head-side — only the
+        adopted lease's record (fn/args blobs, attempt token) did.
+        Resubmitting through it re-derives the sole-copy returns under
+        their ORIGINAL ids; once that completes, the rebuilt spec
+        lands in the normal lineage table and future losses take the
+        spec path above."""
+        w = self._worker
+        tid_bin = producer.binary()
+        with self._lock:
+            if producer in self._in_flight:
+                return True
+        rec = w.take_local_lease_lineage(tid_bin)
+        if rec is None:
+            return False  # never seen, evicted, or a put() object
+        with self._lock:
+            if producer in self._in_flight:
+                return True
+            self._in_flight.add(producer)
+        w.task_manager.num_retries += 1
+        logger.info(
+            "lineage reconstruction: resubmitting local lease %s "
+            "(attempt %d/%d) to recover %s", rec.get("name"),
+            int(rec.get("attempt", 0)) + 1, int(rec.get("max_retries", 0)),
+            object_id.hex()[:16])
+
+        def _done() -> None:
+            with self._lock:
+                self._in_flight.discard(producer)
+                self._freed.discard(object_id)
+
+        w.memory_store.add_ready_callback(object_id, _done)
+        if not w._resubmit_lease(tid_bin, dict(rec),
+                                 why="lineage reconstruction"):
+            _done()
+            return False
         return True
 
     def recover_all(self, object_ids: List[ObjectID]) -> None:

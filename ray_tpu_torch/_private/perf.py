@@ -16,7 +16,11 @@
    CartPole on the host, the V-trace learner on the card), in
    env-steps/s and learner ms per update.
 
-4. ``model_mfu`` — train-step performance of the flagship transformer on
+4. ``locality_ab`` — one arm of the locality A/B on two remote nodes:
+   cross-node argument bytes with the scheduler's locality column on or
+   off. Counterpart of the reference's function of that name.
+
+5. ``model_mfu`` — train-step performance of the flagship transformer on
    one device. The same defaults as the reference's (the repo's training
    configuration: vocab 32768, d_model 2048, 8 layers, 16 query / 8 KV
    heads, d_ff 5632, seq 2048, batch 16, remat "dots"), the same halving
@@ -238,6 +242,81 @@ def rl_rollout_throughput(iters: int = 4, device=None) -> Dict[str, Any]:
         "device_assigns": sched_stats.get("device_assigns", 0) - assigns0,
         "device_assign_errors": sched_stats.get("device_assign_errors", 0),
     }
+
+
+def locality_ab(locality: bool, n_consumers: int = 8,
+                arg_mb: float = 1.0,
+                spill_depth: int = 32,
+                system_config: Optional[dict] = None) -> Dict[str, Any]:
+    """One arm of the locality-scheduling A/B: a 2-remote-node cluster,
+    large objects produced on the SOURCE node, a consumer fanout free to
+    run on either remote node.
+
+    With ``locality=True`` the scheduler scores candidates by
+    resident-arg-bytes and the consumers land (or wait, bounded by
+    ``spill_depth``) on the source node — cross-node arg bytes stay
+    near zero. With ``locality=False`` (the pre-PR placement) the
+    least-loaded fill sends a batch of consumers to the sink node,
+    each pulling its argument across. The SINK node is added first so
+    the load-tiebreak favors it: the off arm genuinely moves bytes.
+
+    ``system_config`` adds the head's other knobs (the scheduler's
+    backend and device). Returns {sum, bytes_pulled, bytes_saved,
+    seconds, hits, misses}. ``sum`` must match between arms (equal task
+    results)."""
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    n = max(1, int(arg_mb * 1024 * 1024) // 8)
+    ray_tpu_torch.shutdown()
+    c = Cluster(initialize_head=True,
+                head_node_args=dict(
+                    num_cpus=2, num_workers=2, scheduler="tensor",
+                    _system_config={
+                        **(system_config or {}),
+                        "scheduler_locality": bool(locality),
+                        "locality_spillback_queue_depth": spill_depth}))
+    try:
+        c.add_node(num_cpus=4, remote=True, resources={"r": 100.0})
+        c.add_node(num_cpus=4, remote=True,
+                   resources={"r": 100.0, "src": 100.0})
+        c.wait_for_nodes()
+        w = worker_mod.get_worker()
+
+        @ray_tpu_torch.remote(resources={"src": 1.0})
+        def produce(i):
+            import numpy as np  # task-side: don't close over the
+            return np.full(n, float(i))  # driver's local module binding
+
+        @ray_tpu_torch.remote(resources={"r": 1.0})
+        def consume(x):
+            return float(x[0]) * len(x)
+
+        refs = [produce.remote(i) for i in range(n_consumers)]
+        for r in refs:
+            ray_tpu_torch.wait([r], timeout=120.0)
+        ts = w.transfer_stats
+        p0 = ts["bytes_pulled"]
+        t0 = time.perf_counter()
+        out = ray_tpu_torch.get([consume.remote(r) for r in refs],
+                          timeout=300.0)
+        dt = time.perf_counter() - t0
+        return {
+            "locality": bool(locality),
+            "n_consumers": n_consumers,
+            "arg_mb": arg_mb,
+            "sum": float(sum(out)),
+            "bytes_pulled": int(ts["bytes_pulled"] - p0),
+            "bytes_saved": int(ts["bytes_saved"]),
+            "hits": int(ts["locality_hits"]),
+            "misses": int(ts["locality_misses"]),
+            "seconds": round(dt, 3),
+        }
+    finally:
+        c.shutdown()
 
 
 def flops_per_step(n_params: int, batch: int, seq: int) -> float:

@@ -14,10 +14,11 @@ a second for cancellation, and a pair of shared-memory rings per worker
 for lease and completion envelopes (the pipe stays their doorbell and
 fallback).
 
-The port leaves out what serves remote nodes and the optional planes:
-``RemotePlaceholder`` and remote pulls, adopted leases and the failover
-reconciler, spillback counters (the multi-node plane), QoS preemption
-and the profile sampler's frames (ROADMAP.md Queue A).
+Remote nodes reuse it: ``RemoteNodePool`` (runtime/remote_pool.py)
+subclasses the pool, with ``RemotePlaceholder`` results, adopted leases
+and the failover hooks here. The port leaves out the optional planes'
+parts: QoS preemption and the profile sampler's frames (ROADMAP.md
+Queue A).
 """
 
 from __future__ import annotations
@@ -65,8 +66,18 @@ class ShmPlaceholder:
     __slots__ = ()
 
 
-_PLACEHOLDER = ShmPlaceholder()
+class RemotePlaceholder:
+    """Memory-store entry whose bytes live in a REMOTE node's arena
+    (see runtime/remote_pool.py); the GCS object directory records
+    which node. Resolved head-side by fetching on first access."""
 
+    __slots__ = ("node_index",)
+
+    def __init__(self, node_index: int):
+        self.node_index = node_index
+
+
+_PLACEHOLDER = ShmPlaceholder()
 
 DIAL_BACKLOG = 1024
 
@@ -110,7 +121,13 @@ class _InFlight:
 
     __slots__ = ("pending", "return_ids", "borrows", "started_at")
 
-    def __init__(self, pending: PendingTask, return_ids: List[ObjectID]):
+    def __init__(self, pending: Optional[PendingTask],
+                 return_ids: List[ObjectID]):
+        # pending=None marks a SYNTHETIC entry: a lease adopted from a
+        # rejoining daemon after head failover. The restarted head's
+        # scheduler/task_manager never saw the task, so completion
+        # handling for these stores results and frees the worker but
+        # must skip every scheduler-side notification.
         self.pending = pending
         self.return_ids = return_ids
         self.borrows: Set[ObjectID] = set()
@@ -163,6 +180,12 @@ class _Handle:
 
 
 class ProcessWorkerPool:
+    is_remote = False
+    # head_wall - node_wall at handshake; local pools share the head's
+    # clock. RemoteNodePool overwrites this from the daemon's "clock"
+    # message so worker execution windows land on the head's time axis.
+    clock_offset = 0.0
+
     def __init__(self, worker, num_workers: int, shm_store,
                  node_index: int = 0):
         self._worker = worker
@@ -186,8 +209,12 @@ class ProcessWorkerPool:
         # probability set after pool construction was never observed)
         from ray_tpu_torch._private.chaos import get_controller
         self._chaos = get_controller()
-        # shared-memory control rings, one pair per worker
-        self._ring_on = bool(GLOBAL_CONFIG.control_ring)
+        # shared-memory control ring (local pools only; remote pools
+        # get the same batched-envelope trims over their framed daemon
+        # link — the daemon decodes a bookkeeping copy — via
+        # RemoteNodePool._assign_many's ("env", ...) path)
+        self._ring_on = bool(GLOBAL_CONFIG.control_ring) \
+            and not self.is_remote
         self._ring_slots = int(GLOBAL_CONFIG.control_ring_slots)
         self._ring_slot_bytes = int(GLOBAL_CONFIG.control_ring_slot_bytes)
         # control-plane counters exported as the
@@ -197,6 +224,10 @@ class ProcessWorkerPool:
         # the ring is off
         self.ring_stats = {"msgs": 0, "bytes": 0, "fallback": 0,
                            "full_waits": 0}
+        # per-reason spillback counters (LocalScheduler declines routed
+        # through _rpc_submit); keyed by the daemon's reason string,
+        # surfaced per node by state.list_nodes
+        self.spill_reasons: Dict[str, int] = {}
         # pool-level pickle cache for envelope invariant headers
         self._hdr_blobs: Dict[tuple, bytes] = {}
         # lease pipelining (reference: NormalTaskSubmitter
@@ -367,7 +398,7 @@ class ProcessWorkerPool:
                 continue
             from ray_tpu_torch._private import protocol
 
-            ver, fields = protocol.split_hello(hello)
+            ver, fields = protocol.split_any_hello(hello)
             if len(fields) != 2:
                 conn.close()
                 continue
@@ -441,9 +472,20 @@ class ProcessWorkerPool:
             self._finish_task(pending, spec.task_id, retry)
         for h in handles:
             self._kill_handle(h)
+            if h.actor_rt is not None:
+                # a REMOTE pool has no per-process monitor to observe
+                # that kill — the daemon that would report worker_died
+                # died with the node — so synthesize the failure here
+                # or the actor runtime never learns its process is
+                # gone (no restart, in-flight rounds hang). Idempotent
+                # under _on_worker_failure's was_dead guard, so the
+                # local-pool monitor double-firing is harmless.
+                self._on_worker_failure(h, rex.NodeDiedError(
+                    f"node died: {reason}"))
 
     def _kill_handle(self, h: _Handle) -> None:
-        """SIGKILL the worker behind a handle."""
+        """SIGKILL the worker behind a handle (remote pools route this
+        through the node daemon)."""
         if h.proc is not None:
             try:
                 h.proc.kill()
@@ -800,9 +842,10 @@ class ProcessWorkerPool:
             raise _DepError(rex.ObjectLostError(oid.hex()))
         if entry.is_exception:
             raise _DepError(entry.value)
-        if isinstance(entry.value, ShmPlaceholder):
-            # not in the arena: SPILLED to disk; _entry_value restores
-            # it to ship by value
+        if isinstance(entry.value, (ShmPlaceholder, RemotePlaceholder)):
+            # not in this node's arena: SPILLED to disk (restore) or
+            # resident on a remote node (head-mediated fetch) — either
+            # way _entry_value materializes it to ship by value
             return self._worker._entry_value(oid, entry)
         return entry.value
 
@@ -1004,7 +1047,8 @@ class ProcessWorkerPool:
         return dones
 
     def _handle_worker_msg(self, h: _Handle, msg: tuple) -> None:
-        """One worker->owner message."""
+        """One worker->owner message (shared by the local per-worker
+        reader threads and the remote node demux)."""
         kind = msg[0]
         try:
             if kind == "ready":
@@ -1046,6 +1090,11 @@ class ProcessWorkerPool:
                 self._idle.append(h)
         if nxt is not None:
             self._assign(h, *nxt)
+
+    def _lease_done(self, task_id: TaskID) -> None:
+        """Hook: a leased attempt reached a terminal state on this
+        pool. RemoteNodePool journals it for failover reconciliation;
+        local pools have nothing to reconcile."""
 
     def _take_inflight(self, h: _Handle, task_id: TaskID):
         """Claim a completion/error: pop the inflight entry AND the
@@ -1096,17 +1145,46 @@ class ProcessWorkerPool:
                  timing=None) -> None:
         inf = self._take_inflight(h, task_id)
         if inf is None:
-            return  # force-cancel/worker-failure claimed the task first
+            # force-cancel/worker-failure claimed the task first — or,
+            # on a FENCED pool (node rejoined after being declared
+            # dead), this is a dead-era lease's late completion: the
+            # reconciler already resubmitted it, so the stale result is
+            # dropped, never double-resolved
+            if getattr(self, "_fenced", False):
+                self._worker.note_two_level("orphan_fenced")
+            return
+        if inf.pending is None:
+            # adopted lease (failover re-attach or node-local
+            # dispatch): resolve the refs, free the worker. The trace
+            # plane may hold a live record for it (local-dispatch
+            # lane); unknown ids are a no-op pop there. Pin release
+            # keeps the record as lineage — this is the REMOTE node's
+            # completion path, and the returns may be the sole copy in
+            # that node's arena
+            self._worker.release_local_lease_pins(task_id.binary(),
+                                                  keep_lineage=True)
+            self.store_result_entries(inf.return_ids, entries)
+            tp = self._worker.trace_plane
+            if tp is not None:
+                tp.record_finished_batch(
+                    ((task_id, timing, h.worker_id.hex(),
+                      self.node_index),), offset=self.clock_offset)
+            self._lease_done(task_id)
+            self._release_taken(h, inf)
+            return
         pending, spec = inf.pending, inf.pending.spec
         self.store_result_entries(inf.return_ids, entries)
         self._worker.task_manager.complete(spec.task_id)
-        row = ((task_id, timing, h.worker_id.hex(), self.node_index),)
         te = self._worker.task_events
         if te is not None:
-            te.record_finished_batch(row)
+            te.record_finished_batch(
+                ((task_id, timing, h.worker_id.hex(), self.node_index),),
+                offset=self.clock_offset)
         tp = self._worker.trace_plane
         if tp is not None:
-            tp.record_finished_batch(row)
+            tp.record_finished_batch(
+                ((task_id, timing, h.worker_id.hex(), self.node_index),),
+                offset=self.clock_offset)
         self._finish_task(pending, task_id, None)
         self._release_taken(h, inf)
 
@@ -1134,6 +1212,26 @@ class ProcessWorkerPool:
                 self._by_task.pop(task_id, None)
                 taken.append((h, task_id, entries, timing, inf))
         for h, task_id, entries, timing, inf in taken:
+            self._lease_done(task_id)
+            if inf.pending is None:
+                # adopted lease (failover re-attach or node-local
+                # dispatch): store results only (no spec, no
+                # scheduler/task-manager state for this task here).
+                # keep_lineage: the record becomes the lineage entry
+                # that reconstructs sole-copy returns after node death
+                self._worker.release_local_lease_pins(task_id.binary(),
+                                                      keep_lineage=True)
+                try:
+                    ready_oids.extend(
+                        self._store_entries(inf.return_ids, entries))
+                    if tp is not None:
+                        tp.record_finished_batch(
+                            ((task_id, timing, h.worker_id.hex(),
+                              self.node_index),),
+                            offset=self.clock_offset)
+                except Exception:
+                    logger.exception("adopted-lease completion failed")
+                continue
             spec = inf.pending.spec
             try:
                 ready_oids.extend(
@@ -1155,9 +1253,11 @@ class ProcessWorkerPool:
                              spec.resources))
         if te_rows:
             if te is not None:
-                te.record_finished_batch(te_rows)
+                te.record_finished_batch(te_rows,
+                                         offset=self.clock_offset)
             if tp is not None:
-                tp.record_finished_batch(te_rows)
+                tp.record_finished_batch(te_rows,
+                                         offset=self.clock_offset)
         # park/refeed the workers BEFORE waking the scheduler: a driver
         # blocked in get() resumes the moment notify_batch lands, and if
         # it submits immediately the picker must already see these
@@ -1175,7 +1275,31 @@ class ProcessWorkerPool:
                 tb: str, timing=None) -> None:
         inf = self._take_inflight(h, task_id)
         if inf is None:
-            return  # force-cancel/worker-failure claimed it first
+            # force-cancel/worker-failure claimed it first — or a
+            # fenced pool dropping a dead-era lease's late error (see
+            # _on_done)
+            if getattr(self, "_fenced", False):
+                self._worker.note_two_level("orphan_fenced")
+            return
+        if inf.pending is None:
+            # adopted failover lease: no spec survives the restart, so
+            # fail the refs terminally instead of consulting retry policy
+            self._worker.release_local_lease_pins(task_id.binary())
+            try:
+                exc = cloudpickle.loads(exc_blob)
+            except Exception:
+                exc = RuntimeError(
+                    "worker error (exception undeserializable)")
+            exc._ray_tpu_traceback = tb
+            for oid in inf.return_ids:
+                self._worker.memory_store.put(oid, exc, is_exception=True)
+                self._worker.scheduler.notify_object_ready(oid)
+            tp = self._worker.trace_plane
+            if tp is not None:
+                tp.record_failed(task_id, type(exc).__name__)
+            self._lease_done(task_id)
+            self._release_taken(h, inf)
+            return
         pending, spec = inf.pending, inf.pending.spec
         try:
             exc = cloudpickle.loads(exc_blob)
@@ -1187,11 +1311,13 @@ class ProcessWorkerPool:
             # attach the execution window before the failure hooks
             # finalize (retry or terminal) this attempt's record
             te.record_exec(task_id, timing, node=self.node_index,
-                           worker=h.worker_id.hex())
+                           worker=h.worker_id.hex(),
+                           offset=self.clock_offset)
         tp = self._worker.trace_plane
         if tp is not None:
             tp.record_exec(task_id, timing, node=self.node_index,
-                           worker=h.worker_id.hex())
+                           worker=h.worker_id.hex(),
+                           offset=self.clock_offset)
         retry = self._worker._handle_task_failure(spec, inf.return_ids, exc)
         self._finish_task(pending, task_id, retry)
         self._release_taken(h, inf)
@@ -1238,6 +1364,29 @@ class ProcessWorkerPool:
             # only the force-cancel TARGET gets the cancellation error,
             # innocent pipelined neighbors fail retriably
             for exec_id, inf in inflight:
+                if inf.pending is None:
+                    # adopted lease (locally dispatched or re-attached
+                    # across head failover) with no spec to retry from.
+                    # A LIVE daemon re-leases anything with attempts
+                    # left itself (its local_retry report moved the
+                    # entry off this handle first); whatever reaches
+                    # here goes through the head-side orphan-lease
+                    # reconciler, which resubmits under the original
+                    # return oids when a retained record still carries
+                    # attempts (whole-node death, no sibling slot) and
+                    # fails the refs terminally otherwise
+                    err = rex.WorkerCrashedError(
+                        f"worker process {h.pid} died while running an "
+                        f"adopted lease (locally dispatched with retries "
+                        f"exhausted, or re-attached across head "
+                        f"failover): {cause}" + self._err_tail(h))
+                    self._worker.reconcile_orphan_lease(
+                        exec_id.binary(),
+                        [oid.binary() for oid in inf.return_ids], err)
+                    self._lease_done(exec_id)
+                    with self._lock:
+                        self._by_task.pop(exec_id, None)
+                    continue
                 spec = inf.pending.spec
                 if h.force_cancel_id == exec_id:
                     exc: BaseException = rex.TaskCancelledError(exec_id)
@@ -1342,6 +1491,17 @@ class ProcessWorkerPool:
             if entry.is_exception:
                 out.append(("exc", cloudpickle.dumps(entry.value)))
                 continue
+            if isinstance(entry.value, RemotePlaceholder):
+                # produced on a remote node: head-mediated pull, shipped
+                # inline to this (local) worker
+                data = self._worker.fetch_object_bytes(
+                    oid, entry.value.node_index)
+                if data is None:
+                    out.append(("exc", cloudpickle.dumps(
+                        rex.ObjectLostError(oid.hex()))))
+                else:
+                    out.append(("inline", data))
+                continue
             loc = self._shm.locate(oid)
             if loc is not None:
                 out.append(("shm", loc[0], loc[1]))
@@ -1365,9 +1525,25 @@ class ProcessWorkerPool:
         ready = self._worker.memory_store.wait(oids, num_returns, timeout)
         return [o.binary() for o in oids if o in ready]
 
-    def _rpc_submit(self, h: _Handle, blob: bytes) -> list:
+    def _rpc_submit(self, h: _Handle, blob: bytes,
+                    spilled=False) -> list:
         from ray_tpu_torch._private.ids import PlacementGroupID
 
+        if spilled:
+            # the node's LocalScheduler declined this nested submission:
+            # upward spillback — the head stays placement authority.
+            # `spilled` carries the daemon's reason string (queue_full /
+            # pg / resources / refs / no_slot); per-reason counters ride
+            # lazily-created "spillback:<reason>" keys so the base
+            # stats schema is unchanged with reasons at zero
+            reason = spilled if isinstance(spilled, str) else "other"
+            self._worker.note_two_level("spillback")
+            self._worker.note_two_level("spillback:" + reason)
+            self.spill_reasons[reason] = \
+                self.spill_reasons.get(reason, 0) + 1
+            note = getattr(self._worker.scheduler, "note_spillback", None)
+            if note is not None:
+                note()
         d = cloudpickle.loads(blob)
         func = cloudpickle.loads(d["func_blob"])
         args, kwargs = cloudpickle.loads(d["args_blob"])
@@ -1400,11 +1576,15 @@ class ProcessWorkerPool:
             borrows.add(r.object_id())
         return [r.object_id().binary() for r in refs]
 
-    def _rpc_actor_call(self, h: _Handle, blob: bytes) -> list:
+    def _rpc_actor_call(self, h: _Handle, blob: bytes,
+                        meta: Optional[tuple] = None) -> list:
         """Actor method submitted from INSIDE a worker-process task
         (reference: core-worker actor task submission from any worker).
         Runs the normal head-side submission path; the caller's task
-        borrows the return refs until it completes."""
+        borrows the return refs until it completes. ``meta`` is the
+        p2p routing hint the node daemon intercepts — by the time the
+        call reaches the head it has already chosen the head path, so
+        the hint is ignored here."""
         from ray_tpu_torch._private.ids import ActorID
         from ray_tpu_torch.actor import ActorHandle
 

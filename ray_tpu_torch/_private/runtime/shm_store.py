@@ -498,6 +498,69 @@ class ShmObjectStore:
         self.seal(object_id)
         return offset, nbytes
 
+    # -- peer transfer plane (chunked) ------------------------------------
+    def acquire_raw(self, object_id: ObjectID) -> Optional[memoryview]:
+        """Pinned raw framed-bytes view of a sealed arena-resident
+        object, for zero-copy chunked sends; None when spilled/absent.
+        The caller MUST release_raw() when done or the range never
+        frees."""
+        with self._lock:
+            alloc = self._table.get(object_id)
+            if alloc is None or not alloc.sealed:
+                return None
+            alloc.accessed = True
+            self._pins[object_id] = self._pins.get(object_id, 0) + 1
+            return self.arena.view(alloc.offset, alloc.nbytes)
+
+    def release_raw(self, object_id: ObjectID) -> None:
+        self.unpin(object_id)
+
+    def spilled_path(self, object_id: ObjectID) -> Optional[Tuple[str, int]]:
+        """(path, nbytes) of a spilled object's on-disk framed bytes."""
+        with self._lock:
+            return self._spilled.get(object_id)
+
+    def begin_adopt(self, object_id: ObjectID, nbytes: int):
+        """Start adopting an incoming peer object of `nbytes` framed
+        bytes WITHOUT ever holding them all in anonymous memory:
+        ("arena", view) when it fits (the caller fills the view chunk
+        by chunk), else ("spill", file) streaming straight to the spill
+        tier — how a >arena-sized object lands without OOM. Finish
+        with finish_adopt / abort_adopt."""
+        try:
+            offset = self.create(object_id, nbytes)
+            return ("arena", self.arena.view(offset, nbytes))
+        except ObjectStoreFullError:
+            path = self._spill_path(object_id)
+            return ("spill", open(f"{path}.{os.getpid()}.adopt", "wb"))
+
+    def finish_adopt(self, object_id: ObjectID, nbytes: int, kind: str,
+                     f=None) -> None:
+        if kind == "arena":
+            self.seal(object_id)
+            return
+        f.close()
+        path = self._spill_path(object_id)
+        os.replace(f"{path}.{os.getpid()}.adopt", path)
+        with self._lock:
+            self._spilled[object_id] = (path, nbytes)
+            self.num_spilled += 1
+        runtime_sanitizer.ledger_alloc("spill", object_id, nbytes)
+
+    def abort_adopt(self, object_id: ObjectID, kind: str, f=None) -> None:
+        if kind == "arena":
+            with self._lock:
+                alloc = self._table.pop(object_id, None)
+            if alloc is not None:
+                self.arena.free(alloc.offset, alloc.nbytes)
+            runtime_sanitizer.ledger_free(object_id)
+            return
+        try:
+            f.close()
+            os.unlink(f"{self._spill_path(object_id)}.{os.getpid()}.adopt")
+        except OSError:
+            pass
+
     def get_serialized_for_view(
             self, object_id: ObjectID
     ) -> Tuple[Optional[SerializedObject], bool]:

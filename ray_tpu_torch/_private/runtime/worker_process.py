@@ -12,10 +12,11 @@ Reference surfaces: ray src/ray/core_worker/core_worker.cc (task receiver
     called INSIDE tasks route through owner RPC over the same pipe,
   - runs a control thread for cooperative cancellation.
 
-The port leaves out the reference's remote-node half (``_PullValue``
-args, spill-file reads, the daemon's two-level and p2p advertisements,
-the p2p dedup cache) with the multi-node plane, and the profile sampler
-with the profile plane (ROADMAP.md Queue A).
+A worker spawned by a remote node's daemon talks to that daemon over
+the same pipe (pipe only: no shared-memory rings), resolves
+``_PullValue`` args and spilled objects through it, and honours the
+daemon's two-level and p2p advertisements. The port leaves out the
+profile sampler with the profile plane (ROADMAP.md Queue A).
 
 Protocol invariant that makes the single pipe safe: the owner sends at
 most one task to a worker at a time, and while that task runs the only
@@ -31,6 +32,7 @@ import os
 import threading
 import time
 import traceback
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
 import cloudpickle
@@ -56,6 +58,19 @@ class _ShmValue:
     def __init__(self, offset: int, nbytes: int):
         self.offset = offset
         self.nbytes = nbytes
+
+
+class _PullValue:
+    """Placeholder for an arg resident in the WORKER's node arena (or
+    pullable through it): resolved by a get RPC, which the node daemon
+    answers with a zero-copy arena location when the object is already
+    local (remote-node locality path — the head ships this marker
+    instead of bytes when the dep lives where the task runs)."""
+
+    __slots__ = ("oid_bin",)
+
+    def __init__(self, oid_bin: bytes):
+        self.oid_bin = oid_bin
 
 
 def fn_id_of(blob: bytes) -> bytes:
@@ -132,7 +147,11 @@ class ProcessWorkerContext:
     def submit_task(self, spec) -> list:
         from ray_tpu_torch._private.object_ref import ObjectRef
 
-        blob = _dump_spec(spec, trace=self._runner.current_trace)
+        # mark_refs only when the node daemon advertised local dispatch:
+        # the extra has_refs key changes the submit blob, and with the
+        # knob off the wire must stay byte-for-byte pre-two-level
+        blob = _dump_spec(spec, trace=self._runner.current_trace,
+                          mark_refs=self._runner.two_level[0])
         return_bins = self._runner.rpc("submit", (blob,))
         return [ObjectRef(ObjectID(b), None) for b in return_bins]
 
@@ -148,11 +167,24 @@ class ProcessWorkerContext:
         runtime tables) over the pipe RPC."""
         from ray_tpu_torch._private.object_ref import ObjectRef
 
-        blob = cloudpickle.dumps(
-            (actor_id.binary(), method_name, args, kwargs, num_returns,
-             self._runner.current_trace),
-            protocol=5)
-        ret_bins = self._runner.rpc("actor_call", (blob,))
+        if self._runner.two_level[1]:
+            # p2p lane advertised by the node daemon: ship routing meta
+            # alongside the (unchanged) call blob so the daemon can
+            # dispatch straight to the actor's peer without unpickling
+            # user args. Ref-carrying calls stay head-routed (the owner
+            # resolves/borrow-tracks refs).
+            blob, refs = _dumps_mark_refs(
+                (actor_id.binary(), method_name, args, kwargs,
+                 num_returns, self._runner.current_trace))
+            meta = (actor_id.binary(), method_name, num_returns,
+                    self._runner.current_trace, not refs)
+            ret_bins = self._runner.rpc("actor_call", (blob, meta))
+        else:
+            blob = cloudpickle.dumps(
+                (actor_id.binary(), method_name, args, kwargs, num_returns,
+                 self._runner.current_trace),
+                protocol=5)
+            ret_bins = self._runner.rpc("actor_call", (blob,))
         refs = [ObjectRef(ObjectID(b), None) for b in ret_bins]
         return refs[0] if num_returns == 1 else refs
 
@@ -174,12 +206,49 @@ class ProcessWorkerContext:
             "futures/await on refs are driver-side APIs")
 
 
-def _dump_spec(spec, trace=None) -> bytes:
+def _dumps_mark_refs(value) -> Tuple[bytes, list]:
+    """cloudpickle.dumps plus "which ObjectRefs rode inside" — one
+    pass, same bytes. The two-level dispatch paths need the answer
+    (ref-carrying payloads only admit locally when every arg is
+    provably node-resident, so the daemon needs the ids to check its
+    residency digest), and a second scan pass over large args would
+    double serialization cost on the hot path."""
+    import io
+
+    from ray_tpu_torch._private.object_ref import ObjectRef
+
+    seen: list = []
+
+    class _P(cloudpickle.Pickler):
+        def reducer_override(self, obj):
+            if isinstance(obj, ObjectRef):
+                seen.append(obj)
+            # chain to cloudpickle's reducer (lambdas, closures,
+            # __main__ classes pickle by value) — see _RefCollectPickler
+            return super().reducer_override(obj)
+
+    buf = io.BytesIO()
+    _P(buf, protocol=5).dump(value)
+    return buf.getvalue(), seen
+
+
+def _dump_spec(spec, trace=None, mark_refs=False) -> bytes:
     """Ship a TaskSpec for owner-side admission (func by value).
     ``trace`` is the SUBMITTING task's trace context: the owner restores
     it as the ambient parent around admission so the nested task's own
-    context is stamped as its child."""
-    args_blob = cloudpickle.dumps((spec.args, spec.kwargs))
+    context is stamped as its child. ``mark_refs`` adds has_refs / arg_refs
+    keys (for the daemon's local-dispatch eligibility and residency
+    checks) — only set when the daemon advertised two-level dispatch,
+    so the knobs-off blob is unchanged."""
+    arg_refs: Optional[list] = None
+    if mark_refs:
+        args_blob, refs = _dumps_mark_refs((spec.args, spec.kwargs))
+        has_refs = bool(refs)
+        if refs:
+            arg_refs = [r.object_id().binary() for r in refs]
+    else:
+        args_blob = cloudpickle.dumps((spec.args, spec.kwargs))
+        has_refs = None
     d = dict(
         name=spec.name,
         func_blob=spec.serialized_func or cloudpickle.dumps(spec.func),
@@ -190,6 +259,10 @@ def _dump_spec(spec, trace=None) -> bytes:
         max_retries=spec.max_retries,
         retry_exceptions=spec.retry_exceptions,
     )
+    if has_refs is not None:
+        d["has_refs"] = has_refs
+    if arg_refs:
+        d["arg_refs"] = arg_refs
     if trace is not None:
         d["trace"] = trace
     if spec.placement_group_id is not None:
@@ -237,6 +310,16 @@ class _WorkerRunner:
         # parentage crosses the process boundary
         self.current_trace = None
         self.put_counter = 0
+        # (local_dispatch, actor_p2p) as advertised by the spawning node
+        # daemon's ("p2p", local, p2p) broadcast; both stay False under
+        # head-spawned workers and when the knobs are off, keeping the
+        # submit/actor-call wire bytes identical to pre-two-level
+        self.two_level: Tuple[bool, bool] = (False, False)
+        # exactly-once guard for p2p->head fallback retries: payloads
+        # marked dedup=True cache their completion message by task id so
+        # a re-delivered attempt re-emits the SAME result bytes instead
+        # of re-executing the method (bounded; fallbacks are rare)
+        self._dedup_done: "OrderedDict[bytes, tuple]" = OrderedDict()
         self.cancelled: set = set()  # task_id binaries
         self._rpc_seq = 0
         self._rpc_lock = threading.RLock()
@@ -296,10 +379,12 @@ class _WorkerRunner:
         blocking = op in ("get", "wait")
         with self._rpc_lock:
             if blocking:
-                # tasks pipelined to THIS worker that queued in the
-                # inbox during an earlier rpc: the outer task is about
-                # to block, possibly on those very results, so run them
-                # now (same reasoning as the pipelined-pipe case below)
+                # tasks dispatched to THIS slot mid-rpc (the daemon's
+                # local scheduler may pick the submitter as a last
+                # resort) queue in the inbox; the outer task is about
+                # to block — possibly on those very results — so run
+                # them now, same reasoning as the pipelined-pipe case
+                # below
                 while True:
                     m = next((x for x in self._inbox
                               if x[0] in ("task", "tasks", "env",
@@ -342,6 +427,10 @@ class _WorkerRunner:
                 if msg[0] in ("actor_create", "actor_call", "exit"):
                     # queue for the main loop (arrival order preserved)
                     self._inbox.append(msg)
+                    continue
+                if msg[0] == "p2p":
+                    # daemon two-level advertisement — may land mid-rpc
+                    self.two_level = (bool(msg[1]), bool(msg[2]))
                     continue
                 # protocol violation — only replies may arrive mid-task
                 raise RuntimeError(f"unexpected message during rpc: {msg[0]}")
@@ -394,6 +483,29 @@ class _WorkerRunner:
             _, offset, nbytes = loc
             view = self.arena.view(offset, nbytes)
             return deserialize(SerializedObject.from_bytes(view))
+        if loc[0] == "spill_file":
+            # same-host spill tier: objects bigger than the arena are
+            # read straight off their file (mmap — the page cache
+            # backs the buffers; nothing rides the daemon pipe)
+            import mmap
+
+            _, path, nbytes = loc
+            with open(path, "rb") as f:
+                mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+            try:
+                return deserialize(
+                    SerializedObject.from_bytes(memoryview(mm)))
+            finally:
+                # deserialize COPIES out-of-band buffers it keeps?
+                # No — views may reference mm; keep mm alive by NOT
+                # closing when buffers escaped. CPython: closing a
+                # mapped mmap with exported views raises BufferError —
+                # treat that as "value borrowed the pages" and leak the
+                # mapping to the GC instead.
+                try:
+                    mm.close()
+                except BufferError:
+                    pass
         raise ValueError(f"bad location {loc[0]!r}")
 
     # -- control thread ----------------------------------------------------
@@ -465,9 +577,20 @@ class _WorkerRunner:
         self._run_payload(payload, run)
 
     def actor_call(self, payload: dict) -> None:
+        # peer-dispatched calls carry the CALLER's pickled call tuple
+        # (the daemon lane never unpickles user args — only this
+        # dedicated actor process has the user's modules); eligibility
+        # guaranteed it holds no ObjectRefs, so no _resolve pass needed
+        pb = payload.get("p2p_blob")
+
         def run(args, kwargs):
             import inspect
-
+            if pb is not None:
+                # decode inside the guarded path: a blob that fails to
+                # unpickle (caller-only module, corrupt frame) must error
+                # THIS call, not crash the dedicated actor process
+                t = cloudpickle.loads(pb)
+                args, kwargs = t[2], t[3]
             method = getattr(self.actor_instance, payload["method"])
             result = method(*args, **kwargs)
             if inspect.isgenerator(result):
@@ -480,6 +603,14 @@ class _WorkerRunner:
         from ray_tpu_torch import exceptions as rex
 
         task_id = TaskID(payload["task_id"])
+        if payload.get("dedup"):
+            cached = self._dedup_done.get(payload["task_id"])
+            if cached is not None:
+                # a p2p attempt of this call already completed here and
+                # the head is retrying after a severed peer lane: re-emit
+                # the recorded result, bit for bit, without re-executing
+                self._emit(cached)
+                return
         # save/restore: a task may execute NESTED inside another task's
         # blocking get (see _run_nested)
         prev_task_id = self.current_task_id
@@ -567,6 +698,13 @@ class _WorkerRunner:
             return_ids = [ObjectID(b) for b in payload["return_ids"]]
             entries = [self.store_value(oid, v)
                        for oid, v in zip(return_ids, values)]
+            # record BEFORE emit (a retry after an emit-then-crash must
+            # replay, not re-execute); the completion frame itself stays
+            # a literal tuple at the _emit site for the wire-lint pass
+            if payload.get("dedup"):
+                self._dedup_record(payload["task_id"],
+                                   ("done", payload["task_id"], entries,
+                                    (t0, t1)))
             self._emit(("done", payload["task_id"], entries, (t0, t1)))
         except BaseException as e:  # noqa: BLE001
             tb = traceback.format_exc()
@@ -576,6 +714,10 @@ class _WorkerRunner:
                 blob = cloudpickle.dumps(
                     RuntimeError(f"[unpicklable {type(e).__name__}] {e}"))
             t_err = time.time()
+            if payload.get("dedup"):
+                self._dedup_record(payload["task_id"],
+                                   ("err", payload["task_id"], blob, tb,
+                                    (t0, t_err)))
             self._emit(("err", payload["task_id"], blob, tb, (t0, t_err)))
         finally:
             if env_ctx is not None:
@@ -598,13 +740,40 @@ class _WorkerRunner:
             self.current_task_name = prev_task_name
             self.put_counter = prev_put_counter
 
+    def _dedup_record(self, tid_bin: bytes, msg: tuple) -> None:
+        self._dedup_done[tid_bin] = msg
+        while len(self._dedup_done) > 256:
+            self._dedup_done.popitem(last=False)
+
     def _resolve(self, v: Any) -> Any:
         from ray_tpu_torch._private.object_ref import ObjectRef
 
         if isinstance(v, _ShmValue):
             view = self.arena.view(v.offset, v.nbytes)
             return deserialize(SerializedObject.from_bytes(view))
+        if isinstance(v, _PullValue):
+            return self._fetch_arg(v.oid_bin)
+        if isinstance(v, ObjectRef):
+            # a locally-dispatched lease ships its args blob verbatim,
+            # so top-level refs arrive unresolved; the daemon serves the
+            # get from its arena when resident (the admission check
+            # proved residency, so this normally never reaches the head)
+            return self._fetch_arg(v.object_id().binary())
         return v
+
+    def _fetch_arg(self, oid_bin: bytes) -> Any:
+        from ray_tpu_torch import exceptions as rex
+
+        # purpose "arg": a task-argument prefetch — the daemon's
+        # pull manager ranks it below blocking user gets
+        locs = self.rpc("get", ([oid_bin], None, "arg"))
+        loc = locs[0]
+        if loc[0] == "exc":
+            exc = cloudpickle.loads(loc[1])
+            if isinstance(exc, rex.TaskError):
+                raise exc.as_instanceof_cause()
+            raise exc
+        return self.load_location(loc)
 
     def _run_batch(self, payloads) -> None:
         """A leased batch: execute in order, completions buffered and
@@ -677,6 +846,11 @@ class _WorkerRunner:
                 self.actor_create(msg[1])
             elif kind == "actor_call":
                 self.actor_call(msg[1])
+            elif kind == "p2p":
+                # same guard as the mid-rpc arrival path: the advert is
+                # an atomic tuple rebind, but readers sit on rpc threads
+                with self._rpc_lock:
+                    self.two_level = (bool(msg[1]), bool(msg[2]))
             elif kind == "exit":
                 self._stop = True
             else:
@@ -736,19 +910,20 @@ def _main(argv: List[str]) -> None:
     address, arena_name, inline_max, worker_num = (
         argv[0], argv[1], int(argv[2]), int(argv[3]))
     # optional 5th arg: control-ring geometry "off_in:off_out:slots:
-    # slot_bytes" ("-" or absent = pipe-only)
+    # slot_bytes" ("-" or absent = pipe-only; daemon-spawned remote
+    # workers never pass it)
     ring_spec = None
     if len(argv) > 4 and argv[4] != "-":
         a, b, c, d = argv[4].split(":")
         ring_spec = (int(a), int(b), int(c), int(d))
     authkey = bytes.fromhex(os.environ[AUTHKEY_ENV])
-    from ray_tpu_torch._private.protocol import make_hello
+    from ray_tpu_torch._private.protocol import make_wire_hello
 
     try:
         conn = _dial(address, authkey)
-        conn.send(make_hello(worker_num, "task"))
+        conn.send(make_wire_hello("worker", worker_num, "task"))
         ctrl = _dial(address, authkey)
-        ctrl.send(make_hello(worker_num, "ctrl"))
+        ctrl.send(make_wire_hello("worker", worker_num, "ctrl"))
     except (FileNotFoundError, ConnectionError, OSError):
         return  # pool already shut down while we were starting
     worker_main(conn, ctrl, arena_name, inline_max, ring_spec)

@@ -47,6 +47,12 @@ class SchedulerBase:
     # drain order byte-for-byte pre-QoS.
     qos_plane = None
 
+    # Optional object-location provider the worker attaches after
+    # construction: locations_of(object_id) -> List[int] of node rows
+    # holding a copy (primary first). Drives the locality scoring
+    # column; None (or an empty list per oid) disables it.
+    locations_of = None
+
     # Optional fail_tasks(tasks, exc) the worker attaches after
     # construction: resolves the returns of tasks the scheduler could not
     # place because its batched device assignment raised (TensorScheduler;

@@ -129,6 +129,9 @@ class EventScheduler(SchedulerBase):
         self._num_submitted = 0
         self._num_dispatched = 0
         self._num_finished = 0
+        # per-node leases outstanding (dispatched, not yet finished):
+        # the spillback bound for locality preference reads this
+        self._outstanding: Dict[int, int] = {}
 
     # -- SchedulerBase -----------------------------------------------------
     def submit(self, task: PendingTask) -> None:
@@ -175,6 +178,10 @@ class EventScheduler(SchedulerBase):
         with self._lock:
             self._num_finished += 1
             self._tasks.pop(task_id, None)
+            if node_index in self._outstanding:
+                self._outstanding[node_index] -= 1
+                if self._outstanding[node_index] <= 0:
+                    del self._outstanding[node_index]
             if 0 <= node_index < len(self._nodes):
                 node = self._nodes[node_index]
                 vec = resources_to_vector(resources)
@@ -454,6 +461,9 @@ class EventScheduler(SchedulerBase):
         """Pop ready tasks whose resources fit; assign nodes (hybrid policy)."""
         out = []
         threshold = GLOBAL_CONFIG.sched_hybrid_threshold
+        locality_on = (GLOBAL_CONFIG.scheduler_locality
+                       and self.locations_of is not None)
+        spill_depth = GLOBAL_CONFIG.locality_spillback_queue_depth
         plane = self.qos_plane
         if plane is not None and len(self._ready) > 1:
             # QoS drain order: strict tiers first, weighted fair-share
@@ -474,7 +484,15 @@ class EventScheduler(SchedulerBase):
             # whose fallback nodes are momentarily full parks forever
             placement = self._effective_placement_locked(
                 task.spec.placement(), custom)
-            idx = self._pick_node(demand, threshold, placement, custom)
+            # locality: the node holding the most resident input bytes
+            # is preferred when feasible; SPREAD / PG / affinity
+            # placements keep their own policies untouched
+            prefer = None
+            if locality_on and placement[0] == "default" \
+                    and getattr(task.spec, "arg_sizes", None):
+                prefer = self._preferred_node_locked(task.spec.arg_sizes)
+            idx = self._pick_node(demand, threshold, placement, custom,
+                                  prefer=prefer, spill_depth=spill_depth)
             if idx is None:
                 if not any(self._eligible(i, placement, custom)
                            and n.feasible(demand)
@@ -487,9 +505,24 @@ class EventScheduler(SchedulerBase):
             self._nodes[idx].allocate_custom(custom)
             task.node_index = idx
             self._num_dispatched += 1
+            self._outstanding[idx] = self._outstanding.get(idx, 0) + 1
             out.append(task)
         self._ready.extend(deferred)
         return out
+
+    def _preferred_node_locked(self, arg_sizes) -> Optional[int]:
+        """Node row holding the most resident bytes of this task's args
+        (primary or staged secondary copies both count; a copy of
+        unknown size weighs 1 byte so it still attracts). Ties break to
+        the lowest row for determinism."""
+        locs_of = self.locations_of
+        bytes_on: Dict[int, int] = {}
+        for oid, nbytes in arg_sizes:
+            for node in locs_of(oid):
+                bytes_on[node] = bytes_on.get(node, 0) + max(int(nbytes), 1)
+        if not bytes_on:
+            return None
+        return max(bytes_on.items(), key=lambda kv: (kv[1], -kv[0]))[0]
 
     def _effective_placement_locked(self, placement: Tuple,
                                     custom: Dict[str, float]) -> Tuple:
@@ -526,7 +559,9 @@ class EventScheduler(SchedulerBase):
 
     def _pick_node(self, demand: Tuple[float, ...], threshold: float,
                    placement: Tuple = ("default",),
-                   custom: Dict[str, float] = {}) -> Optional[int]:
+                   custom: Dict[str, float] = {},
+                   prefer: Optional[int] = None,
+                   spill_depth: int = 0) -> Optional[int]:
         kind = placement[0]
         if kind == "aff":
             best, best_load = None, float("inf")
@@ -550,6 +585,20 @@ class EventScheduler(SchedulerBase):
             else:
                 return None
             kind = "default"
+        # locality preference outranks the hybrid local bias: the node
+        # holding the task's input bytes takes it when it fits; when it is
+        # momentarily full the task WAITS for it, but only while its
+        # outstanding-lease depth stays under the spillback bound —
+        # beyond that the task falls through to the normal policy
+        if kind == "default" and prefer is not None \
+                and 0 <= prefer < len(self._nodes):
+            n = self._nodes[prefer]
+            if self._eligible(prefer, placement, custom) \
+                    and n.feasible(demand) and n.has_custom(custom):
+                if n.fits(demand) and n.fits_custom(custom):
+                    return prefer
+                if self._outstanding.get(prefer, 0) < spill_depth:
+                    return None  # bounded wait for the data-resident node
         # hybrid: local (node 0) until its load crosses threshold, then the
         # least-loaded eligible node that fits. SPREAD and PG classes skip
         # the local bias (PG rows exclude node 0 anyway).

@@ -129,6 +129,10 @@ class TensorScheduler(SchedulerBase):
         self._tid_of: Dict[int, TaskID] = {}
         self._waiters: Dict[ObjectID, List[int]] = {}  # oid -> slots
         self._deps_of: Dict[int, List[ObjectID]] = {}  # slot -> pending oids
+        # slot -> ((ObjectID, nbytes), ...) stamped at submit: drives the
+        # locality column. A dict (not an array) because only tasks with
+        # ObjectRef args under remote clusters carry it — usually sparse.
+        self._argsz: Dict[int, Tuple] = {}
 
         self._class_index: Dict[Tuple, int] = {}
         self._demands = np.zeros((0, n_res), dtype=np.float32)
@@ -170,6 +174,10 @@ class TensorScheduler(SchedulerBase):
         self._stream: Optional[torch.cuda.Stream] = None
         self._num_device_assigns = 0
         self._num_device_assign_errors = 0
+        # ticks whose batch carried a locality matrix: kernels.assign has
+        # no locality column, so these run assign_np on the host by the
+        # reference's rule (decided before the tick, never after an error)
+        self._num_locality_host_assigns = 0
         self._dirty = False  # schedulability changed without a queued event
         self._shutdown = False
         self._tick_thread = threading.Thread(
@@ -264,6 +272,7 @@ class TensorScheduler(SchedulerBase):
                 "infeasible": infeasible,
                 "device_assigns": self._num_device_assigns,
                 "device_assign_errors": self._num_device_assign_errors,
+                "locality_host_assigns": self._num_locality_host_assigns,
                 "calibration": {
                     "state": self._calib_state,
                     "numpy_s": self._np_cost,
@@ -656,6 +665,9 @@ class TensorScheduler(SchedulerBase):
             self._indeg[slot] = len(pending_deps)
             if pending_deps:
                 self._deps_of[slot] = pending_deps
+            sizes = getattr(spec, "arg_sizes", None)
+            if sizes:
+                self._argsz[slot] = sizes
             self._state[slot] = WAITING
 
         # 2) object-ready wave (batched indegree scatter)
@@ -749,11 +761,42 @@ class TensorScheduler(SchedulerBase):
             tiers = np.asarray([keys[i][0] for i in order], dtype=np.int64)
         if self._mask_dirty:
             self._rebuild_masks_locked()
-        # no locality column: the port has no remote nodes, the only
-        # place the reference stamps arg_sizes (ROADMAP.md Queue A)
+        # the locality column: only ticks whose ready tasks carry arg
+        # sizes with a known remote location build it (arg_sizes is
+        # stamped only once a remote node exists)
+        locality = None
+        outstanding = None
+        if (self._argsz and GLOBAL_CONFIG.scheduler_locality
+                and self.locations_of is not None):
+            locality = self._locality_matrix_locked(ready_idx)
+            if locality is not None:
+                outstanding = self._outstanding.copy()
         return (ready_idx, self._cls[ready_idx].copy(), self._demands.copy(),
                 self._avail.copy(), self._cap.copy(),
-                self._class_mask.copy(), self._class_spread.copy(), tiers)
+                self._class_mask.copy(), self._class_spread.copy(),
+                locality, outstanding, tiers)
+
+    def _locality_matrix_locked(self, ready_idx) -> Optional[np.ndarray]:
+        """[len(ready_idx), N] resident-arg-bytes per candidate node,
+        aligned to ready positions. A copy of unknown size weighs one
+        byte so it still attracts. None when no ready task has any arg
+        with a known remote location (the kernel's fast path)."""
+        argsz = self._argsz
+        locs_of = self.locations_of
+        N = len(self._node_states)
+        m = None
+        for pos, slot in enumerate(ready_idx):
+            sizes = argsz.get(int(slot))
+            if not sizes:
+                continue
+            for oid, nbytes in sizes:
+                for node in locs_of(oid):
+                    if 0 <= node < N:
+                        if m is None:
+                            m = np.zeros((len(ready_idx), N),
+                                         dtype=np.float64)
+                        m[pos, node] += max(int(nbytes), 1)
+        return m
 
     def _mask_row(self, place: Tuple,
                   custom: Dict[str, float] = {}) -> Tuple[np.ndarray, bool]:
@@ -837,7 +880,7 @@ class TensorScheduler(SchedulerBase):
         call builds its kernels, seconds, and must not block
         submit()/notify_*)."""
         (ready_idx, ready_cls, demands, avail, cap, class_mask,
-         class_spread, tiers) = snapshot
+         class_spread, locality, outstanding, tiers) = snapshot
         if tiers is not None and len(ready_idx) > 1 and tiers[0] != tiers[-1]:
             # QoS tier barrier: the kernels drain each scheduling class as
             # a group, which would let a lower-tier class registered first
@@ -852,7 +895,8 @@ class TensorScheduler(SchedulerBase):
             for s, e in zip(np.r_[0, bounds], np.r_[bounds, len(ready_idx)]):
                 sub = (ready_idx[int(s):int(e)], ready_cls[int(s):int(e)],
                        demands, cur_avail, cap, class_mask, class_spread,
-                       None)
+                       locality[int(s):int(e)] if locality is not None
+                       else None, outstanding, None)
                 _, sub_nodes, cur_avail = self._assign(sub)
                 node_parts.append(sub_nodes)
             return ready_idx, np.concatenate(node_parts), cur_avail
@@ -873,6 +917,13 @@ class TensorScheduler(SchedulerBase):
                                "calibration") from self._calib_error
         use_device = (backend == "cuda"
                       or (backend == "auto" and big and state == "device"))
+        if locality is not None:
+            # kernels.assign has no locality column (nor has the
+            # reference's device kernel): a tick with resident-arg scores
+            # runs assign_np on the host, whatever the backend. Decided
+            # here, before anything runs; a device error never leads here
+            use_device = False
+            self._num_locality_host_assigns += 1
         threshold = GLOBAL_CONFIG.sched_hybrid_threshold
         if use_device:
             node_of_ready, new_avail = self._device_assign(
@@ -884,7 +935,9 @@ class TensorScheduler(SchedulerBase):
             cls_full[ready_idx] = ready_cls
             node_of_ready, new_avail = kernels.assign_np(
                 ready_idx, cls_full, demands, avail, cap, threshold,
-                class_mask, class_spread)
+                class_mask, class_spread,
+                locality=locality, outstanding=outstanding,
+                spill_depth=GLOBAL_CONFIG.locality_spillback_queue_depth)
             dt = time.perf_counter() - t0
             self._np_cost = 0.8 * self._np_cost + 0.2 * dt if self._np_cost else dt
         return ready_idx, node_of_ready, new_avail
@@ -1113,6 +1166,7 @@ class TensorScheduler(SchedulerBase):
 
     def _release_slot_locked(self, slot: int) -> None:
         self._windowed[slot] = False
+        self._argsz.pop(slot, None)
         self._tasks.pop(slot, None)
         tid = self._tid_of.pop(slot, None)
         if tid is not None and self._slot_of.get(tid) == slot:

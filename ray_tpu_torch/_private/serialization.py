@@ -14,10 +14,10 @@ from __future__ import annotations
 
 import io
 import pickle
+import sys
 from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
-import torch
 
 
 class SerializedObject:
@@ -138,7 +138,9 @@ class _Pickler(pickle.Pickler):
             return (_reconstruct_custom, (type(obj), ser(obj)))
         if isinstance(obj, ObjectRef):
             self._contained_refs.append(obj)
-        if type(obj) is torch.Tensor and obj.device.type == "cpu":
+        torch = sys.modules.get("torch")
+        if (torch is not None and type(obj) is torch.Tensor
+                and obj.device.type == "cpu"):
             # the bytes ride out-of-band as a uint8 numpy view (bf16 has
             # no numpy dtype); torch's own reducer copies them in-band
             flat = obj.detach().contiguous().reshape(-1)
@@ -153,6 +155,8 @@ def _reconstruct_custom(cls, payload):
 
 
 def _rebuild_tensor(data: np.ndarray, dtype: str, shape, requires_grad):
+    import torch
+
     if not data.flags.writeable:
         data = data.copy()  # torch tensors are writable
     t = torch.from_numpy(data).view(getattr(torch, dtype.split(".")[-1]))
@@ -222,8 +226,12 @@ def deserialize_with_release(obj: SerializedObject,
 
 def _device_to_host(value: Any) -> Any:
     """Copy device tensor leaves to the host (host tensors pass as they
-    are): the port's counterpart of the reference's jax.Array -> numpy."""
-    if isinstance(value, torch.Tensor):
+    are): the port's counterpart of the reference's jax.Array -> numpy.
+    A process that never imported torch holds no tensor, so torch is
+    looked up here and in the pickler, never imported: a node daemon
+    moves objects without paying torch's import."""
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(value, torch.Tensor):
         return value if value.device.type == "cpu" else value.cpu()
     if isinstance(value, tuple):
         return tuple(_device_to_host(v) for v in value)

@@ -94,12 +94,18 @@ class TaskSpec:
     # (task_id, ids) memo: return_ids() runs on both the submit and the
     # completion hot paths; keyed by the id because retries mutate task_id
     _rid_memo: Any = None
+    # per-arg (ObjectID, nbytes) summary stamped at submit for the
+    # scheduler's locality scoring and dispatch-time arg staging; None
+    # when the task has no ObjectRef args (the common fast path). NOT
+    # part of scheduling_class(): tasks differing only in arg objects
+    # must still share a class/lease.
+    arg_sizes: Any = None
     # the task's own TraceContext 4-tuple (trace_id, span_id,
     # parent_span_id, sampled), stamped at submit by the trace plane and
     # carried to workers so nested submissions inherit parentage. The
     # logical span survives retries because retry mutates this spec in
-    # place. NOT part of scheduling_class(): tasks differing only in
-    # their trace must still share a class/lease.
+    # place. NOT part of scheduling_class() for the same reason as
+    # arg_sizes.
     trace_ctx: Any = None
     # QoS plane (config.qos): strict priority tier (higher preempts
     # lower) and owning tenant for weighted fair-share. Queue-ordering

@@ -9,16 +9,19 @@ Two worker modes: in thread mode the driver and all workers share one
 process and workers are threads in an executor pool; in process mode
 (``worker_mode="process"``, and every node ``add_cluster_node`` adds)
 tasks and sync actors run in exec'd worker processes, with large objects
-in a shared-memory arena (``runtime/``). The scheduler is pluggable
-(event-driven oracle or device-tensor scheduler). Remote nodes, the
-ray:// client and the head server, and the profile and QoS planes raise
-NotImplementedError naming their ROADMAP.md item.
+in a shared-memory arena (``runtime/``). Remote nodes
+(``add_remote_cluster_node``) are node-daemon processes with arenas of
+their own, reached over TCP through the head endpoint, which also serves
+``ray://`` clients (``enable_head_endpoint``). The scheduler is
+pluggable (event-driven oracle or device-tensor scheduler). The profile
+and QoS planes raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import collections
 import heapq
+from collections import OrderedDict
 import logging
 import os
 import sys
@@ -47,9 +50,6 @@ global_worker: Optional["Worker"] = None
 
 # what the port does not have yet, and the ROADMAP.md item that brings it
 _UNPORTED = {
-    "remote": "remote nodes, the head server and ray:// clients are not "
-              "ported yet (ROADMAP.md Queue A: the runtime's next items, "
-              "the multi-node plane and the client)",
     "planes": "the profile plane and the QoS plane are not ported yet "
               "(ROADMAP.md Queue A: the runtime's next items, the "
               "optional planes)",
@@ -400,6 +400,12 @@ class Worker:
 
         self.memory_store = MemoryStore()
         self._oos_q: collections.deque = collections.deque()
+        # flips when a REMOTE node pool registers: only then can a
+        # dying ref have a remote copy worth a per-ref GCS lookup
+        self._has_remote_nodes = False
+        # one-shot guard for the post-failover lease reconciler (kicked
+        # by the first daemon rejoin after a journaled head restart)
+        self._failover_reconciler_started = False
         self.reference_counter = ReferenceCounter(self._on_object_out_of_scope)
         # declared before the task manager / scheduler exist: both read
         # it on their hot paths (None = QoS plane off)
@@ -492,6 +498,79 @@ class Worker:
         self._node_pools: Dict[int, Any] = {}
         if self.process_pool is not None:
             self._node_pools[0] = self.process_pool
+        # TCP registration endpoint for remote node daemons / clients
+        # (created lazily with the first remote node)
+        self._head_server = None
+        self.client_server = None
+
+        # cross-node transfer accounting (tests assert the head's relay
+        # stays flat when a direct peer path exists). locality_hit/miss
+        # count dispatches whose args were fully/partially resident on
+        # the chosen node; bytes_pulled is cross-node staging traffic,
+        # bytes_saved is arg bytes already resident where the task ran.
+        # mutated from the scheduler tick, daemon demux threads, and
+        # head pull paths concurrently — all writers go through
+        # note_transfer() under _transfer_stats_lock (raylint
+        # shared_state pass: unguarded += across threads drops counts)
+        self.transfer_stats: Dict[str, int] = {"head_relayed_bytes": 0,
+                                               "head_relayed_objects": 0,
+                                               "locality_hits": 0,
+                                               "locality_misses": 0,
+                                               "bytes_pulled": 0,
+                                               "bytes_saved": 0}
+        self._transfer_stats_lock = runtime_sanitizer.wrap_lock(
+            threading.Lock(), "_private.worker.Worker._transfer_stats_lock")
+        # two-level scheduling / p2p actor plane accounting (zeros keep
+        # the metric families schema-stable while the knobs are off).
+        # Written from daemon demux threads and the head rpc pool at
+        # once — same locked-increment contract as transfer_stats.
+        self.two_level_stats: Dict[str, int] = {"local_dispatch": 0,
+                                                "spillback": 0,
+                                                "p2p": 0,
+                                                "head_fallback": 0,
+                                                "node_deaths": 0,
+                                                "orphan_retried": 0,
+                                                "orphan_fenced": 0}
+        # p2p exactly-once arbiter: first arrival (completion receipt
+        # OR head fallback) for a task id claims it, the loser no-ops.
+        # Bounded FIFO — duplicates race within seconds, not hours.
+        self._p2p_seen: "OrderedDict[bytes, bool]" = OrderedDict()
+        self._p2p_seen_lock = runtime_sanitizer.wrap_lock(
+            threading.Lock(), "_private.worker.Worker._p2p_seen_lock")
+        # arg-object pins for locally-dispatched ref-carrying leases
+        # (tid_bin -> [ObjectID]); released when the lease resolves
+        self._local_lease_pins: Dict[bytes, List[ObjectID]] = {}
+        self._local_pin_lock = runtime_sanitizer.wrap_lock(
+            threading.Lock(), "_private.worker.Worker._local_pin_lock")
+        # resubmittable bodies of adopted local leases (tid_bin ->
+        # journal-shaped record), retained IN MEMORY regardless of the
+        # journal knob: the node-death reconciler needs them to retry
+        # a dead node's orphaned leases under their original return
+        # oids, and the default config journals nothing. Dropped when
+        # the lease resolves (same lifetime as the arg pins above).
+        self._local_lease_records: Dict[bytes, dict] = {}
+        # COMPLETED local leases' records, kept for lineage
+        # reconstruction (their returns may be the sole copy in the
+        # producing node's arena, and no head-side TaskSpec exists to
+        # re-run them) — see release_local_lease_pins(keep_lineage=True)
+        self._local_lease_lineage: Dict[bytes, dict] = {}
+        # arena names of nodes declared DEAD whose daemon may still
+        # re-dial (partition, not death): their rejoin gets a FENCED
+        # pool so stale outbox replays from the dead era can never
+        # double-resolve work the reconciler already settled
+        self._fenced_arenas: Dict[str, float] = {}
+        # resource-view push thread (started with the first remote
+        # node; sends only while a two-level knob is on)
+        self._resview_thread: Optional[threading.Thread] = None
+        # resview versioning: v is a monotonic per-push counter; e is a
+        # per-head-instance epoch so gossiped views from a dead head's
+        # era can never outrank a restarted head's fresh pushes
+        self._resview_push_v = 0
+        self._resview_epoch = os.urandom(8).hex()
+        # single-flight head-side peer pulls (oid -> completion event)
+        self._head_pull_lock = runtime_sanitizer.wrap_lock(
+            threading.Lock(), "_private.worker.Worker._head_pull_lock")
+        self._head_pulls: Dict[ObjectID, threading.Event] = {}
 
         # placement groups (bundle reservation over the scheduler)
         from ray_tpu_torch._private.placement_groups import PlacementGroupManager
@@ -512,6 +591,9 @@ class Worker:
                             else None)
         self.scheduler.task_events = self.task_events
         self.scheduler.fail_tasks = self._fail_unassigned
+        # locality column input: the scheduler reads copy locations
+        # straight off the GCS object directory (primary first)
+        self.scheduler.locations_of = self.gcs.object_locations
         # trace plane: causal spans keyed by trace_id (None when
         # trace_sample_rate=0 or traces_max=0 — specs are never stamped
         # and every producer hook is a None check)
@@ -701,7 +783,8 @@ class Worker:
         zero-copy on first access (plasma client get analog): a tensor
         or array read from the arena is a view of its bytes there, and
         the arena range stays pinned while any view of it lives."""
-        from ray_tpu_torch._private.runtime.process_pool import ShmPlaceholder
+        from ray_tpu_torch._private.runtime.process_pool import (
+            RemotePlaceholder, ShmPlaceholder)
         value = entry.value
         if isinstance(value, ShmPlaceholder):
             from ray_tpu_torch._private.serialization import (
@@ -719,7 +802,498 @@ class Worker:
             else:
                 value = deserialize(sobj)  # spill read: copied bytes
             entry.value = value  # memoize the zero-copy view object
+        elif isinstance(value, RemotePlaceholder):
+            from ray_tpu_torch._private.serialization import (SerializedObject,
+                                                        deserialize)
+            node_index = value.node_index
+            value = self._pull_remote_value(object_id, node_index)
+            if value is None:
+                # control-channel blob fetch (daemons without a peer
+                # plane / pull failure)
+                data = self.fetch_object_bytes(object_id, node_index)
+                if data is None:
+                    raise rex.ObjectLostError(object_id.hex())
+                value = deserialize(SerializedObject.from_bytes(data))
+            entry.value = value  # memoize: later reads are local
         return value
+
+    def _pull_remote_value(self, object_id: ObjectID,
+                           node_index: int) -> Optional[Any]:
+        """Chunked peer pull of a remote-resident object into the
+        HEAD's own store, then a local read — a multi-GB result never
+        rides the daemon CONTROL link as one message (that link also
+        carries dispatch and pings). None = peer plane unavailable;
+        the caller falls back to the control-channel blob fetch."""
+        peer = self.peer_address_of(node_index)
+        if peer is None or self._head_server is None:
+            return None
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+        from ray_tpu_torch._private.runtime.node_daemon import peer_pull_bytes
+        from ray_tpu_torch._private.serialization import (SerializedObject,
+                                                    deserialize)
+
+        timeout = GLOBAL_CONFIG.object_transfer_timeout_s
+        authkey = self._head_server.authkey
+        if self.shm_store is not None:
+            # single-flight per object: two user threads racing the
+            # same pull would both begin_adopt — in the spill case onto
+            # the SAME temp file (one pid), interleaving writes into a
+            # corrupted object
+            with self._head_pull_lock:
+                ev = self._head_pulls.get(object_id)
+                if ev is None:
+                    self._head_pulls[object_id] = ev = threading.Event()
+                    leader = True
+                else:
+                    leader = False
+            if not leader:
+                ev.wait(timeout)
+                if not self.shm_store.contains(object_id):
+                    return None  # leader failed: fall back
+                return self._read_pulled(object_id)
+            try:
+                return self._leader_pull(peer, authkey, object_id,
+                                         timeout)
+            finally:
+                with self._head_pull_lock:
+                    self._head_pulls.pop(object_id, None)
+                ev.set()
+        # thread-mode head: no arena to adopt into — stream the frames
+        # into ONE buffer and deserialize from it (no shared sink, so
+        # no single-flight needed beyond memoization upstream)
+        buf = peer_pull_bytes(peer, authkey, object_id, timeout)
+        if buf is None:
+            return None
+        self.note_transfer("head_peer_pulled_objects")
+        return deserialize(SerializedObject.from_bytes(memoryview(buf)))
+
+    def _leader_pull(self, peer, authkey: bytes, object_id: ObjectID,
+                     timeout: float) -> Optional[Any]:
+        from ray_tpu_torch._private.runtime.node_daemon import peer_pull_once
+
+        if not peer_pull_once(peer, authkey, self.shm_store, object_id,
+                              timeout):
+            return None
+        self.note_transfer("head_peer_pulled_objects")
+        return self._read_pulled(object_id)
+
+    def _read_pulled(self, object_id: ObjectID) -> Optional[Any]:
+        from ray_tpu_torch._private.serialization import (
+            deserialize, deserialize_with_release)
+
+        sobj, pinned = self.shm_store.get_serialized_for_view(object_id)
+        if sobj is None:
+            return None
+        if pinned:
+            return deserialize_with_release(
+                sobj, lambda oid=object_id: self.shm_store.unpin(oid))
+        return deserialize(sobj)  # spill read: copied bytes
+
+    def fetch_object_bytes(self, object_id: ObjectID,
+                           node_index: int) -> Optional[bytes]:
+        """Framed bytes of an object primary-resident on a remote node
+        (None if the node or object is gone). Every byte returned here
+        crossed the HEAD's link — the relay counter lets tests assert
+        that peer-capable transfers bypass it."""
+        pool = self._node_pools.get(node_index)
+        if pool is None or not getattr(pool, "is_remote", False):
+            return None
+        data = pool.fetch_object(object_id)
+        if data is not None:
+            from ray_tpu_torch._private.serialization import SerializedObject
+            if not SerializedObject.frame_complete(data):
+                # partial transfer (chaos truncation or a dying daemon):
+                # treat as lost so lineage recovery rebuilds the object
+                # instead of deserializing short buffers into garbage
+                logger.warning("truncated transfer of %s from node %d "
+                               "(%d bytes); treating as lost",
+                               object_id.hex()[:16], node_index, len(data))
+                self._chaos.note_recovery("transfer")
+                return None
+            self.note_transfer("head_relayed_bytes", len(data))
+            self.note_transfer("head_relayed_objects")
+        return data
+
+    def note_transfer(self, key: str, delta: int = 1) -> None:
+        """Bump a transfer_stats counter. The dict is written from the
+        scheduler tick, daemon demux threads, and head pull paths at
+        once; a bare ``+=`` there is a read-modify-write race that
+        silently drops counts."""
+        with self._transfer_stats_lock:
+            self.transfer_stats[key] = \
+                self.transfer_stats.get(key, 0) + delta
+
+    def peer_address_of(self, node_index: int) -> Optional[tuple]:
+        """The direct-transfer endpoint of a remote node's daemon, or
+        None (head-local nodes / daemons predating the peer plane)."""
+        pool = self._node_pools.get(node_index)
+        if pool is not None and getattr(pool, "is_remote", False):
+            return getattr(pool, "peer_address", None)
+        return None
+
+    # ------------------------------------------------------------------
+    # Two-level scheduling + p2p actor plane (bottom-up dispatch: the
+    # node daemons admit work and execute actor calls peer-to-peer; the
+    # head stays the single placement/bookkeeping authority and only
+    # sees sequenced reports)
+    # ------------------------------------------------------------------
+    def note_two_level(self, key: str, delta: int = 1) -> None:
+        with self._transfer_stats_lock:
+            self.two_level_stats[key] = \
+                self.two_level_stats.get(key, 0) + delta
+
+    def _p2p_claim(self, tid_bin: bytes) -> bool:
+        """First claim on a p2p call's completion wins: the completion
+        receipt and the head-fallback retry race for the same task id,
+        and exactly one of them may resolve/execute it."""
+        with self._p2p_seen_lock:
+            if tid_bin in self._p2p_seen:
+                return False
+            self._p2p_seen[tid_bin] = True
+            while len(self._p2p_seen) > 4096:
+                self._p2p_seen.popitem(last=False)
+            return True
+
+    def on_local_lease(self, pool, tid_bin: bytes, info: dict) -> None:
+        """A node's LocalScheduler admitted a worker-submitted task
+        from its bounded local queue without a head round-trip. Adopt
+        the lease head-side: own + journal it so failover
+        reconciliation and ref bookkeeping behave exactly as if the
+        head had placed it (outbox FIFO guarantees this report lands
+        before the lease's own done/err)."""
+        self.note_two_level("local_dispatch")
+        note = getattr(self.scheduler, "note_local_dispatch", None)
+        if note is not None:
+            note()
+        returns = list(info.get("returns") or ())
+        rids = [ObjectID(b) for b in returns]
+        for oid in rids:
+            self.reference_counter.add_owned_object(oid)
+        with pool._lock:
+            h = pool._by_num.get(info.get("worker_num"))
+            sub = pool._by_num.get(info.get("submitter"))
+        attempt = int(info.get("attempt", 0))
+        if h is not None:
+            pool.adopt_inflight(h, tid_bin, returns, attempt)
+        record = {
+            "name": info.get("name"),
+            "fn_blob": info.get("fn_blob"),
+            "args_blob": info.get("args_blob"),
+            "num_returns": int(info.get("num_returns", 1)),
+            "returns": returns,
+            "resources": dict(info.get("resources") or {}),
+            "attempt": attempt,
+            "max_retries": int(info.get("max_retries", 0)),
+            "node_index": pool.node_index,
+        }
+        # retained in memory for the node-death reconciler even when
+        # the durable journal is off (the default): a whole-node
+        # SIGKILL must be able to retry this lease under its original
+        # return oids without any WAL to replay
+        with self._local_pin_lock:
+            self._local_lease_records[tid_bin] = record
+        if self.gcs.journal_enabled:
+            self.gcs.journal_lease(tid_bin, dict(record))
+        arg_pin = [ObjectID(b) for b in info.get("arg_refs") or ()]
+        if arg_pin:
+            # pin the arg objects for the lease's lifetime, mirroring
+            # the head path's submitted-task references (released when
+            # the adopted lease resolves — see release_local_lease_pins)
+            self.reference_counter.add_submitted_task_references(arg_pin)
+            with self._local_pin_lock:
+                self._local_lease_pins[tid_bin] = arg_pin
+        if sub is not None:
+            # the submitting task borrows its nested refs until it
+            # completes, mirroring the head-path _rpc_submit
+            borrows = pool._task_borrows(sub)
+            for oid in rids:
+                self.reference_counter.add_borrower(oid, sub.worker_id)
+                borrows.add(oid)
+        tp = self.trace_plane
+        if tp is not None:
+            ts = info.get("t")
+            tp.record_local_dispatch(
+                TaskID(tid_bin), info.get("name") or "?",
+                info.get("trace"), pool.node_index,
+                now=(ts + pool.clock_offset) if ts else None)
+
+    def on_local_retry(self, pool, tid_bin: bytes, info: dict) -> None:
+        """The node daemon re-leased a locally-dispatched task to a
+        fresh local worker after its first worker died (per-attempt
+        accounting rides the journaled lease, so failover replay and
+        the real claimant agree on who owns the attempt). Move the
+        inflight entry off the dead handle and bump the journal's
+        attempt token — outbox FIFO guarantees this report lands
+        before the dead worker's worker_died, so the failure sweep
+        never sees the retried lease on the old handle."""
+        self.note_two_level("local_retry")
+        attempt = int(info.get("attempt", 1))
+        returns = list(info.get("returns") or ())
+        task_id = TaskID(tid_bin)
+        with pool._lock:
+            old = pool._by_task.pop(task_id, None)
+            h = pool._by_num.get(info.get("worker_num"))
+            if old is not None:
+                old.inflight.pop(task_id, None)
+        if h is not None:
+            pool.adopt_inflight(h, tid_bin, returns, attempt)
+        with self._local_pin_lock:
+            rec = self._local_lease_records.get(tid_bin)
+            if rec is not None:
+                rec["attempt"] = attempt
+        if self.gcs.journal_enabled:
+            lease = self.gcs.journal_get(tid_bin)
+            if lease is not None:
+                lease = dict(lease, attempt=attempt)
+                self.gcs.journal_lease(tid_bin, lease)
+        tp = self.trace_plane
+        if tp is not None:
+            tp.record_failed(TaskID(tid_bin),
+                             "worker died (local retry %d)" % attempt)
+
+    def release_local_lease_pins(self, tid_bin: bytes,
+                                 keep_lineage: bool = False) -> None:
+        """Drop the arg-object pins taken at local-lease adoption,
+        plus the retained resubmittable record (the lease reached a
+        terminal state on every path that calls this). No-op for tasks
+        without pinned args (head-path tasks, failover re-attached
+        leases).
+
+        ``keep_lineage`` (the SUCCESS completion path): the head never
+        built a TaskSpec for a locally-dispatched lease, so the lease
+        record is the ONLY thing that can reconstruct its sole-copy
+        returns after the producing node dies. Migrate it to the
+        bounded lineage-record table instead of dropping it; the
+        recovery manager resubmits through it on loss."""
+        with self._local_pin_lock:
+            pins = self._local_lease_pins.pop(tid_bin, None)
+            rec = self._local_lease_records.pop(tid_bin, None)
+            if keep_lineage and rec is not None \
+                    and rec.get("fn_blob") is not None \
+                    and int(rec.get("attempt", 0)) \
+                    < int(rec.get("max_retries", 0)):
+                lt = self._local_lease_lineage
+                lt[tid_bin] = rec
+                # count-capped FIFO (records carry real fn/args blobs,
+                # unlike the 256-byte-estimated head-path specs);
+                # evicted entries are simply no longer recoverable
+                while len(lt) > 2048:
+                    lt.pop(next(iter(lt)))
+        if pins:
+            self.reference_counter.remove_submitted_task_references(pins)
+
+    def take_local_lease_lineage(self, tid_bin: bytes) -> Optional[dict]:
+        """Claim (pop) a completed local lease's lineage record for
+        reconstruction. Popping is the dedup: once the resubmission
+        completes, the rebuilt spec lands in the task manager's normal
+        lineage table (keyed by this same original id), and further
+        losses recover through that path."""
+        with self._local_pin_lock:
+            return self._local_lease_lineage.pop(tid_bin, None)
+
+    def on_p2p_done(self, pool, tid_bin: bytes, receipt: dict) -> None:
+        """Sequenced completion receipt for a peer-to-peer actor call:
+        the result bytes already moved worker -> peer daemon directly,
+        so this is lineage, ownership and observability only.
+        ``pool`` is the EXECUTING node's pool (its daemon reported)."""
+        if not self._p2p_claim(tid_bin):
+            return  # the head-fallback retry already resolved the call
+        self.note_two_level("p2p")
+        returns = list(receipt.get("returns") or ())
+        rids = [ObjectID(b) for b in returns]
+        for oid in rids:
+            self.reference_counter.add_owned_object(oid)
+        err = receipt.get("err")
+        if err is not None:
+            import cloudpickle
+            try:
+                exc = cloudpickle.loads(err[0])
+            except Exception:
+                exc = RuntimeError(
+                    "p2p actor call failed (exception undeserializable)")
+            if not isinstance(exc, (rex.TaskError, rex.ActorError)):
+                exc = rex.TaskError(
+                    f"{receipt.get('name')}.{receipt.get('method')}",
+                    exc, err[1] or "")
+            for oid in rids:
+                self.memory_store.put(oid, exc, is_exception=True)
+                self.scheduler.notify_object_ready(oid)
+        else:
+            pool.store_result_entries(rids,
+                                      list(receipt.get("entries") or ()))
+        # the calling task (on the CALLER's node) borrows the refs
+        # until it completes, mirroring the head-path _rpc_actor_call
+        cpool = self._node_pools.get(receipt.get("caller_node"))
+        if cpool is not None:
+            with cpool._lock:
+                ch = cpool._by_num.get(receipt.get("caller"))
+            if ch is not None:
+                borrows = cpool._task_borrows(ch)
+                for oid in rids:
+                    self.reference_counter.add_borrower(oid, ch.worker_id)
+                    borrows.add(oid)
+        tp = self.trace_plane
+        if tp is not None:
+            tp.record_p2p_span(
+                TaskID(tid_bin),
+                f"{receipt.get('name')}.{receipt.get('method')}",
+                receipt.get("trace"), pool.node_index,
+                receipt.get("timing"),
+                worker=receipt.get("worker_num"),
+                offset=pool.clock_offset,
+                error_type=(type(exc).__name__ if err is not None
+                            else None))
+
+    def on_p2p_fallback(self, pool, tid_bin: bytes, info: dict) -> None:
+        """A peer lane died/dropped/timed out mid-call: re-execute
+        through the normal head-side actor runtime with the SAME task
+        id / return ids / trace context. The executing worker's dedup
+        cache re-emits the recorded completion if the peer actually
+        ran the first attempt — exactly-once either way. ``pool`` is
+        the CALLER's pool (its daemon reported the fallback)."""
+        import cloudpickle
+
+        from ray_tpu_torch.actor import ActorState, _Call
+
+        if not self._p2p_claim(tid_bin):
+            return  # the completion receipt beat the fallback report
+        # count only claimed fallbacks (mirrors on_p2p_done's 'p2p'
+        # accounting) — a lost race here was a fully-served p2p call
+        self.note_two_level("head_fallback")
+        self._chaos.note_recovery("peer_link")
+        returns = list(info.get("returns") or ())
+        rids = [ObjectID(b) for b in returns]
+        for oid in rids:
+            self.reference_counter.add_owned_object(oid)
+
+        def _fail(exc: BaseException) -> None:
+            for oid in rids:
+                self.memory_store.put(oid, exc, is_exception=True)
+                self.scheduler.notify_object_ready(oid)
+
+        try:
+            t = cloudpickle.loads(info["blob"])
+            args, kwargs = t[2], t[3]
+        except Exception as e:
+            _fail(rex.TaskError(str(info.get("method")), e, ""))
+            return
+        aid = ActorID(info["actor"])
+        with self._actors_lock:
+            rt = self.actors.get(aid)
+        if rt is None or rt.state == ActorState.DEAD:
+            _fail(rex.ActorDiedError(
+                f"p2p fallback: actor {aid.hex()[:16]} is gone "
+                f"({info.get('reason')})", actor_id=aid))
+            return
+        call = _Call(info["method"], args, kwargs, rids,
+                     int(info.get("num_returns", 1)), TaskID(tid_bin),
+                     trace_ctx=info.get("trace"), dedup=True)
+        tp = self.trace_plane
+        if tp is not None and call.trace_ctx is not None:
+            tp.on_actor_call(call, str(info.get("method")),
+                             rt._current_node_index)
+        with pool._lock:
+            ch = pool._by_num.get(info.get("caller"))
+        if ch is not None:
+            borrows = pool._task_borrows(ch)
+            for oid in rids:
+                self.reference_counter.add_borrower(oid, ch.worker_id)
+                borrows.add(oid)
+        try:
+            rt.submit(call)
+        except Exception as e:  # e.g. PendingCallsLimitExceeded
+            _fail(e if isinstance(e, rex.RayTpuError)
+                  else rex.TaskError(str(info.get("method")), e, ""))
+
+    def resolve_actor_address(self, aid_bin: bytes) -> Optional[tuple]:
+        """(node_index, peer_address, worker_num) of a live process
+        actor's dedicated worker, or None (thread-mode actor, not
+        alive, or node without a peer plane) — a None route keeps the
+        daemon on the head path. Knob-gated: with actor_p2p off no
+        route exists anywhere (``state.list_actors`` shows None and
+        aroute requests — which should not occur — resolve to the
+        head path)."""
+        from ray_tpu_torch.actor import ActorState
+
+        if not GLOBAL_CONFIG.actor_p2p:
+            return None
+        with self._actors_lock:
+            rt = self.actors.get(ActorID(aid_bin))
+        if rt is None or rt.state != ActorState.ALIVE:
+            return None
+        h = getattr(rt, "_h", None)
+        rpool = getattr(rt, "_pool", None)
+        if h is None or rpool is None or h.dead \
+                or not getattr(rpool, "is_remote", False):
+            return None
+        peer = getattr(rpool, "peer_address", None)
+        if peer is None:
+            return None
+        return (rpool.node_index, tuple(peer), h.worker_num)
+
+    def _ensure_resview_push(self) -> None:
+        """Start the resource-view push loop with the first remote
+        node. The loop itself is knob-gated per tick, so toggling
+        local_dispatch/actor_p2p mid-session takes effect without a
+        restart; with both knobs off it sends NOTHING (wire bytes stay
+        byte-for-byte pre-two-level)."""
+        if self._resview_thread is not None:
+            return
+        t = threading.Thread(target=self._resview_push_loop, daemon=True,
+                             name="ray_tpu_resview_push")
+        self._resview_thread = t
+        t.start()
+
+    # residency digests above this size stop being pushed (a node
+    # hoarding tens of thousands of objects gains little from local
+    # ref admission and the push would dominate the view payload)
+    _RESVIEW_DIGEST_CAP = 4096
+
+    def _resview_push_loop(self) -> None:
+        while self.alive:
+            try:
+                if GLOBAL_CONFIG.local_dispatch or GLOBAL_CONFIG.actor_p2p:
+                    snap = self._chaos.plan_snapshot()
+                    self._resview_push_v += 1
+                    pools = [e.pool for e in self.gcs.node_table()
+                             if e.pool is not None
+                             and getattr(e.pool, "is_remote", False)]
+                    addrs = {p.node_index: getattr(p, "peer_address", None)
+                             for p in pools}
+                    for p in pools:
+                        try:
+                            view = {
+                                "accept": bool(GLOBAL_CONFIG.local_dispatch),
+                                "p2p": bool(GLOBAL_CONFIG.actor_p2p),
+                                "cap": int(GLOBAL_CONFIG.local_queue_depth),
+                                "job": self.job_id.binary(),
+                                "node": p.node_index,
+                                "chaos": snap,
+                                "v": self._resview_push_v,
+                                "e": self._resview_epoch,
+                                "peers": [a for i, a in addrs.items()
+                                          if i != p.node_index
+                                          and a is not None],
+                                "resident": self._residency_digest(
+                                    p.node_index),
+                            }
+                            p.send_resview(view)
+                        except Exception:
+                            pass  # a dying link re-syncs after rejoin
+            except Exception:
+                logger.exception("resview push tick failed")
+            time.sleep(0.5)
+
+    def _residency_digest(self, node_index: int) -> Optional[list]:
+        """8-byte oid prefixes of every object copy on the node, for
+        the LocalScheduler's ref-carrying admission check. None when
+        the directory slice is too large to ship (the daemon then
+        falls back to its own arena residency, which it always checks
+        first anyway)."""
+        oids = self.gcs.objects_resident(node_index)
+        if len(oids) > self._RESVIEW_DIGEST_CAP:
+            return None
+        return [oid.binary()[:8] for oid in oids]
 
     def get(self, refs: Sequence[ObjectRef], timeout: Optional[float]) -> List[Any]:
         self._drain_out_of_scope()
@@ -858,6 +1432,7 @@ class Worker:
         spec._deps_memo = deps  # args never change; reused at completion
         if deps:
             self.reference_counter.add_submitted_task_references(deps)
+            self._stamp_arg_sizes(spec, deps)
         self.task_manager.add_pending(spec, deps)
         if self.qos_plane is not None:
             self.qos_plane.note_queued(spec.task_id, spec.tenant,
@@ -908,6 +1483,8 @@ class Worker:
             deps = (_top_level_deps(spec.args, spec.kwargs)
                     if (spec.args or spec.kwargs) else [])
             spec._deps_memo = deps
+            if deps:
+                self._stamp_arg_sizes(spec, deps)
             all_deps.extend(deps)
         self.reference_counter.register_submit_batch(owned, all_deps)
         self.task_manager.add_pending_batch(specs)
@@ -948,6 +1525,24 @@ class Worker:
             out.append(refs)
         self.scheduler.submit_many(pendings)
         return out
+
+    def _stamp_arg_sizes(self, spec: TaskSpec, deps: List[ObjectID]) -> None:
+        """Per-arg (ObjectID, nbytes) summary for locality scoring and
+        dispatch-time staging. Only stamped when remote arenas exist and
+        the knob is on: single-node runs (and locality-off runs) skip
+        the per-dep size lookups entirely, keeping submit byte-for-byte
+        pre-locality."""
+        if not self._has_remote_nodes \
+                or not GLOBAL_CONFIG.scheduler_locality:
+            return
+        get_entry = self.memory_store.get_entry
+        sizes = []
+        for d in deps:
+            e = get_entry(d)
+            # 0 = size unknown (dep not yet produced); the scheduler
+            # still counts the copy, weighted minimally
+            sizes.append((d, e.size if e is not None else 0))
+        spec.arg_sizes = tuple(sizes)
 
     def cancel_task(self, ref: ObjectRef, force: bool = False) -> None:
         task_id = ref.task_id()
@@ -1010,6 +1605,48 @@ class Worker:
         if fault is not None:
             time.sleep(fault.get("delay_s", 0.05))
 
+    def _stage_args(self, pool, pending: PendingTask) -> None:
+        """Dispatch-time arg staging: args NOT resident on the assigned
+        node but resident on a peer with a transfer endpoint ship their
+        known locations with the lease, so the daemon's pull manager
+        overlaps the peer pull with the task's queue wait (instead of
+        paying the transfer at exec start). Also keeps the locality
+        hit/miss and bytes-saved/pulled accounting."""
+        sizes = getattr(pending.spec, "arg_sizes", None)
+        if not sizes:
+            return
+        stage: List[tuple] = []
+        resident = 0
+        missing = 0
+        located = 0
+        for oid, nbytes in sizes:
+            locs = self.gcs.object_locations(oid)
+            if not locs:
+                continue  # head-resident: embedded in the lease payload
+            located += 1
+            if pool.node_index in locs:
+                resident += nbytes
+                continue
+            missing += 1
+            for src in locs:
+                peer = self.peer_address_of(src)
+                if peer is not None:
+                    stage.append((oid.binary(), tuple(peer), nbytes))
+                    break
+        if located:
+            self.note_transfer(
+                "locality_misses" if missing else "locality_hits")
+            if resident:
+                self.note_transfer("bytes_saved", resident)
+        if stage:
+            pool.stage_args(stage)
+            if self.task_events is not None:
+                self.task_events.record_staged(pending.spec.task_id,
+                                               pending.node_index)
+            if self.trace_plane is not None:
+                self.trace_plane.record_staged(pending.spec.task_id,
+                                               pending.node_index)
+
     def _dispatch(self, pending: PendingTask) -> None:
         self._chaos_tick()
         self.events.record(pending.spec.task_id, pending.spec.name,
@@ -1028,6 +1665,8 @@ class Worker:
             self._pool.submit(self._boot_actor, pending, boot)
         elif (pool is not None
               and pending.spec.task_type == TaskType.NORMAL_TASK):
+            if pool.is_remote:
+                self._stage_args(pool, pending)
             # lease grant: the decision becomes a payload shipped to a
             # worker process on the ASSIGNED node (payload build + pipe
             # send run OFF the tick thread: a full pipe buffer blocks
@@ -1059,13 +1698,13 @@ class Worker:
             if (getattr(spec, "_actor_boot", None) is not None
                     or spec.task_type != TaskType.NORMAL_TASK):
                 self._dispatch(pending)
-            elif pool is not None:
+            elif pool is not None and not pool.is_remote:
                 ev_rows.setdefault(pending.node_index, []).append(
                     (spec.task_id, spec.name))
                 if te is not None or tp is not None:
                     te_rows.append((spec.task_id, pending.node_index))
                 groups.setdefault(pool, []).append(pending)
-            else:
+            elif pool is None:
                 # host-thread execution. Plain tasks (no deps to
                 # resolve, no runtime env, no placement group, single
                 # return) take the drain fast path: a SHARED deque that
@@ -1088,6 +1727,8 @@ class Worker:
                         te_rows.append((spec.task_id,
                                         pending.node_index))
                     local.append((self._execute_task, (pending,)))
+            else:
+                self._dispatch(pending)
         for node, rows in ev_rows.items():
             self.events.record_batch(rows, "dispatched", node)
         if te_rows or fast:
@@ -1273,8 +1914,7 @@ class Worker:
     # ------------------------------------------------------------------
     # Virtual multi-node (reference: python/ray/cluster_utils.py — each
     # added node is a REAL per-node runtime: its own exec'd worker
-    # processes behind its own pool, with declared resources). Remote
-    # node daemons and the head's ray:// server are not ported yet.
+    # processes behind its own pool, with declared resources)
     # ------------------------------------------------------------------
     def add_cluster_node(self, num_cpus: float = 4.0, num_gpus: float = 0.0,
                          num_workers: Optional[int] = None,
@@ -1313,19 +1953,450 @@ class Worker:
         self.gcs.start_health_checks()
         return entry
 
-    def add_remote_cluster_node(self, *args, **kwargs):
-        raise NotImplementedError(_UNPORTED["remote"])
+    def add_remote_cluster_node(self, num_cpus: float = 4.0,
+                                num_gpus: float = 0.0,
+                                num_workers: Optional[int] = None,
+                                resources: Optional[Dict[str, float]] = None,
+                                object_store_memory: Optional[int] = None):
+        """Add a node backed by a NODE DAEMON process with its OWN shm
+        arena, connected over TCP (localhost stands in for the DCN) —
+        the real multi-host topology, unlike add_cluster_node's
+        same-process pools sharing the head arena. Reference: one
+        raylet+plasma per node, registered with the GCS over the
+        network. ``num_gpus`` > 0 needs ``worker_gpu_access``, as
+        add_cluster_node does: the daemon gives its workers the card
+        only then, and never touches it itself."""
+        import subprocess
 
-    def enable_head_endpoint(self, *args, **kwargs):
-        raise NotImplementedError(_UNPORTED["remote"])
+        from ray_tpu_torch._private.runtime.remote_pool import (HeadServer,
+                                                          RemoteNodePool)
+
+        if num_gpus and not GLOBAL_CONFIG.worker_gpu_access:
+            raise ValueError(
+                f"add_remote_cluster_node(num_gpus={num_gpus}): the node's "
+                "worker processes cannot see the card; set "
+                "worker_gpu_access=True to give them it")
+        if self._head_server is None:
+            self._head_server = HeadServer()
+        # a severed daemon link (chaos flap, transient network drop)
+        # comes back as an UNSOLICITED rejoin hello — without the hook
+        # the accept loop would silently close it and the node would
+        # burn its whole REJOINING grace window dialing a deaf head
+        self._head_server.on_unsolicited = self._on_unsolicited_hello
+        token = self._head_server.issue_token()
+        slot_ev, slot = self._head_server.expect(token)
+        # the daemon never touches the card; it keeps the card visible
+        # for its workers only on a GPU node (node_daemon's
+        # _workers_see_card makes the same choice for each worker)
+        from ray_tpu_torch._private import log_plane, spawn_env
+        from ray_tpu_torch._private.runtime.node_daemon import HEAD_AUTHKEY_ENV
+        extra = {HEAD_AUTHKEY_ENV: self._head_server.authkey.hex()}
+        if self.session_log_dir is not None:
+            # the daemon's own node log dir nests under the head's
+            # session dir (same-host clusters; a true remote host just
+            # creates the path locally), and the daemon's own
+            # stdout/stderr capture files live inside it
+            node_dir = os.path.join(self.session_log_dir,
+                                    f"node-{token[:8]}")
+            extra["RAY_TPU_TORCH_LOG_DIR"] = node_dir
+            extra.update(log_plane.child_log_env(
+                node_dir, f"node_daemon-{token[:8]}",
+                GLOBAL_CONFIG.log_rotation_bytes,
+                GLOBAL_CONFIG.log_rotation_backups))
+        env = spawn_env.child_env(use_accelerator=bool(num_gpus),
+                                  extra=extra)
+        host, port = self._head_server.address
+        import json as _json
+        info = _json.dumps({"num_cpus": num_cpus, "num_gpus": num_gpus,
+                            "gpu_access": bool(num_gpus),
+                            "resources": resources or {},
+                            "num_workers": num_workers
+                            or max(int(num_cpus), 1)})
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch._private.runtime.node_daemon",
+             host, str(port), token,
+             str(object_store_memory
+                 or GLOBAL_CONFIG.object_store_memory),
+             str(GLOBAL_CONFIG.inline_object_max_bytes),
+             info, str(GLOBAL_CONFIG.daemon_rejoin_timeout_s)],
+            env=env, close_fds=True,
+            # its own session: the daemon leads a process group holding
+            # its whole worker tree, so machine-death chaos can killpg
+            # the entire "machine" at once (and a SIGINT at the driver
+            # terminal never reaches the simulated remote node)
+            start_new_session=True)
+        if not slot_ev.wait(timeout=30.0) or not slot:
+            proc.kill()
+            raise RuntimeError("node daemon failed to register with the "
+                               "head within 30s")
+        conn, hello = slot[0], slot[1]
+        arena_name = hello[3] if len(hello) > 3 else None
+        peer_address = hello[4] if len(hello) > 4 else None
+        custom = sum((resources or {}).values())
+        node_id = NodeID.from_random()
+        state = NodeState((num_cpus, num_gpus, 1e18, custom),
+                          node_id=node_id, custom_resources=resources)
+        # row wiring order: the pool must be reachable through
+        # pool_for_node BEFORE the scheduler may dispatch to the row, or
+        # a pending task/actor lands on a half-registered node
+        row = self.scheduler.add_node(state, wake=False)
+        pool = RemoteNodePool(self, num_workers or max(int(num_cpus), 1),
+                              row, conn, node_id, daemon_proc=proc,
+                              arena_name=arena_name,
+                              peer_address=peer_address)
+        self._node_pools[row] = pool
+        self._has_remote_nodes = True
+        self.scheduler.poke()
+        entry = self.gcs.register_node(
+            node_id, row, {"CPU": num_cpus, "GPU": num_gpus,
+                           **(resources or {})},
+            kind="remote", pool=pool)
+        self.gcs.start_health_checks()
+        self._ensure_resview_push()
+        return entry
+
+    def enable_head_endpoint(self, host: str = "127.0.0.1", port: int = 0):
+        """Open (or return) the head's TCP endpoint and accept
+        UNSOLICITED registrations: remote clients (`ray://` sessions)
+        and joining node daemons (``python -m
+        ray_tpu_torch._private.runtime.node_daemon <host> <port> join
+        ...``).
+        Returns the HeadServer; its address/authkey form the connect
+        string."""
+        from ray_tpu_torch._private.client import ClientServer
+        from ray_tpu_torch._private.runtime.remote_pool import HeadServer
+
+        if self._head_server is not None:
+            cur_host, cur_port = self._head_server.address
+            if (port != 0 and port != cur_port) or host != cur_host:
+                raise RuntimeError(
+                    f"head endpoint already bound to {cur_host}:{cur_port} "
+                    f"(created when the first remote node was added); call "
+                    f"enable_head_endpoint(host=..., port=...) BEFORE "
+                    f"adding remote nodes to pick the bind address")
+        if self._head_server is None:
+            authkey = None
+            if GLOBAL_CONFIG.gcs_journal_path:
+                # persist (port, authkey) beside the journal: after a
+                # head restart, orphaned daemons re-dial the SAME
+                # address with the SAME cluster secret
+                import json as _json
+                secret_path = GLOBAL_CONFIG.gcs_journal_path + ".secret"
+                if os.path.exists(secret_path):
+                    with open(secret_path) as f:
+                        d = _json.load(f)
+                    authkey = bytes.fromhex(d["authkey"])
+                    if port == 0:
+                        port = int(d["port"])
+                self._head_server = HeadServer(host, port, authkey=authkey)
+                # the authkey is the cluster credential: owner-only
+                # permissions, like ssh key material
+                fd = os.open(secret_path,
+                             os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o600)
+                with os.fdopen(fd, "w") as f:
+                    _json.dump({"authkey":
+                                self._head_server.authkey.hex(),
+                                "port": self._head_server.address[1]}, f)
+            else:
+                self._head_server = HeadServer(host, port)
+        if self.client_server is None:
+            self.client_server = ClientServer(self)
+        self._head_server.on_unsolicited = self._on_unsolicited_hello
+        return self._head_server
+
+    def _on_unsolicited_hello(self, conn, hello: tuple) -> None:
+        kind = hello[1]
+        if kind == "client":
+            self.client_server.attach(conn, hello)
+        elif kind == "join" and len(hello) >= 5:
+            self.adopt_remote_node(conn, hello)
+        elif kind == "rejoin" and len(hello) >= 7:
+            pool = self._find_rejoin_pool(hello[3])
+            if pool is not None:
+                # link flap, not a head restart: THIS head already runs
+                # the node — its pool (leases, refs, worker handles) is
+                # intact, so only the transport swaps. The daemon's
+                # outbox replay follows and the sequence dedup drops
+                # everything this head already processed.
+                pool.reattach(conn)
+            else:
+                self.readopt_remote_node(conn, hello)
+        else:
+            conn.close()
+
+    def _find_rejoin_pool(self, arena_name):
+        """Match a rejoin hello to a pool this head already owns (by
+        arena name — unique per daemon). A true head restart has no
+        pools to match and falls through to full re-adoption."""
+        if not arena_name:
+            return None
+        for pool in list(self._node_pools.values()):
+            if getattr(pool, "is_remote", False) \
+                    and getattr(pool, "_arena_name", None) == arena_name \
+                    and not pool._node_dead:
+                return pool
+        return None
+
+    def adopt_remote_node(self, conn, hello: tuple):
+        """A node daemon started out-of-band (``python -m
+        ray_tpu_torch._private.runtime.node_daemon <host> <port> join
+        ...``) registers itself: same runtime as
+        add_remote_cluster_node but the daemon process belongs to
+        another launcher (possibly another machine)."""
+        from ray_tpu_torch._private.runtime.remote_pool import RemoteNodePool
+
+        arena_name, info = hello[3], hello[4]
+        peer_address = hello[5] if len(hello) > 5 else None
+        num_cpus = float(info.get("num_cpus", 4.0))
+        num_gpus = _node_gpus(info)
+        resources = dict(info.get("resources") or {})
+        num_workers = int(info.get("num_workers") or max(int(num_cpus), 1))
+        node_id = NodeID.from_random()
+        state = NodeState((num_cpus, num_gpus, 1e18,
+                           sum(resources.values())),
+                          node_id=node_id, custom_resources=resources)
+        row = self.scheduler.add_node(state, wake=False)
+        # arena_name travels so a SAME-host joined daemon's segment can
+        # be reaped after death (on another host the name matches
+        # nothing here and the reap is a no-op)
+        pool = RemoteNodePool(self, num_workers, row, conn, node_id,
+                              daemon_proc=None, arena_name=arena_name,
+                              peer_address=peer_address)
+        self._node_pools[row] = pool
+        self._has_remote_nodes = True
+        self.scheduler.poke()
+        entry = self.gcs.register_node(
+            node_id, row, {"CPU": num_cpus, "GPU": num_gpus, **resources},
+            kind="remote", pool=pool)
+        self.gcs.start_health_checks()
+        self._ensure_resview_push()
+        logger.info("adopted remote node %s (row %d, arena %s)",
+                    node_id.hex()[:16], row, arena_name)
+        return entry
+
+    def readopt_remote_node(self, conn, hello: tuple):
+        """Control-plane FT, node side: an orphaned daemon (its head
+        died without an exit) rejoins a RESTARTED head. Its live worker
+        processes are adopted instead of respawned, and dedicated
+        workers hosting journaled (detached) actors get their runtimes
+        re-attached — actor state survives the head restart inside the
+        worker process (reference: GCS restart with Redis replay while
+        raylets keep running, SURVEY.md §5 GCS FT)."""
+        from ray_tpu_torch._private.ids import ActorID
+        from ray_tpu_torch._private.runtime.remote_pool import RemoteNodePool
+
+        _, _, pid, arena_name, info, peer_address, workers = hello[:7]
+        num_cpus = float(info.get("num_cpus", 4.0))
+        num_gpus = _node_gpus(info)
+        resources = dict(info.get("resources") or {})
+        # epoch fence: a daemon whose node this head already DECLARED
+        # DEAD (partition outlived the grace window) comes back as a
+        # fresh node, but nothing from its dead era may resolve — the
+        # node-death reconciler already resubmitted or failed every
+        # adopted lease and restarted its actors elsewhere. The fenced
+        # pool acks-but-drops outbox REPLAY envelopes, no dead-era
+        # lease is re-attached, and the ("fence", epoch) frame below
+        # tells the daemon to clear its dead-era local-lease state.
+        fenced = bool(arena_name) and arena_name in self._fenced_arenas
+        node_id = NodeID.from_random()
+        state = NodeState((num_cpus, num_gpus, 1e18,
+                           sum(resources.values())),
+                          node_id=node_id, custom_resources=resources)
+        row = self.scheduler.add_node(state, wake=False)
+        pool = RemoteNodePool(self, 0, row, conn, node_id,
+                              daemon_proc=None, arena_name=arena_name,
+                              peer_address=peer_address, fenced=fenced)
+        self._node_pools[row] = pool
+        self._has_remote_nodes = True
+        adopted_actors = 0
+        adopted_leases = 0
+        for num, winfo in sorted(workers.items()):
+            actor_hex = winfo.get("actor")
+            inflight = winfo.get("inflight") or {}
+            h = pool.adopt_worker(int(num), winfo.get("pid"),
+                                  is_actor=actor_hex is not None,
+                                  busy=bool(inflight) and not fenced)
+            if fenced:
+                # dead-era state is unwanted: stale in-flight results
+                # find no inflight entry and drop; actor workers are
+                # released (their actors already restarted elsewhere
+                # or went DEAD when the node did)
+                if actor_hex is not None:
+                    pool.release_actor_worker(h, kill=True)
+                continue
+            if actor_hex is None:
+                # lease reconciliation: tasks this worker still RUNS
+                # re-attach as synthetic inflight entries under their
+                # ORIGINAL return oids, so the done/err (live or outbox
+                # replay) resolves the refs a resumed client is blocked
+                # on. Attempt skew (journal ahead of the report) means
+                # the old head re-dispatched the task elsewhere before
+                # dying: leave the record for its real claimant and let
+                # this worker's stale result drop (no inflight entry).
+                for tid_hex, rep in inflight.items():
+                    tid_bin = bytes.fromhex(tid_hex)
+                    rep_attempt = int(rep.get("attempt", 0))
+                    lease = self.gcs.claim_lease(tid_bin)
+                    if lease is not None \
+                            and int(lease.get("attempt", 0)) != rep_attempt:
+                        self.gcs.journal_lease(tid_bin, lease)
+                        continue
+                    returns = [bytes.fromhex(x)
+                               for x in rep.get("returns", [])]
+                    for rbin in returns:
+                        self.reference_counter.add_owned_object(
+                            ObjectID(rbin))
+                    pool.adopt_inflight(h, tid_bin, returns, rep_attempt)
+                    adopted_leases += 1
+                continue
+            actor_id = ActorID(bytes.fromhex(actor_hex))
+            entry = self.gcs.orphaned_actor(actor_id)
+            recovery = self.gcs.actor_recovery_blob(actor_id)
+            if entry is None or recovery is None:
+                # not a journaled detached actor: its owner died with
+                # the old head — release the worker
+                pool.release_actor_worker(h, kill=True)
+                continue
+            try:
+                from ray_tpu_torch.actor import adopt_process_actor
+                adopt_process_actor(self, actor_id, entry, recovery,
+                                    pool, h, row)
+                adopted_actors += 1
+            except Exception:
+                logger.exception("actor %s re-adoption failed",
+                                 actor_id.hex()[:16])
+                pool.release_actor_worker(h, kill=True)
+        if fenced:
+            # the daemon clears its dead-era local-lease/outbox/p2p
+            # bookkeeping so no zombie re-lease or stale fallback ever
+            # resurfaces; the epoch value is an opaque fence token for
+            # the daemon's log
+            pool._send_daemon(("fence", int(time.monotonic() * 1000)))
+            self._fenced_arenas.pop(arena_name, None)
+        # plain workers survive with their leases now (the daemon no
+        # longer kills mid-task workers at rejoin); still top up to the
+        # node's declared worker count so the row never advertises CPUs
+        # with no process to run on
+        target = int(info.get("num_workers") or max(int(num_cpus), 1))
+        plain = sum(1 for w in workers.values() if not w.get("actor"))
+        for _ in range(max(0, target - plain)):
+            h = pool._spawn()  # takes the pool lock itself
+            with pool._lock:
+                pool._handles.append(h)
+        entry = self.gcs.register_node(
+            node_id, row, {"CPU": num_cpus, "GPU": num_gpus, **resources},
+            kind="remote", pool=pool)
+        self.gcs.start_health_checks()
+        self.scheduler.poke()
+        self._ensure_resview_push()
+        logger.info("re-adopted node %s (row %d)%s: %d workers, "
+                    "%d actors, %d in-flight leases",
+                    node_id.hex()[:16], row,
+                    " FENCED (rejoin after declared dead)" if fenced
+                    else "", len(workers), adopted_actors,
+                    adopted_leases)
+        self._start_failover_reconciler()
+        return entry
+
+    # ------------------------------------------------------------------
+    # head-failover lease reconciliation (the resubmission half;
+    # readopt_remote_node above re-attaches the leases survivors claim)
+    # ------------------------------------------------------------------
+    def _start_failover_reconciler(self) -> None:
+        """One-shot, kicked by the first post-restart rejoin: wait for
+        the rest of the pre-crash daemons (count-based — rejoined
+        daemons carry fresh NodeIDs, so identity can't match) and then
+        resubmit every journaled lease no survivor claimed."""
+        if self._failover_reconciler_started:
+            return
+        self._failover_reconciler_started = True
+        if not self.gcs.journal_enabled:
+            return
+        threading.Thread(target=self._reconcile_failover_leases,
+                         args=(self.gcs.replayed_node_count,),
+                         daemon=True,
+                         name="ray_tpu_failover_reconcile").start()
+
+    def _reconcile_failover_leases(self, expected: int) -> None:
+        deadline = time.monotonic() + GLOBAL_CONFIG.daemon_rejoin_grace_s
+        while time.monotonic() < deadline:
+            alive = sum(1 for e in self.gcs.node_table()
+                        if e.kind == "remote" and e.state == "ALIVE")
+            if alive >= expected:
+                break
+            time.sleep(0.2)
+        unclaimed = self.gcs.pending_leases()
+        resub = 0
+        for tid_bin, rec in unclaimed.items():
+            if self.gcs.claim_lease(tid_bin) is None:
+                continue  # a late rejoin claimed it under us
+            self.gcs.journal_lease_done(tid_bin)  # consumed either way
+            if self._resubmit_lease(tid_bin, rec):
+                resub += 1
+        if unclaimed:
+            logger.warning(
+                "head failover: %d journaled leases unclaimed by "
+                "rejoining nodes; %d resubmitted", len(unclaimed), resub)
+
+    def _resubmit_lease(self, tid_bin: bytes, rec: dict,
+                        why: str = "head failover") -> bool:
+        """Rebuild a TaskSpec from a retained/journaled lease record
+        and submit it under the ORIGINAL return oids with a bumped
+        attempt token — a stale replay of the dead attempt finds no
+        inflight entry and drops, so the task's side effects run at
+        most once post-recovery. Records without a resubmittable body
+        fail their refs instead of hanging the owner's get()."""
+        import cloudpickle
+
+        returns = [ObjectID(b) for b in rec.get("returns", [])]
+        name = rec.get("name") or "failover_resubmit"
+        fn_blob, args_blob = rec.get("fn_blob"), rec.get("args_blob")
+        try:
+            if fn_blob is None or args_blob is None:
+                raise ValueError("lease record has no resubmit body")
+            func = cloudpickle.loads(fn_blob)
+            args, kwargs = cloudpickle.loads(args_blob)
+        except Exception as e:
+            exc = rex.WorkerCrashedError(
+                f"task {name} was in flight on a dead node ({why}), "
+                f"and its lease record cannot be resubmitted ({e})")
+            for oid in returns:
+                self.reference_counter.add_owned_object(oid)
+                self.memory_store.put(oid, exc, is_exception=True)
+                self.scheduler.notify_object_ready(oid)
+            return False
+        spec = TaskSpec(
+            task_id=self.next_task_id(),
+            name=name,
+            func=func,
+            func_descriptor=name,
+            args=args,
+            kwargs=kwargs,
+            num_returns=int(rec.get("num_returns", len(returns) or 1)),
+            resources=dict(rec.get("resources") or {"CPU": 1}),
+            max_retries=int(rec.get("max_retries", 0)),
+            serialized_func=fn_blob,
+            attempt_number=int(rec.get("attempt", 0)) + 1,
+        )
+        spec._retry_return_ids = returns  # type: ignore[attr-defined]
+        for oid in returns:
+            self.reference_counter.add_owned_object(
+                oid, lineage_task=spec.task_id)
+        self.task_manager.add_pending(spec, [])
+        self.scheduler.submit(PendingTask(spec=spec, deps=[],
+                                          execute=_noop_exec))
+        logger.warning("%s: resubmitting %s (lease %s, attempt %d)",
+                       why, name, tid_bin.hex()[:16],
+                       spec.attempt_number)
+        return True
 
     def on_node_failure(self, node_id: NodeID, reason: str = "") -> None:
-        """Node death (a process-backed node whose workers all died):
-        mark it dead, stop scheduling to it, reschedule its placement-
-        group bundles, and fail or retry its queued and running work
-        (reference: NodeManager/GcsNodeManager death handling; its
-        remote-node half, object directory and lease reconciliation,
-        comes with the multi-node plane)."""
+        """Node death: mark dead, stop scheduling to it, fail/retry its
+        in-flight work, reschedule its placement-group bundles, and fail
+        or restart its actors (reference: NodeManager/GcsNodeManager
+        death handling + lineage-driven resubmission). A remote node's
+        copies also leave the object directory, and the leases its
+        daemon admitted are reconciled."""
         entry = None
         for e in self.gcs.node_table():
             if e.node_id == node_id:
@@ -1334,14 +2405,131 @@ class Worker:
         if entry is None or entry.state == "DEAD":
             return
         self.gcs.mark_node_dead(node_id, reason)
+        # 1) no new assignments to the node (also invalidates in-flight
+        #    snapshot decisions at apply time)
         self.scheduler.remove_node(entry.index)
+        # 1b) the dead node's copies leave the object directory. Objects
+        #     whose LAST copy died are LOST unless already
+        #     fetched/memoized head-side — drop them so a later get()
+        #     reconstructs from lineage. Objects with a surviving
+        #     secondary (a completed staging pull) promote it to primary
+        #     instead: the head's placeholder repoints and no
+        #     reconstruction is needed.
+        from ray_tpu_torch._private.runtime.process_pool import RemotePlaceholder
+        lost, promoted = self.gcs.drop_node_locations(entry.index)
+        for oid in lost:
+            e = self.memory_store.get_entry(oid)
+            if e is not None and not e.is_exception \
+                    and isinstance(e.value, RemotePlaceholder) \
+                    and e.value.node_index == entry.index:
+                self.object_recovery.note_freed(oid)
+                self.memory_store.delete([oid])
+        for oid, new_primary in promoted.items():
+            e = self.memory_store.get_entry(oid)
+            if e is not None and not e.is_exception \
+                    and isinstance(e.value, RemotePlaceholder) \
+                    and e.value.node_index == entry.index:
+                e.value.node_index = new_primary
+        # 2) placement groups with bundles on the node reschedule
         self.placement_groups.on_node_dead(entry.index)
+        # 3) two-level plane reconciliation: decide the fate of every
+        #    lease the node's LocalScheduler admitted (retry under the
+        #    original return oids or fail the refs), release their arg
+        #    pins, fence the arena against stale rejoin replays, and
+        #    broadcast route invalidation so peers drop cached p2p
+        #    routes NOW instead of waiting out the lane-sever timeout.
+        self.note_two_level("node_deaths")
         pool = self._node_pools.pop(entry.index, None)
         if pool is not None:
-            # monitors drive per-task retries; actor runtimes observe
-            # their worker's death and restart elsewhere or go DEAD
+            if getattr(pool, "is_remote", False):
+                self._reconcile_orphan_leases(pool, reason)
+                arena = getattr(pool, "_arena_name", None)
+                if arena:
+                    self._fenced_arenas[arena] = time.monotonic()
+                self._broadcast_node_death(entry.index, pool)
+            # 4) fail queued + running work retriably; kill worker
+            #    processes. Monitors drive per-task retries; actor
+            #    runtimes observe their worker's death and restart
+            #    elsewhere or go DEAD.
             pool.fail_node(reason or "node removed")
         self.placement_groups.poke()
+
+    def _reconcile_orphan_leases(self, pool, reason: str) -> None:
+        """Node-death half of adopted-lease reconciliation: claim every
+        lease the dead node's LocalScheduler still had in flight and
+        route it through :meth:`reconcile_orphan_lease`. Claiming the
+        inflight entry here (under the pool lock) keeps the per-worker
+        failure sweep from double-handling the same lease when the
+        dead daemon's ``__died__`` notifications race this call."""
+        tids = pool.take_local_tids()
+        retried = 0
+        for tid_bin in sorted(tids):
+            task_id = TaskID(tid_bin)
+            with pool._lock:
+                h = pool._by_task.get(task_id)
+            if h is None:
+                continue
+            inf = pool._take_inflight(h, task_id)
+            if inf is None:
+                continue  # a failure sweep claimed it first
+            err = rex.NodeDiedError(
+                f"node {pool.node_index} died while running a locally "
+                f"dispatched lease: {reason or 'node removed'}")
+            if self.reconcile_orphan_lease(
+                    tid_bin, [o.binary() for o in inf.return_ids], err):
+                retried += 1
+        if tids:
+            logger.warning(
+                "node %d death: %d adopted local leases reconciled "
+                "(%d resubmitted, %d failed)", pool.node_index,
+                len(tids), retried, len(tids) - retried)
+
+    def reconcile_orphan_lease(self, tid_bin: bytes, return_bins,
+                               err: BaseException) -> bool:
+        """An adopted local lease lost its worker (or whole node) with
+        no daemon-side retry in flight. Popping the retained record is
+        the exactly-once arbiter between the node-death reconciler and
+        the per-worker failure sweep: the claimant resubmits the lease
+        head-side under its ORIGINAL return oids when attempts remain,
+        or fails its refs terminally. Arg pins release either way (a
+        dead node can never send the resolution that would have freed
+        them). Returns True when the lease was resubmitted."""
+        with self._local_pin_lock:
+            rec = self._local_lease_records.pop(tid_bin, None)
+        self.release_local_lease_pins(tid_bin)
+        if self.gcs.journal_enabled:
+            if self.gcs.claim_lease(tid_bin) is not None:
+                self.gcs.journal_lease_done(tid_bin)
+        if rec is not None and int(rec.get("attempt", 0)) \
+                < int(rec.get("max_retries", 0)):
+            if self._resubmit_lease(tid_bin, dict(rec),
+                                    why="node death"):
+                self.note_two_level("orphan_retried")
+                return True
+            return False  # _resubmit_lease already failed the refs
+        returns = [ObjectID(b) for b in
+                   ((rec or {}).get("returns") or return_bins or ())]
+        for oid in returns:
+            self.memory_store.put(oid, err, is_exception=True)
+            self.scheduler.notify_object_ready(oid)
+        return False
+
+    def _broadcast_node_death(self, index: int, pool) -> None:
+        """Route invalidation: tell every surviving daemon the node is
+        gone NOW. Peers evict its gossip view, drop cached p2p actor
+        routes to its address, and sweep in-flight lane calls to the
+        head path immediately instead of waiting out the 15s p2p
+        result timeout."""
+        peer = getattr(pool, "peer_address", None)
+        info = {"index": index,
+                "peer": tuple(peer) if peer else None}
+        for p in list(self._node_pools.values()):
+            if p is pool or not getattr(p, "is_remote", False):
+                continue
+            try:
+                p._send_daemon(("node_dead", info))
+            except Exception:
+                pass  # a dying link has nothing to invalidate
 
     def _execute_task(self, pending: PendingTask) -> None:
         spec = pending.spec
@@ -1878,6 +3066,14 @@ class Worker:
             self.memory_store.delete([oid])
             if self.shm_store is not None:
                 self.shm_store.free_object(oid)
+            self._free_remote_copy(oid)
+
+    def _free_remote_copy(self, object_id: ObjectID) -> None:
+        # EVERY copy frees — staged secondaries pin peer arenas too
+        for node in self.gcs.object_locations_pop(object_id):
+            pool = self._node_pools.get(node)
+            if pool is not None and getattr(pool, "is_remote", False):
+                pool.free_remote([object_id])
 
     def _on_object_out_of_scope(self, object_id: ObjectID) -> None:
         # Deferred batch free: __del__-driven releases arrive one at a
@@ -1889,10 +3085,18 @@ class Worker:
         q = self._oos_q
         q.append(object_id)
         if len(q) >= 128 or (self.shm_store is not None
-                             and self.shm_store.contains(object_id)):
-            # arena-resident objects are the memory that matters —
-            # reclaim those immediately; only small in-process entries
-            # ride the deferred batch
+                             and self.shm_store.contains(object_id)) \
+                or (self._has_remote_nodes
+                    and self.gcs.object_location_get(object_id)
+                    is not None):
+            # arena-resident and REMOTE-resident objects are the
+            # memory that matters — reclaim those immediately (a
+            # remote copy pins another node's arena); only small
+            # in-process entries ride the deferred batch. The GCS
+            # location lookup is gated on a REMOTE pool existing:
+            # single-node runs — thread OR process mode, the common
+            # case and the bench — must not pay a GCS lock round trip
+            # per dying ref
             self._drain_out_of_scope()
 
     def _drain_out_of_scope(self) -> None:
@@ -1911,6 +3115,8 @@ class Worker:
         if self.shm_store is not None:
             for oid in batch:
                 self.shm_store.free_object(oid)
+        for oid in batch:
+            self._free_remote_copy(oid)
         self.task_manager.evict_lineage_batch(batch)
 
     def shutdown(self) -> None:
@@ -1950,6 +3156,10 @@ class Worker:
         for pool in list(self._node_pools.values()):
             pool.shutdown()
         self._pool.shutdown(wait=False, cancel_futures=True)
+        if self.client_server is not None:
+            self.client_server.shutdown()
+        if self._head_server is not None:
+            self._head_server.close()
         if runtime_sanitizer._ENABLED:
             # lock-witness diff + leak ledgers, while the refcount table
             # still distinguishes live objects from leaked segments
@@ -1991,6 +3201,14 @@ def _likely_large(value: Any) -> bool:
         return (value.numel() * value.element_size()
                 > GLOBAL_CONFIG.inline_object_max_bytes)
     return False
+
+
+def _node_gpus(info: dict) -> float:
+    """GPUs a daemon's node offers: those it declared, when its workers
+    see the card (``gpu_access`` in its node info), else none."""
+    if not info.get("gpu_access"):
+        return 0.0
+    return float(info.get("num_gpus", 0.0))
 
 
 def _detect_gpu_count() -> float:
@@ -2063,8 +3281,24 @@ def init(num_cpus: Optional[float] = None, num_workers: Optional[int] = None,
             raise RuntimeError("ray_tpu_torch.init() called twice; pass "
                                "ignore_reinit_error=True to allow")
         if address is not None:
-            # the reference connects a ray:// client or joins a head here
-            raise NotImplementedError(_UNPORTED["remote"])
+            if not address.startswith("ray://"):
+                # the reference ignores such an address and starts a head
+                # of its own; the port refuses rather than do that
+                raise ValueError(
+                    f"address {address!r}: init connects only as a client, "
+                    "ray://host:port?key=...")
+            # client mode: this process becomes a THIN CLIENT of a
+            # running head (reference: ray client, python/ray/util/client)
+            from ray_tpu_torch._private.client import (ClientWorker,
+                                                       parse_client_address)
+            host, port, key = parse_client_address(address)
+            if key is None:
+                raise ValueError(
+                    "client address needs the head's key: use the "
+                    "ray://host:port?key=... string of "
+                    "Worker.enable_head_endpoint (client_server.address)")
+            global_worker = ClientWorker(host, port, key)  # type: ignore
+            return global_worker  # type: ignore[return-value]
         try:
             scheduler_factory = _configure(scheduler, _system_config)
         except BaseException:

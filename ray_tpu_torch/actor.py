@@ -657,7 +657,10 @@ class _ProcessActorRuntime(_ActorRuntime):
             _time.sleep(0.005)
         creation_oid = _creation_object_id(self.actor_id)
         h = self._h
-        extra = dict(cls_blob=cloudpickle.dumps(self.cls))
+        # actor_bin lets the node daemon record WHICH actor this
+        # dedicated worker hosts (head-restart re-adoption)
+        extra = dict(cls_blob=cloudpickle.dumps(self.cls),
+                     actor_bin=self.actor_id.binary())
         renv = self._creation_spec.runtime_env or {}
         if renv.get("working_dir_pkg"):
             # the actor OWNS its worker process: the env applies for
@@ -749,6 +752,8 @@ class _ProcessActorRuntime(_ActorRuntime):
                     f"actor worker unavailable for {call.method_name}"))
                 return
             extra = dict(method=call.method_name)
+            if call.dedup:
+                extra["dedup"] = True
             if call.trace_ctx is not None and call.trace_ctx[3]:
                 # same payload-dict carriage as normal task leases
                 extra["trace"] = call.trace_ctx
@@ -764,6 +769,7 @@ class _ProcessActorRuntime(_ActorRuntime):
                 self._pool.store_result_entries(call.return_ids, res[1])
                 self._trace_done(call,
                                  res[2] if len(res) > 2 else None,
+                                 offset=self._pool.clock_offset,
                                  worker_key=h.worker_id.hex())
             elif res[0] == "err":
                 try:
@@ -935,6 +941,9 @@ class ActorHandle:
 
     def _submit_method(self, method_name, args, kwargs, num_returns):
         worker = worker_mod.get_worker()
+        if getattr(worker, "is_client", False):
+            return worker.actor_call(self._actor_id, method_name, args,
+                                     kwargs, num_returns)
         if not hasattr(worker, "actors"):
             # inside a process worker: the actor runtime tables live
             # with the owner — route the call over the pipe RPC
@@ -1031,6 +1040,9 @@ class ActorClass:
     def remote(self, *args, **kwargs) -> ActorHandle:
         self._validate_concurrency_groups()
         worker = worker_mod.get_worker()
+        if getattr(worker, "is_client", False):
+            return worker.create_actor(self._cls, self._options, args,
+                                       kwargs)
         opts = self._options
         name = opts.get("name")
         namespace = opts.get("namespace") or "default"
@@ -1141,6 +1153,54 @@ class ActorClass:
         return handle
 
 
+def adopt_process_actor(worker, actor_id: ActorID, entry, recovery: bytes,
+                        pool, h, node_index: int):
+    """Re-attach a journaled detached actor to its STILL-RUNNING worker
+    process after a head restart (see Worker.readopt_remote_node). The
+    worker holds the live instance; only the head-side runtime (inbox,
+    ordered execution, borrow bookkeeping) is rebuilt."""
+    import cloudpickle
+
+    from ray_tpu_torch._private.task_spec import TaskSpec, TaskType
+
+    blob = cloudpickle.loads(recovery)
+    cls, opts, init_args, init_kwargs = (blob if len(blob) == 4
+                                         else (*blob, (), {}))
+    spec = TaskSpec(
+        task_id=TaskID.for_actor_task(actor_id, 0),
+        name=f"{cls.__name__}.__init__",
+        func=None,
+        func_descriptor=f"{cls.__module__}.{cls.__name__}.__init__",
+        args=tuple(init_args),
+        kwargs=dict(init_kwargs),
+        num_returns=1,
+        resources=_build_resources(opts),
+        task_type=TaskType.ACTOR_CREATION_TASK,
+        actor_id=actor_id,
+    )
+    rt = _ProcessActorRuntime(worker, actor_id, cls, tuple(init_args),
+                              dict(init_kwargs), dict(opts),
+                              spec, node_index)
+    rt._pool = pool
+    rt._h = h
+    h.actor_rt = rt
+    with pool._lock:
+        pool._actor_handles.append(h)
+    # lifetime resources re-charge on the rejoined node (best effort:
+    # the fresh scheduler row has full capacity)
+    if rt._explicit_resources:
+        worker.scheduler.try_allocate(node_index, spec.resources)
+    rt._adopted = True
+    rt.state = ActorState.ALIVE
+    rt.init_done.set()
+    worker.memory_store.put(_creation_object_id(actor_id), "ALIVE")
+    with worker._actors_lock:
+        worker.actors[actor_id] = rt
+    _ActorRuntime.start(rt)  # inbox loop only; no worker spawn/re-init
+    worker.gcs.update_actor_state(actor_id, "ALIVE", node_index)
+    return rt
+
+
 def _submit_actor_creation(worker, pending, create):
     """Actor creation dispatches via the scheduler (so it respects
     resources/placement) but executes the _ActorRuntime bootstrap instead of
@@ -1151,6 +1211,8 @@ def _submit_actor_creation(worker, pending, create):
 
 def get_actor(name: str, namespace: str = "default") -> ActorHandle:
     worker = worker_mod.get_worker()
+    if getattr(worker, "is_client", False):
+        return worker.get_actor(name, namespace)
     actor_id = worker.gcs.get_actor_by_name(name, namespace)
     if actor_id is None:
         raise ValueError(f"no actor named {name!r} in namespace "
@@ -1165,6 +1227,9 @@ def get_actor(name: str, namespace: str = "default") -> ActorHandle:
 
 def kill(handle: ActorHandle, *, no_restart: bool = True) -> None:
     worker = worker_mod.get_worker()
+    if getattr(worker, "is_client", False):
+        worker.kill_actor(handle.actor_id, no_restart)
+        return
     with worker._actors_lock:
         rt = worker.actors.get(handle.actor_id)
     if rt is None:

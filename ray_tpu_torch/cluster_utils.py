@@ -77,18 +77,23 @@ class Cluster:
                  resources: Optional[Dict[str, float]] = None,
                  remote: bool = False,
                  object_store_memory: Optional[int] = None) -> ClusterNode:
-        """A process-backed node sharing the head process's arena (a
-        virtual same-host node). ``num_gpus`` > 0 needs the
-        ``worker_gpu_access`` knob (the node's workers must see the
-        card). ``remote=True`` (a node daemon with its own arena, sized by
-        ``object_store_memory``, over TCP) belongs to the multi-node
-        plane, which is not ported yet: it raises NotImplementedError."""
-        if remote:
-            raise NotImplementedError(worker_mod._UNPORTED["remote"])
+        """``remote=True`` backs the node with a NODE DAEMON process
+        owning its own shm arena, reached over TCP — the true multi-host
+        topology (localhost stands in for the DCN); the default shares
+        the head process's arena (virtual same-host node).
+        object_store_memory sizes the remote node's arena. ``num_gpus``
+        > 0 needs the ``worker_gpu_access`` knob either way (the node's
+        workers must see the card)."""
         w = worker_mod.get_worker()
-        entry = w.add_cluster_node(num_cpus=num_cpus, num_gpus=num_gpus,
-                                   num_workers=num_workers,
-                                   resources=resources)
+        if remote:
+            entry = w.add_remote_cluster_node(
+                num_cpus=num_cpus, num_gpus=num_gpus,
+                num_workers=num_workers, resources=resources,
+                object_store_memory=object_store_memory)
+        else:
+            entry = w.add_cluster_node(num_cpus=num_cpus, num_gpus=num_gpus,
+                                       num_workers=num_workers,
+                                       resources=resources)
         node = ClusterNode(entry)
         self._nodes.append(node)
         return node

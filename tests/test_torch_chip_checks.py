@@ -730,10 +730,11 @@ def test_process_phase_helpers_run_on_the_host():
 def _removed(snap, rows):
     """snap with the scheduler rows in ``rows`` zeroed, as remove_node
     leaves them."""
-    ready_idx, ready_cls, demands, avail, cap, mask, spread, tiers = snap
+    ready_idx, ready_cls, demands, avail, cap, mask, spread = snap[:7]
     avail, cap = avail.copy(), cap.copy()
     avail[rows], cap[rows] = 0.0, 0.0
-    return (ready_idx, ready_cls, demands, avail, cap, mask, spread, tiers)
+    return (ready_idx, ready_cls, demands, avail, cap, mask, spread) \
+        + snap[7:]
 
 
 def test_dead_row_check_counts_only_snapshots_after_the_removal():

@@ -384,11 +384,25 @@ def test_shutdown_leaves_no_worker_process(cluster):
 
 
 def test_remote_nodes_raise_until_the_multi_node_plane(cluster):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cluster.add_node(num_cpus=2, remote=True)
+    """The multi-node plane is ported: add_node(remote=True) starts a
+    node daemon (tests/test_torch_remote_node.py). A node of either kind
+    that declares GPUs its workers cannot see is still refused, and
+    leaves no node behind."""
+    with pytest.raises(ValueError, match="worker_gpu_access"):
+        cluster.add_node(num_cpus=2, num_gpus=1, remote=True)
     with pytest.raises(ValueError, match="worker_gpu_access"):
         cluster.add_node(num_cpus=2, num_gpus=1)
     assert cluster.list_all_nodes == []
+    node = cluster.add_node(num_cpus=2, num_workers=1, remote=True,
+                            resources={"away": 1.0})
+    assert node._entry.kind == "remote"
+
+    @ray.remote(resources={"away": 1.0})
+    def where():
+        import os
+        return os.getpid()
+
+    assert ray.get(where.remote(), timeout=60) in node.worker_pids()
 
 
 def test_dead_rows_never_reach_the_kernel(monkeypatch):

@@ -216,7 +216,8 @@ def test_port_imports_no_jax():
     in the driver or the worker processes; the package's import, and
     Serve's, the metrics plane's, the process runtime's, Data's, the
     cluster's, the autoscaler's, RLlib's (each submodule), Train's, and
-    those of MoE, Tune, workflow, the DAG and the queue, leave CUDA
+    those of MoE, Tune, workflow, the DAG, the queue, the node daemon,
+    the remote pool and the ray:// client, leave CUDA
     uninitialised; a PPO iteration with its learner on the
     host loads no jax or ray_tpu module either."""
     code = ("import os, sys, torch, ray_tpu_torch as ray\n"
@@ -238,6 +239,9 @@ def test_port_imports_no_jax():
             "ray_tpu_torch._private.runtime.shm_store, "
             "ray_tpu_torch._private.spawn_env, "
             "ray_tpu_torch._private.protocol, ray_tpu_torch._native, "
+            "ray_tpu_torch._private.runtime.node_daemon, "
+            "ray_tpu_torch._private.runtime.remote_pool, "
+            "ray_tpu_torch._private.client, "
             "ray_tpu_torch.data, ray_tpu_torch.data._streaming, "
             "ray_tpu_torch.data._shuffle, ray_tpu_torch.cluster_utils, "
             "ray_tpu_torch.autoscaler, ray_tpu_torch.rllib, "

@@ -699,7 +699,7 @@ def test_refused_init_leaves_no_setting_behind(refused):
         "cuda": ({"scheduler": "tensor", "_system_config": {
             "task_max_retries": 7, "sched_backend": "cuda"}}, RuntimeError),
         "unknown_knob": ({"scheduler": "event", "_system_config": {
-            "task_max_retries": 7, "actor_p2p": False}}, KeyError),
+            "task_max_retries": 7, "profile_stacks_max": 8}}, KeyError),
     }[refused]
     ray.shutdown()
     try:
@@ -717,9 +717,8 @@ def test_refused_init_leaves_no_setting_behind(refused):
 
 
 @pytest.mark.parametrize("knob", [
-    "worker_tpu_access", "daemon_rejoin_timeout_s",
-    "client_reconnect_timeout_s", "actor_p2p", "scheduler_locality",
-    "tenant_quotas", "preempt_grace_s", "local_dispatch",
+    "worker_tpu_access", "utilization_interval_s", "utilization_ring",
+    "sched_jax_min_batch", "tenant_quotas", "preempt_grace_s",
     "profile_stacks_max"])
 def test_reference_knobs_without_code_are_unknown(knob):
     """Knobs of planes the port does not have are not defined: setting
@@ -733,19 +732,27 @@ def test_reference_knobs_without_code_are_unknown(knob):
 
 
 def test_remote_nodes_and_clients_raise():
+    """Remote nodes, the head endpoint and ray:// clients run now
+    (tests/test_torch_remote_node.py, tests/test_torch_client.py); what
+    still raises: an address init cannot connect to (not ray://, or
+    without the head's key), a node of either kind that declares GPUs
+    its workers cannot see, and rebinding the head endpoint."""
     ray.shutdown()
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ray.init(address="ray://127.0.0.1:1?key=x")
+        with pytest.raises(ValueError, match="ray://"):
+            ray.init(address="127.0.0.1:1")
+        with pytest.raises(ValueError, match="key"):
+            ray.init(address="ray://127.0.0.1:1")
+        assert not ray.is_initialized()
         ray.init(num_workers=2, scheduler="event")
         w = worker_mod.get_worker()
-        for call in (w.add_remote_cluster_node, w.enable_head_endpoint):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                call()
-        # process-backed nodes run now (tests/test_torch_process_mode.py);
-        # one that declares GPUs its workers cannot see is refused
-        with pytest.raises(ValueError, match="worker_gpu_access"):
-            w.add_cluster_node(num_cpus=1, num_gpus=1)
+        for call in (w.add_cluster_node, w.add_remote_cluster_node):
+            with pytest.raises(ValueError, match="worker_gpu_access"):
+                call(num_cpus=1, num_gpus=1)
+        server = w.enable_head_endpoint()
+        assert w.enable_head_endpoint() is server
+        with pytest.raises(RuntimeError, match="already bound"):
+            w.enable_head_endpoint(port=server.address[1] + 1)
     finally:
         ray.shutdown()
 

@@ -2,7 +2,9 @@
 cases of ``tests/test_serve.py`` — deployments, routing, composition,
 crash recovery, redeploy, HTTP ingress, autoscaling, multiplexing, gRPC
 ingress, versioned rolling redeploys — and the multiplexing loader's
-every-slot-mid-load case of ``tests/test_serve_scale.py``.
+every-slot-mid-load case and the KV directory's node-death case
+(``test_promotion_then_gone_when_sole_copy_node_dies``, on a remote
+node in process mode) of ``tests/test_serve_scale.py``.
 
 The runtime is thread mode with the TensorScheduler assigning every
 batch through ``kernels.assign``'s plain version (``sched_device``
@@ -488,3 +490,97 @@ class TestMultiplexedEverySlotMidLoad:
         assert loads.count("c") == 1 and loads.count("d") == 1, loads
         assert loads.count("a") <= 2 and loads.count("b") <= 2, loads
         assert len(cache) <= 2
+
+
+# -- the KV-page directory against node death (tests/test_serve_scale.py) --
+
+_KV_PRODUCE_SRC = """
+def produce_kv():
+    # > the inline threshold: the sole copy stays in the producing
+    # node's shm arena; the head holds a placeholder only
+    return bytes(range(256)) * 1024
+"""
+
+
+def _load_src(src, name):
+    ns: dict = {}
+    exec(src, ns)
+    return ns[name]
+
+
+class TestKVDirectoryNodeDeath:
+    def test_promotion_then_gone_when_sole_copy_node_dies(self):
+        """Directory semantics under replica and node loss, against the
+        real object directory of a remote node: a dead replica whose
+        handoff bytes survive elsewhere resolves "promoted" (re-import,
+        no prefill); when the sole-copy node dies too, the entry
+        resolves "gone", drops, and the session stays known — its next
+        turn counts as an affinity miss (re-prefill), never as a first
+        turn."""
+        from ray_tpu_torch import chaos
+        from ray_tpu_torch._private import worker as worker_mod
+        from ray_tpu_torch.serve import core
+
+        ray.shutdown()
+        ray.init(num_workers=2,
+                 _system_config={"worker_mode": "process",
+                                 "sched_device": "cpu",
+                                 "node_heartbeat_timeout_s": 20.0,
+                                 "health_check_timeout_s": 5.0})
+        w = worker_mod.get_worker()
+        ea = w.add_remote_cluster_node(num_cpus=2.0, num_workers=1,
+                                       resources={"a": 2})
+        try:
+            @serve.deployment(num_replicas=2)
+            class Stub:  # decode-pool stand-in: directory semantics
+                def __call__(self, x):  # don't need a real engine
+                    return x
+
+            h = serve.run(Stub.bind())
+            st = h._state()
+            with st._lock:
+                both = list(st._replicas)
+            # retire one replica so the recorded holder is GONE
+            st._scale_to(1)
+            with st._lock:
+                live = st._replicas[0]
+            retired = next(r for r in both if r is not live)
+
+            producer = ray.remote(_load_src(_KV_PRODUCE_SRC, "produce_kv"))
+
+            @ray.remote(resources={"a": 1.0})
+            def make():
+                import ray_tpu_torch
+                ref = producer.remote()
+                ray_tpu_torch.get(ref, timeout=60.0)  # completes ON the node
+                return ref
+
+            ref = ray.get(make.remote(), timeout=120.0)
+            assert w.gcs.object_locations(ref.object_id())
+
+            core.kv_directory.record("s1", "Stub", retired, ref)
+            # holder dead, bytes alive on node a -> promoted (entry
+            # retained: any replica can re-import without a prefill)
+            status, rep, got_ref = core.kv_directory.lookup("s1", st)
+            assert status == "promoted" and rep is None
+            assert got_ref is ref
+            assert len(core.kv_directory) == 1
+
+            # the sole-copy node dies -> gone; entry drops, seen stays
+            ea.pool.simulate_machine_death()
+            deadline = time.monotonic() + 30.0
+            while time.monotonic() < deadline:
+                if not w.gcs.object_locations(ref.object_id()):
+                    break
+                time.sleep(0.1)
+            status, rep, got_ref = core.kv_directory.lookup("s1", st)
+            assert status == "gone" and rep is None and got_ref is None
+            assert len(core.kv_directory) == 0
+            assert core.kv_directory.known("s1")
+            # a live holder still resolves "hit"
+            core.kv_directory.record("s2", "Stub", live, None)
+            assert core.kv_directory.lookup("s2", st)[0] == "hit"
+        finally:
+            chaos.disarm()
+            serve.shutdown()
+            ray.shutdown()

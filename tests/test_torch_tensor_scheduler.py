@@ -313,9 +313,8 @@ def test_window_excludes_constrained_classes():
 def _snapshot(seed, k, n_classes, n_nodes=8):
     """A port TensorScheduler snapshot: k ready tasks over n_classes
     classes on n_nodes nodes, dyadic demands and partly used avail; with
-    many classes a random class mask and SPREAD classes. (The reference's
-    snapshot also carries its locality column and outstanding counts,
-    both None here: see _ref_snapshot.)"""
+    many classes a random class mask and SPREAD classes; no locality
+    column and no outstanding counts (both None), no QoS tiers."""
     rng = np.random.default_rng(seed)
     K, N = n_classes, n_nodes
     demands = np.zeros((K, 4), dtype=np.float32)
@@ -332,13 +331,15 @@ def _snapshot(seed, k, n_classes, n_nodes=8):
     spread = rng.random(K) < 0.3 if many else np.zeros(K, bool)
     ready_idx = np.sort(rng.choice(4 * k, size=k, replace=False))
     ready_cls = rng.integers(0, K, k).astype(np.int32)
-    return (ready_idx, ready_cls, demands, avail, cap, mask, spread, None)
+    return (ready_idx, ready_cls, demands, avail, cap, mask, spread,
+            None, None, None)
 
 
 def _ref_snapshot(snap):
-    """The same snapshot in the reference's layout: no locality column,
-    no outstanding counts."""
-    return snap[:7] + (None, None) + snap[7:]
+    """The same snapshot for the reference: the port's snapshot has the
+    reference's layout (locality column and outstanding counts
+    included)."""
+    return snap
 
 
 def _assign_with(sched, config, backend, snap):

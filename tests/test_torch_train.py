@@ -4,11 +4,8 @@
 "cpu"), the checkpoint pair that replaces the reference's Orbax pair,
 and parity programs: the same seeded numpy loop, with its failure and
 restart, through ``ray_tpu.train`` and then ``ray_tpu_torch.train``,
-with equal results.
-
-Not mirrored here: ``test_group_downsizes_after_node_death`` needs
-``Cluster.add_node(remote=True)``, the multi-node plane, which the port
-does not have yet (ROADMAP Queue A item 4); it comes with that plane.
+with equal results. ``test_group_downsizes_after_node_death`` (``slow``,
+as in the reference) takes a remote node down under a running group.
 """
 
 import json
@@ -295,7 +292,91 @@ class TestDataIngest:
 
 
 class TestElasticTraining:
+    @pytest.mark.slow
+    def test_group_downsizes_after_node_death(self, tmp_path):
+        """A failure-restart resizes the group to current cluster
+        capacity instead of wedging at a size that can no longer
+        schedule (reference: train/v2 elastic worker groups)."""
+        import json as _json
+        import os as _os
+        import threading
+        import time as _t
+
+        from ray_tpu_torch.cluster_utils import Cluster
+
+        ray.shutdown()
+        c = Cluster(initialize_head=True,
+                    head_node_args=dict(num_cpus=2, num_workers=2,
+                                        scheduler="tensor",
+                                        _system_config=SYSTEM))
+        node = c.add_node(num_cpus=2, remote=True)
+        c.wait_for_nodes()
+        try:
+            marker = str(tmp_path / "crashed_once")
+
+            def loop(config):
+                ctx = train.get_context()
+                world = ctx.get_world_size()
+                start = 0
+                ckpt = train.get_checkpoint()
+                if ckpt is not None:
+                    with open(_os.path.join(ckpt.as_directory(),
+                                            "state.json")) as f:
+                        start = _json.load(f)["step"] + 1
+                for step in range(start, 3):
+                    # every worker of the 4-wide attempt crashes at step 1
+                    if step == 1 and world == 4:
+                        open(config["marker"], "w").close()
+                        raise RuntimeError("injected group failure")
+                    d = _os.path.join(config["dir"], f"ck_{step}")
+                    _os.makedirs(d, exist_ok=True)
+                    with open(_os.path.join(d, "state.json"), "w") as f:
+                        _json.dump({"step": step}, f)
+                    train.report(
+                        {"step": step, "world": world},
+                        checkpoint=train.Checkpoint.from_directory(d))
+
+            trainer = train.Trainer(
+                loop,
+                train_loop_config={"dir": str(tmp_path),
+                                   "marker": marker},
+                scaling_config=train.ScalingConfig(
+                    num_workers=4, min_workers=2,
+                    resources_per_worker={"CPU": 1.0}),
+                run_config=train.RunConfig(
+                    failure_config=train.FailureConfig(max_failures=3)))
+            result_box = {}
+
+            def _fit():
+                result_box["result"] = trainer.fit()
+
+            t = threading.Thread(target=_fit)
+            t.start()
+            # let the 4-worker attempt crash, then take the node down so
+            # the restart sees half the capacity
+            deadline = _t.monotonic() + 60
+            while not _os.path.exists(marker) \
+                    and _t.monotonic() < deadline:
+                _t.sleep(0.05)
+            assert _os.path.exists(marker)
+            node.kill_worker_processes()
+            c.remove_node(node)
+            t.join(timeout=180)
+            assert not t.is_alive()
+            result = result_box["result"]
+            # resumed from the step-0 checkpoint at the downsized world
+            assert result.metrics["step"] == 2
+            assert result.metrics["world"] == 2
+        finally:
+            c.shutdown()
+            ray.shutdown()
+
     def test_elastic_target_respects_floor(self, rt):
+        # the slow node-death test above tears the shared runtime down in
+        # its finally; re-init so capacity queries see a cluster
+        if not ray.is_initialized():
+            ray.init(num_workers=8, scheduler="tensor",
+                     _system_config=SYSTEM, ignore_reinit_error=True)
         trainer = train.Trainer(
             lambda config: None,
             scaling_config=train.ScalingConfig(
