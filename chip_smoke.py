@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of ray_tpu_torch on one NVIDIA GPU: build, check, serve, train,
 data, cluster, RLlib, Train, MoE, the compiled DAG, Tune, workflow, the
-multi-node plane and the ray:// client.
+multi-node plane, the ray:// client, the optional planes (QoS, profile)
+and the ops layer (state, dashboard, snapshot, jobs, the CLI).
 
     python3 chip_smoke.py            # one card; 0 only if every phase passed
     python3 chip_smoke.py --kernels  # build, device and every kernel's
                                      # checks and times; no ok line
+    python3 chip_smoke.py --phase ops [multinode ...]
+                                     # build, device and the named later
+                                     # phases alone; no ok line
 
 Phases, each printing one JSON line:
 
@@ -247,6 +251,35 @@ Phases, each printing one JSON line:
                head's card (flash_fwd 8, argmax equal to the driver's);
                assign's launches = device assigns and every snapshot
                equal to assign_np in every part.
+ 22. ops     — the optional planes and the ops layer (phase_ops, see OPS_*).
+               qos: a process-mode head (2 workers, the card's scheduler,
+               worker_gpu_access, GPU: 1) with qos (prod 3 : batch 1, grace
+               0.3 s) and profile_hz, and one remote CPU node; a batch task
+               (tier 0) trains phase tune's model on the card until a gate
+               opens; a prod task (tier 5) preempts it, its lease coming
+               from the kill (the killed process's memory back within 64
+               MiB before the prod task touches the card), decodes phase
+               multinode's prompts on serve-127M (tokens equal to a direct
+               engine's, kernel 1 = 8 x its decode steps) and returns while
+               the gate is closed; the retry's flash launches = 2 layers x
+               its steps; one mark a key; the preemption in the plane's
+               stats, state.list_tenants and the metrics. profile: a 2 s
+               profile() window during the decode holds the prod task's
+               label; list_utilization has both nodes on the head's clock.
+               state: list_tasks (plain, detail), list_actors,
+               list_objects, list_nodes, list_tenants, task_timeline and
+               list_traces agree with what ran, and the dashboard's /api/*
+               endpoints serve the same rows. fair: thread mode, one slot
+               held by a gate, 2 tenants x 24 tasks at two tiers: the
+               completion order equals the QoS plane's own. snapshot:
+               num_gpus tasks pending at snapshot_cluster resolve under
+               their ids after restore_cluster in a fresh init, equal to a
+               direct run. cli: start --head, start --address, status,
+               job (serve-127M's forward on the head's card over ray://,
+               flash_fwd 8, tokens equal), timeline, trace and profile as
+               subprocesses; after SIGTERM no process is left and the
+               card's memory is back. assign launches = device assigns
+               and every single-tier snapshot equal to assign_np.
 
 Then the kernel table as one JSON line (kernel 1's launches: the Serve
 path's, mono and split, with phase engine's beside them), the nvidia-smi line, and last
@@ -550,6 +583,37 @@ FLASH_PATHS = {"moe": (MOE_BATCH, TRAIN["n_heads"], TRAIN_SEQ - 1),
 # workflow and queue (phase workflow): WORKFLOW_N x WORKFLOW_N f32 steps on
 # the card; QUEUE_ITEMS CUDA tensors of QUEUE_SHAPE through a util.queue
 WORKFLOW_N, QUEUE_ITEMS, QUEUE_SHAPE = 2048, 512, (256, 256)
+
+# the optional planes and the ops layer (phase ops). Part qos: a process-mode
+# head (OPS_WORKERS workers, the card's scheduler, worker_gpu_access,
+# offering GPU: 1) with the QoS plane (OPS_QUOTAS, grace OPS_GRACE_S) and
+# the profile plane (OPS_PROFILE_HZ), and one remote CPU node; the batch
+# task trains phase tune's model (flash 3a-3c at FLASH_PATHS "tune") until
+# a gate opens, the retry at least OPS_BATCH_MIN_STEPS steps; the prod
+# task decodes phase multinode's prompts on serve-127M. Part profile: an
+# OPS_PROFILE_S window during the decode. Part fair: OPS_FAIR_TASKS tasks a
+# tenant, half at tier 1 and half at tier 0, in a seeded order behind one
+# held slot. Part snapshot: OPS_SNAP_TASKS num_gpus tasks of an
+# [OPS_SNAP_N, OPS_SNAP_N] f32 product pending at the save, their restored
+# results within OPS_SNAP_REL (relative max error) of a direct run: the
+# same cuBLAS call on the same inputs, which may choose another algorithm
+# on another thread. Part cli: the CLI's head gets its knobs through the
+# config registry's environment overrides (OPS_CLI_ENV)
+OPS_QUOTAS, OPS_GRACE_S, OPS_PROFILE_HZ = '{"prod": 3, "batch": 1}', 0.3, 50.0
+OPS_WORKERS, OPS_BATCH_MIN_STEPS, OPS_PROFILE_S = 2, 2, 2.0
+OPS_SYSTEM = {"worker_mode": "process", "worker_gpu_access": True,
+              "qos": True, "tenant_quotas": OPS_QUOTAS,
+              "preempt_grace_s": OPS_GRACE_S, "profile_hz": OPS_PROFILE_HZ,
+              "utilization_interval_s": 0.5, "sched_backend": "cuda",
+              "trace_sample_rate": 1.0}
+OPS_FAIR_SYSTEM = {"qos": True, "tenant_quotas": OPS_QUOTAS,
+                   "sched_backend": "cuda"}
+OPS_FAIR_TASKS, OPS_FAIR_SEED = 24, 0
+OPS_SNAP_TASKS, OPS_SNAP_N, OPS_SNAP_REL = 4, 1024, 1e-6
+OPS_CLI_ENV = {"RAY_TPU_TORCH_WORKER_GPU_ACCESS": "1",
+               "RAY_TPU_TORCH_SCHED_BACKEND": "cuda",
+               "RAY_TPU_TORCH_PROFILE_HZ": "20",
+               "RAY_TPU_TORCH_TRACE_SAMPLE_RATE": "1.0"}
 
 
 # the bf16 kernels are instances of the wgmma + TMA templates: the forward
@@ -6175,6 +6239,895 @@ def multinode_engine(torch, ray, dev, want):
     return row, problems, run["launches"]
 
 
+def ops_batch_train(model, batch, seq, gate, attempts, progress, marks,
+                    min_steps, device="cuda"):
+    """Phase ops's batch task (tenant "batch", tier 0, num_gpus=1): phase
+    tune's model trained on ``device`` with AdamW until the gate file
+    exists, at least ``min_steps`` steps; then its mark. The first
+    attempt starts training at once; a later attempt (the retry of a
+    preempted one: ``attempts`` holds a line per attempt) waits for the
+    gate before it touches the card, so nothing of it holds the card
+    while the prod task runs. Each step appends "attempt step" to
+    ``progress``. Returns its attempt, steps, losses and the flash
+    launches of this process over its steps."""
+    import os
+    import time as _time
+
+    import torch as _torch
+
+    from ray_tpu_torch.models import train_step as ts
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  init_params)
+    from ray_tpu_torch.ops import flash as fl
+
+    with open(attempts, "a") as f:
+        f.write(f"{os.getpid()}\n")
+    with open(attempts) as f:
+        attempt = len(f.read().split())
+    if attempt > 1:
+        while not os.path.exists(gate):
+            _time.sleep(0.02)
+    cfg = TransformerConfig(dtype=_torch.bfloat16, **model)
+    gen = _torch.Generator(device=device).manual_seed(0)
+    net = Transformer(cfg, device=device).load_params(init_params(cfg, gen))
+    step = ts.make_train_step(net, ts.make_optimizer(net.parameters(),
+                                                      learning_rate=3e-4))
+    tokens = _torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                            generator=gen, device=device)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    l0 = {n: getattr(fl, n).launches for n in names}
+    losses = []
+    while True:
+        losses.append(float(step({"tokens": tokens})["loss"]))
+        with open(progress, "a") as f:
+            f.write(f"{attempt} {len(losses)}\n")
+        if len(losses) >= min_steps and os.path.exists(gate):
+            break
+    launches = {n: getattr(fl, n).launches - l0[n] for n in names}
+    fd = os.open(marks, os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+    try:
+        os.write(fd, b"batch\n")
+    finally:
+        os.close(fd)
+    return {"attempt": attempt, "pid": os.getpid(), "steps": len(losses),
+            "losses": losses, "launches": launches,
+            "n_layers": cfg.n_layers}
+
+
+def ops_prod_decode(serve, icfg, prompts, n, files, device="cuda"):
+    """Phase ops's prod task (tenant "prod", tier 5, num_gpus=1): the
+    serving model (bf16, params from the seeded generator, as phase
+    multinode's engine actor) built in this worker process, ``prompts``
+    decoded ``n`` tokens each through InferenceEngine. Before it touches
+    the card it creates ``files["leased"]`` and waits up to 120 s for
+    ``files["go"]`` (the driver reads the card's memory in between, with
+    no process but the head's on it); it creates ``files["started"]``
+    once its engine is up (the profile window opens then) and, after
+    decoding, waits up to 60 s for ``files["hold"]`` (the window has
+    closed), so the window sees this task. Frees the engine and the
+    allocator's cache before it returns its tokens, its kernel-1
+    launches and decode steps, and its mark (in ``files["marks"]``)."""
+    import gc
+    import os
+    import time as _time
+
+    open(files["leased"], "w").close()
+    deadline = _time.monotonic() + 120.0
+    while not os.path.exists(files["go"]) and _time.monotonic() < deadline:
+        _time.sleep(0.01)
+
+    import torch as _torch
+
+    from ray_tpu_torch.models.inference import InferenceEngine
+    from ray_tpu_torch.models.transformer import (TransformerConfig,
+                                                  init_params)
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    t0 = _time.perf_counter()
+    cfg = TransformerConfig(dtype=_torch.bfloat16, **serve)
+    engine = InferenceEngine(init_params(cfg, _torch.Generator(
+        device=device).manual_seed(0)), cfg, icfg, device=device)
+    open(files["started"], "w").close()
+    build_s = _time.perf_counter() - t0
+    l0, s0 = pa.paged_attention.launches, engine.decode_steps
+    t0 = _time.perf_counter()
+    tokens = [engine.generate(p, n) for p in prompts]
+    decode_s = _time.perf_counter() - t0
+    launches = pa.paged_attention.launches - l0
+    steps = engine.decode_steps - s0
+    engine.shutdown()
+    del engine
+    gc.collect()
+    if device == "cuda":
+        _torch.cuda.empty_cache()
+    deadline = _time.monotonic() + 60.0
+    while not os.path.exists(files["hold"]) and _time.monotonic() < deadline:
+        _time.sleep(0.02)
+    fd = os.open(files["marks"], os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+    try:
+        os.write(fd, b"prod\n")
+    finally:
+        os.close(fd)
+    return {"tokens": tokens, "launches": launches, "decode_steps": steps,
+            "build_s": build_s, "decode_s": decode_s, "pid": os.getpid()}
+
+
+def ops_mark(key, path):
+    """Append key to the marks file (fair share's completion order)."""
+    import os
+
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+    try:
+        os.write(fd, (key + "\n").encode())
+    finally:
+        os.close(fd)
+    return key
+
+
+def ops_gate_hold(gate, timeout_s=300.0):
+    """Hold this task's slot until the gate file exists."""
+    import os
+    import time as _time
+
+    deadline = _time.monotonic() + timeout_s
+    while not os.path.exists(gate) and _time.monotonic() < deadline:
+        _time.sleep(0.01)
+    return os.path.exists(gate)
+
+
+def ops_card_compute(seed, n, device="cuda"):
+    """Phase ops's snapshot task: a seeded [n, n] f32 matrix on the
+    device, x @ x.T's row sums, on the host."""
+    import torch as _torch
+
+    g = _torch.Generator(device=device).manual_seed(seed)
+    x = _torch.randn(n, n, generator=g, device=device)
+    return (x @ x.T).sum(dim=1).cpu()
+
+
+def ops_fair_keys(seed=OPS_FAIR_SEED, per_tenant=OPS_FAIR_TASKS):
+    """The fair-share part's submissions in a seeded order: per tenant
+    (prod, batch) half at tier 1 and half at tier 0, as
+    [(key, tier, tenant)]."""
+    import numpy as np
+
+    keys = [(f"{tenant}-t{tier}-{i}", tier, tenant)
+            for tenant in ("prod", "batch") for tier in (1, 0)
+            for i in range(per_tenant // 2)]
+    order = np.random.default_rng(seed).permutation(len(keys))
+    return [keys[i] for i in order]
+
+
+def ops_fair_order(plane_cls, keys, quotas=OPS_QUOTAS):
+    """The completion order one slot gives ``keys`` under the QoS plane:
+    each dispatch takes the head of the plane's order over what is still
+    queued (strict tiers, then the weights' virtual time), as a tick
+    with one free slot does."""
+    plane = plane_cls(tenant_quotas=quotas)
+    for key, tier, tenant in keys:
+        plane.note_queued(key, tenant, tier)
+    left, out = list(keys), []
+    while left:
+        first = left.pop(plane.order([(t, n) for _, t, n in left])[0])
+        plane.note_dispatched(first[0])
+        plane.note_done(first[0])
+        out.append(first[0])
+    return out
+
+
+def ops_fair_check(done, want, keys):
+    """The fair-share part's rules on the completion order ``done``:
+    equal to the simulated order ``want``; every tier-1 key before any
+    tier-0 key; and within each tier's first 16 completions prod served
+    at least twice as often as batch (weights 3:1). Returns problems."""
+    tier = {k: t for k, t, _ in keys}
+    problems = []
+    if done != want:
+        problems.append(f"completion order differs from the plane's: "
+                        f"{done} != {want}")
+    seen0 = False
+    for k in done:
+        seen0 |= tier[k] == 0
+        if seen0 and tier[k] == 1:
+            problems.append(f"tier-1 {k} completed after a tier-0 key")
+            break
+    for t in (1, 0):
+        head = [k for k in done if tier[k] == t][:16]
+        n_prod = sum(k.startswith("prod") for k in head)
+        if n_prod < 2 * (len(head) - n_prod):
+            problems.append(f"tier {t}: prod {n_prod} of {len(head)} in "
+                            "its first completions, below 3:1's 2x")
+    return problems
+
+
+def ops_state_rows(state, urlopen, port):
+    """Every state verb phase ops reads, from the API and from the
+    dashboard's endpoints: {verb: (api rows, dashboard rows)}."""
+    pairs = {"list_tasks": ("/api/tasks", lambda: state.list_tasks()),
+             "list_tasks_detail": ("/api/task_events",
+                                   lambda: state.list_tasks(detail=True)),
+             "list_actors": ("/api/actors", state.list_actors),
+             "list_objects": ("/api/objects", state.list_objects),
+             "list_nodes": ("/api/nodes", state.list_nodes),
+             "list_tenants": ("/api/tenants", state.list_tenants),
+             "task_timeline": ("/api/timeline", state.task_timeline),
+             "list_traces": ("/api/traces", state.list_traces)}
+    out = {}
+    for verb, (path, fn) in pairs.items():
+        api = fn()
+        body = urlopen(f"http://127.0.0.1:{port}{path}", timeout=30).read()
+        out[verb] = (api, json.loads(body))
+    return out
+
+
+def ops_state_check(rows, ran):
+    """The state part's rules: each verb's rows agree with what the part
+    ran (``ran``: the finished task names, the actor's name, the put's
+    object id hex, the node count, the tenants, the trace roots), and
+    the dashboard serves the same row identities. Returns problems."""
+    problems = []
+    key = {"list_tasks": "task_id", "list_tasks_detail": "task_id",
+           "list_actors": "actor_id", "list_objects": "object_id",
+           "list_nodes": "node_id", "list_tenants": "tenant",
+           "list_traces": "trace_id"}
+    for verb, k in key.items():
+        api, dash = rows[verb]
+        a = sorted(str(r.get(k)) for r in api)
+        d = sorted(str(r.get(k)) for r in dash)
+        # the dashboard reads later than the API: a row may have joined or
+        # left meanwhile only among live tasks and objects
+        if verb in ("list_actors", "list_nodes", "list_tenants") and a != d:
+            problems.append(f"{verb}: dashboard rows {d} != api rows {a}")
+    detail = rows["list_tasks_detail"][0]
+    finished = {r.get("name") for r in detail if r.get("state") == "FINISHED"}
+    missing = sorted(set(ran["task_names"]) - finished)
+    if missing:
+        problems.append(f"list_tasks(detail=True) lacks FINISHED rows of "
+                        f"{missing}")
+    actors = {r["name"]: r for r in rows["list_actors"][0]}
+    if actors.get(ran["actor"], {}).get("state") != "ALIVE":
+        problems.append(f"list_actors: {ran['actor']} not ALIVE: {actors}")
+    objs = {r["object_id"] for r in rows["list_objects"][0]}
+    if ran["object"] not in objs:
+        problems.append("list_objects lacks the part's put")
+    nodes = rows["list_nodes"][0]
+    if (len(nodes) != ran["nodes"]
+            or any(n["state"] != "ALIVE" for n in nodes)):
+        problems.append(f"list_nodes: {[(n['index'], n['state']) for n in nodes]}")
+    tenants = {r["tenant"] for r in rows["list_tenants"][0]}
+    if not set(ran["tenants"]) <= tenants:
+        problems.append(f"list_tenants: {sorted(tenants)}")
+    names = {e.get("name") for e in rows["task_timeline"][0]}
+    if not set(ran["task_names"]) <= names:
+        problems.append(f"task_timeline lacks {sorted(set(ran['task_names']) - names)}")
+    roots = {r.get("root") for r in rows["list_traces"][0]}
+    if not rows["list_traces"][0] or not roots & set(ran["task_names"]):
+        problems.append(f"list_traces: roots {sorted(map(str, roots))}")
+    return problems
+
+
+def ops_window_top(report):
+    """Every task of a profile() window by samples, highest first: the
+    report's top_tasks table without its 15-row cut, from the window's
+    collapsed lines ("node<n>;<task>;<frames> <count>")."""
+    from ray_tpu_torch._private import profile_plane
+
+    rows = []
+    for line in report["collapsed"].splitlines():
+        head, count = line.rsplit(" ", 1)
+        node, task, stack = head.split(";", 2)
+        rows.append({"node": int(node[4:]), "task": task, "stack": stack,
+                     "count": int(count)})
+    return profile_plane.top_tasks(rows, limit=len(rows))
+
+
+def ops_memory_rule(before, after, slack_mib=PROCESS_MEM_SLACK_MIB):
+    """The card's memory.used back within slack_mib of ``before`` (MiB)."""
+    if after <= before + slack_mib:
+        return None
+    return f"memory.used {before} -> {after} MiB (slack {slack_mib})"
+
+
+def ops_qos(torch, dev, ray, part, problems, out):
+    """Part qos (with parts profile and state on the same cluster): a
+    process-mode head on the card's scheduler with worker_gpu_access, the
+    QoS plane (OPS_QUOTAS, grace OPS_GRACE_S) and the profile plane
+    (OPS_PROFILE_HZ), offering GPU: 1, and one remote CPU node. The batch
+    task trains on the card; the prod task (tier 5) preempts it and
+    decodes; the profile window runs during the decode. Returns the
+    part's rows."""
+    import math
+    import tempfile
+    import urllib.request
+
+    from ray_tpu_torch import dashboard
+    from ray_tpu_torch._private import metrics as metrics_mod
+    from ray_tpu_torch.util import state
+
+    mcfg, icfg, prompts = multinode_engine_config(torch)
+    want = direct_engine_tokens(torch, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ops_")
+    files = {n: os.path.join(tmp, n) for n in (
+        "gate", "attempts", "progress", "marks", "leased", "go", "started",
+        "hold")}
+    row = {}
+    t0 = time.perf_counter()
+    ray.init(num_workers=OPS_WORKERS, scheduler="tensor",
+             _system_config=dict(OPS_SYSTEM, sched_device=dev.type))
+    try:
+        w = ray._worker.get_worker()
+        node = w.add_remote_cluster_node(num_cpus=1, num_workers=1,
+                                         resources={"ops_cpu": 4.0})
+        wait_workers_ready(w.process_pool)
+        wait_workers_ready(node.pool)
+        row["startup_s"] = time.perf_counter() - t0
+        row["gpus"] = ray.cluster_resources().get("GPU", 0)
+        if row["gpus"] != 1:
+            problems.append(f"qos: the head offers GPU {row['gpus']} != 1")
+        # one task first, so this process's own card work (the assign
+        # kernels' module, the scheduler's stream) is in the baseline:
+        # the checks below see only what the workers hold
+        ray.get(ray.remote(ops_mark).remote("warm", files["marks"] + ".warm"),
+                timeout=300)
+        release_card(torch, dev)
+        rows_a, used_a = card_state()
+
+        batch = ray.remote(ops_batch_train).options(
+            tenant="batch", num_gpus=1, max_retries=2)
+        prod = ray.remote(ops_prod_decode).options(
+            priority=5, tenant="prod", num_gpus=1, max_retries=0)
+
+        def run():
+            b_ref = batch.remote(TUNE_MODEL, TUNE_BATCH, TUNE_SEQ,
+                                 files["gate"], files["attempts"],
+                                 files["progress"], files["marks"],
+                                 OPS_BATCH_MIN_STEPS, dev.type)
+            # the batch holds the card and has trained a few steps
+            deadline = time.monotonic() + 300
+            while len(read_marks(files["progress"])) < 2 * OPS_BATCH_MIN_STEPS:
+                if time.monotonic() > deadline:
+                    raise AssertionError("qos: the batch task never trained")
+                time.sleep(0.05)
+            rows_b, used_b = card_state()
+            t_sub = time.perf_counter()
+            p_ref = prod.remote(SERVE, icfg, prompts, ENGINE_NEW_TOKENS,
+                                files, dev.type)
+            # the prod lease came from the kill: before it touches the
+            # card, the killed attempt's process has exited and its
+            # memory is back (the head's context alone on the card)
+            while not os.path.exists(files["leased"]):
+                if time.perf_counter() - t_sub > 300:
+                    raise AssertionError("qos: the prod task never leased")
+                time.sleep(0.01)
+            t_leased = time.perf_counter() - t_sub
+            deadline = time.monotonic() + 60
+            while True:
+                rows_k, used_k = card_state()
+                if (ops_memory_rule(used_a, used_k) is None
+                        or time.monotonic() > deadline):
+                    break
+                time.sleep(0.05)
+            t_back = time.perf_counter() - t_sub
+            open(files["go"], "w").close()
+            # part profile: the window opens once the prod engine is up
+            while not os.path.exists(files["started"]):
+                if time.perf_counter() - t_sub > 300:
+                    raise AssertionError("qos: the prod task never started")
+                time.sleep(0.01)
+            t_started = time.perf_counter() - t_sub
+            report = ray.profile(duration_s=OPS_PROFILE_S)
+            open(files["hold"], "w").close()
+            prod_out = ray.get(p_ref, timeout=300)
+            t_prod = time.perf_counter() - t_sub
+            gate_closed = not os.path.exists(files["gate"])
+            marks_before_gate = read_marks(files["marks"])
+            open(files["gate"], "w").close()
+            batch_out = ray.get(b_ref, timeout=300)
+            return dict(prod=prod_out, batch=batch_out, report=report,
+                        t_started=t_started, t_prod=t_prod,
+                        gate_closed=gate_closed,
+                        marks_before_gate=marks_before_gate,
+                        card=dict(used_a=used_a, rows_a=len(rows_a),
+                                  used_b=used_b, rows_b=len(rows_b),
+                                  used_killed=used_k, rows_killed=len(rows_k),
+                                  leased_s=t_leased, back_s=t_back))
+
+        res, _, counts = part("qos", run)
+        prod_out, batch_out = res["prod"], res["batch"]
+        marks = read_marks(files["marks"])
+        st = w.qos_plane.stats()
+        tenants = {r["tenant"]: r for r in state.list_tenants()}
+        text = metrics_mod.render_all(w)
+        n_layers = batch_out["n_layers"]
+        row.update({
+            "prompts": len(prompts), "new_tokens": ENGINE_NEW_TOKENS,
+            "prod_result_s": res["t_prod"], "prod_started_s": res["t_started"],
+            "prod_build_s": prod_out["build_s"],
+            "prod_decode_s": prod_out["decode_s"],
+            "prod_tokens_equal_direct": prod_out["tokens"] == want,
+            "paged_attention_launches": prod_out["launches"],
+            "decode_steps": prod_out["decode_steps"],
+            "gate_closed_at_prod_result": res["gate_closed"],
+            "marks_before_gate": res["marks_before_gate"], "marks": marks,
+            "batch_attempt": batch_out["attempt"],
+            "batch_retry_steps": batch_out["steps"],
+            "batch_retry_flash": batch_out["launches"],
+            "batch_losses_finite": all(
+                math.isfinite(x) for x in batch_out["losses"]),
+            "preemptions_total": st["preemptions_total"],
+            "preempts_by_tier": st["preempts_by_tier"],
+            "tenants": tenants, "card": res["card"], "assign": counts})
+        out["ops_prod"] = prod_out["launches"]
+        out["ops_batch"] = batch_out["launches"]
+        problems.extend(f"qos: {what}" for what, bad in (
+            ("the prod result came after the gate opened",
+             not res["gate_closed"]),
+            (f"marks before the gate {res['marks_before_gate']} != ['prod']",
+             res["marks_before_gate"] != ["prod"]),
+            ("prod tokens != a direct engine's", prod_out["tokens"] != want),
+            (launch_rule(prod_out["launches"], mcfg.n_layers,
+                         prod_out["decode_steps"]),
+             launch_rule(prod_out["launches"], mcfg.n_layers,
+                         prod_out["decode_steps"]) is not None),
+            (f"marks {marks} != one prod and one batch",
+             sorted(marks) != ["batch", "prod"]),
+            ("the batch result is not a retry", batch_out["attempt"] < 2),
+            (f"preemptions {st}", st["preemptions_total"] < 1
+             or st["preempts_by_tier"].get(0, 0) < 1),
+            (f"retry flash {batch_out['launches']} != "
+             f"{batch_out['steps']} steps x {n_layers} layers",
+             any(v != batch_out["steps"] * n_layers
+                 for v in batch_out["launches"].values())),
+            ("state.list_tenants shows no preemption",
+             tenants.get("batch", {}).get("preempted", 0) < 1),
+            ("no ray_tpu_sched_preemptions_total{tier=\"0\"} in the metrics",
+             'ray_tpu_sched_preemptions_total{tier="0"}' not in text),
+            (f"the killed attempt's card memory: {res['card']}",
+             ops_memory_rule(used_a, res["card"]["used_killed"])
+             is not None
+             or res["card"]["rows_killed"] > res["card"]["rows_a"])) if bad)
+
+        # -- part profile -------------------------------------------------
+        report = res["report"]
+        top = [r["task"] for r in ops_window_top(report)]
+        util = state.list_utilization()
+        node_ids = {n["index"] for n in state.list_nodes()}
+        util_nodes = {r["node"] for r in util if r["points"]}
+        now = time.time()
+        stale = [r["node"] for r in util if r["points"] and not (
+            now - 600 <= r["points"][-1][0] <= now + 1)]
+        pp = w.profile_plane.summary()
+        recorded = [ln for ln in text.splitlines()
+                    if ln.startswith("ray_tpu_profile_samples_recorded_total")]
+        prod_rank = next((i for i, t in enumerate(top)
+                          if "ops_prod_decode" in t), None)
+        prof = {"samples": report["samples"], "top_tasks": top[:8],
+                "prod_rank": prod_rank,
+                "util_nodes": sorted(util_nodes), "nodes": sorted(node_ids),
+                "util_rows": len(util), "summary": pp,
+                "recorded_metric": recorded}
+        problems.extend(f"profile: {what}" for what, bad in (
+            (f"no prod label among the window's tasks {top}",
+             not any("ops_prod_decode" in t for t in top)),
+            (f"utilization rows for nodes {sorted(util_nodes)} != "
+             f"{sorted(node_ids)}", util_nodes != node_ids),
+            (f"utilization off the head's clock on nodes {stale}", stale),
+            (f"samples recorded {recorded}", not recorded
+             or float(recorded[0].split()[-1]) <= 0)) if bad)
+
+        # -- part state ---------------------------------------------------
+        @ray.remote(resources={"ops_cpu": 1.0})
+        class OpsCounter:
+            def bump(self):
+                return 1
+
+        actor = OpsCounter.options(name="ops_counter").remote()
+        ray.get(actor.bump.remote(), timeout=120)
+        obj = ray.put(list(range(1000)))
+        port = dashboard.start_dashboard()
+        try:
+            rows = ops_state_rows(state, urllib.request.urlopen, port)
+        finally:
+            dashboard.stop_dashboard()
+        ran = {"task_names": ["ops_batch_train", "ops_prod_decode"],
+               "actor": "ops_counter", "object": obj.object_id().hex(),
+               "nodes": 2, "tenants": ["batch", "prod"]}
+        problems.extend(f"state: {p}" for p in ops_state_check(rows, ran))
+        st_row = {verb: [len(api), len(dash)]
+                  for verb, (api, dash) in rows.items()}
+        ray.kill(actor)
+    finally:
+        ray.shutdown()
+    deadline = time.monotonic() + 60
+    while True:
+        release_card(torch, dev)
+        rows_e, used_e = card_state()
+        problem = ops_memory_rule(used_a, used_e)
+        if problem is None or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    row["card_after_shutdown"] = [used_a, used_e]
+    if problem:
+        problems.append(f"qos: after shutdown {problem}")
+    return row, prof, st_row
+
+
+def ops_fair(torch, dev, ray, part, problems):
+    """Part fair share: thread mode, one CPU and one worker, held by a
+    gate; 2 tenants x OPS_FAIR_TASKS tasks in a seeded order, then the
+    gate opens: the completion order against the plane's simulation
+    (ops_fair_order), with the scheduler's snapshots replayed per tier
+    run."""
+    import tempfile
+
+    from ray_tpu_torch._private.qos import QosPlane
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ops_fair_")
+    gate, marks = os.path.join(tmp, "gate"), os.path.join(tmp, "marks")
+    keys = ops_fair_keys()
+    want = ops_fair_order(QosPlane, keys)
+    ray.init(num_cpus=1, num_workers=1, scheduler="tensor",
+             _system_config=dict(OPS_FAIR_SYSTEM, sched_device=dev.type))
+    try:
+        hold = ray.remote(ops_gate_hold).options(tenant="hold", priority=9)
+        mark = ray.remote(ops_mark)
+
+        def run():
+            h = hold.remote(gate)
+            deadline = time.monotonic() + 60
+            while not any(r["state"] == "RUNNING"
+                          for r in ray._worker.get_worker()
+                          .scheduler.task_table()):
+                if time.monotonic() > deadline:
+                    raise AssertionError("fair: the holder never ran")
+                time.sleep(0.01)
+            refs = [mark.options(priority=tier, tenant=tenant).remote(
+                key, marks) for key, tier, tenant in keys]
+            time.sleep(0.2)               # every key queued behind it
+            open(gate, "w").close()
+            ray.get([h] + refs, timeout=300)
+
+        _, snaps, counts = part("fair", run)
+    finally:
+        ray.shutdown()
+    done = read_marks(marks)
+    runs = [s for s in snaps if s[0][9] is None or len(set(s[0][9])) == 1]
+    problems.extend(f"fair: {p}" for p in ops_fair_check(done, want, keys))
+    if not runs:
+        problems.append("fair: no tier run was recorded")
+    return {"tasks": len(keys), "completions": len(done),
+            "order_equal_plane": done == want, "first": done[:12],
+            "tier_runs": len(runs), "assign": counts}
+
+
+def ops_snapshot(torch, dev, ray, problems):
+    """Part snapshot (thread mode, the card's scheduler): OPS_SNAP_TASKS
+    num_gpus tasks pending behind a gate-held GPU task, a KV entry,
+    snapshot_cluster, shutdown; a fresh init and restore_cluster: the
+    tasks resolve under their original ids to the card computation's
+    values (ops_card_compute run directly, relative max error within
+    OPS_SNAP_REL), the KV entry comes back."""
+    import tempfile
+
+    from ray_tpu_torch import ObjectRef
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ops_snap_")
+    gate, path = os.path.join(tmp, "gate"), os.path.join(tmp, "snap.bin")
+    system = {"sched_backend": "cuda", "sched_device": dev.type}
+    seeds = list(range(OPS_SNAP_TASKS))
+    want = [ops_card_compute(s, OPS_SNAP_N, dev.type) for s in seeds]
+    ray.init(num_workers=2, scheduler="tensor", _system_config=system)
+    try:
+        hold = ray.remote(ops_gate_hold).options(num_gpus=1)
+        comp = ray.remote(ops_card_compute).options(num_gpus=1)
+        h = hold.remote(gate)
+        refs = [comp.remote(s, OPS_SNAP_N, dev.type) for s in seeds]
+        ids = [r.object_id() for r in refs]
+        time.sleep(0.3)
+        ray._worker.get_worker().gcs.kv_put(b"ops_key", b"ops_value",
+                                            namespace="ops")
+        t0 = time.perf_counter()
+        meta = ray.snapshot_cluster(path)
+        save_s = time.perf_counter() - t0
+        open(gate, "w").close()
+        ray.get(h, timeout=120)
+    finally:
+        ray.shutdown()
+    ray.init(num_workers=2, scheduler="tensor", _system_config=system)
+    try:
+        t0 = time.perf_counter()
+        info = ray.restore_cluster(path)
+        restore_s = time.perf_counter() - t0
+        got = ray.get([ObjectRef(oid) for oid in ids], timeout=300)
+        kv = ray._worker.get_worker().gcs.kv_get(b"ops_key", namespace="ops")
+    finally:
+        ray.shutdown()
+    errs = [float((g - w_).abs().max() / w_.abs().max())
+            for g, w_ in zip(got, want)]
+    row = {"pending_saved": meta["pending_tasks"],
+           "resubmitted": info["resubmitted_tasks"],
+           "kv_restored": kv == b"ops_value", "save_s": save_s,
+           "restore_s": restore_s, "max_rel_err": max(errs),
+           "bound": OPS_SNAP_REL}
+    problems.extend(f"snapshot: {what}" for what, bad in (
+        (f"pending saved {meta['pending_tasks']} != {len(seeds)}",
+         meta["pending_tasks"] != len(seeds)),
+        (f"resubmitted {info['resubmitted_tasks']}",
+         info["resubmitted_tasks"] != len(seeds)),
+        ("the KV entry did not come back", kv != b"ops_value"),
+        (f"results off by {max(errs)} > {OPS_SNAP_REL}",
+         max(errs) > OPS_SNAP_REL)) if bad)
+    return row
+
+
+# the job's driver (part cli): argv[1] the connect string, argv[2] JSON
+# {serve, batch, seq, seed, device}; connects over ray://, runs serve-127M's
+# forward on the head's card as a task that also counts flash_fwd in its
+# process, prints one JSON line
+JOB_SRC = r'''
+import json, sys
+import ray_tpu_torch as ray
+
+
+def forward_counted(serve, batch, seq, seed, device):
+    from ray_tpu_torch.ops import flash
+    n0 = flash.flash_fwd.launches
+    tokens = FORWARD(serve, batch, seq, seed, device)
+    return tokens, flash.flash_fwd.launches - n0
+
+
+address, p = sys.argv[1], json.loads(sys.argv[2])
+ray.init(address=address)
+tokens, launches = ray.get(ray.remote(forward_counted).options(
+    num_gpus=1).remote(p["serve"], p["batch"], p["seq"], p["seed"],
+                       p["device"]),
+    timeout=600)
+ray.shutdown()
+print("ops_job " + json.dumps({"tokens": tokens.tolist(),
+                               "flash_fwd": launches}), flush=True)
+'''
+
+
+def ops_cli_run(args, env, timeout=300, cwd=None):
+    """One CLI verb in a subprocess: (exit code, its output)."""
+    r = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
+                       capture_output=True, text=True, env=env,
+                       timeout=timeout, cwd=cwd)
+    return r.returncode, r.stdout + r.stderr
+
+
+def ops_group_alive(pgid):
+    """Pids of live (not zombie) processes in process group pgid."""
+    alive = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().split(")")[-1].split()
+        except OSError:
+            continue
+        if fields[0] != "Z" and int(fields[2]) == pgid:
+            alive.append(int(name))
+    return alive
+
+
+def ops_cli(torch, dev, problems, out):
+    """Part cli: the operator's path, every step a subprocess of the CLI
+    (python -m ray_tpu_torch): start --head (process mode, the card's
+    scheduler, worker_gpu_access and both planes through the registry's
+    environment overrides) and start --address (a node daemon joining);
+    status --address lists both nodes ALIVE; job runs JOB_SRC, whose
+    forward on the head's card must equal this process's
+    (client_forward) with flash_fwd 8; timeline, trace and profile write
+    their files; SIGTERM ends the head, its workers and the joined
+    daemon, and the card's memory comes back."""
+    import inspect
+    import re as _re
+    import signal
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ops_cli_")
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), **OPS_CLI_ENV)
+    want = client_forward(SERVE, CLIENT_BATCH, CLIENT_SEQ, CLIENT_SEED,
+                          dev.type).tolist()
+    release_card(torch, dev)
+    rows0, used0 = card_state()
+    row = {}
+    head = node = None
+    try:
+        t0 = time.perf_counter()
+        head = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch", "start", "--head",
+             "--worker-mode", "process", "--num-workers", "2"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True, cwd=tmp)
+        address = None
+        for line in head.stdout:
+            m = _re.search(r"address='(ray://[^']+)'", line)
+            if m:
+                address = m.group(1)
+                break
+        if address is None:
+            raise AssertionError("cli: the head printed no connect string")
+        row["head_start_s"] = time.perf_counter() - t0
+        node = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch", "start",
+             f"--address={address}", "--num-cpus", "2", "--num-workers",
+             "1"], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True,
+            cwd=tmp)
+        deadline = time.monotonic() + 120
+        while True:
+            rc, text = ops_cli_run(["status", "--address", address], env,
+                                   cwd=tmp)
+            alive = _re.findall(r"^\s+\[\d+\] \S+ ALIVE", text, _re.M)
+            if (rc == 0 and len(alive) == 2) or time.monotonic() > deadline:
+                break
+            time.sleep(1.0)
+        row["status"] = {"rc": rc, "alive_nodes": len(alive)}
+        if rc != 0 or len(alive) != 2:
+            problems.append(f"cli: status lists {len(alive)} ALIVE nodes "
+                            f"(rc {rc}): {text[-800:]}")
+        driver = os.path.join(tmp, "job_driver.py")
+        with open(driver, "w") as f:
+            f.write(inspect.getsource(client_forward)
+                    + "\n\nFORWARD = client_forward\n" + JOB_SRC)
+        t0 = time.perf_counter()
+        rc, text = ops_cli_run(
+            ["job", "--", sys.executable, driver, f"'{address}'",
+             "'" + json.dumps({"serve": SERVE, "batch": CLIENT_BATCH,
+                               "seq": CLIENT_SEQ, "seed": CLIENT_SEED,
+                               "device": dev.type}) + "'"],
+            env, timeout=600, cwd=tmp)
+        row["job_s"] = time.perf_counter() - t0
+        m = _re.search(r"^ops_job (.*)$", text, _re.M)
+        job = json.loads(m.group(1)) if m else None
+        row["job"] = {"rc": rc, "succeeded": "status: SUCCEEDED" in text,
+                      "flash_fwd": job and job["flash_fwd"],
+                      "tokens_equal": bool(job) and job["tokens"] == want}
+        out["ops_job_forward"] = job["flash_fwd"] if job else 0
+        problems.extend(f"cli: job {what}" for what, bad in (
+            (f"did not succeed (rc {rc}): {text[-1500:]}",
+             rc != 0 or "status: SUCCEEDED" not in text),
+            ("logs lack the driver's line", job is None),
+            ("tokens != this process's forward",
+             job is not None and job["tokens"] != want),
+            (f"flash_fwd {job and job['flash_fwd']} != "
+             f"{SERVE['n_layers']}",
+             job is not None and job["flash_fwd"] != SERVE["n_layers"]))
+            if bad)
+        files = {}
+        for verb, args, path in (
+                ("timeline", ["-o", "timeline.json"], "timeline.json"),
+                ("trace", ["--latest", "-o", "trace.json"], "trace.json"),
+                ("profile", ["-d", "1", "-o", "profile.json"],
+                 "profile.json")):
+            rc, text = ops_cli_run([verb, *args, "--address", address],
+                                   env, cwd=tmp)
+            full = os.path.join(tmp, path)
+            size = os.path.getsize(full) if os.path.exists(full) else 0
+            files[verb] = {"rc": rc, "bytes": size}
+            if rc != 0 or size == 0:
+                problems.append(f"cli: {verb} rc {rc}, {size} bytes: "
+                                f"{text[-800:]}")
+        row["files"] = files
+    finally:
+        t0 = time.perf_counter()
+        for proc in (head, node):
+            if proc is not None and proc.poll() is None and proc is head:
+                proc.send_signal(signal.SIGTERM)
+        groups = [p.pid for p in (head, node) if p is not None]
+        deadline = time.monotonic() + 60
+        while any(ops_group_alive(g) for g in groups) \
+                and time.monotonic() < deadline:
+            time.sleep(0.2)
+        left = {g: ops_group_alive(g) for g in groups}
+        for g, pids in left.items():
+            if pids:
+                os.killpg(g, signal.SIGKILL)
+        row["sigterm_exit_s"] = time.perf_counter() - t0
+        row["left_after_sigterm"] = {str(g): p for g, p in left.items()}
+    if any(left.values()):
+        problems.append(f"cli: processes left after SIGTERM: {left}")
+    deadline = time.monotonic() + 60
+    while True:
+        release_card(torch, dev)
+        rows_e, used_e = card_state()
+        problem = ops_memory_rule(used0, used_e)
+        if problem is None or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    row["card"] = [used0, used_e]
+    if problem:
+        problems.append(f"cli: after SIGTERM {problem}")
+    return row
+
+
+def phase_ops(torch, dev):
+    """The optional planes and the ops layer (see OPS_*): parts qos (a
+    prod inference task preempting batch training on the card), profile
+    and state (on qos's cluster), fair share, snapshot and cli. Each
+    part runs through the public entry points; the assign counter is
+    zeroed just before each part on the card's scheduler and read just
+    after. Returns {"ops_prod": kernel 1, "ops_batch": {flash kernel:
+    launches}, "ops_job_forward": flash_fwd, "ops": assign}."""
+    import ray_tpu_torch as ray
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch._private.scheduler import kernels as sk
+    from ray_tpu_torch._private.scheduler.tensor import TensorScheduler
+
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    problems, total = [], [0]
+    out = {"ops_prod": 0, "ops_batch": {n: 0 for n in FLASH_NAMES},
+           "ops_job_forward": 0}
+    rec = AssignRecorder(torch, TensorScheduler, sk, GLOBAL_CONFIG)
+
+    def part(name, fn):
+        """fn() with assign's counter zeroed just before and read just
+        after, every snapshot kept and those of single-tier runs replayed
+        through assign_np: (fn's result, snapshots, counts)."""
+        w = ray._worker.get_worker()
+        rec.snapshots = []
+        st0 = w.scheduler.stats()
+        sk.assign.launches = 0
+        res = fn()
+        n = sk.assign.launches
+        st1 = w.scheduler.stats()
+        snaps, rec.snapshots = rec.snapshots, None
+        total[0] += n
+        runs = [s for s in snaps
+                if s[0][9] is None or len(set(s[0][9])) == 1]
+        assigns = st1["device_assigns"] - st0["device_assigns"]
+        counts = {"assign_launches": n, "device_assigns": assigns,
+                  "snapshots": len(snaps), "tier_runs": len(runs),
+                  "snapshots_differ": replay_oracle(
+                      sk, runs, GLOBAL_CONFIG.sched_hybrid_threshold)}
+        problems.extend(f"{name}: {what}" for what, bad in (
+            (f"assign launches {n} != device assigns {assigns}",
+             n != assigns),
+            ("no device assign", n == 0),
+            (f"{counts['snapshots_differ']} snapshots differ from "
+             "assign_np", counts["snapshots_differ"])) if bad)
+        return res, snaps, counts
+
+    seconds = {}
+    try:
+        t0 = time.perf_counter()
+        qos, prof, st = ops_qos(torch, dev, ray, part, problems, out)
+        seconds["qos_profile_state"] = time.perf_counter() - t0
+        emit({"phase": "ops", "part": "qos", "nvidia_smi": smi, **qos})
+        emit({"phase": "ops", "part": "profile", "nvidia_smi": smi, **prof})
+        emit({"phase": "ops", "part": "state", "nvidia_smi": smi,
+              "rows_api_dashboard": st})
+        t0 = time.perf_counter()
+        fair = ops_fair(torch, dev, ray, part, problems)
+        seconds["fair"] = time.perf_counter() - t0
+        emit({"phase": "ops", "part": "fair", "nvidia_smi": smi, **fair})
+        t0 = time.perf_counter()
+        snap = ops_snapshot(torch, dev, ray, problems)
+        seconds["snapshot"] = time.perf_counter() - t0
+        emit({"phase": "ops", "part": "snapshot", "nvidia_smi": smi, **snap})
+        t0 = time.perf_counter()
+        cli = ops_cli(torch, dev, problems, out)
+        seconds["cli"] = time.perf_counter() - t0
+        emit({"phase": "ops", "part": "cli", "nvidia_smi": smi, **cli})
+    finally:
+        rec.remove()
+        ray.shutdown()
+    out["ops"] = total[0]
+    emit({"phase": "ops", "nvidia_smi": smi, "seconds": seconds,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "launches": out, "ok": not problems, "problems": problems})
+    if problems:
+        raise AssertionError(f"ops phase: {problems}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6197,6 +7150,14 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(dev),
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    if "--phase" in sys.argv[1:]:
+        # named later phases alone (each needs no earlier one), no ok line:
+        # python3 chip_smoke.py --phase ops [multinode ...]
+        names = sys.argv[sys.argv.index("--phase") + 1:]
+        for name in names:
+            globals()[f"phase_{name}"](torch, dev)
+        print(smi, flush=True)
+        return 0
     if "--kernels" in sys.argv[1:]:
         # the attention kernels' checks and times alone, no ok line
         failed = []
@@ -6231,6 +7192,7 @@ def main() -> int:
     tune_launches = phase_tune(torch, dev)
     phase_workflow(torch, dev)
     multinode = phase_multinode(torch, dev)
+    ops = phase_ops(torch, dev)
 
     # kernel 1 and its yardstick by device time (graph replays): the eager
     # loop of wrapper calls times the host, not the kernels
@@ -6246,7 +7208,8 @@ def main() -> int:
             "process_engine_actor": process_launches,
             "serve_mono": served["mono"]["paged_attention_launches"],
             "serve_disagg": served["disagg"]["paged_attention_launches"],
-            "multinode_engine_actor": multinode["engine_actor"]},
+            "multinode_engine_actor": multinode["engine_actor"],
+            "ops_prod": ops["ops_prod"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["device_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -6273,7 +7236,10 @@ def main() -> int:
                 "dag": dag_launches if name == "flash_fwd" else 0,
                 "tune": tune_launches[name],
                 "client_forward": (multinode["client_forward"]
-                                   if name == "flash_fwd" else 0)},
+                                   if name == "flash_fwd" else 0),
+                "ops_batch": ops["ops_batch"][name],
+                "ops_job_forward": (ops["ops_job_forward"]
+                                    if name == "flash_fwd" else 0)},
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
     # times and bound of the block below the diagonal (every key visible,
@@ -6308,7 +7274,8 @@ def main() -> int:
                                        "rllib_process":
                                            rllib_launches["process"],
                                        "train": train_lib_launches,
-                                       "multinode": multinode["assign"]},
+                                       "multinode": multinode["assign"],
+                                       "ops": ops["ops"]},
                   "library_ms": None})
     emit({"kernels": table})
     print(smi, flush=True)

@@ -129,9 +129,114 @@ __version__ = "0.1.0"
 __all__ = [
     "init", "shutdown", "is_initialized", "remote", "get", "put", "wait",
     "cancel", "kill", "get_actor", "ObjectRef", "ActorHandle", "method",
-    "available_resources", "cluster_resources", "nodes",
+    "available_resources", "cluster_resources", "nodes", "timeline",
+    "trace", "profile", "snapshot_cluster", "restore_cluster",
     "get_runtime_context", "chaos", "__version__",
 ]
+
+
+def snapshot_cluster(path: str) -> dict:
+    """Checkpoint control-plane tables + scheduler state (incl. the
+    tensor scheduler's resident arrays) to a file. Reference role: GCS
+    persistence/restart; see _private/snapshot.py."""
+    from ray_tpu_torch._private.snapshot import save_cluster_state
+
+    return save_cluster_state(_worker.get_worker(), path)
+
+
+def restore_cluster(path: str) -> dict:
+    """Restore a snapshot into this session: KV re-populates and
+    pending tasks resubmit under their original return ids."""
+    from ray_tpu_torch._private.snapshot import load_cluster_state
+
+    return load_cluster_state(_worker.get_worker(), path)
+
+
+def timeline(filename: Optional[str] = None):
+    """Chrome-trace events for task execution (reference: ray.timeline);
+    writes JSON to filename when given, else returns the event list.
+
+    Sourced from the cluster-wide task event plane: per task, a dep-wait
+    span and a queue span on the scheduler lane plus an exec span on the
+    owning (node, worker) lane — remote-node timestamps aligned onto the
+    head's clock via the daemon handshake offset. Retries and failures
+    appear as instant events. Works over ray:// (renders head-side)."""
+    from ray_tpu_torch.util.state import task_timeline
+
+    events = task_timeline()
+    if filename is not None:
+        import json
+
+        with open(filename, "w") as f:
+            json.dump(events, f)
+        return filename
+    return events
+
+
+def trace(trace_id: Optional[str] = None, filename: Optional[str] = None):
+    """Perfetto/Chrome-trace events for one distributed trace; writes
+    JSON to filename when given, else returns the event list.
+
+    With ``trace_id=None`` the most recently active trace is exported.
+    Sourced from the trace plane: per logical span, a submit→resolve
+    span on the driver lane, per-attempt scheduler-decision spans, and
+    exec spans on the owning (node, worker) lanes — all on the head's
+    clock axis, with flow arrows connecting dispatch→exec and parent
+    exec→child exec across lanes. Retried attempts land under the same
+    logical span. Works over ray:// (renders head-side)."""
+    from ray_tpu_torch.util.state import get_trace, list_traces
+
+    if trace_id is None:
+        rows = list_traces()
+        trace_id = rows[0]["trace_id"] if rows else None
+    events = get_trace(trace_id) if trace_id is not None else []
+    if filename is not None:
+        import json
+
+        with open(filename, "w") as f:
+            json.dump(events, f)
+        return filename
+    return events
+
+
+def profile(duration_s: float = 5.0, filename: Optional[str] = None):
+    """Flamegraph of the last ``duration_s`` seconds of cluster CPU
+    time, from the continuous profiler (requires ``profile_hz > 0``).
+
+    Snapshots the profile plane's folded-stack counts, sleeps
+    ``duration_s``, snapshots again and diffs — so the report covers
+    exactly the window, not the whole session. Returns a dict with
+    ``collapsed`` (Brendan Gregg folded-stack text), ``speedscope``
+    (drop the JSON on speedscope.app), ``top_tasks`` (samples + CPU
+    share by task) and ``samples``. With ``filename`` writes the
+    speedscope JSON (or the collapsed text for ``.txt``/``.folded``
+    names) and returns the path. Works over ray:// (stack counts read
+    head-side)."""
+    import time as _time
+
+    from ray_tpu_torch._private import profile_plane as _pp
+    from ray_tpu_torch.util.state import profile_stacks
+
+    key = (lambda r: (r["node"], r["task"], r["stack"]))
+    base = {key(r): r["count"] for r in profile_stacks()}
+    _time.sleep(duration_s)
+    rows = []
+    for r in profile_stacks():
+        delta = r["count"] - base.get(key(r), 0)
+        if delta > 0:
+            rows.append(dict(r, count=delta))
+    report = _pp.flamegraph_report(rows)
+    if filename is not None:
+        if filename.endswith((".txt", ".folded")):
+            with open(filename, "w") as f:
+                f.write(report["collapsed"])
+        else:
+            import json
+
+            with open(filename, "w") as f:
+                json.dump(report["speedscope"], f)
+        return filename
+    return report
 
 
 def init(*args, **kwargs):

@@ -56,8 +56,7 @@ class ClientSession:
         self.pinned: set = set()  # ObjectIDs held on the client's behalf
 
 
-# the reference's state-observability verbs (its util/state.py, which
-# the port has not yet: ROADMAP.md Queue A, the optional planes)
+# the state-observability verbs of util/state.py a client may call
 _STATE_VERBS = frozenset({
     "list_tasks", "list_actors", "list_objects", "list_nodes",
     "list_placement_groups", "summarize_tasks", "list_data_streams",
@@ -302,16 +301,19 @@ class ClientServer:
 
     def _op_state(self, s, verb: str, *args) -> Any:
         import ray_tpu_torch
+        from ray_tpu_torch.util import state as state_api
         if verb == "cluster_resources":
             return ray_tpu_torch.cluster_resources()
         if verb == "available_resources":
             return ray_tpu_torch.available_resources()
         if verb == "nodes":
             return ray_tpu_torch.nodes()
+        # full state-observability verbs (reference: the GCS client
+        # accessors backing `ray list ...` from any process); allowlist,
+        # not bare getattr — the verb string comes off the wire (args
+        # too: parameterized verbs like get_log ship positionals)
         if verb in _STATE_VERBS:
-            raise NotImplementedError(
-                f"state verb {verb!r}: util/state.py is not ported yet "
-                "(ROADMAP.md Queue A, the optional planes)")
+            return getattr(state_api, verb)(*args)
         raise ValueError(f"unknown state verb {verb!r}")
 
     def _op_kv(self, s, op: str, namespace: str, key: bytes,

@@ -286,8 +286,29 @@ _d("resview_gossip_s", float, 1.0,
    "0 disables gossip; gossip also requires local_dispatch or "
    "actor_p2p to be on")
 _d("qos", bool, False,
-   "multi-tenant QoS plane (tenant fair share, priority tiers, "
-   "preemption). Not ported: init refuses True")
+   "multi-tenant QoS plane: submissions carry a tenant + priority tier "
+   "(@remote(priority=...) / .options(priority=..., tenant=...)); the "
+   "head's ready queues become weighted fair-share per tenant (deficit "
+   "round-robin on the tenant_quotas weights) with strict priority "
+   "tiers on top, a starved higher-tier task preempts the lowest-tier "
+   "running victim after preempt_grace_s (the kill rides the worker-"
+   "death retry path: bumped attempt, journaled lease, exactly-once — "
+   "never a double execution), and resview frames carry a per-node "
+   "top-spilled-tier watermark so a daemon never locally admits below "
+   "a tier the head is still holding for that node. Off = no tenancy "
+   "anywhere, byte-for-byte pre-QoS frames and lease envelopes")
+_d("tenant_quotas", str, "",
+   "JSON object mapping tenant name -> fair-share weight, e.g. "
+   "'{\"prod\": 3, \"batch\": 1}'; unlisted tenants (including the "
+   "implicit \"default\" tenant) get weight 1. Weights divide capacity "
+   "inside a priority tier only — tiers stay strict. Empty = every "
+   "tenant weight 1 (pure round-robin fair share)")
+_d("preempt_grace_s", float, 1.0,
+   "how long a higher-tier task may sit queued with zero running "
+   "tasks of its tier before the QoS plane kills the lowest-tier "
+   "running victim to make room; the victim retries with a bumped "
+   "attempt (granted an extra system retry if it had none left). "
+   "0 preempts on the first monitor tick; requires qos")
 
 # -- fault tolerance -------------------------------------------------------
 _d("task_max_retries", int, 3, "default retries for tasks on worker failure")
@@ -372,8 +393,24 @@ _d("trace_log_markers", bool, False,
    "get_log output correlates with spans; off by default to keep "
    "capture files byte-stable for log-plane consumers")
 _d("profile_hz", float, 0.0,
-   "continuous-profiler sampling rate of the profile/utilization "
-   "plane; 0 disables it. Not ported: init refuses a rate above 0")
+   "continuous-profiler sampling rate: every process worker (and the "
+   "head) walks sys._current_frames() profile_hz times a second and "
+   "ships folded-stack counts tagged with the running task; 0 (the "
+   "default, and the bench A/B baseline) disables the whole "
+   "profile/utilization plane — no sampler threads, no wire traffic")
+_d("utilization_interval_s", float, 1.0,
+   "per-node resource sampling cadence (/proc/stat, /proc/meminfo, shm "
+   "arena + control-ring + scheduler gauges) while the profile plane "
+   "is on (profile_hz > 0); also the fixed downsampling interval of "
+   "the head-side utilization ring")
+_d("utilization_ring", int, 512,
+   "bounded points kept per (node, series) in the head-side "
+   "utilization time-series ring; oldest points fall off")
+_d("profile_stacks_max", int, 20000,
+   "bounded distinct (node, task, stack) folded-stack counts kept "
+   "head-side by the profile plane; least recently bumped entries are "
+   "evicted (counted in ray_tpu_profile_samples_dropped_total's "
+   "sibling summary)")
 
 # -- serving at scale ------------------------------------------------------
 _d("serve_slo_ttft_p95_s", float, 0.0,

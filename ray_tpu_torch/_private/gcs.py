@@ -741,6 +741,16 @@ class GcsService:
         if interval is None:
             interval = GLOBAL_CONFIG.health_check_period_s
         self.health_check_interval = interval
+        # only this loop records heartbeats, so a node registered before
+        # it started (the head's own, when the first remote node joins
+        # long after init) carries its registration time: restart every
+        # live node's staleness clock here, or the first probe declares
+        # it dead. The reference misses this: its head marks node 0 DEAD
+        # when a node joins more than node_heartbeat_timeout_s after init
+        now = time.monotonic()
+        with self._lock:
+            for e in self._nodes.values():
+                e.last_heartbeat = now
         self._health_thread = threading.Thread(
             target=self._health_loop, args=(interval,), daemon=True,
             name="ray_tpu_gcs_health")

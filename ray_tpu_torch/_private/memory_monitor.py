@@ -30,25 +30,12 @@ logger = logging.getLogger(__name__)
 
 
 def host_memory() -> Tuple[int, int]:
-    """(used_bytes, total_bytes) for the host, from /proc/meminfo —
-    used = MemTotal - MemAvailable (the kernel's own reclaimable-aware
-    estimate). Returns (0, 1) when /proc is unavailable. The reference
-    shares this parser with its profile plane, which is not ported."""
-    total = available = None
-    try:
-        with open("/proc/meminfo") as f:
-            for line in f:
-                if line.startswith("MemTotal:"):
-                    total = int(line.split()[1]) * 1024
-                elif line.startswith("MemAvailable:"):
-                    available = int(line.split()[1]) * 1024
-                if total is not None and available is not None:
-                    break
-    except OSError:
-        return (0, 1)
-    if total is None or available is None:
-        return (0, 1)
-    return (total - available, total)
+    """(used_bytes, total_bytes) from /proc/meminfo — the profile
+    plane's shared parser (one /proc reader for the monitor, the
+    utilization sampler, and anything else that needs host memory)."""
+    from ray_tpu_torch._private.profile_plane import read_meminfo
+
+    return read_meminfo()
 
 
 class MemoryMonitor:

@@ -20,7 +20,12 @@
    cross-node argument bytes with the scheduler's locality column on or
    off. Counterpart of the reference's function of that name.
 
-5. ``model_mfu`` — train-step performance of the flagship transformer on
+5. ``qos_ab`` — one arm of the QoS-plane A/B on a head and one remote
+   node: a two-tenant, two-tier burst with the plane on or off, per-tier
+   latency percentiles and the head-skip rate of a racing nested
+   submitter. Counterpart of the reference's function of that name.
+
+6. ``model_mfu`` — train-step performance of the flagship transformer on
    one device. The same defaults as the reference's (the repo's training
    configuration: vocab 32768, d_model 2048, 8 layers, 16 query / 8 KV
    heads, d_ff 5632, seq 2048, batch 16, remat "dots"), the same halving
@@ -194,6 +199,127 @@ def data_pipeline_throughput(num_blocks: int = 100_000,
         "device_assigns": sched_stats.get("device_assigns", 0) - assigns0,
         "device_assign_errors": sched_stats.get("device_assign_errors", 0),
     }
+
+
+def qos_ab(qos: bool, n_per_tenant: int = 30,
+           n_submit: int = 16,
+           system_config: Optional[dict] = None) -> Dict[str, Any]:
+    """One arm of the QoS-plane A/B: a head + 1-remote-node cluster
+    under a mixed two-tenant load (tenant "prod" at priority tier 1,
+    weight 3; tenant "batch" at tier 0, weight 1), every task stamping
+    its completion wall-clock so the driver gets honest per-task
+    latency (submit -> finish) without serializing the gets.
+
+    With ``qos=True`` the head drains by strict tier + weighted
+    fair-share and resview frames carry the watermark (a queued tier-1
+    backlog makes node daemons spill tier-0 nested submissions). With
+    ``qos=False`` — the escape hatch, byte-for-byte the pre-QoS wire —
+    the same submission mix runs FIFO. Preemption grace is set long so
+    neither arm's latencies include kill/respawn time (the preemption
+    path has its own tests).
+
+    The head-skip lane runs DURING the load: a node-resident task
+    submits ``n_submit`` nested no-ops, so the on-arm number shows
+    what the watermark costs local admission under tier pressure.
+
+    ``system_config`` adds the head's other knobs (the scheduler's
+    backend and device). Returns {mode, n_tasks, seconds, tasks_per_sec,
+    per-tier p50/p99 ms, head_skip, local_dispatch, spillback,
+    spillback_tier, preemptions, total}. ``total`` must match between
+    arms."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    overrides: Dict[str, Any] = {**(system_config or {}), "qos": bool(qos)}
+    if qos:
+        overrides["tenant_quotas"] = '{"prod": 3, "batch": 1}'
+        overrides["preempt_grace_s"] = 300.0
+    ray_tpu_torch.shutdown()
+    c = Cluster(initialize_head=True,
+                head_node_args=dict(
+                    num_cpus=2, num_workers=2, scheduler="tensor",
+                    _system_config=overrides))
+    try:
+        c.add_node(num_cpus=2, remote=True, resources={"a": 100.0})
+        c.wait_for_nodes()
+        w = worker_mod.get_worker()
+
+        @ray_tpu_torch.remote(priority=1, tenant="prod")
+        def prod_task(x):
+            import time
+            time.sleep(0.01)
+            return (x, time.time())
+
+        @ray_tpu_torch.remote(tenant="batch")
+        def batch_task(x):
+            import time
+            time.sleep(0.01)
+            return (x, time.time())
+
+        @ray_tpu_torch.remote(max_retries=0)
+        def _nested_noop():
+            return 1
+
+        @ray_tpu_torch.remote(resources={"a": 1.0})
+        def submitter(n):
+            import ray_tpu_torch
+            return sum(ray_tpu_torch.get(
+                [_nested_noop.remote() for _ in range(n)],
+                timeout=120.0))
+
+        # one saturating burst, tiers interleaved adversarially
+        # (every batch submitted before its prod peer), with the
+        # head-skip submitter racing the same window
+        refs, submits, tiers = [], [], []
+        t0 = time.perf_counter()
+        sub_ref = submitter.remote(n_submit)
+        for i in range(n_per_tenant):
+            submits.append(time.time())
+            refs.append(batch_task.remote(i))
+            tiers.append(0)
+            submits.append(time.time())
+            refs.append(prod_task.remote(i))
+            tiers.append(1)
+        out = ray_tpu_torch.get(refs, timeout=300.0)
+        wall = time.perf_counter() - t0
+        n_done = ray_tpu_torch.get(sub_ref, timeout=120.0)
+
+        lat_ms: Dict[int, list] = {0: [], 1: []}
+        total = 0
+        for (x, end), t_sub, tier in zip(out, submits, tiers):
+            total += x
+            lat_ms[tier].append((end - t_sub) * 1000.0)
+
+        def _pct(vals, q):
+            vals = sorted(vals)
+            return round(vals[min(len(vals) - 1,
+                                  int(q * (len(vals) - 1)))], 2)
+
+        stats = dict(w.two_level_stats)
+        ld = int(stats.get("local_dispatch", 0))
+        sb = int(stats.get("spillback", 0))
+        plane = w.qos_plane
+        return {
+            "mode": "on" if qos else "off",
+            "n_tasks": 2 * n_per_tenant,
+            "seconds": round(wall, 3),
+            "tasks_per_sec": round(2 * n_per_tenant / wall, 1),
+            "tier0_p50_ms": _pct(lat_ms[0], 0.50),
+            "tier0_p99_ms": _pct(lat_ms[0], 0.99),
+            "tier1_p50_ms": _pct(lat_ms[1], 0.50),
+            "tier1_p99_ms": _pct(lat_ms[1], 0.99),
+            "n_submit": int(n_done),
+            "local_dispatch": ld,
+            "spillback": sb,
+            "spillback_tier": int(stats.get("spillback:tier", 0)),
+            "head_skip": (round(ld / (ld + sb), 3) if ld + sb else None),
+            "preemptions": (plane.stats()["preemptions_total"]
+                            if plane is not None else 0),
+            "total": int(total),
+        }
+    finally:
+        c.shutdown()
 
 
 def rl_rollout_throughput(iters: int = 4, device=None) -> Dict[str, Any]:

@@ -215,13 +215,14 @@ class _Outbox:
 
 # daemon->head tags that ride the outbox (report-class: the head must
 # not lose them across a blackout); everything else is sent bare.
-# The two-level
+# "util" = resource samples for the utilization ring; "w"-wrapped
+# worker "prof" batches are covered by "w" itself. The two-level
 # dispatch reports (local leases, p2p completion receipts, fallbacks,
 # mirrored chaos injections) are report-class BY CONSTRUCTION: the
 # exactly-once story for decentralized dispatch is the outbox replay +
 # head-side sequence dedup, nothing new
 _OUTBOX_TAGS = frozenset((
-    "w", "worker_died", "pulled", "log",
+    "w", "worker_died", "pulled", "log", "util",
     "local_lease", "local_retry", "p2p_done", "p2p_fallback", "fault"))
 
 
@@ -727,9 +728,14 @@ class NodeDaemon:
         # worker_gpu_access (_workers_see_card); the daemon itself never
         # touches it
         from ray_tpu_torch._private import log_plane, spawn_env
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
         from ray_tpu_torch._private.runtime.worker_process import (
-            AUTHKEY_ENV)
+            AUTHKEY_ENV, PROFILE_HZ_ENV)
         extra = {AUTHKEY_ENV: self._authkey.hex()}
+        if GLOBAL_CONFIG.profile_hz > 0:
+            # propagate the head's profile knob (this daemon got it the
+            # same way, via its own spawn env) so remote workers sample
+            extra[PROFILE_HZ_ENV] = str(GLOBAL_CONFIG.profile_hz)
         stem = (f"worker-{wid_hex}" if wid_hex
                 else f"worker-{num}-{os.getpid()}")
         log_env = log_plane.child_log_env(
@@ -1041,6 +1047,32 @@ class NodeDaemon:
                     "utf-8", "replace").split("\n")
                 if lines:
                     self._send_head(("log", n, lines))
+
+    # utilization sampling (profile plane, profile_hz > 0 only)
+    # ------------------------------------------------------------------
+    def _ship_util(self, payload: dict) -> None:
+        """One resource sample for the head's utilization ring. "util"
+        is report-class (rides the outbox), so samples taken during a
+        head blackout land, deduped and in order, after rejoin."""
+        self._send_head(("util", payload))
+
+    def _start_util_sampler(self) -> None:
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+        if GLOBAL_CONFIG.profile_hz <= 0 \
+                or GLOBAL_CONFIG.utilization_interval_s <= 0:
+            return
+        from ray_tpu_torch._private import profile_plane
+
+        store = self.store
+
+        def _arena_used() -> int:
+            return max(store.arena.size - store.arena.free_bytes(), 0)
+
+        self._util_sampler = profile_plane.ResourceSampler(
+            GLOBAL_CONFIG.utilization_interval_s, self._ship_util,
+            gauges={"arena_used_bytes": _arena_used},
+            name="ray_tpu_node_util").start()
 
     # ------------------------------------------------------------------
     # peer transfer plane (direct node-to-node pulls)
@@ -2066,6 +2098,7 @@ class NodeDaemon:
                          name="ray_tpu_node_p2p_sweep").start()
         threading.Thread(target=self._gossip_loop, daemon=True,
                          name="ray_tpu_node_resview_gossip").start()
+        self._start_util_sampler()
         while not self._shutdown:
             try:
                 msg = self._head.recv()
@@ -2274,6 +2307,9 @@ class NodeDaemon:
 
     def shutdown(self) -> None:
         self._shutdown = True
+        sampler = getattr(self, "_util_sampler", None)
+        if sampler is not None:
+            sampler.stop()
         with self._lock:
             slots = list(self._slots.values())
         for s in slots:

@@ -16,9 +16,8 @@ fallback).
 
 Remote nodes reuse it: ``RemoteNodePool`` (runtime/remote_pool.py)
 subclasses the pool, with ``RemotePlaceholder`` results, adopted leases
-and the failover hooks here. The port leaves out the optional planes'
-parts: QoS preemption and the profile sampler's frames (ROADMAP.md
-Queue A).
+and the failover hooks here, QoS preemption (``cancel_for_preemption``)
+and the profile sampler's ``("prof", ...)`` frames included.
 """
 
 from __future__ import annotations
@@ -46,9 +45,8 @@ from ray_tpu_torch._private.ids import ObjectID, TaskID, WorkerID
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.runtime.shm_store import (
     RING_TAG_BYTE as _RING_TAG_BYTE, RING_TAGS as _RING_TAGS, ControlRing)
-from ray_tpu_torch._private.runtime.worker_process import (AUTHKEY_ENV,
-                                                          _ShmValue,
-                                                          fn_id_of)
+from ray_tpu_torch._private.runtime.worker_process import (
+    AUTHKEY_ENV, PROFILE_HZ_ENV, _ShmValue, fn_id_of)
 from ray_tpu_torch._private.scheduler.base import PendingTask
 from ray_tpu_torch._private.serialization import (
     NONE_FRAMED, SerializedObject, decode_completion_envelope,
@@ -138,7 +136,7 @@ class _Handle:
     __slots__ = ("worker_num", "proc", "conn", "ctrl", "worker_id", "pid",
                  "inflight", "borrows",
                  "sent_fns", "sent_hdrs", "dead", "force_cancel_id",
-                 "timeout_cancel_id",
+                 "timeout_cancel_id", "preempt_cancel_id",
                  "chaos_kill", "send_lock",
                  "ready", "actor_rt", "oom_kill", "log_paths",
                  "ring_in", "ring_out", "ring_region")
@@ -171,6 +169,10 @@ class _Handle:
         # deadline enforcement killed this worker for this task: the
         # target fails with TaskTimeoutError (retriable), not cancelled
         self.timeout_cancel_id: Optional[TaskID] = None
+        # QoS preemption killed this worker for this task: the target
+        # fails as a synthetic worker death (retriable WorkerCrashedError
+        # carrying the preemption message), never cancelled
+        self.preempt_cancel_id: Optional[TaskID] = None
         self.chaos_kill = False       # chaos plane SIGKILLed this worker
         self.send_lock = threading.Lock()
         self.ready = False
@@ -288,6 +290,11 @@ class ProcessWorkerPool:
         # (hundreds of MB of the card), and the driver holds one for the
         # scheduler already
         extra = {AUTHKEY_ENV: self._authkey.hex()}
+        if GLOBAL_CONFIG.profile_hz > 0:
+            # the owner may have been configured via _system_config (no
+            # env var) — re-export so the fresh interpreter's GLOBAL_CONFIG
+            # starts its profile sampler
+            extra[PROFILE_HZ_ENV] = str(GLOBAL_CONFIG.profile_hz)
         log_dir = log_plane.get_session_log_dir()
         if log_dir:
             stem = f"worker-{h.worker_id.hex()[:12]}"
@@ -1075,6 +1082,13 @@ class ProcessWorkerPool:
                                  msg[4] if len(msg) > 4 else None)
             elif kind == "rpc":
                 self._on_rpc(h, msg[1], msg[2], msg[3])
+            elif kind == "prof":
+                # folded-stack batch from the worker's profile sampler;
+                # shared branch covers local pipes AND daemon-forwarded
+                # ("w", ...) reports from remote workers
+                pp = getattr(self._worker, "profile_plane", None)
+                if pp is not None:
+                    pp.record_batch(self.node_index, msg[1])
         except Exception:
             logger.exception("pool reader failed handling %s", kind)
 
@@ -1395,6 +1409,13 @@ class ProcessWorkerPool:
                         f"task {spec.name} exceeded its {spec.timeout_s}s "
                         f"deadline (worker {h.pid} killed)",
                         task_id=exec_id, timeout_s=spec.timeout_s)
+                elif h.preempt_cancel_id == exec_id:
+                    # synthetic worker death: retriable, so the victim
+                    # re-queues with a bumped attempt under its original
+                    # return ids — the QoS preemption contract
+                    exc = rex.WorkerCrashedError(
+                        f"task {spec.name} preempted by higher-tier work "
+                        f"(worker {h.pid} killed); attempt will retry")
                 elif h.oom_kill:
                     exc = rex.OutOfMemoryError(
                         f"worker killed by the memory monitor while "
@@ -1668,6 +1689,38 @@ class ProcessWorkerPool:
         if h is None:
             return False
         h.timeout_cancel_id = task_id
+        self._kill_handle(h)
+        return True
+
+    def cancel_for_preemption(self, task_id: TaskID) -> bool:
+        """QoS preemption (config.qos): fail the attempt as a synthetic
+        worker death — cancel_for_timeout's shape with a retriable
+        WorkerCrashedError classification, so the victim re-queues with
+        a bumped attempt under its original return ids and the
+        journaled-lease dedup guarantees exactly-once effects."""
+        with self._lock:
+            for item in self._queue:
+                if item[0].spec.task_id == task_id:
+                    self._queue.remove(item)
+                    queued = item[0]
+                    break
+            else:
+                queued = None
+        if queued is not None:
+            spec = queued.spec
+            return_ids = (getattr(spec, "_retry_return_ids", None)
+                          or spec.return_ids())
+            err = rex.WorkerCrashedError(
+                f"task {spec.name} preempted by higher-tier work while "
+                f"queued on node {self.node_index}; attempt will retry")
+            retry = self._worker._handle_task_failure(spec, return_ids, err)
+            self._finish_task(queued, task_id, retry)
+            return True
+        with self._lock:
+            h = self._by_task.get(task_id)
+        if h is None:
+            return False
+        h.preempt_cancel_id = task_id
         self._kill_handle(h)
         return True
 

@@ -259,6 +259,14 @@ class RemoteNodePool(ProcessWorkerPool):
             # timestamps onto the head's axis. Error ~ one-way link
             # latency, far below task-span granularity.
             self.clock_offset = time.time() - msg[1]
+        elif kind == "util":
+            # outbox-riding resource sample from the daemon's sampler;
+            # the payload's "ts" is daemon wall clock — align it onto
+            # the head axis with the same offset the event planes use
+            pp = getattr(self._worker, "profile_plane", None)
+            if pp is not None:
+                pp.record_util(self.node_index, msg[1],
+                               offset=self.clock_offset)
         elif kind == "local_lease":
             # the node's LocalScheduler admitted a worker-submitted
             # task without a head round-trip: journal + adopt it so

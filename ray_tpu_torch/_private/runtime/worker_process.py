@@ -15,8 +15,9 @@ Reference surfaces: ray src/ray/core_worker/core_worker.cc (task receiver
 A worker spawned by a remote node's daemon talks to that daemon over
 the same pipe (pipe only: no shared-memory rings), resolves
 ``_PullValue`` args and spilled objects through it, and honours the
-daemon's two-level and p2p advertisements. The port leaves out the
-profile sampler with the profile plane (ROADMAP.md Queue A).
+daemon's two-level and p2p advertisements. Under ``profile_hz > 0`` a
+sampler thread ships the worker's folded stacks as ``("prof", ...)``
+frames on the same pipe.
 
 Protocol invariant that makes the single pipe safe: the owner sends at
 most one task to a worker at a time, and while that task runs the only
@@ -48,6 +49,9 @@ from ray_tpu_torch._private.task_spec import decode_task_envelope
 
 INLINE_MAX_DEFAULT = 100 * 1024
 AUTHKEY_ENV = "RAY_TPU_TORCH_AUTHKEY"
+# the profile_hz knob through the config registry's environment override,
+# for an owner configured by _system_config
+PROFILE_HZ_ENV = "RAY_TPU_TORCH_PROFILE_HZ"
 
 
 class _ShmValue:
@@ -303,7 +307,8 @@ class _WorkerRunner:
         self.fn_cache: Dict[bytes, Any] = {}
         self.actor_instance: Any = None  # set by actor_create (dedicated)
         self.current_task_id: Optional[TaskID] = None
-        # the running task's user-facing name
+        # the running task's user-facing name: the profile sampler tags
+        # folded stacks "name:taskid" so flamegraphs read in task terms
         self.current_task_name: Optional[str] = None
         # the running task's TraceContext (from the payload's "trace"
         # key), re-shipped with nested submissions / actor calls so
@@ -334,8 +339,10 @@ class _WorkerRunner:
         """Completion message: buffered during a leased batch (one pipe
         write per batch, one owner wakeup), immediate otherwise.
 
-        Pipe writes here and below take _rpc_lock, so frames from the
-        executing thread and an rpc never interleave."""
+        Pipe writes here and below take _rpc_lock: the profile sampler
+        thread shares this pipe for its ("prof", ...) batches, and
+        interleaved frames would corrupt the stream. Uncontended (the
+        sampler does not exist) when profile_hz=0."""
         if self._done_buf is not None:
             self._done_buf.append(msg)
         else:
@@ -867,9 +874,41 @@ def worker_main(conn, ctrl_conn, arena_name: str, inline_max: int,
     from ray_tpu_torch._private import worker as worker_mod
 
     worker_mod.global_worker = ProcessWorkerContext(runner)  # type: ignore
+    sampler = None
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    if GLOBAL_CONFIG.profile_hz > 0:
+        # continuous profiler: folded main-thread stacks tagged with
+        # the running task, batched over the owner pipe (daemon-spawned
+        # workers: the daemon forwards them as outbox-covered ("w", ...)
+        # reports, so samples survive a head blackout + rejoin)
+        from ray_tpu_torch._private import profile_plane
+
+        def _label() -> Optional[str]:
+            tid = runner.current_task_id
+            if tid is None:
+                return None
+            return f"{runner.current_task_name or 'task'}:{tid.hex()[:8]}"
+
+        def _ship(payload: dict) -> bool:
+            # non-blocking: never stall sampling behind a task blocked
+            # inside a get/wait rpc (which holds _rpc_lock throughout)
+            if not runner._rpc_lock.acquire(blocking=False):
+                return False
+            try:
+                runner.conn.send(("prof", payload))
+            finally:
+                runner._rpc_lock.release()
+            return True
+
+        sampler = profile_plane.StackSampler(
+            GLOBAL_CONFIG.profile_hz, _ship, label_fn=_label,
+            name="ray_tpu_profile_worker").start()
     try:
         runner.run()
     finally:
+        if sampler is not None:
+            sampler.stop()
         if runner.arena is not None:
             runner.arena.close()
 

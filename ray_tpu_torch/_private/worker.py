@@ -13,8 +13,9 @@ in a shared-memory arena (``runtime/``). Remote nodes
 (``add_remote_cluster_node``) are node-daemon processes with arenas of
 their own, reached over TCP through the head endpoint, which also serves
 ``ray://`` clients (``enable_head_endpoint``). The scheduler is
-pluggable (event-driven oracle or device-tensor scheduler). The profile
-and QoS planes raise NotImplementedError naming their ROADMAP.md item.
+pluggable (event-driven oracle or device-tensor scheduler). The optional
+planes, QoS (``qos``) and the profile plane (``profile_hz``), are off by
+default and start here when their knob is on.
 """
 
 from __future__ import annotations
@@ -48,12 +49,6 @@ logger = logging.getLogger(__name__)
 
 global_worker: Optional["Worker"] = None
 
-# what the port does not have yet, and the ROADMAP.md item that brings it
-_UNPORTED = {
-    "planes": "the profile plane and the QoS plane are not ported yet "
-              "(ROADMAP.md Queue A: the runtime's next items, the "
-              "optional planes)",
-}
 _init_lock = threading.Lock()
 _gc_tuned = False
 _gc_saved_threshold = (700, 10, 10)
@@ -594,6 +589,16 @@ class Worker:
         # locality column input: the scheduler reads copy locations
         # straight off the GCS object directory (primary first)
         self.scheduler.locations_of = self.gcs.object_locations
+        # profile/utilization plane: continuous sampling profiler +
+        # per-node resource time series (None when profile_hz=0, the
+        # default — no sampler threads anywhere, every producer hook is
+        # a None check, metric families render schema-stable zeros)
+        self.profile_plane = None
+        if GLOBAL_CONFIG.profile_hz > 0:
+            from ray_tpu_torch._private.profile_plane import ProfilePlane
+            self.profile_plane = ProfilePlane()
+            self.profile_plane.start_head_samplers(
+                gauges=self._head_util_gauges())
         # trace plane: causal spans keyed by trace_id (None when
         # trace_sample_rate=0 or traces_max=0 — specs are never stamped
         # and every producer hook is a None check)
@@ -675,9 +680,22 @@ class Worker:
         self._deadline_seq = _Counter()
         self._deadline_thread: Optional[threading.Thread] = None
 
-        # the QoS plane is not ported (init refuses config.qos):
-        # self.qos_plane stays None, and every QoS hook is a
-        # `plane is not None` check
+        # QoS plane (config.qos, declared early in __init__): tenant
+        # fair-share ordering at the head, starvation-triggered
+        # preemption, and the top-spilled-tier watermark on resview
+        # frames. Stays None when the knob is off — every QoS hook is a
+        # `plane is not None` check, so the off state stays
+        # byte-for-byte pre-QoS.
+        self._qos_thread: Optional[threading.Thread] = None
+        if GLOBAL_CONFIG.qos:
+            from ray_tpu_torch._private.qos import QosPlane
+            self.qos_plane = QosPlane(
+                tenant_quotas=GLOBAL_CONFIG.tenant_quotas,
+                preempt_grace_s=GLOBAL_CONFIG.preempt_grace_s)
+            self.scheduler.qos_plane = self.qos_plane
+            self._qos_thread = threading.Thread(
+                target=self._qos_loop, daemon=True, name="ray_tpu_qos")
+            self._qos_thread.start()
 
         # deferred unref queue: ObjectRef.__del__ may fire during GC while
         # runtime locks are held, so deletions drain on a dedicated thread
@@ -1260,6 +1278,15 @@ class Worker:
                              and getattr(e.pool, "is_remote", False)]
                     addrs = {p.node_index: getattr(p, "peer_address", None)
                              for p in pools}
+                    # per-node top-spilled-tier watermark (config.qos):
+                    # the highest priority tier still queued at the
+                    # head — daemons must not locally admit below it
+                    # (a low-tier nested task would jump a spilled
+                    # high-tier one). The key is absent entirely when
+                    # the plane is off: qos=False frames stay
+                    # byte-for-byte pre-QoS.
+                    wm = (self.qos_plane.top_queued_tier()
+                          if self.qos_plane is not None else None)
                     for p in pools:
                         try:
                             view = {
@@ -1277,12 +1304,53 @@ class Worker:
                                 "resident": self._residency_digest(
                                     p.node_index),
                             }
+                            if self.qos_plane is not None:
+                                view["wm"] = wm
                             p.send_resview(view)
                         except Exception:
                             pass  # a dying link re-syncs after rejoin
             except Exception:
                 logger.exception("resview push tick failed")
             time.sleep(0.5)
+
+    def _head_util_gauges(self) -> dict:
+        """Internal gauges the head's resource sampler folds into node
+        0's utilization series: shm arena occupancy, scheduler queue
+        depths, inflight leases, control-ring traffic. Closures are
+        evaluated once per utilization_interval_s tick, so the cheap
+        locked reads below never touch a hot path."""
+        def _arena_used() -> int:
+            arena = getattr(getattr(self, "shm_store", None), "arena",
+                            None)
+            if arena is None:
+                return 0
+            return max(arena.size - arena.free_bytes(), 0)
+
+        def _sched(key: str):
+            def g():
+                return self.scheduler.stats().get(key, 0)
+            return g
+
+        def _ring(key: str):
+            def g():
+                total = 0
+                for e in self.gcs.node_table():
+                    rs = getattr(e.pool, "ring_stats", None)
+                    if rs:
+                        total += rs.get(key, 0)
+                return total
+            return g
+
+        return {
+            "arena_used_bytes": _arena_used,
+            "sched_ready_queue": _sched("ready_queue"),
+            "sched_waiting_deps": _sched("waiting_deps"),
+            "inflight_tasks": _sched("running"),
+            "ring_msgs_total": _ring("msgs"),
+            "ring_fallback_total": _ring("fallback"),
+            "head_failovers": lambda: getattr(self.gcs,
+                                              "head_failovers", 0),
+        }
 
     def _residency_digest(self, node_index: int) -> Optional[list]:
         """8-byte oid prefixes of every object copy on the node, for
@@ -1991,6 +2059,15 @@ class Worker:
         from ray_tpu_torch._private import log_plane, spawn_env
         from ray_tpu_torch._private.runtime.node_daemon import HEAD_AUTHKEY_ENV
         extra = {HEAD_AUTHKEY_ENV: self._head_server.authkey.hex()}
+        if GLOBAL_CONFIG.profile_hz > 0:
+            # hand the daemon the head's live profile knobs (they may
+            # have arrived via _system_config, not env) so it starts
+            # its utilization sampler and re-exports to its workers
+            from ray_tpu_torch._private.runtime.worker_process import (
+                PROFILE_HZ_ENV)
+            extra[PROFILE_HZ_ENV] = str(GLOBAL_CONFIG.profile_hz)
+            extra["RAY_TPU_TORCH_UTILIZATION_INTERVAL_S"] = str(
+                GLOBAL_CONFIG.utilization_interval_s)
         if self.session_log_dir is not None:
             # the daemon's own node log dir nests under the head's
             # session dir (same-host clusters; a true remote host just
@@ -2903,6 +2980,75 @@ class Worker:
         raise rex.WorkerCrashedError("injected failure (chaos)")
 
     # ------------------------------------------------------------------
+    # Supervision: QoS preemption (config.qos)
+    # ------------------------------------------------------------------
+    def _qos_loop(self) -> None:
+        """Preemption monitor: once the plane reports a starved higher
+        tier (past preempt_grace_s), kill the lowest-tier running
+        victim through the same paths the deadline watcher uses — the
+        failure is a synthetic worker death, so the victim retries with
+        a bumped attempt under its original return ids (journaled
+        lease, exactly-once), never a double execution."""
+        while self.alive:
+            time.sleep(0.05)
+            plane = self.qos_plane
+            if plane is None or not self.alive:
+                continue
+            victim = plane.check_preempt(time.monotonic())
+            if victim is None:
+                continue
+            tid, tenant, tier, starved_tier = victim
+            try:
+                if self._preempt_task(tid, tier, starved_tier):
+                    plane.note_preempted(tenant, tier)
+                    self.note_two_level("preempts")
+            except Exception:
+                logger.exception("preemption failed for task %s",
+                                 tid.hex()[:16])
+
+    def _preempt_task(self, tid: TaskID, tier: int,
+                      starved_tier: int) -> bool:
+        """Kill one running attempt to make room for a starved higher
+        tier. Returns True when a kill was delivered (the retry is
+        owned by whichever failure path runs it)."""
+        spec = self.task_manager.get_pending_spec(tid)
+        if spec is None or spec.task_id != tid:
+            return False  # attempt resolved (or retried) under the wire
+        # the preemption contract: a victim is re-queued, never
+        # terminally failed — grant the synthetic death an attempt if
+        # the victim had none left
+        if spec.attempt_number >= spec.max_retries:
+            spec.max_retries = spec.attempt_number + 1
+        err = rex.WorkerCrashedError(
+            f"task {spec.name} preempted by tier-{starved_tier} work "
+            f"(was running at tier {tier}); attempt will retry")
+        return_ids = (getattr(spec, "_retry_return_ids", None)
+                      or spec.return_ids())
+        # (a) leased to a process/remote pool: force-kill the attempt
+        #     there — the pool failure path classifies it retriable
+        pools = list(self._node_pools.values())
+        if self.process_pool is not None and self.process_pool not in pools:
+            pools.append(self.process_pool)
+        for pool in pools:
+            c = getattr(pool, "cancel_for_preemption", None)
+            if c is not None and c(tid):
+                return True
+        # (b) thread mode: flag the attempt as supervisor-failed (the
+        #     cooperative zombie's results are suppressed, exactly like
+        #     a deadline kill) and synthesize the worker death
+        synthesize = False
+        with self._running_lock:
+            if self._running_tasks.get(tid) is False:
+                self._running_tasks[tid] = "timeout"
+                synthesize = True
+        if synthesize:
+            retry = self._handle_task_failure(spec, return_ids, err)
+            if retry is not None:
+                self._submit_retry(retry)
+            return True
+        return False
+
+    # ------------------------------------------------------------------
     # Supervision: retry backoff + per-task deadlines
     # ------------------------------------------------------------------
     def _claim_task_completion(self, exec_task_id: TaskID):
@@ -3153,6 +3299,8 @@ class Worker:
         self.memory_monitor.shutdown()
         if self.metrics_server is not None:
             self.metrics_server.shutdown()
+        if self.profile_plane is not None:
+            self.profile_plane.shutdown()
         for pool in list(self._node_pools.values()):
             pool.shutdown()
         self._pool.shutdown(wait=False, cancel_futures=True)
@@ -3358,13 +3506,16 @@ def _configure(scheduler: Optional[str],
 
 
 def _check_ported() -> None:
-    """Refuse, before anything starts, the knobs whose code the port
-    does not have: running them degraded would hide that."""
+    """Refuse, before anything starts, a config the port cannot run
+    (an unknown worker mode, unparsable tenant quotas)."""
     if GLOBAL_CONFIG.worker_mode not in ("thread", "process"):
         raise ValueError(f"unknown worker_mode {GLOBAL_CONFIG.worker_mode!r}:"
                          " thread | process")
-    if GLOBAL_CONFIG.profile_hz > 0 or GLOBAL_CONFIG.qos:
-        raise NotImplementedError(_UNPORTED["planes"])
+    if GLOBAL_CONFIG.qos:
+        # bad quotas raise here, before any thread starts, rather than
+        # running unfair
+        from ray_tpu_torch._private.qos import parse_tenant_quotas
+        parse_tenant_quotas(GLOBAL_CONFIG.tenant_quotas)
 
 
 def shutdown() -> None:

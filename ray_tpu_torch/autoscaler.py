@@ -177,10 +177,8 @@ class GangAutoscaler(Autoscaler):
     reads the utilization ring (profile plane) so a compute-saturated
     cluster scales before the backlog does, and live-trace roots can
     optionally boost a gang's tier (critical-path boost).
-
-    The port has no profile plane yet (ROADMAP.md Queue A, the optional
-    planes): ``worker.profile_plane`` is absent, so pressure is the
-    backlog alone and ``util_pressure_pct`` has no effect.
+    ``util_pressure_pct`` acts only while the profile plane is on
+    (``profile_hz > 0``); without it pressure is the backlog alone.
     """
 
     def __init__(self, worker, provider,

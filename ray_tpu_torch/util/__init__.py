@@ -1,9 +1,8 @@
 """ray_tpu_torch.util — utility APIs (reference: python/ray/util/).
 
 Ported: placement groups, scheduling strategies, user metrics
-(``util.metrics``), ``ActorPool`` and the queue (``util.queue``, import it
-by name). The state API (``util.state``) of
-the reference is not ported yet (ROADMAP.md, the runtime's next items)."""
+(``util.metrics``), ``ActorPool``, the queue (``util.queue``) and the
+state API (``util.state``); import the last two by name."""
 
 from ray_tpu_torch.util.placement_group import (placement_group,  # noqa: F401
                                                 placement_group_table,

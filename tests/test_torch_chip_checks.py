@@ -855,3 +855,129 @@ def test_moe_dropped_shares_respect_capacity(cf):
         assert all(0.5 <= share < 1.0 for share in got)
     else:
         assert got == [0.0] * cfg.n_layers
+
+
+# -- phase ops's helpers ------------------------------------------------------
+
+def test_ops_fair_keys_are_seeded_and_split_by_tier():
+    keys = chip_smoke.ops_fair_keys()
+    assert keys == chip_smoke.ops_fair_keys()
+    assert len(keys) == 2 * chip_smoke.OPS_FAIR_TASKS
+    for tenant in ("prod", "batch"):
+        tiers = [t for _, t, n in keys if n == tenant]
+        assert tiers.count(1) == tiers.count(0) == \
+            chip_smoke.OPS_FAIR_TASKS // 2
+
+
+def test_ops_fair_order_is_the_references_plane_order():
+    """The simulated order under the port's plane equals the one under
+    the reference's, and it passes the part's own rules."""
+    from ray_tpu._private.qos import QosPlane as RefPlane
+    from ray_tpu_torch._private.qos import QosPlane
+
+    keys = chip_smoke.ops_fair_keys()
+    want = chip_smoke.ops_fair_order(QosPlane, keys)
+    assert want == chip_smoke.ops_fair_order(RefPlane, keys)
+    assert chip_smoke.ops_fair_check(want, want, keys) == []
+    # a FIFO completion order breaks every rule
+    fifo = [k for k, _, _ in keys]
+    problems = chip_smoke.ops_fair_check(fifo, want, keys)
+    assert any("differs" in p for p in problems)
+    assert any("after a tier-0 key" in p for p in problems)
+
+
+def test_ops_window_top_reads_the_whole_window():
+    from ray_tpu_torch._private import profile_plane
+
+    rows = [{"node": n % 3, "task": f"t{n}", "stack": f"a;b{n}",
+             "count": n + 1} for n in range(30)]
+    report = profile_plane.flamegraph_report(rows)
+    top = chip_smoke.ops_window_top(report)
+    assert len(top) == 30 > len(report["top_tasks"])
+    assert top[:15] == report["top_tasks"]
+
+
+def test_ops_memory_rule():
+    assert chip_smoke.ops_memory_rule(1000, 1064) is None
+    assert chip_smoke.ops_memory_rule(1000, 1065) is not None
+
+
+def test_ops_state_check_names_what_disagrees():
+    ran = {"task_names": ["f"], "actor": "a", "object": "00ff", "nodes": 1,
+           "tenants": ["p"]}
+    good = {"list_tasks": ([], []),
+            "list_tasks_detail": ([{"task_id": "1", "name": "f",
+                                    "state": "FINISHED"}],) * 2,
+            "list_actors": ([{"actor_id": "x", "name": "a",
+                              "state": "ALIVE"}],) * 2,
+            "list_objects": ([{"object_id": "00ff"}],) * 2,
+            "list_nodes": ([{"node_id": "n", "index": 0,
+                             "state": "ALIVE"}],) * 2,
+            "list_tenants": ([{"tenant": "p"}],) * 2,
+            "task_timeline": ([{"name": "f"}],) * 2,
+            "list_traces": ([{"trace_id": "t", "root": "f"}],) * 2}
+    assert chip_smoke.ops_state_check(good, ran) == []
+    bad = dict(good, list_actors=([{"actor_id": "x", "name": "a",
+                                    "state": "DEAD"}], []))
+    problems = chip_smoke.ops_state_check(bad, ran)
+    assert any("dashboard rows" in p for p in problems)
+    assert any("not ALIVE" in p for p in problems)
+
+
+def test_ops_group_alive_finds_a_live_group():
+    import os
+    import subprocess
+    import sys
+
+    p = subprocess.Popen([sys.executable, "-c", "import time; "
+                          "time.sleep(30)"], start_new_session=True)
+    try:
+        assert p.pid in chip_smoke.ops_group_alive(p.pid)
+    finally:
+        p.kill()
+        p.wait()
+    assert chip_smoke.ops_group_alive(p.pid) == []
+    assert os.getpid() not in chip_smoke.ops_group_alive(p.pid)
+
+
+def test_ops_parts_run_their_tasks_on_the_host(tmp_path):
+    """The batch, prod and snapshot tasks of phase ops, called directly
+    on the CPU at small sizes: the batch trains until its gate and marks,
+    a second attempt waits for the gate; the prod task waits for its go
+    file, decodes and marks; the snapshot computation is seeded."""
+    import threading
+
+    files = {n: str(tmp_path / n) for n in ("gate", "attempts", "progress",
+                                            "marks", "leased", "go",
+                                            "started", "hold")}
+    model = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=2,
+                 n_kv_heads=1, d_ff=64, max_seq_len=32)
+    threading.Timer(0.5, lambda: open(files["gate"], "w").close()).start()
+    out = chip_smoke.ops_batch_train(model, 2, 8, files["gate"],
+                                     files["attempts"], files["progress"],
+                                     files["marks"], 2, "cpu")
+    assert out["attempt"] == 1 and out["steps"] >= 2
+    assert out["launches"] == {n: 0 for n in out["launches"]}  # plain path
+    again = chip_smoke.ops_batch_train(model, 2, 8, files["gate"],
+                                       files["attempts"], files["progress"],
+                                       files["marks"], 2, "cpu")
+    assert again["attempt"] == 2 and again["steps"] == 2
+    assert chip_smoke.read_marks(files["marks"]) == ["batch", "batch"]
+
+    from ray_tpu_torch.models.inference import InferenceConfig
+
+    serve = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=2,
+                 n_kv_heads=1, d_ff=64, max_seq_len=64)
+    icfg = InferenceConfig(batch_size=2, page_size=8, max_pages_per_seq=4,
+                           num_pages=16, prefill_buckets=(8,),
+                           max_new_tokens=4)
+    for n in ("go", "hold"):
+        open(files[n], "w").close()
+    got = chip_smoke.ops_prod_decode(serve, icfg, [[1, 2], [3]], 4, files,
+                                     "cpu")
+    assert [len(t) for t in got["tokens"]] == [4, 4]
+    assert got["decode_steps"] > 0
+    assert chip_smoke.read_marks(files["marks"])[-1] == "prod"
+    a = chip_smoke.ops_card_compute(3, 16, "cpu")
+    assert a.shape == (16,) and bool((a == chip_smoke.ops_card_compute(
+        3, 16, "cpu")).all())

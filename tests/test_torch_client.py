@@ -1,15 +1,11 @@
 """The port's ray:// client: the cases of ``tests/test_client.py`` on
 ``ray_tpu_torch`` (the same ``slow`` mark), plus its wire codec and
 address parser against the reference's on seeded inputs, and a client
-process that loads no jax or reference module and sees no card. The
-reference starts its head and a joining node with the ``ray_tpu start``
-CLI, which the port has not yet (ROADMAP.md Queue A, the optional
-planes): here the head is a script doing what ``start --head`` does
-(``_HEAD_SRC``), and a node joins through ``python -m
-ray_tpu_torch._private.runtime.node_daemon <host> <port> join ...``. The
-reference's state verbs from a client (``util.state``) are not ported
-either: the port's client answers ``cluster_resources``,
-``available_resources`` and ``nodes`` and refuses the rest.
+process that loads no jax or reference module and sees no card. As in
+the reference, the head starts with ``python -m ray_tpu_torch start
+--head`` and a node joins with ``start --address``. The client is
+served all 17 state verbs of ``util.state``, each equal to the head's
+own rows.
 
 Ray-client analog + CLI head/node start.
 
@@ -35,36 +31,17 @@ import pytest
 
 import ray_tpu_torch
 from ray_tpu_torch._private import spawn_env
-from ray_tpu_torch._private import worker as worker_mod
 
 cloudpickle.register_pickle_by_value(sys.modules[__name__])
-
-# what the reference's `ray_tpu start --head` does, for the port: init
-# (argv[1] holds init's arguments as JSON), open the head endpoint,
-# print the connect string and serve until SIGTERM
-_HEAD_SRC = r"""
-import json, signal, sys, threading
-import ray_tpu_torch
-from ray_tpu_torch._private import worker as worker_mod
-ray_tpu_torch.init(ignore_reinit_error=True, **json.loads(sys.argv[1]))
-hs = worker_mod.get_worker().enable_head_endpoint()
-host, port = hs.address
-print(f"address='ray://{host}:{port}?key={hs.authkey.hex()}'", flush=True)
-stop = threading.Event()
-signal.signal(signal.SIGTERM, lambda *_: stop.set())
-stop.wait()
-ray_tpu_torch.shutdown()
-"""
-
 
 @pytest.fixture(scope="module")
 def head():
     ray_tpu_torch.shutdown()
-    env = spawn_env.child_env()
-    kw = {"num_cpus": 4, "num_workers": 4, "resources": {"head_res": 2},
-          "_system_config": {"sched_device": "cpu"}}
+    env = spawn_env.child_env(extra={"RAY_TPU_TORCH_SCHED_DEVICE": "cpu"})
     proc = subprocess.Popen(
-        [sys.executable, "-c", _HEAD_SRC, json.dumps(kw)],
+        [sys.executable, "-m", "ray_tpu_torch", "start", "--head",
+         "--num-cpus", "4", "--num-workers", "4",
+         "--resources", '{"head_res": 2}'],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     address = None
@@ -210,18 +187,11 @@ class TestCliNodeJoin:
     @pytest.mark.slow
     def test_node_joins_via_cli(self, head, client):
         _proc, address = head
-        from ray_tpu_torch._private.client import parse_client_address
-        from ray_tpu_torch._private.runtime.node_daemon import \
-            HEAD_AUTHKEY_ENV
-
-        host, port, key = parse_client_address(address)
-        env = spawn_env.child_env(extra={HEAD_AUTHKEY_ENV: key.hex()})
-        info = json.dumps({"num_cpus": 2.0, "num_workers": 0,
-                           "resources": {"joined": 2}})
+        env = spawn_env.child_env()
         node = subprocess.Popen(
-            [sys.executable, "-m",
-             "ray_tpu_torch._private.runtime.node_daemon", host, str(port),
-             "join", str(256 * 1024 * 1024), str(100 * 1024), info, "20"],
+            [sys.executable, "-m", "ray_tpu_torch", "start",
+             "--address", address, "--num-cpus", "2",
+             "--resources", '{"joined": 2}'],
             env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
         try:
@@ -277,19 +247,82 @@ class TestClientAsync:
 
 class TestClientStateAndKV:
     def test_state_verbs_from_client(self, client):
-        """The state verbs a client has run head-side over the session;
-        the reference's util.state verbs (not ported) are refused with
-        the ROADMAP item that brings them."""
+        """GCS-client-accessor analog: `ray list ...` works from a thin
+        client — the verbs run head-side over the session. Every one of
+        the 17 verbs is served, through util.state's client dispatch, and
+        equals what a task in the head process reads from the same verb
+        (fields that move between two reads — ages, growing logs, the
+        reading task's own rows — left out)."""
+        from ray_tpu_torch._private.client import _STATE_VERBS
+        from ray_tpu_torch.util import state
+
         w = client
         assert w.state("cluster_resources")["CPU"] == 4.0
         assert w.state("available_resources")["CPU"] <= 4.0
         nodes = w.state("nodes")
         assert nodes and all("Resources" in n for n in nodes)
-        for verb in ("list_actors", "list_nodes", "summarize_tasks"):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                w.state(verb)
         with pytest.raises(ValueError, match="unknown state verb"):
             w.state("no_such_verb")
+
+        @ray_tpu_torch.remote
+        class Marker:
+            def ping(self):
+                return 1
+
+        a = Marker.options(name="state-probe").remote()
+        ray_tpu_torch.get(a.ping.remote(), timeout=60)
+        obj = ray_tpu_torch.put(list(range(10)))
+        assert any(r["name"] == "state-probe" for r in state.list_actors())
+        assert {"resources"} <= set(state.list_nodes()[0])
+        assert isinstance(state.summarize_tasks(), dict)
+
+        logs = state.list_logs()
+        trace_id = state.list_traces()[0]["trace_id"]
+        args = {"get_log": (logs[0]["filename"],) if logs else None,
+                "get_trace": (trace_id,)}
+        verbs = sorted(v for v in _STATE_VERBS
+                       if not (v == "get_log" and not logs))
+        got = {v: getattr(state, v)(*args.get(v, ())) for v in verbs}
+
+        @ray_tpu_torch.remote
+        def head_rows(verbs, args):
+            from ray_tpu_torch.util import state as s
+            return {v: getattr(s, v)(*args.get(v, ())) for v in verbs}
+
+        want = ray_tpu_torch.get(head_rows.remote(verbs, args), timeout=60)
+        assert sorted(got) == sorted(want)
+        assert len(_STATE_VERBS) == 17
+
+        def mine(row):
+            return "head_rows" in str(row.get("name", row.get("root", "")))
+
+        def norm(verb, rows):
+            if verb == "get_log":
+                return None              # the capture file grows
+            if verb == "summarize_tasks":
+                return {k: v for k, v in rows.items() if k != "RUNNING"}
+            if verb == "get_trace":
+                return sorted(json.dumps(e, sort_keys=True) for e in rows)
+            drop = {"heartbeat_age_s", "resview_age_s", "size_bytes",
+                    "mtime", "last_ts", "live_spans", "local_refs"}
+            return sorted(json.dumps({k: v for k, v in r.items()
+                                      if k not in drop}, sort_keys=True)
+                          for r in rows if not mine(r)
+                          and "head_rows" not in str(r.get("args", "")))
+
+        for verb in verbs:
+            if verb in ("task_timeline", "list_traces"):
+                # the head-side read adds the reading task's own events
+                # and trace: the client's rows are a subset
+                assert set(norm(verb, got[verb])) <= set(
+                    norm(verb, want[verb])), verb
+            else:
+                assert norm(verb, got[verb]) == norm(verb, want[verb]), verb
+        if logs:
+            assert want["get_log"].startswith(got["get_log"])
+        assert obj.object_id().hex() in {r["object_id"]
+                                         for r in got["list_objects"]}
+        ray_tpu_torch.kill(a)
 
     def test_cluster_kv_from_client(self, client):
         w = client

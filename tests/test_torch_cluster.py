@@ -467,10 +467,10 @@ def test_dead_rows_never_reach_the_kernel(monkeypatch):
 
 # -- tests/test_ops_layer.py::TestAutoscaler, and fast autoscaler cases ---------
 
-def _autoscaled_runtime():
+def _autoscaled_runtime(**knobs):
     ray.shutdown()
     ray.init(num_cpus=1, num_workers=2, scheduler="tensor",
-             _system_config=SYSTEM)
+             _system_config=dict(SYSTEM, **knobs))
     return ray._worker.get_worker()
 
 
@@ -547,18 +547,19 @@ def test_autoscaler_upscale_then_downscale_fast():
 
 
 def test_gang_autoscaler_strict_spread_never_partial():
-    """tests/test_qos.py::TestGangAtomicScaleup without the QoS plane
-    (the port has none): a STRICT_SPREAD group of two 2-CPU bundles that
-    a 1-CPU head cannot host is provisioned in one decision on two new
-    nodes, and at no observed instant does it show a partial placement."""
+    """tests/test_qos.py::TestGangAtomicScaleup, with the QoS plane on as
+    there: a STRICT_SPREAD group of two 2-CPU bundles that a 1-CPU head
+    cannot host is provisioned in one decision on two new nodes, and at
+    no observed instant does it show a partial placement."""
     from ray_tpu_torch.autoscaler import (GangAutoscaler,
                                           GangAutoscalerConfig,
                                           VirtualNodeProvider)
     from ray_tpu_torch.util.placement_group import (placement_group,
                                                     placement_group_table)
 
-    w = _autoscaled_runtime()
+    w = _autoscaled_runtime(qos=True)
     try:
+        assert w.qos_plane is not None
         provider = VirtualNodeProvider(w, num_cpus=4, num_workers=2)
         scaler = GangAutoscaler(w, provider, GangAutoscalerConfig(
             min_nodes=0, max_nodes=2, upscale_ticks=3,
@@ -600,5 +601,34 @@ def test_gang_autoscaler_strict_spread_never_partial():
         assert ray.get(inside.remote(), timeout=60.0) == 7
         scaler.stop()
         assert w.placement_groups.hold_infeasible is False
+    finally:
+        ray.shutdown()
+
+
+def test_late_first_node_keeps_the_head_alive():
+    """The GCS health loop records heartbeats and starts with the first
+    remote node: a node that joins more than node_heartbeat_timeout_s
+    after init must not find the head's own node 0 stale and declare it
+    DEAD (the drive of `start --head`, then `start --address` later). The
+    head keeps running tasks pinned to it."""
+    from ray_tpu_torch.util import state
+
+    ray.shutdown()
+    ray.init(num_workers=1, resources={"at_head": 1.0},
+             _system_config=dict(SYSTEM, worker_mode="process",
+                                 node_heartbeat_timeout_s=1.0))
+    try:
+        w = ray._worker.get_worker()
+        time.sleep(1.5)           # older than the timeout at the join
+        w.add_remote_cluster_node(num_cpus=1, num_workers=1)
+        time.sleep(1.0)           # the loop's probes have run
+        rows = state.list_nodes()
+        assert [r["state"] for r in rows] == ["ALIVE", "ALIVE"], rows
+
+        @ray.remote(resources={"at_head": 1.0})
+        def on_head():
+            return 1
+
+        assert ray.get(on_head.remote(), timeout=60) == 1
     finally:
         ray.shutdown()

@@ -1017,20 +1017,17 @@ class TestStreamingSplit:
 
     def test_state_verb_and_recent_registry(self, ray_start_tensor_sched):
         """The registry behind util.state.list_data_streams surfaces live
-        splits and keeps shut-down ones readable. The port has no
-        util.state yet (ROADMAP.md Queue A, the optional planes), so the
-        case reads _streaming.split_coordinator_stats, the function the
-        reference's verb returns."""
+        splits and keeps shut-down ones readable."""
         rt = ray_start_tensor_sched
-        from ray_tpu_torch.data._streaming import split_coordinator_stats
+        from ray_tpu_torch.util import state
 
         ds = _slow_ds(rt, n_rows=40, parallelism=4, sleep_s=0.002)
         shards = ds.streaming_split(2)
         _drain_concurrently(shards)
-        live = split_coordinator_stats()
+        live = state.list_data_streams()
         assert any(s["live"] and s["consumers"] == 2 for s in live)
         shards[0].coordinator.shutdown()
-        done = split_coordinator_stats()
+        done = state.list_data_streams()
         assert any(not s["live"] and s["blocks_consumed"] == 4
                    for s in done)
 

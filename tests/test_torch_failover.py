@@ -1,13 +1,9 @@
 """The port's head failover: the cases of ``tests/test_failover.py`` on
 ``ray_tpu_torch``, plus the outbox and the lease journal driven through
-both packages with the same sequences. The reference starts its
-subprocess head and joining nodes with the ``ray_tpu start`` CLI, which
-the port has not yet (ROADMAP.md Queue A, the optional planes): here the
-head is a script doing what ``start --head`` does (``_HEAD_SRC``) and a
-node is ``python -m ray_tpu_torch._private.runtime.node_daemon <host>
-<port> join ...``. The link-flap drill polls the node table for the
-node's state (the reference reads ``util.state.list_nodes``) and the
-chaos controller for its faults.
+both packages with the same sequences. As in the reference, the
+subprocess head and the joining nodes start through the CLI
+(``python -m ray_tpu_torch start --head`` / ``start --address``), and
+the link-flap drill reads the node's state with ``util.state.list_nodes``.
 
 Head-failover continuity: the sequenced daemon outbox, the lease
 journal, exactly-once delivery across link flaps, and the seeded
@@ -45,36 +41,9 @@ import pytest
 
 import ray_tpu_torch
 from ray_tpu_torch._private import spawn_env
+from ray_tpu_torch.util import state as util_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-# what the reference's `ray_tpu start --head` does, for the port: init
-# (argv[1] holds init's arguments as JSON), arm a seeded chaos plan from
-# the environment, open the head endpoint, print the connect string and
-# serve until SIGTERM
-_HEAD_SRC = r"""
-import json, logging, os, signal, sys, threading
-import ray_tpu_torch
-logging.basicConfig(level=logging.WARNING,
-                    format="%(asctime)s %(name)s %(message)s")
-from ray_tpu_torch._private import worker as worker_mod
-kw = json.loads(sys.argv[1])
-ray_tpu_torch.init(ignore_reinit_error=True, **kw)
-plan_json = os.environ.get("RAY_TPU_TORCH_CHAOS_PLAN", "")
-if plan_json:
-    from ray_tpu_torch import chaos
-    plan = json.loads(plan_json)
-    chaos.arm(chaos.FaultPlan(plan["seed"], faults=plan.get("faults", ())))
-    print(f"head: chaos plan armed (seed={plan['seed']})", flush=True)
-hs = worker_mod.get_worker().enable_head_endpoint()
-host, port = hs.address
-print(f"address='ray://{host}:{port}?key={hs.authkey.hex()}'", flush=True)
-stop = threading.Event()
-signal.signal(signal.SIGTERM, lambda *_: stop.set())
-stop.wait()
-ray_tpu_torch.shutdown()
-"""
-
 
 # ---------------------------------------------------------------------------
 # _Outbox unit mechanics (no cluster)
@@ -310,7 +279,6 @@ def test_link_flap_exactly_once(tmp_path):
     head's sequence dedup keeps delivery exactly-once: results stay
     bit-correct and each task's side effect lands exactly once."""
     from ray_tpu_torch import chaos
-    from ray_tpu_torch._private.chaos import get_controller
     from ray_tpu_torch.cluster_utils import Cluster
 
     marks = str(tmp_path / "marks")
@@ -342,14 +310,15 @@ def test_link_flap_exactly_once(tmp_path):
             lines = fh.read().split()
         assert sorted(lines) == sorted(keys), (
             f"side effects not exactly-once: {sorted(lines)}")
-        fired = [x for x in get_controller().list_faults()
+        fired = [x for x in util_state.list_faults()
                  if x["site"] == "head"]
         assert fired, "seeded plan injected no head flaps"
         # the node must come back ALIVE (grace window, not death) —
         # a late-scheduled flap may still be in its ~100ms rejoin
         deadline = time.monotonic() + 30
         while time.monotonic() < deadline:
-            states = {node.state}
+            states = {n["state"] for n in util_state.list_nodes()
+                      if n["node_id"] == node.node_id.hex()}
             if states == {"ALIVE"}:
                 break
             time.sleep(0.2)
@@ -369,11 +338,11 @@ def test_link_flap_exactly_once(tmp_path):
 # ---------------------------------------------------------------------------
 
 def _start_head(journal, log_path, extra_env=None):
-    env = spawn_env.child_env(extra=extra_env or {})
-    kw = {"num_cpus": 2, "num_workers": 2,
-          "_system_config": {"sched_device": "cpu",
-                             "gcs_journal_path": journal}}
-    cmd = [sys.executable, "-c", _HEAD_SRC, json.dumps(kw)]
+    env = spawn_env.child_env(extra=dict(
+        {"RAY_TPU_TORCH_SCHED_DEVICE": "cpu"}, **(extra_env or {})))
+    cmd = [sys.executable, "-m", "ray_tpu_torch", "start", "--head",
+           "--num-cpus", "2", "--num-workers", "2",
+           "--gcs-journal", journal]
     offset = (os.path.getsize(log_path) if os.path.exists(log_path)
               else 0)
     log = open(log_path, "a")
@@ -398,18 +367,13 @@ def _start_head(journal, log_path, extra_env=None):
 
 
 def _start_node(address, log_path, resources):
-    from ray_tpu_torch._private.client import parse_client_address
-    from ray_tpu_torch._private.runtime.node_daemon import HEAD_AUTHKEY_ENV
-
-    host, port, key = parse_client_address(address)
-    env = spawn_env.child_env(extra={HEAD_AUTHKEY_ENV: key.hex()})
-    info = json.dumps({"num_cpus": 2.0, "num_workers": 0,
-                       "resources": resources})
+    env = spawn_env.child_env(
+        extra={"RAY_TPU_TORCH_DAEMON_REJOIN_TIMEOUT_S": "60"})
     log = open(log_path, "a")
     return subprocess.Popen(
-        [sys.executable, "-m", "ray_tpu_torch._private.runtime.node_daemon",
-         host, str(port), "join", str(256 * 1024 * 1024), str(100 * 1024),
-         info, "60"],
+        [sys.executable, "-m", "ray_tpu_torch", "start",
+         "--address", address, "--num-cpus", "2",
+         "--resources", json.dumps(resources)],
         env=env, stdout=log, stderr=subprocess.STDOUT)
 
 

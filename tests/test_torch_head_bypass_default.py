@@ -2,9 +2,8 @@
 ``tests/test_head_bypass_default.py`` on ``ray_tpu_torch``, plus the new
 knobs' defaults read against the reference's ``GLOBAL_CONFIG``. The
 head's TensorScheduler runs its device path on the host
-(``sched_device`` "cpu"); node rows come from the node table and pools
-(``_list_nodes``) where the reference reads ``util.state.list_nodes``,
-which the port has not yet (ROADMAP.md Queue A).
+(``sched_device`` "cpu"); node rows come from ``util.state.list_nodes``,
+as in the reference.
 
 Default-on decentralized dispatch: the head-bypass acceptance guards.
 
@@ -34,47 +33,8 @@ import pytest
 import ray_tpu_torch
 from ray_tpu_torch import chaos
 from ray_tpu_torch._private import worker as worker_mod
+from ray_tpu_torch.util import state
 from ray_tpu_torch._private.config import GLOBAL_CONFIG
-
-
-# -- the rows of the reference's util.state verbs these tests read (the
-# port has no util/state.py yet: ROADMAP.md Queue A, the optional
-# planes), computed from the same node table, pools and actor table --
-
-def _list_nodes():
-    w = worker_mod.get_worker()
-    now = time.monotonic()
-    rows = []
-    for e in w.gcs.node_table():
-        row = {"index": e.index, "state": e.state, "kind": e.kind,
-               "resources": dict(e.resources)}
-        if e.state == "DEAD":
-            row["death_reason"] = getattr(e, "death_reason", "") or ""
-        pool = e.pool
-        if pool is not None and getattr(pool, "is_remote", False):
-            row["outbox_depth"] = pool.outbox_depth
-            row["outbox_replayed"] = pool.outbox_replayed
-            row["local_queue_depth"] = pool.local_queue_depth()
-            row["local_dispatched"] = pool.local_dispatched
-            row["spill_reasons"] = dict(pool.spill_reasons)
-            t = pool._resview_t
-            row["resview_age_s"] = (round(now - t, 3)
-                                    if t is not None else None)
-        rows.append(row)
-    return rows
-
-
-def _list_actors():
-    w = worker_mod.get_worker()
-    rows = []
-    for e in w.gcs.actor_table():
-        addr = w.resolve_actor_address(e.actor_id.binary())
-        rows.append({"class_name": e.class_name, "state": e.state,
-                     "node_index": e.node_index,
-                     "resolved_address": None if addr is None else {
-                         "node_index": addr[0], "peer": list(addr[1]),
-                         "worker_num": addr[2]}})
-    return rows
 
 
 def _poll(fn, timeout=30.0, interval=0.05):
@@ -288,7 +248,7 @@ class TestSpillReasonSurfacing:
         assert ray_tpu_torch.get(driver.remote(), timeout=120.0) == 7
 
         def spilled_rows():
-            rows = [r for r in _list_nodes()
+            rows = [r for r in state.list_nodes()
                     if r["kind"] == "remote"]
             return rows if any(r.get("spill_reasons")
                                for r in rows) else None

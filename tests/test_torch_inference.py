@@ -217,9 +217,12 @@ def test_port_imports_no_jax():
     Serve's, the metrics plane's, the process runtime's, Data's, the
     cluster's, the autoscaler's, RLlib's (each submodule), Train's, and
     those of MoE, Tune, workflow, the DAG, the queue, the node daemon,
-    the remote pool and the ray:// client, leave CUDA
-    uninitialised; a PPO iteration with its learner on the
-    host loads no jax or ray_tpu module either."""
+    the remote pool and the ray:// client, and of the optional planes
+    and the ops layer (qos, profile_plane, snapshot, util.state, the
+    dashboard, job_submission, the CLI's __main__), leave CUDA
+    uninitialised; a PPO iteration with its learner on the host, and a
+    process-mode task under both planes (qos, profile_hz), load no jax
+    or ray_tpu module either."""
     code = ("import os, sys, torch, ray_tpu_torch as ray\n"
             "assert not torch.cuda.is_initialized()\n"
             "import ray_tpu_torch.models.inference, "
@@ -254,7 +257,12 @@ def test_port_imports_no_jax():
             "ray_tpu_torch.train.api, ray_tpu_torch.ops.moe, "
             "ray_tpu_torch.tune, ray_tpu_torch.tune.tuner, "
             "ray_tpu_torch.tune.search, ray_tpu_torch.workflow, "
-            "ray_tpu_torch.dag, ray_tpu_torch.util.queue\n"
+            "ray_tpu_torch.dag, ray_tpu_torch.util.queue, "
+            "ray_tpu_torch._private.qos, "
+            "ray_tpu_torch._private.profile_plane, "
+            "ray_tpu_torch._private.snapshot, ray_tpu_torch.util.state, "
+            "ray_tpu_torch.dashboard, ray_tpu_torch.job_submission, "
+            "ray_tpu_torch.__main__\n"
             "assert not torch.cuda.is_initialized()\n"
             "ray.init(num_workers=2, scheduler='tensor', "
             "_system_config={'sched_device': 'cpu'})\n"
@@ -272,7 +280,8 @@ def test_port_imports_no_jax():
             "a.stop()\n"
             "ray.shutdown()\n"
             "ray.init(num_workers=1, scheduler='tensor', _system_config="
-            "{'sched_device': 'cpu', 'worker_mode': 'process'})\n"
+            "{'sched_device': 'cpu', 'worker_mode': 'process', "
+            "'qos': True, 'profile_hz': 50.0})\n"
             "@ray.remote\n"
             "def mods():\n"
             "    import os, sys\n"

@@ -14,9 +14,8 @@ no locality column, nor has the reference's device kernel), decided
 before the tick and counted in ``locality_host_assigns``; a device error
 never leads to a host assign.
 
-The reference reads object and task rows through ``util.state``, which
-the port has not yet (ROADMAP.md Queue A): the same rows come from the
-object directory and the task event plane here. Its bench guard's check
+Object and task rows come from ``util.state``, as in the reference. Its
+bench guard's check
 of ``bench.py`` is left out (the port has no bench script yet); the
 locality A/B it guards runs through ``perf.locality_ab``. Workers
 unpickle this module's functions by value (registered below).
@@ -485,11 +484,14 @@ class TestStagingIntegration:
         assert ts["locality_misses"] >= 1  # arg was remote at dispatch
         assert ts["bytes_pulled"] > 0
 
-        # the directory holds the multi-location row, primary first
-        assert w.gcs.object_locations(oid) == [n1.index, n2.index]
+        # state API surfaces the multi-location rows, primary first
+        from ray_tpu_torch.util import state
+        rows = {r["object_id"]: r
+                for r in state.list_objects(locations=True)}
+        assert rows[oid.hex()]["locations"] == [n1.index, n2.index]
 
         # the consume attempt carries the staged transition
-        staged = [r for r in w.task_events.dead_rows("FINISHED")
+        staged = [r for r in state.list_tasks(detail=True, state="FINISHED")
                   if r["name"].endswith("consume") and r.get("staged_at")]
         assert staged, "no finished task recorded a staged_at timestamp"
 

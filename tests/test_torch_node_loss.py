@@ -1,9 +1,8 @@
 """The port's node-loss fault domain: the cases of
 ``tests/test_node_loss.py`` on ``ray_tpu_torch``. The head's
 TensorScheduler runs its device path on the host (``sched_device``
-"cpu"); node rows come from the node table and pools (``_list_nodes``)
-where the reference reads ``util.state.list_nodes``, which the port has
-not yet (ROADMAP.md Queue A).
+"cpu"); node rows come from ``util.state.list_nodes``, as in the
+reference.
 
 Node-loss fault domain: whole-node SIGKILL under default dispatch.
 
@@ -42,46 +41,7 @@ import ray_tpu_torch
 from ray_tpu_torch import chaos
 from ray_tpu_torch._private import metrics as metrics_mod
 from ray_tpu_torch._private import worker as worker_mod
-
-
-# -- the rows of the reference's util.state verbs these tests read (the
-# port has no util/state.py yet: ROADMAP.md Queue A, the optional
-# planes), computed from the same node table, pools and actor table --
-
-def _list_nodes():
-    w = worker_mod.get_worker()
-    now = time.monotonic()
-    rows = []
-    for e in w.gcs.node_table():
-        row = {"index": e.index, "state": e.state, "kind": e.kind,
-               "resources": dict(e.resources)}
-        if e.state == "DEAD":
-            row["death_reason"] = getattr(e, "death_reason", "") or ""
-        pool = e.pool
-        if pool is not None and getattr(pool, "is_remote", False):
-            row["outbox_depth"] = pool.outbox_depth
-            row["outbox_replayed"] = pool.outbox_replayed
-            row["local_queue_depth"] = pool.local_queue_depth()
-            row["local_dispatched"] = pool.local_dispatched
-            row["spill_reasons"] = dict(pool.spill_reasons)
-            t = pool._resview_t
-            row["resview_age_s"] = (round(now - t, 3)
-                                    if t is not None else None)
-        rows.append(row)
-    return rows
-
-
-def _list_actors():
-    w = worker_mod.get_worker()
-    rows = []
-    for e in w.gcs.actor_table():
-        addr = w.resolve_actor_address(e.actor_id.binary())
-        rows.append({"class_name": e.class_name, "state": e.state,
-                     "node_index": e.node_index,
-                     "resolved_address": None if addr is None else {
-                         "node_index": addr[0], "peer": list(addr[1]),
-                         "worker_num": addr[2]}})
-    return rows
+from ray_tpu_torch.util import state
 
 
 def _poll(fn, timeout=30.0, interval=0.05):
@@ -165,7 +125,7 @@ def node_loss_ray():
 
 
 def _dead_remote_rows():
-    return [r for r in _list_nodes()
+    return [r for r in state.list_nodes()
             if r["kind"] == "remote" and r["state"] == "DEAD"]
 
 
@@ -242,7 +202,7 @@ class TestSeededNodeKillSoak:
 
         rows = _dead_remote_rows()
         assert rows and any(r.get("death_reason") for r in rows), (
-            _list_nodes())
+            state.list_nodes())
 
         text = "\n".join(metrics_mod._render_core(w))
         for fam in ("ray_tpu_node_deaths_total",
@@ -413,12 +373,12 @@ class TestRejoinFencing:
 
         # the node is back as a FRESH node and serves fresh work
         def rejoined():
-            rows = [r for r in _list_nodes()
+            rows = [r for r in state.list_nodes()
                     if r["kind"] == "remote" and r["state"] == "ALIVE"
                     and r.get("resources", {}).get("a")]
             return rows or None
 
-        assert _poll(rejoined, timeout=60.0), _list_nodes()
+        assert _poll(rejoined, timeout=60.0), state.list_nodes()
 
         @ray_tpu_torch.remote(resources={"a": 1.0})
         def fresh():
@@ -426,4 +386,4 @@ class TestRejoinFencing:
 
         assert ray_tpu_torch.get(fresh.remote(), timeout=60.0) == 11
         # the dead incarnation's row stays DEAD next to the fresh one
-        assert _dead_remote_rows(), _list_nodes()
+        assert _dead_remote_rows(), state.list_nodes()

@@ -668,15 +668,20 @@ def test_tensor_scheduler_needs_cuda_unless_cpu():
 
 
 @pytest.mark.parametrize("knobs", [
-    # process workers run no profile sampler yet
     {"worker_mode": "process", "profile_hz": 10.0},
     {"qos": True}, {"profile_hz": 10.0}])
 def test_unported_modes_raise(knobs):
+    """The modes this test once found refused (the QoS and profile
+    planes, ROADMAP.md Queue A item 6) are ported: each knob set now
+    inits, builds its plane and runs a task; no init raises for them."""
     ray.shutdown()
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ray.init(num_workers=2, scheduler="event", _system_config=knobs)
-        assert not ray.is_initialized()
+        ray.init(num_workers=2, scheduler="event", _system_config=knobs)
+        w = ray._worker.get_worker()
+        assert (w.qos_plane is not None) == bool(knobs.get("qos"))
+        assert (w.profile_plane is not None) == ("profile_hz" in knobs)
+        f = ray.remote(lambda x: x + 1)
+        assert ray.get(f.remote(1), timeout=T) == 2
     finally:
         ray.shutdown()
 
@@ -692,14 +697,15 @@ def test_refused_init_leaves_no_setting_behind(refused):
     if refused == "cuda" and torch.cuda.is_available():
         pytest.skip("a CUDA device is present: sched_backend=cuda runs")
     kwargs, exc = {
-        # process mode runs now; with the unported QoS plane it is refused
+        # process mode runs now; with tenant quotas that do not parse it
+        # is refused before anything starts
         "process": ({"scheduler": "event", "_system_config": {
             "task_max_retries": 7, "worker_mode": "process",
-            "qos": True}}, NotImplementedError),
+            "qos": True, "tenant_quotas": '{"p": 0}'}}, ValueError),
         "cuda": ({"scheduler": "tensor", "_system_config": {
             "task_max_retries": 7, "sched_backend": "cuda"}}, RuntimeError),
         "unknown_knob": ({"scheduler": "event", "_system_config": {
-            "task_max_retries": 7, "profile_stacks_max": 8}}, KeyError),
+            "task_max_retries": 7, "worker_tpu_access": True}}, KeyError),
     }[refused]
     ray.shutdown()
     try:
@@ -721,14 +727,20 @@ def test_refused_init_leaves_no_setting_behind(refused):
     "sched_jax_min_batch", "tenant_quotas", "preempt_grace_s",
     "profile_stacks_max"])
 def test_reference_knobs_without_code_are_unknown(knob):
-    """Knobs of planes the port does not have are not defined: setting
-    one raises instead of being accepted and ignored."""
+    """Knobs of code the port does not have are not defined: setting one
+    raises instead of being accepted and ignored (worker_tpu_access,
+    sched_jax_min_batch: JAX's, with GPU counterparts). The five knobs of
+    the optional planes came back with the planes: each is defined
+    with the reference's default."""
     from ray_tpu._private.config import GLOBAL_CONFIG as REF_CONFIG
     from ray_tpu_torch._private.config import GLOBAL_CONFIG
 
     assert knob in REF_CONFIG.snapshot()
-    with pytest.raises(KeyError):
-        GLOBAL_CONFIG.set(knob, REF_CONFIG.get(knob))
+    if knob in ("worker_tpu_access", "sched_jax_min_batch"):
+        with pytest.raises(KeyError):
+            GLOBAL_CONFIG.set(knob, REF_CONFIG.get(knob))
+    else:
+        assert GLOBAL_CONFIG.get(knob) == REF_CONFIG.get(knob)
 
 
 def test_remote_nodes_and_clients_raise():

@@ -237,14 +237,12 @@ class TestDataIngest:
     def test_train_ingest_overlaps_pipeline(self, rt):
         """Train workers consume their shards WHILE the upstream map
         tasks still produce, proven by the split's overlap fraction
-        (> 0) after fit() shut the split down. The reference reads it
-        through util.state.list_data_streams, which the port lacks: this
-        reads _streaming.split_coordinator_stats, what that verb
-        returns."""
+        (> 0) after fit() shut the split down, read through
+        util.state.list_data_streams."""
         import time as _time
 
         from ray_tpu_torch import data
-        from ray_tpu_torch.data._streaming import split_coordinator_stats
+        from ray_tpu_torch.util import state
 
         def slow(b):
             _time.sleep(0.01)
@@ -259,7 +257,7 @@ class TestDataIngest:
             loop, scaling_config=train.ScalingConfig(num_workers=2),
             datasets={"train": ds}).fit()
         assert r.metrics["rows"] == 100
-        streams = [s for s in split_coordinator_stats() if not s["live"]]
+        streams = [s for s in state.list_data_streams() if not s["live"]]
         assert streams, "fit() left no shut-down split in the registry"
         st = streams[-1]
         assert st["blocks_produced"] == 20

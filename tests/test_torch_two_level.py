@@ -1,10 +1,8 @@
 """The port's two-level scheduler and p2p actor plane: the cases of
 ``tests/test_two_level.py`` on ``ray_tpu_torch``. The head's
 TensorScheduler runs its device path on the host (``sched_device``
-"cpu"). The reference reads node and actor rows through
-``util.state``, which the port has not yet (ROADMAP.md Queue A); the
-same rows come from the node table, pools and actor table here
-(``_list_nodes``, ``_list_actors``). Workers unpickle this module's
+"cpu"). Node and actor rows come from ``util.state``, as in the
+reference. Workers unpickle this module's
 functions by value (registered below) and never load jax or ray_tpu.
 
 Two-level scheduler + p2p actor plane (the head-bypass tentpole).
@@ -39,48 +37,9 @@ import ray_tpu_torch
 from ray_tpu_torch import chaos
 from ray_tpu_torch._private import metrics as metrics_mod
 from ray_tpu_torch._private import worker as worker_mod
+from ray_tpu_torch.util import state
 
 cloudpickle.register_pickle_by_value(sys.modules[__name__])
-
-
-# -- the rows of the reference's util.state verbs these tests read (the
-# port has no util/state.py yet: ROADMAP.md Queue A, the optional
-# planes), computed from the same node table, pools and actor table --
-
-def _list_nodes():
-    w = worker_mod.get_worker()
-    now = time.monotonic()
-    rows = []
-    for e in w.gcs.node_table():
-        row = {"index": e.index, "state": e.state, "kind": e.kind,
-               "resources": dict(e.resources)}
-        if e.state == "DEAD":
-            row["death_reason"] = getattr(e, "death_reason", "") or ""
-        pool = e.pool
-        if pool is not None and getattr(pool, "is_remote", False):
-            row["outbox_depth"] = pool.outbox_depth
-            row["outbox_replayed"] = pool.outbox_replayed
-            row["local_queue_depth"] = pool.local_queue_depth()
-            row["local_dispatched"] = pool.local_dispatched
-            row["spill_reasons"] = dict(pool.spill_reasons)
-            t = pool._resview_t
-            row["resview_age_s"] = (round(now - t, 3)
-                                    if t is not None else None)
-        rows.append(row)
-    return rows
-
-
-def _list_actors():
-    w = worker_mod.get_worker()
-    rows = []
-    for e in w.gcs.actor_table():
-        addr = w.resolve_actor_address(e.actor_id.binary())
-        rows.append({"class_name": e.class_name, "state": e.state,
-                     "node_index": e.node_index,
-                     "resolved_address": None if addr is None else {
-                         "node_index": addr[0], "peer": list(addr[1]),
-                         "worker_num": addr[2]}})
-    return rows
 
 
 def _poll(fn, timeout=30.0, interval=0.05):
@@ -268,7 +227,7 @@ class TestStateSurfacing:
         assert ray_tpu_torch.get(submitter.remote(6), timeout=120.0) == 6
 
         def dispatched():
-            rows = [r for r in _list_nodes()
+            rows = [r for r in state.list_nodes()
                     if r["kind"] == "remote"]
             return rows if any(r.get("local_dispatched", 0) > 0
                                for r in rows) else None
@@ -279,7 +238,7 @@ class TestStateSurfacing:
             assert r["local_queue_depth"] >= 0
             assert r["local_dispatched"] >= 0
 
-        arow = next(r for r in _list_actors()
+        arow = next(r for r in state.list_actors()
                     if r["class_name"].endswith("Acc")
                     and r["state"] == "ALIVE")
         addr = arow["resolved_address"]
@@ -287,7 +246,7 @@ class TestStateSurfacing:
         assert addr["node_index"] >= 1
         assert len(addr["peer"]) == 2 and addr["worker_num"] >= 0
         # head-resident rows still carry the key (schema stability)
-        assert all("resolved_address" in r for r in _list_actors())
+        assert all("resolved_address" in r for r in state.list_actors())
 
 
 class TestMarkRefsPickler:
@@ -420,7 +379,7 @@ class TestKnobsOff:
                            for ln in val), val
             # every actor row still carries the resolved_address key —
             # None, since no daemon advertises a peer route
-            for r in _list_actors():
+            for r in state.list_actors():
                 assert r["resolved_address"] is None
         finally:
             ray_tpu_torch.shutdown()
