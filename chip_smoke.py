@@ -2,12 +2,14 @@
 """Smoke run of ray_tpu_torch on one NVIDIA GPU: build, check, serve, train,
 data, cluster, RLlib, Train, MoE, the compiled DAG, Tune, workflow, the
 multi-node plane, the ray:// client, the optional planes (QoS, profile)
-and the ops layer (state, dashboard, snapshot, jobs, the CLI).
+and the ops layer (state, dashboard, snapshot, jobs, the CLI), and the
+perf sections (decode, the train step's time sinks, the serving and
+head-bypass A/Bs, Data ingest).
 
     python3 chip_smoke.py            # one card; 0 only if every phase passed
     python3 chip_smoke.py --kernels  # build, device and every kernel's
                                      # checks and times; no ok line
-    python3 chip_smoke.py --phase ops [multinode ...]
+    python3 chip_smoke.py --phase perf [ops multinode ...]
                                      # build, device and the named later
                                      # phases alone; no ok line
 
@@ -107,7 +109,7 @@ Phases, each printing one JSON line:
                and auto, unbatched and through map_remote, assign's
                counter against the scheduler's device assigns; every
                snapshot of a checking fan-out replayed through the numpy
-               oracle assign_np; the 100k map-reduce; 1k actors x 10
+               oracle assign_np; the 25k map-reduce; 1k actors x 10
                calls in call order; an engine actor (num_gpus=1) at
                serve-127M whose greedy tokens equal a direct engine's,
                with assign's times alone and beside it; the GPU count in
@@ -151,13 +153,14 @@ Phases, each printing one JSON line:
 
  13. data    — Ray Data on the runtime (phase_data), the TensorScheduler
                assigning on the card: BASELINE config 3
-               (perf.data_pipeline_throughput, 100k blocks x 10 rows, after
-               a warm pass of 1k blocks) in thread mode with blocks/s, rows/s,
+               (perf.data_pipeline_throughput, cut from 100k to 50k blocks x
+               10 rows, after a warm pass of 1k blocks) in thread mode with
+               blocks/s, rows/s,
                the stages and the exact count; a checking run of 2k blocks
                whose rows are exact and whose every snapshot equals
                assign_np; the same in process mode at 10k blocks (the cut),
                no worker loading jax, flax or ray_tpu; random_shuffle(seed=0)
-               over 100k rows in 1k blocks through the port's native
+               over 20k rows in 200 blocks through the port's native
                exchange library, a permutation and the same order twice;
                iter_torch_batches(batch_size=4096, device="cuda") over a 1M-row
                int64 column, every batch on the card and the sum exact.
@@ -280,6 +283,25 @@ Phases, each printing one JSON line:
                subprocesses; after SIGTERM no process is left and the
                card's memory is back. assign launches = device assigns
                and every single-tier snapshot equal to assign_np.
+ 23. perf    — the rest of ray_tpu_torch/_private/perf.py (phase_perf, see
+               PERF_*), each section through its public function with the
+               launch counters zeroed just before and read just after:
+               llm_decode_throughput at 64 and 128 slots (serve-127M, 128
+               new tokens; tokens = slots x 128, kernel 1 = 8 x the decode
+               steps, the reference's parameter count); model_time_sinks
+               of the flagship step at batch 8 x 2048, top 5 and every op
+               (the reference's form; the three flash kernels among the
+               ops by their device names; flash 48 / 24 / 24 a call);
+               serving_ab mono and split (the reference's tiny A/B model
+               widened to head_dim 128 for kernel 1; equal tokens, 16
+               streams, split affinity >= 0.8, kv_bytes > 0, no sheds,
+               kernel 1 launched in each arm); head_bypass_ab on, off and
+               default (every total 40 and n_submit 24; on: >= 35 calls
+               peer to peer, no fallback, >= 24 dispatched on the node;
+               off: none); data_ingest_overlap (rows exact, the streaming
+               first batch sooner); the Arrow sections at the reference's
+               defaults (256 MB map, 128 MB shuffle, 64 MB join), printed
+               as skipped only where pyarrow is not installed.
 
 Then the kernel table as one JSON line (kernel 1's launches: the Serve
 path's, mono and split, with phase engine's beside them), the nvidia-smi line, and last
@@ -312,11 +334,11 @@ SLOTS, PAGE, MAX_PAGES, NUM_PAGES, NEW_TOKENS = 64, 16, 16, 1024, 128
 # another order and uses exp2 with the scale folded into q). The small
 # shapes, both dtypes, 2 KV heads, 8 sequences: (group, page, pages per
 # sequence), the latter 16 or 7 (which 2 and 3 pages per split do not
-# divide). The serving shape's device time is also taken at each of
-# PAGED_SPLITS pages per split
+# divide); page 4 is the serving A/B's (phase perf). The serving shape's
+# device time is also taken at each of PAGED_SPLITS pages per split
 PAGED_TOL = 1e-4
 PAGED_SWEEP = tuple((G, page, MP) for G in (1, 2, 4, 8)
-                    for page in (8, 16, 32) for MP in (16, 7))
+                    for page in (4, 8, 16, 32) for MP in (16, 7))
 PAGED_SPLITS = (1, 2, 4, 8, 16)
 
 # the repo's training configuration (the defaults of model_mfu,
@@ -405,9 +427,11 @@ PACK_GANGS, PACK_BUNDLES, PACK_NODES = 256, 4, 64
 # public API (ray_tpu_torch.init / remote / get, thread mode, 8 workers)
 # with the TensorScheduler assigning on the card through kernels.assign.
 # Config 1 (10k no-op tasks) at full size under each backend, unbatched
-# and through map_remote; config 2 (100k tasks: benchmarks.build_map_reduce's
-# 99,010 maps and 990 reducers of 100 maps each, passed as ObjectRefs) at
-# full size; config 4 cut to RUNTIME_ACTORS actors x RUNTIME_CALLS calls.
+# and through map_remote; config 2 (benchmarks.build_map_reduce's shape:
+# reducers of 100 maps each, passed as ObjectRefs) cut to a quarter, 25k
+# tasks (24,753 maps and 247 reducers; 100k took 40.7 s on the H100's
+# host; cut to make room for phase perf); config 4 cut to RUNTIME_ACTORS
+# actors x RUNTIME_CALLS calls.
 # The crossover times TensorScheduler._assign at CROSSOVER_K ready tasks
 # on 64 nodes, numpy against cuda, on made-up snapshots of 1 and of 64
 # classes (crossover_snapshot). sched_device_min_batch's default is the
@@ -420,7 +444,7 @@ RUNTIME_WORKERS = 8
 PROFILED_ASSIGNS = 20   # assign calls in one profiler session
 RUNTIME_FANOUT = 10_000
 RUNTIME_BACKENDS = ("cuda", "numpy", "auto")
-RUNTIME_TASKS, RUNTIME_FAN_IN = 100_000, 100
+RUNTIME_TASKS, RUNTIME_FAN_IN = 25_000, 100
 RUNTIME_ACTORS, RUNTIME_CALLS = 1000, 10
 ENGINE_PROMPTS, ENGINE_NEW_TOKENS = 8, 32
 # process mode (phase process): the runtime with worker_mode="process", 8
@@ -439,16 +463,21 @@ SPILL_ARENA_BYTES, SPILL_OBJECT_BYTES, SPILL_OBJECTS = 64 << 20, 32 << 20, 3
 # context alone holds ~500 MiB of the card)
 PROCESS_MEM_SLACK_MIB = 64
 REF_MODULES = ("jax", "flax", "ray_tpu")
-# Data (phase data): BASELINE config 3 at the reference's own size
-# (data_pipeline_throughput: 100k blocks x 10 rows, after a warm pass of
-# 1k blocks), a checking run of 2k blocks with every assignment replayed
-# through assign_np, the same pipeline in process mode cut to 10k blocks
-# (each block is a lease to another process, as phase process cut its
-# map-reduce), the PRP shuffle and torch batches on the card
+# Data (phase data): BASELINE config 3 (data_pipeline_throughput: blocks of
+# 10 rows, after a warm pass of 1k blocks) cut from its own 100k blocks to
+# 50k (85.5-106.5 s at 100k on the H100: cut to keep the whole script
+# under 850 s with phase perf), a checking run of 2k blocks with every
+# assignment replayed through assign_np, the same pipeline in process mode
+# cut to 10k blocks (each block is a lease to another process, as phase
+# process cut its map-reduce), the PRP shuffle (cut from 100k rows in 1k
+# blocks, 39.5-54.9 s a run on the H100's host, to 20k rows in 200 blocks,
+# 100 rows a block as before: each reducer takes every block as an
+# argument, so the cost grows as blocks squared) and torch batches on the
+# card
 DATA_WORKERS, DATA_ROWS_PER_BLOCK = 8, 10
-DATA_BLOCKS, DATA_WARM_BLOCKS, DATA_CHECK_BLOCKS = 100_000, 1_000, 2_000
+DATA_BLOCKS, DATA_WARM_BLOCKS, DATA_CHECK_BLOCKS = 50_000, 1_000, 2_000
 DATA_PROCESS_BLOCKS = 10_000
-SHUFFLE_ROWS, SHUFFLE_BLOCKS = 100_000, 1_000
+SHUFFLE_ROWS, SHUFFLE_BLOCKS = 20_000, 200
 BATCH_ROWS, BATCH_SIZE = 1_000_000, 4096
 # the local virtual cluster (phase cluster): a 2-CPU head and process
 # nodes of 4 CPUs and 2 workers each; CLUSTER_TASKS 50 ms tasks with 5
@@ -615,6 +644,36 @@ OPS_CLI_ENV = {"RAY_TPU_TORCH_WORKER_GPU_ACCESS": "1",
                "RAY_TPU_TORCH_PROFILE_HZ": "20",
                "RAY_TPU_TORCH_TRACE_SAMPLE_RATE": "1.0"}
 
+
+# the perf sections (phase perf): ray_tpu_torch/_private/perf.py's sections
+# at the reference's defaults on the card. Decode at 64 slots and at
+# PERF_DECODE_SLOTS; the time sinks of the flagship step at batch 8 once for
+# the record (the reference's top 5) and once with every op, where each
+# flash kernel must show by its device name (PERF_FLASH_OPS) and the
+# counters must read 2 x layers x the steps run for the forward (the remat
+# recompute reruns it) and layers x the steps run for each backward
+# kernel; a call runs PERF_SINK_STEPS steps (one warm, two profiled).
+# serving_ab keeps the reference's tiny model but for its width:
+# kernel 1 is built for head_dim 128, the reference's model has 16, so
+# d_model 256 over its 2 heads (PERF_SERVING_MODEL). The Arrow sections
+# need pyarrow; where it is not installed they print PERF_ARROW_SKIP
+PERF_DECODE_SLOTS, PERF_DECODE_NEW, PERF_DECODE_PARAMS = 128, 128, 127_157_248
+PERF_SINK_STEPS, PERF_SINKS_ALL, PERF_SHOW_OPS = 3, 10_000, 12
+PERF_FLASH_OPS = {"flash_fwd": ("attention_fwd_kernel", "FlashFwdOut"),
+                  "flash_bwd_dq": ("attention_bwd_dq_kernel",),
+                  "flash_bwd_dkv": ("attention_bwd_dkv_kernel",)}
+PERF_SERVING = dict(sessions=8, turns=2, max_new=48)
+PERF_SERVING_MODEL = {"d_model": 256, "d_ff": 512}
+# each serving stream's tokens teacher-forced through the plain model (f32,
+# no kernel, the engines' bf16 weights, serving_ab's seed 0): at every step
+# the oracle's top logit less the logit of the token the engine took stays
+# within PERF_SERVING_TOL (the engines compute in bf16)
+PERF_SERVING_SEED, PERF_SERVING_TOL = 0, 0.05
+PERF_HEAD_BYPASS = dict(n_calls=40, n_submit=24)   # its defaults
+PERF_INGEST_ROWS = 96 * 50    # data_ingest_overlap's default blocks x rows
+PERF_ARROW = ("data_arrow_throughput", "data_shuffle_throughput",
+              "data_join_throughput")
+PERF_ARROW_SKIP = "pyarrow is not installed on this machine"
 
 # the bf16 kernels are instances of the wgmma + TMA templates: the forward
 # (kernel 2, kernel 3a: ops/csrc/attention_fwd_sm90.cuh) and the backward
@@ -2024,10 +2083,15 @@ class AssignRecorder:
     kernel span ms) to ``calls``: the stream span between CUDA events
     recorded on the scheduler's stream around the whole call (uploads,
     the tick kernels, the fetch), the kernel span around the one launch
-    of the tick kernels (kernels._run) alone. remove() restores them."""
+    of the tick kernels (kernels._run) alone. any_backend: keep, under any
+    sched_backend, each snapshot that went through the device path; while
+    ``schedulers`` is a dict, each scheduler that calls _device_assign is
+    entered once with its device assigns before that call. remove()
+    restores them."""
 
-    def __init__(self, torch, TS, sk, config):
+    def __init__(self, torch, TS, sk, config, any_backend=False):
         self.TS, self.sk, self.snapshots, self.calls = TS, sk, None, []
+        self.schedulers = None
         self._assign, self._device_assign = TS._assign, TS._device_assign
         self._run, self._kernel_events = sk._run, []
         rec = self
@@ -2041,13 +2105,18 @@ class AssignRecorder:
             rec._kernel_events.append(events)
 
         def _assign(sched, snapshot):
+            n0 = sched._num_device_assigns
             out = rec._assign(sched, snapshot)
-            if rec.snapshots is not None and config.sched_backend == "cuda":
+            if rec.snapshots is not None and (
+                    config.sched_backend == "cuda" or (
+                        any_backend and sched._num_device_assigns > n0)):
                 rec.snapshots.append((snapshot, out[1].copy(),
                                       out[2].copy()))
             return out
 
         def _device_assign(sched, ready_cls, *args):
+            if rec.schedulers is not None:
+                rec.schedulers.setdefault(sched, sched._num_device_assigns)
             stream, events = sched._stream, None
             if stream is not None:
                 events = [torch.cuda.Event(enable_timing=True)
@@ -2288,7 +2357,8 @@ def phase_runtime(torch):
     - oracle: a checking 10k fan-out under cuda with every snapshot
       _assign saw kept, each replayed through assign_np: node_of and
       avail equal.
-    - map_reduce (config 2, full) and actors (config 4, cut) under cuda:
+    - map_reduce (config 2, cut to 25k) and actors (config 4, cut) under
+      cuda:
       the reduced total, every actor's results in call order.
     - engine: an actor (num_gpus=1) holding InferenceEngine at serve-127M
       generates ENGINE_PROMPTS prompts one after another through
@@ -2383,7 +2453,8 @@ def phase_runtime(torch):
             dt, tasks, total, want = runtime_map_reduce(ray)
             emit({"phase": "runtime", "part": "map_reduce", "tasks": tasks,
                   "seconds": dt, "tasks_per_sec": tasks / dt,
-                  "total": total, "want": want})
+                  "total": total, "want": want,
+                  "cut": f"{RUNTIME_TASKS} tasks, not 100k"})
             if total != want:
                 problems.append(f"map_reduce total {total} != {want}")
 
@@ -3631,9 +3702,9 @@ def phase_data(torch, dev):
     """Ray Data on the runtime, the TensorScheduler assigning on ``dev``
     (sched_backend "cuda"), 8 workers (see DATA_*).
 
-    - thread mode: BASELINE config 3, data_pipeline_throughput at 100k
-      blocks x 10 rows after a warm pass of 1k blocks: blocks/s, rows/s,
-      the stages, the exact count; kernels.assign's counter zeroed just
+    - thread mode: BASELINE config 3, data_pipeline_throughput at 50k
+      blocks x 10 rows (the cut) after a warm pass of 1k blocks: blocks/s,
+      rows/s, the stages, the exact count; kernels.assign's counter zeroed just
       before and read just after, equal to the timed run's device
       assigns and > 0. A checking run of 2k blocks: take_all equal to
       [2 * i for i in range(20000)], every snapshot _assign saw replayed
@@ -3699,8 +3770,7 @@ def phase_data(torch, dev):
                           "device_assigns")},
                       "assign_launches": n, "assign": timing,
                       "kernel_busy_share": kernel_ms / 1e3 / r["seconds"],
-                      **({} if blocks == DATA_BLOCKS else {
-                          "cut": f"{blocks} blocks, not 100k"}),
+                      "cut": f"{blocks} blocks, not 100k",
                       "nvidia_smi": smi})
                 problems += [f"{mode} pipeline: {what}" for what, bad in (
                     (f"count {r['count']} != {want}", r["count"] != want),
@@ -5328,14 +5398,24 @@ def daemon_modules():
     return json.loads(out.stdout.strip().replace("'", '"'))
 
 
-def mark_leaf(key, path, sleep_s):
+def mark_leaf(key, path, sleep_s, hold_pids=(), hold_s=120.0):
     """Sleep, then append key to the marks file (O_APPEND: atomic for a
     short write): a killed attempt leaves no mark, so the file counts
-    completions. Returns key's sha256."""
+    completions. Returns key's sha256.
+
+    An attempt in a process of ``hold_pids`` (the workers of a machine
+    about to be killed) waits hold_s more before its mark, so the kill
+    lands while it sleeps, as in the reference's node-loss drill. An
+    attempt that marked just before the machine died could lose its
+    completion with the machine, and the rerun elsewhere would mark
+    again: at-least-once, which a count of marks cannot tell from a
+    task the head ran twice."""
     import hashlib
     import os
 
     time.sleep(sleep_s)
+    if os.getpid() in hold_pids:
+        time.sleep(hold_s)
     fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND)
     try:
         os.write(fd, (key + "\n").encode())
@@ -5486,8 +5566,9 @@ def phase_multinode(torch, dev):
       process, after ray.kill the process gone and the card's memory
       back; tokens/s.
     - machine_death: node A's daemon tree SIGKILLed under MN_DEATH_TASKS
-      tasks with retries: DEAD within the health check's budget, every
-      result exact and run once (the marks file), a sole-copy object
+      tasks with retries, the victim's attempts held before their marks:
+      DEAD within the health check's budget, every result exact and
+      marked once (the marks file), a sole-copy object
       rebuilt from lineage, every snapshot after the death equal to
       assign_np with no task on the dead row; seconds.
     - link_flap: a chaos node flap of B under load: exactly once, B
@@ -5908,9 +5989,14 @@ def phase_multinode(torch, dev):
             ray.wait([lineage], timeout=300)
             lineage_locs = w.gcs.object_locations(lineage.object_id())
             keys = [f"death-{i}" for i in range(MN_DEATH_TASKS)]
+            # the victim's attempts hold before their marks until the
+            # kill (mark_leaf): each key must then be marked exactly
+            # once, by the run the head took
+            held = frozenset(victim.worker_pids())
             before = dict(w.two_level_stats)
             t0 = time.perf_counter()
-            refs = [leaf.remote(k, marks, MN_DEATH_TASK_S) for k in keys]
+            refs = [leaf.remote(k, marks, MN_DEATH_TASK_S, held)
+                    for k in keys]
             wait_running_on(w, victim.index)
             t_kill = time.perf_counter()
             victim._entry.pool.simulate_machine_death()
@@ -5923,6 +6009,7 @@ def phase_multinode(torch, dev):
             rebuilt = ray.get(lineage, timeout=300)
             return {"keys": keys, "vals": vals, "to_dead": to_dead,
                     "to_last": to_last, "seconds": time.perf_counter() - t0,
+                    "held_workers": len(held),
                     "lineage_locations_before": lineage_locs,
                     "lineage_equal": bool(
                         len(rebuilt) == MN_LOCALITY_BYTES // 8
@@ -5948,6 +6035,7 @@ def phase_multinode(torch, dev):
               "seconds_to_last_result": res["to_last"],
               "seconds": res["seconds"], "exact": exact,
               "exactly_once": once, "marks": len(marked),
+              "held_workers": res["held_workers"],
               "lineage_locations_before": res["lineage_locations_before"],
               "lineage_rebuilt_equal": res["lineage_equal"],
               "two_level": res["two_level"], "snapshots_after": after,
@@ -5958,6 +6046,7 @@ def phase_multinode(torch, dev):
              res["to_dead"] > budget),
             ("results not exact", not exact),
             (f"{len(marked)} marks for {len(keys)} tasks", not once),
+            ("no worker of the victim to hold", not res["held_workers"]),
             (f"sole copy not on the victim: "
              f"{res['lineage_locations_before']}",
              res["lineage_locations_before"] != [victim.index]),
@@ -7128,6 +7217,365 @@ def phase_ops(torch, dev):
     return out
 
 
+def host_state():
+    """What this process carries into a phase from the ones before it: its
+    threads, its live child processes, the objects the garbage collector
+    tracks and its resident memory (a host-bound reading can move with
+    each)."""
+    import gc
+    import threading
+
+    children = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().split(")")[-1].split()
+        except OSError:
+            continue
+        if fields[0] != "Z" and int(fields[1]) == os.getpid():
+            try:
+                with open(f"/proc/{name}/cmdline", "rb") as f:
+                    cmd = f.read().replace(b"\0", b" ").decode()[:200]
+            except OSError:
+                cmd = None
+            children.append({"pid": int(name), "cmdline": cmd})
+    with open("/proc/self/status") as f:
+        rss = next((int(line.split()[1]) << 10 for line in f
+                    if line.startswith("VmRSS:")), None)
+    return {"threads": sorted(t.name for t in threading.enumerate()),
+            "children": children, "gc_objects": len(gc.get_objects()),
+            "rss_bytes": rss}
+
+
+def sinks_form(rows, top_k):
+    """The reference's form of model_time_sinks: at most top_k rows,
+    descending, each share in (0, 100], summing to at most 100 (plus
+    rounding). Returns the problems."""
+    shares = [r["pct_of_device_time"] for r in rows]
+    return [what for what, bad in (
+        ("no rows", not rows),
+        (f"{len(rows)} rows > top_k {top_k}", len(rows) > top_k),
+        ("not descending", shares != sorted(shares, reverse=True)),
+        ("a share outside (0, 100]", any(not 0 < x <= 100 for x in shares)),
+        (f"shares sum to {sum(shares)}", sum(shares) > 100.05)) if bad]
+
+
+def flash_ops(rows):
+    """Each flash kernel's device name (PERF_FLASH_OPS) among the time
+    sinks' ops, and its share: {kernel: (op, share) or None}."""
+    return {name: next(((r["op"], r["pct_of_device_time"]) for r in rows
+                        if all(k in r["op"] for k in keys)), None)
+            for name, keys in PERF_FLASH_OPS.items()}
+
+
+def serving_oracle(torch, dev, model=PERF_SERVING_MODEL):
+    """serving_ab's model as its engines hold it (seed PERF_SERVING_SEED,
+    weights in bf16, norm scales f32) run in f32 over the full context
+    with no kernel: logits_all(tokens) -> [len(tokens), vocab]."""
+    import dataclasses
+
+    from ray_tpu_torch._private import perf
+    from ray_tpu_torch.models.transformer import (TransformerConfig,
+                                                  init_params,
+                                                  model_from_params)
+
+    mcfg = TransformerConfig(**{**perf.SERVING_AB_MODEL, **model})
+    params = init_params(mcfg, torch.Generator(device=dev).manual_seed(
+        PERF_SERVING_SEED))
+    params = {k: v if k.endswith("/scale") else v.to(mcfg.dtype).float()
+              for k, v in params.items()}
+    oracle = model_from_params(dataclasses.replace(
+        mcfg, dtype=torch.float32, flash_attention="off"), params, device=dev)
+
+    @torch.no_grad()
+    def logits_all(tokens):
+        return oracle(torch.tensor([tokens], device=dev))[0].float()
+
+    return logits_all
+
+
+def stream_deficits(torch, logits_all, streams, max_new, vocab):
+    """Each stream's generated tokens teacher-forced through the oracle
+    (logits_all): at each step the oracle's top logit less the logit of
+    the token the stream took (0 where it took the argmax). Returns
+    {"tokens": compared, "worst": the largest deficit, "off_argmax":
+    steps that took another token than the argmax, "malformed": streams
+    of the wrong length or out of vocab}."""
+    compared, worst, off, malformed = 0, 0.0, 0, 0
+    for s in streams:
+        toks = s["tokens"]
+        if len(toks) != max_new or not all(0 <= t < vocab for t in toks):
+            malformed += 1
+            continue
+        p = len(s["prompt"])
+        logits = logits_all(list(s["prompt"]) + toks[:-1])[p - 1:]
+        took = logits.gather(1, torch.tensor(toks, device=logits.device)
+                             .unsqueeze(1)).squeeze(1)
+        deficit = logits.max(dim=1).values - took
+        compared += len(toks)
+        worst = max(worst, float(deficit.max()))
+        off += int((deficit > 0).sum())
+    return {"tokens": compared, "worst": worst, "off_argmax": off,
+            "malformed": malformed}
+
+
+def phase_perf(torch, dev):
+    """The rest of ray_tpu_torch/_private/perf.py on the card (see PERF_*):
+    decode at 64 and PERF_DECODE_SLOTS slots, the train step's time sinks
+    (twice), the serving A/B's two arms, the head-bypass A/B's three arms,
+    streaming ingest and the Arrow sections, each through its public
+    function. The kernels' launch counters are zeroed just before each
+    section and read just after. Each section prints one line; a failed
+    check or a raising section fails the phase after the rest have run.
+    kernels.assign's counter is held to the device assigns of the
+    schedulers the sections start, and every snapshot that went through
+    the card to assign_np. Returns the launches by section: {"decode_64",
+    "decode_128", "serving_mono", "serving_disagg": kernel 1;
+    "time_sinks": {flash kernel: launches over both calls}; "assign":
+    kernels.assign over every section}."""
+    import importlib.util
+    import threading
+    import traceback
+
+    from ray_tpu_torch._private import perf
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch._private.scheduler import kernels as sk
+    from ray_tpu_torch._private.scheduler.tensor import TensorScheduler
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    smi = nvidia_smi()
+    kernels = {"paged_attention": pa.paged_attention, **_flash_kernels(),
+               "scheduler_assign": sk.assign}
+    layers = SERVE["n_layers"]
+    problems, results, out = [], {}, {"assign": 0}
+    t_phase = time.perf_counter()
+    # the host's state as the earlier phases leave it: decode is host-bound
+    emit({"phase": "perf", "section": "host", **host_state()})
+
+    def assigns_after(rec):
+        """The device assigns of each scheduler that assigned on the card
+        since rec.schedulers was set (a calibration thread joined first),
+        every snapshot that went through the card replayed through
+        assign_np (single-tier runs, as phase ops): problems, counts."""
+        for t in threading.enumerate():
+            if t.name == "ray_tpu_sched_calib":
+                t.join(timeout=10)
+        n = sk.assign.launches
+        assigns = sum(sch.stats()["device_assigns"] - n0
+                      for sch, n0 in rec.schedulers.items())
+        snaps, rec.snapshots, rec.schedulers = rec.snapshots, None, None
+        runs = [x for x in snaps
+                if x[0][9] is None or len(set(x[0][9])) == 1]
+        counts = {"assign_launches": n, "device_assigns": assigns,
+                  "snapshots": len(snaps), "tier_runs": len(runs),
+                  "snapshots_differ": replay_oracle(
+                      sk, runs, GLOBAL_CONFIG.sched_hybrid_threshold)}
+        out["assign"] += n
+        return [what for what, bad in (
+            (f"assign launches {n} != device assigns {assigns}",
+             n != assigns),
+            (f"{counts['snapshots_differ']} snapshots differ from "
+             "assign_np", counts["snapshots_differ"])) if bad], counts
+
+    def section(key, fn, check):
+        """fn() with every counter zeroed just before and read just after
+        (kernels.assign's against the device assigns of the schedulers
+        the section started); check(result, launches) -> problems. One
+        line, whatever happens."""
+        rec = AssignRecorder(torch, TensorScheduler, sk, GLOBAL_CONFIG,
+                             any_backend=True)
+        try:
+            for k in kernels.values():
+                k.launches = 0
+            rec.snapshots, rec.schedulers = [], {}
+            t0 = time.perf_counter()
+            try:
+                r = fn()
+                error = None
+            except Exception:
+                r, error = None, traceback.format_exc(limit=8)
+            seconds = time.perf_counter() - t0
+            assign_bad, assign = assigns_after(rec)
+        finally:
+            rec.remove()
+        launches = {n: k.launches for n, k in kernels.items()}
+        bad = ([f"raised: {error.splitlines()[-1]}"] if error
+               else check(r, launches)) + assign_bad
+        problems.extend(f"{key}: {b}" for b in bad)
+        results[key] = (r, launches)
+        shown = r
+        if isinstance(r, list):   # the time sinks: the line shows the top
+            shown = {"ops": len(r), "top": [
+                {"op": row["op"][:120], "pct": row["pct_of_device_time"]}
+                for row in r[:PERF_SHOW_OPS]]}
+        elif isinstance(r, dict) and "streams" in r:   # serving: counted
+            shown = {**r, "streams": len(r["streams"])}
+        emit({"phase": "perf", "section": key, "nvidia_smi": smi,
+              "seconds": seconds, "launches": launches, "assign": assign,
+              "result": shown, "ok": not bad, "problems": bad,
+              "error": error})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return r, launches
+
+    # decode: the engine at the serving width; kernel 1 on every layer of
+    # every decode step of the timed round (phase engine's rule)
+    def decode_check(slots):
+        def check(r, launches):
+            rule = launch_rule(r["paged_attention_launches"], layers,
+                               r["decode_steps"])
+            return [what for what, bad in (
+                (f"tokens {r['tokens']} != {slots} x {PERF_DECODE_NEW}",
+                 r["tokens"] != slots * PERF_DECODE_NEW
+                 or round(r["tokens_per_sec"] * r["seconds"]) != r["tokens"]),
+                (f"batch_slots {r['batch_slots']}", r["batch_slots"] != slots),
+                (f"n_params {r['n_params']} != the reference's "
+                 f"{PERF_DECODE_PARAMS}", r["n_params"] != PERF_DECODE_PARAMS),
+                (rule, rule is not None),
+                (f"the counter read {launches['paged_attention']} < the "
+                 "timed round's", launches["paged_attention"]
+                 < r["paged_attention_launches"])) if bad]
+        return check
+
+    for slots in (64, PERF_DECODE_SLOTS):
+        _r, launches = section(
+            f"decode_{slots}",
+            lambda s=slots: perf.llm_decode_throughput(
+                batch_slots=None if s == 64 else s),
+            decode_check(slots))
+        out[f"decode_{slots}"] = launches["paged_attention"]
+
+    # the flagship step's time sinks: the reference's top 5, then every op
+    want_flash = {"flash_fwd": 2 * TRAIN["n_layers"] * PERF_SINK_STEPS,
+                  "flash_bwd_dq": TRAIN["n_layers"] * PERF_SINK_STEPS,
+                  "flash_bwd_dkv": TRAIN["n_layers"] * PERF_SINK_STEPS}
+
+    def sinks_check(top_k):
+        def check(rows, launches):
+            bad = sinks_form(rows, top_k)
+            bad += [f"{n} launches {launches[n]} != {w}"
+                    for n, w in want_flash.items() if launches[n] != w]
+            if top_k == PERF_SINKS_ALL:
+                bad += [f"{n}'s kernel not among the ops"
+                        for n, hit in flash_ops(rows).items() if hit is None]
+            return bad
+        return check
+
+    _rows, top5 = section("time_sinks_top5", perf.model_time_sinks,
+                          sinks_check(5))
+    rows, launches = section(
+        "time_sinks_all",
+        lambda: perf.model_time_sinks(top_k=PERF_SINKS_ALL),
+        sinks_check(PERF_SINKS_ALL))
+    out["time_sinks"] = {n: top5[n] + launches[n] for n in FLASH_NAMES}
+    found, by_group = flash_ops(rows or []), {}
+    for row in rows or []:
+        group = kernel_group(row["op"])
+        by_group[group] = by_group.get(group, 0.0) + row["pct_of_device_time"]
+    emit({"phase": "perf", "section": "time_sinks_flash", "nvidia_smi": smi,
+          "flash_ops": found, "flash_share": sum(
+              share for _op, share in filter(None, found.values())),
+          "share_by_group": by_group})
+
+    # serving A/B: the reference guard's correctness checks, and every
+    # stream's tokens against the plain model (kernel 1 at page 4 on the
+    # engines' path); TTFT and tokens/s are readings
+    logits_all = serving_oracle(torch, dev)
+    max_new, vocab = PERF_SERVING["max_new"], perf.SERVING_AB_MODEL[
+        "vocab_size"]
+
+    def serving_check(r, launches):
+        d = stream_deficits(torch, logits_all, r["streams"], max_new, vocab)
+        r["oracle"] = d
+        return [what for what, bad in (
+            (f"n_streams {r['n_streams']}", r["n_streams"]
+             != PERF_SERVING["sessions"] * PERF_SERVING["turns"]
+             or len(r["streams"]) != r["n_streams"]),
+            (f"sheds {r['sheds']}", r["sheds"] != 0),
+            ("kernel 1 not launched", launches["paged_attention"] == 0
+             or r["paged_attention_launches"] == 0),
+            (f"{d['malformed']} streams of the wrong length or out of "
+             "vocab", d["malformed"]),
+            (f"a token {d['worst']} below the plain model's top logit "
+             f"(tolerance {PERF_SERVING_TOL})",
+             d["worst"] > PERF_SERVING_TOL)) if bad]
+
+    for disagg in (False, True):
+        key = "serving_disagg" if disagg else "serving_mono"
+        _r, launches = section(
+            key, lambda d=disagg: perf.serving_ab(
+                d, model=PERF_SERVING_MODEL, **PERF_SERVING),
+            serving_check)
+        out[key] = launches["paged_attention"]
+    mono, split = (results[k][0] for k in ("serving_mono", "serving_disagg"))
+    if mono and split:
+        problems.extend(f"serving: {what}" for what, bad in (
+            (f"total_tokens {split['total_tokens']} != mono's "
+             f"{mono['total_tokens']}",
+             split["total_tokens"] != mono["total_tokens"]),
+            (f"affinity_hit_rate {split['affinity_hit_rate']} < 0.8",
+             (split["affinity_hit_rate"] or 0) < 0.8),
+            ("no kv_bytes in the split arm", split["kv_bytes"] <= 0))
+            if bad)
+        # a reading: streams whose tokens the two arms agree on (bf16
+        # engines may part at a near-tie; the oracle check above decides)
+        emit({"phase": "perf", "section": "serving_streams_equal",
+              "equal": sum(a["tokens"] == b["tokens"] for a, b in zip(
+                  mono["streams"], split["streams"])),
+              "streams": len(mono["streams"])})
+
+    # head bypass: the reference guard's correctness checks, every arm
+    n_calls, n_submit = (PERF_HEAD_BYPASS[k] for k in ("n_calls",
+                                                       "n_submit"))
+    for p2p, arm in ((True, "on"), (False, "off"), (None, "default")):
+        section(f"head_bypass_{arm}", lambda p=p2p: perf.head_bypass_ab(p),
+                lambda r, _l, p=p2p: [what for what, bad in (
+                    (f"total {r['total']} != {n_calls}",
+                     r["total"] != n_calls),
+                    (f"n_submit {r['n_submit']} != {n_submit}",
+                     r["n_submit"] != n_submit),
+                    (f"calls_p2p {r['calls_p2p']} < 0.9 x {n_calls} - 1",
+                     p is True and r["calls_p2p"] < 0.9 * n_calls - 1),
+                    (f"head_fallback {r['head_fallback']}",
+                     p is True and r["head_fallback"] != 0),
+                    (f"local_dispatch {r['local_dispatch']} < {n_submit}",
+                     p is True and r["local_dispatch"] < n_submit),
+                    ("the off arm bypassed the head", p is False and (
+                        r["calls_p2p"] != 0 or r["local_dispatch"] != 0)))
+                    if bad])
+
+    # streaming ingest: rows exact, the first batch sooner than materialise
+    section("ingest", perf.data_ingest_overlap,
+            lambda r, _l: [what for what, bad in (
+                (f"rows {r['rows']} != {PERF_INGEST_ROWS}",
+                 r["rows"] != PERF_INGEST_ROWS),
+                (f"ttfb streaming {r['ttfb_streaming_s']} >= materialize "
+                 f"{r['ttfb_materialize_s']}",
+                 r["ttfb_streaming_s"] >= r["ttfb_materialize_s"])) if bad])
+
+    # the Arrow sections need pyarrow; skipped only where it is missing
+    for name in PERF_ARROW:
+        if importlib.util.find_spec("pyarrow") is None:
+            emit({"phase": "perf", "section": name,
+                  "skipped": PERF_ARROW_SKIP})
+            continue
+        section(name, getattr(perf, name),
+                lambda r, _l: [f"total_mb {r['total_mb']}"]
+                if not r["total_mb"] > 0 else [])
+    if importlib.util.find_spec("pyarrow") is not None:
+        import pyarrow
+        emit({"phase": "perf", "section": "pyarrow",
+              "version": pyarrow.__version__})
+    emit({"phase": "perf", "nvidia_smi": smi,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "launches": out, "ok": not problems, "problems": problems})
+    if problems:
+        raise AssertionError(f"perf phase: {problems}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7152,7 +7600,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     if "--phase" in sys.argv[1:]:
         # named later phases alone (each needs no earlier one), no ok line:
-        # python3 chip_smoke.py --phase ops [multinode ...]
+        # python3 chip_smoke.py --phase perf [ops multinode ...]
         names = sys.argv[sys.argv.index("--phase") + 1:]
         for name in names:
             globals()[f"phase_{name}"](torch, dev)
@@ -7193,6 +7641,7 @@ def main() -> int:
     phase_workflow(torch, dev)
     multinode = phase_multinode(torch, dev)
     ops = phase_ops(torch, dev)
+    perf = phase_perf(torch, dev)
 
     # kernel 1 and its yardstick by device time (graph replays): the eager
     # loop of wrapper calls times the host, not the kernels
@@ -7209,7 +7658,10 @@ def main() -> int:
             "serve_mono": served["mono"]["paged_attention_launches"],
             "serve_disagg": served["disagg"]["paged_attention_launches"],
             "multinode_engine_actor": multinode["engine_actor"],
-            "ops_prod": ops["ops_prod"]},
+            "ops_prod": ops["ops_prod"],
+            **{f"perf_{k}": perf[k] for k in (
+                "decode_64", f"decode_{PERF_DECODE_SLOTS}", "serving_mono",
+                "serving_disagg")}},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["device_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -7239,7 +7691,8 @@ def main() -> int:
                                    if name == "flash_fwd" else 0),
                 "ops_batch": ops["ops_batch"][name],
                 "ops_job_forward": (ops["ops_job_forward"]
-                                    if name == "flash_fwd" else 0)},
+                                    if name == "flash_fwd" else 0),
+                "perf_time_sinks": perf["time_sinks"][name]},
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
     # times and bound of the block below the diagonal (every key visible,
@@ -7275,8 +7728,10 @@ def main() -> int:
                                            rllib_launches["process"],
                                        "train": train_lib_launches,
                                        "multinode": multinode["assign"],
-                                       "ops": ops["ops"]},
+                                       "ops": ops["ops"],
+                                       "perf": perf["assign"]},
                   "library_ms": None})
+    emit({"phase": "end", **host_state()})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

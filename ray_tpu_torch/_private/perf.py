@@ -35,6 +35,40 @@
    here), so hfu equals mfu. Runs on the current CUDA device and raises
    without one; only an explicit ``device="cpu"`` runs on the host (the
    tests), where there is no peak and mfu is None.
+
+7. ``llm_decode_throughput`` — decode tokens/s of the port's
+   ``InferenceEngine`` at the reference's serving width (127M parameters,
+   64 continuous-batch slots x 128 new tokens), kernel 1 on every layer
+   of every decode step.
+
+8. ``model_time_sinks`` — the top device ops of the flagship train step
+   (batch 8 x 2048) from a ``torch.profiler`` trace: each kernel's share
+   of the summed device time.
+
+9. ``serving_ab`` — one arm of the serving A/B: mono pools against split
+   prefill / decode pools under concurrent multi-turn sessions, TTFT on
+   the client's clock.
+
+10. ``head_bypass_ab`` — one arm of the two-level A/B on two remote
+    nodes: peer-to-peer actor calls and node-local dispatch on, off, or
+    as the defaults set them, under a slowed head scheduler.
+
+11. ``data_ingest_overlap`` — time to first batch of ``streaming_split``
+    against materialise-then-split over the same pipeline.
+
+12.–14. ``data_arrow_throughput``, ``data_shuffle_throughput``,
+    ``data_join_throughput`` — MB/s of Arrow blocks through a numpy
+    ``map_batches`` in worker processes, ``random_shuffle`` (the native
+    PRP exchange) and a hash ``join``. They import pyarrow, as the
+    reference does, and raise ``ImportError`` where it is not installed.
+
+Each keeps the reference's name, arguments, defaults and keys. A section
+that touches the card takes ``device`` (None: the card, raising without
+one); one that starts a runtime takes ``system_config`` for ``init`` (the
+tests pass ``{"sched_device": "cpu"}``). Keys a section adds to the
+reference's are named, each in double backquotes, at the end of its
+docstring after "Keys added to the reference's:" (the tests read them
+there); a section that adds none says nothing of it.
 """
 
 from __future__ import annotations
@@ -49,11 +83,16 @@ _PEAK_FLOPS = (
     ("h100", 989e12),
 )
 
-# the reference's pinned small config (ray_tpu/_private/perf.py)
+# the reference's pinned small configs (ray_tpu/_private/perf.py)
 SMOKE_MODEL: Dict[str, int] = {
     "d_model": 256, "n_layers": 2, "n_heads": 8, "n_kv_heads": 4,
     "d_ff": 704, "vocab_size": 2048, "seq_len": 256, "batch_size": 4,
     "steps": 3,
+}
+SMOKE_DECODE: Dict[str, int] = {
+    "vocab_size": 256, "d_model": 64, "n_layers": 2, "n_heads": 4,
+    "n_kv_heads": 2, "d_ff": 128, "max_seq_len": 256, "batch": 2,
+    "new_tokens": 16, "pages": 64,
 }
 
 
@@ -81,6 +120,10 @@ def e2e_task_throughput(n_tasks: int = 10_000,
     goes to ``init`` (e.g. ``{"sched_backend": "cuda"}``, or
     ``{"worker_mode": "process"}`` in place of the reference's ``mode``
     argument).
+
+    Keys added to the reference's: ``device_assigns`` (the kept trial's
+    device assignments), ``device_assigns_total`` and
+    ``device_assign_errors`` (the session's).
     """
     import resource
 
@@ -160,7 +203,11 @@ def data_pipeline_throughput(num_blocks: int = 100_000,
     runs on the caller's runtime (warmed and checked by the caller)
     instead of starting and shutting down one; ``num_workers`` and
     ``system_config`` are then unused. Counterpart of
-    ``data_pipeline_throughput`` in ``ray_tpu/_private/perf.py``."""
+    ``data_pipeline_throughput`` in ``ray_tpu/_private/perf.py``.
+
+    Keys added to the reference's: ``count`` (the pipeline's, equal to
+    rows), ``mode`` (the worker mode), ``device_assigns`` (the timed
+    pipeline's) and ``device_assign_errors`` (the session's)."""
     import ray_tpu_torch
     from ray_tpu_torch import data
     from ray_tpu_torch._private import worker as worker_mod
@@ -198,6 +245,247 @@ def data_pipeline_throughput(num_blocks: int = 100_000,
         # the timed pipeline's device assignments; the session's errors
         "device_assigns": sched_stats.get("device_assigns", 0) - assigns0,
         "device_assign_errors": sched_stats.get("device_assign_errors", 0),
+    }
+
+
+def data_ingest_overlap(num_blocks: int = 96, rows_per_block: int = 50,
+                        sleep_s: float = 0.025, consumers: int = 2,
+                        num_workers: int = 8,
+                        system_config: Optional[Dict[str, Any]] = None
+                        ) -> Dict[str, Any]:
+    """Streaming-split ingest vs. materialize-then-split, same pipeline
+    in the same run. The map stage sleeps per block (a stand-in for
+    real decode/transform work that releases the GIL, so thread
+    workers overlap): the materialized baseline pays the WHOLE
+    pipeline before its first batch; streaming_split hands consumers
+    block 0 as soon as it finishes. Reports both time-to-first-batch
+    values and the measured producer/consumer overlap fraction.
+    ``system_config`` goes to ``init``. The reference's keys and no
+    other."""
+    import threading
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+    from ray_tpu_torch.data import block as blk
+
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_workers=num_workers, scheduler="tensor",
+                       _system_config=system_config)
+    try:
+        def make_ds():
+            def slow(b, _s=sleep_s):
+                time.sleep(_s)
+                return [x * 2 for x in b]
+
+            return data.range(num_blocks * rows_per_block,
+                              parallelism=num_blocks).map_batches(slow)
+
+        # warm the pool so neither side pays spin-up
+        data.range(num_workers * 4, parallelism=num_workers * 4).count()
+
+        # baseline: materialize, split by rank, first batch of shard 0
+        t0 = time.perf_counter()
+        refs = make_ds().materialize().block_refs
+        ray_tpu_torch.get(refs[0])
+        ttfb_mat = time.perf_counter() - t0
+        t_mat = time.perf_counter() - t0
+
+        # streaming: identical pipeline through streaming_split
+        shards = make_ds().streaming_split(consumers, equal=True)
+        ttfb = [None] * consumers
+        rows = [0] * consumers
+
+        def drain(i: int, t_start: float):
+            for b in shards[i].iter_batches():
+                if ttfb[i] is None:
+                    ttfb[i] = time.perf_counter() - t_start
+                rows[i] += blk.block_rows(b)
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=drain, args=(i, t1))
+                   for i in range(consumers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        t_stream = time.perf_counter() - t1
+        split_stats = shards[0].stats()
+        coord = shards[0].coordinator
+        coord.shutdown()
+        total_rows = num_blocks * rows_per_block
+        assert sum(rows) == total_rows, (rows, total_rows)
+        ttfb_stream = min(t for t in ttfb if t is not None)
+    finally:
+        ray_tpu_torch.shutdown()
+    return {
+        "num_blocks": num_blocks,
+        "rows": total_rows,
+        "consumers": consumers,
+        "ttfb_materialize_s": round(ttfb_mat, 4),
+        "ttfb_streaming_s": round(ttfb_stream, 4),
+        "ttfb_speedup": round(ttfb_mat / max(ttfb_stream, 1e-9), 1),
+        "overlap_fraction": split_stats["overlap_fraction"],
+        "materialize_total_s": round(t_mat, 4),
+        "streaming_total_s": round(t_stream, 4),
+        "streaming_blocks_per_sec": round(num_blocks / t_stream, 1),
+        "backpressure_wait_s": split_stats["backpressure_wait_s"],
+    }
+
+
+def _arrow_data_bench(make_ds, warm_op, total_mb: int, num_blocks: int,
+                      num_workers: int, arena_mult: int,
+                      payload_mult: int,
+                      worker_mode: str = "process",
+                      best_of: int = 1,
+                      system_config: Optional[Dict[str, Any]] = None
+                      ) -> Dict[str, Any]:
+    """Shared harness for the Arrow data-plane benchmarks: sized shm
+    arena (the default 256 MB would thrash the spill tier and measure
+    disk), a warm-up dataset to absorb worker spin-up and per-worker
+    pyarrow imports (hundreds of ms each, serialized on small hosts),
+    then a timed iter_batches pass with honest block-nbytes accounting.
+    payload_mult: 2 counts in+out payload (map), 1 counts output only
+    (exchange). best_of reruns the timed pass and keeps the fastest
+    (page-cache warming on loaded single-CPU hosts dominates trial 0).
+    ``system_config`` adds knobs to ``init``; the harness's own win."""
+    import numpy as np
+    import pyarrow as pa
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+    from ray_tpu_torch.data import block as blk
+
+    ray_tpu_torch.shutdown()
+    cfg = {**(system_config or {}), "worker_mode": worker_mode}
+    if worker_mode == "process":
+        cfg["object_store_memory"] = (max(arena_mult * total_mb, 512)
+                                      * 1024 * 1024)
+    ray_tpu_torch.init(num_workers=num_workers, scheduler="tensor",
+                       _system_config=cfg)
+    try:
+        n_rows = total_mb * 1024 * 1024 // 8
+        table = pa.table({"x": np.arange(n_rows, dtype=np.int64)})
+        warm = pa.table({"x": np.arange(num_workers * 4, dtype=np.int64)})
+        warm_op(data.from_arrow(warm, parallelism=num_workers * 4)).count()
+        time.sleep(2.0)
+        dt = None
+        for _ in range(max(1, best_of)):
+            ds = make_ds(data.from_arrow(table, parallelism=num_blocks))
+            t0 = time.perf_counter()
+            out_bytes = 0
+            rows = 0
+            for b in ds.iter_batches():
+                out_bytes += blk.block_nbytes(b)
+                rows += blk.block_rows(b)
+            trial = time.perf_counter() - t0
+            assert rows == n_rows, (rows, n_rows)
+            dt = trial if dt is None else min(dt, trial)
+    finally:
+        ray_tpu_torch.shutdown()
+    return {
+        "total_mb": round(payload_mult * out_bytes / 1e6, 1),
+        "seconds": dt,
+        "mb_per_sec": round(payload_mult * out_bytes / 1e6 / dt, 1),
+        "num_blocks": num_blocks,
+    }
+
+
+def data_arrow_throughput(total_mb: int = 256, num_blocks: int = 64,
+                          num_workers: int = 8,
+                          system_config: Optional[Dict[str, Any]] = None
+                          ) -> Dict[str, Any]:
+    """Columnar path MB/s: Arrow blocks flow through a numpy-format
+    map_batches in PROCESS workers (shm arena data plane; the sizes are
+    real block nbytes, so MB/s is honest in+out payload throughput).
+    Needs pyarrow (ImportError without it). The reference's keys and
+    no other."""
+    def mapped(ds):
+        return ds.map_batches(lambda cols: {"x": cols["x"] * 2},
+                              batch_format="numpy")
+
+    def warm(ds):
+        return ds.map_batches(lambda cols: cols, batch_format="numpy")
+
+    return _arrow_data_bench(mapped, warm, total_mb, num_blocks,
+                             num_workers, arena_mult=4, payload_mult=2,
+                             system_config=system_config)
+
+
+def data_shuffle_throughput(total_mb: int = 128, num_blocks: int = 16,
+                            num_workers: int = 0,
+                            system_config: Optional[Dict[str, Any]] = None
+                            ) -> Dict[str, Any]:
+    """Columnar all-to-all MB/s: random_shuffle over Arrow blocks.
+
+    The exchange is two derived-permutation (Feistel PRP) gather
+    stages running in the native C++ kernel (_native/exchange.cc) —
+    rows never materialize, permutations are never stored. Runs in the
+    framework's default thread mode (single-host shuffles have no
+    reason to pay IPC) with workers sized to the host's cores; a
+    best-of-3 absorbs page-cache warmup on loaded hosts. Needs pyarrow
+    (ImportError without it). The reference's keys and no other."""
+    import os
+
+    def shuffled(ds, _seed=[0]):
+        _seed[0] += 1
+        return ds.random_shuffle(seed=_seed[0])
+
+    nw = num_workers or max(2, min(8, os.cpu_count() or 2))
+    return _arrow_data_bench(shuffled, shuffled, total_mb, num_blocks,
+                             nw, arena_mult=6, payload_mult=1,
+                             worker_mode="thread", best_of=3,
+                             system_config=system_config)
+
+
+def data_join_throughput(total_mb: int = 64, num_blocks: int = 8,
+                         num_workers: int = 0,
+                         system_config: Optional[Dict[str, Any]] = None
+                         ) -> Dict[str, Any]:
+    """Columnar hash-join MB/s: key-partitioned exchange + Arrow hash
+    join per reducer (data/_streaming.py join_exchange). Payload is
+    the JOINED output's nbytes; thread mode + best-of-3 like the
+    shuffle bench. Needs pyarrow (ImportError without it). The
+    reference's keys and no other."""
+    import os
+
+    import numpy as np
+    import pyarrow as pa
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+    from ray_tpu_torch.data import block as blk
+
+    ray_tpu_torch.shutdown()
+    nw = num_workers or max(2, min(8, os.cpu_count() or 2))
+    ray_tpu_torch.init(num_workers=nw, scheduler="tensor",
+                       _system_config={**(system_config or {}),
+                                       "worker_mode": "thread"})
+    try:
+        n_rows = total_mb * 1024 * 1024 // 16  # two int64 cols
+        keys = np.arange(n_rows, dtype=np.int64)
+        left_t = pa.table({"k": keys, "v": keys * 2})
+        right_t = pa.table({"k": keys, "w": keys * 3})
+        dt = None
+        out_bytes = rows = 0
+        for _ in range(3):
+            left = data.from_arrow(left_t, parallelism=num_blocks)
+            right = data.from_arrow(right_t, parallelism=num_blocks)
+            t0 = time.perf_counter()
+            out_bytes = 0
+            rows = 0
+            for b in left.join(right, on="k")._execute():
+                out_bytes += blk.block_nbytes(b)
+                rows += blk.block_rows(b)
+            trial = time.perf_counter() - t0
+            assert rows == n_rows, (rows, n_rows)
+            dt = trial if dt is None else min(dt, trial)
+    finally:
+        ray_tpu_torch.shutdown()
+    return {
+        "total_mb": round(out_bytes / 1e6, 1),
+        "seconds": dt,
+        "mb_per_sec": round(out_bytes / 1e6 / dt, 1),
+        "num_blocks": num_blocks,
     }
 
 
@@ -333,7 +621,12 @@ def rl_rollout_throughput(iters: int = 4, device=None) -> Dict[str, Any]:
     scheduler="tensor")``; ``device_assigns`` counts the whole call, the
     algorithm's build included. Counterpart of ``rl_rollout_throughput``
     in ``ray_tpu/_private/perf.py``, which starts and stops that runtime
-    itself."""
+    itself, and rounds what this one leaves unrounded.
+
+    Keys added to the reference's: ``seconds`` (the timed iterations'),
+    ``learner_ms_per_update``, ``learner_ms_by_iteration``,
+    ``learner_device``, ``device_assigns`` (the whole call's) and
+    ``device_assign_errors``."""
     from ray_tpu_torch._private import worker as worker_mod
     from ray_tpu_torch.rllib import IMPALAConfig
 
@@ -445,6 +738,159 @@ def locality_ab(locality: bool, n_consumers: int = 8,
         c.shutdown()
 
 
+def head_bypass_ab(p2p: Optional[bool], n_calls: int = 40,
+                   n_submit: int = 24,
+                   head_tick_delay_s: float = 0.02,
+                   system_config: Optional[dict] = None) -> Dict[str, Any]:
+    """One arm of the two-level/head-bypass A/B: a 2-remote-node
+    cluster, an actor resident on node B, a caller task on node A
+    issuing ``n_calls`` sequential actor calls.
+
+    With ``p2p=True`` (``actor_p2p`` + ``local_dispatch`` on) the calls
+    ship worker -> caller daemon -> peer daemon once the route
+    resolves; only sequenced completion receipts reach the head. With
+    ``p2p=False`` every call round-trips the head (the escape hatch,
+    byte-for-byte the pre-two-level wire). With ``p2p=None`` the arm
+    runs the DEFAULT config — no knob overrides at all — and widens
+    the submit lane to the shapes that used to spill before the
+    defaults flipped: retry-carrying tasks and ref-carrying args
+    resident on the submitting node.
+
+    The sustained-submit lane then arms a chaos ``sched_tick slow``
+    plan (every head scheduler tick delayed by ``head_tick_delay_s``)
+    and has a node-A task submit+get ``n_submit`` nested tasks: with
+    local dispatch on, the node's LocalScheduler admits them without
+    waiting out the slowed head tick.
+
+    Host work only: no model runs, and the card is touched only by the
+    head scheduler's assignment (``sched_device``). ``system_config``
+    adds the head's other knobs (the scheduler's backend and device);
+    the arm's own overrides win. Returns {mode, p2p, n_calls, total,
+    actor_seconds, calls_p2p, head_fallback, submit_seconds,
+    local_dispatch, spillback, head_skip}, the reference's keys and no
+    other. ``total`` must match between arms (equal results)."""
+    import ray_tpu_torch
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    overrides = ({} if p2p is None else
+                 {"local_dispatch": bool(p2p), "actor_p2p": bool(p2p)})
+    two_level_on = p2p is None or bool(p2p)
+    ray_tpu_torch.shutdown()
+    c = Cluster(initialize_head=True,
+                head_node_args=dict(
+                    num_cpus=2, num_workers=2, scheduler="tensor",
+                    _system_config={**(system_config or {}), **overrides}))
+    try:
+        c.add_node(num_cpus=2, remote=True, resources={"a": 100.0})
+        c.add_node(num_cpus=2, remote=True, resources={"b": 100.0})
+        c.wait_for_nodes()
+        w = worker_mod.get_worker()
+
+        @ray_tpu_torch.remote(resources={"b": 1.0})
+        class _Acc:
+            def __init__(self):
+                self.total = 0
+
+            def bump(self, x):
+                self.total += x
+                return self.total
+
+        actor = _Acc.remote()
+        ray_tpu_torch.get(actor.bump.remote(0), timeout=60.0)  # placed + live
+
+        @ray_tpu_torch.remote(resources={"a": 1.0})
+        def caller(h, n):
+            import ray_tpu_torch
+            out = 0
+            for _ in range(n):
+                out = ray_tpu_torch.get(h.bump.remote(1), timeout=60.0)
+            return out
+
+        t0 = time.perf_counter()
+        total = ray_tpu_torch.get(caller.remote(actor, n_calls),
+                                  timeout=300.0)
+        actor_dt = time.perf_counter() - t0
+        # sequenced p2p_done receipts ride the outbox; give the last
+        # few a beat to land before reading the counters
+        deadline = time.monotonic() + 10.0
+        while (two_level_on and time.monotonic() < deadline
+               and (w.two_level_stats["p2p"]
+                    + w.two_level_stats["head_fallback"]) < n_calls - 1):
+            time.sleep(0.05)
+        stats = dict(w.two_level_stats)
+
+        # the on/off A/B keeps the historical admissible shape (default
+        # resources, no retries) so arms stay comparable release to
+        # release; the default-config arm mixes in the shapes the
+        # LocalScheduler used to spill and now admits — retry-carrying
+        # tasks and ref-carrying args resident on the node
+        @ray_tpu_torch.remote(max_retries=0)
+        def _nested_noop():
+            return 1
+
+        @ray_tpu_torch.remote  # default task_max_retries: retry-carrying
+        def _nested_retry():
+            return 1
+
+        @ray_tpu_torch.remote(max_retries=0)
+        def _nested_ref(blob):
+            return 1 if blob else 0
+
+        @ray_tpu_torch.remote(resources={"a": 1.0})
+        def submitter(n, mixed):
+            import ray_tpu_torch
+            if not mixed:
+                return sum(ray_tpu_torch.get(
+                    [_nested_noop.remote() for _ in range(n)],
+                    timeout=120.0))
+            # over inline_object_max_bytes -> sealed in node A's arena,
+            # the shape the residency check admits locally
+            data = ray_tpu_torch.put(b"x" * (256 * 1024))
+            refs = []
+            for i in range(n):
+                kind = i % 3
+                if kind == 0:
+                    refs.append(_nested_noop.remote())
+                elif kind == 1:
+                    refs.append(_nested_retry.remote())
+                else:
+                    refs.append(_nested_ref.remote(data))
+            return sum(ray_tpu_torch.get(refs, timeout=120.0))
+
+        chaos.arm(chaos.FaultPlan(7))
+        chaos.set_probability("sched_tick", 1.0,
+                              delay_s=head_tick_delay_s)
+        try:
+            t0 = time.perf_counter()
+            n_done = ray_tpu_torch.get(
+                submitter.remote(n_submit, p2p is None), timeout=300.0)
+            submit_dt = time.perf_counter() - t0
+        finally:
+            chaos.disarm()
+        stats_after = dict(w.two_level_stats)
+        ld = int(stats_after["local_dispatch"])
+        sb = int(stats_after["spillback"])
+        return {
+            "mode": "default" if p2p is None else
+                    ("on" if p2p else "off"),
+            "p2p": two_level_on,
+            "n_calls": n_calls,
+            "total": int(total),
+            "actor_seconds": round(actor_dt, 3),
+            "calls_p2p": int(stats["p2p"]),
+            "head_fallback": int(stats["head_fallback"]),
+            "n_submit": int(n_done),
+            "submit_seconds": round(submit_dt, 3),
+            "local_dispatch": ld,
+            "spillback": sb,
+            "head_skip": (round(ld / (ld + sb), 3) if ld + sb else None),
+        }
+    finally:
+        c.shutdown()
+
+
 def flops_per_step(n_params: int, batch: int, seq: int) -> float:
     """Analytic fwd+bwd flops of one step: 6 * n_params * tokens."""
     return 6.0 * n_params * batch * seq
@@ -541,3 +987,325 @@ def model_mfu(d_model: int = 2048, n_layers: int = 8, n_heads: int = 16,
         "hfu": (model_flops / dt / peak) if peak else None,
         "loss": float(metrics["loss"]),
     }
+
+
+def model_time_sinks(top_k: int = 5, smoke: bool = False,
+                     device=None) -> list:
+    """Top time sinks of one flagship train step (the reference's
+    configuration: 445M parameters, batch 8 x 2048, remat "dots"; smoke:
+    ``TransformerConfig.tiny()`` at batch 2 x 128), from a
+    ``torch.profiler`` trace of two steps after a warm one. Returns
+    [{op, pct_of_device_time}] sorted descending, each op's share of the
+    summed time of the ops counted.
+
+    On the card (``device=None``; raises without one) the ops are the
+    device's own events — kernels, copies and sets, under their kernel
+    names, the hand-written flash kernels included — and not the host
+    ops that launched them nor the profiler's annotation ranges. On the
+    CPU (``device="cpu"``, the tests) there is no device lane, so the
+    ops are the CPU operator events ranked by self time. Shares are
+    unrounded (the reference rounds to 0.1, which would show a large
+    ``top_k``'s small sinks as 0.0); an op that took no time is left
+    out."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import train_step as ts
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  init_params,
+                                                  resolve_device)
+
+    dev = resolve_device(device, "model_time_sinks")
+    cuda = dev.type == "cuda"
+    if smoke:
+        cfg = TransformerConfig.tiny()
+        batch, seq = 2, 128
+    else:
+        cfg = TransformerConfig(vocab_size=32_768, d_model=2048, n_layers=8,
+                                n_heads=16, n_kv_heads=8, d_ff=5632,
+                                max_seq_len=2048, remat=True,
+                                remat_policy="dots")
+        batch, seq = 8, 2048
+    gen = torch.Generator(device=dev)
+    model = Transformer(cfg, device=dev).load_params(
+        init_params(cfg, gen.manual_seed(0)))
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                           generator=gen.manual_seed(1), device=dev)
+    step = ts.make_train_step(model, ts.make_optimizer(model.parameters()))
+    float(step({"tokens": tokens})["loss"])
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        for _ in range(2):
+            m = step({"tokens": tokens})
+        float(m["loss"])   # the host waits for the last kernel
+    dur: collections.Counter = collections.Counter()
+    for e in prof.events():
+        if getattr(e, "is_user_annotation", False):
+            continue
+        if cuda and e.device_type == DeviceType.CUDA:
+            dur[e.name] += e.time_range.end - e.time_range.start
+        elif not cuda and e.device_type == DeviceType.CPU:
+            dur[e.name] += e.self_cpu_time_total
+    dur = collections.Counter({k: d for k, d in dur.items() if d > 0})
+    total = sum(dur.values()) or 1
+    return [{"op": name, "pct_of_device_time": 100.0 * d / total}
+            for name, d in dur.most_common(top_k)]
+
+
+def llm_decode_throughput(smoke: bool = False,
+                          batch_slots: Optional[int] = None,
+                          device=None) -> Dict[str, Any]:
+    """Paged-attention decode tokens/s of the port's engine
+    (models/inference.py, full continuous batch) on ``device`` (None: the
+    card, raising without one). The analog of the reference serving
+    stack's decode-throughput benchmark, at the reference's serving width
+    (vocab 32000, d_model 1024, 8 layers, 8 query / 4 KV heads, d_ff
+    2816: head_dim 128, kernel 1's) with 64 slots x 128 new tokens and
+    1024 pages of 16; ``batch_slots`` overrides the slots (and raises the
+    pages to 16 a slot). Parameters from ``init_params`` with a seeded
+    generator, bf16. A warm round with the timed round's admission
+    pattern builds the kernel and cuBLAS's handles first.
+
+    Keys added to the reference's: ``device``; ``tokens`` (generated in
+    the timed round); ``decode_steps`` (the engine's, in the timed
+    round); ``paged_attention_launches`` (kernel 1's counter over the
+    timed round: n_layers x decode_steps on the card, 0 on the CPU,
+    where the wrapper takes its plain version)."""
+    from ray_tpu_torch.models.inference import (InferenceConfig,
+                                                InferenceEngine)
+    from ray_tpu_torch.models.transformer import (TransformerConfig,
+                                                  init_params, param_count,
+                                                  resolve_device)
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    dev = resolve_device(device, "llm_decode_throughput")
+    if smoke:
+        sd = SMOKE_DECODE
+        mcfg = TransformerConfig(
+            vocab_size=sd["vocab_size"], d_model=sd["d_model"],
+            n_layers=sd["n_layers"], n_heads=sd["n_heads"],
+            n_kv_heads=sd["n_kv_heads"], d_ff=sd["d_ff"],
+            max_seq_len=sd["max_seq_len"])
+        batch, new_tokens, pages = (sd["batch"], sd["new_tokens"],
+                                    sd["pages"])
+    else:
+        mcfg = TransformerConfig(vocab_size=32000, d_model=1024,
+                                 n_layers=8, n_heads=8, n_kv_heads=4,
+                                 d_ff=2816, max_seq_len=2048)
+        batch, new_tokens, pages = 64, 128, 1024
+    if batch_slots is not None:
+        batch = batch_slots
+        pages = max(pages, batch * 16)
+    params = init_params(mcfg, torch.Generator(device=dev).manual_seed(0))
+    n_params = param_count(params)
+    icfg = InferenceConfig(batch_size=batch, page_size=16,
+                           max_pages_per_seq=16, num_pages=pages,
+                           prefill_buckets=(16,), max_new_tokens=new_tokens)
+    engine = InferenceEngine(params, mcfg, icfg, device=dev)
+    del params   # the engine keeps its own copy in the compute dtype
+    try:
+        warm = [engine.submit([i + 1] * 4, new_tokens)
+                for i in range(batch)]
+        for f in warm:
+            f.result(timeout=900)
+        launches0 = pa.paged_attention.launches
+        steps0 = engine.decode_steps
+        t0 = time.perf_counter()
+        futs = [engine.submit([i + 1] * 4, new_tokens)
+                for i in range(batch)]
+        total = sum(len(f.result(timeout=600)) for f in futs)
+        dt = time.perf_counter() - t0
+        steps = engine.decode_steps - steps0
+        launches = pa.paged_attention.launches - launches0
+    finally:
+        engine.shutdown()
+    return {
+        "tokens_per_sec": total / dt,
+        "batch_slots": batch,
+        "new_tokens": new_tokens,
+        "n_params": int(n_params),
+        "seconds": dt,
+        "device": str(dev),
+        "tokens": total,
+        "decode_steps": steps,
+        "paged_attention_launches": launches,
+    }
+
+
+# the reference's model for the serving A/B (ray_tpu/_private/perf.py
+# serving_ab): head_dim 16
+SERVING_AB_MODEL: Dict[str, int] = {
+    "vocab_size": 128, "d_model": 32, "n_layers": 2, "n_heads": 2,
+    "n_kv_heads": 2, "d_ff": 64, "max_seq_len": 128,
+}
+
+
+def serving_ab(disagg: bool, sessions: int = 8, turns: int = 2,
+               max_new: int = 48, device=None,
+               system_config: Optional[Dict[str, Any]] = None,
+               model: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
+    """One arm of the serving-plane A/B: mono (N LLMDeployment
+    replicas, prefill and decode share each replica's continuous
+    batch) vs disaggregated (1 prefill + 1 decode replica — the same
+    TWO replicas of hardware) under a mixed interactive load:
+    ``sessions`` concurrent sessions, each streaming ``turns`` turns
+    of ``max_new`` tokens, follow-up turns reusing the session id so
+    the disaggregated arm exercises cache-affinity routing.
+
+    Engine batches are deliberately SMALLER than the offered load
+    (batch_size=2 per engine, sessions > total slots): in the mono
+    arm a new prompt's first token waits for a continuous-batch slot
+    behind whole ongoing decodes, while the disaggregated arm streams
+    the first token straight off the prefill handoff — the TTFT
+    contrast under saturation is exactly what the split buys.
+
+    TTFT is measured CLIENT-side (first non-empty frame) so both arms
+    are scored by the same clock. Both arms share one host's cores and
+    one device, so tokens/s differences are scheduling effects.
+
+    The engines run on ``device`` (None: the card, raising without one);
+    ``system_config`` goes to ``init``. The model is the reference's
+    (``SERVING_AB_MODEL``, bf16, parameters from a seeded generator);
+    ``model`` overrides its fields. Kernel 1 is built for head_dim 128
+    alone, so on the card the model must have it (the reference's has
+    16): ``model={"d_model": 256, "d_ff": 512}`` keeps 2 heads at 128.
+    A CUDA device with another head_dim raises before anything starts.
+
+    Returns {mode, sessions, turns, max_new, replicas, n_streams,
+    ttft_p50_ms/p95/p99, tokens_per_sec, tokens_per_sec_per_replica,
+    total_tokens, seconds, affinity_hit_rate, kv_bytes, sheds}. Keys
+    added to the reference's: ``device``; ``head_dim``;
+    ``paged_attention_launches`` (kernel 1's counter over the timed
+    window, > 0 on the card, 0 on the CPU); ``streams`` (each timed
+    stream's session, turn, prompt and generated tokens, by session and
+    turn: what a check of the values reads)."""
+    import threading
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models.inference import InferenceConfig
+    from ray_tpu_torch.models.transformer import (TransformerConfig,
+                                                  init_params,
+                                                  resolve_device)
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.serve import core
+    from ray_tpu_torch.serve.llm import build_llm_app, run_disagg_llm
+
+    dev = resolve_device(device, "serving_ab")
+    mcfg = TransformerConfig(**{**SERVING_AB_MODEL, **(model or {})})
+    if dev.type == "cuda":
+        pa.check_head_dim(mcfg.head_dim, "serving_ab")
+    icfg = InferenceConfig(batch_size=2, page_size=4,
+                           max_pages_per_seq=16, num_pages=64,
+                           prefill_buckets=(16,),
+                           max_new_tokens=max_new, decode_chunk=1)
+    params = init_params(mcfg, torch.Generator(device=dev).manual_seed(0))
+    replicas = 2  # both arms: two engine-hosting replicas
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_workers=2, _system_config=system_config)
+    try:
+        if disagg:
+            handle = run_disagg_llm(params, mcfg, icfg,
+                                    prefill_replicas=1,
+                                    decode_replicas=1, device=dev)
+
+            def frames(prompt, session):
+                return handle.stream_frames(prompt, max_new,
+                                            session_id=session)
+        else:
+            h = serve.run(build_llm_app(params, mcfg, icfg,
+                                        num_replicas=replicas, device=dev))
+            st = h._state()
+
+            def frames(prompt, session):
+                return core._sticky_stream_frames(st, prompt, max_new,
+                                                  start_timeout=300.0)
+
+        # warm the engines with the run's own shapes (prefill bucket,
+        # decode chunk, KV import) before the timed window; one
+        # concurrent stream per replica reaches both mono engines
+        warm = [threading.Thread(
+            target=lambda i=i: [None for _ in frames([i + 1] * 4, None)])
+            for i in range(replicas)]
+        for t in warm:
+            t.start()
+        for t in warm:
+            t.join()
+        core.metrics.reset()
+        launches0 = pa.paged_attention.launches
+
+        results: list = []
+        streams: list = []
+        lock = threading.Lock()
+
+        def run_session(i: int) -> None:
+            session = f"bench-s{i}"
+            prompt = [(i * 7 + j) % 100 + 1 for j in range(6)]
+            for turn in range(turns):
+                t0 = time.perf_counter()
+                ttft = None
+                got: list = []
+                for fr in frames(prompt, session):
+                    toks = fr.get("tokens") or ()
+                    if toks and ttft is None:
+                        ttft = time.perf_counter() - t0
+                    got.extend(int(t) for t in toks)
+                with lock:
+                    results.append((ttft, len(got)))
+                    streams.append({"session": i, "turn": turn,
+                                    "prompt": prompt, "tokens": got})
+
+        threads = [threading.Thread(target=run_session, args=(i,),
+                                    daemon=True)
+                   for i in range(sessions)]
+        t_start = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t_start
+        launches = pa.paged_attention.launches - launches0
+
+        ttfts = sorted(t for t, _ in results if t is not None)
+
+        def _pct(q: float) -> Optional[float]:
+            if not ttfts:
+                return None
+            return ttfts[min(len(ttfts) - 1, int(q * len(ttfts)))]
+
+        total_tokens = sum(n for _, n in results)
+        snap = core.metrics.snapshot()
+        aff = snap["affinity_hit"] + snap["affinity_miss"]
+        return {
+            "mode": "disagg" if disagg else "mono",
+            "sessions": sessions,
+            "turns": turns,
+            "max_new": max_new,
+            "replicas": replicas,
+            "n_streams": len(results),
+            "ttft_p50_ms": round(_pct(0.50) * 1e3, 2) if ttfts else None,
+            "ttft_p95_ms": round(_pct(0.95) * 1e3, 2) if ttfts else None,
+            "ttft_p99_ms": round(_pct(0.99) * 1e3, 2) if ttfts else None,
+            "tokens_per_sec": round(total_tokens / wall, 1),
+            "tokens_per_sec_per_replica":
+                round(total_tokens / wall / replicas, 1),
+            "total_tokens": total_tokens,
+            "seconds": round(wall, 3),
+            "affinity_hit_rate": (round(snap["affinity_hit"] / aff, 3)
+                                  if aff else None),
+            "kv_bytes": snap["kv_bytes"],
+            "sheds": snap["admission_shed"],
+            "device": str(dev),
+            "head_dim": mcfg.head_dim,
+            "paged_attention_launches": launches,
+            "streams": sorted(streams, key=lambda r: (r["session"],
+                                                      r["turn"])),
+        }
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()

@@ -170,21 +170,27 @@ class _Outbox:
     rejoin. Depth is bounded in practice by the rejoin timeout times
     the node's report rate; an explicit cap would silently violate the
     exactly-once contract, so there isn't one.
+
+    An entry may carry ``meta``, a note that stays on this side of the
+    link and leaves with the entry's ack: a completion's lease (worker,
+    task, returns, attempt), which the rejoin hello reports until the
+    head has processed the completion itself.
     """
 
     def __init__(self):
         import collections
 
-        self._entries = collections.deque()   # (seq, msg), seq ascending
+        # (seq, msg, meta), seq ascending
+        self._entries = collections.deque()
         self._next_seq = 1
         self._lock = threading.Lock()
 
-    def append(self, msg: tuple):
+    def append(self, msg: tuple, meta=None):
         """Buffer ``msg``; returns (assigned seq, depth after append)."""
         with self._lock:
             seq = self._next_seq
             self._next_seq = seq + 1
-            self._entries.append((seq, msg))
+            self._entries.append((seq, msg, meta))
             return seq, len(self._entries)
 
     def ack(self, seq: int) -> int:
@@ -201,7 +207,14 @@ class _Outbox:
     def pending(self):
         """Snapshot of unacked (seq, msg) entries, oldest first."""
         with self._lock:
-            return list(self._entries)
+            return [(seq, msg) for seq, msg, _ in self._entries]
+
+    def unacked_meta(self) -> list:
+        """The ``meta`` of every unacked entry that has one, oldest
+        first."""
+        with self._lock:
+            return [meta for _, _, meta in self._entries
+                    if meta is not None]
 
     def depth(self) -> int:
         with self._lock:
@@ -648,6 +661,10 @@ class NodeDaemon:
         # report-class messages are sequenced through the outbox so a
         # head blackout loses nothing (see module docstring)
         self._outbox = _Outbox()
+        # a completion's lease leaves the worker's in-flight set and
+        # enters the outbox under this lock, and the rejoin hello reads
+        # both under it: a lease is always in one of the two
+        self._completion_lock = threading.Lock()
         self._head = Client(head_address, authkey=head_authkey)
         self._head_lock = threading.Lock()
         # arena name travels in the hello so the head can reap the
@@ -677,7 +694,8 @@ class NodeDaemon:
         puller threads; _send_head serializes under _head_lock)."""
         self._send_head(("pulled", oid_bin))
 
-    def _send_head(self, msg: tuple) -> None:
+    def _send_head(self, msg: tuple, meta=None) -> None:
+        """``meta``: the outbox entry's note (see _Outbox)."""
         if msg[0] in _OUTBOX_TAGS:
             # report-class: buffer first, THEN try to send — a failed
             # send just leaves the entry in the outbox for the rejoin
@@ -687,7 +705,7 @@ class NodeDaemon:
             # has seen, so two threads that took seq n and n+1 must not
             # put them on the wire as n+1, n (n would be lost)
             with self._head_lock:
-                seq, depth = self._outbox.append(msg)
+                seq, depth = self._outbox.append(msg, meta)
                 self._send_locked(("seq", seq, depth, False, msg))
         else:
             self._send_head_raw(msg)
@@ -873,11 +891,32 @@ class NodeDaemon:
                     msg = slot.conn.recv()
                 except (EOFError, OSError):
                     return  # _monitor reports the death
+                if msg[0] in ("done", "err"):
+                    self._forward_completion(slot, msg)
+                    continue
                 out = self._intercept(slot, msg)
                 if out is not None:
                     self._send_head(("w", slot.num, out))
         finally:
             slot.reader_done.set()  # buffered completions all drained
+
+    def _forward_completion(self, slot: _WorkerSlot, msg: tuple) -> None:
+        """A worker's done/err to the head. Its lease leaves the slot's
+        in-flight set (``_intercept``) and enters the outbox with the
+        report under one hold of _completion_lock, noted with the lease
+        until the head acks the report: a head restarted before then
+        learns of the lease from the rejoin hello, adopts it, and the
+        replayed report resolves it (without the note the lease would
+        be in neither, and the new head would run the task again)."""
+        tid = msg[1]
+        with self._completion_lock:
+            rbins = slot.returns.get(tid)
+            meta = None if rbins is None else {
+                "num": slot.num, "tid": tid, "returns": list(rbins),
+                "attempt": slot.attempts.get(tid, 0)}
+            out = self._intercept(slot, msg)
+            if out is not None:
+                self._send_head(("w", slot.num, out), meta)
 
     def _intercept(self, slot: _WorkerSlot, msg: tuple) -> Optional[tuple]:
         """Serve node-local object-plane ops; rewrite sealed returns.
@@ -2259,22 +2298,33 @@ class NodeDaemon:
             # report: their completion reaches the head as a
             # self-contained ("p2p_done", ...) receipt, so the new head
             # must not also adopt a lease it would wait on forever
-            with self._p2p_lock:
-                p2p_tids = set(self._p2p_pending)
-            with self._lock:
-                workers = {
-                    s.num: {"pid": s.pid,
-                            "actor": (s.actor_bin.hex()
-                                      if s.actor_bin else None),
-                            "inflight": {
-                                tid.hex(): {
-                                    "returns": [b.hex() for b in rbins],
-                                    "attempt": s.attempts.get(tid, 0),
-                                }
-                                for tid, rbins in s.returns.items()
-                                if tid not in p2p_tids}}
-                    for s in self._slots.values()
-                    if s.proc is not None and s.proc.poll() is None}
+            # a task that finished during the blackout is reported too
+            # (its completion waits in the outbox), so the head adopts
+            # its lease and the replayed completion resolves it
+            with self._completion_lock:
+                with self._p2p_lock:
+                    p2p_tids = set(self._p2p_pending)
+                with self._lock:
+                    workers = {
+                        s.num: {"pid": s.pid,
+                                "actor": (s.actor_bin.hex()
+                                          if s.actor_bin else None),
+                                "inflight": {
+                                    tid.hex(): {
+                                        "returns": [b.hex()
+                                                    for b in rbins],
+                                        "attempt": s.attempts.get(tid, 0),
+                                    }
+                                    for tid, rbins in s.returns.items()
+                                    if tid not in p2p_tids}}
+                        for s in self._slots.values()
+                        if s.proc is not None and s.proc.poll() is None}
+                for done in self._outbox.unacked_meta():
+                    w = workers.get(done["num"])
+                    if w is not None and w["actor"] is None:
+                        w["inflight"].setdefault(done["tid"].hex(), {
+                            "returns": [b.hex() for b in done["returns"]],
+                            "attempt": done["attempt"]})
             from ray_tpu_torch._private.protocol import make_wire_hello
 
             try:

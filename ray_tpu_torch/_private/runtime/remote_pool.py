@@ -84,8 +84,15 @@ class RemoteNodePool(ProcessWorkerPool):
                  node_id, daemon_proc: Optional[subprocess.Popen] = None,
                  arena_name: Optional[str] = None,
                  peer_address: Optional[tuple] = None,
-                 fenced: bool = False):
+                 fenced: bool = False, adopting: bool = False):
         self._arena_name = arena_name
+        # adopting (a daemon rejoining a restarted head): the demux
+        # reads nothing until open_dispatch(), once the head has adopted
+        # the daemon's workers and leases, so that the outbox replay
+        # sent right behind the hello finds them
+        self._dispatch_open = threading.Event()
+        if not adopting:
+            self._dispatch_open.set()
         # epoch fence (node-death FT): a daemon that rejoins AFTER the
         # head declared its node dead gets a fenced pool — outbox
         # REPLAY envelopes (receipts stranded from the dead era) are
@@ -163,7 +170,14 @@ class RemoteNodePool(ProcessWorkerPool):
             self._req_seq += 1
             return self._req_seq
 
+    def open_dispatch(self) -> None:
+        """Let the demux read the daemon's messages (see ``adopting``)."""
+        self._dispatch_open.set()
+
     def _demux_loop(self) -> None:
+        opened = getattr(self, "_dispatch_open", None)
+        if opened is not None:
+            opened.wait()
         conn = self._conn
         with self._seq_lock:
             gen = self._attach_gen

@@ -2282,67 +2282,77 @@ class Worker:
         row = self.scheduler.add_node(state, wake=False)
         pool = RemoteNodePool(self, 0, row, conn, node_id,
                               daemon_proc=None, arena_name=arena_name,
-                              peer_address=peer_address, fenced=fenced)
+                              peer_address=peer_address, fenced=fenced,
+                              adopting=True)
         self._node_pools[row] = pool
         self._has_remote_nodes = True
         adopted_actors = 0
         adopted_leases = 0
-        for num, winfo in sorted(workers.items()):
-            actor_hex = winfo.get("actor")
-            inflight = winfo.get("inflight") or {}
-            h = pool.adopt_worker(int(num), winfo.get("pid"),
-                                  is_actor=actor_hex is not None,
-                                  busy=bool(inflight) and not fenced)
-            if fenced:
-                # dead-era state is unwanted: stale in-flight results
-                # find no inflight entry and drop; actor workers are
-                # released (their actors already restarted elsewhere
-                # or went DEAD when the node did)
-                if actor_hex is not None:
+        try:
+            for num, winfo in sorted(workers.items()):
+                actor_hex = winfo.get("actor")
+                inflight = winfo.get("inflight") or {}
+                h = pool.adopt_worker(int(num), winfo.get("pid"),
+                                      is_actor=actor_hex is not None,
+                                      busy=bool(inflight) and not fenced)
+                if fenced:
+                    # dead-era state is unwanted: stale in-flight results
+                    # find no inflight entry and drop; actor workers are
+                    # released (their actors already restarted elsewhere
+                    # or went DEAD when the node did)
+                    if actor_hex is not None:
+                        pool.release_actor_worker(h, kill=True)
+                    continue
+                if actor_hex is None:
+                    # lease reconciliation: tasks this worker still RUNS,
+                    # or finished while no head was up (the completion
+                    # waits in the daemon's outbox, replayed once the
+                    # demux opens), re-attach as synthetic inflight
+                    # entries under their ORIGINAL return oids, so the
+                    # done/err (live or outbox replay) resolves the refs
+                    # a resumed client is blocked on. Attempt skew
+                    # (journal ahead of the report) means the old head
+                    # re-dispatched the task elsewhere before dying:
+                    # leave the record for its real claimant and let
+                    # this worker's stale result drop (no inflight
+                    # entry).
+                    for tid_hex, rep in inflight.items():
+                        tid_bin = bytes.fromhex(tid_hex)
+                        rep_attempt = int(rep.get("attempt", 0))
+                        lease = self.gcs.claim_lease(tid_bin)
+                        if lease is not None and int(
+                                lease.get("attempt", 0)) != rep_attempt:
+                            self.gcs.journal_lease(tid_bin, lease)
+                            continue
+                        returns = [bytes.fromhex(x)
+                                   for x in rep.get("returns", [])]
+                        for rbin in returns:
+                            self.reference_counter.add_owned_object(
+                                ObjectID(rbin))
+                        pool.adopt_inflight(h, tid_bin, returns, rep_attempt)
+                        adopted_leases += 1
+                    continue
+                actor_id = ActorID(bytes.fromhex(actor_hex))
+                entry = self.gcs.orphaned_actor(actor_id)
+                recovery = self.gcs.actor_recovery_blob(actor_id)
+                if entry is None or recovery is None:
+                    # not a journaled detached actor: its owner died with
+                    # the old head — release the worker
                     pool.release_actor_worker(h, kill=True)
-                continue
-            if actor_hex is None:
-                # lease reconciliation: tasks this worker still RUNS
-                # re-attach as synthetic inflight entries under their
-                # ORIGINAL return oids, so the done/err (live or outbox
-                # replay) resolves the refs a resumed client is blocked
-                # on. Attempt skew (journal ahead of the report) means
-                # the old head re-dispatched the task elsewhere before
-                # dying: leave the record for its real claimant and let
-                # this worker's stale result drop (no inflight entry).
-                for tid_hex, rep in inflight.items():
-                    tid_bin = bytes.fromhex(tid_hex)
-                    rep_attempt = int(rep.get("attempt", 0))
-                    lease = self.gcs.claim_lease(tid_bin)
-                    if lease is not None \
-                            and int(lease.get("attempt", 0)) != rep_attempt:
-                        self.gcs.journal_lease(tid_bin, lease)
-                        continue
-                    returns = [bytes.fromhex(x)
-                               for x in rep.get("returns", [])]
-                    for rbin in returns:
-                        self.reference_counter.add_owned_object(
-                            ObjectID(rbin))
-                    pool.adopt_inflight(h, tid_bin, returns, rep_attempt)
-                    adopted_leases += 1
-                continue
-            actor_id = ActorID(bytes.fromhex(actor_hex))
-            entry = self.gcs.orphaned_actor(actor_id)
-            recovery = self.gcs.actor_recovery_blob(actor_id)
-            if entry is None or recovery is None:
-                # not a journaled detached actor: its owner died with
-                # the old head — release the worker
-                pool.release_actor_worker(h, kill=True)
-                continue
-            try:
-                from ray_tpu_torch.actor import adopt_process_actor
-                adopt_process_actor(self, actor_id, entry, recovery,
-                                    pool, h, row)
-                adopted_actors += 1
-            except Exception:
-                logger.exception("actor %s re-adoption failed",
-                                 actor_id.hex()[:16])
-                pool.release_actor_worker(h, kill=True)
+                    continue
+                try:
+                    from ray_tpu_torch.actor import adopt_process_actor
+                    adopt_process_actor(self, actor_id, entry, recovery,
+                                        pool, h, row)
+                    adopted_actors += 1
+                except Exception:
+                    logger.exception("actor %s re-adoption failed",
+                                     actor_id.hex()[:16])
+                    pool.release_actor_worker(h, kill=True)
+        finally:
+            # the outbox replay behind the hello reaches the adopted
+            # workers and leases now
+            pool.open_dispatch()
         if fenced:
             # the daemon clears its dead-era local-lease/outbox/p2p
             # bookkeeping so no zombie re-lease or stale fallback ever

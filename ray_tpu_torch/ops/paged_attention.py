@@ -177,6 +177,14 @@ def split_plan(B: int, H: int, KV: int, MP: int, page: int,
     return pps, -(-MP // pps)
 
 
+def check_head_dim(head_dim: int, who: str = "paged_attention") -> None:
+    """Raises ValueError unless the kernel is built for ``head_dim``; a
+    caller that runs the kernel later (an engine behind Serve) checks its
+    model's here before it starts anything."""
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"{who}: head_dim {head_dim} not in {_HEAD_DIMS}")
+
+
 def _check_kernel_args(q, k_pages, v_pages, page_table, seq_lens,
                        pages_per_split):
     """Raises on anything the kernels do not take; returns the pages per
@@ -205,9 +213,7 @@ def _check_kernel_args(q, k_pages, v_pages, page_table, seq_lens,
                          f"{tuple(q.shape)}, pages {tuple(k_pages.shape)}, "
                          f"table {tuple(page_table.shape)}, lens "
                          f"{tuple(seq_lens.shape)}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"paged_attention: head_dim {D} not in "
-                         f"{_HEAD_DIMS}")
+    check_head_dim(D)
     if KV == 0 or H % KV or H // KV > _MAX_GROUP:
         raise ValueError(f"paged_attention: {H} query heads over {KV} KV "
                          f"heads (group <= {_MAX_GROUP})")

@@ -14,7 +14,8 @@ the recorder's timing summary and assign's bytes; and the serve phase's
 helpers: the quantile rule (Serve's own), TTFT and latency of a stream,
 a round's summary, kernel 1's launch rule on the Serve path, and the
 greedy-parity near-tie rule it shares with phase parity; and phase moe's
-dropped share a layer."""
+dropped share a layer; and the multinode phase's leaf, which a worker of
+the machine about to die runs without leaving its mark."""
 
 import json
 import re
@@ -311,7 +312,8 @@ def test_paged_lengths_cut_every_edge(page, pps, MP):
 def test_paged_sweep_covers_every_group_and_page():
     sweep = chip_smoke.PAGED_SWEEP
     assert {g for g, _p, _m in sweep} == {1, 2, 4, 8}
-    assert {p for _g, p, _m in sweep} == {8, 16, 32}
+    # 4: the serving A/B's page (chip_smoke phase perf)
+    assert {p for _g, p, _m in sweep} == {4, 8, 16, 32}
     # 16 and a count of pages that 2 and 3 pages per split do not divide
     assert {m for _g, _p, m in sweep} == {16, 7}
     assert chip_smoke.PAGED_TOL == 1e-4
@@ -981,3 +983,27 @@ def test_ops_parts_run_their_tasks_on_the_host(tmp_path):
     a = chip_smoke.ops_card_compute(3, 16, "cpu")
     assert a.shape == (16,) and bool((a == chip_smoke.ops_card_compute(
         3, 16, "cpu")).all())
+
+
+def test_mark_leaf_holds_a_held_worker_before_its_mark(tmp_path):
+    """A process outside hold_pids marks at once; one inside waits hold_s
+    before its mark, so a kill during the hold leaves none."""
+    import hashlib
+    import os
+    import threading
+    import time
+
+    path = str(tmp_path / "marks")
+    want = hashlib.sha256(b"free").hexdigest()
+    assert chip_smoke.mark_leaf("free", path, 0.0, frozenset({-1})) == want
+    assert chip_smoke.read_marks(path) == ["free"]
+
+    t = threading.Thread(target=chip_smoke.mark_leaf, args=(
+        "held", path, 0.0, frozenset({os.getpid()}), 1.0))
+    t0 = time.perf_counter()
+    t.start()
+    time.sleep(0.3)
+    assert chip_smoke.read_marks(path) == ["free"]
+    t.join(10)
+    assert time.perf_counter() - t0 >= 1.0
+    assert chip_smoke.read_marks(path) == ["free", "held"]

@@ -91,6 +91,22 @@ class TestOutbox:
         box.append(("w", 9, ()))
         assert [s for s, _ in snap] == [2, 3, 4]
 
+    def test_meta_stays_local_and_leaves_with_its_ack(self):
+        """A completion's lease note is not replayed (pending() is the
+        wire's) and is dropped with the entry's ack."""
+        box = self._box()
+        box.append(("w", 0, ("done", b"t1")), {"tid": b"t1"})
+        box.append(("pulled", b"x"))
+        box.append(("w", 1, ("done", b"t2")), {"tid": b"t2"})
+        assert box.pending() == [(1, ("w", 0, ("done", b"t1"))),
+                                 (2, ("pulled", b"x")),
+                                 (3, ("w", 1, ("done", b"t2")))]
+        assert box.unacked_meta() == [{"tid": b"t1"}, {"tid": b"t2"}]
+        box.ack(2)
+        assert box.unacked_meta() == [{"tid": b"t2"}]
+        box.ack(3)
+        assert box.unacked_meta() == []
+
 
 # ---------------------------------------------------------------------------
 # head-side sequence dedup (scripted demux, no cluster)
@@ -158,6 +174,24 @@ class TestHeadSeqDedup:
         # measures replay traffic, not unique messages)
         assert pool.outbox_replayed == 3
         assert pool._last_seen_seq == 3
+
+    def test_adopting_pool_reads_nothing_until_dispatch_opens(self):
+        """A pool adopting a rejoined daemon leaves the replay behind the
+        hello unread until its workers and leases are adopted."""
+        import threading as th
+
+        script = [("seq", 1, 1, True, ("w", 0, ("done",)))]
+        pool, dispatched = self._pool(script)
+        pool._dispatch_open = th.Event()
+        t = th.Thread(target=pool._demux_loop, daemon=True)
+        t.start()
+        t.join(timeout=0.3)
+        assert t.is_alive() and dispatched == [] and len(
+            pool._conn.script) == 1
+        pool.open_dispatch()
+        t.join(timeout=10)
+        assert not t.is_alive()
+        assert [m[2] for m in dispatched] == [("done",)]
 
     def test_direct_messages_bypass_sequencing(self):
         script = [
@@ -385,6 +419,24 @@ def test_seeded_head_failover_soak(tmp_path):
     outbox replay — and the SAME ray:// client session (no second
     client constructed) resolves its pending get() bit-correctly, with
     the side-effect file proving every task ran exactly once."""
+    _failover_soak(tmp_path)
+
+
+@pytest.mark.chaos
+def test_head_failover_after_tasks_finish_in_the_blackout(tmp_path):
+    """The soak with the fresh head started 12 s after the kill, so every
+    task finishes while no head is up: its lease has left the worker's
+    in-flight set and its completion waits in the daemon's outbox. The
+    rejoin hello still reports the lease, the new head adopts it before
+    it reads the replay, and no task runs twice (the reference's
+    daemon reports running tasks only, and its new head runs all four
+    again)."""
+    _failover_soak(tmp_path, blackout_s=12.0)
+
+
+def _failover_soak(tmp_path, blackout_s=0.0):
+    """The soak's body; ``blackout_s``: how long after head #1's death
+    head #2 starts."""
     journal = str(tmp_path / "gcs.journal")
     head_log = str(tmp_path / "head.log")
     marks = str(tmp_path / "marks")
@@ -433,6 +485,7 @@ def test_seeded_head_failover_soak(tmp_path):
 
         def _relaunch():
             head1.wait(timeout=120)
+            time.sleep(blackout_s)
             relaunched["head"], relaunched["addr"] = _start_head(
                 journal, head_log)
 

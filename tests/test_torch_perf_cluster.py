@@ -1,0 +1,75 @@
+"""``perf.head_bypass_ab`` of the port against the reference's, on the CPU.
+
+Each arm builds a head and two remote node daemons (the port's
+scheduler with its device path on the host: ``sched_device="cpu"``).
+Per arm (on, off, the defaults) both packages run with the same
+arguments: the keys are equal (the port adds none) and so are the
+counted quantities (bounds: equal, exactly): the actor's ``total`` and
+the nested tasks' ``n_submit``; the calls routed and dispatched are
+held to the reference's rules. Then the reference's guard on the port
+(tests/test_benchmarks.py), its correctness checks unconditional.
+"""
+
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+from ray_tpu_torch._private import perf  # noqa: E402
+from test_torch_perf import added_keys  # noqa: E402
+
+CPU = {"sched_device": "cpu"}
+
+
+@pytest.mark.parametrize("p2p", [True, False, None],
+                         ids=["on", "off", "default"])
+def test_head_bypass_ab_matches_the_reference(p2p):
+    from ray_tpu._private import perf as rperf
+
+    n_calls, n_submit = 10, 6
+    want = rperf.head_bypass_ab(p2p, n_calls=n_calls, n_submit=n_submit)
+    got = perf.head_bypass_ab(p2p, n_calls=n_calls, n_submit=n_submit,
+                              system_config=CPU)
+    assert set(got) == set(want)
+    assert added_keys("head_bypass_ab") == set()
+    for k in ("mode", "p2p", "n_calls", "total", "n_submit"):
+        assert got[k] == want[k], (k, got[k], want[k])
+    assert got["total"] == n_calls and got["n_submit"] == n_submit
+    for pkg, r in (("port", got), ("reference", want)):
+        if r["p2p"]:
+            assert r["calls_p2p"] >= 0.9 * n_calls - 1, (pkg, r)
+            assert r["head_fallback"] == 0, (pkg, r)
+            assert r["local_dispatch"] >= n_submit, (pkg, r)
+        else:
+            assert r["calls_p2p"] == 0 and r["local_dispatch"] == 0, (pkg, r)
+
+
+def test_head_bypass_on_never_slower_and_mostly_skips_head():
+    """The reference's guard on the port: with actor_p2p + local_dispatch
+    on, the worker->actor call lane must not lose to the head round-trip
+    it replaces, >=90% of steady-state actor calls must skip the head,
+    and both arms must produce identical results."""
+    n_calls, n_submit = 12, 8
+    # fresh on/off PAIR per retry, as the reference's guard; each pair's
+    # actor seconds go into the failure message
+    pairs = []
+    for attempt in range(3):
+        on = perf.head_bypass_ab(True, n_calls=n_calls, n_submit=n_submit,
+                                 system_config=CPU)
+        off = perf.head_bypass_ab(False, n_calls=n_calls,
+                                  n_submit=n_submit, system_config=CPU)
+        pairs.append({"on": on["actor_seconds"],
+                      "off": off["actor_seconds"]})
+        if on["actor_seconds"] <= off["actor_seconds"] / 0.85:
+            break
+    # correctness is unconditional — no retry excuses a wrong result
+    assert on["total"] == off["total"] == n_calls
+    assert on["n_submit"] == off["n_submit"] == n_submit
+    assert on["calls_p2p"] >= 0.9 * n_calls - 1, on
+    assert on["head_fallback"] == 0, on
+    assert off["calls_p2p"] == 0 and off["local_dispatch"] == 0, off
+    assert on["local_dispatch"] >= n_submit, on
+    assert on["actor_seconds"] <= off["actor_seconds"] / 0.85, (
+        f"p2p-on {on['actor_seconds']}s vs head-routed "
+        f"{off['actor_seconds']}s: the peer actor lane is slower than "
+        f"the head round-trip it replaces; every pair: {pairs}")
