@@ -4,7 +4,8 @@ data, cluster, RLlib, Train, MoE, the compiled DAG, Tune, workflow, the
 multi-node plane, the ray:// client, the optional planes (QoS, profile)
 and the ops layer (state, dashboard, snapshot, jobs, the CLI), and the
 perf sections (decode, the train step's time sinks, the serving and
-head-bypass A/Bs, Data ingest).
+head-bypass A/Bs, Data ingest), and sharded training across 4 rank
+processes on the card (the ring, the train step, MoE, the pipeline).
 
     python3 chip_smoke.py            # one card; 0 only if every phase passed
     python3 chip_smoke.py --kernels  # build, device and every kernel's
@@ -105,11 +106,11 @@ Phases, each printing one JSON line:
                (phase_runtime): BASELINE.json's configs through
                ray_tpu_torch.init / remote / get with the TensorScheduler
                assigning on the card (kernels.assign on its own CUDA
-               stream): the 10k fan-out under sched_backend cuda, numpy
+               stream): the 5k fan-out under sched_backend cuda, numpy
                and auto, unbatched and through map_remote, assign's
                counter against the scheduler's device assigns; every
                snapshot of a checking fan-out replayed through the numpy
-               oracle assign_np; the 25k map-reduce; 1k actors x 10
+               oracle assign_np; the 10k map-reduce; 1k actors x 10
                calls in call order; an engine actor (num_gpus=1) at
                serve-127M whose greedy tokens equal a direct engine's,
                with assign's times alone and beside it; the GPU count in
@@ -119,8 +120,8 @@ Phases, each printing one JSON line:
                worker_mode "process", 8 exec'd workers, the TensorScheduler
                assigning on the card and leasing each batch to the workers:
                start-up; every worker loads no jax, flax or ray_tpu module
-               and sees no card; the 10k fan-out unbatched and through
-               map_remote, a 10k map-reduce, 16 actor processes x 100
+               and sees no card; the 5k fan-out unbatched and through
+               map_remote, a 5k map-reduce, 16 actor processes x 100
                calls, each with tasks/s, assign's counter equal to the
                scheduler's device assigns and every snapshot equal to
                assign_np; a 64 MiB tensor put, reduced by a worker and read
@@ -130,7 +131,7 @@ Phases, each printing one JSON line:
                and, under worker_gpu_access, an engine actor (num_gpus=1) at
                serve-127M in its own process: its greedy tokens equal a
                direct engine's, its own kernel-1 launches = 8 x its decode
-               steps, its time alone and beside a 10k fan-out, its process
+               steps, its time alone and beside a 5k fan-out, its process
                in nvidia-smi, and after ray.kill and shutdown the process
                gone and the card's memory back.
  12. serve   — Serve on the runtime (phase_serve): ray_tpu_torch.init (8
@@ -153,12 +154,12 @@ Phases, each printing one JSON line:
 
  13. data    — Ray Data on the runtime (phase_data), the TensorScheduler
                assigning on the card: BASELINE config 3
-               (perf.data_pipeline_throughput, cut from 100k to 50k blocks x
+               (perf.data_pipeline_throughput, cut from 100k to 10k blocks x
                10 rows, after a warm pass of 1k blocks) in thread mode with
                blocks/s, rows/s,
                the stages and the exact count; a checking run of 2k blocks
                whose rows are exact and whose every snapshot equals
-               assign_np; the same in process mode at 10k blocks (the cut),
+               assign_np; the same in process mode at 5k blocks (the cut),
                no worker loading jax, flax or ray_tpu; random_shuffle(seed=0)
                over 20k rows in 200 blocks through the port's native
                exchange library, a permutation and the same order twice;
@@ -242,7 +243,7 @@ Phases, each printing one JSON line:
  21. multinode — the multi-node plane (phase_multinode): a thread-mode
                head on the card's scheduler and three node daemons over
                localhost TCP (two CPU nodes, one GPU node): registration
-               seconds with no torch, jax or CUDA in a daemon; a 10k
+               seconds with no torch, jax or CUDA in a daemon; a 5k
                fan-out; nested tasks admitted on their node (head-skip
                share >= 0.9); a 64 MiB object pulled node to node and to
                the head, both arenas freed after; locality on and off;
@@ -303,8 +304,34 @@ Phases, each printing one JSON line:
                defaults (256 MB map, 128 MB shuffle, 64 MB join), printed
                as skipped only where pyarrow is not installed.
 
+ 24. sharded — sharded training on torch.distributed (phase_sharded, see
+               SHARDED_*): the parent computes phase ring's single-process
+               logits, one process's first train loss and the pipeline's
+               sequential run, then starts 4 rank processes on the card
+               (init_multihost over a file:// rendezvous: gloo, since the
+               ranks share one device), each with a deadline; a rank that
+               dies or hangs fails the phase, and no rank may load jax,
+               flax or ray_tpu. Each rank runs: the ring (make_forward at
+               1 x 32768 tokens, the train configuration, bf16) under a
+               rank mesh of seq=4 and of seq=2 x tensor=2, its logits
+               against phase ring's within RING_PARITY_BOUNDS and kernel
+               2's launches from zero = layers x its ring's size; the
+               sharded train step (init_sharded + make_train_step on
+               data=2 x tensor=2, tokens [4, 2048], 3 steps): losses
+               finite, the first within 2e-3 of one process's, wq sharded
+               on heads and the embedding on vocab over tensor and both
+               kept by the steps, no flash launch (the reference's rule
+               under a mesh); one MoE layer of phase moe's configuration
+               at [4, 2048] tokens on expert=4, f32 with TF32 off, against
+               the per-shard moe_ffn_reference within 1e-4; and
+               pipeline_forward of 4 stages (one flagship Block each, f32)
+               over M=4 microbatches of [2, 2048], its outputs and stage
+               gradients against the sequential run. Each part's seconds
+               and the bytes each collective moved and staged through the
+               host.
 Then the kernel table as one JSON line (kernel 1's launches: the Serve
-path's, mono and split, with phase engine's beside them), the nvidia-smi line, and last
+path's, mono and split, with phase engine's beside them; kernel 2's with
+phase sharded's ranks' beside them), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 ray_tpu_torch package beside this file, it exits non-zero and prints no result.
 """
@@ -426,11 +453,12 @@ PACK_GANGS, PACK_BUNDLES, PACK_NODES = 256, 4, 64
 # the runtime (phase runtime): BASELINE.json's configs through the port's
 # public API (ray_tpu_torch.init / remote / get, thread mode, 8 workers)
 # with the TensorScheduler assigning on the card through kernels.assign.
-# Config 1 (10k no-op tasks) at full size under each backend, unbatched
-# and through map_remote; config 2 (benchmarks.build_map_reduce's shape:
-# reducers of 100 maps each, passed as ObjectRefs) cut to a quarter, 25k
-# tasks (24,753 maps and 247 reducers; 100k took 40.7 s on the H100's
-# host; cut to make room for phase perf); config 4 cut to RUNTIME_ACTORS
+# Config 1 (10k no-op tasks, cut to 5k for phase sharded) under each
+# backend, unbatched and through map_remote; config 2
+# (benchmarks.build_map_reduce's shape: reducers of 100 maps each, passed
+# as ObjectRefs) cut to a quarter, 25k tasks (100k took 40.7 s on the
+# H100's host; cut to make room for phase perf), then to 10k for phase
+# sharded; config 4 cut to RUNTIME_ACTORS
 # actors x RUNTIME_CALLS calls.
 # The crossover times TensorScheduler._assign at CROSSOVER_K ready tasks
 # on 64 nodes, numpy against cuda, on made-up snapshots of 1 and of 64
@@ -442,17 +470,19 @@ PACK_GANGS, PACK_BUNDLES, PACK_NODES = 256, 4, 64
 # the one-class runtime traffic above never reaches the device path
 RUNTIME_WORKERS = 8
 PROFILED_ASSIGNS = 20   # assign calls in one profiler session
-RUNTIME_FANOUT = 10_000
+# config 1's 10k fan-out, cut to 5k to pay for phase sharded
+RUNTIME_FANOUT = 5_000
 RUNTIME_BACKENDS = ("cuda", "numpy", "auto")
-RUNTIME_TASKS, RUNTIME_FAN_IN = 25_000, 100
+RUNTIME_TASKS, RUNTIME_FAN_IN = 10_000, 100
 RUNTIME_ACTORS, RUNTIME_CALLS = 1000, 10
 ENGINE_PROMPTS, ENGINE_NEW_TOKENS = 8, 32
 # process mode (phase process): the runtime with worker_mode="process", 8
 # exec'd workers, the TensorScheduler assigning on the card and leasing the
 # batches to the workers. Cut from phase runtime's sizes because each
 # worker and each actor is a process: map-reduce 10k tasks (thread mode
-# took 42.6-49.6 s at 100k), 16 actors x 100 calls (not 1k actors).
-PROCESS_TASKS, PROCESS_ACTORS, PROCESS_CALLS = 10_000, 16, 100
+# took 42.6-49.6 s at 100k), then 5k for phase sharded, 16 actors x 100
+# calls (not 1k actors).
+PROCESS_TASKS, PROCESS_ACTORS, PROCESS_CALLS = 5_000, 16, 100
 # the arena: a 64 MiB CPU tensor read zero-copy by a worker and the
 # driver; a 16 MiB CUDA tensor through put/get; 3 x 32 MiB objects
 # through a 64 MiB arena (spill and restore)
@@ -466,17 +496,19 @@ REF_MODULES = ("jax", "flax", "ray_tpu")
 # Data (phase data): BASELINE config 3 (data_pipeline_throughput: blocks of
 # 10 rows, after a warm pass of 1k blocks) cut from its own 100k blocks to
 # 50k (85.5-106.5 s at 100k on the H100: cut to keep the whole script
-# under 850 s with phase perf), a checking run of 2k blocks with every
+# under 850 s with phase perf), then to 10k (43.0-59.5 s at 50k: cut to
+# pay for phase sharded), a checking run of 2k blocks with every
 # assignment replayed through assign_np, the same pipeline in process mode
 # cut to 10k blocks (each block is a lease to another process, as phase
-# process cut its map-reduce), the PRP shuffle (cut from 100k rows in 1k
+# process cut its map-reduce), then to 5k for phase sharded, the PRP
+# shuffle (cut from 100k rows in 1k
 # blocks, 39.5-54.9 s a run on the H100's host, to 20k rows in 200 blocks,
 # 100 rows a block as before: each reducer takes every block as an
 # argument, so the cost grows as blocks squared) and torch batches on the
 # card
 DATA_WORKERS, DATA_ROWS_PER_BLOCK = 8, 10
-DATA_BLOCKS, DATA_WARM_BLOCKS, DATA_CHECK_BLOCKS = 50_000, 1_000, 2_000
-DATA_PROCESS_BLOCKS = 10_000
+DATA_BLOCKS, DATA_WARM_BLOCKS, DATA_CHECK_BLOCKS = 10_000, 1_000, 2_000
+DATA_PROCESS_BLOCKS = 5_000
 SHUFFLE_ROWS, SHUFFLE_BLOCKS = 20_000, 200
 BATCH_ROWS, BATCH_SIZE = 1_000_000, 4096
 # the local virtual cluster (phase cluster): a 2-CPU head and process
@@ -584,7 +616,8 @@ MN_HEAD = dict(num_cpus=2, num_workers=2, scheduler="tensor",
                resources={"mn_head": 4.0})
 MN_CPU_NODE = dict(num_cpus=4, num_workers=4)
 MN_GPU_NODE = dict(num_cpus=2, num_workers=2, num_gpus=1)
-MN_FANOUT, MN_ROUNDS, MN_NESTED = 10_000, 8, 12
+# MN_FANOUT: cut from 10k to 5k to pay for phase sharded
+MN_FANOUT, MN_ROUNDS, MN_NESTED = 5_000, 8, 12
 MN_HEAD_SKIP_BOUND = 0.9           # the reference's bound
 MN_OBJECT_BYTES = 64 << 20
 # (with perf.locality_ab's spillback depth: a consumer waits for the
@@ -2350,21 +2383,21 @@ def phase_runtime(torch):
     """The runtime's main path on the card (see RUNTIME_*): ray_tpu_torch.init
     with scheduler="tensor", sched_device "cuda", 8 workers.
 
-    - fan-out: e2e_task_throughput(10k), unbatched and through map_remote,
+    - fan-out: e2e_task_throughput(5k), unbatched and through map_remote,
       under sched_backend cuda, numpy and auto; kernels.assign's counter
       zeroed just before each and read just after: equal to the
       scheduler's device assigns, > 0 under cuda and 0 under numpy.
-    - oracle: a checking 10k fan-out under cuda with every snapshot
+    - oracle: a checking 5k fan-out under cuda with every snapshot
       _assign saw kept, each replayed through assign_np: node_of and
       avail equal.
-    - map_reduce (config 2, cut to 25k) and actors (config 4, cut) under
+    - map_reduce (config 2, cut to 10k) and actors (config 4, cut) under
       cuda:
       the reduced total, every actor's results in call order.
     - engine: an actor (num_gpus=1) holding InferenceEngine at serve-127M
       generates ENGINE_PROMPTS prompts one after another through
       .remote(); its greedy tokens equal a direct engine.generate on the
       same parameters, and paged_attention's counter advanced. Assign's
-      host time, stream span and kernel span (AssignRecorder) from a 10k
+      host time, stream span and kernel span (AssignRecorder) from a 5k
       fan-out alone, then from one started while the actor decodes: the
       device path runs on the scheduler's own stream.
     - resources: cluster_resources()["GPU"] == torch.cuda.device_count().
@@ -2524,7 +2557,7 @@ def runtime_engine(torch, ray, rec, smi, backend):
     """The model through the runtime (initialised with sched_backend
     ``backend``): an engine actor at serve-127M, its tokens against a
     direct engine on the same parameters, the actor's time alone and
-    beside a 10k fan-out, and (cuda) assign's times alone and beside the
+    beside a 5k fan-out, and (cuda) assign's times alone and beside the
     decoding actor. Returns the problems."""
     from ray_tpu_torch.models.inference import (InferenceConfig,
                                                 InferenceEngine)
@@ -2818,7 +2851,7 @@ def process_engine(torch, ray, rec, smi):
     ENGINE_PROMPTS prompts one after another, and returns its own kernel-1
     launches and decode steps. Its tokens against a direct engine in the
     driver on the same seeded parameters; its time alone and beside a
-    process-mode 10k fan-out; nvidia-smi showing its process, and after
+    process-mode 5k fan-out; nvidia-smi showing its process, and after
     ray.kill and shutdown the process gone and the card's memory back.
     Returns (row, problems, kernel-1 launches); shuts the runtime down."""
     import gc
@@ -2984,7 +3017,7 @@ def phase_process(torch):
     - startup: seconds until all 8 workers dialed back.
     - workers: each worker loads no jax, flax or ray_tpu module and sees
       no card (CUDA_VISIBLE_DEVICES ""); the head advertises no GPU.
-    - fanout (10k, unbatched and through map_remote), map_reduce (10k),
+    - fanout (5k, unbatched and through map_remote), map_reduce (5k),
       actors (16 processes x 100 calls): tasks/s; kernels.assign's
       counter zeroed just before each and read just after, equal to the
       scheduler's device assigns; every recorded snapshot equal to
@@ -3702,7 +3735,7 @@ def phase_data(torch, dev):
     """Ray Data on the runtime, the TensorScheduler assigning on ``dev``
     (sched_backend "cuda"), 8 workers (see DATA_*).
 
-    - thread mode: BASELINE config 3, data_pipeline_throughput at 50k
+    - thread mode: BASELINE config 3, data_pipeline_throughput at 10k
       blocks x 10 rows (the cut) after a warm pass of 1k blocks: blocks/s,
       rows/s, the stages, the exact count; kernels.assign's counter zeroed just
       before and read just after, equal to the timed run's device
@@ -3710,7 +3743,7 @@ def phase_data(torch, dev):
       [2 * i for i in range(20000)], every snapshot _assign saw replayed
       through assign_np with no mismatch. random_shuffle(seed=0) through
       the port's native exchange library; iter_torch_batches on dev.
-    - process mode: the same at 10k blocks (the cut), with the same
+    - process mode: the same at 5k blocks (the cut), with the same
       checks, and no worker loading jax, flax or ray_tpu.
     Returns assign's launches in the timed runs: {"thread": n,
     "process": n}."""
@@ -7576,6 +7609,433 @@ def phase_perf(torch, dev):
     return out
 
 
+# phase sharded: sharded training on torch.distributed. SHARDED_RANKS rank
+# processes share the card (gloo: NCCL refuses two ranks on one device),
+# rendezvous through a file:// path, each with a deadline. Parts: the ring
+# at the flagship's width under seq=4 and seq=2 x tensor=2 (logits against
+# phase ring's single-process logits, RING_PARITY_BOUNDS), the sharded
+# train step (data=2 x tensor=2, tokens [4, 2048], 3 steps; the first loss
+# within the reference's rtol 2e-3 of one process's), one MoE layer of phase
+# moe's configuration at [4, 2048] tokens on expert=4 (f32, TF32 off, within
+# MOE_LAYER_TOL of the per-shard moe_ffn_reference) and the pipeline (4
+# stages of one flagship Block each, f32, M=4 microbatches of [2, 2048]):
+# outputs and the stacked stage gradients against running the stages in
+# sequence, element by element |got - want| <= tol * (1 + |want|)
+SHARDED_RANKS = 4
+SHARDED_DEADLINE_S = 600
+SHARDED_RING_MESHES = {"seq4": dict(seq=4), "seq2_tensor2": dict(seq=2,
+                                                                 tensor=2)}
+SHARDED_TRAIN_MESH = dict(data=2, tensor=2)
+SHARDED_TRAIN_BATCH, SHARDED_TRAIN_STEPS = 4, 3
+SHARDED_LOSS_RTOL = 2e-3                 # tests/test_models.py:119
+SHARDED_MOE_TOKENS = 4 * TRAIN_SEQ
+SHARDED_PIPE_STAGES, SHARDED_PIPE_M, SHARDED_PIPE_MB = 4, 4, 2
+SHARDED_PIPE_TOL, SHARDED_PIPE_GRAD_TOL = 1e-5, 1e-4
+
+
+def sharded_pipe_setup(torch, dev):
+    """The pipeline part's stacked stage params (layer i of a 4-layer
+    flagship-width draw, seed 4) and microbatches (seed 5), f32, and the
+    block configuration (einsum attention: the sequential run has no mesh
+    and must take the same path as the stages)."""
+    from ray_tpu_torch.models.transformer import (TransformerConfig,
+                                                  draw_params)
+
+    cfg = TransformerConfig(dtype=torch.float32, max_seq_len=TRAIN_SEQ,
+                            flash_attention="off",
+                            **{**TRAIN, "n_layers": SHARDED_PIPE_STAGES})
+    gen = torch.Generator(device=dev)
+    layers = {}
+    for name, t in draw_params(cfg, gen.manual_seed(4), dev):
+        if name.startswith("layer_"):
+            i, rest = name.split("/", 1)
+            layers.setdefault(rest, []).append(t)
+    stacked = {k: torch.stack(v) for k, v in layers.items()}
+    xs = torch.randn((SHARDED_PIPE_M, SHARDED_PIPE_MB, TRAIN_SEQ,
+                      TRAIN["d_model"]), generator=gen.manual_seed(5),
+                     device=dev)
+    return cfg, stacked, xs
+
+
+def sharded_stage_fn(torch, cfg):
+    """stage_fn(params, x): one Block with ``params`` (a layer's), the
+    global positions of a [mb, TRAIN_SEQ] microbatch."""
+    from ray_tpu_torch.models.transformer import Block
+
+    block = Block(cfg, device="meta")
+    positions = None
+
+    def stage_fn(params, x):
+        nonlocal positions
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)[None]
+        out, _aux = torch.func.functional_call(
+            block, {k.replace("/", "."): v for k, v in params.items()},
+            (x, positions))
+        return out
+
+    return stage_fn
+
+
+def sharded_pipe_loss(y):
+    return y.pow(2).mean()
+
+
+def sharded_references(torch, dev, tmp):
+    """Phase ring's single-process logits (seq=4 on [dev] * 4), one
+    process's first train loss on the sharded part's batch and params, and
+    the pipeline's sequential outputs and stage gradients; saved under
+    ``tmp`` for the ranks. Returns the seconds each took."""
+    from ray_tpu_torch.models import train_step as ts
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  cross_entropy_loss,
+                                                  init_params)
+    from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh, use_mesh
+
+    secs = {}
+    t0 = time.perf_counter()
+    cfg = TransformerConfig(dtype=torch.bfloat16, max_seq_len=RING_SEQ,
+                            ring_attention=True, **TRAIN)
+    gen = torch.Generator(device=dev)
+    model = Transformer(cfg, device=dev).load_params(
+        init_params(cfg, gen.manual_seed(0)))
+    tokens = torch.randint(0, cfg.vocab_size, (1, RING_SEQ),
+                           generator=gen.manual_seed(1), device=dev)
+    with use_mesh(make_mesh(MeshConfig(seq=RING_SHARDS), [dev] * RING_SHARDS)):
+        logits = ts.make_forward(model)(tokens)
+    torch.save(logits.cpu(), os.path.join(tmp, "ring_logits.pt"))
+    del model, logits
+    torch.cuda.empty_cache()
+    secs["ring"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg, params, tokens = _train_setup(torch, torch.bfloat16,
+                                       SHARDED_TRAIN_BATCH)
+    model = Transformer(cfg, device=dev).load_params(params)
+    del params
+    with torch.no_grad():
+        loss = float(cross_entropy_loss(model(tokens[:, :-1]),
+                                        tokens[:, 1:]))
+    del model
+    torch.cuda.empty_cache()
+    secs["train"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pcfg, stacked, xs = sharded_pipe_setup(torch, dev)
+    stage_fn = sharded_stage_fn(torch, pcfg)
+    stacked = {k: v.requires_grad_() for k, v in stacked.items()}
+    outs = []
+    for m in range(SHARDED_PIPE_M):
+        x = xs[m]
+        for i in range(SHARDED_PIPE_STAGES):
+            x = stage_fn({k: v[i] for k, v in stacked.items()}, x)
+        # the loss is a mean over all microbatches' outputs
+        (sharded_pipe_loss(x) / SHARDED_PIPE_M).backward()
+        outs.append(x.detach())
+    torch.save({"out": torch.stack(outs).cpu(),
+                "grads": {k: v.grad.cpu() for k, v in stacked.items()}},
+               os.path.join(tmp, "pipeline.pt"))
+    del stacked, xs, outs
+    torch.cuda.empty_cache()
+    secs["pipeline"] = time.perf_counter() - t0
+    return {"train_loss": loss, "seconds": secs}
+
+
+def sharded_close(torch, got, want, tol):
+    """(worst |got - want| / (1 + |want|), max abs error) over two tensors
+    of one shape, in f32 chunks."""
+    worst = max_abs = 0.0
+    got, want = got.reshape(-1), want.reshape(-1)
+    for i in range(0, got.numel(), 1 << 24):
+        a, b = got[i:i + (1 << 24)].float(), want[i:i + (1 << 24)].float()
+        d = (a - b).abs()
+        worst = max(worst, float((d / (1 + b.abs())).max()))
+        max_abs = max(max_abs, float(d.max()))
+    return {"worst": worst, "max_abs_err": max_abs, "bound": tol,
+            "ok": worst <= tol}
+
+
+def sharded_rank(torch, rank, world, tmp):
+    """One rank of phase sharded (``chip_smoke.py --rank r n dir``): join
+    the group, run the four parts, write rank<r>.json into ``dir``."""
+    from ray_tpu_torch.models import train_step as ts
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  init_params)
+    from ray_tpu_torch.ops import moe
+    from ray_tpu_torch.ops import ring_attention as ra
+    from ray_tpu_torch.ops.pipeline import pipeline_forward
+    from ray_tpu_torch.parallel import collectives, distributed
+    from ray_tpu_torch.parallel.mesh import MeshConfig
+
+    t_start = time.perf_counter()
+    distributed.init_multihost(f"file://{tmp}/rendezvous", world, rank,
+                               timeout_s=SHARDED_DEADLINE_S)
+    dev = distributed.device()
+    out = {"rank": rank, "device": str(dev), "backend": distributed.backend(),
+           "join_s": time.perf_counter() - t_start, "parts": {}}
+    meshes = {}
+
+    def mesh(cfg):
+        key = tuple(sorted(cfg.items()))
+        if key not in meshes:
+            meshes[key] = distributed.global_mesh(MeshConfig(**cfg))
+        return meshes[key]
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        collectives.reset_stats()
+        t0 = time.perf_counter()
+        row = fn()
+        torch.cuda.synchronize()
+        row["seconds"] = time.perf_counter() - t0
+        row["collectives"] = collectives.stats()
+        out["parts"][name] = row
+        torch.cuda.empty_cache()
+
+    def ring():
+        cfg = TransformerConfig(dtype=torch.bfloat16, max_seq_len=RING_SEQ,
+                                ring_attention=True, **TRAIN)
+        gen = torch.Generator(device=dev)
+        model = Transformer(cfg, device=dev).load_params(
+            init_params(cfg, gen.manual_seed(0)))
+        tokens = torch.randint(0, cfg.vocab_size, (1, RING_SEQ),
+                               generator=gen.manual_seed(1), device=dev)
+        want = torch.load(os.path.join(tmp, "ring_logits.pt"),
+                          mmap=True).to(dev)
+        forward = ts.make_forward(model)
+        rows = {}
+        for name, cfg_mesh in SHARDED_RING_MESHES.items():
+            from ray_tpu_torch.parallel.mesh import use_mesh
+
+            m = mesh(cfg_mesh)
+            with use_mesh(m):
+                ra.block_attention.launches = 0
+                t0 = time.perf_counter()
+                logits = forward(tokens)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                launches = ra.block_attention.launches
+            diff = _logit_diff(torch, logits, want)
+            rows[name] = {"ms": dt * 1e3, "launches": launches,
+                          "want_launches": TRAIN["n_layers"]
+                          * m.shape["seq"],
+                          "shape": list(logits.shape),
+                          "finite": bool(torch.isfinite(logits).all()),
+                          **diff, "bound": RING_PARITY_BOUNDS["bfloat16"]}
+            del logits
+        return rows
+
+    def train():
+        from ray_tpu_torch.ops import flash as fl
+
+        cfg = TransformerConfig(dtype=torch.bfloat16, max_seq_len=TRAIN_SEQ,
+                                remat=True, remat_policy="dots", **TRAIN)
+        m = mesh(SHARDED_TRAIN_MESH)
+        model, params, shardings = ts.init_sharded(cfg, m,
+                                                   SHARDED_TRAIN_BATCH,
+                                                   TRAIN_SEQ, seed=0)
+        gen = torch.Generator(device=dev)
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (SHARDED_TRAIN_BATCH, TRAIN_SEQ),
+                               generator=gen.manual_seed(1), device=dev)
+        layout = {n: [str(p) for p in params[n].placements]
+                  for n in ("layer_0/Attention_0/wq", "embedding")}
+        shard_shape = list(params["layer_0/Attention_0/wq"].to_local().shape)
+        step = ts.make_train_step(model, ts.make_optimizer(
+            model.parameters()), param_shardings=shardings)
+        for name in FLASH_NAMES:
+            getattr(fl, name).launches = 0
+        losses, step_ms = [], []
+        for _ in range(SHARDED_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            metrics = step({"tokens": tokens})
+            losses.append(float(metrics["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        return {"losses": losses, "step_ms": step_ms,
+                "grad_norm": float(metrics["grad_norm"]),
+                "layout": layout, "wq_shard_shape": shard_shape,
+                "layout_after": {n: [str(p) for p in params[n].placements]
+                                 for n in layout},
+                "flash_launches": {n: getattr(fl, n).launches
+                                   for n in FLASH_NAMES},
+                "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+    def moe_layer():
+        import math
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        T, D, Fd, E = (SHARDED_MOE_TOKENS, TRAIN["d_model"], TRAIN["d_ff"],
+                       MOE_EXPERTS)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        x = torch.randn(T, D, generator=gen, device=dev)
+        router = torch.randn(D, E, generator=gen, device=dev) / math.sqrt(D)
+        w_in = torch.randn(E, D, Fd, generator=gen, device=dev) / math.sqrt(D)
+        w_out = torch.randn(E, Fd, D, generator=gen,
+                            device=dev) / math.sqrt(Fd)
+        m = mesh(dict(expert=SHARDED_RANKS))
+        t0 = time.perf_counter()
+        y, aux = moe.moe_ffn_sharded(x, router, w_in, w_out, m, MOE_CF)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        refs = [moe.moe_ffn_reference(s, router, w_in, w_out, MOE_CF)
+                for s in x.chunk(SHARDED_RANKS)]
+        want = torch.cat([r[0] for r in refs])
+        aux_want = float(torch.stack([r[1] for r in refs]).mean())
+        return {"tokens": T, "ms": dt * 1e3,
+                "max_abs_err": float((y - want).abs().max()),
+                "aux_err": abs(float(aux) - aux_want),
+                "bound": MOE_LAYER_TOL}
+
+    def pipeline():
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg, stacked, xs = sharded_pipe_setup(torch, dev)
+        stage_fn = sharded_stage_fn(torch, cfg)
+        stacked = {k: v.requires_grad_() for k, v in stacked.items()}
+        m = mesh(dict(pipe=SHARDED_PIPE_STAGES))
+        t0 = time.perf_counter()
+        y = pipeline_forward(stage_fn, stacked, xs, m)
+        sharded_pipe_loss(y).backward()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ref = torch.load(os.path.join(tmp, "pipeline.pt"), mmap=True)
+        row = {"ms": dt * 1e3,
+               "out": sharded_close(torch, y.detach(), ref["out"].to(dev),
+                                    SHARDED_PIPE_TOL)}
+        grads = [sharded_close(torch, v.grad, ref["grads"][k].to(dev),
+                               SHARDED_PIPE_GRAD_TOL)
+                 for k, v in stacked.items()]
+        row["grads"] = {"worst": max(g["worst"] for g in grads),
+                        "max_abs_err": max(g["max_abs_err"] for g in grads),
+                        "bound": SHARDED_PIPE_GRAD_TOL,
+                        "ok": all(g["ok"] for g in grads),
+                        "tensors": len(grads)}
+        return row
+
+    with torch.no_grad():
+        part("ring", ring)
+    part("train", train)
+    part("moe", moe_layer)
+    part("pipeline", pipeline)
+    out["banned_modules"] = sorted(m for m in sys.modules
+                                   if m.split(".")[0] in REF_MODULES)
+    out["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.shutdown_multihost()
+    return 0
+
+
+def sharded_rank_command(rank, tmp):
+    """The command that runs rank ``rank`` of phase sharded."""
+    return [sys.executable, str(Path(__file__).resolve()), "--rank",
+            str(rank), str(SHARDED_RANKS), tmp]
+
+
+def phase_sharded(torch, dev, rank_command=sharded_rank_command):
+    """Sharded training on torch.distributed: SHARDED_RANKS rank processes
+    sharing the card (see SHARDED_*), each started by ``rank_command(rank,
+    dir)``. Returns kernel 2's launches by rank for each ring mesh."""
+    import math
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    t_phase = time.perf_counter()
+    try:
+        refs = sharded_references(torch, dev, tmp)
+        torch.cuda.empty_cache()
+        # what this process still holds of the card while the ranks run
+        refs["parent_mem"] = {"allocated": torch.cuda.memory_allocated(),
+                              "reserved": torch.cuda.memory_reserved()}
+        t0 = time.perf_counter()
+        procs = []
+        for r in range(SHARDED_RANKS):
+            log = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                rank_command(r, tmp), stdout=log, stderr=subprocess.STDOUT,
+                cwd=str(Path(__file__).resolve().parent)), log))
+        end = time.monotonic() + SHARDED_DEADLINE_S
+        problems = []
+        for r, (p, log) in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                problems.append(f"rank {r} missed the deadline")
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        ranks_s = time.perf_counter() - t0
+        rows = []
+        for r, (p, _log) in enumerate(procs):
+            path = os.path.join(tmp, f"rank{r}.json")
+            if p.returncode != 0 or not os.path.exists(path):
+                tail = Path(tmp, f"rank{r}.log").read_text()[-3000:]
+                problems.append(f"rank {r} exited {p.returncode}: {tail}")
+                continue
+            rows.append(json.loads(Path(path).read_text()))
+        if problems:
+            raise AssertionError(f"sharded phase: {problems}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for row in rows:
+        r, parts = row["rank"], row["parts"]
+        if row["banned_modules"]:
+            problems.append(f"rank {r} loaded {row['banned_modules']}")
+        if row["backend"] != "gloo" or row["device"] != str(dev):
+            problems.append(f"rank {r} on {row['device']} over "
+                            f"{row['backend']}")
+        for name, ring in parts["ring"].items():
+            if name in ("seconds", "collectives"):
+                continue
+            if ring["launches"] != ring["want_launches"]:
+                problems.append(f"rank {r} {name}: kernel 2 launched "
+                                f"{ring['launches']} != "
+                                f"{ring['want_launches']}")
+            if not ring["finite"] or ring["rel_l2"] > ring["bound"]:
+                problems.append(f"rank {r} {name}: logits rel L2 "
+                                f"{ring['rel_l2']} > {ring['bound']}")
+        tr = parts["train"]
+        if not all(math.isfinite(x) for x in tr["losses"]):
+            problems.append(f"rank {r}: a loss is not finite")
+        rel = abs(tr["losses"][0] - refs["train_loss"]) / abs(
+            refs["train_loss"])
+        tr["first_loss_rel"] = rel
+        if rel > SHARDED_LOSS_RTOL:
+            problems.append(f"rank {r}: first loss {tr['losses'][0]} vs one "
+                            f"process's {refs['train_loss']} ({rel})")
+        if (tr["layout"]["layer_0/Attention_0/wq"] != ["R", "S(1)"]
+                or tr["layout"]["embedding"] != ["R", "S(0)"]
+                or tr["layout_after"] != tr["layout"]):
+            problems.append(f"rank {r}: layouts {tr['layout']} -> "
+                            f"{tr['layout_after']}")
+        if any(tr["flash_launches"].values()):
+            problems.append(f"rank {r}: flash ran under the mesh "
+                            f"{tr['flash_launches']}")
+        mo = parts["moe"]
+        if mo["max_abs_err"] > mo["bound"] or mo["aux_err"] > mo["bound"]:
+            problems.append(f"rank {r}: moe {mo['max_abs_err']} "
+                            f"aux {mo['aux_err']} > {mo['bound']}")
+        pi = parts["pipeline"]
+        if not (pi["out"]["ok"] and pi["grads"]["ok"]):
+            problems.append(f"rank {r}: pipeline {pi['out']} {pi['grads']}")
+    launches = {name: [row["parts"]["ring"][name]["launches"]
+                       for row in rows] for name in SHARDED_RING_MESHES}
+    emit({"phase": "sharded", "device": torch.cuda.get_device_name(),
+          "ranks": SHARDED_RANKS, "reference_s": refs["seconds"],
+          "reference_train_loss": refs["train_loss"],
+          "parent_mem": refs["parent_mem"], "ranks_s": ranks_s,
+          "seconds": time.perf_counter() - t_phase,
+          "kernel2_launches_by_rank": launches, "rows": rows})
+    if problems:
+        raise AssertionError(f"sharded phase: {problems}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -7583,6 +8043,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if "--rank" in sys.argv[1:]:
+        # one rank of phase sharded: --rank r n dir
+        i = sys.argv.index("--rank")
+        rank, world, tmp = sys.argv[i + 1:i + 4]
+        return sharded_rank(torch, int(rank), int(world), tmp)
     from ray_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -7642,6 +8107,7 @@ def main() -> int:
     multinode = phase_multinode(torch, dev)
     ops = phase_ops(torch, dev)
     perf = phase_perf(torch, dev)
+    sharded = phase_sharded(torch, dev)
 
     # kernel 1 and its yardstick by device time (graph replays): the eager
     # loop of wrapper calls times the host, not the kernels
@@ -7703,6 +8169,11 @@ def main() -> int:
         "source": sm90_source,
         "replaces": "ray_tpu/ops/ring_attention.py:64",
         "launches": ring_launches,
+        # phase sharded: the sum over its ranks, each rank's own count in
+        # the phase's line
+        "launches_by_path": {"ring": ring_launches,
+                             **{f"sharded_{name}": sum(by_rank)
+                                for name, by_rank in sharded.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in ring_rows.values()),
         **{k: full[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}})

@@ -8,12 +8,13 @@ daemon. Inspection commands connect over ``--address``, start an
 ephemeral session (status, microbenchmark) or scrape a running driver's
 Prometheus endpoint (status --metrics-port).
 
-The verbs and flags are ``ray_tpu``'s. Three are refused, each naming
-the ROADMAP.md item it waits on: ``start --jax-coordinator`` (and its
-two companions; sharded training across processes, Queue A item 7),
-``lint`` (raylint's static passes, item 8) and ``bench`` (the port's
-benchmark is not written yet; the root ``bench.py`` measures
-``ray_tpu``, not the port).
+The verbs and flags are ``ray_tpu``'s. ``start --jax-coordinator
+--jax-num-processes --jax-process-id`` joins the ``torch.distributed``
+process group (parallel/distributed.py ``init_multihost``; set
+``RAY_TPU_TORCH_DIST_DEVICE=cpu`` for ranks on the CPU). Two verbs are
+refused: ``lint`` (raylint's static passes, ROADMAP.md Queue A item 8) and
+``bench`` (the port's benchmark is not written yet; the root
+``bench.py`` measures ``ray_tpu``, not the port).
 
 On a host without CUDA, set ``RAY_TPU_TORCH_SCHED_DEVICE=cpu`` (the
 config registry's environment override) so a head's scheduler runs its
@@ -117,16 +118,30 @@ def _cmd_start(args) -> int:
     import os
     import signal
 
-    # multi-host device runtime (the reference joins the
-    # jax.distributed coordinator here): torch.distributed across
-    # processes is not ported, and a head that started without it would
-    # hide that
+    # multi-process device runtime: join the torch.distributed process
+    # group BEFORE any device use, so this process is a rank of the
+    # global mesh (the reference joins the jax.distributed coordinator
+    # here). A rank flag without a coordinator (argument or
+    # RAY_TPU_JAX_COORDINATOR) is an error, not ignored.
+    joined = False
     if (args.jax_coordinator or args.jax_num_processes
             or args.jax_process_id >= 0):
-        raise NotImplementedError(
-            "start --jax-coordinator/--jax-num-processes/--jax-process-id:"
-            " the multi-process device runtime (torch.distributed) is not "
-            "ported yet (ROADMAP.md Queue A item 7, sharded training)")
+        from ray_tpu_torch.parallel import distributed
+
+        joined = distributed.init_multihost(
+            args.jax_coordinator or None,
+            args.jax_num_processes or None,
+            args.jax_process_id if args.jax_process_id >= 0 else None)
+        if not joined:
+            raise ValueError("start --jax-num-processes/--jax-process-id "
+                             "need --jax-coordinator (or "
+                             "RAY_TPU_JAX_COORDINATOR)")
+        import torch.distributed as dist
+
+        print(f"ray_tpu_torch rank {dist.get_rank()} of "
+              f"{dist.get_world_size()} joined "
+              f"({distributed.backend()} on {distributed.device()})",
+              flush=True)
 
     if args.head:
         import ray_tpu_torch
@@ -176,6 +191,10 @@ def _cmd_start(args) -> int:
         except KeyboardInterrupt:
             pass
         ray_tpu_torch.shutdown()
+        if joined:
+            from ray_tpu_torch.parallel import distributed
+
+            distributed.shutdown_multihost()
         return 0
 
     if not args.address:
@@ -454,8 +473,9 @@ def main(argv=None) -> int:
                    "head with the same path restores its tables and "
                    "re-adopts surviving node daemons")
     p.add_argument("--jax-coordinator", default="",
-                   help="refused: the multi-process device runtime is "
-                   "not ported (ROADMAP.md Queue A item 7)")
+                   help="join the torch.distributed process group at "
+                   "host:port (or a tcp:// or file:// address) as rank "
+                   "--jax-process-id of --jax-num-processes")
     p.add_argument("--jax-num-processes", type=int, default=0)
     p.add_argument("--jax-process-id", type=int, default=-1)
     p.set_defaults(fn=_cmd_start)

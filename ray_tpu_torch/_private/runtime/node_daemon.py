@@ -155,6 +155,7 @@ from typing import Any, Dict, Optional
 from ray_tpu_torch._private.analysis import runtime_sanitizer
 from ray_tpu_torch._private.analysis.runtime_checks import assert_holds
 from ray_tpu_torch._private.ids import ActorID, JobID, ObjectID, TaskID
+from ray_tpu_torch._private.runtime.listener import close_listener
 
 # the cluster secret reaches a spawned daemon in this variable
 HEAD_AUTHKEY_ENV = "RAY_TPU_TORCH_HEAD_AUTHKEY"
@@ -623,8 +624,11 @@ class NodeDaemon:
         self._peer_lock = threading.Lock()
         self.pulls = PullManager(self.pull_from_peer,
                                  on_pulled=self._report_pulled)
-        threading.Thread(target=self._peer_accept_loop, daemon=True,
-                         name="ray_tpu_node_peer_accept").start()
+        self._peer_accept_thread = threading.Thread(
+            target=self._peer_accept_loop, daemon=True,
+            name="ray_tpu_node_peer_accept")
+        self._peer_accept_thread.start()
+        self._accept_thread: Optional[threading.Thread] = None
 
         # two-level dispatch state (bottom-up scheduler + p2p actors).
         # Everything defaults OFF: until the head pushes a resview the
@@ -2129,8 +2133,9 @@ class NodeDaemon:
     # head -> daemon main loop
     # ------------------------------------------------------------------
     def run(self) -> None:
-        threading.Thread(target=self._accept_loop, daemon=True,
-                         name="ray_tpu_node_accept").start()
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, daemon=True, name="ray_tpu_node_accept")
+        self._accept_thread.start()
         threading.Thread(target=self._log_tail_loop, daemon=True,
                          name="ray_tpu_node_log_tail").start()
         threading.Thread(target=self._p2p_sweep_loop, daemon=True,
@@ -2374,14 +2379,8 @@ class NodeDaemon:
                     s.proc.wait(timeout=1.0)
                 except subprocess.TimeoutExpired:
                     s.proc.kill()
-        try:
-            self._listener.close()
-        except Exception:
-            pass
-        try:
-            self._peer_listener.close()
-        except Exception:
-            pass
+        close_listener(self._listener, self._accept_thread)
+        close_listener(self._peer_listener, self._peer_accept_thread)
         with self._peer_lock:
             entries, self._peer_conns = list(self._peer_conns.values()), {}
         for entry in entries:

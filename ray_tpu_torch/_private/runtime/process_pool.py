@@ -43,6 +43,7 @@ from ray_tpu_torch._private.config import GLOBAL_CONFIG
 from ray_tpu_torch._private import trace_plane
 from ray_tpu_torch._private.ids import ObjectID, TaskID, WorkerID
 from ray_tpu_torch._private.object_ref import ObjectRef
+from ray_tpu_torch._private.runtime.listener import close_listener
 from ray_tpu_torch._private.runtime.shm_store import (
     RING_TAG_BYTE as _RING_TAG_BYTE, RING_TAGS as _RING_TAGS, ControlRing)
 from ray_tpu_torch._private.runtime.worker_process import (
@@ -269,8 +270,9 @@ class ProcessWorkerPool:
         self._demux_conns: Dict[Any, _Handle] = {}
         self._wake_r, self._wake_w = socket.socketpair()
         self._wake_r.setblocking(False)
-        threading.Thread(target=self._accept_loop, daemon=True,
-                         name="ray_tpu_pool_accept").start()
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, daemon=True, name="ray_tpu_pool_accept")
+        self._accept_thread.start()
         threading.Thread(target=self._demux_loop, daemon=True,
                          name=f"ray_tpu_pool_demux_{self.node_index}"
                          ).start()
@@ -1752,10 +1754,7 @@ class ProcessWorkerPool:
                         c.close()
                     except Exception:
                         pass
-        try:
-            self._listener.close()
-        except Exception:
-            pass
+        close_listener(self._listener, self._accept_thread)
         try:
             self._wake_w.send(b"q")  # unblock the demux wait promptly
         except OSError:

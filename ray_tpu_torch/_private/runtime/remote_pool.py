@@ -49,6 +49,7 @@ from ray_tpu_torch import exceptions as rex
 from ray_tpu_torch._private.analysis import runtime_sanitizer
 from ray_tpu_torch._private.ids import ObjectID, TaskID
 from ray_tpu_torch._private.object_ref import ObjectRef
+from ray_tpu_torch._private.runtime.listener import close_listener
 from ray_tpu_torch._private.runtime.process_pool import (_DepError, _Handle,
                                                    _InFlight, _RequeueDeps,
                                                    ProcessWorkerPool,
@@ -955,8 +956,9 @@ class HeadServer:
         self._lock = threading.Lock()
         self._closed = False
         self.on_unsolicited = None  # hook for client/CLI registrations
-        threading.Thread(target=self._accept_loop, daemon=True,
-                         name="ray_tpu_head_accept").start()
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, daemon=True, name="ray_tpu_head_accept")
+        self._accept_thread.start()
 
     def expect(self, token: str) -> Tuple[threading.Event, list]:
         slot: Tuple[threading.Event, list] = (threading.Event(), [])
@@ -1030,7 +1032,4 @@ class HeadServer:
 
     def close(self) -> None:
         self._closed = True
-        try:
-            self._listener.close()
-        except Exception:
-            pass
+        close_listener(self._listener, self._accept_thread)

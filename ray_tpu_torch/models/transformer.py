@@ -14,26 +14,30 @@ d_model]``), so a JAX checkpoint loads through numpy unchanged
 
 Attention takes the fused flash kernels (ops/flash.py, hand-written CUDA,
 forward and backward) for a causal call on a CUDA tensor with head_dim a
-multiple of 128, and the einsum path otherwise (always on the CPU, as the
-reference takes it off the TPU). With ``ring_attention`` and a current mesh
+multiple of 128 and no mesh with an axis larger than 1 (the reference's
+rule), and the einsum path otherwise (always on the CPU, as the reference
+takes it off the TPU). With ``ring_attention`` and a current mesh
 (parallel/mesh.py) whose ``seq`` axis is larger than 1, attention takes the
 ring instead (ops/ring_attention.py, kernel 2 on the card, forward only
-there); positions stay the global ``arange(S)``, since the in-process ring
-holds the whole sequence. ``remat`` checkpoints each block, fully or saving
-only matrix-product outputs ("dots"). With ``moe`` each block's MLP is the
-Switch-routed expert layer ``MoEMLP_0`` (ops/moe.py, the single-device
-path); its load-balancing aux term comes back through the block's outputs,
-so a block recomputed under remat gives it once. Parameters are trainable
-(models/train_step.py); the serving engine reads them under
-``torch.no_grad()`` (dense models only).
+there), over a local-device mesh in one process or across ranks; every
+rank of a rank mesh holds the whole sequence outside attention, so
+positions stay the global ``arange(S)``. ``remat`` checkpoints each block,
+fully or saving only matrix-product outputs ("dots"). With ``moe`` each
+block's MLP is the Switch-routed expert layer ``MoEMLP_0`` (ops/moe.py;
+expert-parallel under a mesh whose ``expert`` axis is larger than 1); its
+load-balancing aux term comes back through the block's outputs, so a block
+recomputed under remat gives it once. ``param_axes`` gives each
+parameter's logical axes, as the reference's ``param_with_axes`` does, for
+the sharded layouts of models/train_step.py. Parameters are trainable; the
+serving engine reads them under ``torch.no_grad()`` (dense models only).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import functools
 import math
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,10 +47,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch.ops.flash import flash_attention_bshk
-from ray_tpu_torch.ops.moe import moe_ffn_reference
+from ray_tpu_torch.ops.moe import moe_ffn_reference, moe_ffn_sharded
 from ray_tpu_torch.ops.ring_attention import ring_attention_sharded
 from ray_tpu_torch.parallel.mesh import (AXIS_EXPERT, AXIS_SEQ, Mesh,
-                                         current_mesh)
+                                         current_mesh, data_local,
+                                         data_local_axes, use_mesh)
 
 
 def resolve_device(device, who: str) -> torch.device:
@@ -125,11 +130,16 @@ def _rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def _flash_supported(x: torch.Tensor, head_dim: int) -> bool:
-    """The fused kernels cover the single-device causal path on the card:
-    a CUDA tensor and a lane-aligned head_dim, as the reference's TPU
-    rule (``ray_tpu/models/transformer.py:80-94``). The kernels themselves
-    are built for head_dim 128 and raise on any other."""
-    return x.device.type == "cuda" and head_dim % 128 == 0
+    """The fused kernels cover the SINGLE-DEVICE causal path on the card:
+    a CUDA tensor, a lane-aligned head_dim, and no mesh with an axis larger
+    than 1 active, as the reference's TPU rule
+    (``ray_tpu/models/transformer.py:80-94``): under such a mesh attention
+    takes the einsum path, or the ring (decided first). The kernels
+    themselves are built for head_dim 128 and raise on any other."""
+    if x.device.type != "cuda" or head_dim % 128 != 0:
+        return False
+    mesh = current_mesh()
+    return mesh is None or all(v <= 1 for v in mesh.shape.values())
 
 
 def _ring_mesh(cfg: TransformerConfig, mask) -> Optional[Mesh]:
@@ -227,10 +237,11 @@ class MLP(nn.Module):
 
 class MoEMLP(nn.Module):
     """Switch-routed expert MLP (reference ``MoEMLP``): top-1 capacity
-    routing and the expert FFNs through ``moe_ffn_reference``. Returns (y
-    in the compute dtype, the aux load-balancing term, f32). A mesh whose
-    ``expert`` axis is larger than 1 raises: the ``all_to_all`` path waits
-    for sharded training."""
+    routing and the expert FFNs through ``moe_ffn_reference``, or, under a
+    mesh whose ``expert`` axis is larger than 1, through ``moe_ffn_sharded``
+    (token rows padded to a multiple of the axis; the padding routes and is
+    sliced off). Returns (y in the compute dtype, the aux load-balancing
+    term, f32)."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -242,17 +253,22 @@ class MoEMLP(nn.Module):
 
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
-        mesh = current_mesh()
-        if mesh is not None and mesh.shape.get(AXIS_EXPERT, 1) > 1:
-            raise NotImplementedError(
-                f"MoEMLP under a mesh with expert={mesh.shape[AXIS_EXPERT]}: "
-                "the all_to_all path waits for ROADMAP.md, Queue A: sharded "
-                "training on torch.distributed")
         b, s, d = x.shape
         dt = cfg.dtype
-        y, aux = moe_ffn_reference(
-            x.reshape(b * s, d).to(dt), self.router.to(dt), self.w_in.to(dt),
-            self.w_out.to(dt), cfg.moe_capacity_factor)
+        tokens = x.reshape(b * s, d).to(dt)
+        weights = (self.router.to(dt), self.w_in.to(dt), self.w_out.to(dt))
+        mesh = current_mesh()
+        if mesh is not None and mesh.shape.get(AXIS_EXPERT, 1) > 1:
+            t = tokens.shape[0]
+            pad = (-t) % mesh.shape[AXIS_EXPERT]
+            if pad:
+                tokens = torch.cat([tokens, tokens.new_zeros((pad, d))])
+            y, aux = moe_ffn_sharded(tokens, *weights, mesh,
+                                     cfg.moe_capacity_factor)
+            y = y[:t]
+        else:
+            y, aux = moe_ffn_reference(tokens, *weights,
+                                       cfg.moe_capacity_factor)
         return y.reshape(b, s, d).to(dt), aux
 
 
@@ -313,6 +329,8 @@ class Transformer(nn.Module):
         x = embed[tokens]
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         remat = cfg.remat and torch.is_grad_enabled()
+        if remat:
+            remat_kwargs = _remat_kwargs(cfg.remat_policy)
         aux_terms: List[torch.Tensor] = []
         for i in range(cfg.n_layers):
             block = getattr(self, f"layer_{i}")
@@ -320,7 +338,7 @@ class Transformer(nn.Module):
                 # aux is one of the checkpoint's outputs: the recompute in
                 # backward rebuilds it without adding a second term
                 x, aux = checkpoint(block, x, positions, use_reentrant=False,
-                                    **_REMAT_KWARGS[cfg.remat_policy])
+                                    **remat_kwargs)
             else:
                 x, aux = block(x, positions)
             if aux is not None:
@@ -343,11 +361,33 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-_REMAT_KWARGS = {
-    "full": {},
-    "dots": {"context_fn": functools.partial(
-        create_selective_checkpoint_contexts, _dots_policy)},
-}
+def _remat_kwargs(policy: str) -> dict:
+    """checkpoint's arguments for ``policy``. The recompute runs in
+    backward, on autograd's thread for a card, which does not see this
+    context's mesh: its context re-enters the forward's mesh and
+    data-local axes, so a block recomputes the path it ran."""
+    mesh, local = current_mesh(), data_local_axes()
+
+    @contextlib.contextmanager
+    def under_forward_mesh(recompute):
+        with contextlib.ExitStack() as stack:
+            if mesh is not None:
+                stack.enter_context(use_mesh(mesh))
+            stack.enter_context(data_local(local))
+            stack.enter_context(recompute)
+            yield
+
+    def context_fn():
+        if policy == "dots":
+            fwd, recompute = create_selective_checkpoint_contexts(
+                _dots_policy)
+        else:
+            fwd, recompute = contextlib.nullcontext(), contextlib.nullcontext()
+        return fwd, under_forward_mesh(recompute)
+
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {policy!r}: 'full' or 'dots'")
+    return {"context_fn": context_fn}
 
 
 class _TokenNLL(torch.autograd.Function):
@@ -461,6 +501,14 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     from ``generator`` on its own device, returned in f32 on ``device``
     (default: the generator's device). Not bit-equal to flax's draw;
     parity tests load flax's params through ``params_from_jax``."""
+    return dict(draw_params(cfg, generator, device))
+
+
+def draw_params(cfg: TransformerConfig, generator: torch.Generator,
+                device=None) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``init_params``'s draws one parameter at a time, (name, tensor), in
+    its order: a sharded init keeps its shard of each and drops the rest
+    before the next."""
     device = device or generator.device
     hd = cfg.head_dim
     D, H, KV, Fd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
@@ -471,26 +519,51 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 
     emb = torch.randn((cfg.vocab_size, D), generator=generator,
                       device=generator.device, dtype=torch.float32) * 0.02
-    params = {"embedding": emb.to(device)}
+    yield "embedding", emb.to(device)
     for i in range(cfg.n_layers):
         pre = f"layer_{i}"
-        params[f"{pre}/RMSNorm_0/scale"] = torch.ones(D, device=device)
-        params[f"{pre}/Attention_0/wq"] = lecun((D, H, hd))
-        params[f"{pre}/Attention_0/wk"] = lecun((D, KV, hd))
-        params[f"{pre}/Attention_0/wv"] = lecun((D, KV, hd))
-        params[f"{pre}/Attention_0/wo"] = lecun((H, hd, D))
-        params[f"{pre}/RMSNorm_1/scale"] = torch.ones(D, device=device)
+        yield f"{pre}/RMSNorm_0/scale", torch.ones(D, device=device)
+        yield f"{pre}/Attention_0/wq", lecun((D, H, hd))
+        yield f"{pre}/Attention_0/wk", lecun((D, KV, hd))
+        yield f"{pre}/Attention_0/wv", lecun((D, KV, hd))
+        yield f"{pre}/Attention_0/wo", lecun((H, hd, D))
+        yield f"{pre}/RMSNorm_1/scale", torch.ones(D, device=device)
         if cfg.moe:
             E = cfg.moe_num_experts
-            params[f"{pre}/MoEMLP_0/router"] = lecun((D, E))
-            params[f"{pre}/MoEMLP_0/w_in"] = lecun((E, D, Fd))
-            params[f"{pre}/MoEMLP_0/w_out"] = lecun((E, Fd, D))
+            yield f"{pre}/MoEMLP_0/router", lecun((D, E))
+            yield f"{pre}/MoEMLP_0/w_in", lecun((E, D, Fd))
+            yield f"{pre}/MoEMLP_0/w_out", lecun((E, Fd, D))
         else:
-            params[f"{pre}/MLP_0/w_gate"] = lecun((D, Fd))
-            params[f"{pre}/MLP_0/w_up"] = lecun((D, Fd))
-            params[f"{pre}/MLP_0/w_down"] = lecun((Fd, D))
-    params["final_norm/scale"] = torch.ones(D, device=device)
-    return params
+            yield f"{pre}/MLP_0/w_gate", lecun((D, Fd))
+            yield f"{pre}/MLP_0/w_up", lecun((D, Fd))
+            yield f"{pre}/MLP_0/w_down", lecun((Fd, D))
+    yield "final_norm/scale", torch.ones(D, device=device)
+
+
+def param_axes(cfg: TransformerConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Each parameter's LOGICAL axes, by its flat name, as the reference's
+    ``param_with_axes`` calls give them (``ray_tpu/models/transformer.py:
+    118-293``); parallel/mesh.py's rules map them onto mesh axes."""
+    axes: Dict[str, Tuple[Optional[str], ...]] = {
+        "embedding": ("vocab", "embed")}
+    for i in range(cfg.n_layers):
+        pre = f"layer_{i}"
+        axes[f"{pre}/RMSNorm_0/scale"] = ("act_embed",)
+        axes[f"{pre}/Attention_0/wq"] = ("embed", "heads", "head_dim")
+        axes[f"{pre}/Attention_0/wk"] = ("embed", "kv_heads", "head_dim")
+        axes[f"{pre}/Attention_0/wv"] = ("embed", "kv_heads", "head_dim")
+        axes[f"{pre}/Attention_0/wo"] = ("heads", "head_dim", "embed")
+        axes[f"{pre}/RMSNorm_1/scale"] = ("act_embed",)
+        if cfg.moe:
+            axes[f"{pre}/MoEMLP_0/router"] = ("embed", "experts")
+            axes[f"{pre}/MoEMLP_0/w_in"] = ("experts", "embed", "mlp")
+            axes[f"{pre}/MoEMLP_0/w_out"] = ("experts", "mlp", "embed")
+        else:
+            axes[f"{pre}/MLP_0/w_gate"] = ("embed", "mlp")
+            axes[f"{pre}/MLP_0/w_up"] = ("embed", "mlp")
+            axes[f"{pre}/MLP_0/w_down"] = ("mlp", "embed")
+    axes["final_norm/scale"] = ("act_embed",)
+    return axes
 
 
 def param_count(params: Mapping[str, torch.Tensor]) -> int:

@@ -17,8 +17,10 @@ back. GELU is the tanh approximation (``jax.nn.gelu``'s default).
 
 The dense [T, E, C] formulation costs O(T²) memory and work (T tokens, C =
 T·cf/E slots an expert); there is no kernel here, only matrix products.
-The ``expert``-axis path (``moe_ffn_local`` / ``moe_ffn_sharded``, an
-``all_to_all`` over the mesh) waits for sharded training.
+Expert parallelism over the mesh's ``expert`` axis: ``moe_ffn_local`` is
+the reference's shard_map body (slots exchanged with ``all_to_all`` over
+the axis's process group, parallel/collectives.py), ``moe_ffn_sharded`` its
+global entry.
 """
 
 from __future__ import annotations
@@ -28,11 +30,10 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-_SHARDED = ("the expert-parallel MoE path (all_to_all over the mesh's "
-            "expert axis) waits for ROADMAP.md, Queue A: sharded training "
-            "on torch.distributed; without an expert axis the model runs "
-            "moe_ffn_reference")
-
+from ray_tpu_torch.parallel.collectives import (CollectiveGroup, all_to_all,
+                                                allreduce, to_global,
+                                                to_local)
+from ray_tpu_torch.parallel.mesh import AXIS_EXPERT, use_mesh
 
 def capacity(n_tokens: int, n_experts: int, capacity_factor: float) -> int:
     """Slots an expert: ``max(1, int(T * cf / E))``, truncated as the
@@ -81,17 +82,77 @@ def moe_ffn_reference(tokens: torch.Tensor, w_router: torch.Tensor,
     dispatch, combine, aux = top1_dispatch(
         logits, capacity(T, E, capacity_factor))
     slots = torch.einsum("tec,td->ecd", dispatch, tokens.to(f32))
-    h = F.gelu(torch.einsum("ecd,edf->ecf", slots, w_in_full.to(f32)),
-               approximate="tanh")
-    out = torch.einsum("ecf,efd->ecd", h, w_out_full.to(f32))
+    out = _expert_ffn(slots, w_in_full, w_out_full)
     return torch.einsum("tec,ecd->td", combine, out), aux
 
 
-def moe_ffn_local(*args, **kwargs):
-    """The reference's shard_map body (``all_to_all`` over ``expert``)."""
-    raise NotImplementedError(f"moe_ffn_local: {_SHARDED}")
+def _expert_ffn(slots: torch.Tensor, w_in: torch.Tensor,
+                w_out: torch.Tensor) -> torch.Tensor:
+    """Every expert's GELU FFN on its slots, [E, C, D] -> [E, C, D], f32."""
+    f32 = torch.float32
+    h = F.gelu(torch.einsum("ecd,edf->ecf", slots, w_in.to(f32)),
+               approximate="tanh")
+    return torch.einsum("ecf,efd->ecd", h, w_out.to(f32))
 
 
-def moe_ffn_sharded(*args, **kwargs):
-    """The reference's global expert-parallel entry."""
-    raise NotImplementedError(f"moe_ffn_sharded: {_SHARDED}")
+def moe_ffn_local(tokens: torch.Tensor, w_router: torch.Tensor,
+                  w_in: torch.Tensor, w_out: torch.Tensor,
+                  capacity_factor: float, axis_name: str = AXIS_EXPERT
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's shard_map body, which every rank of ``axis_name``'s
+    group of the current mesh (a ``RankMesh``) runs: tokens [T, D] (this
+    rank's rows), w_router [D, E_total], w_in [E_local, D, F], w_out
+    [E_local, F, D] (this rank's experts). Routes its rows against every
+    expert with per-shard capacity, sends each expert's slots to the rank
+    that holds it with ``all_to_all`` and the results back the same way.
+    Returns ([T, D] f32 outputs combined per token, the aux loss averaged
+    over the group)."""
+    n = CollectiveGroup(axis_name).world_size()
+    T, D = tokens.shape
+    e_local = w_in.shape[0]
+    E = e_local * n
+    cap = capacity(T, E, capacity_factor)
+    logits = tokens @ w_router
+    dispatch, combine, aux = top1_dispatch(logits, cap)
+    slots = torch.einsum("tec,td->ecd", dispatch, tokens.to(torch.float32))
+    # exchange: rank j gets every rank's slots of its experts
+    slots = all_to_all(slots.reshape(n, e_local, cap, D), axis_name, 0, 0)
+    slots = slots.movedim(0, 1).reshape(e_local, n * cap, D)
+    out = _expert_ffn(slots, w_in, w_out)
+    # reverse exchange: each rank's tokens' results back to it
+    out = out.reshape(e_local, n, cap, D).movedim(1, 0)
+    out = all_to_all(out, axis_name, 0, 0).reshape(E, cap, D)
+    y = torch.einsum("tec,ecd->td", combine, out)
+    return y, allreduce(aux, axis_name, "mean")
+
+
+def moe_ffn_sharded(tokens: torch.Tensor, w_router: torch.Tensor,
+                    w_in: torch.Tensor, w_out: torch.Tensor, mesh,
+                    capacity_factor: float = 1.25,
+                    axis_name: str = AXIS_EXPERT
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global entry: tokens [T, D] (token rows split over ``axis_name``),
+    w_in / w_out [E, ...] (experts split over it), the router replicated.
+    Per-shard routing: each shard routes ITS tokens against all experts with
+    per-shard capacity (the standard data-local formulation), so the result
+    equals ``moe_ffn_reference`` on each shard's rows with the full weights,
+    and aux their mean. Under a ``RankMesh`` every rank calls it with the
+    same global tensors and runs ``moe_ffn_local`` on its shard; under a
+    local-device ``Mesh`` one process routes each shard in turn."""
+    n = mesh.shape[axis_name]
+    if tokens.shape[0] % n:
+        raise ValueError(f"moe_ffn_sharded: {tokens.shape[0]} token rows do "
+                         f"not split into {n} shards over {axis_name!r}")
+    if mesh.spans_ranks:
+        rows, experts = (axis_name, None), (axis_name, None, None)
+        with use_mesh(mesh):
+            y, aux = moe_ffn_local(
+                to_local(tokens, rows, mesh),
+                to_local(w_router, (None, None), mesh),
+                to_local(w_in, experts, mesh), to_local(w_out, experts, mesh),
+                capacity_factor, axis_name)
+            return to_global(y, rows, mesh), to_global(aux, (), mesh)
+    outs = [moe_ffn_reference(shard, w_router, w_in, w_out, capacity_factor)
+            for shard in tokens.chunk(n)]
+    return (torch.cat([y for y, _ in outs]),
+            torch.stack([a for _, a in outs]).mean())

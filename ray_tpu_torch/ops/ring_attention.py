@@ -22,25 +22,34 @@ raises. On the CPU the plain version is differentiable.
 
 The reference runs the ring under ``shard_map`` on one controller that
 holds every device, with ``ppermute`` moving each KV shard to the next
-device. Here one process drives every shard in lockstep over the mesh's
-torch devices (parallel/mesh.py): the rotation is a move of each shard to
-its neighbour's device, a no-op where the devices repeat (a ``seq=4`` mesh
-on one card). So one call launches the block kernel n² times, n per
-device; every step runs its block, fully masked ones included, as the
-reference does. K and V travel unrepeated (grouped-query attention is
-resolved inside the block). Layouts follow the reference: the global
-entry takes [B, S, H, D]; a block takes [B, H, T, D] views.
+device. The port has both forms of mesh (parallel/mesh.py). Under a
+``RankMesh`` each rank runs the reference's body, ``ring_attention``, on
+its own batch, head and sequence shard, and ``send_recv`` over the seq
+axis's process group moves the KV block (parallel/collectives.py). Under a
+local-device ``Mesh`` one process drives every shard in lockstep: the
+rotation is a move of each shard to its neighbour's device, a no-op where
+the devices repeat (a ``seq=4`` mesh on one card), so one call launches the
+block kernel n² times, n per device. Either way every step runs its block,
+fully masked ones included, as the reference does. K and V travel
+unrepeated (grouped-query attention is resolved inside the block). Layouts
+follow the reference: the global entry and the body take [B, S, H, D]; a
+block takes [B, H, T, D] views.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 import math
 from typing import Tuple
 
 import torch
 
-from ray_tpu_torch.parallel.mesh import AXIS_SEQ, Mesh
+from ray_tpu_torch.parallel.collectives import (CollectiveGroup, send_recv,
+                                                spec_axes, to_global,
+                                                to_local)
+from ray_tpu_torch.parallel.mesh import (AXIS_SEQ, Mesh,
+                                         default_logical_rules, use_mesh)
 
 NEG_INF = -1e30
 
@@ -209,27 +218,92 @@ def _merge(acc, m, l, o_b, m_b, l_b):
     return acc, m_new, l
 
 
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   axis_name: str = AXIS_SEQ, causal: bool = True
+                   ) -> torch.Tensor:
+    """The reference's per-rank body, which every rank of ``axis_name``'s
+    group of the current mesh (a ``RankMesh``) runs on its own shard:
+    q [B, S_local, H, D], k/v [B, S_local, Hkv, D], shard i holding the
+    global positions [i * S_local, (i + 1) * S_local). At step t the rank
+    holds the KV block of rank (i - t) mod n, runs ``block_attention`` on it
+    (kernel 2 on the card), merges, and passes the block on to the next
+    rank with ``send_recv``; K and V travel unrepeated. Returns [B, S_local,
+    H, D] in q's dtype."""
+    group = CollectiveGroup(axis_name)
+    n, idx = group.world_size(), group.rank()
+    B, s_loc, H, D = q.shape
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).contiguous()
+    vt = v.transpose(1, 2).contiguous()
+    acc = torch.zeros((B, H, s_loc, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, s_loc), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, H, s_loc), dtype=torch.float32, device=q.device)
+    for t in range(n):
+        o_b, m_b, l_b = block_attention(
+            qt, kt, vt, q_offset=idx * s_loc,
+            k_offset=(idx - t) % n * s_loc, causal=causal)
+        acc, m, l = _merge(acc, m, l, o_b, m_b, l_b)
+        if t + 1 < n:
+            # receive the next block from the left neighbour
+            kt = send_recv(kt, axis_name, 1)
+            vt = send_recv(vt, axis_name, 1)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _specs(rules) -> Tuple[tuple, tuple]:
+    """q's and k/v's mesh-axis specs from the logical rules, as the
+    reference derives them (``batch``, ``act_seq``, ``heads`` /
+    ``kv_heads``, ``head_dim``)."""
+    table = dict(rules if rules is not None else default_logical_rules())
+    return (tuple(table.get(ax) for ax in
+                  ("batch", "act_seq", "heads", "head_dim")),
+            tuple(table.get(ax) for ax in
+                  ("batch", "act_seq", "kv_heads", "head_dim")))
+
+
 def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           mesh: Mesh, causal: bool = True) -> torch.Tensor:
+                           mesh, axis_name: str = AXIS_SEQ,
+                           causal: bool = True, rules=None) -> torch.Tensor:
     """Global entry: q [B, S, H, D], k/v [B, S, Hkv, D] -> [B, S, H, D] in
-    q's dtype, on q's device. S is split into ``mesh.shape["seq"]`` shards,
-    shard i on the i-th device along the seq axis; at step t shard i holds
-    the KV block of shard (i - t) mod n. Only the seq axis may be larger
-    than 1: batch and head sharding come with sharded training."""
+    q's dtype. The shards follow the logical rules (default
+    ``default_logical_rules``): batch over (data, fsdp), the sequence over
+    ``axis_name``, heads and KV heads over tensor.
+
+    Under a ``RankMesh`` every rank calls it with the same global tensors,
+    runs ``ring_attention`` on its batch, head and sequence shard, and gets
+    the global result (differentiable on the CPU; on the card kernel 2 has
+    no backward). Under a local-device ``Mesh`` one process drives every
+    ring in lockstep: shard i of a ring on the i-th device along the axis,
+    the rotation a move to the neighbour's device (a no-op where the
+    devices repeat), so one call launches the block kernel n² times a
+    ring."""
+    q_spec, kv_spec = _specs(rules)
+    if mesh.spans_ranks:
+        with use_mesh(mesh):
+            out = ring_attention(to_local(q, q_spec, mesh),
+                                 to_local(k, kv_spec, mesh),
+                                 to_local(v, kv_spec, mesh),
+                                 axis_name, causal)
+            return to_global(out, q_spec, mesh)
+    return _ring_local(q, k, v, mesh, axis_name, causal, q_spec, kv_spec)
+
+
+def _ring_local(q, k, v, mesh: Mesh, axis_name, causal, q_spec, kv_spec):
+    """The in-process ring over a local-device mesh: one ring for each
+    block of the batch and head axes the specs split."""
     sizes = mesh.shape
-    others = {a: s for a, s in sizes.items() if a != AXIS_SEQ and s > 1}
-    if others:
-        raise NotImplementedError(
-            f"ring_attention_sharded: mesh axes {others} besides seq; batch "
-            "and head sharding wait for ROADMAP.md, Queue A: sharded "
-            "training on torch.distributed")
-    n = sizes[AXIS_SEQ]
-    B, S, H, D = q.shape
+    if q_spec[1] != axis_name or kv_spec[1] != axis_name:
+        raise ValueError(f"ring_attention_sharded: the rules put the "
+                         f"sequence on {q_spec[1]!r}, the ring runs over "
+                         f"{axis_name!r}")
+    n = sizes[axis_name]
+    S = q.shape[1]
     if S % n:
         raise ValueError(f"ring_attention_sharded: sequence {S} does not "
                          f"split into {n} seq shards")
-    s_loc = S // n
-    devices = list(mesh.devices.reshape(-1))   # seq order: other axes are 1
+    devices = list(mesh.devices.reshape(-1))
     # a CUDA tensor under a CPU mesh would run its blocks on the host's
     # plain version: the ring's devices must be of the tensors' kind
     kinds = {t.device.type for t in (q, k, v)} | {d.type for d in devices}
@@ -238,6 +312,44 @@ def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"ring_attention_sharded: q, k, v on {q.device}, {k.device}, "
             f"{v.device} under a mesh of {sorted({str(d) for d in devices})}; "
             "the mesh's devices must be of the tensors' kind")
+    def blocks(dim):
+        """The blocks of tensor dimension ``dim``, major axis first: each
+        block's coordinates on the axes that split it, its index and the
+        number of blocks."""
+        axes = spec_axes(q_spec[dim])
+        if axes != spec_axes(kv_spec[dim]):
+            raise ValueError(f"ring_attention_sharded: q and k/v split "
+                             f"dimension {dim} differently")
+        grid = list(itertools.product(*(range(sizes[a]) for a in axes)))
+        return [(dict(zip(axes, c)), i, len(grid)) for i, c in enumerate(grid)]
+
+    def cut(x, dim, i, parts):
+        if x.shape[dim] % parts:
+            raise ValueError(f"ring_attention_sharded: dimension {dim} of "
+                             f"{tuple(x.shape)} does not split into {parts}")
+        size = x.shape[dim] // parts
+        return x.narrow(dim, i * size, size)
+
+    rows = []
+    for b_coords, bi, bparts in blocks(0):
+        heads = []
+        for h_coords, hi, hparts in blocks(2):
+            coords = {**b_coords, **h_coords}
+            ring = list(mesh.devices[tuple(
+                slice(None) if a == axis_name else coords.get(a, 0)
+                for a in mesh.axis_names)])
+            qb, kb, vb = (cut(cut(x, 0, bi, bparts), 2, hi, hparts)
+                          for x in (q, k, v))
+            heads.append(_ring_over(qb, kb, vb, ring, causal, q))
+        rows.append(torch.cat(heads, dim=2))
+    return torch.cat(rows, dim=0)
+
+
+def _ring_over(q, k, v, devices, causal, like) -> torch.Tensor:
+    """One in-process ring: shard i of the sequence on ``devices[i]``."""
+    n = len(devices)
+    B, S, H, D = q.shape
+    s_loc = S // n
 
     def shard(x, i):
         """Shard i as a [B, heads, s_loc, D] view on its device."""
@@ -266,7 +378,7 @@ def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ks = [ks[i - 1].to(devices[i]) for i in range(n)]
             vs = [vs[i - 1].to(devices[i]) for i in range(n)]
     out = [(acc[i] / torch.clamp(l[i], min=1e-30)[..., None])
-           .transpose(1, 2).to(q.device, q.dtype) for i in range(n)]
+           .transpose(1, 2).to(like.device, like.dtype) for i in range(n)]
     return torch.cat(out, dim=1)
 
 

@@ -693,9 +693,9 @@ def test_pid_alive():
 
 
 def test_process_phase_sizes():
-    """The cuts phase process states: 10k map-reduce tasks, 16 actor
+    """The cuts phase process states: 5k map-reduce tasks, 16 actor
     processes x 100 calls, 3 x 32 MiB through a 64 MiB arena."""
-    assert chip_smoke.PROCESS_TASKS == 10_000
+    assert chip_smoke.PROCESS_TASKS == 5_000
     assert (chip_smoke.PROCESS_ACTORS, chip_smoke.PROCESS_CALLS) == (16, 100)
     assert chip_smoke.SPILL_OBJECTS * chip_smoke.SPILL_OBJECT_BYTES \
         > chip_smoke.SPILL_ARENA_BYTES == 64 << 20

@@ -219,7 +219,9 @@ def test_port_imports_no_jax():
     those of MoE, Tune, workflow, the DAG, the queue, the node daemon,
     the remote pool and the ray:// client, and of the optional planes
     and the ops layer (qos, profile_plane, snapshot, util.state, the
-    dashboard, job_submission, the CLI's __main__), leave CUDA
+    dashboard, job_submission, the CLI's __main__), and of sharded
+    training (parallel.distributed, parallel.collectives, ops.pipeline;
+    tests/test_torch_sharded*.py check the rank processes), leave CUDA
     uninitialised; a PPO iteration with its learner on the host, and a
     process-mode task under both planes (qos, profile_hz), load no jax
     or ray_tpu module either."""
@@ -230,6 +232,9 @@ def test_port_imports_no_jax():
             "ray_tpu_torch.ops.paged_attention, ray_tpu_torch._private.perf, "
             "ray_tpu_torch.ops.ring_attention, ray_tpu_torch.parallel, "
             "ray_tpu_torch.parallel.mesh, "
+            "ray_tpu_torch.parallel.distributed, "
+            "ray_tpu_torch.parallel.collectives, ray_tpu_torch.ops.pipeline, "
+            "ray_tpu_torch._private.runtime.listener, "
             "ray_tpu_torch._private.scheduler.kernels, "
             "ray_tpu_torch._private.scheduler.tensor, "
             "ray_tpu_torch._private.benchmarks, ray_tpu_torch.util, "

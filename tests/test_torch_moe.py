@@ -116,9 +116,31 @@ def test_moe_ffn_bf16_routes_mostly_alike():
 
 
 def test_sharded_paths_raise():
-    for fn in (tmoe.moe_ffn_local, tmoe.moe_ffn_sharded):
-        with pytest.raises(NotImplementedError, match="sharded training"):
-            fn()
+    """The shard_map body runs only on the ranks of a mesh that spans
+    processes, and the global entry needs token rows that split over the
+    expert axis (MoEMLP pads them); on a local-device mesh the entry routes
+    each shard as JAX's does (tests/test_torch_sharded_ops.py holds the
+    rank path)."""
+    from ray_tpu.parallel import mesh as jmesh
+    from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    router, w_in, w_out = (torch.from_numpy(w) for w in _weights(seed=2))
+    x = torch.from_numpy(_tokens(seed=4))
+    with pytest.raises(RuntimeError, match="spans ranks"):
+        tmoe.moe_ffn_local(x, router, w_in, w_out, 2.0)
+    mesh = make_mesh(MeshConfig(expert=4), ["cpu"] * 4)
+    with pytest.raises(ValueError, match="split"):
+        tmoe.moe_ffn_sharded(x[:-1], router, w_in, w_out, mesh)
+    y, aux = tmoe.moe_ffn_sharded(x, router, w_in, w_out, mesh,
+                                  capacity_factor=2.0)
+    jm = jmesh.make_mesh(jmesh.MeshConfig(expert=4), jax.devices()[:4])
+    with jm:
+        jy, jaux = jax.jit(lambda *a: jmoe.moe_ffn_sharded(
+            *a, jm, capacity_factor=2.0))(*(jnp.asarray(t.numpy()) for t in (
+                x, router, w_in, w_out)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(aux), float(jaux), atol=1e-6)
 
 
 # ----------------------------------------------------------------------
@@ -249,14 +271,23 @@ def test_dense_loss_is_unchanged():
 
 
 def test_expert_mesh_raises(moe_model):
+    """Under a mesh with expert=2 the model takes the expert-parallel entry
+    (its rows padded to a multiple of 2: 2 x 17 tokens) and equals JAX's
+    model under the same mesh; nothing raises any more."""
+    from ray_tpu.parallel import mesh as jmesh
     from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh, use_mesh
 
-    _model, _jparams, params = moe_model
+    model, jparams, params = moe_model
     net = _port(params)
     tokens = torch.from_numpy(_batch()).long()
     with use_mesh(make_mesh(MeshConfig(expert=2), ["cpu"] * 2)):
-        with pytest.raises(NotImplementedError, match="expert=2"):
-            net(tokens)
+        got = net(tokens)
+    jm = jmesh.make_mesh(jmesh.MeshConfig(expert=2), jax.devices()[:2])
+    with jmesh.use_mesh(jm):
+        want = jax.jit(lambda p, t: model.apply({"params": p}, t))(
+            jparams, jnp.asarray(_batch()))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=2e-4, rtol=2e-4)
     # a mesh without an expert axis runs the single-device path
     with use_mesh(make_mesh(MeshConfig(data=2), ["cpu"] * 2)):
         assert torch.isfinite(net(tokens)).all()

@@ -185,12 +185,36 @@ def test_help_lists_the_references_verbs():
     (["start", "--address", "ray://h:1?key=00", "--jax-process-id", "0"],
      "item 7"),
     (["lint"], "item 8"), (["lint", "--json"], "item 8")])
-def test_refused_verbs_name_their_roadmap_item(argv, item):
+def test_refused_verbs_name_their_roadmap_item(argv, item, monkeypatch):
+    """``lint`` still refuses, naming item 8. The ``start --jax-*`` flags
+    (item 7, now ported) hand the reference's arguments to
+    ``init_multihost`` before anything starts (a stand-in records them
+    here; tests/test_torch_sharded.py joins for real)."""
     from ray_tpu_torch.__main__ import main
+    from ray_tpu_torch.parallel import distributed
 
+    class Joined(Exception):
+        pass
+
+    calls = []
+
+    def fake_init(*args):
+        calls.append(args)
+        raise Joined
+
+    monkeypatch.setattr(distributed, "init_multihost", fake_init)
     ray_tpu_torch.shutdown()
-    with pytest.raises(NotImplementedError, match=item):
-        main(argv)
+    if item == "item 8":
+        with pytest.raises(NotImplementedError, match=item):
+            main(argv)
+    else:
+        with pytest.raises(Joined):
+            main(argv)
+        flags = {a: v for a, v in zip(argv, argv[1:]) if a.startswith('--jax')}
+        assert calls == [(flags.get("--jax-coordinator"),
+                          int(flags.get("--jax-num-processes", 0)) or None,
+                          (int(flags["--jax-process-id"])
+                           if "--jax-process-id" in flags else None))]
     assert not ray_tpu_torch.is_initialized()
 
 

@@ -212,10 +212,20 @@ def test_ring_rejects_a_mesh_of_another_device_kind():
 
 
 def test_ring_rejects_axes_other_than_seq():
-    q, k, v = (torch.from_numpy(a) for a in _qkv(2))
-    mesh = tmesh.make_mesh(tmesh.MeshConfig(fsdp=2, seq=2), ["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tra.ring_attention_sharded(q, k, v, mesh)
+    """Batch and head axes split the in-process ring into one ring a block
+    (equal to JAX's ring on the same mesh); what does not split into the
+    mesh's shards is rejected."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, kv_heads=H // 2))
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(fsdp=2, seq=2, tensor=2),
+                           ["cpu"] * 8)
+    got = tra.ring_attention_sharded(q, k, v, mesh)
+    jmesh_ = jmesh.make_mesh(jmesh.MeshConfig(fsdp=2, seq=2, tensor=2),
+                             jax.devices()[:8])
+    want = _jax_ring(jmesh_, q.numpy(), k.numpy(), v.numpy(), True)
+    np.testing.assert_allclose(got.numpy(), want, atol=RING_ATOL,
+                               rtol=RING_ATOL)
+    with pytest.raises(ValueError, match="split"):
+        tra.ring_attention_sharded(q[:1], k[:1], v[:1], mesh)
     with pytest.raises(ValueError, match="split"):
         tra.ring_attention_sharded(q[:, :63], k[:, :63], v[:, :63],
                                    _port_mesh(2))

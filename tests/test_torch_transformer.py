@@ -87,9 +87,10 @@ def test_rope_rotates_interleaved_pairs_like_jax():
 def test_config_rejects_unported_options():
     """moe=True builds a model with the expert layer in place of the dense
     MLP, and its engine and its expert-parallel path are what the port
-    refuses: the engine raises ValueError (the reference's reads MLP_0),
-    and a forward under a mesh with expert > 1 raises NotImplementedError
-    naming ROADMAP.md (the all_to_all path waits for sharded training)."""
+    refuses: the engine raises ValueError (the reference's reads MLP_0).
+    A forward under a mesh with expert > 1 takes the expert-parallel path
+    (tests/test_torch_moe.py and tests/test_torch_sharded_ops.py hold it to
+    the reference)."""
     from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh, use_mesh
 
     cfg = tt.TransformerConfig(dtype=torch.float32, moe=True,
@@ -105,8 +106,7 @@ def test_config_rejects_unported_options():
     with pytest.raises(ValueError, match="MLP_0"):
         tinf.InferenceEngine(params, cfg, device="cpu")
     with use_mesh(make_mesh(MeshConfig(expert=2), ["cpu"] * 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model(tokens)
+        assert torch.isfinite(model(tokens)).all()
 
 
 def test_config_builds_with_ring_attention():
