@@ -329,6 +329,21 @@ Phases, each printing one JSON line:
                gradients against the sequential run. Each part's seconds
                and the bytes each collective moved and staged through the
                host.
+ 25. lint    — raylint and its runtime mirror (phase_lint): (a) python -m
+               ray_tpu_torch lint --json over this checkout in a
+               subprocess: ok, the eight passes, no stale suppression;
+               each pass's seconds and the static lock graph's edge count.
+               (b) the sanitizer armed before init, then the serving path
+               through the runtime: the engine actor of phase runtime at
+               serve-127M (bf16) answers LINT_PROMPTS requests, its tokens
+               equal to a direct engine's, kernel 1's counter zeroed just
+               before and > 0 just after; then one process-mode round of
+               LINT_ARENA_PUTS arena-sized results (1.6 MB each). After
+               each shutdown the report is clean: no lock inversion
+               against the static graph, no wire frame off the schema
+               compiled from the channel table, no leak, and the shm
+               ledger filled and drained. The line lists the observed
+               lock edges and the uncharted count.
 Then the kernel table as one JSON line (kernel 1's launches: the Serve
 path's, mono and split, with phase engine's beside them; kernel 2's with
 phase sharded's ranks' beside them), the nvidia-smi line, and last
@@ -476,6 +491,12 @@ RUNTIME_BACKENDS = ("cuda", "numpy", "auto")
 RUNTIME_TASKS, RUNTIME_FAN_IN = 10_000, 100
 RUNTIME_ACTORS, RUNTIME_CALLS = 1000, 10
 ENGINE_PROMPTS, ENGINE_NEW_TOKENS = 8, 32
+LINT_PASSES = ("lock_order", "shared_state", "wire_protocol", "knobs",
+               "registry", "ref_lifecycle", "closure_capture",
+               "blocking_calls")
+LINT_PROMPTS = 4
+# tests/test_chaos.py's arena round: six results of 200k float64 (1.6 MB)
+LINT_ARENA_PUTS, LINT_ARENA_ELEMS = 6, 200_000
 # process mode (phase process): the runtime with worker_mode="process", 8
 # exec'd workers, the TensorScheduler assigning on the card and leasing the
 # batches to the workers. Cut from phase runtime's sizes because each
@@ -2553,17 +2574,13 @@ def phase_runtime(torch):
     return row
 
 
-def runtime_engine(torch, ray, rec, smi, backend):
-    """The model through the runtime (initialised with sched_backend
-    ``backend``): an engine actor at serve-127M, its tokens against a
-    direct engine on the same parameters, the actor's time alone and
-    beside a 5k fan-out, and (cuda) assign's times alone and beside the
-    decoding actor. Returns the problems."""
-    from ray_tpu_torch.models.inference import (InferenceConfig,
-                                                InferenceEngine)
+def engine_setup(torch):
+    """serve-127M in bf16 with seeded parameters on the card, the engine's
+    configuration and ENGINE_PROMPTS prompts: (mcfg, params, icfg,
+    prompts)."""
+    from ray_tpu_torch.models.inference import InferenceConfig
     from ray_tpu_torch.models.transformer import (TransformerConfig,
                                                   init_params)
-    from ray_tpu_torch.ops import paged_attention as pa
 
     mcfg = TransformerConfig(dtype=torch.bfloat16, **SERVE)
     params = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
@@ -2572,6 +2589,12 @@ def runtime_engine(torch, ray, rec, smi, backend):
                            prefill_buckets=(16,),
                            max_new_tokens=ENGINE_NEW_TOKENS)
     prompts = [[i + 1, 2 * i + 3, 7] for i in range(ENGINE_PROMPTS)]
+    return mcfg, params, icfg, prompts
+
+
+def engine_actor(ray):
+    """The engine actor class (num_gpus=1) over an InferenceEngine."""
+    from ray_tpu_torch.models.inference import InferenceEngine
 
     @ray.remote(num_gpus=1)
     class _Engine:
@@ -2579,18 +2602,31 @@ def runtime_engine(torch, ray, rec, smi, backend):
             self.engine = InferenceEngine(params, mcfg, icfg)
 
         def generate(self, prompts, n):
-            # one after another: each prompt alone in the batch, as the
-            # direct engine below runs them; with the clock at the end
-            # (this process's: the caller reads the result only after
-            # its own fan-out)
+            # one after another: each prompt alone in the batch, as a
+            # direct engine runs them; with the clock at the end (this
+            # process's: the caller may read the result only after its
+            # own fan-out)
             out = [self.engine.generate(p, n) for p in prompts]
             return out, time.perf_counter()
 
         def stop(self):
             self.engine.shutdown()
 
+    return _Engine
+
+
+def runtime_engine(torch, ray, rec, smi, backend):
+    """The model through the runtime (initialised with sched_backend
+    ``backend``): an engine actor at serve-127M, its tokens against a
+    direct engine on the same parameters, the actor's time alone and
+    beside a 5k fan-out, and (cuda) assign's times alone and beside the
+    decoding actor. Returns the problems."""
+    from ray_tpu_torch.models.inference import InferenceEngine
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    mcfg, params, icfg, prompts = engine_setup(torch)
     problems = []
-    actor = _Engine.remote(params, mcfg, icfg)
+    actor = engine_actor(ray).remote(params, mcfg, icfg)
     try:
         ray.get(actor.generate.remote(prompts[:1], 4), timeout=600)  # warm
         t0 = time.perf_counter()
@@ -8036,6 +8072,175 @@ def phase_sharded(torch, dev, rank_command=sharded_rank_command):
     return launches
 
 
+def lint_static():
+    """python -m ray_tpu_torch lint --json over this checkout, in a
+    subprocess: (row, problems)."""
+    from ray_tpu_torch._private.analysis import PACKAGE_ROOT, lock_order
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch", "lint", "--json"],
+        cwd=str(Path(__file__).resolve().parent), capture_output=True,
+        text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    problems = []
+    try:
+        report = json.loads(proc.stdout)
+    except ValueError:
+        report = {}
+        problems.append(f"lint printed no JSON (exit {proc.returncode}): "
+                        f"{proc.stderr[-2000:]}")
+    edges = lock_order.collect_edges(PACKAGE_ROOT)
+    passes = report.get("durations_s", {})
+    row = {"exit": proc.returncode, "ok": report.get("ok"),
+           "seconds": seconds, "passes_s": passes,
+           "new": [f["key"] for f in report.get("new", [])],
+           "baselined": len(report.get("baselined", [])),
+           "stale_suppressions": report.get("stale_suppressions"),
+           "static_lock_edges": len(edges)}
+    if proc.returncode != 0 or report.get("ok") is not True:
+        problems.append(f"lint: exit {proc.returncode}, new {row['new']}")
+    if tuple(passes) != LINT_PASSES:
+        problems.append(f"lint ran the passes {list(passes)}")
+    if report.get("stale_suppressions") != []:
+        problems.append(f"stale suppressions {row['stale_suppressions']}")
+    if not edges:
+        problems.append("the static lock graph is empty")
+    return row, problems
+
+
+def lint_report(san, report):
+    """The sanitizer's report as the phase's line keeps it, and its
+    problems."""
+    problems = []
+    if report is None:
+        return {"filed": False}, ["shutdown filed no sanitizer report"]
+    for section in ("lock_inversions", "wire_violations", "shm_leaks",
+                    "ref_leaks"):
+        if report[section]:
+            problems.append(f"{section}: {report[section][:5]}")
+    if not san.clean(report):
+        problems.append("the sanitizer report is not clean")
+    return {"filed": True,
+            **{k: report[k] for k in ("lock_inversions", "wire_violations",
+                                      "shm_leaks", "ref_leaks")},
+            "uncharted": len(report["lock_uncharted"])}, problems
+
+
+def lint_arena(san, ray):
+    """tests/test_chaos.py's arena round under the armed sanitizer:
+    LINT_ARENA_PUTS results of 1.6 MB each in process mode must fill the
+    shm ledger and drain it. (row, problems)."""
+    import gc
+
+    import numpy as np
+
+    @ray.remote
+    def big(i):
+        return np.arange(LINT_ARENA_ELEMS, dtype=np.float64) * i
+
+    refs = [big.remote(i) for i in range(LINT_ARENA_PUTS)]
+    got = ray.get(refs, timeout=300)
+    filled = san.ledger_size()
+    exact = all(np.array_equal(
+        a, np.arange(LINT_ARENA_ELEMS, dtype=np.float64) * i)
+        for i, a in enumerate(got))
+    del refs, got
+    gc.collect()
+    deadline = time.monotonic() + 30.0
+    while san.ledger_size() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    drained = san.ledger_size()
+    problems = []
+    if not exact:
+        problems.append("arena round: wrong results")
+    if filled < LINT_ARENA_PUTS:
+        problems.append(f"the shm ledger held {filled} entries, "
+                        f"< {LINT_ARENA_PUTS}")
+    if drained:
+        problems.append(f"the shm ledger kept {drained} entries")
+    return {"ledger_filled": filled, "ledger_after": drained,
+            "results_exact": exact}, problems
+
+
+def phase_lint(torch, dev):
+    """raylint's passes over the checkout, then the serving path and an
+    arena round under the armed runtime sanitizer (docstring, phase 25)."""
+    import ray_tpu_torch as ray
+    from ray_tpu_torch._private.analysis import runtime_sanitizer as san
+    from ray_tpu_torch.models.inference import InferenceEngine
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    static, problems = lint_static()
+    emit({"phase": "lint", "part": "static", **static, "nvidia_smi": smi})
+
+    mcfg, params, icfg, prompts = engine_setup(torch)
+    prompts = prompts[:LINT_PROMPTS]
+    ray.shutdown()
+    san.arm()  # before init: the wrap_lock sites fire at setup
+    try:
+        t0 = time.perf_counter()
+        ray.init(num_workers=4, scheduler="tensor")
+        try:
+            pa.paged_attention.launches = 0
+            actor = engine_actor(ray).remote(params, mcfg, icfg)
+            try:
+                got, _ = ray.get(actor.generate.remote(
+                    prompts, ENGINE_NEW_TOKENS), timeout=600)
+                ray.get(actor.stop.remote(), timeout=120)
+            finally:
+                ray.kill(actor)
+            launches = pa.paged_attention.launches
+        finally:
+            ray.shutdown()
+        serve_s = time.perf_counter() - t0
+        observed = sorted(f"{a} -> {b}" for a, b in san.observed_edges())
+        serving, found = lint_report(san, san.last_report())
+        problems += found
+        engine = InferenceEngine(params, mcfg, icfg)
+        try:
+            want = [engine.generate(p, ENGINE_NEW_TOKENS) for p in prompts]
+        finally:
+            engine.shutdown()
+        if got != want:
+            problems.append("engine actor tokens != direct engine tokens")
+        if launches <= 0:
+            problems.append("the engine actor launched no paged attention")
+        emit({"phase": "lint", "part": "serving", "seconds": serve_s,
+              "prompts": len(prompts), "new_tokens": ENGINE_NEW_TOKENS,
+              "tokens_equal_direct": got == want,
+              "paged_attention_launches": launches,
+              "observed_edges": observed, **serving})
+
+        san.arm()
+        t0 = time.perf_counter()
+        ray.init(num_cpus=4, num_workers=2, scheduler="tensor",
+                 _system_config={"worker_mode": "process",
+                                 "object_store_memory": 32 * 1024 * 1024})
+        try:
+            arena, found = lint_arena(san, ray)
+            problems += found
+        finally:
+            ray.shutdown()
+        observed = sorted(f"{a} -> {b}" for a, b in san.observed_edges())
+        row, found = lint_report(san, san.last_report())
+        problems += found
+        emit({"phase": "lint", "part": "arena",
+              "seconds": time.perf_counter() - t0, **arena,
+              "observed_edges": observed, **row})
+    finally:
+        san.disarm()
+        ray.shutdown()
+    emit({"phase": "lint", "part": "done",
+          "seconds": time.perf_counter() - t_phase, "ok": not problems,
+          "nvidia_smi": smi})
+    if problems:
+        raise AssertionError(f"lint phase: {problems}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -8108,6 +8313,7 @@ def main() -> int:
     ops = phase_ops(torch, dev)
     perf = phase_perf(torch, dev)
     sharded = phase_sharded(torch, dev)
+    lint_launches = phase_lint(torch, dev)
 
     # kernel 1 and its yardstick by device time (graph replays): the eager
     # loop of wrapper calls times the host, not the kernels
@@ -8125,6 +8331,7 @@ def main() -> int:
             "serve_disagg": served["disagg"]["paged_attention_launches"],
             "multinode_engine_actor": multinode["engine_actor"],
             "ops_prod": ops["ops_prod"],
+            "lint_engine_actor": lint_launches,
             **{f"perf_{k}": perf[k] for k in (
                 "decode_64", f"decode_{PERF_DECODE_SLOTS}", "serving_mono",
                 "serving_disagg")}},

@@ -11,9 +11,10 @@ Prometheus endpoint (status --metrics-port).
 The verbs and flags are ``ray_tpu``'s. ``start --jax-coordinator
 --jax-num-processes --jax-process-id`` joins the ``torch.distributed``
 process group (parallel/distributed.py ``init_multihost``; set
-``RAY_TPU_TORCH_DIST_DEVICE=cpu`` for ranks on the CPU). Two verbs are
-refused: ``lint`` (raylint's static passes, ROADMAP.md Queue A item 8) and
-``bench`` (the port's benchmark is not written yet; the root
+``RAY_TPU_TORCH_DIST_DEVICE=cpu`` for ranks on the CPU). ``lint`` runs
+raylint's eight static passes over this package (``_private/analysis``,
+``--json``, ``--update-baseline``, ``--changed-only``). One verb is
+refused: ``bench`` (the port's benchmark is not written yet; the root
 ``bench.py`` measures ``ray_tpu``, not the port).
 
 On a host without CUDA, set ``RAY_TPU_TORCH_SCHED_DEVICE=cpu`` (the
@@ -439,14 +440,54 @@ def _cmd_summary(args) -> int:
     return 0
 
 
+def _changed_files() -> "set":
+    """Repo-relative paths changed vs ``git merge-base HEAD main``
+    (committed, staged and unstaged), for ``lint --changed-only``."""
+    import subprocess
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        base = subprocess.run(
+            ["git", "merge-base", "HEAD", "main"], cwd=repo,
+            capture_output=True, text=True, timeout=10,
+            check=True).stdout.strip()
+        diff = subprocess.run(
+            ["git", "diff", "--name-only", base], cwd=repo,
+            capture_output=True, text=True, timeout=10, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return set()
+    return {ln.strip() for ln in diff.stdout.splitlines() if ln.strip()}
+
+
 def _cmd_lint(args) -> int:
-    """raylint's static passes (lock order, shared state, wire
-    protocol, knobs, registries, ref lifecycle, closure capture,
-    blocking calls) are not ported: refuse rather than report a clean
-    run."""
-    raise NotImplementedError(
-        "lint: raylint's static passes (_private/analysis/*) are not "
-        "ported yet (ROADMAP.md Queue A item 8)")
+    """Run the analysis plane — the eight framework-invariant static
+    passes (lock order, shared state, wire protocol, knobs, registries,
+    ref lifecycle, closure capture, blocking calls) over the installed
+    ray_tpu_torch package. Exit 1 on findings not covered by
+    analysis/baseline.json."""
+    from ray_tpu_torch._private import analysis
+
+    report = analysis.run_all()
+    if getattr(args, "changed_only", False):
+        changed = _changed_files()
+        # findings carry package-relative paths; the diff is
+        # repo-relative with the ray_tpu_torch/ prefix
+        def touched(f):
+            return f.file and ("ray_tpu_torch/" + f.file).replace(
+                os.sep, "/") in changed
+        report.new = [f for f in report.new if touched(f)]
+        report.baselined = [f for f in report.baselined if touched(f)]
+        report.stale_suppressions = []  # not decidable from a diff
+    if args.update_baseline:
+        analysis.save_baseline([f.key for f in report.findings])
+        print(f"baseline updated: {len(report.findings)} suppression(s)"
+              f" written to {analysis.BASELINE_PATH}")
+        return 0
+    if args.json:
+        print(json.dumps(report.to_json(), indent=2))
+    else:
+        print(report.render_text())
+    return 0 if report.ok else 1
 
 
 def main(argv=None) -> int:
@@ -557,8 +598,8 @@ def main(argv=None) -> int:
     p.add_argument("trace", help="JSON from ray_tpu_torch.timeline(file)")
     p.set_defaults(fn=_cmd_summary)
 
-    p = sub.add_parser("lint", help="refused: raylint's static passes "
-                       "are not ported (ROADMAP.md Queue A item 8)")
+    p = sub.add_parser("lint", help="run raylint static-analysis "
+                       "passes over the package")
     p.add_argument("--json", action="store_true",
                    help="machine-readable report on stdout")
     p.add_argument("--update-baseline", action="store_true",

@@ -6,16 +6,16 @@ Everything here is zero-cost when disarmed: ``wrap_lock`` returns the
 raw lock unchanged, the ledger/track entry points are a single module-
 global branch, and no state accumulates.
 
-Three recorders, each the dynamic witness of a static pass of the
-reference's raylint (not ported yet: ROADMAP.md, the runtime's next
-items):
+Three recorders, each the dynamic witness of a static pass:
 
 - **lock witness** (mirrors ``lock_order``): every lock wrapped with
   :func:`wrap_lock` records, per thread, which locks were already held
-  at each acquire. At shutdown an observed edge whose REVERSE was also
-  observed is an order inversion, i.e. a deadlock the chaos soak merely
-  got lucky on. Without raylint's static acquisition graph the port
-  diffs only against a graph the caller passes (empty by default).
+  at each acquire. At shutdown the observed edge set is diffed against
+  the static acquisition graph — an observed edge whose REVERSE exists
+  (statically or dynamically) is an order inversion, i.e. a deadlock
+  the chaos soak merely got lucky on. Edges the static pass never saw
+  are reported separately as *uncharted* (a resolution blind spot, not
+  a bug).
 - **leak ledger** (mirrors ``ref_lifecycle``): every shm-arena /
   spill-tier allocation is recorded with its owning-task attribution
   (best effort, from the worker's current task context — the same id
@@ -26,12 +26,11 @@ items):
   registered ``ObjectRef``\\ s catches the inverse bug — a refcount row
   held up by a decref that never happened (local > 0 with zero live
   handles).
-- **wire schema** (mirrors ``wire_protocol``): each recv dispatcher of
-  the process pool feeds live messages (pipe frames and the tagged
-  tuples rebuilt from ring slots) through :func:`check_wire`. The
-  reference compiles the tag -> arity table from raylint's static
-  channel table; without raylint the port keeps the table by hand
-  (``WIRE_SCHEMA``, the send sites of ``runtime/worker_process.py``).
+- **wire schema** (mirrors ``wire_protocol``): the static channel
+  table is compiled into tag -> arity-set schemas at arm time; each
+  recv dispatcher feeds live messages through :func:`check_wire`, so a
+  send site the static table does not model shows up as a violation
+  instead of silently drifting.
 
 Violations are RECORDED, never raised: a sanitizer that kills a daemon
 thread mid-soak hides every later violation. ``last_report()`` exposes
@@ -49,6 +48,9 @@ from typing import Dict, List, Optional, Set, Tuple
 logger = logging.getLogger(__name__)
 
 _ENABLED = os.environ.get("RAY_TPU_TORCH_SANITIZE", "") == "1"
+
+#: synthetic tags injected into recv queues locally (never wire traffic)
+_SYNTHETIC_TAGS = {"__died__"}
 
 
 def enabled() -> bool:
@@ -70,12 +72,13 @@ def disarm() -> None:
 
 def reset() -> None:
     global _observed_edges, _ledger, _external, _live_refs
-    global _owner_provider, _last_report, _wire_violations
+    global _wire_violations, _wire_schema, _owner_provider, _last_report
     _observed_edges = {}
-    _wire_violations = []
     _ledger = {}
     _external = set()
     _live_refs = {}
+    _wire_violations = []
+    _wire_schema = None
     _owner_provider = None
     _last_report = None
 
@@ -173,7 +176,8 @@ def lock_witness_violations(
     violations: static resolution under-approximates by design.
     """
     if static_edges is None:
-        static_edges = set()  # raylint's lock_order graph is not ported
+        from ray_tpu_torch._private.analysis import PACKAGE_ROOT, lock_order
+        static_edges = lock_order.collect_edges(PACKAGE_ROOT)
     observed = set(_observed_edges)
     inversions = []
     for a, b in sorted(observed):
@@ -305,52 +309,61 @@ def ref_leaks(counter_snapshot: Dict) -> List[str]:
 # wire-message schema assertions
 # ---------------------------------------------------------------------------
 
-#: channel -> tag -> the arities its senders produce (worker -> owner: the
-#: pipe frames of runtime/worker_process.py, and the ring's "cenv" slot
-#: rebuilt as a tagged tuple by the pool's drain; daemon <-> head: the
-#: send sites of runtime/node_daemon.py and runtime/remote_pool.py, an
-#: outbox "seq" envelope checked again for its inner report)
-WIRE_SCHEMA: Dict[str, Dict[str, Set[int]]] = {
-    "worker_to_owner": {
-        "ready": {2}, "done": {4}, "err": {5}, "rpc": {4}, "many": {2},
-        "cring": {1}, "cenv": {2},
-    },
-    "daemon_to_head": {
-        "seq": {5}, "w": {3}, "worker_died": {3, 4}, "fetched": {4},
-        "pong": {3}, "log": {3}, "pulled": {2}, "log_listed": {3},
-        "log_data": {4}, "clock": {3}, "local_lease": {3},
-        "local_retry": {3}, "p2p_done": {3}, "p2p_fallback": {3},
-        "aresolve": {2}, "fault": {2}, "store_stats": {3},
-    },
-    "head_to_daemon": {
-        "spawn": {2, 3}, "to_w": {3}, "to_ctrl": {3}, "kill": {2},
-        "fetch": {3}, "stage": {2}, "free": {2}, "ping": {2},
-        "log_list": {2}, "log_read": {4}, "store_stats": {2},
-        "resview": {2}, "aroute": {3}, "node_dead": {2}, "fence": {2},
-        "ack": {2}, "exit": {1}, "error": {2},
-    },
-}
 _wire_violations: List[str] = []
+_wire_schema = None  # channel -> (tag -> arity set, tag-only allow set)
 _MAX_WIRE_VIOLATIONS = 100
 
 
+def _build_wire_schema():
+    """Compile the static channel table into live-checkable schemas —
+    generated, not hand-maintained, so the two can't drift."""
+    import os as _os
+
+    from ray_tpu_torch._private.analysis import PACKAGE_ROOT, wire_protocol
+    from ray_tpu_torch._private.analysis._astutil import parse_file
+
+    schema = {}
+    for ch in wire_protocol.DEFAULT_CHANNELS:
+        sent: Dict[str, Set[int]] = {}
+        for relpath in {s.file for s in ch.sends}:
+            tree = parse_file(_os.path.normpath(
+                _os.path.join(PACKAGE_ROOT, relpath)))
+            if tree is None:
+                continue
+            specs = [s for s in ch.sends if s.file == relpath]
+            for tag, arities in wire_protocol.collect_sends(
+                    tree, specs).items():
+                sent.setdefault(tag, set()).update(arities)
+        allow = set(ch.assume_sent) | set(ch.assume_handled) \
+            | _SYNTHETIC_TAGS
+        schema[ch.name] = (sent, allow)
+    return schema
+
+
 def check_wire(channel: str, msg) -> None:
-    """Validate one received message against the channel's schema;
-    violations are recorded, never raised."""
+    """Validate one received message against the channel's generated
+    schema; violations are recorded, never raised."""
     if not _ENABLED:
         return
-    table = WIRE_SCHEMA.get(channel, {})
+    global _wire_schema
+    if _wire_schema is None:
+        _wire_schema = _build_wire_schema()
+    sent, allow = _wire_schema.get(channel, ({}, set()))
     if not isinstance(msg, tuple) or not msg \
             or not isinstance(msg[0], str):
         _record_wire(f"[{channel}] non-tagged frame {type(msg).__name__}")
         return
     tag = msg[0]
-    arities = table.get(tag)
+    if tag in allow:
+        return
+    arities = sent.get(tag)
     if arities is None:
-        _record_wire(f"[{channel}] tag {tag!r} not in the channel table")
+        _record_wire(f"[{channel}] tag {tag!r} not in the static "
+                     f"channel table")
     elif len(msg) not in arities:
         _record_wire(f"[{channel}] tag {tag!r} arrived with arity "
-                     f"{len(msg)}, senders produce {sorted(arities)}")
+                     f"{len(msg)}, static senders produce "
+                     f"{sorted(arities)}")
     if tag == "many" and len(msg) > 1 and isinstance(msg[1],
                                                      (list, tuple)):
         for sub in msg[1]:

@@ -18,6 +18,7 @@ bundle-resource accounting path.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 from typing import Any, Dict, List, Optional
@@ -70,6 +71,8 @@ class PlacementGroupManager:
         # cluster's FULL current capacity park in the pending queue
         # (scale-up demand) instead of failing permanently
         self.hold_infeasible = False
+        # gang scale-ups adding their nodes right now (provisioning())
+        self._provisioning = 0
 
     # -- API ----------------------------------------------------------------
     def create(self, bundles: List[Dict[str, float]], strategy: str,
@@ -150,6 +153,23 @@ class PlacementGroupManager:
             if not self._pending:
                 return
         self._retry_wake.set()
+
+    @contextlib.contextmanager
+    def provisioning(self):
+        """Hold the retry thread's placements while a gang scale-up adds
+        its nodes. A node's capacity reaches the scheduler before the
+        provider call that adds it returns, so without the hold a pending
+        gang could land on the first nodes of a decision the autoscaler
+        has not finished, and not yet counted. Pending groups are retried
+        as the hold ends, whether the nodes all came up or not."""
+        with self._lock:
+            self._provisioning += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._provisioning -= 1
+            self.poke()
 
     def pending_gangs(self) -> List[Dict[str, Any]]:
         """Snapshot of unplaced groups for the gang-aware autoscaler:
@@ -283,6 +303,8 @@ class PlacementGroupManager:
             if self._shutdown:
                 return
             with self._lock:
+                if self._provisioning:
+                    continue  # retried when the scale-up's hold ends
                 pending = [self._table[p] for p in self._pending]
             # strict QoS tiers, FIFO within: a freed slice goes to the
             # highest-tier pending gang first (stable sort preserves

@@ -923,7 +923,8 @@ class TensorScheduler(SchedulerBase):
             # runs assign_np on the host, whatever the backend. Decided
             # here, before anything runs; a device error never leads here
             use_device = False
-            self._num_locality_host_assigns += 1
+            with self._lock:  # stats() reads the counters under it
+                self._num_locality_host_assigns += 1
         threshold = GLOBAL_CONFIG.sched_hybrid_threshold
         if use_device:
             node_of_ready, new_avail = self._device_assign(
@@ -977,9 +978,12 @@ class TensorScheduler(SchedulerBase):
                 with torch.cuda.stream(self._stream):
                     out = kernels.assign(*args, device=device)
         except Exception:
-            self._num_device_assign_errors += 1
+            with self._lock:
+                self._num_device_assign_errors += 1
             raise
-        self._num_device_assigns += 1
+        # the tick thread and the calibration thread both count here
+        with self._lock:
+            self._num_device_assigns += 1
         if rows is None:
             return out
         node_of, sub_avail = out

@@ -309,17 +309,18 @@ class GangAutoscaler(Autoscaler):
                     "gang autoscaler: %d/%d pending gang(s) fit on +%d "
                     "node(s) (top tier %d) -> scaling", int(ok.sum()),
                     len(gangs), k, int(tiers.max()))
-                try:
+                # the gang lands once the whole decision has joined and
+                # been counted: the manager holds its retries until then
+                # and is poked as the hold ends. A create_node that dies
+                # mid-loop may still have registered scheduler capacity:
+                # the poke comes regardless, so the manager uses what
+                # landed, and k is re-evaluated from the real node count
+                # next tick
+                with manager.provisioning():
                     for _ in range(k):
                         self._nodes.append(self._provider.create_node())
                         self.num_upscales += 1
                     self.num_gang_upscales += 1
-                finally:
-                    # a create_node that dies mid-loop may still have
-                    # registered scheduler capacity: poke regardless so
-                    # the manager uses what landed, and re-evaluate k
-                    # from the real node count next tick
-                    manager.poke()
                 return True
         return False
 

@@ -686,6 +686,9 @@ class InferenceEngine:
             outs, dev_toks, dev_lens = decode_chunk(
                 self.params, self.mcfg, dev_toks, self._k_pages,
                 self._v_pages, dev_table, dev_lens, n_steps=chunk)
+            # only this loop writes the two counters (one writer: no
+            # update is lost); stats() reads them under _lock, at most a
+            # burst behind. raylint's baseline lists both
             self.num_steps += 1
             self.decode_steps += chunk
             pending.append((outs, chunk))

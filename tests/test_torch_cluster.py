@@ -605,6 +605,56 @@ def test_gang_autoscaler_strict_spread_never_partial():
         ray.shutdown()
 
 
+def test_gang_lands_only_after_its_scaleup_is_counted():
+    """A node's capacity reaches the scheduler before the provider call
+    that adds it returns. A provider that is slow to return (as a loaded
+    host makes spawning a node's workers) opened the window in which the
+    placement retry thread put the pending gang on the decision's first
+    two nodes while the autoscaler had neither returned from the second
+    nor counted the decision. The manager now holds its retries for the
+    whole scale-up: at the first instant the gang shows CREATED, the
+    decision is counted and both nodes are the provider's."""
+    from ray_tpu_torch.autoscaler import (GangAutoscaler,
+                                          GangAutoscalerConfig,
+                                          VirtualNodeProvider)
+    from ray_tpu_torch.util.placement_group import (placement_group,
+                                                    placement_group_table)
+
+    class SlowProvider(VirtualNodeProvider):
+        def create_node(self):
+            entry = super().create_node()
+            time.sleep(1.0)   # the node's capacity is already visible
+            return entry
+
+    w = _autoscaled_runtime(qos=True)
+    try:
+        scaler = GangAutoscaler(w, SlowProvider(w, num_cpus=4,
+                                                num_workers=2),
+                                GangAutoscalerConfig(
+                                    min_nodes=0, max_nodes=2,
+                                    upscale_ticks=3, idle_timeout_s=60.0,
+                                    poll_interval_s=0.1))
+        scaler.start()
+        pg = placement_group([{"CPU": 2}, {"CPU": 2}],
+                             strategy="STRICT_SPREAD", name="gang")
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            row = placement_group_table()[pg.id.hex()]
+            if row["state"] == "CREATED":
+                # read at once, before anything else can catch up
+                counted = scaler.num_gang_upscales
+                nodes = scaler.stats()["provider_nodes"]
+                break
+            time.sleep(0.005)
+        else:
+            raise AssertionError(placement_group_table())
+        assert (counted, nodes) == (1, 2)
+        assert len(set(row["bundle_rows"])) == 2, row
+        scaler.stop()
+    finally:
+        ray.shutdown()
+
+
 def test_late_first_node_keeps_the_head_alive():
     """The GCS health loop records heartbeats and starts with the first
     remote node: a node that joins more than node_heartbeat_timeout_s

@@ -221,7 +221,9 @@ def test_port_imports_no_jax():
     and the ops layer (qos, profile_plane, snapshot, util.state, the
     dashboard, job_submission, the CLI's __main__), and of sharded
     training (parallel.distributed, parallel.collectives, ops.pipeline;
-    tests/test_torch_sharded*.py check the rank processes), leave CUDA
+    tests/test_torch_sharded*.py check the rank processes), and of
+    raylint's passes (_private.analysis and its eight pass modules),
+    leave CUDA
     uninitialised; a PPO iteration with its learner on the host, and a
     process-mode task under both planes (qos, profile_hz), load no jax
     or ray_tpu module either."""
@@ -267,7 +269,8 @@ def test_port_imports_no_jax():
             "ray_tpu_torch._private.profile_plane, "
             "ray_tpu_torch._private.snapshot, ray_tpu_torch.util.state, "
             "ray_tpu_torch.dashboard, ray_tpu_torch.job_submission, "
-            "ray_tpu_torch.__main__\n"
+            "ray_tpu_torch.__main__, ray_tpu_torch._private.analysis, "
+            "ray_tpu_torch._private.analysis._astutil\n"
             "assert not torch.cuda.is_initialized()\n"
             "ray.init(num_workers=2, scheduler='tensor', "
             "_system_config={'sched_device': 'cpu'})\n"

@@ -7,9 +7,10 @@ and ``test_torch_workflow.py``) on ``ray_tpu_torch``, plus:
   (``CUDA_VISIBLE_DEVICES=""``) unless ``env_vars`` names a non-empty
   ``CUDA_VISIBLE_DEVICES``, which it then gets;
 - the CLI's verbs and flags equal the reference's parser (option
-  strings, destinations, defaults, types, choices, nargs), and the three
-  refusals (``start --jax-*``, ``lint``, ``bench``) name the ROADMAP.md
-  item each waits on and run nothing in its place;
+  strings, destinations, defaults, types, choices, nargs); ``bench``
+  refuses and runs nothing in its place, ``start --jax-*`` joins the
+  process group and ``lint`` runs raylint's passes (ROADMAP.md items 7
+  and 8, both done; tests/test_torch_analysis.py runs the real lint);
 - ``start --head`` serves ``ray://`` clients, ``start --address`` joins
   a node, ``status``, ``job``, ``timeline``, ``trace``, ``profile`` and
   ``logs`` over ``--address``, and a SIGTERM ends the head with its
@@ -185,12 +186,17 @@ def test_help_lists_the_references_verbs():
     (["start", "--address", "ray://h:1?key=00", "--jax-process-id", "0"],
      "item 7"),
     (["lint"], "item 8"), (["lint", "--json"], "item 8")])
-def test_refused_verbs_name_their_roadmap_item(argv, item, monkeypatch):
-    """``lint`` still refuses, naming item 8. The ``start --jax-*`` flags
-    (item 7, now ported) hand the reference's arguments to
+def test_refused_verbs_name_their_roadmap_item(argv, item, monkeypatch,
+                                               capsys):
+    """The verbs once refused until their ROADMAP.md item landed now run.
+    ``lint`` (item 8) runs the analysis plane's ``run_all`` and prints
+    its report, as text or with ``--json`` as JSON (a stand-in report
+    here; tests/test_torch_analysis.py runs the real passes). The
+    ``start --jax-*`` flags (item 7) hand the reference's arguments to
     ``init_multihost`` before anything starts (a stand-in records them
     here; tests/test_torch_sharded.py joins for real)."""
     from ray_tpu_torch.__main__ import main
+    from ray_tpu_torch._private import analysis
     from ray_tpu_torch.parallel import distributed
 
     class Joined(Exception):
@@ -205,8 +211,25 @@ def test_refused_verbs_name_their_roadmap_item(argv, item, monkeypatch):
     monkeypatch.setattr(distributed, "init_multihost", fake_init)
     ray_tpu_torch.shutdown()
     if item == "item 8":
-        with pytest.raises(NotImplementedError, match=item):
-            main(argv)
+        runs = []
+
+        def fake_run_all():
+            runs.append(1)
+            return analysis.Report(findings=[], new=[], baselined=[],
+                                   stale_suppressions=[],
+                                   durations={"knobs": 0.5})
+
+        monkeypatch.setattr(analysis, "run_all", fake_run_all)
+        assert main(argv) == 0
+        out = capsys.readouterr().out
+        assert runs == [1]
+        if "--json" in argv:
+            assert json.loads(out) == {
+                "ok": True, "new": [], "baselined": [],
+                "stale_suppressions": [], "durations_s": {"knobs": 0.5}}
+        else:
+            assert "raylint: 0 new, 0 baselined, 0 stale" in out
+        assert not calls
     else:
         with pytest.raises(Joined):
             main(argv)

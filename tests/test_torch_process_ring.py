@@ -92,8 +92,8 @@ def test_sanitizer_wire_checks_over_ring_traffic():
         assert rep is not None and rep["wire_violations"] == []
         runtime_sanitizer.check_wire("worker_to_owner", ("done", b"x"))
         assert runtime_sanitizer.wire_violations() == [
-            "[worker_to_owner] tag 'done' arrived with arity 2, senders "
-            "produce [4]"]
+            "[worker_to_owner] tag 'done' arrived with arity 2, static "
+            "senders produce [4]"]
     finally:
         ray.shutdown()
         runtime_sanitizer.disarm()
