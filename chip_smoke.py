@@ -106,11 +106,11 @@ Phases, each printing one JSON line:
                (phase_runtime): BASELINE.json's configs through
                ray_tpu_torch.init / remote / get with the TensorScheduler
                assigning on the card (kernels.assign on its own CUDA
-               stream): the 5k fan-out under sched_backend cuda, numpy
+               stream): the 2.5k fan-out under sched_backend cuda, numpy
                and auto, unbatched and through map_remote, assign's
                counter against the scheduler's device assigns; every
                snapshot of a checking fan-out replayed through the numpy
-               oracle assign_np; the 10k map-reduce; 1k actors x 10
+               oracle assign_np; the 5k map-reduce; 1k actors x 10
                calls in call order; an engine actor (num_gpus=1) at
                serve-127M whose greedy tokens equal a direct engine's,
                with assign's times alone and beside it; the GPU count in
@@ -120,7 +120,7 @@ Phases, each printing one JSON line:
                worker_mode "process", 8 exec'd workers, the TensorScheduler
                assigning on the card and leasing each batch to the workers:
                start-up; every worker loads no jax, flax or ray_tpu module
-               and sees no card; the 5k fan-out unbatched and through
+               and sees no card; the 2.5k fan-out unbatched and through
                map_remote, a 5k map-reduce, 16 actor processes x 100
                calls, each with tasks/s, assign's counter equal to the
                scheduler's device assigns and every snapshot equal to
@@ -131,7 +131,7 @@ Phases, each printing one JSON line:
                and, under worker_gpu_access, an engine actor (num_gpus=1) at
                serve-127M in its own process: its greedy tokens equal a
                direct engine's, its own kernel-1 launches = 8 x its decode
-               steps, its time alone and beside a 5k fan-out, its process
+               steps, its time alone and beside a 2.5k fan-out, its process
                in nvidia-smi, and after ray.kill and shutdown the process
                gone and the card's memory back.
  12. serve   — Serve on the runtime (phase_serve): ray_tpu_torch.init (8
@@ -154,12 +154,12 @@ Phases, each printing one JSON line:
 
  13. data    — Ray Data on the runtime (phase_data), the TensorScheduler
                assigning on the card: BASELINE config 3
-               (perf.data_pipeline_throughput, cut from 100k to 10k blocks x
+               (perf.data_pipeline_throughput, cut from 100k to 5k blocks x
                10 rows, after a warm pass of 1k blocks) in thread mode with
                blocks/s, rows/s,
                the stages and the exact count; a checking run of 2k blocks
                whose rows are exact and whose every snapshot equals
-               assign_np; the same in process mode at 5k blocks (the cut),
+               assign_np; the same in process mode at 2.5k blocks (the cut),
                no worker loading jax, flax or ray_tpu; random_shuffle(seed=0)
                over 20k rows in 200 blocks through the port's native
                exchange library, a permutation and the same order twice;
@@ -243,7 +243,7 @@ Phases, each printing one JSON line:
  21. multinode — the multi-node plane (phase_multinode): a thread-mode
                head on the card's scheduler and three node daemons over
                localhost TCP (two CPU nodes, one GPU node): registration
-               seconds with no torch, jax or CUDA in a daemon; a 5k
+               seconds with no torch, jax or CUDA in a daemon; a 2.5k
                fan-out; nested tasks admitted on their node (head-skip
                share >= 0.9); a 64 MiB object pulled node to node and to
                the head, both arenas freed after; locality on and off;
@@ -353,7 +353,9 @@ ray_tpu_torch package beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -426,8 +428,16 @@ FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # 0's (every key visible) and shard 0 against shard 3's (none visible)
 RING_SEQ, RING_SHARDS = 32768, 4
 RING_T = RING_SEQ // RING_SHARDS
-RING_BLOCKS = {"diagonal": (RING_T, RING_T), "full": (2 * RING_T, 0),
-               "masked": (0, 3 * RING_T)}
+
+
+def ring_blocks(T):
+    """The three kinds of block of T-token shards, as (q_offset,
+    k_offset): shard 1 against its own keys, shard 2 against shard 0's
+    (every key visible) and shard 0 against shard 3's (none visible)."""
+    return {"diagonal": (T, T), "full": (2 * T, 0), "masked": (0, 3 * T)}
+
+
+RING_BLOCKS = ring_blocks(RING_T)
 # small blocks, f32 and bf16: (heads, kv heads, Tq, Tk, q_offset, k_offset,
 # causal). "late_keys": the first query tile sees no key at all, and row 64,
 # the first of the second tile, sees none while the rest of its tile does
@@ -441,13 +451,47 @@ RING_SMALL_BATCH = 2
 # another order, so lse's bounds. Rows with no visible key must read exactly
 # o = 0, m = -1e30, l = 0
 RING_ML_BOUNDS = LSE_BOUNDS
-# ring logits against the model's other branch, relative L2 over all logits:
-# bf16 against the flash branch (the two round P and their attention
-# outputs to bf16 at different points, then 8 layers of bf16 activations);
-# f32 (TF32 off) against the einsum branch at RING_F32_SEQ tokens (the same
-# values summed in another order)
+# ring logits against the model's other branches, relative L2 over all
+# logits: bf16 against the einsum branch, and at head_dim 128 also the flash
+# branch (each rounds P and its attention output to bf16 at other points,
+# then 8 layers of bf16 activations); f32 (TF32 off) against the einsum
+# branch at RING_F32_SEQ tokens (the same values summed in another order)
 RING_PARITY_BOUNDS = {"bfloat16": 2 ** -5, "float32": 1e-5}
 RING_F32_SEQ = 4096
+# the train configuration's bf16 ring logits are held to the einsum branch
+# over their first RING_REF_SEQ tokens (causal: the same logits): shard 0
+# and a quarter of shard 1, so the diagonal and the full kind of block.
+# The einsum branch's f32 scores over all 32768 tokens would take 64 GB a
+# buffer
+RING_REF_SEQ = RING_T + RING_T // 4
+
+# head widths (ray_tpu_torch/ops/head_dims.py): each kernel is held to its
+# plain version at each of its widths in both dtypes, timed at each width
+# (kernel 1 at the serving shape, kernel 2 on the three kinds of block of
+# its ring path's shards, the flash kernels at the 8 x 256 train shape),
+# and driven at each width on a path:
+# - the default TransformerConfig() (vocab 32000, d_model 512, 4 layers,
+#   8 / 4 heads: head_dim 64, bf16), served as SERVE is (SLOTS x
+#   NEW_TOKENS, phase engine) with its f32 greedy parity (phase parity),
+#   and its forward at DEFAULT_RING_SEQ tokens over RING_SHARDS (phase
+#   ring) against the einsum path;
+# - the flagship's train configuration with its heads regrouped as 8 x 256
+#   (4 KV heads: the same parameters and memory), TRAIN_D256, trained
+#   TRAIN_D256_STEPS steps at [TRAIN_D256_BATCH, TRAIN_SEQ] after
+#   TRAIN_D256_WARMUP (phase train) and held flash branch against einsum
+#   branch in f32 and bf16 (phase train_parity);
+# - the widths no other path runs, each on a configuration of the repo
+#   (width_models: the smoke decode model, 16; the smoke model, 32; the 8 x
+#   256 model, 256): served, WIDTH_SLOTS x WIDTH_NEW tokens (phase engine),
+#   and its ring forward at WIDTH_RING_SEQ tokens (phase ring). The
+#   serving A/B of phase perf runs the reference's head_dim-16 model.
+# Kernel 2 is timed at each width on the blocks its ring path gives it
+# (ring_path_shapes)
+DEFAULT_RING_SEQ = 8192
+TRAIN_D256 = dict(TRAIN, n_heads=8, n_kv_heads=4)
+TRAIN_D256_BATCH, TRAIN_D256_WARMUP, TRAIN_D256_STEPS = 8, 1, 3
+WIDTH_SLOTS, WIDTH_NEW, WIDTH_RING_SEQ = 8, 32, 2048
+DEFAULT = {}   # TransformerConfig()'s own fields
 
 # the scheduler (phases sched_kernel and north_star): the BASELINE graphs of
 # ray_tpu_torch/_private/benchmarks.py at their full sizes (64 nodes x 4
@@ -468,12 +512,12 @@ PACK_GANGS, PACK_BUNDLES, PACK_NODES = 256, 4, 64
 # the runtime (phase runtime): BASELINE.json's configs through the port's
 # public API (ray_tpu_torch.init / remote / get, thread mode, 8 workers)
 # with the TensorScheduler assigning on the card through kernels.assign.
-# Config 1 (10k no-op tasks, cut to 5k for phase sharded) under each
+# Config 1 (10k no-op tasks, cut to 5k for phase sharded, then 2.5k) under each
 # backend, unbatched and through map_remote; config 2
 # (benchmarks.build_map_reduce's shape: reducers of 100 maps each, passed
 # as ObjectRefs) cut to a quarter, 25k tasks (100k took 40.7 s on the
 # H100's host; cut to make room for phase perf), then to 10k for phase
-# sharded; config 4 cut to RUNTIME_ACTORS
+# sharded, then to 5k for the head widths; config 4 cut to RUNTIME_ACTORS
 # actors x RUNTIME_CALLS calls.
 # The crossover times TensorScheduler._assign at CROSSOVER_K ready tasks
 # on 64 nodes, numpy against cuda, on made-up snapshots of 1 and of 64
@@ -485,10 +529,12 @@ PACK_GANGS, PACK_BUNDLES, PACK_NODES = 256, 4, 64
 # the one-class runtime traffic above never reaches the device path
 RUNTIME_WORKERS = 8
 PROFILED_ASSIGNS = 20   # assign calls in one profiler session
-# config 1's 10k fan-out, cut to 5k to pay for phase sharded
-RUNTIME_FANOUT = 5_000
+# config 1's 10k fan-out, cut to 5k to pay for phase sharded, then to 2.5k
+# (and config 2's map-reduce from 10k to 5k) to pay for the head widths'
+# checks and paths (phases kernel, engine, train, ring)
+RUNTIME_FANOUT = 2_500
 RUNTIME_BACKENDS = ("cuda", "numpy", "auto")
-RUNTIME_TASKS, RUNTIME_FAN_IN = 10_000, 100
+RUNTIME_TASKS, RUNTIME_FAN_IN = 5_000, 100
 RUNTIME_ACTORS, RUNTIME_CALLS = 1000, 10
 ENGINE_PROMPTS, ENGINE_NEW_TOKENS = 8, 32
 LINT_PASSES = ("lock_order", "shared_state", "wire_protocol", "knobs",
@@ -518,18 +564,20 @@ REF_MODULES = ("jax", "flax", "ray_tpu")
 # 10 rows, after a warm pass of 1k blocks) cut from its own 100k blocks to
 # 50k (85.5-106.5 s at 100k on the H100: cut to keep the whole script
 # under 850 s with phase perf), then to 10k (43.0-59.5 s at 50k: cut to
-# pay for phase sharded), a checking run of 2k blocks with every
-# assignment replayed through assign_np, the same pipeline in process mode
-# cut to 10k blocks (each block is a lease to another process, as phase
-# process cut its map-reduce), then to 5k for phase sharded, the PRP
+# pay for phase sharded), then to 5k (14.0 s at 10k: cut to pay for the
+# head widths), a checking run of 2k blocks with every assignment
+# replayed through assign_np, the same pipeline in process mode cut to
+# 10k blocks (each block is a lease to another process, as phase process
+# cut its map-reduce), then to 5k for phase sharded, then to 2.5k for the
+# head widths, the PRP
 # shuffle (cut from 100k rows in 1k
 # blocks, 39.5-54.9 s a run on the H100's host, to 20k rows in 200 blocks,
 # 100 rows a block as before: each reducer takes every block as an
 # argument, so the cost grows as blocks squared) and torch batches on the
 # card
 DATA_WORKERS, DATA_ROWS_PER_BLOCK = 8, 10
-DATA_BLOCKS, DATA_WARM_BLOCKS, DATA_CHECK_BLOCKS = 10_000, 1_000, 2_000
-DATA_PROCESS_BLOCKS = 5_000
+DATA_BLOCKS, DATA_WARM_BLOCKS, DATA_CHECK_BLOCKS = 5_000, 1_000, 2_000
+DATA_PROCESS_BLOCKS = 2_500
 SHUFFLE_ROWS, SHUFFLE_BLOCKS = 20_000, 200
 BATCH_ROWS, BATCH_SIZE = 1_000_000, 4096
 # the local virtual cluster (phase cluster): a 2-CPU head and process
@@ -637,8 +685,9 @@ MN_HEAD = dict(num_cpus=2, num_workers=2, scheduler="tensor",
                resources={"mn_head": 4.0})
 MN_CPU_NODE = dict(num_cpus=4, num_workers=4)
 MN_GPU_NODE = dict(num_cpus=2, num_workers=2, num_gpus=1)
-# MN_FANOUT: cut from 10k to 5k to pay for phase sharded
-MN_FANOUT, MN_ROUNDS, MN_NESTED = 5_000, 8, 12
+# MN_FANOUT: cut from 10k to 5k to pay for phase sharded, then to 2.5k for
+# the head widths
+MN_FANOUT, MN_ROUNDS, MN_NESTED = 2_500, 8, 12
 MN_HEAD_SKIP_BOUND = 0.9           # the reference's bound
 MN_OBJECT_BYTES = 64 << 20
 # (with perf.locality_ab's spillback depth: a consumer waits for the
@@ -707,17 +756,15 @@ OPS_CLI_ENV = {"RAY_TPU_TORCH_WORKER_GPU_ACCESS": "1",
 # counters must read 2 x layers x the steps run for the forward (the remat
 # recompute reruns it) and layers x the steps run for each backward
 # kernel; a call runs PERF_SINK_STEPS steps (one warm, two profiled).
-# serving_ab keeps the reference's tiny model but for its width:
-# kernel 1 is built for head_dim 128, the reference's model has 16, so
-# d_model 256 over its 2 heads (PERF_SERVING_MODEL). The Arrow sections
-# need pyarrow; where it is not installed they print PERF_ARROW_SKIP
+# serving_ab runs the reference's own model (head_dim 16, kernel 1's
+# head_dim-16 library). The Arrow sections need pyarrow; where it is not
+# installed they print PERF_ARROW_SKIP
 PERF_DECODE_SLOTS, PERF_DECODE_NEW, PERF_DECODE_PARAMS = 128, 128, 127_157_248
 PERF_SINK_STEPS, PERF_SINKS_ALL, PERF_SHOW_OPS = 3, 10_000, 12
 PERF_FLASH_OPS = {"flash_fwd": ("attention_fwd_kernel", "FlashFwdOut"),
                   "flash_bwd_dq": ("attention_bwd_dq_kernel",),
                   "flash_bwd_dkv": ("attention_bwd_dkv_kernel",)}
 PERF_SERVING = dict(sessions=8, turns=2, max_new=48)
-PERF_SERVING_MODEL = {"d_model": 256, "d_ff": 512}
 # each serving stream's tokens teacher-forced through the plain model (f32,
 # no kernel, the engines' bf16 weights, serving_ab's seed 0): at every step
 # the oracle's top logit less the logit of the token the engine took stays
@@ -801,11 +848,37 @@ def sm90_instances(kernel, sass, ptxas, log, ops=("HGMMA", "UTMALDG"),
     return row, problems
 
 
+def width_build_checks():
+    """The build checks of the head widths' libraries other than 128
+    (ops/head_dims.py): each width of kernel 1 as BULK_KERNELS's, and the
+    sm90 templates' instances of kernel 2 and the flash kernels at the
+    widths that route bf16 through them. [(library, kernel, how)]"""
+    from ray_tpu_torch.ops import head_dims as hd
+
+    checks = [(hd.library("paged_attention", D), kernel,
+               {"ops": ops, "min_registers": None})
+              for D in hd.PAGED_ATTENTION if D != hd.DEFAULT_HEAD_DIM
+              for kernel, ops in BULK_KERNELS["paged_attention"].items()]
+    checks += [(hd.library("ring_attention", D), "attention_fwd_kernel", {})
+               for D in hd.BLOCK_ATTENTION
+               if D != hd.DEFAULT_HEAD_DIM and D in hd.SM90_FORWARD]
+    for D in hd.FLASH:
+        if D == hd.DEFAULT_HEAD_DIM:
+            continue
+        kernels = [k for k, widths in (
+            ("attention_fwd_kernel", hd.SM90_FORWARD),
+            ("attention_bwd_dq_kernel", hd.SM90_BACKWARD),
+            ("attention_bwd_dkv_kernel", hd.SM90_BACKWARD)) if D in widths]
+        checks += [(hd.library("flash_attention", D), k, {}) for k in kernels]
+    return checks
+
+
 def sm90_build_check(build, libs):
     """Each instance of the sm90 templates: HGMMA (wgmma) and UTMALDG (TMA
     loads) in its SASS, no spills, and the registers setmaxnreg needs;
-    each of BULK_KERNELS and SCHED_KERNELS: its SASS ops, no spills.
-    Raises before any launch otherwise."""
+    each of BULK_KERNELS and SCHED_KERNELS: its SASS ops, no spills; the
+    same of every head width's library (width_build_checks). Raises
+    before any launch otherwise."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     checks = [(lib, kernel, {}) for lib, kernels in SM90_KERNELS.items()
               for kernel in kernels]
@@ -813,14 +886,17 @@ def sm90_build_check(build, libs):
                for table in (BULK_KERNELS, SCHED_KERNELS)
                for lib, kernels in table.items()
                for kernel, ops in kernels.items()]
-    rows, problems, sass = {}, [], {}
+    checks += width_build_checks()
+    # one cuobjdump a library, all at once, and one report each
+    names = sorted({lib for lib, _kernel, _how in checks})
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        sass = dict(zip(names, pool.map(lambda lib: subprocess.run(
+            [cuobjdump, "-sass", str(libs[lib])], capture_output=True,
+            text=True, check=True, timeout=300).stdout, names)))
+    reports = {lib: build.register_report(lib) for lib in names}
+    rows, problems = {}, []
     for lib, kernel, how in checks:
-        if lib not in sass:
-            sass[lib] = subprocess.run(
-                [cuobjdump, "-sass", str(libs[lib])], capture_output=True,
-                text=True, check=True, timeout=300).stdout
-        row, found = sm90_instances(kernel, sass[lib],
-                                    build.register_report(lib),
+        row, found = sm90_instances(kernel, sass[lib], reports[lib],
                                     build.build_log(lib), **how)
         rows[f"{lib}/{kernel}"] = row
         problems += [f"{lib}: {p}" for p in found]
@@ -878,22 +954,22 @@ def paged_lengths(page, pps, MP):
             MP * page + 5]
 
 
-def paged_sweep(torch, dev, pa):
-    """The kernel against its plain version at small shapes: every
-    (dtype, group, page, MP) of PAGED_SWEEP, each with split_plan's pages
-    per split and with 2, 3 and MP (one split) pages per split where a
-    block's shared memory allows, lengths from paged_lengths. Returns
+def paged_sweep(torch, dev, pa, D=128):
+    """The kernel against its plain version at small shapes, head_dim D:
+    every (dtype, group, page, MP) of PAGED_SWEEP, each with split_plan's
+    pages per split and with 2, 3 and MP (one split) pages per split where
+    a block's shared memory allows, lengths from paged_lengths. Returns
     (cases checked, worst max abs error, failed cases)."""
     g = torch.Generator(device=dev).manual_seed(5)
     checked, worst, failed = 0, 0.0, []
     for dtype in (torch.bfloat16, torch.float32):
         for G, page, MP in PAGED_SWEEP:
-            KV, D = 2, 128
+            KV = 2
             H, B = G * KV, len(paged_lengths(page, 1, MP))
             elt = torch.tensor([], dtype=dtype).element_size()
-            plan = pa.split_plan(B, H, KV, MP, page, elt)
+            plan = pa.split_plan(B, H, KV, MP, page, elt, D)
             for pps in sorted({plan[0], 2, 3, MP}):
-                if pa.split_smem_bytes(pps, page, G, elt) > pa.MAX_SMEM:
+                if pa.split_smem_bytes(pps, page, G, elt, D) > pa.MAX_SMEM:
                     continue
                 lens = torch.tensor(paged_lengths(page, pps, MP),
                                     dtype=torch.int32, device=dev)
@@ -911,32 +987,49 @@ def paged_sweep(torch, dev, pa):
                 checked += 1
                 worst = max(worst, err)
                 if not (bool(torch.isfinite(ker).all()) and err <= PAGED_TOL):
-                    failed.append({"dtype": str(dtype), "group": G,
+                    failed.append({"dtype": str(dtype), "head_dim": D,
+                                   "group": G,
                                    "page": page, "max_pages": MP,
                                    "pages_per_split": pps, "err": err})
     return checked, worst, failed
 
 
 def phase_kernel(torch, dev, timed=True):
-    """Paged attention: the kernel against its plain version on the small
-    shapes of paged_sweep, then at the serving shapes over one cache per
-    layer (8 x 16 MiB per K or V in bf16), cycled as the decode step does,
-    so timings do not sit in L2: max abs error, two launches bit-identical,
-    the 8 per-layer calls captured in one CUDA graph giving the eager
-    calls' bits. timed: the eager time (a loop of wrapper calls, host
-    included), the device time (graph replays), the plain version's, the
-    SDPA yardstick's both ways, and the device time at each pages-per-split
-    of PAGED_SPLITS. Raises after every check has printed if any failed."""
+    """Paged attention at each head_dim it is built for: the kernel
+    against its plain version on the small shapes of paged_sweep, then at
+    the serving shapes (paged_serving). Returns {head_dim: {dtype: row}}.
+    Raises after every check has printed if any failed."""
+    from ray_tpu_torch.ops import head_dims
     from ray_tpu_torch.ops import paged_attention as pa
 
-    checked, worst, failed = paged_sweep(torch, dev, pa)
-    emit({"phase": "kernel", "name": "paged_decode_attention",
-          "shape": "sweep", "cases": checked, "max_abs_err": worst,
-          "tolerance": PAGED_TOL, "failed": failed, "ok": not failed})
-    problems = [f"sweep: {len(failed)} cases over {PAGED_TOL}"] if failed \
-        else []
+    problems = []
+    for D in head_dims.PAGED_ATTENTION:
+        checked, worst, failed = paged_sweep(torch, dev, pa, D)
+        emit({"phase": "kernel", "name": "paged_decode_attention",
+              "shape": "sweep", "head_dim": D, "cases": checked,
+              "max_abs_err": worst, "tolerance": PAGED_TOL,
+              "failed": failed, "ok": not failed})
+        if failed:
+            problems.append(f"sweep at head_dim {D}: {len(failed)} cases "
+                            f"over {PAGED_TOL}")
+    rows = {D: paged_serving(torch, dev, pa, D, timed, problems)
+            for D in head_dims.PAGED_ATTENTION}
+    if problems:
+        raise AssertionError(f"paged_attention kernel: {problems}")
+    return rows
 
-    B, H, KV, D, MP, P, L = SLOTS, 8, 4, 128, MAX_PAGES, NUM_PAGES, 8
+
+def paged_serving(torch, dev, pa, D, timed, problems):
+    """Kernel 1 at the serving shapes with head_dim D over one cache per
+    layer (8 x 16 MiB per K or V in bf16 at D = 128), cycled as the decode
+    step does, so timings do not sit in L2: max abs error, two launches
+    bit-identical, the 8 per-layer calls captured in one CUDA graph giving
+    the eager calls' bits. timed: the eager time (a loop of wrapper calls,
+    host included), the device time (graph replays), the plain version's,
+    the SDPA yardstick's both ways, and at D = 128 the device time at each
+    pages-per-split of PAGED_SPLITS. Appends what failed to problems;
+    returns {dtype: row}."""
+    B, H, KV, MP, P, L = SLOTS, 8, 4, MAX_PAGES, NUM_PAGES, 8
     g = torch.Generator(device=dev).manual_seed(0)
     table = torch.randperm(P, generator=g, device=dev).reshape(B, MP).to(
         torch.int32).contiguous()
@@ -968,12 +1061,13 @@ def phase_kernel(torch, dev, timed=True):
         device_ms, graphed = graph_ms(torch, layer)
         captured = all(bool(torch.equal(a, b)) for a, b in zip(graphed,
                                                                 eager))
-        pps, splits = pa.split_plan(B, H, KV, MP, PAGE, q.element_size())
-        row = {"dtype": name, "max_abs_err": err, "tolerance": PAGED_TOL,
+        pps, splits = pa.split_plan(B, H, KV, MP, PAGE, q.element_size(), D)
+        row = {"dtype": name, "head_dim": D, "max_abs_err": err,
+               "tolerance": PAGED_TOL,
                "finite": finite, "deterministic": twice,
                "graph_bit_identical": captured, "pages_per_split": pps,
                "splits": splits}
-        problems += [f"{what} ({name})" for what, bad in (
+        problems += [f"{what} ({name}, head_dim {D})" for what, bad in (
             (f"max abs err {err} > {PAGED_TOL}", err > PAGED_TOL),
             ("output not finite", not finite),
             ("two launches differ", not twice),
@@ -984,13 +1078,16 @@ def phase_kernel(torch, dev, timed=True):
             row["plain_ms"] = cuda_ms(
                 torch, lambda i: pa.paged_attention_reference(
                     q, kps[i % L], vps[i % L], table, lens), 20)
-            row["split_device_ms"] = {
-                n: graph_ms(torch, [
-                    lambda i=i, n=n: pa.paged_attention(
-                        q, kps[i], vps[i], table, lens, pages_per_split=n)
-                    for i in range(L)])[0]
-                for n in PAGED_SPLITS if pa.split_smem_bytes(
-                    n, PAGE, H // KV, q.element_size()) <= pa.MAX_SMEM}
+            if D == FLASH_D:
+                row["split_device_ms"] = {
+                    n: graph_ms(torch, [
+                        lambda i=i, n=n: pa.paged_attention(
+                            q, kps[i], vps[i], table, lens,
+                            pages_per_split=n)
+                        for i in range(L)])[0]
+                    for n in PAGED_SPLITS if pa.split_smem_bytes(
+                        n, PAGE, H // KV, q.element_size(), D)
+                    <= pa.MAX_SMEM}
             # yardstick only (the port never calls it): one SDPA call over
             # the KV already gathered per sequence and repeated to every
             # head
@@ -1024,16 +1121,14 @@ def phase_kernel(torch, dev, timed=True):
               "shape": "serving", **row})
         del kps, vps, layer, eager, graphed
         torch.cuda.empty_cache()
-    if problems:
-        raise AssertionError(f"paged_attention kernel: {problems}")
     return rows
 
 
-def _flash_work(name, B, elt):
+def _flash_work(name, B, elt, H=FLASH_H, D=FLASH_D):
     """(bytes, flops) the function needs at [B, H, S, D], causal: each input
     read once, each output written once; 2*D flops per visible (query, key)
     pair per product, S(S+1)/2 pairs per head."""
-    H, S, D = FLASH_H, FLASH_S, FLASH_D
+    S = FLASH_S
     mat, row = B * H * S * D * elt, B * H * S * 4
     pairs = B * H * S * (S + 1) // 2
     n_in, n_rows, n_out, products = {
@@ -1089,17 +1184,19 @@ def flash_readings(torch, fl, q, k, v, do, causal):
 
 def phase_flash_kernel(torch, dev, timed=True):
     """The three flash attention kernels vs their plain versions on small
-    ragged shapes (FLASH_SMALL), at the moe, dag and tune paths' shapes
-    (FLASH_PATHS, bf16, causal), then at the train step's attention shapes,
-    on the same inputs, with their times (timed=False: the checks alone).
-    The inputs are the model's [B, S, H, D] tensors seen as [B, H, S, D]
-    views, as the train path passes them. The f32 pass also checks the
-    non-causal kernels. Raises after every check has printed if any output
-    is out of bounds."""
+    ragged shapes (FLASH_SMALL) at each head_dim they are built for, at
+    the moe, dag and tune paths' shapes (FLASH_PATHS, bf16, causal), then
+    at the train steps' attention shapes (head_dim 128: TRAIN's; 256:
+    TRAIN_D256's), on the same inputs, with their times (timed=False: the
+    checks alone). The inputs are the model's [B, S, H, D] tensors seen as
+    [B, H, S, D] views, as the train path passes them. The f32 pass also
+    checks the non-causal kernels. Returns {head_dim: {kernel: {dtype:
+    row}}}. Raises after every check has printed if any output is out of
+    bounds."""
     from ray_tpu_torch.ops import flash as fl
+    from ray_tpu_torch.ops import head_dims
 
-    F = torch.nn.functional
-    rows, failed = {}, []
+    failed = []
 
     def check(kname, name, causal, readings):
         failed.extend(f"{kname}.{r['output']} ({name}, causal={causal})"
@@ -1107,22 +1204,25 @@ def phase_flash_kernel(torch, dev, timed=True):
         return {"outputs": readings,
                 "max_abs_err": max(r["max_abs_err"] for r in readings)}
 
+    for D in head_dims.FLASH:
+        g = torch.Generator(device=dev).manual_seed(4)
+        for label, (B, H, S) in FLASH_SMALL.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                name = str(dtype).replace("torch.", "")
+                q, k, v, do = (torch.randn((B, S, H, D), generator=g,
+                                           device=dev).to(dtype)
+                               .transpose(1, 2) for _ in range(4))
+                for causal in (True, False):
+                    readings, _lse, _di = flash_readings(torch, fl, q, k, v,
+                                                         do, causal)
+                    for kname in FLASH_NAMES:
+                        emit({"phase": "kernel", "name": kname,
+                              "dtype": name, "shape": label, "batch": B,
+                              "heads": H, "seq": S, "head_dim": D,
+                              "causal": causal,
+                              **check(kname, f"{name}, {label}, head_dim {D}",
+                                      causal, readings[kname])})
     g = torch.Generator(device=dev).manual_seed(4)
-    for label, (B, H, S) in FLASH_SMALL.items():
-        for dtype in (torch.bfloat16, torch.float32):
-            name = str(dtype).replace("torch.", "")
-            q, k, v, do = (torch.randn((B, S, H, FLASH_D), generator=g,
-                                       device=dev).to(dtype).transpose(1, 2)
-                           for _ in range(4))
-            for causal in (True, False):
-                readings, _lse, _di = flash_readings(torch, fl, q, k, v, do,
-                                                     causal)
-                for kname in FLASH_NAMES:
-                    emit({"phase": "kernel", "name": kname, "dtype": name,
-                          "shape": label, "batch": B, "heads": H, "seq": S,
-                          "causal": causal,
-                          **check(kname, f"{name}, {label}", causal,
-                                  readings[kname])})
     for label, (B, H, S) in FLASH_PATHS.items():
         q, k, v, do = (torch.randn((B, S, H, FLASH_D), generator=g,
                                    device=dev).to(torch.bfloat16)
@@ -1135,11 +1235,32 @@ def phase_flash_kernel(torch, dev, timed=True):
                   **check(kname, f"bfloat16, {label}", True,
                           readings[kname])})
         del q, k, v, do, readings, _lse, _di
+    # the train steps' shapes: TRAIN's heads at head_dim 128 (batch
+    # FLASH_BATCH), TRAIN_D256's at 256 (batch TRAIN_D256_BATCH in bf16)
+    shapes = {FLASH_D: (FLASH_H, FLASH_BATCH),
+              256: (TRAIN_D256["n_heads"],
+                    {"bfloat16": TRAIN_D256_BATCH,
+                     "float32": FLASH_BATCH["float32"]})}
+    rows = {D: flash_train_shape(torch, dev, fl, D, *shapes[D], timed,
+                                 check, failed)
+            for D in head_dims.FLASH}
+    if failed:
+        raise AssertionError(f"flash kernels vs plain out of bounds: {failed}")
+    return rows
+
+
+def flash_train_shape(torch, dev, fl, D, H, batches, timed, check, failed):
+    """The three flash kernels at a train step's attention shape
+    ([B, FLASH_S, H, D] views, causal; f32 also non-causal), each output
+    against the plain version's; timed: two launches bit-identical, times,
+    the SDPA yardstick and the bound. Returns {kernel: {dtype: row}}."""
+    F = torch.nn.functional
+    rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
-        B = FLASH_BATCH[name]
+        B = batches[name]
         g = torch.Generator(device=dev).manual_seed(2)
-        q, k, v, do = (torch.randn((B, FLASH_S, FLASH_H, FLASH_D),
+        q, k, v, do = (torch.randn((B, FLASH_S, H, D),
                                    generator=g, device=dev).to(dtype)
                        .transpose(1, 2) for _ in range(4))
         if dtype == torch.float32:
@@ -1147,15 +1268,17 @@ def phase_flash_kernel(torch, dev, timed=True):
                                                  False)
             for kname in FLASH_NAMES:
                 emit({"phase": "kernel", "name": kname, "dtype": name,
-                      "batch": B, "causal": False,
-                      **check(kname, name, False, readings[kname])})
+                      "batch": B, "heads": H, "head_dim": D, "causal": False,
+                      **check(kname, f"{name}, head_dim {D}", False,
+                              readings[kname])})
             del readings, _lse, _di
         readings, lse_ref, di = flash_readings(torch, fl, q, k, v, do, True)
         if not timed:
             for kname in FLASH_NAMES:
                 emit({"phase": "kernel", "name": kname, "dtype": name,
-                      "batch": B, "causal": True,
-                      **check(kname, name, True, readings[kname])})
+                      "batch": B, "heads": H, "head_dim": D, "causal": True,
+                      **check(kname, f"{name}, head_dim {D}", True,
+                              readings[kname])})
             continue
         # two launches on the same inputs give the same bits (the forward's
         # recompute under remat relies on it; the backward has no atomics)
@@ -1173,7 +1296,7 @@ def phase_flash_kernel(torch, dev, timed=True):
                 bool(torch.equal(a, b)) for a, b in zip(first, second))
             if not deterministic[kname]:
                 failed.append(f"{kname}: two launches on the same inputs "
-                              f"differ ({name})")
+                              f"differ ({name}, head_dim {D})")
             del first, second
         # yardstick only (the port never calls it): SDPA forward, and its
         # backward alone (one call computing dq, dk and dv together)
@@ -1199,12 +1322,13 @@ def phase_flash_kernel(torch, dev, timed=True):
         }
         for kname in FLASH_NAMES:
             kernel, plain, library_ms = calls[kname]
-            nbytes, flops = _flash_work(kname, B, q.element_size())
+            nbytes, flops = _flash_work(kname, B, q.element_size(), H, D)
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS[name] * 1e3
-            row = {"dtype": name, "batch": B, "heads": FLASH_H,
-                   "seq": FLASH_S, "head_dim": FLASH_D, "causal": True,
-                   **check(kname, name, True, readings[kname]),
+            row = {"dtype": name, "batch": B, "heads": H,
+                   "seq": FLASH_S, "head_dim": D, "causal": True,
+                   **check(kname, f"{name}, head_dim {D}", True,
+                           readings[kname]),
                    "ms": cuda_ms(torch, kernel, 10),
                    "plain_ms": cuda_ms(torch, plain, 2),
                    "library_ms": library_ms,
@@ -1216,12 +1340,11 @@ def phase_flash_kernel(torch, dev, timed=True):
             emit({"phase": "kernel", "name": kname, **row})
         del q, k, v, do, lse_ref, di, readings, calls
         torch.cuda.empty_cache()
-    if failed:
-        raise AssertionError(f"flash kernels vs plain out of bounds: {failed}")
     return rows
 
 
-def _ring_block_work(B, H, Hkv, Tq, Tk, q_offset, k_offset, causal, elt):
+def _ring_block_work(B, H, Hkv, Tq, Tk, q_offset, k_offset, causal, elt,
+                     D=FLASH_D):
     """(bytes, flops) of one block: 2*D flops per visible (query, key) pair
     per product, two products; the inputs read once where any pair is
     visible, the outputs (o, m, l in f32) written once."""
@@ -1232,7 +1355,6 @@ def _ring_block_work(B, H, Hkv, Tq, Tk, q_offset, k_offset, causal, elt):
         visible = int(seen.sum())
     else:
         visible = Tq * Tk
-    D = FLASH_D
     nbytes = B * H * Tq * (D + 2) * 4
     if visible:
         nbytes += (B * H * Tq + 2 * B * Hkv * Tk) * D * elt
@@ -1264,23 +1386,18 @@ def ring_block_check(torch, name, got, want, neg_inf):
 
 
 def phase_ring_kernel(torch, dev, timed=True):
-    """Kernel 2 against its plain version on the ring path's three kinds of
-    block (bf16, with times, bound and an SDPA yardstick; timed=False: the
-    checks alone) and on small ragged blocks (f32 and bf16). The inputs are
-    [B, T, H, D] tensors seen as [B, H, T, D] views, as the ring passes the
-    model's. Raises after every check has printed if any is out of
-    bounds."""
+    """Kernel 2 against its plain version at each head_dim it is built for:
+    on small ragged blocks (f32 and bf16), then on a ring path's three
+    kinds of block (bf16, with times, bound and an SDPA yardstick;
+    timed=False: the checks alone), at each width the shards and heads
+    its ring path in phase ring gives it (ring_path_shapes). The inputs are
+    [B, T, H, D] tensors seen as [B, H, T, D] views, as the ring passes
+    the model's. Returns {head_dim: {block: row}}. Raises after every
+    check has printed if any is out of bounds."""
+    from ray_tpu_torch.ops import head_dims
     from ray_tpu_torch.ops import ring_attention as ra
 
-    F = torch.nn.functional
-    H, KV, D = TRAIN["n_heads"], TRAIN["n_kv_heads"], FLASH_D
-    rows, failed = {}, []
-
-    def inputs(g, B, h, kv, tq, tk, dtype):
-        q = torch.randn((B, tq, h, D), generator=g, device=dev)
-        k, v = (torch.randn((B, tk, kv, D), generator=g, device=dev)
-                for _ in range(2))
-        return tuple(x.to(dtype).transpose(1, 2) for x in (q, k, v))
+    failed = []
 
     def check(label, dtype, qkv, q_off, k_off, causal):
         name = str(dtype).replace("torch.", "")
@@ -1289,31 +1406,78 @@ def phase_ring_kernel(torch, dev, timed=True):
         torch.cuda.synchronize()
         result = ring_block_check(torch, name, got, want, ra.NEG_INF)
         if not result["ok"]:
-            failed.append(f"{label} ({name})")
+            failed.append(f"{label} ({name}, head_dim "
+                          f"{qkv[0].shape[-1]})")
         return result
 
-    g = torch.Generator(device=dev).manual_seed(3)
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).replace("torch.", "")
-        for label, (h, kv, tq, tk, q_off, k_off, causal) in RING_SMALL.items():
-            qkv = inputs(g, RING_SMALL_BATCH, h, kv, tq, tk, dtype)
-            emit({"phase": "kernel", "name": "ring_block_attention",
-                  "block": label, "dtype": name, "batch": RING_SMALL_BATCH,
-                  "heads": h, "kv_heads": kv, "tq": tq, "tk": tk,
-                  "q_offset": q_off, "k_offset": k_off, "causal": causal,
-                  **check(label, dtype, qkv, q_off, k_off, causal)})
+    rows = {}
+    shapes = ring_path_shapes()
+    for D in head_dims.BLOCK_ATTENTION:
+        g = torch.Generator(device=dev).manual_seed(3)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            for label, (h, kv, tq, tk, q_off, k_off,
+                        causal) in RING_SMALL.items():
+                qkv = ring_inputs(torch, dev, g, RING_SMALL_BATCH, h, kv, tq,
+                                  tk, D, dtype)
+                emit({"phase": "kernel", "name": "ring_block_attention",
+                      "block": label, "dtype": name, "head_dim": D,
+                      "batch": RING_SMALL_BATCH, "heads": h, "kv_heads": kv,
+                      "tq": tq, "tk": tk, "q_offset": q_off,
+                      "k_offset": k_off, "causal": causal,
+                      **check(label, dtype, qkv, q_off, k_off, causal)})
+        H, KV, T = shapes[D]
+        rows[D] = ring_path_blocks(torch, dev, ra, g, D, H, KV, T,
+                                   ring_blocks(T), timed, check)
+    if failed:
+        raise AssertionError(f"ring block kernel vs plain out of bounds: "
+                             f"{failed}")
+    return rows
 
-    q, k, v = inputs(g, 1, H, KV, RING_T, RING_T, torch.bfloat16)
-    for label, (q_off, k_off) in RING_BLOCKS.items():
-        row = {"block": label, "dtype": "bfloat16", "batch": 1, "heads": H,
-               "kv_heads": KV, "tq": RING_T, "tk": RING_T,
+
+def ring_path_shapes():
+    """{head_dim: (heads, kv heads, shard tokens)}: the blocks each width's
+    ring forward in phase ring gives kernel 2 (RING_SHARDS shards of its
+    sequence)."""
+    from ray_tpu_torch.models.transformer import TransformerConfig
+
+    default = TransformerConfig(**DEFAULT)
+    shapes = {FLASH_D: (TRAIN["n_heads"], TRAIN["n_kv_heads"], RING_T),
+              default.head_dim: (default.n_heads, default.n_kv_heads,
+                                 DEFAULT_RING_SEQ // RING_SHARDS)}
+    for D, f in width_models().items():
+        shapes[D] = (f["n_heads"], f["n_kv_heads"],
+                     WIDTH_RING_SEQ // RING_SHARDS)
+    return shapes
+
+
+def ring_inputs(torch, dev, g, B, h, kv, tq, tk, D, dtype):
+    """Seeded q [B, tq, h, D] and k, v [B, tk, kv, D] as [B, heads, T, D]
+    views, as the ring passes the model's."""
+    q = torch.randn((B, tq, h, D), generator=g, device=dev)
+    k, v = (torch.randn((B, tk, kv, D), generator=g, device=dev)
+            for _ in range(2))
+    return tuple(x.to(dtype).transpose(1, 2) for x in (q, k, v))
+
+
+def ring_path_blocks(torch, dev, ra, g, D, H, KV, T, blocks, timed, check):
+    """Kernel 2 on a ring path's kinds of block ({label: (q_offset,
+    k_offset)}) of T-token shards, bf16, causal: the check, and timed the
+    kernel's, the plain version's and SDPA's times and the bound. Returns
+    {label: row}."""
+    F = torch.nn.functional
+    rows = {}
+    q, k, v = ring_inputs(torch, dev, g, 1, H, KV, T, T, D, torch.bfloat16)
+    for label, (q_off, k_off) in blocks.items():
+        row = {"block": label, "dtype": "bfloat16", "head_dim": D,
+               "batch": 1, "heads": H, "kv_heads": KV, "tq": T, "tk": T,
                "q_offset": q_off, "k_offset": k_off, "causal": True,
                **check(label, torch.bfloat16, (q, k, v), q_off, k_off, True)}
         if not timed:
             emit({"phase": "kernel", "name": "ring_block_attention", **row})
             continue
-        nbytes, flops = _ring_block_work(1, H, KV, RING_T, RING_T, q_off,
-                                         k_off, True, q.element_size())
+        nbytes, flops = _ring_block_work(1, H, KV, T, T, q_off, k_off, True,
+                                         q.element_size(), D)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         row["ms"] = cuda_ms(torch, lambda i: ra.block_attention(
@@ -1334,9 +1498,6 @@ def phase_ring_kernel(torch, dev, timed=True):
         emit({"phase": "kernel", "name": "ring_block_attention", **row})
     del q, k, v
     torch.cuda.empty_cache()
-    if failed:
-        raise AssertionError(f"ring block kernel vs plain out of bounds: "
-                             f"{failed}")
     return rows
 
 
@@ -1657,23 +1818,61 @@ def phase_north_star(torch, dev):
 
 
 def phase_engine(torch):
-    """The main path: the engine at full width, bf16. Returns the
-    paged-attention launches of the timed round."""
+    """The main path: the engine at full width, bf16: the serving model
+    (SERVE, head_dim 128, profiled), the default TransformerConfig()
+    (head_dim 64) at the same load, and each configuration of
+    width_models at WIDTH_SLOTS x WIDTH_NEW. Returns kernel 1's launches
+    of each timed round: {"serve": n, "default": n, head_dim: n}."""
+    launches = {
+        "serve": engine_run(torch, "serve", SERVE, SLOTS, NEW_TOKENS,
+                            profile=True),
+        "default": engine_run(torch, "default", DEFAULT, SLOTS, NEW_TOKENS)}
+    for D, fields in width_models().items():
+        launches[D] = engine_run(torch, f"head_dim_{D}", fields, WIDTH_SLOTS,
+                                 WIDTH_NEW)
+    return launches
+
+
+def width_models():
+    """{head_dim: TransformerConfig fields}: the repo's configurations at
+    the widths no main path runs, each with max_seq_len WIDTH_RING_SEQ.
+    16: the smoke decode model (perf.SMOKE_DECODE, the reference's); 32:
+    the smoke model (perf.SMOKE_MODEL); 256: TRAIN_D256."""
+    from ray_tpu_torch._private import perf
+
+    keys = ("vocab_size", "d_model", "n_layers", "n_heads", "n_kv_heads",
+            "d_ff")
+    return {16: {**{k: perf.SMOKE_DECODE[k] for k in keys},
+                 "max_seq_len": WIDTH_RING_SEQ},
+            32: {**{k: perf.SMOKE_MODEL[k] for k in keys},
+                 "max_seq_len": WIDTH_RING_SEQ},
+            256: {**TRAIN_D256, "max_seq_len": WIDTH_RING_SEQ}}
+
+
+def engine_run(torch, label, fields, slots, new_tokens, profile=False):
+    """One configuration (TransformerConfig fields, bf16, seeded random
+    params) through the serving engine: a warm round, then a timed round
+    of `slots` requests x `new_tokens` with kernel 1's counter zeroed just
+    before and read just after (every layer of every decode step must
+    have launched it); profile: one more round under torch.profiler.
+    Prints the phase line; returns the timed round's launches."""
     from ray_tpu_torch.models.inference import (InferenceConfig,
                                                 InferenceEngine)
     from ray_tpu_torch.models.transformer import (TransformerConfig,
                                                   init_params, param_count)
     from ray_tpu_torch.ops import paged_attention as pa
 
-    mcfg = TransformerConfig(dtype=torch.bfloat16, **SERVE)
+    mcfg = TransformerConfig(dtype=torch.bfloat16, **fields)
     params = init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
-    icfg = InferenceConfig(batch_size=SLOTS, page_size=PAGE,
-                           max_pages_per_seq=MAX_PAGES, num_pages=NUM_PAGES,
-                           prefill_buckets=(16,), max_new_tokens=NEW_TOKENS)
+    icfg = InferenceConfig(
+        batch_size=slots, page_size=PAGE, max_pages_per_seq=MAX_PAGES,
+        num_pages=NUM_PAGES * slots // SLOTS,
+        prefill_buckets=(16,), max_new_tokens=new_tokens)
     engine = InferenceEngine(params, mcfg, icfg)
-    prompts = [[i + 1] * 4 for i in range(SLOTS)]
+    prompts = [[i + 1] * 4 for i in range(slots)]
+    breakdown = None
     try:
-        for f in [engine.submit(p, NEW_TOKENS) for p in prompts]:
+        for f in [engine.submit(p, new_tokens) for p in prompts]:
             f.result(timeout=600)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1682,35 +1881,39 @@ def phase_engine(torch):
         steps0 = engine.decode_steps
         t0 = time.perf_counter()
         outs = [f.result(timeout=600)
-                for f in [engine.submit(p, NEW_TOKENS) for p in prompts]]
+                for f in [engine.submit(p, new_tokens) for p in prompts]]
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = pa.paged_attention.launches
         steps = engine.decode_steps - steps0
-        breakdown = profile_call(torch, lambda: [
-            f.result(timeout=600)
-            for f in [engine.submit(p, NEW_TOKENS) for p in prompts]])
+        if profile:
+            breakdown = profile_call(torch, lambda: [
+                f.result(timeout=600)
+                for f in [engine.submit(p, new_tokens) for p in prompts]])
     finally:
         engine.shutdown()
     if launches == 0 or launches != mcfg.n_layers * steps:
-        raise AssertionError(f"paged_attention launches {launches} != "
-                             f"{mcfg.n_layers} layers x {steps} decode steps")
-    bad = [o for o in outs if len(o) != NEW_TOKENS
+        raise AssertionError(f"{label}: paged_attention launches {launches} "
+                             f"!= {mcfg.n_layers} layers x {steps} decode "
+                             f"steps")
+    bad = [o for o in outs if len(o) != new_tokens
            or not all(0 <= t < mcfg.vocab_size for t in o)]
     if bad:
-        raise AssertionError(f"{len(bad)} malformed generations")
+        raise AssertionError(f"{label}: {len(bad)} malformed generations")
     total = sum(len(o) for o in outs)
-    row = {"phase": "engine", "requests": SLOTS, "new_tokens": NEW_TOKENS,
+    row = {"phase": "engine", "model": label, "head_dim": mcfg.head_dim,
+           "requests": slots, "new_tokens": new_tokens,
            "n_params": param_count(params), "tokens": total, "seconds": dt,
            "tokens_per_s": total / dt, "decode_steps": steps,
            "ms_per_decode_step": dt / steps * 1e3,
            "paged_attention_launches": launches,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-           "distinct_generations": len({tuple(o) for o in outs}),
-           # the profiled round does the timed round's work; its wall time
-           # is inflated by the profiler, so the share uses the timed wall
-           "device_busy_share": breakdown["device_busy_us"] / (dt * 1e6),
-           "profile": breakdown}
+           "distinct_generations": len({tuple(o) for o in outs})}
+    if breakdown is not None:
+        # the profiled round does the timed round's work; its wall time is
+        # inflated by the profiler, so the share uses the timed wall
+        row.update(device_busy_share=breakdown["device_busy_us"] / (dt * 1e6),
+                   profile=breakdown)
     emit(row)
     return launches
 
@@ -1805,11 +2008,12 @@ def greedy_parity(torch, logits_of, prompts, outs, n_new,
     return compared, ties
 
 
-def parity_setup(torch):
-    """Phase parity's f32 model (TF32 off) with its seeded params (seed 1),
-    its engine config (batch 4) and its oracle: the full-context model
-    without a kernel ("auto" would route its attention through the flash
-    kernel on the card), as logits_of for greedy_parity."""
+def parity_setup(torch, fields=SERVE):
+    """Phase parity's f32 model (TF32 off; TransformerConfig fields, SERVE
+    unless given) with its seeded params (seed 1), its engine config
+    (batch 4) and its oracle: the full-context model without a kernel
+    ("auto" would route its attention through the flash kernel on the
+    card), as logits_of for greedy_parity."""
     from ray_tpu_torch.models.inference import InferenceConfig
     from ray_tpu_torch.models.transformer import (TransformerConfig,
                                                   init_params,
@@ -1817,7 +2021,7 @@ def parity_setup(torch):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mcfg = TransformerConfig(dtype=torch.float32, **SERVE)
+    mcfg = TransformerConfig(dtype=torch.float32, **fields)
     params = init_params(mcfg, torch.Generator(device="cuda").manual_seed(1))
     icfg = InferenceConfig(batch_size=len(PARITY_PROMPTS), page_size=PAGE,
                            max_pages_per_seq=MAX_PAGES, num_pages=128,
@@ -1834,30 +2038,35 @@ def parity_setup(torch):
 
 def phase_parity(torch):
     """f32 greedy parity: the engine (through the kernel) vs the
-    full-context model (no kernel), re-run at every step."""
+    full-context model (no kernel), re-run at every step, at the serving
+    width (head_dim 128) and the default TransformerConfig's (64)."""
     from ray_tpu_torch.models.inference import InferenceEngine
 
-    mcfg, params, icfg, logits_of = parity_setup(torch)
-    engine = InferenceEngine(params, mcfg, icfg)
-    try:
-        got = [f.result(timeout=600) for f in
-               [engine.submit(p, PARITY_NEW) for p in PARITY_PROMPTS]]
-    finally:
-        engine.shutdown()
-    compared, ties = greedy_parity(torch, logits_of, PARITY_PROMPTS, got,
-                                   PARITY_NEW)
-    emit({"phase": "parity", "dtype": "float32",
-          "prompts": len(PARITY_PROMPTS), "tokens_compared": compared,
-          "near_ties": ties})
+    for label, fields in (("serve", SERVE), ("default", DEFAULT)):
+        mcfg, params, icfg, logits_of = parity_setup(torch, fields)
+        engine = InferenceEngine(params, mcfg, icfg)
+        try:
+            got = [f.result(timeout=600) for f in
+                   [engine.submit(p, PARITY_NEW) for p in PARITY_PROMPTS]]
+        finally:
+            engine.shutdown()
+        compared, ties = greedy_parity(torch, logits_of, PARITY_PROMPTS, got,
+                                       PARITY_NEW)
+        emit({"phase": "parity", "model": label, "head_dim": mcfg.head_dim,
+              "dtype": "float32", "prompts": len(PARITY_PROMPTS),
+              "tokens_compared": compared, "near_ties": ties})
+        del params, logits_of
+        torch.cuda.empty_cache()
 
 
-def _train_setup(torch, dtype, batch):
-    """The flagship train configuration (remat "dots") with its seeded
-    random params (seed 0) and tokens [batch, TRAIN_SEQ] (seed 1)."""
+def _train_setup(torch, dtype, batch, fields=TRAIN):
+    """The flagship train configuration (TRAIN, or the given fields;
+    remat "dots") with its seeded random params (seed 0) and tokens
+    [batch, TRAIN_SEQ] (seed 1)."""
     from ray_tpu_torch.models.transformer import TransformerConfig, init_params
 
     cfg = TransformerConfig(dtype=dtype, max_seq_len=TRAIN_SEQ, remat=True,
-                            remat_policy="dots", **TRAIN)
+                            remat_policy="dots", **fields)
     gen = torch.Generator(device="cuda")
     params = init_params(cfg, gen.manual_seed(0))
     tokens = torch.randint(0, cfg.vocab_size, (batch, TRAIN_SEQ),
@@ -1875,9 +2084,10 @@ def phase_train_parity(torch):
     """The model's flash branch (transposed views, the GQA repeat, the
     autograd Function under selective checkpointing) against its einsum
     branch: one forward and backward at the train width, batch 2, on the
-    same params and tokens, in f32 (TF32 off) and bf16. Raises after both
-    have printed if a difference is out of bounds or the flash branch did
-    not launch every kernel in every layer."""
+    same params and tokens, in f32 (TF32 off) and bf16, with TRAIN's heads
+    (head_dim 128) and TRAIN_D256's (256). Raises after all have printed
+    if a difference is out of bounds or the flash branch did not launch
+    every kernel in every layer."""
     from ray_tpu_torch.models.train_step import _global_norm
     from ray_tpu_torch.models.transformer import (cross_entropy_loss,
                                                   model_from_params)
@@ -1888,9 +2098,11 @@ def phase_train_parity(torch):
     # forward and the recompute of each block in backward; dq, dk/dv once
     want = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
             "flash_bwd_dkv": layers}
-    for dtype in (torch.float32, torch.bfloat16):
+    for fields, dtype in itertools.product((TRAIN, TRAIN_D256),
+                                           (torch.float32, torch.bfloat16)):
         name = str(dtype).replace("torch.", "")
-        cfg, params, tokens = _train_setup(torch, dtype, TRAIN_PARITY_BATCH)
+        cfg, params, tokens = _train_setup(torch, dtype, TRAIN_PARITY_BATCH,
+                                           fields)
         runs = {}
         for mode in ("auto", "off"):
             model = model_from_params(
@@ -1914,6 +2126,7 @@ def phase_train_parity(torch):
         worst = max(leaf, key=leaf.get)
         b_loss, b_norm, b_leaf = TRAIN_PARITY_BOUNDS[name]
         row = {"phase": "train_parity", "dtype": name,
+               "head_dim": cfg.head_dim,
                "batch": TRAIN_PARITY_BATCH, "loss_flash": loss_f,
                "loss_einsum": loss_o, "loss_diff": abs(loss_f - loss_o),
                "grad_norm_flash": norm_f, "grad_norm_einsum": norm_o,
@@ -1927,7 +2140,7 @@ def phase_train_parity(torch):
                      and not any(launches_o.values()))
         emit(row)
         if not row["ok"]:
-            failed.append(name)
+            failed.append(f"{name}, head_dim {cfg.head_dim}")
         del params, tokens, runs, grads_f, grads_o
         torch.cuda.empty_cache()
     if failed:
@@ -1937,8 +2150,23 @@ def phase_train_parity(torch):
 
 def phase_train(torch):
     """The train main path: the flagship configuration through the
-    trainer's entry points. Returns each flash kernel's launches in the
-    timed steps."""
+    trainer's entry points (5 timed steps at [16, 2048], head_dim 128,
+    profiled), then its heads regrouped as 8 x 256 (TRAIN_D256, 3 steps at
+    [8, 2048]). Returns each flash kernel's launches in the timed steps:
+    {head_dim: {kernel: launches}}."""
+    return {FLASH_D: train_run(torch, TRAIN, TRAIN_BATCH, TRAIN_WARMUP,
+                               TRAIN_STEPS, profile=True),
+            256: train_run(torch, TRAIN_D256, TRAIN_D256_BATCH,
+                           TRAIN_D256_WARMUP, TRAIN_D256_STEPS)}
+
+
+def train_run(torch, fields, batch_size, warmup, steps, profile=False):
+    """One train configuration (TransformerConfig fields at TRAIN_SEQ,
+    bf16, remat "dots") through make_optimizer and make_train_step:
+    `warmup` steps, then `steps` timed steps with the flash launch
+    counters zeroed just before; profile: one more step under
+    torch.profiler. Prints the phase line; returns each flash kernel's
+    launches in the timed steps."""
     import math
 
     from ray_tpu_torch._private.perf import _peak_flops, flops_per_step
@@ -1946,13 +2174,14 @@ def phase_train(torch):
     from ray_tpu_torch.models.transformer import Transformer, param_count
 
     kernels = _flash_kernels()
-    cfg, params, tokens = _train_setup(torch, torch.bfloat16, TRAIN_BATCH)
+    cfg, params, tokens = _train_setup(torch, torch.bfloat16, batch_size,
+                                       fields)
     n_params = param_count(params)
     model = Transformer(cfg).load_params(params)
     del params
     step = ts.make_train_step(model, ts.make_optimizer(model.parameters()))
     batch = {"tokens": tokens}
-    for _ in range(TRAIN_WARMUP):
+    for _ in range(warmup):
         step(batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1960,15 +2189,15 @@ def phase_train(torch):
     for kern in kernels.values():
         kern.launches = 0
     t0 = time.perf_counter()
-    metrics = [step(batch) for _ in range(TRAIN_STEPS)]
+    metrics = [step(batch) for _ in range(steps)]
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    dt = (time.perf_counter() - t0) / steps
     launches = {n: k.launches for n, k in kernels.items()}
     peak_mem = torch.cuda.max_memory_allocated()
     losses = [float(m["loss"]) for m in metrics]
     grad_norms = [float(m["grad_norm"]) for m in metrics]
-    breakdown = profile_call(torch, lambda: step(batch))
-    steps, layers = TRAIN_STEPS, TRAIN["n_layers"]
+    breakdown = profile_call(torch, lambda: step(batch)) if profile else None
+    layers = cfg.n_layers
     # backward: each layer's attention runs dq and dk/dv once per step.
     # forward: remat "dots" saves only matrix-product outputs, and the flash
     # kernel launches through ctypes (no aten matmul), so its output is not
@@ -1978,25 +2207,32 @@ def phase_train(torch):
             "flash_bwd_dkv": layers * steps}
     if launches != want:
         raise AssertionError(f"flash launches {launches} != {want} "
-                             f"({layers} layers x {steps} steps)")
+                             f"({layers} layers x {steps} steps, head_dim "
+                             f"{cfg.head_dim})")
     if not all(math.isfinite(x) for x in losses + grad_norms):
         raise AssertionError(f"non-finite loss or grad norm: {losses} "
                              f"{grad_norms}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    model_flops = flops_per_step(n_params, TRAIN_BATCH, TRAIN_SEQ)
+    model_flops = flops_per_step(n_params, batch_size, TRAIN_SEQ)
     peak = _peak_flops(torch.cuda.get_device_name())
-    emit({"phase": "train", "device": torch.cuda.get_device_name(),
-          "n_params": n_params, "batch_size": TRAIN_BATCH,
-          "seq_len": TRAIN_SEQ, "step_ms": dt * 1e3,
-          "tokens_per_sec": TRAIN_BATCH * TRAIN_SEQ / dt,
-          "mfu": model_flops / dt / peak if peak else None,
-          "peak_flops": peak, "peak_mem_bytes": peak_mem, "losses": losses,
-          "grad_norms": grad_norms, "remat_policy": "dots",
-          "dtype": "bfloat16", "steps": steps, "warmup_steps": TRAIN_WARMUP,
-          "launches": launches,
-          "device_busy_share": breakdown["device_busy_us"] / (dt * 1e6),
-          "profile": breakdown})
+    row = {"phase": "train", "device": torch.cuda.get_device_name(),
+           "head_dim": cfg.head_dim, "heads": cfg.n_heads,
+           "kv_heads": cfg.n_kv_heads,
+           "n_params": n_params, "batch_size": batch_size,
+           "seq_len": TRAIN_SEQ, "step_ms": dt * 1e3,
+           "tokens_per_sec": batch_size * TRAIN_SEQ / dt,
+           "mfu": model_flops / dt / peak if peak else None,
+           "peak_flops": peak, "peak_mem_bytes": peak_mem, "losses": losses,
+           "grad_norms": grad_norms, "remat_policy": "dots",
+           "dtype": "bfloat16", "steps": steps, "warmup_steps": warmup,
+           "launches": launches}
+    if breakdown is not None:
+        row.update(device_busy_share=breakdown["device_busy_us"] / (dt * 1e6),
+                   profile=breakdown)
+    emit(row)
+    del model, step, batch, tokens
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2018,45 +2254,44 @@ def _logit_diff(torch, got, want):
 
 
 def phase_ring(torch, dev):
-    """The ring main path: the train configuration's forward at 32768
-    tokens through make_forward under a seq=4 mesh on one card. Returns
-    kernel 2's launches in the timed call."""
-    from ray_tpu_torch.models.train_step import make_forward
-    from ray_tpu_torch.models.transformer import (Transformer,
-                                                  TransformerConfig,
-                                                  init_params, param_count)
-    from ray_tpu_torch.ops import ring_attention as ra
-    from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh, use_mesh
+    """The ring main path, through ring_width_run at each width: the train
+    configuration's forward at RING_SEQ tokens through make_forward under
+    a seq=4 mesh on one card, with what only that run checks (ring_extras);
+    then the default TransformerConfig() (head_dim 64) at DEFAULT_RING_SEQ
+    and each configuration of width_models at WIDTH_RING_SEQ. Returns
+    kernel 2's launches in each timed call: {head_dim: n}."""
+    from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
     mesh = make_mesh(MeshConfig(seq=RING_SHARDS), [dev] * RING_SHARDS)
-    cfg = TransformerConfig(dtype=torch.bfloat16, max_seq_len=RING_SEQ,
-                            ring_attention=True, **TRAIN)
-    gen = torch.Generator(device=dev)
-    params = init_params(cfg, gen.manual_seed(0))
-    n_params = param_count(params)
-    model = Transformer(cfg, device=dev).load_params(params)
-    del params
-    forward = make_forward(model)
-    tokens = torch.randint(0, cfg.vocab_size, (1, RING_SEQ),
-                           generator=gen.manual_seed(1), device=dev)
-    # the last shard's tokens replaced, the first three kept
-    cut = (RING_SHARDS - 1) * RING_T
+    out = {FLASH_D: ring_width_run(
+        torch, dev, mesh, "train", TRAIN, RING_SEQ, f32_seq=RING_F32_SEQ,
+        ref_seq=RING_REF_SEQ,
+        extras=lambda *a: ring_extras(torch, mesh, *a)),
+        64: ring_width_run(torch, dev, mesh, "default", DEFAULT,
+                           DEFAULT_RING_SEQ, f32_seq=RING_F32_SEQ)}
+    for D, fields in width_models().items():
+        out[D] = ring_width_run(torch, dev, mesh, f"head_dim_{D}", fields,
+                                WIDTH_RING_SEQ)
+    return out
+
+
+def ring_extras(torch, mesh, model, forward, tokens, logits):
+    """What only the train configuration's ring run checks, after its
+    timed call: the last shard's tokens replaced leave the earlier shards'
+    logits bit-identical and change the last's; a call under autograd
+    raises (kernel 2 has no backward); one call's profile; and its logits
+    against the flash branch (no mesh) at full length, within
+    RING_PARITY_BOUNDS["bfloat16"]. Returns (row fields, problems)."""
+    from ray_tpu_torch.parallel.mesh import use_mesh
+
+    vocab = logits.shape[-1]
+    T = tokens.shape[1] // RING_SHARDS
+    cut = (RING_SHARDS - 1) * T
     tokens2 = tokens.clone()
-    tokens2[:, cut:] = torch.randint(0, cfg.vocab_size, (1, RING_T),
-                                     generator=gen.manual_seed(2),
-                                     device=dev)
+    tokens2[:, cut:] = torch.randint(
+        0, vocab, (1, T), device=tokens.device,
+        generator=torch.Generator(device=tokens.device).manual_seed(2))
     with use_mesh(mesh):
-        forward(tokens)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        # the main path: the counter from zero, then one timed call
-        ra.block_attention.launches = 0
-        t0 = time.perf_counter()
-        logits = forward(tokens)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = ra.block_attention.launches
-        peak_mem = torch.cuda.max_memory_allocated()
         logits2 = forward(tokens2)
         breakdown = profile_call(torch, lambda: forward(tokens))
         try:
@@ -2067,43 +2302,13 @@ def phase_ring(torch, dev):
             grad_raises = str(e)
     causal_exact = bool(torch.equal(logits[:, :cut], logits2[:, :cut]))
     last_changed = not torch.equal(logits[:, cut:], logits2[:, cut:])
-    finite = bool(torch.isfinite(logits).all())
     del logits2
-    flash = forward(tokens)   # no mesh: the flash branch
-    parity = {"bfloat16": _logit_diff(torch, logits, flash)}
-    shape = tuple(logits.shape)
-    del flash, logits, model, forward
-    torch.cuda.empty_cache()
-
-    # f32 (TF32 off): the ring against the einsum branch of one model
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
-                                flash_attention="off")
-    model32 = Transformer(cfg32, device=dev).load_params(
-        init_params(cfg32, gen.manual_seed(0)))
-    short = tokens[:, :RING_F32_SEQ]
-    forward32 = make_forward(model32)
-    with use_mesh(mesh):
-        ring32 = forward32(short)
-    parity["float32"] = _logit_diff(torch, ring32, forward32(short))
-    parity["float32"]["seq"] = RING_F32_SEQ
-    del model32, ring32
-    torch.cuda.empty_cache()
-    for name, reading in parity.items():
-        reading["bound"] = RING_PARITY_BOUNDS[name]
-        reading["ok"] = reading["rel_l2"] <= RING_PARITY_BOUNDS[name]
-
-    want = TRAIN["n_layers"] * RING_SHARDS ** 2
-    row = {"phase": "ring", "device": torch.cuda.get_device_name(),
-           "n_params": n_params, "batch": 1, "seq_len": RING_SEQ,
-           "seq_shards": RING_SHARDS, "mesh": mesh.shape,
-           "dtype": "bfloat16", "ms": dt * 1e3, "tokens_per_s": RING_SEQ / dt,
-           "block_launches": launches, "want_launches": want,
-           "logits_shape": list(shape), "finite": finite,
-           "peak_mem_bytes": peak_mem, "parity": parity,
-           "earlier_shards_bit_identical": causal_exact,
-           "last_shard_changed": last_changed,
-           "grad_raises": grad_raises,
+    flash = _logit_diff(torch, logits, forward(tokens))   # no mesh: flash
+    flash["bound"] = RING_PARITY_BOUNDS["bfloat16"]
+    flash["ok"] = flash["rel_l2"] <= flash["bound"]
+    row = {"earlier_shards_bit_identical": causal_exact,
+           "last_shard_changed": last_changed, "grad_raises": grad_raises,
+           "parity_flash": flash,
            # one call's reading: the profiled call's busy time over its own
            # wall time. The profiler's host cost per eager op can starve
            # the device in that call, so the profiled busy time over the
@@ -2111,21 +2316,112 @@ def phase_ring(torch, dev):
            # is given beside it, under its own name
            "device_busy_share": (breakdown["device_busy_us"]
                                  / breakdown["wall_us"]),
-           "device_busy_over_timed_wall": (breakdown["device_busy_us"]
-                                           / (dt * 1e6)),
+           "device_busy_us": breakdown["device_busy_us"],
            "profile": breakdown}
+    problems = [what for what, bad in (
+        ("earlier shards changed", not causal_exact),
+        ("last shard unchanged", not last_changed),
+        ("no raise under autograd", grad_raises is None),
+        (f"flash parity {flash['rel_l2']} > {flash['bound']}",
+         not flash["ok"])) if bad]
+    return row, problems
+
+
+def ring_width_run(torch, dev, mesh, label, fields, seq, f32_seq=None,
+                   ref_seq=None, extras=None):
+    """One configuration (TransformerConfig fields, max_seq_len seq, bf16,
+    params seed 0, tokens seed 1) at `seq` tokens through make_forward
+    under the seq mesh: a warm call, then a call with kernel 2's counter
+    zeroed just before and read just after (layers x shards^2 launches)
+    and its peak memory. Its logits over the first ref_seq tokens (default
+    all) against the einsum branch of the same parameters (no mesh, no
+    flash: no kernel 2 or 3a template behind it) on those tokens, within
+    RING_PARITY_BOUNDS["bfloat16"]; f32_seq: also the f32 model (TF32 off)
+    at f32_seq tokens against its einsum branch, within
+    RING_PARITY_BOUNDS["float32"]. extras(model, forward, tokens, logits)
+    -> (row fields, problems): more checks of this run. Prints the phase
+    line; returns the launches."""
+    from ray_tpu_torch.models.train_step import make_forward
+    from ray_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  init_params, param_count)
+    from ray_tpu_torch.ops import ring_attention as ra
+    from ray_tpu_torch.parallel.mesh import use_mesh
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, ring_attention=True,
+                            **{**fields, "max_seq_len": seq})
+    gen = torch.Generator(device=dev)
+    params = init_params(cfg, gen.manual_seed(0))
+    n_params = param_count(params)
+    model = Transformer(cfg, device=dev).load_params(params)
+    forward = make_forward(model)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq),
+                           generator=gen.manual_seed(1), device=dev)
+    with use_mesh(mesh):
+        forward(tokens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ra.block_attention.launches = 0
+        t0 = time.perf_counter()
+        logits = forward(tokens)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = ra.block_attention.launches
+        peak_mem = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    extra, problems = extras(model, forward, tokens, logits) if extras \
+        else ({}, [])
+    del model, forward
+    ref_seq = ref_seq or seq
+    einsum = make_forward(Transformer(
+        dataclasses.replace(cfg, flash_attention="off"),
+        device=dev).load_params(params))
+    parity = {"bfloat16": _logit_diff(torch, logits[:, :ref_seq],
+                                      einsum(tokens[:, :ref_seq]))}
+    parity["bfloat16"]["seq"] = ref_seq
+    del logits, einsum, params
+    torch.cuda.empty_cache()
+    if f32_seq:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                    flash_attention="off")
+        model32 = Transformer(cfg32, device=dev).load_params(
+            init_params(cfg32, gen.manual_seed(0)))
+        forward32 = make_forward(model32)
+        short = tokens[:, :f32_seq]
+        with use_mesh(mesh):
+            ring32 = forward32(short)
+        parity["float32"] = _logit_diff(torch, ring32, forward32(short))
+        parity["float32"]["seq"] = f32_seq
+        del model32, ring32
+        torch.cuda.empty_cache()
+    for name, reading in parity.items():
+        reading["bound"] = RING_PARITY_BOUNDS[name]
+        reading["ok"] = reading["rel_l2"] <= RING_PARITY_BOUNDS[name]
+    want = cfg.n_layers * RING_SHARDS ** 2
+    row = {"phase": "ring", "model": label, "head_dim": cfg.head_dim,
+           "device": torch.cuda.get_device_name(), "n_params": n_params,
+           "batch": 1, "seq_len": seq, "seq_shards": RING_SHARDS,
+           "mesh": mesh.shape, "dtype": "bfloat16", "ms": dt * 1e3,
+           "tokens_per_s": seq / dt, "block_launches": launches,
+           "want_launches": want, "logits_shape": list(shape),
+           "finite": finite, "peak_mem_bytes": peak_mem, "parity": parity,
+           **extra}
+    if "device_busy_us" in extra:
+        # the profiled busy time over the timed call's wall (see
+        # ring_extras)
+        row["device_busy_over_timed_wall"] = (extra["device_busy_us"]
+                                              / (dt * 1e6))
     emit(row)
     problems = [what for what, bad in (
         (f"launches {launches} != {want}", launches != want),
         ("logits not finite", not finite),
-        (f"logits shape {shape}", shape != (1, RING_SEQ, cfg.vocab_size)),
-        ("earlier shards changed", not causal_exact),
-        ("last shard unchanged", not last_changed),
-        ("no raise under autograd", grad_raises is None),
+        (f"logits shape {shape}", shape != (1, seq, cfg.vocab_size)),
         *((f"{n} parity {r['rel_l2']} > {r['bound']}", not r["ok"])
-          for n, r in parity.items())) if bad]
+          for n, r in parity.items())) if bad] + problems
     if problems:
-        raise AssertionError(f"ring phase: {problems}")
+        raise AssertionError(f"ring phase, {label}: {problems}")
     return launches
 
 
@@ -2404,11 +2700,11 @@ def phase_runtime(torch):
     """The runtime's main path on the card (see RUNTIME_*): ray_tpu_torch.init
     with scheduler="tensor", sched_device "cuda", 8 workers.
 
-    - fan-out: e2e_task_throughput(5k), unbatched and through map_remote,
+    - fan-out: e2e_task_throughput(2.5k), unbatched and through map_remote,
       under sched_backend cuda, numpy and auto; kernels.assign's counter
       zeroed just before each and read just after: equal to the
       scheduler's device assigns, > 0 under cuda and 0 under numpy.
-    - oracle: a checking 5k fan-out under cuda with every snapshot
+    - oracle: a checking 2.5k fan-out under cuda with every snapshot
       _assign saw kept, each replayed through assign_np: node_of and
       avail equal.
     - map_reduce (config 2, cut to 10k) and actors (config 4, cut) under
@@ -2418,7 +2714,7 @@ def phase_runtime(torch):
       generates ENGINE_PROMPTS prompts one after another through
       .remote(); its greedy tokens equal a direct engine.generate on the
       same parameters, and paged_attention's counter advanced. Assign's
-      host time, stream span and kernel span (AssignRecorder) from a 5k
+      host time, stream span and kernel span (AssignRecorder) from a 2.5k
       fan-out alone, then from one started while the actor decodes: the
       device path runs on the scheduler's own stream.
     - resources: cluster_resources()["GPU"] == torch.cuda.device_count().
@@ -2619,7 +2915,7 @@ def runtime_engine(torch, ray, rec, smi, backend):
     """The model through the runtime (initialised with sched_backend
     ``backend``): an engine actor at serve-127M, its tokens against a
     direct engine on the same parameters, the actor's time alone and
-    beside a 5k fan-out, and (cuda) assign's times alone and beside the
+    beside a 2.5k fan-out, and (cuda) assign's times alone and beside the
     decoding actor. Returns the problems."""
     from ray_tpu_torch.models.inference import InferenceEngine
     from ray_tpu_torch.ops import paged_attention as pa
@@ -3910,14 +4206,32 @@ def dead_row_check(sk, snapshots, dead_rows, threshold):
 
 
 def wait_running_on(w, node_index, timeout=60.0):
-    """Seconds until a task runs on scheduler row node_index."""
+    """Seconds until a task runs on scheduler row node_index. On timeout
+    the error names the rows tasks ran on meanwhile, the task states
+    left, each node's state and death reason, and the scheduler's device
+    assigns and errors."""
+    from collections import Counter
+
     t0 = time.perf_counter()
-    while not any(r["node_index"] == node_index and r["state"] == "RUNNING"
-                  for r in w.scheduler.task_table()):
+    ran = Counter()
+    while True:
+        table = w.scheduler.task_table()
+        running = [r["node_index"] for r in table if r["state"] == "RUNNING"]
+        if node_index in running:
+            return time.perf_counter() - t0
+        ran.update(set(running))
         if time.perf_counter() - t0 > timeout:
-            raise AssertionError(f"no task ever ran on row {node_index}")
+            stats = w.scheduler.stats()
+            nodes = {e.index: (e.state, e.death_reason)
+                     for e in w.gcs.node_table()}
+            raise AssertionError(
+                f"no task ever ran on row {node_index} in {timeout} s: "
+                f"polls that saw a task running, by row {dict(ran)}; "
+                f"states left {dict(Counter(r['state'] for r in table))}; "
+                f"nodes {nodes}; device assigns "
+                f"{stats.get('device_assigns')}, errors "
+                f"{stats.get('device_assign_errors')}")
         time.sleep(0.005)
-    return time.perf_counter() - t0
 
 
 def detection_deadline(config):
@@ -7313,7 +7627,11 @@ def host_state():
     with open("/proc/self/status") as f:
         rss = next((int(line.split()[1]) << 10 for line in f
                     if line.startswith("VmRSS:")), None)
-    return {"threads": sorted(t.name for t in threading.enumerate()),
+    names = sorted(t.name for t in threading.enumerate())
+    return {"threads": names,
+            # how many threads carry each name (a pool's accept thread is
+            # ray_tpu_pool_accept whichever pool it serves)
+            "thread_counts": {n: names.count(n) for n in sorted(set(names))},
             "children": children, "gc_objects": len(gc.get_objects()),
             "rss_bytes": rss}
 
@@ -7339,7 +7657,7 @@ def flash_ops(rows):
             for name, keys in PERF_FLASH_OPS.items()}
 
 
-def serving_oracle(torch, dev, model=PERF_SERVING_MODEL):
+def serving_oracle(torch, dev):
     """serving_ab's model as its engines hold it (seed PERF_SERVING_SEED,
     weights in bf16, norm scales f32) run in f32 over the full context
     with no kernel: logits_all(tokens) -> [len(tokens), vocab]."""
@@ -7350,7 +7668,7 @@ def serving_oracle(torch, dev, model=PERF_SERVING_MODEL):
                                                   init_params,
                                                   model_from_params)
 
-    mcfg = TransformerConfig(**{**perf.SERVING_AB_MODEL, **model})
+    mcfg = TransformerConfig(**perf.SERVING_AB_MODEL)
     params = init_params(mcfg, torch.Generator(device=dev).manual_seed(
         PERF_SERVING_SEED))
     params = {k: v if k.endswith("/scale") else v.to(mcfg.dtype).float()
@@ -7574,8 +7892,7 @@ def phase_perf(torch, dev):
     for disagg in (False, True):
         key = "serving_disagg" if disagg else "serving_mono"
         _r, launches = section(
-            key, lambda d=disagg: perf.serving_ab(
-                d, model=PERF_SERVING_MODEL, **PERF_SERVING),
+            key, lambda d=disagg: perf.serving_ab(d, **PERF_SERVING),
             serving_check)
         out[key] = launches["paged_attention"]
     mono, split = (results[k][0] for k in ("serving_mono", "serving_disagg"))
@@ -8241,6 +8558,71 @@ def phase_lint(torch, dev):
     return launches
 
 
+def width_table(kernel_rows, flash_rows, ring_rows, engine, train, ring,
+                perf):
+    """The kernels line's rows of every head width but 128: each kernel at
+    each width (named <kernel>_d<D>), its bf16 time at phase kernel's shape
+    for that width, and its launches on the paths that ran the width."""
+    from ray_tpu_torch.ops import head_dims as hd
+
+    csrc = "ray_tpu_torch/ops/csrc/"
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows = []
+    for D in hd.PAGED_ATTENTION:
+        if D == hd.DEFAULT_HEAD_DIM:
+            continue
+        row = kernel_rows[D]["bfloat16"]
+        paths = {"engine_default" if D == 64 else "engine": engine[
+            "default" if D == 64 else D]}
+        if D == 16:
+            paths.update(perf_serving_mono=perf["serving_mono"],
+                         perf_serving_disagg=perf["serving_disagg"])
+        rows.append({
+            "name": f"paged_decode_attention_d{D}", "route": "cuda",
+            "head_dim": D,
+            "source": csrc + "paged_attention.cu",
+            "replaces": "ray_tpu/ops/paged_attention.py:76",
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": row["max_abs_err"], "ms": row["device_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_device_ms"]})
+    for D in hd.BLOCK_ATTENTION:
+        if D == hd.DEFAULT_HEAD_DIM:
+            continue
+        full = ring_rows[D]["full"]
+        rows.append({
+            "name": f"ring_block_attention_d{D}", "route": "cuda",
+            "head_dim": D,
+            "source": csrc + ("attention_fwd_sm90.cuh" if D in hd.SM90_FORWARD
+                              else "mma_tiles.cuh"),
+            "replaces": "ray_tpu/ops/ring_attention.py:64",
+            "launches": ring[D], "launches_by_path": {"ring": ring[D]},
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in ring_rows[D].values()),
+            **{k: full[k] for k in keys}})
+    lines = {"flash_fwd": 758, "flash_bwd_dq": 1456, "flash_bwd_dkv": 1121}
+    for D in hd.FLASH:
+        if D == hd.DEFAULT_HEAD_DIM:
+            continue
+        for name in FLASH_NAMES:
+            row = flash_rows[D][name]["bfloat16"]
+            sm90 = (D in hd.SM90_FORWARD if name == "flash_fwd"
+                    else D in hd.SM90_BACKWARD)
+            rows.append({
+                "name": f"{name}_d{D}", "route": "cuda", "head_dim": D,
+                "source": csrc + (("attention_fwd_sm90.cuh"
+                                   if name == "flash_fwd"
+                                   else "attention_bwd_sm90.cuh") if sm90
+                                  else "mma_tiles.cuh"),
+                "replaces": f"ray_tpu/ops/flash.py:42 (library "
+                            f"flash_attention.py:{lines[name]})",
+                "launches": train[D][name],
+                "launches_by_path": {"train": train[D][name]},
+                **{k: row[k] for k in ("max_abs_err", *keys)}})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -8255,9 +8637,13 @@ def main() -> int:
         return sharded_rank(torch, int(rank), int(world), tmp)
     from ray_tpu_torch.ops import _build
 
+    # cold: no library of these sources was built before this run (each
+    # head width's library is its own nvcc, all started at once)
+    cold = not any(_build.target(n).exists() for n in _build.sources())
     t0 = time.perf_counter()
     libs = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "cold": cold, "nvcc_processes": len(libs),
           "libraries": {n: str(p.relative_to(Path(__file__).resolve().parent))
                         for n, p in libs.items()},
           "ptxas": {n: _build.register_report(n) for n in libs}})
@@ -8288,36 +8674,46 @@ def main() -> int:
         print(smi, flush=True)
         return 1 if failed else 0
 
-    kernel_rows = phase_kernel(torch, dev)
-    flash_rows = phase_flash_kernel(torch, dev)
-    ring_rows = phase_ring_kernel(torch, dev)
-    sched_rows = phase_sched_kernel(torch, dev)
-    launches = phase_engine(torch)
-    phase_parity(torch)
-    phase_train_parity(torch)
-    train_launches = phase_train(torch)
-    ring_launches = phase_ring(torch, dev)
-    sched_launches, star_rows = phase_north_star(torch, dev)
-    assign = phase_runtime(torch)
-    process_launches, process_assigns = phase_process(torch)
-    served = phase_serve(torch)
-    data_launches = phase_data(torch, dev)
-    cluster_launches = phase_cluster(torch, dev)
-    rllib_launches = phase_rllib(torch, dev)
-    train_lib_launches = phase_train_lib(torch, dev)
-    moe_launches = phase_moe(torch, dev)
-    dag_launches = phase_dag(torch, dev)
-    tune_launches = phase_tune(torch, dev)
-    phase_workflow(torch, dev)
-    multinode = phase_multinode(torch, dev)
-    ops = phase_ops(torch, dev)
-    perf = phase_perf(torch, dev)
-    sharded = phase_sharded(torch, dev)
-    lint_launches = phase_lint(torch, dev)
+    # each phase's wall seconds, printed in phase end's line
+    seconds = {"build": time.perf_counter() - t0}
+
+    def run(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__.removeprefix("phase_")] = (
+            time.perf_counter() - t)
+        return out
+
+    kernel_rows = run(phase_kernel, torch, dev)
+    flash_rows = run(phase_flash_kernel, torch, dev)
+    ring_rows = run(phase_ring_kernel, torch, dev)
+    sched_rows = run(phase_sched_kernel, torch, dev)
+    launches = run(phase_engine, torch)
+    run(phase_parity, torch)
+    run(phase_train_parity, torch)
+    train_launches = run(phase_train, torch)
+    ring_launches = run(phase_ring, torch, dev)
+    sched_launches, star_rows = run(phase_north_star, torch, dev)
+    assign = run(phase_runtime, torch)
+    process_launches, process_assigns = run(phase_process, torch)
+    served = run(phase_serve, torch)
+    data_launches = run(phase_data, torch, dev)
+    cluster_launches = run(phase_cluster, torch, dev)
+    rllib_launches = run(phase_rllib, torch, dev)
+    train_lib_launches = run(phase_train_lib, torch, dev)
+    moe_launches = run(phase_moe, torch, dev)
+    dag_launches = run(phase_dag, torch, dev)
+    tune_launches = run(phase_tune, torch, dev)
+    run(phase_workflow, torch, dev)
+    multinode = run(phase_multinode, torch, dev)
+    ops = run(phase_ops, torch, dev)
+    perf = run(phase_perf, torch, dev)
+    sharded = run(phase_sharded, torch, dev)
+    lint_launches = run(phase_lint, torch, dev)
 
     # kernel 1 and its yardstick by device time (graph replays): the eager
     # loop of wrapper calls times the host, not the kernels
-    main_row = kernel_rows["bfloat16"]
+    main_row = kernel_rows[FLASH_D]["bfloat16"]
     table = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/paged_attention.cu",
@@ -8325,7 +8721,7 @@ def main() -> int:
         "launches": (served["mono"]["paged_attention_launches"]
                      + served["disagg"]["paged_attention_launches"]),
         "launches_by_path": {
-            "engine": launches,
+            "engine": launches["serve"],
             "process_engine_actor": process_launches,
             "serve_mono": served["mono"]["paged_attention_launches"],
             "serve_disagg": served["disagg"]["paged_attention_launches"],
@@ -8350,14 +8746,16 @@ def main() -> int:
     # its .cu (the forward with that file's epilogue)
     sm90_source = "ray_tpu_torch/ops/csrc/attention_fwd_sm90.cuh"
     for name in FLASH_NAMES:
-        row = flash_rows[name]["bfloat16"]
+        row = flash_rows[FLASH_D][name]["bfloat16"]
         table.append({
             "name": name, "route": "cuda",
             "source": (sm90_source if name == "flash_fwd" else
                        "ray_tpu_torch/ops/csrc/attention_bwd_sm90.cuh"),
-            "replaces": replaces[name], "launches": train_launches[name],
+            "replaces": replaces[name],
+            "launches": train_launches[FLASH_D][name],
             "launches_by_path": {
-                "train": train_launches[name], "moe": moe_launches[name],
+                "train": train_launches[FLASH_D][name],
+                "moe": moe_launches[name],
                 "dag": dag_launches if name == "flash_fwd" else 0,
                 "tune": tune_launches[name],
                 "client_forward": (multinode["client_forward"]
@@ -8370,20 +8768,23 @@ def main() -> int:
                                    "bound_ms", "bound_by", "library_ms")}})
     # times and bound of the block below the diagonal (every key visible,
     # the most work); the error is the worst of the path's three blocks
-    full = ring_rows["full"]
+    full = ring_rows[FLASH_D]["full"]
     table.append({
         "name": "ring_block_attention", "route": "cuda",
         "source": sm90_source,
         "replaces": "ray_tpu/ops/ring_attention.py:64",
-        "launches": ring_launches,
+        "launches": ring_launches[FLASH_D],
         # phase sharded: the sum over its ranks, each rank's own count in
         # the phase's line
-        "launches_by_path": {"ring": ring_launches,
+        "launches_by_path": {"ring": ring_launches[FLASH_D],
                              **{f"sharded_{name}": sum(by_rank)
                                 for name, by_rank in sharded.items()}},
-        "max_abs_err": max(r["max_abs_err"] for r in ring_rows.values()),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in ring_rows[FLASH_D].values()),
         **{k: full[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}})
+    table += width_table(kernel_rows, flash_rows, ring_rows, launches,
+                         train_launches, ring_launches, perf)
     table += sched_table(sched_rows, star_rows, sched_launches)
     # the runtime's batched assignment (jax_assign's counterpart): its
     # launches on the runtime's cuda fan-out, its time at the median batch
@@ -8409,7 +8810,8 @@ def main() -> int:
                                        "ops": ops["ops"],
                                        "perf": perf["assign"]},
                   "library_ms": None})
-    emit({"phase": "end", **host_state()})
+    emit({"phase": "end", "phase_seconds": seconds,
+          "seconds": time.perf_counter() - t0, **host_state()})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

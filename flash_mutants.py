@@ -30,6 +30,8 @@ TILES = CSRC + "mma_tiles.cuh"        # the f32 kernels' routines, the mask
 SM90 = CSRC + "attention_fwd_sm90.cuh"   # the bf16 forwards (2 and 3a)
 BWD = CSRC + "attention_bwd_sm90.cuh"    # the bf16 backward (3c and 3b)
 PAGED = CSRC + "paged_attention.cu"      # kernel 1: split and merge
+# copies built at once (each runs one nvcc per head width's library)
+BUILD_COPIES = 2
 
 # variant: (what it breaks, file, text, replacement)
 MUTANTS = {
@@ -145,6 +147,11 @@ def child(root: str) -> int:
     return 0
 
 
+def width(obj) -> str:
+    """' d<head_dim>' for a line that names its head width, else ''."""
+    return f" d{obj['head_dim']}" if "head_dim" in obj else ""
+
+
 def summary(name: str, out: str) -> dict:
     """One line: the verdicts and the worst reading of each output."""
     row = {"variant": name, "breaks": MUTANTS[name][0], "paged_kernel": {},
@@ -156,15 +163,15 @@ def summary(name: str, out: str) -> dict:
         if "verdict" in obj:
             row["verdict"] = obj["verdict"]
         elif obj.get("name") == "paged_decode_attention":
-            key = obj["shape"] + (f" {obj['dtype']}" if "dtype" in obj
-                                  else "")
+            key = (obj["shape"] + width(obj)
+                   + (f" {obj['dtype']}" if "dtype" in obj else ""))
             row["paged_kernel"][key] = {k: obj[k] for k in (
                 "max_abs_err", "failed", "deterministic",
                 "graph_bit_identical") if k in obj}
             if "failed" in obj:
                 row["paged_kernel"][key]["failed"] = len(obj["failed"])
         elif obj.get("name") == "ring_block_attention":
-            key = f"{obj['block']} {obj['dtype']}"
+            key = f"{obj['block']} {obj['dtype']}{width(obj)}"
             row["ring_kernel"][key] = {
                 "dead_rows_exact": obj["dead_rows_exact"], "ok": obj["ok"],
                 **{r["output"]: [r["err_over_bound"], r["rel_l2"]]
@@ -173,11 +180,13 @@ def summary(name: str, out: str) -> dict:
             for r in obj["outputs"]:
                 key = (f"{obj['name']}.{r['output']} {obj['dtype']}"
                        f"{'' if obj['causal'] else ' non-causal'}"
-                       f"{' ' + obj['shape'] if 'shape' in obj else ''}")
+                       f"{' ' + obj['shape'] if 'shape' in obj else ''}"
+                       f"{width(obj)}")
                 row["kernel"][key] = {k: r[k] for k in (
                     "max_abs_err", "err_over_bound", "rel_l2", "ok")}
         elif obj.get("phase") == "train_parity":
-            row["train_parity"][obj["dtype"]] = {k: obj[k] for k in (
+            row["train_parity"][obj["dtype"] + width(obj)] = {
+                k: obj[k] for k in (
                 "loss_diff", "grad_norm_rel_diff", "worst_leaf",
                 "worst_leaf_rel_l2", "ok")}
     return row
@@ -191,14 +200,19 @@ def main() -> int:
               file=sys.stderr)
         return 1
     roots = {name: make_copy(name) for name in MUTANTS}
+    # every head width's library of the attention kernels
     build = ("import sys; sys.path.insert(0, sys.argv[1]); "
              "from ray_tpu_torch.ops import _build; "
-             "_build.build_all(['paged_attention', 'flash_attention', "
-             "'ring_attention'])")
-    procs = [subprocess.Popen([sys.executable, "-c", build, str(r)])
-             for r in roots.values()]
-    if any(p.wait() for p in procs):
-        return 1
+             "_build.build_all([n for n in _build.sources() "
+             "if n.split('_d')[0] in ('paged_attention', 'flash_attention', "
+             "'ring_attention')])")
+    # BUILD_COPIES copies at a time: each starts one nvcc a library (12)
+    copies = list(roots.values())
+    for i in range(0, len(copies), BUILD_COPIES):
+        procs = [subprocess.Popen([sys.executable, "-c", build, str(r)])
+                 for r in copies[i:i + BUILD_COPIES]]
+        if any([p.wait() for p in procs]):
+            return 1
     ok = True
     for name, root in roots.items():
         proc = subprocess.run([sys.executable, __file__, "--child",

@@ -770,8 +770,21 @@ class GcsService:
         misses: Dict[Any, int] = {}
         threshold = max(1, round(
             GLOBAL_CONFIG.health_check_timeout_s / max(interval, 1e-6)))
+        last_tick = time.monotonic()
         while not self._shutdown:
             time.sleep(interval)
+            # only this loop records heartbeats, so while it is late (its
+            # process stalled, or a probe or a death took long) no node
+            # can record one: the lateness is the checker's, not the
+            # nodes'. Move every live node's staleness clock past it,
+            # and age each node from the tick's start, so a stalled head
+            # declares no live node DEAD. The reference ages its nodes by
+            # its own stalls too
+            now = time.monotonic()
+            late = now - last_tick - interval
+            last_tick = now
+            if late > interval:
+                self._forgive_lateness(late, now)
             fault = chaos.poll("head")
             if fault is not None:
                 self._inject_head_fault(fault)
@@ -787,7 +800,7 @@ class GcsService:
                 # heartbeat has not been RECORDED within the timeout is
                 # dead even if its TCP link never dropped
                 timeout_s = GLOBAL_CONFIG.node_heartbeat_timeout_s
-                age = time.monotonic() - e.last_heartbeat
+                age = now - e.last_heartbeat
                 if timeout_s and age > timeout_s:
                     logger.warning("health check: node %s heartbeat is "
                                    "%.1fs stale (timeout %.1fs); marking "
@@ -818,6 +831,15 @@ class GcsService:
                         self.heartbeat(e.node_id)
                     # a dropped heartbeat is "recovered" when the
                     # staleness guard above later declares the node dead
+
+    def _forgive_lateness(self, late: float, now: float) -> None:
+        """The health loop woke ``late`` seconds after its tick was due:
+        add them to every live node's last heartbeat (never past
+        ``now``)."""
+        with self._lock:
+            for e in self._nodes.values():
+                if e.state == "ALIVE":
+                    e.last_heartbeat = min(e.last_heartbeat + late, now)
 
     def _inject_head_fault(self, fault: Dict[str, Any]) -> None:
         """``head`` chaos site, polled once per health tick. ``flap``

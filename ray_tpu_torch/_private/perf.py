@@ -1147,8 +1147,8 @@ SERVING_AB_MODEL: Dict[str, int] = {
 
 def serving_ab(disagg: bool, sessions: int = 8, turns: int = 2,
                max_new: int = 48, device=None,
-               system_config: Optional[Dict[str, Any]] = None,
-               model: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
+               system_config: Optional[Dict[str, Any]] = None
+               ) -> Dict[str, Any]:
     """One arm of the serving-plane A/B: mono (N LLMDeployment
     replicas, prefill and decode share each replica's continuous
     batch) vs disaggregated (1 prefill + 1 decode replica — the same
@@ -1170,11 +1170,7 @@ def serving_ab(disagg: bool, sessions: int = 8, turns: int = 2,
 
     The engines run on ``device`` (None: the card, raising without one);
     ``system_config`` goes to ``init``. The model is the reference's
-    (``SERVING_AB_MODEL``, bf16, parameters from a seeded generator);
-    ``model`` overrides its fields. Kernel 1 is built for head_dim 128
-    alone, so on the card the model must have it (the reference's has
-    16): ``model={"d_model": 256, "d_ff": 512}`` keeps 2 heads at 128.
-    A CUDA device with another head_dim raises before anything starts.
+    (``SERVING_AB_MODEL``, bf16, parameters from a seeded generator).
 
     Returns {mode, sessions, turns, max_new, replicas, n_streams,
     ttft_p50_ms/p95/p99, tokens_per_sec, tokens_per_sec_per_replica,
@@ -1197,9 +1193,7 @@ def serving_ab(disagg: bool, sessions: int = 8, turns: int = 2,
     from ray_tpu_torch.serve.llm import build_llm_app, run_disagg_llm
 
     dev = resolve_device(device, "serving_ab")
-    mcfg = TransformerConfig(**{**SERVING_AB_MODEL, **(model or {})})
-    if dev.type == "cuda":
-        pa.check_head_dim(mcfg.head_dim, "serving_ab")
+    mcfg = TransformerConfig(**SERVING_AB_MODEL)
     icfg = InferenceConfig(batch_size=2, page_size=4,
                            max_pages_per_seq=16, num_pages=64,
                            prefill_buckets=(16,),

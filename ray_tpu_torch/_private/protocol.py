@@ -28,6 +28,12 @@ from typing import Optional, Tuple
 PROTOCOL_VERSION = 3
 
 
+def make_hello(*fields) -> tuple:
+    """A versioned tuple hello: ("hello", PROTOCOL_VERSION, *fields) (the
+    v2 wire; split_hello parses it back)."""
+    return ("hello", PROTOCOL_VERSION) + fields
+
+
 def split_hello(hello) -> Tuple[Optional[int], tuple]:
     """(version, fields) of a received tuple hello (the v2 wire, and
     the unversioned one before it: parsed so a listener rejects them

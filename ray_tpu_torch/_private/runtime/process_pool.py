@@ -43,7 +43,8 @@ from ray_tpu_torch._private.config import GLOBAL_CONFIG
 from ray_tpu_torch._private import trace_plane
 from ray_tpu_torch._private.ids import ObjectID, TaskID, WorkerID
 from ray_tpu_torch._private.object_ref import ObjectRef
-from ray_tpu_torch._private.runtime.listener import close_listener
+from ray_tpu_torch._private.runtime.listener import (JOIN_TIMEOUT_S,
+                                                     close_listener)
 from ray_tpu_torch._private.runtime.shm_store import (
     RING_TAG_BYTE as _RING_TAG_BYTE, RING_TAGS as _RING_TAGS, ControlRing)
 from ray_tpu_torch._private.runtime.worker_process import (
@@ -200,6 +201,8 @@ class ProcessWorkerPool:
         self._idle: Deque[_Handle] = collections.deque()
         self._queue: Deque[Tuple[PendingTask, dict]] = collections.deque()
         self._handles: List[_Handle] = []
+        # each worker's exit monitor, joined by shutdown()
+        self._monitors: List[threading.Thread] = []
         self._actor_handles: List[_Handle] = []
         self._by_num: Dict[int, _Handle] = {}
         self._by_task: Dict[TaskID, _Handle] = {}
@@ -273,9 +276,10 @@ class ProcessWorkerPool:
         self._accept_thread = threading.Thread(
             target=self._accept_loop, daemon=True, name="ray_tpu_pool_accept")
         self._accept_thread.start()
-        threading.Thread(target=self._demux_loop, daemon=True,
-                         name=f"ray_tpu_pool_demux_{self.node_index}"
-                         ).start()
+        self._demux_thread = threading.Thread(
+            target=self._demux_loop, daemon=True,
+            name=f"ray_tpu_pool_demux_{self.node_index}")
+        self._demux_thread.start()
 
     # ------------------------------------------------------------------
     # worker lifecycle
@@ -318,8 +322,12 @@ class ProcessWorkerPool:
              str(self._inline_max), str(num), ring_arg],
             env=env, close_fds=True)
         h.pid = h.proc.pid
-        threading.Thread(target=self._monitor_proc, args=(h,), daemon=True,
-                         name=f"ray_tpu_pool_monitor_{num}").start()
+        monitor = threading.Thread(target=self._monitor_proc, args=(h,),
+                                   daemon=True,
+                                   name=f"ray_tpu_pool_monitor_{num}")
+        with self._lock:
+            self._monitors.append(monitor)
+        monitor.start()
         return h
 
     def _alloc_rings(self, h: _Handle) -> str:
@@ -1746,6 +1754,10 @@ class ProcessWorkerPool:
                     h.proc.wait(timeout=1.0)
                 except subprocess.TimeoutExpired:
                     h.proc.kill()
+                    try:
+                        h.proc.wait(timeout=JOIN_TIMEOUT_S)
+                    except subprocess.TimeoutExpired:
+                        pass
         for h in handles:
             self._free_rings(h)
             for c in (h.conn, h.ctrl):
@@ -1759,6 +1771,15 @@ class ProcessWorkerPool:
             self._wake_w.send(b"q")  # unblock the demux wait promptly
         except OSError:
             pass
+        # the demux loop sees _shutdown at its wake, and each monitor
+        # returns once its process is reaped: no pool thread outlives
+        # shutdown()
+        me = threading.current_thread()
+        with self._lock:
+            threads = [self._demux_thread, *self._monitors]
+        for t in threads:
+            if t is not me:
+                t.join(JOIN_TIMEOUT_S)
         try:
             os.rmdir(self._sock_dir)
         except OSError:

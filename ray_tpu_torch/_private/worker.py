@@ -491,6 +491,9 @@ class Worker:
         # per-node worker pools (row -> ProcessWorkerPool); node 0's pool
         # is process_pool
         self._node_pools: Dict[int, Any] = {}
+        # pools of nodes that died: out of the table, still holding their
+        # accept and demux threads and listener until shutdown()
+        self._dead_pools: List[Any] = []
         if self.process_pool is not None:
             self._node_pools[0] = self.process_pool
         # TCP registration endpoint for remote node daemons / clients
@@ -2528,6 +2531,7 @@ class Worker:
         self.note_two_level("node_deaths")
         pool = self._node_pools.pop(entry.index, None)
         if pool is not None:
+            self._dead_pools.append(pool)
             if getattr(pool, "is_remote", False):
                 self._reconcile_orphan_leases(pool, reason)
                 arena = getattr(pool, "_arena_name", None)
@@ -3311,8 +3315,9 @@ class Worker:
             self.metrics_server.shutdown()
         if self.profile_plane is not None:
             self.profile_plane.shutdown()
-        for pool in list(self._node_pools.values()):
+        for pool in list(self._node_pools.values()) + self._dead_pools:
             pool.shutdown()
+        self._dead_pools = []
         self._pool.shutdown(wait=False, cancel_futures=True)
         if self.client_server is not None:
             self.client_server.shutdown()

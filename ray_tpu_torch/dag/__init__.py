@@ -345,5 +345,16 @@ class CompiledDAG:
             return out
 
 
+def bind_function(remote_fn, *args, **kwargs) -> FunctionNode:
+    """``remote_fn.bind(*args, **kwargs)`` as a function."""
+    return FunctionNode(remote_fn, args, kwargs)
+
+
+def bind_method(actor_method, *args, **kwargs) -> ActorMethodNode:
+    """``actor_method.bind(*args, **kwargs)`` as a function."""
+    return ActorMethodNode(actor_method, args, kwargs)
+
+
 __all__ = ["InputNode", "FunctionNode", "ActorMethodNode", "MultiOutputNode",
-           "CompiledDAG", "DAGCaptureError", "DAGNode"]
+           "CompiledDAG", "DAGCaptureError", "DAGNode", "bind_function",
+           "bind_method"]

@@ -134,8 +134,10 @@ def _flash_supported(x: torch.Tensor, head_dim: int) -> bool:
     a CUDA tensor, a lane-aligned head_dim, and no mesh with an axis larger
     than 1 active, as the reference's TPU rule
     (``ray_tpu/models/transformer.py:80-94``): under such a mesh attention
-    takes the einsum path, or the ring (decided first). The kernels
-    themselves are built for head_dim 128 and raise on any other."""
+    takes the einsum path, or the ring (decided first). The kernels are
+    built for the multiples of 128 up to 256 (``ops.head_dims.FLASH``:
+    every width the repo's configurations reach through this rule); a
+    wider one raises in the kernel's wrapper."""
     if x.device.type != "cuda" or head_dim % 128 != 0:
         return False
     mesh = current_mesh()

@@ -5,8 +5,12 @@ under ``ray_tpu_torch/_build/`` (listed in .gitignore) at first use, with a
 plain C interface loaded through ``ctypes``: every pointer and the stream
 pass as ``c_void_p``, sizes as ``c_int``. No source includes PyTorch's
 headers, so a build takes seconds rather than minutes. A library is cached
-by a hash of its source, the shared ``csrc/*.cuh`` headers and the flags;
-``build_all`` starts one ``nvcc`` per stale source, all at once. A failed
+by a hash of its source, the shared ``csrc/*.cuh`` headers and the
+flags; ``build_all`` starts one ``nvcc`` per stale library, all at once.
+The attention kernels build one library a head width: ``<name>.cu``
+compiled with ``head_dims.defines(D)`` for each width of
+``head_dims.SOURCES``, named ``head_dims.library(name, D)``, so the widths
+compile in parallel. A failed
 build raises with nvcc's stderr. ptxas's register and shared-memory report
 (``-Xptxas -v``) is kept beside each library as ``<lib>.log``.
 
@@ -25,6 +29,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+from ray_tpu_torch.ops import head_dims
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -56,22 +62,34 @@ def _nvcc() -> str:
                        "build on a machine with the CUDA toolkit")
 
 
-def sources() -> Dict[str, Path]:
-    return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
+def sources() -> Dict[str, Tuple[Path, Tuple[str, ...]]]:
+    """{library name: (its csrc ``.cu``, its -D flags)}: one library a
+    width of ``head_dims.SOURCES`` for the attention kernels, one for each
+    other source."""
+    out = {}
+    for p in sorted(CSRC.glob("*.cu")):
+        if p.stem in head_dims.SOURCES:
+            for D in head_dims.SOURCES[p.stem]:
+                out[head_dims.library(p.stem, D)] = (p, head_dims.defines(D))
+        else:
+            out[p.stem] = (p, ())
+    return out
 
 
 def target(name: str) -> Path:
-    """The library path for ``csrc/<name>.cu`` at the current sources."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in [sources()[name], *sorted(CSRC.glob("*.cuh"))]:
+    """The library path of ``name`` (a key of ``sources()``) at the
+    current sources."""
+    src, defines = sources()[name]
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
+    for p in [src, *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
-    """Build every named kernel library (default: all of csrc/) that is
-    not built yet, one nvcc per source, concurrently. Returns
+    """Build every named kernel library (default: all of ``sources()``)
+    that is not built yet, one nvcc per library, concurrently. Returns
     {name: library path}."""
     srcs = sources()
     names = list(srcs) if names is None else list(names)
@@ -84,16 +102,18 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     procs = []
     for n in stale:
         tmp = out[n].with_suffix(f".so.tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(srcs[n])]
+        src, defines = srcs[n]
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o", str(tmp),
+               str(src)]
         procs.append((n, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     errors = []
     for n, tmp, proc in procs:
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for csrc/{n}.cu "
-                          f"(rc {proc.returncode}):\n{stderr}{stdout}")
+            errors.append(f"nvcc failed for {n} (csrc/{srcs[n][0].name} "
+                          f"{' '.join(srcs[n][1])}, rc {proc.returncode})"
+                          f":\n{stderr}{stdout}")
             continue
         out[n].with_suffix(".so.log").write_text(stderr + stdout)
         os.replace(tmp, out[n])
@@ -103,7 +123,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
 
 
 def build_log(name: str) -> str:
-    """ptxas's report for the built ``csrc/<name>.cu``."""
+    """ptxas's report for the built library ``name``."""
     return target(name).with_suffix(".so.log").read_text()
 
 
@@ -134,18 +154,27 @@ def _drop_arguments(signature: str) -> str:
 
 def register_report(name: str) -> Dict[str, str]:
     """{kernel instance: its registers, barriers and spills} from the
-    ptxas report of ``csrc/<name>.cu``."""
+    ptxas report of library ``name``. The names are demangled by one
+    ``c++filt`` for the whole report (one process a name took seconds
+    a library on the H100 host)."""
+    lines = build_log(name).splitlines()
+    mangled = [m.group(1) for line in lines for m in
+               [re.search(r"Compiling entry function '([^']+)'", line)]
+               if m]
+    names = dict(zip(mangled, mangled))
     cxxfilt = shutil.which("c++filt")
+    if cxxfilt and mangled:
+        out = subprocess.run([cxxfilt, *mangled], capture_output=True,
+                             text=True).stdout.splitlines()
+        if len(out) == len(mangled):
+            names = {m: _drop_arguments(d.strip()) or m
+                     for m, d in zip(mangled, out)}
     report: Dict[str, str] = {}
     fn = None
-    for line in build_log(name).splitlines():
+    for line in lines:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            fn = m.group(1)
-            if cxxfilt:
-                fn = _drop_arguments(subprocess.run(
-                    [cxxfilt, fn], capture_output=True,
-                    text=True).stdout.strip() or fn)
+            fn = names[m.group(1)]
         elif fn and ("registers" in line or "spill" in line):
             info = line.split(":")[-1].strip()
             report[fn] = f"{report[fn]}; {info}" if fn in report else info
@@ -155,7 +184,7 @@ def register_report(name: str) -> Dict[str, str]:
 def library(name: str,
             signatures: Dict[str, Tuple[object, Sequence[object]]]
             ) -> ctypes.CDLL:
-    """Load ``csrc/<name>.cu``'s library (building it first if needed)
+    """Load library ``name`` (building it first if needed)
     and declare ``{function: (restype, argtypes)}`` on it."""
     with _lock:
         lib = _libs.get(name)

@@ -214,9 +214,7 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int i = 0; i < 64; ++i) dq[i] = 0.f;
     const bf16* qa0 = sm.q[0] + wg * 64 * kHalf;
-    const bf16* qa1 = sm.q[1] + wg * 64 * kHalf;
     const bf16* da0 = sm.dout[0] + wg * 64 * kHalf;
-    const bf16* da1 = sm.dout[1] + wg * 64 * kHalf;
     mbar_wait(&sm.q_full, 0);
 
     int stage = 0;
@@ -228,8 +226,9 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       if (!CAUSAL || k0 <= wg_last) {
         float s[64], dp[64];
         wgmma_fence();
-        score_tile(s, qa0, qa1, sm.k[stage][0], sm.k[stage][1]);
-        score_tile(dp, da0, da1, sm.v[stage][0], sm.v[stage][1]);
+        score_tile<2>(s, qa0, kRows * kHalf, sm.k[stage][0], kKeys * kHalf);
+        score_tile<2>(dp, da0, kRows * kHalf, sm.v[stage][0],
+                      kKeys * kHalf);
         wgmma_commit();
         wgmma_wait<0>();
         pin(s);
@@ -370,9 +369,7 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
       dv[i] = 0.f;
     }
     const bf16* ka0 = sm.k[0] + wg * 64 * kHalf;
-    const bf16* ka1 = sm.k[1] + wg * 64 * kHalf;
     const bf16* va0 = sm.v[0] + wg * 64 * kHalf;
-    const bf16* va1 = sm.v[1] + wg * 64 * kHalf;
     mbar_wait(&sm.kv_full, 0);
 
     int stage = 0;
@@ -385,8 +382,10 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
         // S^T and dP^T: rows are keys, columns queries
         float st[32], dpt[32];
         wgmma_fence();
-        score_tile(st, ka0, ka1, sm.q[stage][0], sm.q[stage][1]);
-        score_tile(dpt, va0, va1, sm.dout[stage][0], sm.dout[stage][1]);
+        score_tile<2>(st, ka0, kKeys * kHalf, sm.q[stage][0],
+                      kBwdQueries * kHalf);
+        score_tile<2>(dpt, va0, kKeys * kHalf, sm.dout[stage][0],
+                      kBwdQueries * kHalf);
         wgmma_commit();
         wgmma_wait<0>();
         pin(st);

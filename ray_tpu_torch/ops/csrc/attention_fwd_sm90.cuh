@@ -17,6 +17,15 @@
 // Bound: operations (two products of 2*D flops per visible pair, ~1000-4000
 // flops per byte at the main paths' shapes, above the H100's ~295).
 //
+// Head_dim D is a template parameter: 64, 128 or 256 (a box is 64
+// columns, 128 bytes; narrower rows go to the FMA tiles of mma_tiles.cuh).
+// Fwd<D> below sets the tiles: D / 64 boxes a row of Q, K and V; 128-key
+// tiles, or 64 at D = 256, where O is 64 x 256 f32 (128 registers a
+// thread) and 128 keys of S would leave too few registers, and two
+// 128-key stages of K and V would not fit in shared memory; P V as
+// m64nNk16 with N = min(D, 128), twice at D = 256. The description below
+// is D = 128's.
+//
 // Design (a block per (b, h, 128-query tile); 3 warpgroups):
 //   - warpgroups 0 and 1 consume: each owns 64 query rows and runs both
 //     products on wgmma m64n128k16 with f32 accumulators in registers.
@@ -57,7 +66,8 @@ namespace {
 namespace sm90 {
 
 constexpr int kRows = 128;     // query rows per block: two warpgroups of 64
-constexpr int kKeys = 128;     // keys per K/V tile
+constexpr int kKeys = 128;     // keys per K/V tile (the backward's, and
+                               // the forward's at D <= 128)
 constexpr int kHalf = 64;      // head_dim columns per 128-byte box
 constexpr int kStages = 2;
 constexpr int kHeadGroup = 16; // (batch, head) pairs per group of blocks
@@ -70,17 +80,34 @@ constexpr int kBoxBytes = kKeys * kHalf * 2;   // one 128 x 64 bf16 box
 // cuTensorMapEncodeTiled's refusal, returned as 1000 + its CUresult
 constexpr int kEncodeError = 1000;
 
-struct alignas(1024) Smem {
-  bf16 q[2][kRows * kHalf];
-  bf16 k[kStages][2][kKeys * kHalf];
-  bf16 v[kStages][2][kKeys * kHalf];
+// the forward's tiles at head_dim D
+template <int D>
+struct Fwd {
+  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
+  static constexpr int kBoxes = D / kHalf;          // boxes a row
+  static constexpr int kKeys = D > 128 ? 64 : 128;  // keys a K/V tile
+  static constexpr int kS = kKeys / 2;   // S accumulators a thread
+  static constexpr int kN = D < 128 ? D : 128;   // columns a P V product
+  static constexpr int kChunks = D / kN;         // P V products a tile
+  static constexpr int kO = kN / 2;      // O accumulators a product
+  static constexpr int kKeyBoxBytes = kKeys * kHalf * 2;
+};
+
+template <int D>
+struct alignas(1024) FwdSmem {
+  bf16 q[Fwd<D>::kBoxes][kRows * kHalf];
+  bf16 k[kStages][Fwd<D>::kBoxes][Fwd<D>::kKeys * kHalf];
+  bf16 v[kStages][Fwd<D>::kBoxes][Fwd<D>::kKeys * kHalf];
   uint64_t q_full;
   uint64_t full[kStages];
   uint64_t empty[kStages];
 };
 // the dynamic shared memory base is rounded up to 1024 bytes (the swizzle
 // atom) inside the kernel
-constexpr size_t kSmemBytes = sizeof(Smem) + 1024;
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(FwdSmem<D>) + 1024;
+}
 
 // ----------------------------------------------------------------------
 // barriers, TMA, wgmma
@@ -282,36 +309,61 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d += A B, A [64 x 16] from registers, B [16 x 64] from shared memory,
+// MN-major (P V at head_dim 64)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // bf16 pair of probabilities, lower column in the low half
 __device__ __forceinline__ uint32_t pack_p(float p0, float p1) {
   __nv_bfloat162 pair = __floats2bfloat162_rn(p0, p1);
   return *reinterpret_cast<uint32_t*>(&pair);
 }
 
-// S = Q K^T for one warpgroup's 64 rows and a tile of N/2 keys (N = 64:
-// 128 keys; N = 32: 64): head_dim in two 64-column boxes, 16 columns per
-// wgmma (32 bytes into each swizzled 128-byte row)
-template <int N>
-__device__ __forceinline__ void score_tile(float (&s)[N], const bf16* qa0,
-                                           const bf16* qa1, const bf16* kb0,
-                                           const bf16* kb1) {
+// S = Q K^T for one warpgroup's 64 rows and a tile of N / 2 keys (N = 64:
+// 128 keys; N = 32: 64), head_dim in NB 64-column boxes (box j of Q at
+// qa + j * q_box, of K at kb + j * k_box elements), 16 columns per wgmma
+// (32 bytes into each swizzled 128-byte row)
+template <int NB, int N>
+__device__ __forceinline__ void score_tile(float (&s)[N], const bf16* qa,
+                                           int q_box, const bf16* kb,
+                                           int k_box) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wgmma_ss(s, smem_desc(qa0 + kk * 16, 16, 1024),
-             smem_desc(kb0 + kk * 16, 16, 1024), kk);
-  }
+  for (int j = 0; j < NB; ++j) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wgmma_ss(s, smem_desc(qa1 + kk * 16, 16, 1024),
-             smem_desc(kb1 + kk * 16, 16, 1024), 1);
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss(s, smem_desc(qa + j * q_box + kk * 16, 16, 1024),
+               smem_desc(kb + j * k_box + kk * 16, 16, 1024), j | kk);
+    }
   }
 }
 
 // O += P V: 16 keys per wgmma (two 8-key groups of 1024 bytes), NA / 4
-// wgmmas; N spans both head_dim boxes of V, box_bytes apart (the size of
-// one box: kBoxBytes for 128-row boxes)
-template <int NA>
-__device__ __forceinline__ void value_tile(float (&o)[64],
+// wgmmas of N = 2 * NO columns; N = 128 spans two head_dim boxes of V,
+// box_bytes apart (the size of one box: kBoxBytes for 128-row boxes)
+template <int NA, int NO>
+__device__ __forceinline__ void value_tile(float (&o)[NO],
                                            const uint32_t (&pa)[NA],
                                            const bf16* vb,
                                            uint32_t box_bytes) {
@@ -331,14 +383,15 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // Online softmax of one tile's scores s (raw products; -1e30 where
 // masked) for the thread's two rows: updates the running maxima and this
 // thread's share of the sums, turns s into p and returns the factors that
-// rescale the rows' o. c = scale * log2(e).
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float& m_lo,
+// rescale the rows' o. c = scale * log2(e). N / 4 n-tiles of 8 keys.
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float& m_lo,
                                              float& m_hi, float& l_lo,
                                              float& l_hi, float& alpha_lo,
                                              float& alpha_hi, float c) {
   float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+  for (int n = 0; n < N / 4; ++n) {
     mx_lo = fmaxf(mx_lo, fmaxf(s[4 * n], s[4 * n + 1]));
     mx_hi = fmaxf(mx_hi, fmaxf(s[4 * n + 2], s[4 * n + 3]));
   }
@@ -358,7 +411,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float& m_lo,
   const float mu_lo = live_lo ? m_lo : 0.f, mu_hi = live_hi ? m_hi : 0.f;
   float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+  for (int n = 0; n < N / 4; ++n) {
     s[4 * n] = fast_exp2((s[4 * n] - mu_lo) * c);
     s[4 * n + 1] = fast_exp2((s[4 * n + 1] - mu_lo) * c);
     s[4 * n + 2] = fast_exp2((s[4 * n + 2] - mu_hi) * c);
@@ -392,15 +445,16 @@ struct Problem {
 // Epilogue: out_scale(l) multiplies a row's o before store(); row_stats()
 // is called once per stored row with m in natural-log units (-1e30 for a
 // row that saw no key) and l; store() gets two adjacent columns of a row.
-template <bool CAUSAL, class Epilogue>
+template <bool CAUSAL, int D, class Epilogue>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map,
                      const Problem pr, const Epilogue epi) {
-  static_assert(kRows == kKeys, "Q and K/V tiles share one box shape");
+  using F = Fwd<D>;
+  constexpr int kKeys = F::kKeys;
   extern __shared__ unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
 
   // Block order: heads in groups of kHeadGroup; inside a group the query
@@ -444,20 +498,26 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     // producer: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == kConsumers * 128 && kt_end > 0) {
-      mbar_expect_tx(&sm.q_full, 2 * kBoxBytes);
-      tma_load(sm.q[0], &q_map, &sm.q_full, 0, q0, h, b);
-      tma_load(sm.q[1], &q_map, &sm.q_full, kHalf, q0, h, b);
+      mbar_expect_tx(&sm.q_full, F::kBoxes * kBoxBytes);
+#pragma unroll
+      for (int j = 0; j < F::kBoxes; ++j) {
+        tma_load(sm.q[j], &q_map, &sm.q_full, j * kHalf, q0, h, b);
+      }
       int stage = 0;
       uint32_t phase = 0;
       for (int kt = 0; kt < kt_end; ++kt) {
         const int k0 = kt * kKeys;
         mbar_wait(&sm.empty[stage], phase ^ 1);
-        mbar_expect_tx(&sm.full[stage], 4 * kBoxBytes);
+        mbar_expect_tx(&sm.full[stage], 2 * F::kBoxes * F::kKeyBoxBytes);
         uint64_t* full = &sm.full[stage];
-        tma_load(sm.k[stage][0], &k_map, full, 0, k0, hk, b);
-        tma_load(sm.k[stage][1], &k_map, full, kHalf, k0, hk, b);
-        tma_load(sm.v[stage][0], &v_map, full, 0, k0, hk, b);
-        tma_load(sm.v[stage][1], &v_map, full, kHalf, k0, hk, b);
+#pragma unroll
+        for (int j = 0; j < F::kBoxes; ++j) {
+          tma_load(sm.k[stage][j], &k_map, full, j * kHalf, k0, hk, b);
+        }
+#pragma unroll
+        for (int j = 0; j < F::kBoxes; ++j) {
+          tma_load(sm.v[stage][j], &v_map, full, j * kHalf, k0, hk, b);
+        }
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
@@ -475,16 +535,18 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     const long long wg_first = pr.q_offset + r_wg;
     const long long wg_last = pr.q_offset + min(r_wg + 63, pr.Tq - 1);
     const float c = pr.scale * kLog2e;
-    // accumulator element i: row g + 8 * ((i / 2) % 2) of the warp's 16,
-    // column 8 * (i / 4) + 2 * t + i % 2
-    float o[64];
+    // accumulator element i of product c: row g + 8 * ((i / 2) % 2) of
+    // the warp's 16, column c * kN + 8 * (i / 4) + 2 * t + i % 2
+    float o[F::kChunks][F::kO];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int c = 0; c < F::kChunks; ++c) {
+#pragma unroll
+      for (int i = 0; i < F::kO; ++i) o[c][i] = 0.f;
+    }
     // row maxima of the raw products q k (scale applied on output), and
     // this thread's share of the row sums
     float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
-    const bf16* qa0 = sm.q[0] + wg * 64 * kHalf;
-    const bf16* qa1 = sm.q[1] + wg * 64 * kHalf;
+    const bf16* qa = sm.q[0] + wg * 64 * kHalf;
     if (kt_end > 0) mbar_wait(&sm.q_full, 0);
 
     int stage = 0;
@@ -495,9 +557,10 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       mbar_wait(&sm.full[stage], phase);
       // a tile whose keys all follow this warpgroup's rows adds nothing
       if (!CAUSAL || key_first <= wg_last) {
-        float s[64];
+        float s[F::kS];
         wgmma_fence();
-        score_tile(s, qa0, qa1, sm.k[stage][0], sm.k[stage][1]);
+        score_tile<F::kBoxes>(s, qa, kRows * kHalf, sm.k[stage][0],
+                              kKeys * kHalf);
         wgmma_commit();
         wgmma_wait<0>();
         pin(s);
@@ -506,7 +569,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                          (CAUSAL && key_first + kKeys - 1 > wg_first);
         if (cut) {
 #pragma unroll
-          for (int i = 0; i < 64; ++i) {
+          for (int i = 0; i < F::kS; ++i) {
             const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
             const int row = (i & 2) ? row_hi : row_lo;
             if (!(col < pr.Tk &&
@@ -519,22 +582,32 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         float alpha_lo, alpha_hi;
         softmax_tile(s, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, c);
 #pragma unroll
-        for (int n = 0; n < 16; ++n) {
-          o[4 * n] *= alpha_lo;
-          o[4 * n + 1] *= alpha_lo;
-          o[4 * n + 2] *= alpha_hi;
-          o[4 * n + 3] *= alpha_hi;
+        for (int ch = 0; ch < F::kChunks; ++ch) {
+#pragma unroll
+          for (int n = 0; n < F::kO / 4; ++n) {
+            o[ch][4 * n] *= alpha_lo;
+            o[ch][4 * n + 1] *= alpha_lo;
+            o[ch][4 * n + 2] *= alpha_hi;
+            o[ch][4 * n + 3] *= alpha_hi;
+          }
         }
         // P as the A operand: keys 16kk..16kk+15 are accumulator n-tiles
         // 2kk and 2kk+1
-        uint32_t pa[32];
+        uint32_t pa[F::kS / 2];
 #pragma unroll
-        for (int i = 0; i < 32; ++i) pa[i] = pack_p(s[2 * i], s[2 * i + 1]);
+        for (int i = 0; i < F::kS / 2; ++i) {
+          pa[i] = pack_p(s[2 * i], s[2 * i + 1]);
+        }
         wgmma_fence();
-        value_tile(o, pa, sm.v[stage][0], kBoxBytes);
+        // product ch: V's columns ch * kN .., boxes 2 ch and 2 ch + 1
+#pragma unroll
+        for (int ch = 0; ch < F::kChunks; ++ch) {
+          value_tile(o[ch], pa, sm.v[stage][2 * ch], F::kKeyBoxBytes);
+        }
         wgmma_commit();
         wgmma_wait<0>();
-        pin(o);
+#pragma unroll
+        for (int ch = 0; ch < F::kChunks; ++ch) pin(o[ch]);
         pin(pa);
       }
       release(&sm.empty[stage], lane);
@@ -562,9 +635,13 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         }
         const float mul = epi.out_scale(l);
 #pragma unroll
-        for (int n = 0; n < 16; ++n) {
-          epi.store(b, h, row, 8 * n + 2 * t, o[4 * n + 2 * half] * mul,
-                    o[4 * n + 2 * half + 1] * mul);
+        for (int ch = 0; ch < F::kChunks; ++ch) {
+#pragma unroll
+          for (int n = 0; n < F::kO / 4; ++n) {
+            epi.store(b, h, row, ch * F::kN + 8 * n + 2 * t,
+                      o[ch][4 * n + 2 * half] * mul,
+                      o[ch][4 * n + 2 * half + 1] * mul);
+          }
         }
       }
     }
@@ -582,14 +659,14 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// The TMA map of a bf16 [B, H, T, 128] tensor with byte strides (sb, sh,
+// The TMA map of a bf16 [B, H, T, D] tensor with byte strides (sb, sh,
 // st) over (batch, head, sequence) and unit stride over head_dim, read in
 // boxes of box_rows rows x 64 columns, 128-byte swizzled, zeros past the
 // end.
 // Returns 0, a cudaError_t, or kEncodeError + the encoder's CUresult.
 inline int encode_map(CUtensorMap* map, const void* base, int B, int H,
                       int T, long long sb, long long sh, long long st,
-                      int box_rows) {
+                      int box_rows, int D = kD) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -602,7 +679,7 @@ inline int encode_map(CUtensorMap* map, const void* base, int B, int H,
     }
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)T, (cuuint64_t)H,
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st, (cuuint64_t)sh,
                                  (cuuint64_t)sb};
@@ -623,30 +700,33 @@ inline const char* encode_error_string(int code) {
              : nullptr;
 }
 
-// maps for q [B, H, Tq, 128] and k, v [B, H / rep, Tk, 128], then one
+// maps for q [B, H, Tq, D] and k, v [B, H / rep, Tk, D], then one
 // launch of B * H * (128-query tiles) blocks
-template <bool CAUSAL, class Epilogue>
+template <bool CAUSAL, int D, class Epilogue>
 int launch(const void* q, const void* k, const void* v, int B,
            const long long (&sq)[3], const long long (&sk)[3],
            const long long (&sv)[3], const Problem& pr, const Epilogue& epi,
            cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
   const int Hkv = pr.H / pr.rep;
-  int rc = encode_map(&q_map, q, B, pr.H, pr.Tq, sq[0], sq[1], sq[2], kRows);
+  constexpr int keys = Fwd<D>::kKeys;
+  int rc = encode_map(&q_map, q, B, pr.H, pr.Tq, sq[0], sq[1], sq[2], kRows,
+                      D);
   if (rc == 0) {
-    rc = encode_map(&k_map, k, B, Hkv, pr.Tk, sk[0], sk[1], sk[2], kKeys);
+    rc = encode_map(&k_map, k, B, Hkv, pr.Tk, sk[0], sk[1], sk[2], keys, D);
   }
   if (rc == 0) {
-    rc = encode_map(&v_map, v, B, Hkv, pr.Tk, sv[0], sv[1], sv[2], kKeys);
+    rc = encode_map(&v_map, v, B, Hkv, pr.Tk, sv[0], sv[1], sv[2], keys, D);
   }
   if (rc != 0) return rc;
-  auto kernel = attention_fwd_kernel<CAUSAL, Epilogue>;
+  auto kernel = attention_fwd_kernel<CAUSAL, D, Epilogue>;
+  constexpr size_t smem = fwd_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)B * pr.H * ((pr.Tq + kRows - 1) / kRows);
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, kBlockThreads, kSmemBytes, stream>>>(
+  kernel<<<(unsigned)blocks, kBlockThreads, smem, stream>>>(
       q_map, k_map, v_map, pr, epi);
   return (int)cudaGetLastError();
 }

@@ -19,8 +19,10 @@
 //
 // q, k, v, o, do, dq, dk, dv: logical [B, H, S, D] in bf16 or f32 (one
 // dtype), any strides over B, H, S shared by all of them, unit stride over
-// D; lse and di: [B, H, S] f32 contiguous. D must be 128. S is any length:
-// the ragged last tile is masked by bounds, nothing is padded.
+// D; lse and di: [B, H, S] f32 contiguous. D must be this library's width
+// (kHeadDim: RAY_TPU_HEAD_DIM, 128 or 256, which ops/_build.py sets for
+// each width's library). S is any length: the ragged
+// last tile is masked by bounds, nothing is padded.
 //
 // Bound: operations. At the train shape (B=16, H=16, S=2047, D=128, causal)
 // the forward does two products of 2*B*H*S^2*D/2 flops each (2.7e11), dQ
@@ -41,19 +43,22 @@
 // Every output element is written by exactly one block and summed in a
 // fixed order: no atomics, so a launch is deterministic and the forward
 // recomputed under activation checkpointing is bit-identical.
-// bf16 runs on wgmma + TMA:
-//   - the forward is flash_attention_fwd_sm90: the template of
-//     attention_fwd_sm90.cuh (128-query blocks, 128-key tiles, P in
-//     registers) with the epilogue FlashFwdOut below, which writes o / l
-//     in bf16 and lse = m + log(l);
-//   - the backward is flash_attention_bwd_dq_sm90 and
-//     flash_attention_bwd_dkv_sm90, the kernels of attention_bwd_sm90.cuh
+// bf16 (the _bf16 entries) runs on wgmma + TMA:
+//   - the forward: the template of
+//     attention_fwd_sm90.cuh (128-query blocks, 128-key tiles, 64 at
+//     D = 256, P in registers) with the epilogue FlashFwdOut below, which
+//     writes o / l in bf16 and lse = m + log(l);
+//   - the backward at D = 128: the kernels of attention_bwd_sm90.cuh
 //     (128-query dQ blocks over 128-key tiles; 128-key dK/dV blocks over
 //     64-query tiles, computed transposed so that P^T and dS^T stay in
-//     registers).
+//     registers). At D = 256 the backward runs the FMA kernels below on
+//     bf16 tiles (RAY_TPU_SM90_BACKWARD 0 in that library), P and
+//     dS rounded to bf16 for their products as the sm90 backward rounds
+//     them.
 // f32 (all three kernels) stages 64-row tiles global -> shared memory with
-// 16-byte loads; 8 warps each compute a 16-row slice of every product as
-// f32 FMAs (mma_tiles.cuh, no TF32). P and dS go through shared memory.
+// 16-byte loads (the loop's tiles 32 rows at D = 256); 8 warps each
+// compute a 16-row slice of every product as f32 FMAs (mma_tiles.cuh, no
+// TF32). P and dS go through shared memory.
 
 #include "attention_bwd_sm90.cuh"
 #include "mma_tiles.cuh"
@@ -61,10 +66,11 @@
 namespace {
 
 // f32 values of row vector `src` (length S, rows >= S read as 0) for the
-// tile's rows
+// tile's ROWS rows
+template <int ROWS>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int row0, int S) {
-  for (int r = threadIdx.x; r < kBlockQ; r += kThreads) {
+  for (int r = threadIdx.x; r < ROWS; r += kThreads) {
     dst[r] = row0 + r < S ? src[row0 + r] : 0.f;
   }
 }
@@ -78,18 +84,19 @@ __device__ __forceinline__ bool visible(int query, int key, int S,
 // forward (3a), f32: block = (64-query tile, b*H + h)
 // ----------------------------------------------------------------------
 
-template <typename T, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int H, int S, long long sb,
                  long long sh, long long ss, float scale) {
-  using Sh = Shapes<T>;
+  using Sh = Tiles<T, D>;
+  constexpr int kKeys = Sh::kLoop;
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
-  T* ks = qs + Sh::tile;
-  T* vs = ks + Sh::tile;
-  T* ps = vs + Sh::tile;
+  T* ks = qs + Sh::own;
+  T* vs = ks + Sh::loop;
+  T* ps = vs + Sh::loop;
   float* sc_s = reinterpret_cast<float*>(ps + Sh::ptile);
   float* row_s = sc_s + kBlockQ * Sh::lds;
 
@@ -100,31 +107,31 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wr = (warp & 3) * 16;     // this warp's 16 rows of every tile
-  const int wcs = (warp >> 2) * 32;   // its 32 score columns
-  const int wco = (warp >> 2) * 64;   // its 64 output columns
+  const int wcs = (warp >> 2) * (kKeys / 2);   // its score columns
+  const int wco = (warp >> 2) * (D / 2);       // its output columns
   const int sr = tid >> 2, sj = tid & 3;   // softmax: 4 threads per row
 
-  load_tile<T, kBlockQ>(qs, q + base, ss, q0, S);
+  load_tile<T, D, kBlockQ>(qs, q + base, ss, q0, S);
 
   float m_run = kNegInf, l_run = 0.f;   // row sr's stats (all 4 threads)
-  float acc[8][4];
+  float acc[Sh::kOutNT][4];
   zero(acc);
-  const int n_k = (S + kBlockK - 1) / kBlockK;
-  const int kt_end = CAUSAL ? min(n_k, (q0 + kBlockQ - 1) / kBlockK + 1) : n_k;
+  const int n_k = (S + kKeys - 1) / kKeys;
+  const int kt_end = CAUSAL ? min(n_k, (q0 + kBlockQ - 1) / kKeys + 1) : n_k;
 
   for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kBlockK;
+    const int k0 = kt * kKeys;
     __syncthreads();   // the last tile's readers are done
-    load_tile<T, kBlockK>(ks, k + base, ss, k0, S);
-    load_tile<T, kBlockK>(vs, v + base, ss, k0, S);
+    load_tile<T, D, kKeys>(ks, k + base, ss, k0, S);
+    load_tile<T, D, kKeys>(vs, v + base, ss, k0, S);
     __syncthreads();
 
-    float sc[4][4];
+    float sc[Sh::kScoreNT][4];
     zero(sc);
-    warp_mma<4, kD, true, true>(sc, qs + wr * Sh::ldd, Sh::ldd,
-                                ks + wcs * Sh::ldd, Sh::ldd);
+    warp_mma<Sh::kScoreNT, D, true, true>(sc, qs + wr * Sh::ldd, Sh::ldd,
+                                          ks + wcs * Sh::ldd, Sh::ldd);
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
+    for (int n = 0; n < Sh::kScoreNT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = wr + g + 8 * (e >> 1);
@@ -140,10 +147,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // online softmax: row sr, columns sj, sj + 4, ... (bank-conflict free)
     {
-      float x[kBlockK / 4];
+      float x[kKeys / 4];
       float mx = kNegInf;
 #pragma unroll
-      for (int i = 0; i < kBlockK / 4; ++i) {
+      for (int i = 0; i < kKeys / 4; ++i) {
         x[i] = sc_s[sr * Sh::lds + sj + 4 * i];
         mx = fmaxf(mx, x[i]);
       }
@@ -153,7 +160,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = expf(m_run - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int i = 0; i < kBlockK / 4; ++i) {
+      for (int i = 0; i < kKeys / 4; ++i) {
         const float p = expf(x[i] - m_new);
         sum += p;
         ps[sr * Sh::ldp + sj + 4 * i] = from_float<T>(p);
@@ -168,14 +175,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     const float a_lo = row_s[wr + g], a_hi = row_s[wr + g + 8];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < Sh::kOutNT; ++n) {
       acc[n][0] *= a_lo;
       acc[n][1] *= a_lo;
       acc[n][2] *= a_hi;
       acc[n][3] *= a_hi;
     }
-    warp_mma<8, kBlockK, true, false>(acc, ps + wr * Sh::ldp, Sh::ldp,
-                                      vs + wco, Sh::ldd);
+    warp_mma<Sh::kOutNT, kKeys, true, false>(acc, ps + wr * Sh::ldp,
+                                             Sh::ldp, vs + wco, Sh::ldd);
   }
 
   __syncthreads();   // every warp has read row_s (alpha)
@@ -192,13 +199,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // backward dQ (3c), f32: block = (64-query tile, b*H + h)
 // ----------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int D>
 constexpr size_t dq_smem() {
-  using Sh = Shapes<T>;
-  return (4 * Sh::tile + Sh::ptile) * sizeof(T) + 2 * kBlockQ * sizeof(float);
+  using Sh = Tiles<T, D>;
+  return (2 * Sh::own + 2 * Sh::loop + Sh::ptile) * sizeof(T) +
+         2 * kBlockQ * sizeof(float);
 }
 
-template <typename T, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -206,13 +214,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ di, T* __restrict__ dq, int H,
                     int S, long long sb, long long sh, long long ss,
                     float scale) {
-  using Sh = Shapes<T>;
+  using Sh = Tiles<T, D>;
+  constexpr int kKeys = Sh::kLoop;
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
-  T* dos = qs + Sh::tile;
-  T* ks = dos + Sh::tile;
-  T* vs = ks + Sh::tile;
-  T* dss = vs + Sh::tile;
+  T* dos = qs + Sh::own;
+  T* ks = dos + Sh::own;
+  T* vs = ks + Sh::loop;
+  T* dss = vs + Sh::loop;
   float* lse_s = reinterpret_cast<float*>(dss + Sh::ptile);
   float* di_s = lse_s + kBlockQ;
 
@@ -223,35 +232,35 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wr = (warp & 3) * 16;
-  const int wcs = (warp >> 2) * 32;
-  const int wco = (warp >> 2) * 64;
+  const int wcs = (warp >> 2) * (kKeys / 2);
+  const int wco = (warp >> 2) * (D / 2);
 
-  load_tile<T, kBlockQ>(qs, q + base, ss, q0, S);
-  load_tile<T, kBlockQ>(dos, dout + base, ss, q0, S);
-  load_rows(lse_s, lse + (long long)bh * S, q0, S);
-  load_rows(di_s, di + (long long)bh * S, q0, S);
+  load_tile<T, D, kBlockQ>(qs, q + base, ss, q0, S);
+  load_tile<T, D, kBlockQ>(dos, dout + base, ss, q0, S);
+  load_rows<kBlockQ>(lse_s, lse + (long long)bh * S, q0, S);
+  load_rows<kBlockQ>(di_s, di + (long long)bh * S, q0, S);
 
-  float acc[8][4];
+  float acc[Sh::kOutNT][4];
   zero(acc);
-  const int n_k = (S + kBlockK - 1) / kBlockK;
-  const int kt_end = CAUSAL ? min(n_k, (q0 + kBlockQ - 1) / kBlockK + 1) : n_k;
+  const int n_k = (S + kKeys - 1) / kKeys;
+  const int kt_end = CAUSAL ? min(n_k, (q0 + kBlockQ - 1) / kKeys + 1) : n_k;
 
   for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kBlockK;
+    const int k0 = kt * kKeys;
     __syncthreads();
-    load_tile<T, kBlockK>(ks, k + base, ss, k0, S);
-    load_tile<T, kBlockK>(vs, v + base, ss, k0, S);
+    load_tile<T, D, kKeys>(ks, k + base, ss, k0, S);
+    load_tile<T, D, kKeys>(vs, v + base, ss, k0, S);
     __syncthreads();
 
-    float sc[4][4], dp[4][4];
+    float sc[Sh::kScoreNT][4], dp[Sh::kScoreNT][4];
     zero(sc);
     zero(dp);
-    warp_mma<4, kD, true, true>(sc, qs + wr * Sh::ldd, Sh::ldd,
-                                ks + wcs * Sh::ldd, Sh::ldd);
-    warp_mma<4, kD, true, true>(dp, dos + wr * Sh::ldd, Sh::ldd,
-                                vs + wcs * Sh::ldd, Sh::ldd);
+    warp_mma<Sh::kScoreNT, D, true, true>(sc, qs + wr * Sh::ldd, Sh::ldd,
+                                          ks + wcs * Sh::ldd, Sh::ldd);
+    warp_mma<Sh::kScoreNT, D, true, true>(dp, dos + wr * Sh::ldd, Sh::ldd,
+                                          vs + wcs * Sh::ldd, Sh::ldd);
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
+    for (int n = 0; n < Sh::kScoreNT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = wr + g + 8 * (e >> 1);
@@ -263,8 +272,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
-    warp_mma<8, kBlockK, true, false>(acc, dss + wr * Sh::ldp, Sh::ldp,
-                                      ks + wco, Sh::ldd);
+    warp_mma<Sh::kOutNT, kKeys, true, false>(acc, dss + wr * Sh::ldp,
+                                             Sh::ldp, ks + wco, Sh::ldd);
   }
   store_acc(dq + base, ss, acc, q0, wr, wco, S, scale, scale);
 }
@@ -273,14 +282,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // backward dK/dV (3b), f32: block = (64-key tile, b*H + h)
 // ----------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int D>
 constexpr size_t dkv_smem() {
-  using Sh = Shapes<T>;
-  return (4 * Sh::tile + 2 * Sh::ptile) * sizeof(T) +
-         2 * kBlockQ * sizeof(float);
+  using Sh = Tiles<T, D>;
+  return (2 * Sh::own + 2 * Sh::loop + 2 * Sh::ptile) * sizeof(T) +
+         2 * Sh::kLoop * sizeof(float);
 }
 
-template <typename T, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -288,16 +297,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ di, T* __restrict__ dk,
                      T* __restrict__ dv, int H, int S, long long sb,
                      long long sh, long long ss, float scale) {
-  using Sh = Shapes<T>;
+  using Sh = Tiles<T, D>;
+  constexpr int kQueries = Sh::kLoop;   // queries a loop tile
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + Sh::tile;
-  T* qs = vs + Sh::tile;
-  T* dos = qs + Sh::tile;
-  T* pts = dos + Sh::tile;    // P^T  [key][query]
+  T* vs = ks + Sh::own;
+  T* qs = vs + Sh::own;
+  T* dos = qs + Sh::loop;
+  T* pts = dos + Sh::loop;    // P^T  [key][query]
   T* dsts = pts + Sh::ptile;  // dS^T [key][query]
   float* lse_s = reinterpret_cast<float*>(dsts + Sh::ptile);
-  float* di_s = lse_s + kBlockQ;
+  float* di_s = lse_s + kQueries;
 
   const int kt = blockIdx.x;   // low key tiles see the most queries
   const int bh = blockIdx.y;
@@ -306,36 +316,36 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wr = (warp & 3) * 16;     // 16 key rows
-  const int wcs = (warp >> 2) * 32;   // 32 query columns of P^T
-  const int wco = (warp >> 2) * 64;   // 64 head_dim columns of dK, dV
+  const int wcs = (warp >> 2) * (kQueries / 2);   // query columns of P^T
+  const int wco = (warp >> 2) * (D / 2);   // head_dim columns of dK, dV
 
-  load_tile<T, kBlockK>(ks, k + base, ss, k0, S);
-  load_tile<T, kBlockK>(vs, v + base, ss, k0, S);
+  load_tile<T, D, kBlockK>(ks, k + base, ss, k0, S);
+  load_tile<T, D, kBlockK>(vs, v + base, ss, k0, S);
 
-  float acc_dk[8][4], acc_dv[8][4];
+  float acc_dk[Sh::kOutNT][4], acc_dv[Sh::kOutNT][4];
   zero(acc_dk);
   zero(acc_dv);
-  const int n_q = (S + kBlockQ - 1) / kBlockQ;
-  const int qt_begin = CAUSAL ? k0 / kBlockQ : 0;
+  const int n_q = (S + kQueries - 1) / kQueries;
+  const int qt_begin = CAUSAL ? k0 / kQueries : 0;
 
   for (int qt = qt_begin; qt < n_q; ++qt) {
-    const int q0 = qt * kBlockQ;
+    const int q0 = qt * kQueries;
     __syncthreads();
-    load_tile<T, kBlockQ>(qs, q + base, ss, q0, S);
-    load_tile<T, kBlockQ>(dos, dout + base, ss, q0, S);
-    load_rows(lse_s, lse + (long long)bh * S, q0, S);
-    load_rows(di_s, di + (long long)bh * S, q0, S);
+    load_tile<T, D, kQueries>(qs, q + base, ss, q0, S);
+    load_tile<T, D, kQueries>(dos, dout + base, ss, q0, S);
+    load_rows<kQueries>(lse_s, lse + (long long)bh * S, q0, S);
+    load_rows<kQueries>(di_s, di + (long long)bh * S, q0, S);
     __syncthreads();
 
-    float st[4][4], dpt[4][4];
+    float st[Sh::kScoreNT][4], dpt[Sh::kScoreNT][4];
     zero(st);
     zero(dpt);
-    warp_mma<4, kD, true, true>(st, ks + wr * Sh::ldd, Sh::ldd,
-                                qs + wcs * Sh::ldd, Sh::ldd);
-    warp_mma<4, kD, true, true>(dpt, vs + wr * Sh::ldd, Sh::ldd,
-                                dos + wcs * Sh::ldd, Sh::ldd);
+    warp_mma<Sh::kScoreNT, D, true, true>(st, ks + wr * Sh::ldd, Sh::ldd,
+                                          qs + wcs * Sh::ldd, Sh::ldd);
+    warp_mma<Sh::kScoreNT, D, true, true>(dpt, vs + wr * Sh::ldd, Sh::ldd,
+                                          dos + wcs * Sh::ldd, Sh::ldd);
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
+    for (int n = 0; n < Sh::kScoreNT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = wr + g + 8 * (e >> 1);          // key
@@ -348,10 +358,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
-    warp_mma<8, kBlockQ, true, false>(acc_dv, pts + wr * Sh::ldp, Sh::ldp,
-                                      dos + wco, Sh::ldd);
-    warp_mma<8, kBlockQ, true, false>(acc_dk, dsts + wr * Sh::ldp, Sh::ldp,
-                                      qs + wco, Sh::ldd);
+    warp_mma<Sh::kOutNT, kQueries, true, false>(
+        acc_dv, pts + wr * Sh::ldp, Sh::ldp, dos + wco, Sh::ldd);
+    warp_mma<Sh::kOutNT, kQueries, true, false>(
+        acc_dk, dsts + wr * Sh::ldp, Sh::ldp, qs + wco, Sh::ldd);
   }
   store_acc(dk + base, ss, acc_dk, k0, wr, wco, S, scale, scale);
   store_acc(dv + base, ss, acc_dv, k0, wr, wco, S, 1.f, 1.f);
@@ -366,6 +376,13 @@ struct Geometry {
   long long sb, sh, ss;
 };
 
+// the bf16 forward runs the sm90 template at every width flash takes; the
+// bf16 backward's wgmma template is written for head_dim kD alone
+static_assert(RAY_TPU_SM90_FORWARD && kHeadDim % 64 == 0,
+              "flash's bf16 forward is the sm90 template");
+static_assert(!RAY_TPU_SM90_BACKWARD || kHeadDim == kD,
+              "the sm90 backward takes head_dim 128 alone");
+
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,
@@ -377,8 +394,8 @@ template <typename T, bool CAUSAL>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, const Geometry& g, float scale,
                        cudaStream_t stream) {
-  const size_t smem = fwd_smem<T>();
-  auto kernel = flash_fwd_kernel<T, CAUSAL>;
+  const size_t smem = fwd_smem<T, kHeadDim>();
+  auto kernel = flash_fwd_kernel<T, kHeadDim, CAUSAL>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((g.S + kBlockQ - 1) / kBlockQ, g.B * g.H);
@@ -394,8 +411,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* di,
                       void* dq, const Geometry& g, float scale,
                       cudaStream_t stream) {
-  const size_t smem = dq_smem<T>();
-  auto kernel = flash_bwd_dq_kernel<T, CAUSAL>;
+  const size_t smem = dq_smem<T, kHeadDim>();
+  auto kernel = flash_bwd_dq_kernel<T, kHeadDim, CAUSAL>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((g.S + kBlockQ - 1) / kBlockQ, g.B * g.H);
@@ -412,8 +429,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* di,
                        void* dk, void* dv, const Geometry& g, float scale,
                        cudaStream_t stream) {
-  const size_t smem = dkv_smem<T>();
-  auto kernel = flash_bwd_dkv_kernel<T, CAUSAL>;
+  const size_t smem = dkv_smem<T, kHeadDim>();
+  auto kernel = flash_bwd_dkv_kernel<T, kHeadDim, CAUSAL>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((g.S + kBlockK - 1) / kBlockK, g.B * g.H);
@@ -427,7 +444,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 cudaError_t check(int B, int H, int S, int D, int device) {
-  if (B <= 0 || H <= 0 || S <= 0 || D != kD) return cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || S <= 0 || D != kHeadDim) {
+    return cudaErrorInvalidValue;
+  }
   return cudaSetDevice(device);
 }
 
@@ -455,15 +474,17 @@ struct FlashFwdOut {
 }  // namespace
 
 // The entry points. q, k, v, o/do/dq/dk/dv share the strides
-// (sb, sh, ss) over (batch, head, seq); head_dim D must be 128; lse and di
-// are [B, H, S] f32 contiguous. causal: 0 or 1. The f32 entries take the
-// strides in elements and a dtype code that must be 0 (float32); the
-// _sm90 entries (bf16 only) take them in BYTES (each a positive multiple
-// of 16, bases 16-byte aligned: what TMA takes). Each returns a
-// cudaError_t, the _sm90 entries also sm90::kEncodeError + the encoder's
-// CUresult when a TMA map is refused.
+// (sb, sh, ss) over (batch, head, seq); head_dim D must be this library's
+// (kHeadDim); lse and di are [B, H, S] f32 contiguous. causal: 0 or 1. The
+// f32 entries take the strides in elements and a dtype code that must be
+// 0 (float32); the _bf16 entries take them in BYTES (each a positive
+// multiple of 16, bases 16-byte aligned: what TMA takes) and run the
+// route this library is built for (RAY_TPU_SM90_BACKWARD for the
+// backward, from ops/head_dims.py). Each returns a cudaError_t, the _bf16
+// entries also sm90::kEncodeError + the encoder's CUresult when a TMA map
+// is refused.
 
-// the forward in f32 (dtype 0); bf16 takes flash_attention_fwd_sm90
+// the forward in f32 (dtype 0); bf16 takes flash_attention_fwd_bf16
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
                                    int H, int S, int D, long long sb,
@@ -480,8 +501,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                                  s));
 }
 
-// the forward in bf16
-extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
+// the forward in bf16, on the sm90 template
+extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int B, int H, int S, int D,
                                         long long sb, long long sh,
@@ -495,11 +516,13 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
                         H, S, sb / elt, sh / elt, ss / elt};
   const long long st[3] = {sb, sh, ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return causal ? sm90::launch<true>(q, k, v, B, st, st, st, pr, epi, s)
-                : sm90::launch<false>(q, k, v, B, st, st, st, pr, epi, s);
+  return causal ? sm90::launch<true, kHeadDim>(q, k, v, B, st, st, st, pr,
+                                               epi, s)
+                : sm90::launch<false, kHeadDim>(q, k, v, B, st, st, st, pr,
+                                                epi, s);
 }
 
-// backward dQ in f32 (dtype 0); bf16 takes flash_attention_bwd_dq_sm90
+// backward dQ in f32 (dtype 0); bf16 takes flash_attention_bwd_dq_bf16
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* di,
@@ -514,11 +537,12 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   const float scale = 1.0f / sqrtf((float)D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(causal ? launch_dq<float, true>(q, k, v, dout, lse, di, dq, g,
-                                                scale, s)
+                                               scale, s)
                       : launch_dq<float, false>(q, k, v, dout, lse, di, dq,
-                                                 g, scale, s));
+                                                g, scale, s));
 }
 
+#if RAY_TPU_SM90_BACKWARD
 // the bf16 backward's problem: element strides for the outputs' stores
 static sm90::BwdProblem bwd_problem(int H, int S, int D, const void* lse,
                                     const void* di, void* out0, void* out1,
@@ -531,9 +555,10 @@ static sm90::BwdProblem bwd_problem(int H, int S, int D, const void* lse,
                           static_cast<bf16*>(out0), static_cast<bf16*>(out1),
                           sb / elt, sh / elt, ss / elt};
 }
+#endif
 
 // backward dQ in bf16
-extern "C" int flash_attention_bwd_dq_sm90(const void* q, const void* k,
+extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k,
                                            const void* v, const void* dout,
                                            const void* lse, const void* di,
                                            void* dq, int B, int H, int S,
@@ -542,15 +567,25 @@ extern "C" int flash_attention_bwd_dq_sm90(const void* q, const void* k,
                                            int device, void* stream) {
   cudaError_t err = check(B, H, S, D, device);
   if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if RAY_TPU_SM90_BACKWARD
   const sm90::BwdProblem pr =
       bwd_problem(H, S, D, lse, di, dq, nullptr, sb, sh, ss);
   const long long st[3] = {sb, sh, ss};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return causal ? sm90::launch_bwd<false, true>(q, k, v, dout, B, st, pr, s)
                 : sm90::launch_bwd<false, false>(q, k, v, dout, B, st, pr, s);
+#else
+  const long long e = (long long)sizeof(bf16);
+  const Geometry g{B, H, S, sb / e, sh / e, ss / e};
+  const float scale = 1.0f / sqrtf((float)D);
+  return (int)(causal ? launch_dq<bf16, true>(q, k, v, dout, lse, di, dq, g,
+                                              scale, s)
+                      : launch_dq<bf16, false>(q, k, v, dout, lse, di, dq, g,
+                                               scale, s));
+#endif
 }
 
-// backward dK/dV in f32 (dtype 0); bf16 takes flash_attention_bwd_dkv_sm90
+// backward dK/dV in f32 (dtype 0); bf16 takes flash_attention_bwd_dkv_bf16
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* di,
@@ -566,13 +601,13 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   const float scale = 1.0f / sqrtf((float)D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(causal ? launch_dkv<float, true>(q, k, v, dout, lse, di, dk,
-                                                 dv, g, scale, s)
+                                                dv, g, scale, s)
                       : launch_dkv<float, false>(q, k, v, dout, lse, di, dk,
-                                                  dv, g, scale, s));
+                                                 dv, g, scale, s));
 }
 
 // backward dK/dV in bf16
-extern "C" int flash_attention_bwd_dkv_sm90(const void* q, const void* k,
+extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k,
                                             const void* v, const void* dout,
                                             const void* lse, const void* di,
                                             void* dk, void* dv, int B, int H,
@@ -582,12 +617,22 @@ extern "C" int flash_attention_bwd_dkv_sm90(const void* q, const void* k,
                                             void* stream) {
   cudaError_t err = check(B, H, S, D, device);
   if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if RAY_TPU_SM90_BACKWARD
   const sm90::BwdProblem pr =
       bwd_problem(H, S, D, lse, di, dk, dv, sb, sh, ss);
   const long long st[3] = {sb, sh, ss};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return causal ? sm90::launch_bwd<true, true>(q, k, v, dout, B, st, pr, s)
                 : sm90::launch_bwd<true, false>(q, k, v, dout, B, st, pr, s);
+#else
+  const long long e = (long long)sizeof(bf16);
+  const Geometry g{B, H, S, sb / e, sh / e, ss / e};
+  const float scale = 1.0f / sqrtf((float)D);
+  return (int)(causal ? launch_dkv<bf16, true>(q, k, v, dout, lse, di, dk,
+                                               dv, g, scale, s)
+                      : launch_dkv<bf16, false>(q, k, v, dout, lse, di, dk,
+                                                dv, g, scale, s));
+#endif
 }
 
 extern "C" const char* error_string(int code) {

@@ -38,14 +38,18 @@
 //     tile lands while the rest are in flight. Many small blocks per SM
 //     keep more copies in flight. At most 32 pages per split (one lane
 //     each).
-//   - Scores: 16 lanes per token, each holding 8 elements of the G query
-//     rows in f32 (q pre-scaled by log2(e) / sqrt(D)), one 16-byte
-//     shared-memory read of K per lane (two in f32), FMAs, a 4-step shuffle
-//     reduction over the 16 lanes; 8 tokens per pass of the block.
+//   - Scores: D / 8 lanes per token (16 at D = 128), each holding 8
+//     elements of the G query rows in f32 (q pre-scaled by log2(e) /
+//     sqrt(D)), one 16-byte shared-memory read of K per lane (two in f32),
+//     FMAs, a shuffle reduction over the token's lanes; 128 / (D / 8) tokens
+//     per pass of the block (8 at D = 128).
 //   - Softmax over the split's tokens, exact (all scores are in shared
 //     memory): one warp per query row, max, p = exp2(s - m), l = sum p.
-//   - P V: one output column per thread, G accumulators, V read from
-//     shared memory as each V tile lands.
+//   - P V: one output column per thread at D = 128, G accumulators, V
+//     read from shared memory as each V tile lands. At D = 256 a thread
+//     owns two columns, 128 apart; at D < 128, 128 / D neighbouring lanes
+//     share a column, each summing every (128 / D)-th token, and a shuffle
+//     adds their sums.
 //   - S == 1: the block writes acc / max(l, 1e-30). S > 1: it writes the
 //     unnormalised f32 partial o [B, H, S, D] and m, l [B, H, S] (m in log2
 //     units) to a workspace the wrapper allocates, and a second kernel,
@@ -54,8 +58,13 @@
 //     the empty partial m = -1e30, l = 0, o = 0, which adds nothing. No
 //     atomics: two launches give the same bits.
 // The split kernel is instantiated per dtype and group size G = 1 .. 8, so
-// the G query rows take 8 * G registers a thread. The kernels allocate
-// nothing and launch on the caller's stream.
+// the G query rows take 8 * G registers a thread, at one head_dim
+// (RAY_TPU_HEAD_DIM, which ops/_build.py sets: each width is its own
+// library, built in its own nvcc). The block stays 128 threads at every width: the lanes per token
+// and the columns per thread follow from D (Cols below). Shared memory
+// grows with D (K and V tiles of page x D each), so the wrapper's
+// split_plan caps pages per split by a block's bytes at this D and dtype.
+// The kernels allocate nothing and launch on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,30 +72,46 @@
 
 namespace {
 
-constexpr int kHeadDim = 128;
-constexpr int kThreads = 128;            // one output column per thread
+#ifndef RAY_TPU_HEAD_DIM
+#error "build with -DRAY_TPU_HEAD_DIM (ops/_build.py)"
+#endif
+constexpr int kHeadDim = RAY_TPU_HEAD_DIM;   // this library's width
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 8;
 constexpr int kMaxPagesPerSplit = 32;    // one lane of warp 0 per page
-constexpr int kLanesPerToken = 16;       // 16 lanes x 8 elements = one row
-constexpr int kTokensPerPass = kThreads / kLanesPerToken;
 constexpr float kNegInf = -1e30f;
-static_assert(kHeadDim == kThreads, "one output column per thread");
-static_assert(kHeadDim == kLanesPerToken * 8, "8 elements per lane");
+
+// How a 128-thread block covers head_dim D
+template <int D>
+struct Cols {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "head_dim 16, 32, 64, 128 or 256");
+  // scores: D / 8 lanes x 8 elements = one K row; a token's lanes are
+  // neighbours inside one warp
+  static constexpr int kLanesPerToken = D / 8;
+  static constexpr int kTokensPerPass = kThreads / kLanesPerToken;
+  // P V: output columns a thread owns (128 apart), and threads sharing
+  // one column (neighbouring lanes, each every kShare-th token)
+  static constexpr int kPerThread = D > kThreads ? D / kThreads : 1;
+  static constexpr int kShare = D < kThreads ? kThreads / D : 1;
+};
 
 // Shared memory of a split block: K tiles [pps][page][D], V tiles
 // [pps][page][D], probabilities [G][pps * page] f32, 2 * pps mbarriers (one
 // per K tile, then one per V tile), the G query rows' m and l, and the
 // sequence's length. Tiles
-// are multiples of 256 bytes, so each starts 16-byte aligned as
+// are multiples of 32 bytes (page x D x elt with D >= 16), so each starts
+// 16-byte aligned and is a whole number of 16-byte units, as
 // cp.async.bulk requires.
 struct Layout {
   size_t v, probs, bars, rows, total;
 };
 
+template <int D>
 __host__ __device__ inline Layout split_layout(int pps, int page, int G,
                                                int elt) {
-  const size_t tile = (size_t)page * kHeadDim * elt;
+  const size_t tile = (size_t)page * D * elt;
   Layout L;
   L.v = (size_t)pps * tile;
   L.probs = 2 * (size_t)pps * tile;
@@ -168,8 +193,18 @@ __device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-template <typename T, int G>
-__global__ void __launch_bounds__(kThreads)
+// The split kernel's bounds: 128 threads; at the widths other than 128
+// also at least one block an SM, which lets ptxas give the group-5
+// instances the registers that keep them from spilling (without it they
+// spilled 4-12 bytes at 64-80 registers; at 128 none spills either way)
+#if RAY_TPU_HEAD_DIM == 128
+#define PAGED_SPLIT_BOUNDS __launch_bounds__(kThreads)
+#else
+#define PAGED_SPLIT_BOUNDS __launch_bounds__(kThreads, 1)
+#endif
+
+template <typename T, int D, int G>
+__global__ void PAGED_SPLIT_BOUNDS
 paged_decode_split_kernel(const T* __restrict__ q,
                           const T* __restrict__ k_pages,
                           const T* __restrict__ v_pages,
@@ -178,7 +213,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
                           float* __restrict__ out,
                           float* __restrict__ work, int H, int KV, int page,
                           int MP, int pps, float q_scale) {
-  constexpr int D = kHeadDim;
+  using C = Cols<D>;
   const int s = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int S = gridDim.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -186,7 +221,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
   auto head = [&](int g) { return kvh * G + g; };
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = split_layout(pps, page, G, sizeof(T));
+  const Layout L = split_layout<D>(pps, page, G, sizeof(T));
   const int tile = page * D;
   T* k_tiles = reinterpret_cast<T*>(smem);
   T* v_tiles = reinterpret_cast<T*>(smem + L.v);
@@ -236,7 +271,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
   }
   // this lane's 8 elements of the group's query rows, scaled so that
   // exp2(q . k) = exp(q . k / sqrt(D))
-  const int chunk = tid % kLanesPerToken;
+  const int chunk = tid % C::kLanesPerToken;
   float qr[G][8];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -252,9 +287,19 @@ paged_decode_split_kernel(const T* __restrict__ q,
     for (int g = 0; g < G; ++g) {
       const size_t row = (size_t)b * H + head(g);
       if (S == 1) {
-        out[row * D + tid] = 0.f;
+#pragma unroll
+        for (int c = 0; c < C::kPerThread; ++c) {
+          if (D >= kThreads || tid < D) {
+            out[row * D + tid + c * kThreads] = 0.f;
+          }
+        }
       } else {
-        part_o[(row * S + s) * D + tid] = 0.f;
+#pragma unroll
+        for (int c = 0; c < C::kPerThread; ++c) {
+          if (D >= kThreads || tid < D) {
+            part_o[(row * S + s) * D + tid + c * kThreads] = 0.f;
+          }
+        }
         if (tid == 0) {
           part_m[row * S + s] = kNegInf;
           part_l[row * S + s] = 0.f;
@@ -273,8 +318,8 @@ paged_decode_split_kernel(const T* __restrict__ q,
     mbar_wait0(&bars[i]);
     const int valid = min(n_tok - i * page, page);
     const T* kt = k_tiles + (size_t)i * tile;
-    for (int t0 = 0; t0 < valid; t0 += kTokensPerPass) {
-      const int t = t0 + tid / kLanesPerToken;
+    for (int t0 = 0; t0 < valid; t0 += C::kTokensPerPass) {
+      const int t = t0 + tid / C::kLanesPerToken;
       const bool live = t < valid;
       float kf[8];
       if (live) {
@@ -289,7 +334,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc = fmaf(qr[g][j], kf[j], acc);
 #pragma unroll
-        for (int o = kLanesPerToken / 2; o > 0; o >>= 1) {
+        for (int o = C::kLanesPerToken / 2; o > 0; o >>= 1) {
           acc += __shfl_xor_sync(0xffffffffu, acc, o);
         }
         if (live && chunk == 0) probs[g * n_max + i * page + t] = acc;
@@ -322,20 +367,42 @@ paged_decode_split_kernel(const T* __restrict__ q,
   }
   __syncthreads();
 
-  // P V, column tid, page by page as the V tiles land
-  float acc[G];
+  // P V, page by page as the V tiles land: columns col + 128 c of this
+  // thread, over tokens part, part + kShare, ... (at D = 128: column tid,
+  // every token)
+  constexpr int kPer = C::kPerThread, kShare = C::kShare;
+  const int col = tid / kShare, part = tid % kShare;
+  float acc[G][kPer];
 #pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.f;
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) acc[g][c] = 0.f;
+  }
   for (int i = 0; i < n_pages; ++i) {
     mbar_wait0(&bars[n_pages + i]);
     const int valid = min(n_tok - i * page, page);
-    const T* vt = v_tiles + (size_t)i * tile + tid;
+    const T* vt = v_tiles + (size_t)i * tile + col;
     const float* pi = probs + i * page;
 #pragma unroll 4
-    for (int t = 0; t < valid; ++t) {
-      const float v = to_float(vt[(size_t)t * D]);
+    for (int t = part; t < valid; t += kShare) {
 #pragma unroll
-      for (int g = 0; g < G; ++g) acc[g] = fmaf(pi[g * n_max + t], v, acc[g]);
+      for (int c = 0; c < kPer; ++c) {
+        const float v = to_float(vt[(size_t)t * D + c * kThreads]);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          acc[g][c] = fmaf(pi[g * n_max + t], v, acc[g][c]);
+        }
+      }
+    }
+  }
+  if (kShare > 1) {
+    // the column's kShare neighbouring lanes add their tokens' sums
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int o = kShare / 2; o > 0; o >>= 1) {
+        acc[g][0] += __shfl_xor_sync(0xffffffffu, acc[g][0], o);
+      }
     }
   }
 
@@ -343,9 +410,20 @@ paged_decode_split_kernel(const T* __restrict__ q,
   for (int g = 0; g < G; ++g) {
     const size_t row = (size_t)b * H + head(g);
     if (S == 1) {
-      out[row * D + tid] = acc[g] / fmaxf(row_l[g], 1e-30f);
+      if (part == 0) {
+#pragma unroll
+        for (int c = 0; c < kPer; ++c) {
+          out[row * D + col + c * kThreads] =
+              acc[g][c] / fmaxf(row_l[g], 1e-30f);
+        }
+      }
     } else {
-      part_o[(row * S + s) * D + tid] = acc[g];
+      if (part == 0) {
+#pragma unroll
+        for (int c = 0; c < kPer; ++c) {
+          part_o[(row * S + s) * D + col + c * kThreads] = acc[g][c];
+        }
+      }
       if (tid == 0) {
         part_m[row * S + s] = row_m[g];
         part_l[row * S + s] = row_l[g];
@@ -354,73 +432,79 @@ paged_decode_split_kernel(const T* __restrict__ q,
   }
 }
 
-// One block per (b, head), one column per thread: the splits' partials
+// One block per (b, head), one column per thread (min(D, 128) threads;
+// at D = 256 a thread takes columns d and d + 128): the splits' partials
 // combined in the fixed order s = 0 .. S - 1 (online: each step rescales
 // the sum by exp2(m - m_new) and the partial by exp2(m_s - m_new)). An
 // empty split (m = -1e30, l = 0, o = 0) adds nothing; a row with no token
 // at all gives 0 / 1e-30 = 0.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_merge_kernel(const float* __restrict__ work,
                           float* __restrict__ out, int n_rows, int S) {
-  constexpr int D = kHeadDim;
   const size_t row = blockIdx.x;
-  const int d = threadIdx.x;
   const float* part_o = work + row * S * D;
   const float* part_m = work + (size_t)n_rows * S * D + row * S;
   const float* part_l = part_m + (size_t)n_rows * S;
-  // a running max; the loads do not depend on it, so they issue together
-  float m = kNegInf, l = 0.f, acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < Cols<D>::kPerThread; ++c) {
+    const int d = threadIdx.x + c * kThreads;
+    // a running max; the loads do not depend on it, so they issue together
+    float m = kNegInf, l = 0.f, acc = 0.f;
 #pragma unroll 8
-  for (int s = 0; s < S; ++s) {
-    const float ms = part_m[s], ls = part_l[s];
-    const float os = part_o[(size_t)s * D + d];
-    const float m_new = fmaxf(m, ms);
-    const float alpha = exp2f(m - m_new), w = exp2f(ms - m_new);
-    acc = acc * alpha + w * os;
-    l = l * alpha + w * ls;
-    m = m_new;
+    for (int s = 0; s < S; ++s) {
+      const float ms = part_m[s], ls = part_l[s];
+      const float os = part_o[(size_t)s * D + d];
+      const float m_new = fmaxf(m, ms);
+      const float alpha = exp2f(m - m_new), w = exp2f(ms - m_new);
+      acc = acc * alpha + w * os;
+      l = l * alpha + w * ls;
+      m = m_new;
+    }
+    out[row * D + d] = acc / fmaxf(l, 1e-30f);
   }
-  out[row * D + d] = acc / fmaxf(l, 1e-30f);
 }
 
-// the split kernel's instance for group G = H / KV (1 .. kMaxGroup), then
-// the merge
-template <typename T, int G = 1>
+// the split kernel's instance for group G = H / KV (1 .. kMaxGroup) at
+// head_dim D, then the merge
+template <typename T, int D, int G = 1>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const void* page_table, const void* seq_lens, void* out,
                    void* work, int B, int H, int KV, int page, int MP,
                    int pps, cudaStream_t stream) {
   if constexpr (G < kMaxGroup) {
     if (H / KV != G) {
-      return launch<T, G + 1>(q, k_pages, v_pages, page_table, seq_lens, out,
-                              work, B, H, KV, page, MP, pps, stream);
+      return launch<T, D, G + 1>(q, k_pages, v_pages, page_table, seq_lens,
+                                 out, work, B, H, KV, page, MP, pps, stream);
     }
   }
   const int S = (MP + pps - 1) / pps;
-  const size_t smem = split_layout(pps, page, G, sizeof(T)).total;
+  const size_t smem = split_layout<D>(pps, page, G, sizeof(T)).total;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_split_kernel<T, G>,
+        paged_decode_split_kernel<T, D, G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const float q_scale = 1.4426950408889634f / sqrtf((float)kHeadDim);
-  paged_decode_split_kernel<T, G><<<dim3(S, KV, B), kThreads, smem, stream>>>(
+  const float q_scale = 1.4426950408889634f / sqrtf((float)D);
+  paged_decode_split_kernel<T, D, G><<<dim3(S, KV, B), kThreads, smem,
+                                        stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), static_cast<const int*>(page_table),
       static_cast<const int*>(seq_lens), static_cast<float*>(out),
       static_cast<float*>(work), H, KV, page, MP, pps, q_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return err;
-  paged_decode_merge_kernel<<<B * H, kThreads, 0, stream>>>(
+  paged_decode_merge_kernel<D><<<B * H, D < kThreads ? D : kThreads, 0,
+                                 stream>>>(
       static_cast<const float*>(work), static_cast<float*>(out), B * H, S);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim D must be 128 (the serving
-// model's). pps: pages per split; S = ceil(MP / pps) splits. work: f32
+// dtype: 0 = float32, 1 = bfloat16. head_dim D must be this library's
+// (kHeadDim). pps: pages per split; S = ceil(MP / pps) splits. work: f32
 // workspace of B * H * S * (D + 2) values when S > 1 (unused when S == 1).
 // Launches the split kernel and, when S > 1, the merge kernel on `stream`.
 // Returns the first failed launch's cudaError_t, else 0.
@@ -440,13 +524,14 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pages,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)launch<float>(q, k_pages, v_pages, page_table, seq_lens, out,
-                              work, B, H, KV, page, MP, pps, s);
+    return (int)launch<float, kHeadDim>(q, k_pages, v_pages, page_table,
+                                        seq_lens, out, work, B, H, KV, page,
+                                        MP, pps, s);
   }
   if (dtype == 1) {
-    return (int)launch<__nv_bfloat16>(q, k_pages, v_pages, page_table,
-                                      seq_lens, out, work, B, H, KV, page, MP,
-                                      pps, s);
+    return (int)launch<__nv_bfloat16, kHeadDim>(
+        q, k_pages, v_pages, page_table, seq_lens, out, work, B, H, KV, page,
+        MP, pps, s);
   }
   return (int)cudaErrorInvalidValue;
 }

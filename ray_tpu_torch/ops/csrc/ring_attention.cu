@@ -14,7 +14,9 @@
 // q: logical [B, H, Tq, D]; k, v: [B, Hkv, Tk, D] with Hkv dividing H
 // (query head j reads KV head j / (H / Hkv): grouped-query attention
 // without repeating K and V). Any strides over B, H and the sequence (one
-// set each for q, k, v), unit stride over D; D must be 128. Offsets are any
+// set each for q, k, v), unit stride over D; D must be this library's
+// width (kHeadDim: RAY_TPU_HEAD_DIM, 16, 32, 64, 128 or 256, which
+// ops/_build.py sets for each width's library). Offsets are any
 // host ints; Tq may differ from Tk. Ragged tails are masked by bounds,
 // nothing is padded. Outputs o [B, H, Tq, D], m and l [B, H, Tq], all f32
 // and contiguous. A row with no visible key gets o = 0, m = -1e30, l = 0:
@@ -38,16 +40,19 @@
 // fully-masked values. Inside a tile, a row whose visible columns have not
 // started yet keeps m = -1e30 and takes p = 0 (the reference's
 // `where(m > NEG_INF/2, p, 0)`, :84-85), not exp(0) = 1 per masked column.
-// Two entry points, chosen by the wrapper from the dtype:
-//   - bf16: ring_block_attention_sm90, the wgmma + TMA template of
-//     attention_fwd_sm90.cuh (128-query blocks, 128-key tiles, 3
-//     warpgroups) with the epilogue RingBlockOut below. The bf16 products
-//     are exact in f32, so scores, m and l match the reference's f32 cast
-//     up to summation order; P is rounded to bf16 for the P v product, l
-//     sums the f32 P.
+// Three entry points, chosen by the wrapper from the dtype and width:
+//   - bf16 at D = 64, 128, 256: ring_block_attention_sm90, the wgmma + TMA
+//     template of attention_fwd_sm90.cuh (128-query blocks, 128-key tiles,
+//     64-key tiles at D = 256, 3 warpgroups) with the epilogue RingBlockOut
+//     below. The bf16 products are exact in f32, so scores, m and l match
+//     the reference's f32 cast up to summation order; P is rounded to bf16
+//     for the P v product, l sums the f32 P.
+//   - bf16 at D = 16, 32: ring_block_attention_bf16, ring_block_kernel
+//     below on bf16 tiles: a 32- or 64-byte row is narrower than the
+//     template's 128-byte swizzled box. P is rounded to bf16 as above.
 //   - f32: ring_block_attention, ring_block_kernel below: 64-query blocks,
-//     64-key tiles, f32 FMAs in the mma.sync register layout of
-//     mma_tiles.cuh (no TF32).
+//     64-key tiles (32 at D = 256), f32 FMAs in the mma.sync register
+//     layout of mma_tiles.cuh (no TF32).
 // Every output element is written by one block in a fixed order: launches
 // are deterministic.
 
@@ -62,22 +67,24 @@ struct Strides {
 };
 
 // ----------------------------------------------------------------------
-// kernel 2, f32: block = (64-query tile, b*H + h)
+// kernel 2 on FMA tiles (f32; bf16 at D = 16, 32): block = (64-query
+// tile, b*H + h)
 // ----------------------------------------------------------------------
 
-template <typename T, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 ring_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, float* __restrict__ o,
                   float* __restrict__ m_out, float* __restrict__ l_out, int H,
                   int rep, int Tq, int Tk, int q_offset, int k_offset,
                   Strides sq, Strides sk, Strides sv, float scale) {
-  using Sh = Shapes<T>;
+  using Sh = Tiles<T, D>;
+  constexpr int kKeys = Sh::kLoop;
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
-  T* ks = qs + Sh::tile;
-  T* vs = ks + Sh::tile;
-  T* ps = vs + Sh::tile;
+  T* ks = qs + Sh::own;
+  T* vs = ks + Sh::loop;
+  T* ps = vs + Sh::loop;
   float* sc_s = reinterpret_cast<float*>(ps + Sh::ptile);
   float* row_s = sc_s + kBlockQ * Sh::lds;
 
@@ -91,39 +98,39 @@ ring_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wr = (warp & 3) * 16;     // this warp's 16 rows of every tile
-  const int wcs = (warp >> 2) * 32;   // its 32 score columns
-  const int wco = (warp >> 2) * 64;   // its 64 output columns
+  const int wcs = (warp >> 2) * (kKeys / 2);   // its score columns
+  const int wco = (warp >> 2) * (D / 2);       // its output columns
   const int sr = tid >> 2, sj = tid & 3;   // softmax: 4 threads per row
 
   // key tiles up to the last one holding a column that the tile's last
   // row (global position q_offset + rows - 1) can see
-  const int n_k = (Tk + kBlockK - 1) / kBlockK;
+  const int n_k = (Tk + kKeys - 1) / kKeys;
   int kt_end = n_k;
   if (CAUSAL) {
     const long long last_key =
         (long long)q_offset + min(q0 + kBlockQ, Tq) - 1 - k_offset;
     kt_end = last_key < 0 ? 0
-                          : (int)min((long long)n_k, last_key / kBlockK + 1);
+                          : (int)min((long long)n_k, last_key / kKeys + 1);
   }
-  if (kt_end > 0) load_tile<T, kBlockQ>(qs, qb, sq.s, q0, Tq);
+  if (kt_end > 0) load_tile<T, D, kBlockQ>(qs, qb, sq.s, q0, Tq);
 
   float m_run = kNegInf, l_run = 0.f;   // row sr's stats (all 4 threads)
-  float acc[8][4];
+  float acc[Sh::kOutNT][4];
   zero(acc);
 
   for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kBlockK;
+    const int k0 = kt * kKeys;
     __syncthreads();   // the last tile's readers are done
-    load_tile<T, kBlockK>(ks, kb, sk.s, k0, Tk);
-    load_tile<T, kBlockK>(vs, vb, sv.s, k0, Tk);
+    load_tile<T, D, kKeys>(ks, kb, sk.s, k0, Tk);
+    load_tile<T, D, kKeys>(vs, vb, sv.s, k0, Tk);
     __syncthreads();
 
-    float sc[4][4];
+    float sc[Sh::kScoreNT][4];
     zero(sc);
-    warp_mma<4, kD, true, true>(sc, qs + wr * Sh::ldd, Sh::ldd,
-                                ks + wcs * Sh::ldd, Sh::ldd);
+    warp_mma<Sh::kScoreNT, D, true, true>(sc, qs + wr * Sh::ldd, Sh::ldd,
+                                          ks + wcs * Sh::ldd, Sh::ldd);
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
+    for (int n = 0; n < Sh::kScoreNT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = wr + g + 8 * (e >> 1);
@@ -139,10 +146,10 @@ ring_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // online softmax: row sr, columns sj, sj + 4, ... (bank-conflict free)
     {
-      float x[kBlockK / 4];
+      float x[kKeys / 4];
       float mx = kNegInf;
 #pragma unroll
-      for (int i = 0; i < kBlockK / 4; ++i) {
+      for (int i = 0; i < kKeys / 4; ++i) {
         x[i] = sc_s[sr * Sh::lds + sj + 4 * i];
         mx = fmaxf(mx, x[i]);
       }
@@ -155,7 +162,7 @@ ring_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = expf(m_run - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int i = 0; i < kBlockK / 4; ++i) {
+      for (int i = 0; i < kKeys / 4; ++i) {
         const float p = live ? expf(x[i] - m_new) : 0.f;
         sum += p;
         ps[sr * Sh::ldp + sj + 4 * i] = from_float<T>(p);
@@ -170,22 +177,21 @@ ring_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     const float a_lo = row_s[wr + g], a_hi = row_s[wr + g + 8];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < Sh::kOutNT; ++n) {
       acc[n][0] *= a_lo;
       acc[n][1] *= a_lo;
       acc[n][2] *= a_hi;
       acc[n][3] *= a_hi;
     }
-    warp_mma<8, kBlockK, true, false>(acc, ps + wr * Sh::ldp, Sh::ldp,
-                                      vs + wco, Sh::ldd);
+    warp_mma<Sh::kOutNT, kKeys, true, false>(acc, ps + wr * Sh::ldp,
+                                             Sh::ldp, vs + wco, Sh::ldd);
   }
 
   if (sj == 0 && q0 + sr < Tq) {
     m_out[(long long)bh * Tq + q0 + sr] = m_run;
     l_out[(long long)bh * Tq + q0 + sr] = l_run;
   }
-  store_acc(o + (long long)bh * Tq * kD, kD, acc, q0, wr, wco, Tq, 1.f,
-            1.f);
+  store_acc(o + (long long)bh * Tq * D, D, acc, q0, wr, wco, Tq, 1.f, 1.f);
 }
 
 // ----------------------------------------------------------------------
@@ -201,8 +207,8 @@ template <typename T, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* m, void* l, const Geometry& g, float scale,
                    cudaStream_t stream) {
-  const size_t smem = fwd_smem<T>();
-  auto kernel = ring_block_kernel<T, CAUSAL>;
+  const size_t smem = fwd_smem<T, kHeadDim>();
+  auto kernel = ring_block_kernel<T, kHeadDim, CAUSAL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -215,8 +221,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// kernel 2, bf16: the epilogue of the sm90 template. o [B, H, Tq, 128],
+// kernel 2, bf16: the epilogue of the sm90 template. o [B, H, Tq, D],
 // m and l [B, H, Tq], f32 and contiguous; o unnormalised.
+template <int D>
 struct RingBlockOut {
   float* o;
   float* m;
@@ -235,22 +242,51 @@ struct RingBlockOut {
   }
   __device__ __forceinline__ void store(int b, int h, int row, int col,
                                         float x0, float x1) const {
-    store_pair(o + row_index(b, h, row) * kD + col, x0, x1);
+    store_pair(o + row_index(b, h, row) * D + col, x0, x1);
   }
 };
 
+// the sm90 template's box is 64 bf16 columns (128 swizzled bytes): a row
+// of 16 or 32 values is narrower, and those widths run the FMA tiles
+static_assert(!RAY_TPU_SM90_FORWARD || kHeadDim % 64 == 0,
+              "the sm90 forward takes head_dim a multiple of 64");
+
 bool bad_geometry(int B, int H, int Hkv, int Tq, int Tk, int D) {
   return B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Tq <= 0 ||
-         Tk <= 0 || D != kD;
+         Tk <= 0 || D != kHeadDim;
 }
 
 }  // namespace
 
 // The entry points. q [B, H, Tq, D], k and v [B, Hkv, Tk, D], unit stride
-// over D; D must be 128 and Hkv must divide H. o [B, H, Tq, D], m and l
+// over D; D must be this library's width (kHeadDim) and Hkv must divide
+// H. o [B, H, Tq, D], m and l
 // [B, H, Tq] are f32 and contiguous. causal: 0 or 1. Each returns the
 // launch's cudaError_t (or, for the bf16 one, sm90::kEncodeError + the
 // encoder's CUresult when a TMA map is refused).
+
+namespace {
+
+// the FMA kernel's entries: (batch, head, seq) strides in elements
+template <typename T>
+int fma_entry(const void* q, const void* k, const void* v, void* o, void* m,
+              void* l, int B, int H, int Hkv, int Tq, int Tk, int D,
+              int q_offset, int k_offset, const long long (&st)[9],
+              int causal, int device, void* stream) {
+  if (bad_geometry(B, H, Hkv, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Geometry g{B,        H,        H / Hkv,
+                   Tq,       Tk,       q_offset,
+                   k_offset, {st[0], st[1], st[2]}, {st[3], st[4], st[5]},
+                   {st[6], st[7], st[8]}};
+  const float scale = 1.0f / sqrtf((float)D);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(causal ? launch<T, true>(q, k, v, o, m, l, g, scale, s)
+                      : launch<T, false>(q, k, v, o, m, l, g, scale, s));
+}
+
+}  // namespace
 
 // f32 inputs; (batch, head, seq) strides of q, k and v in elements
 extern "C" int ring_block_attention(
@@ -259,40 +295,46 @@ extern "C" int ring_block_attention(
     long long sqb, long long sqh, long long sqs, long long skb, long long skh,
     long long sks, long long svb, long long svh, long long svs, int causal,
     int device, void* stream) {
-  if (bad_geometry(B, H, Hkv, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const Geometry g{B,        H,        H / Hkv,
-                   Tq,       Tk,       q_offset,
-                   k_offset, {sqb, sqh, sqs}, {skb, skh, sks},
-                   {svb, svh, svs}};
-  const float scale = 1.0f / sqrtf((float)D);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(causal ? launch<float, true>(q, k, v, o, m, l, g, scale, s)
-                      : launch<float, false>(q, k, v, o, m, l, g, scale, s));
+  const long long st[9] = {sqb, sqh, sqs, skb, skh, sks, svb, svh, svs};
+  return fma_entry<float>(q, k, v, o, m, l, B, H, Hkv, Tq, Tk, D, q_offset,
+                          k_offset, st, causal, device, stream);
 }
 
 // bf16 inputs; (batch, head, seq) strides of q, k and v in BYTES, each a
-// positive multiple of 16, and 16-byte aligned bases (what TMA takes)
-extern "C" int ring_block_attention_sm90(
+// positive multiple of 16, and 16-byte aligned bases (what TMA takes). The
+// route is the one this library is built for (RAY_TPU_SM90_FORWARD, from
+// ops/head_dims.py): the sm90 template, or the FMA tiles on the strides
+// in elements
+extern "C" int ring_block_attention_bf16(
     const void* q, const void* k, const void* v, void* o, void* m, void* l,
     int B, int H, int Hkv, int Tq, int Tk, int D, int q_offset, int k_offset,
     long long sqb, long long sqh, long long sqs, long long skb, long long skh,
     long long sks, long long svb, long long svh, long long svs, int causal,
     int device, void* stream) {
+#if RAY_TPU_SM90_FORWARD
   if (bad_geometry(B, H, Hkv, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const sm90::Problem pr{H,        H / Hkv,  Tq,
                          Tk,       q_offset, k_offset,
                          1.0f / sqrtf((float)D)};
-  const RingBlockOut epi{static_cast<float*>(o), static_cast<float*>(m),
-                         static_cast<float*>(l), H, Tq};
+  const RingBlockOut<kHeadDim> epi{static_cast<float*>(o),
+                                   static_cast<float*>(m),
+                                   static_cast<float*>(l), H, Tq};
   const long long sq[3] = {sqb, sqh, sqs}, sk[3] = {skb, skh, sks},
                   sv[3] = {svb, svh, svs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return causal ? sm90::launch<true>(q, k, v, B, sq, sk, sv, pr, epi, s)
-                : sm90::launch<false>(q, k, v, B, sq, sk, sv, pr, epi, s);
+  return causal ? sm90::launch<true, kHeadDim>(q, k, v, B, sq, sk, sv, pr,
+                                               epi, s)
+                : sm90::launch<false, kHeadDim>(q, k, v, B, sq, sk, sv, pr,
+                                                epi, s);
+#else
+  const long long e = (long long)sizeof(bf16);
+  const long long st[9] = {sqb / e, sqh / e, sqs / e, skb / e, skh / e,
+                           sks / e, svb / e, svh / e, svs / e};
+  return fma_entry<bf16>(q, k, v, o, m, l, B, H, Hkv, Tq, Tk, D, q_offset,
+                         k_offset, st, causal, device, stream);
+#endif
 }
 
 extern "C" const char* error_string(int code) {

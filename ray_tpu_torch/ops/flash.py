@@ -11,12 +11,13 @@ its custom VJP. Here the three are hand-written CUDA C++
   - ``flash_bwd_dkv``: dk and dv from the same.
 
 ``di`` is computed in PyTorch between forward and backward, as the library
-computes it outside its kernels. In bf16 the three run on Hopper's wgmma
-with TMA-fed tiles and take byte strides: the forward on the kernel
-shared with ring attention's block (``flash_attention_fwd_sm90``), the
-backward on ``flash_attention_bwd_dq_sm90`` and
-``flash_attention_bwd_dkv_sm90`` (``csrc/attention_bwd_sm90.cuh``). In f32
-all three run on FMA kernels (wgmma has no f32). Each of the three wrappers
+computes it outside its kernels. In bf16 the three take byte strides
+(``flash_attention_*_bf16``) and run where the width's library was built
+to (``head_dims.SM90_FORWARD``, ``head_dims.SM90_BACKWARD``): the forward
+on Hopper's wgmma with TMA-fed tiles, on the kernel shared with ring
+attention's block; the backward on ``csrc/attention_bwd_sm90.cuh`` at
+head_dim 128 and on the FMA kernels' bf16 tiles at 256. In f32 all three
+run on FMA kernels (wgmma has no f32). Each of the three wrappers
 takes its plain PyTorch version (``_flash_fwd_reference``,
 ``_flash_bwd_dq_reference``, ``_flash_bwd_dkv_reference``) for a CPU
 tensor, and for a CUDA tensor launches its kernel or raises: there is no
@@ -29,8 +30,10 @@ k, v and do) and unit stride over head_dim, so the model's [B, S, H, D]
 layout goes in as a transposed view, without a copy. They mask a ragged
 sequence length inside the kernel: nothing is padded, so the reference's
 padding, and its error for a padded non-causal call, have no counterpart.
-head_dim must be 128 (the flagship's); query and KV heads must be equal
-(the model repeats KV heads before the call, as the reference does).
+head_dim must be 128 (the flagship's) or 256 (``head_dims.FLASH``: the
+multiples of 128 the reference's flash rule picks, up to 256), one library
+a width; query and KV heads must be equal (the model repeats KV heads
+before the call, as the reference does).
 """
 
 from __future__ import annotations
@@ -41,12 +44,11 @@ from typing import Tuple
 
 import torch
 
-from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import _build, head_dims
 
 NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIM = 128
 _TMA_MAX_STRIDE = 2 ** 40   # bytes
 # the device type the kernels run on (tests point it at "meta" to reach
 # the launch with a recording library)
@@ -114,12 +116,13 @@ def _flash_bwd_dkv_reference(q, k, v, do, lse, di, causal: bool = True
 # the kernel wrappers: plain version on the CPU, CUDA kernel on the card
 # ----------------------------------------------------------------------
 
-def _check(name: str, tensors, rows, tma: bool = False) -> None:
-    """What the kernels take: one CUDA device and dtype, [B, H, S, 128]
-    with shared strides and unit head_dim stride, 16-byte aligned rows,
-    and contiguous f32 [B, H, S] row vectors. ``tma``: the tensors are
-    read through TMA, so every (batch, head, sequence) stride must also be
-    positive and below 2^40 bytes."""
+def _check(name: str, tensors, rows) -> None:
+    """What the kernels take: one CUDA device and dtype, [B, H, S, D]
+    (D in ``head_dims.FLASH``) with shared strides and unit head_dim
+    stride, 16-byte aligned rows, and contiguous f32 [B, H, S] row
+    vectors. The bf16 entries take what TMA takes, where they read through
+    it or not: every (batch, head, sequence) stride must also be positive
+    and below 2^40 bytes."""
     q = tensors[0]
     if q.device.type != _KERNEL_DEVICE:
         raise ValueError(f"{name}: no kernel for {q.device}")
@@ -134,10 +137,7 @@ def _check(name: str, tensors, rows, tma: bool = False) -> None:
         raise ValueError(f"{name}: q, k, v (and do) must be [B, H, S, D] "
                          f"of one shape (equal query and KV heads), got "
                          f"{[tuple(t.shape) for t in tensors]}")
-    if q.shape[-1] != _HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {q.shape[-1]} has no kernel; "
-                         f"the kernels are built for head_dim {_HEAD_DIM} "
-                         "(ROADMAP.md, Queue B: kernel 3)")
+    head_dims.check("flash", q.shape[-1], name)
     vec = 16 // q.element_size()
     if (q.stride(-1) != 1 or any(t.stride() != q.stride() for t in tensors)
             or any(s % vec for s in q.stride()[:3])
@@ -145,10 +145,11 @@ def _check(name: str, tensors, rows, tma: bool = False) -> None:
         raise ValueError(f"{name}: q, k, v (and do) must share strides "
                          "with unit head_dim stride and 16-byte aligned "
                          "rows")
-    if tma and not all(0 < s * q.element_size() < _TMA_MAX_STRIDE
-                       for s in q.stride()[:3]):
-        raise ValueError(f"{name}: the bf16 kernel reads its inputs through "
-                         f"TMA, which takes (batch, head, sequence) strides "
+    if q.dtype == torch.bfloat16 and not all(
+            0 < s * q.element_size() < _TMA_MAX_STRIDE
+            for s in q.stride()[:3]):
+        raise ValueError(f"{name}: the bf16 kernels take what TMA takes, "
+                         f"(batch, head, sequence) strides "
                          f"of 16 to 2^40 bytes, got {q.stride()[:3]} "
                          f"elements")
     if torch.empty_like(q).stride() != q.stride():
@@ -163,15 +164,18 @@ def _check(name: str, tensors, rows, tma: bool = False) -> None:
                          f"[{B}, {H}, {S}]")
 
 
-def _launch(fn_name: str, tensors, rows, outs, causal: bool) -> None:
-    """One kernel launch. ``*_sm90`` entry points take byte strides and no
-    dtype code (they are bf16 only); the others element strides and the
-    dtype code."""
+def _launch(kernel: str, tensors, rows, outs, causal: bool) -> None:
+    """One launch of ``flash_attention_<kernel>``: in bf16 its ``_bf16``
+    entry, which takes byte strides and no dtype code; in f32 its FMA
+    entry, element strides and the dtype code."""
     q = tensors[0]
     B, H, S, D = q.shape
-    lib = _build.library("flash_attention", _SIGNATURES)
+    lib = _build.library(head_dims.library("flash_attention", D),
+                         _SIGNATURES)
     ptrs = [t.data_ptr() for t in (*tensors, *rows, *outs)]
-    if fn_name.endswith("_sm90"):
+    fn_name = f"flash_attention_{kernel}"
+    if q.dtype == torch.bfloat16:
+        fn_name += "_bf16"
         tail = (*(s * q.element_size() for s in q.stride()[:3]), int(causal))
     else:
         tail = (*q.stride()[:3], int(causal), _DTYPE_CODES[q.dtype])
@@ -192,45 +196,37 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hopper kernel, f32 the FMA kernel."""
     if q.device.type == "cpu":
         return _flash_fwd_reference(q, k, v, causal)
-    sm90 = q.dtype == torch.bfloat16
-    _check("flash_fwd", (q, k, v), (), tma=sm90)
+    _check("flash_fwd", (q, k, v), ())
     o = torch.empty_like(q)
     B, H, S, _D = q.shape
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd_sm90" if sm90 else "flash_attention_fwd",
-            (q, k, v), (), (o, lse), causal)
+    _launch("fwd", (q, k, v), (), (o, lse), causal)
     _build.count_launch(flash_fwd)
     return o, lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, di, causal: bool = True) -> torch.Tensor:
-    """Kernel 3c: dq, in q's dtype and strides. bf16 runs the Hopper
-    kernel, f32 the FMA kernel."""
+    """Kernel 3c: dq, in q's dtype and strides. bf16 at head_dim 128 runs
+    the Hopper kernel; f32, and bf16 at 256, the FMA kernel."""
     if q.device.type == "cpu":
         return _flash_bwd_dq_reference(q, k, v, do, lse, di, causal)
-    sm90 = q.dtype == torch.bfloat16
-    _check("flash_bwd_dq", (q, k, v, do), (lse, di), tma=sm90)
+    _check("flash_bwd_dq", (q, k, v, do), (lse, di))
     dq = torch.empty_like(q)
-    _launch("flash_attention_bwd_dq_sm90" if sm90
-            else "flash_attention_bwd_dq", (q, k, v, do), (lse, di), (dq,),
-            causal)
+    _launch("bwd_dq", (q, k, v, do), (lse, di), (dq,), causal)
     _build.count_launch(flash_bwd_dq)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, di, causal: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 3b: (dk, dv), in q's dtype and strides. bf16 runs the Hopper
-    kernel, f32 the FMA kernel."""
+    """Kernel 3b: (dk, dv), in q's dtype and strides. bf16 at head_dim 128
+    runs the Hopper kernel; f32, and bf16 at 256, the FMA kernel."""
     if q.device.type == "cpu":
         return _flash_bwd_dkv_reference(q, k, v, do, lse, di, causal)
-    sm90 = q.dtype == torch.bfloat16
-    _check("flash_bwd_dkv", (q, k, v, do), (lse, di), tma=sm90)
+    _check("flash_bwd_dkv", (q, k, v, do), (lse, di))
     dk = torch.empty_like(q)
     dv = torch.empty_like(q)
-    _launch("flash_attention_bwd_dkv_sm90" if sm90
-            else "flash_attention_bwd_dkv", (q, k, v, do), (lse, di),
-            (dk, dv), causal)
+    _launch("bwd_dkv", (q, k, v, do), (lse, di), (dk, dv), causal)
     _build.count_launch(flash_bwd_dkv)
     return dk, dv
 
@@ -241,24 +237,24 @@ flash_bwd_dkv.launches = 0
 
 # C signatures of csrc/flash_attention.cu's entry points: the tensor
 # pointers; B, H, S, D; the (batch, head, seq) strides in elements; causal,
-# dtype code, device index; stream. The bf16 entries (_sm90): strides in
+# dtype code, device index; stream. The bf16 entries (_bf16): strides in
 # bytes and no dtype code. Each returns the launch's cudaError_t (the
-# _sm90 entries also 1000 + a CUresult for a refused TMA map).
+# _bf16 entries also 1000 + a CUresult for a refused TMA map).
 _TAIL = ([ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
          + [ctypes.c_void_p])
-_TAIL_SM90 = ([ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+_TAIL_BF16 = ([ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
               + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _SIGNATURES = {
     "flash_attention_fwd": (ctypes.c_int, [ctypes.c_void_p] * 5 + _TAIL),
-    "flash_attention_fwd_sm90": (ctypes.c_int,
-                                 [ctypes.c_void_p] * 5 + _TAIL_SM90),
+    "flash_attention_fwd_bf16": (ctypes.c_int,
+                                 [ctypes.c_void_p] * 5 + _TAIL_BF16),
     "flash_attention_bwd_dq": (ctypes.c_int, [ctypes.c_void_p] * 7 + _TAIL),
-    "flash_attention_bwd_dq_sm90": (ctypes.c_int,
-                                    [ctypes.c_void_p] * 7 + _TAIL_SM90),
+    "flash_attention_bwd_dq_bf16": (ctypes.c_int,
+                                    [ctypes.c_void_p] * 7 + _TAIL_BF16),
     "flash_attention_bwd_dkv": (ctypes.c_int,
                                 [ctypes.c_void_p] * 8 + _TAIL),
-    "flash_attention_bwd_dkv_sm90": (ctypes.c_int,
-                                     [ctypes.c_void_p] * 8 + _TAIL_SM90),
+    "flash_attention_bwd_dkv_bf16": (ctypes.c_int,
+                                     [ctypes.c_void_p] * 8 + _TAIL_BF16),
 }
 
 

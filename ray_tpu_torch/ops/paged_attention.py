@@ -39,12 +39,14 @@ from typing import Optional
 
 import torch
 
+from ray_tpu_torch.ops import head_dims
+
 NEG_INF = -1e30
 
 LOG2E = 1.4426950408889634
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (128,)   # the serving model's; the kernel is built for it
+_HEAD_DIMS = head_dims.PAGED_ATTENTION   # one library a width
 _MAX_GROUP = 8
 _MAX_PAGES_PER_SPLIT = 32   # one lane of the kernel's first warp per page
 MAX_SMEM = 232448     # shared memory one block may take on an H100
@@ -149,40 +151,35 @@ def merge_splits(o: torch.Tensor, m: torch.Tensor,
 # the wrapper: plain version on the CPU, CUDA kernel on the card
 # ----------------------------------------------------------------------
 
-def split_smem_bytes(pps: int, page: int, group: int, elt: int) -> int:
+def split_smem_bytes(pps: int, page: int, group: int, elt: int,
+                     D: int = 128) -> int:
     """Shared memory of one split block (``split_layout`` in
-    csrc/paged_attention.cu): K and V tiles [pps, page, 128], f32
+    csrc/paged_attention.cu): K and V tiles [pps, page, D], f32
     probabilities [group, pps * page] padded to 8 bytes, 2 * pps
     mbarriers, the group's f32 m and l, the length."""
-    tiles = 2 * pps * page * 128 * elt
+    tiles = 2 * pps * page * D * elt
     probs = (group * pps * page * 4 + 7) // 8 * 8
     return tiles + probs + 2 * pps * 8 + (2 * group + 1) * 4
 
 
 def split_plan(B: int, H: int, KV: int, MP: int, page: int,
-               elt: int) -> tuple:
+               elt: int, D: int = 128) -> tuple:
     """(pages per split, splits) for a launch, from the shapes alone: the
     fewest pages per split (a power of two, or MP; at most 32) that keep
     B x KV x splits under _TARGET_BLOCKS, halved while a block would take
-    more than 48 KiB of shared memory. Never reads the lengths, which live
-    on the device: a launch at given shapes is the same for every length,
-    so it can be captured in a CUDA graph."""
+    more than 48 KiB of shared memory at head_dim D and this dtype (a K
+    and a V tile of page x D each per page: the wider the head, the fewer
+    pages a split). Never reads the lengths, which live on the device: a
+    launch at given shapes is the same for every length, so it can be
+    captured in a CUDA graph."""
     pps = 1
     while pps < MP and B * KV * -(-MP // pps) > _TARGET_BLOCKS:
         pps *= 2
     pps = min(pps, MP, _MAX_PAGES_PER_SPLIT)
-    while pps > 1 and split_smem_bytes(pps, page, H // KV,
-                                       elt) > 48 * 1024:
+    while pps > 1 and split_smem_bytes(pps, page, H // KV, elt,
+                                       D) > 48 * 1024:
         pps //= 2
     return pps, -(-MP // pps)
-
-
-def check_head_dim(head_dim: int, who: str = "paged_attention") -> None:
-    """Raises ValueError unless the kernel is built for ``head_dim``; a
-    caller that runs the kernel later (an engine behind Serve) checks its
-    model's here before it starts anything."""
-    if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"{who}: head_dim {head_dim} not in {_HEAD_DIMS}")
 
 
 def _check_kernel_args(q, k_pages, v_pages, page_table, seq_lens,
@@ -213,7 +210,7 @@ def _check_kernel_args(q, k_pages, v_pages, page_table, seq_lens,
                          f"{tuple(q.shape)}, pages {tuple(k_pages.shape)}, "
                          f"table {tuple(page_table.shape)}, lens "
                          f"{tuple(seq_lens.shape)}")
-    check_head_dim(D)
+    head_dims.check("paged_attention", D)
     if KV == 0 or H % KV or H // KV > _MAX_GROUP:
         raise ValueError(f"paged_attention: {H} query heads over {KV} KV "
                          f"heads (group <= {_MAX_GROUP})")
@@ -222,11 +219,11 @@ def _check_kernel_args(q, k_pages, v_pages, page_table, seq_lens,
                          "sequences (each <= 65535)")
     pps = pages_per_split
     if pps is None:
-        pps = split_plan(B, H, KV, MP, page, q.element_size())[0]
+        pps = split_plan(B, H, KV, MP, page, q.element_size(), D)[0]
     if not 1 <= pps <= min(MP, _MAX_PAGES_PER_SPLIT):
         raise ValueError(f"paged_attention: {pps} pages per split (1 to "
                          f"{min(MP, _MAX_PAGES_PER_SPLIT)})")
-    smem = split_smem_bytes(pps, page, H // KV, q.element_size())
+    smem = split_smem_bytes(pps, page, H // KV, q.element_size(), D)
     if smem > MAX_SMEM:
         raise ValueError(f"paged_attention: {pps} pages per split of page "
                          f"{page} x head_dim {D} need {smem} B of shared "
@@ -270,7 +267,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return out
     work = None if S == 1 else torch.empty(
         B * H * S * (D + 2), dtype=torch.float32, device=q.device)
-    lib = _build.library("paged_attention", _SIGNATURES)
+    lib = _build.library(head_dims.library("paged_attention", D),
+                         _SIGNATURES)
     rc = lib.paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),

@@ -12,10 +12,13 @@ The block step, ``block_attention``, is kernel 2: hand-written CUDA C++
 (``csrc/ring_attention.cu``) in place of the reference's Pallas
 ``_block_kernel``. For a CPU tensor it takes its plain PyTorch version
 (``_block_attention_reference``); for a CUDA tensor it launches the kernel
-or raises, and counts its launches in ``block_attention.launches``. bf16
-goes to the Hopper kernel (``ring_block_attention_sm90``: wgmma, TMA-fed
-K/V tiles, byte strides), f32 to the FMA kernel
-(``ring_block_attention``). The kernel has no backward, as
+or raises, and counts its launches in ``block_attention.launches``. It
+takes head_dim 16, 32, 64, 128 and 256 (``ops/head_dims.py``), one
+library a width. bf16 goes to ``ring_block_attention_bf16`` (byte
+strides), which runs the Hopper kernel (wgmma, TMA-fed K/V tiles) at
+64-256 and the FMA kernel on bf16 tiles at 16 and 32, as the width's
+library was built (``head_dims.SM90_FORWARD``); f32 goes to the FMA
+kernel (``ring_block_attention``). The kernel has no backward, as
 ``pallas_call`` has no VJP in the reference: on the card the ring is
 forward only, and a call that autograd would have to differentiate
 raises. On the CPU the plain version is differentiable.
@@ -45,6 +48,7 @@ from typing import Tuple
 
 import torch
 
+from ray_tpu_torch.ops import head_dims
 from ray_tpu_torch.parallel.collectives import (CollectiveGroup, send_recv,
                                                 spec_axes, to_global,
                                                 to_local)
@@ -54,7 +58,6 @@ from ray_tpu_torch.parallel.mesh import (AXIS_SEQ, Mesh,
 NEG_INF = -1e30
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIM = 128
 _INT32_MAX = 2 ** 31 - 1
 _TMA_MAX_STRIDE = 2 ** 40   # bytes
 # the device type the kernel runs on (tests point it at "meta" to reach
@@ -97,11 +100,13 @@ def _block_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_offset: int, k_offset: int) -> None:
-    """What kernel 2 takes: one CUDA device and dtype, q [B, H, Tq, 128]
-    and k, v [B, Hkv, Tk, 128] with Hkv dividing H, unit head_dim stride,
-    16-byte aligned rows, and offsets that keep every position in int32.
-    bf16 is read through TMA: every (batch, head, sequence) stride must
-    also be positive and below 2^40 bytes."""
+    """What kernel 2 takes: one CUDA device and dtype, q [B, H, Tq, D]
+    and k, v [B, Hkv, Tk, D] with D in ``head_dims.BLOCK_ATTENTION`` and
+    Hkv dividing H, unit head_dim stride, 16-byte aligned rows, and
+    offsets that keep every position in int32. The bf16 entry takes what
+    TMA takes at every width, where it reads through it or not: every
+    (batch, head, sequence) stride must also be positive and below 2^40
+    bytes."""
     if q.device.type != _KERNEL_DEVICE:
         raise ValueError(f"block_attention: no kernel for {q.device}")
     if k.device != q.device or v.device != q.device:
@@ -117,10 +122,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"block_attention: need q [B, H, Tq, D] and k, v "
                          f"[B, Hkv, Tk, D] with Hkv dividing H, got "
                          f"{[tuple(t.shape) for t in (q, k, v)]}")
-    if q.shape[-1] != _HEAD_DIM:
-        raise ValueError(f"block_attention: head_dim {q.shape[-1]} has no "
-                         f"kernel; kernel 2 is built for head_dim "
-                         f"{_HEAD_DIM} (ROADMAP.md, Queue B: kernel 2)")
+    head_dims.check("block_attention", q.shape[-1])
     vec = 16 // q.element_size()
     for t in (q, k, v):
         if (t.stride(-1) != 1 or any(s % vec for s in t.stride()[:3])
@@ -130,9 +132,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if q.dtype == torch.bfloat16 and not all(
                 0 < s * t.element_size() < _TMA_MAX_STRIDE
                 for s in t.stride()[:3]):
-            raise ValueError(f"block_attention: the bf16 kernel reads q, k "
-                             f"and v through TMA, which takes (batch, head, "
-                             f"sequence) strides of 16 to 2^40 bytes, got "
+            raise ValueError(f"block_attention: the bf16 kernel takes what "
+                             f"TMA takes, (batch, head, sequence) strides "
+                             f"of 16 to 2^40 bytes, got "
                              f"{t.stride()[:3]} elements")
     if any(abs(off) + t > _INT32_MAX
            for off, t in ((q_offset, q.shape[2]), (k_offset, k.shape[2]))):
@@ -165,10 +167,11 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty((B, H, Tq, D), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    lib = _build.library("ring_attention", _SIGNATURES)
+    lib = _build.library(head_dims.library("ring_attention", D),
+                         _SIGNATURES)
     if q.dtype == torch.bfloat16:
-        # the Hopper kernel takes byte strides (its TMA maps' unit)
-        fn = lib.ring_block_attention_sm90
+        # byte strides (the unit of the Hopper kernel's TMA maps)
+        fn = lib.ring_block_attention_bf16
         strides = [s * t.element_size() for t in (q, k, v)
                    for s in t.stride()[:3]]
     else:
@@ -193,14 +196,14 @@ def _stream(device: torch.device) -> int:
 
 # C signatures of csrc/ring_attention.cu's entry points: q, k, v, o, m, l;
 # B, H, Hkv, Tq, Tk, D, q_offset, k_offset; the (batch, head, seq) strides
-# of q, k and v (elements for the f32 kernel, bytes for the bf16 one);
+# of q, k and v (elements for f32, bytes for bf16);
 # causal, device index; stream.
 _BLOCK_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
                + [ctypes.c_void_p])
 _SIGNATURES = {
     "ring_block_attention": (ctypes.c_int, _BLOCK_ARGS),
-    "ring_block_attention_sm90": (ctypes.c_int, _BLOCK_ARGS),
+    "ring_block_attention_bf16": (ctypes.c_int, _BLOCK_ARGS),
 }
 
 

@@ -10,7 +10,7 @@ import stat
 
 import pytest
 
-from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import _build, head_dims
 
 # an entry point as ptxas names it (nvcc 12.9, sm_90a)
 MANGLED = ("_ZN51_GLOBAL__N__e929ddf8_18_paged_attention_cu_ad584a0a19"
@@ -61,6 +61,10 @@ echo "ptxas info    : Used 96 registers, used 1 barriers" >&2
     assert len(args) == len(out)
     assert all("arch=compute_90a,code=sm_90a" in a and "-shared" in a
                for a in args)
+    # one nvcc a head width of each attention kernel, with the width's -D
+    widths = [D for ws in head_dims.SOURCES.values() for D in ws]
+    assert sorted(int(a.split("-DRAY_TPU_HEAD_DIM=")[1].split()[0])
+                  for a in args if "-DRAY_TPU_HEAD_DIM=" in a) == sorted(widths)
     assert _build.build_all() == out          # cached: nvcc not run again
     assert len(calls.read_text().splitlines()) == len(out)
     report = _build.register_report("paged_attention")

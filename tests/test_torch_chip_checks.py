@@ -157,6 +157,28 @@ def test_ring_path_block_bounds():
     assert work["masked"] == (H * T * 130 * 4, 0)
 
 
+def test_ring_kernel_checks_each_path_shape():
+    """Phase ring_kernel holds kernel 2 at each width on the blocks that
+    width's ring forward in phase ring gives it: the configuration's heads
+    over its sequence cut in RING_SHARDS shards."""
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.ops import head_dims
+
+    shapes = chip_smoke.ring_path_shapes()
+    assert set(shapes) == set(head_dims.BLOCK_ATTENTION)
+    paths = {128: (chip_smoke.TRAIN, chip_smoke.RING_SEQ),
+             64: (chip_smoke.DEFAULT, chip_smoke.DEFAULT_RING_SEQ),
+             **{D: (fields, chip_smoke.WIDTH_RING_SEQ)
+                for D, fields in chip_smoke.width_models().items()}}
+    assert set(paths) == set(shapes)
+    for D, (fields, seq) in paths.items():
+        cfg = TransformerConfig(**fields)
+        assert cfg.head_dim == D
+        assert shapes[D] == (cfg.n_heads, cfg.n_kv_heads,
+                             seq // chip_smoke.RING_SHARDS)
+    assert chip_smoke.RING_BLOCKS == chip_smoke.ring_blocks(chip_smoke.RING_T)
+
+
 def test_logit_diff():
     rng = np.random.default_rng(1)
     a = torch.from_numpy(rng.normal(size=(1, 2500, 16)).astype(np.float32))
@@ -798,11 +820,27 @@ def test_wait_running_on_polls_the_task_table():
             return [{"node_index": 0, "state": "RUNNING"},
                     {"node_index": 2, "state": state}]
 
+        def stats(self):
+            return {"device_assigns": 7, "device_assign_errors": 0}
+
+    class Entry:
+        def __init__(self, index, state, reason):
+            self.index, self.state, self.death_reason = index, state, reason
+
+    class Gcs:
+        def node_table(self):
+            return [Entry(0, "ALIVE", None), Entry(5, "DEAD", "stale")]
+
     class W:
         scheduler = Sched()
+        gcs = Gcs()
 
     assert chip_smoke.wait_running_on(W(), 2) >= 0
-    with pytest.raises(AssertionError, match="row 5"):
+    # the timeout names the rows that ran, the nodes' states and reasons
+    # and the device assigns
+    with pytest.raises(AssertionError, match=r"row 5 .*by row \{0: \d+, "
+                       r"2: \d+\}.*5: \('DEAD', 'stale'\).*device "
+                       r"assigns 7, errors 0"):
         chip_smoke.wait_running_on(W(), 5, timeout=0.05)
 
 

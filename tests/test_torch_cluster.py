@@ -682,3 +682,49 @@ def test_late_first_node_keeps_the_head_alive():
         assert ray.get(on_head.remote(), timeout=60) == 1
     finally:
         ray.shutdown()
+
+
+def test_a_stalled_health_loop_declares_no_live_node_dead():
+    """Only the GCS health loop records heartbeats, so while it is late
+    no node can record one. A probe that stalls the loop past
+    node_heartbeat_timeout_s must not make the other live nodes look
+    stale: every node keeps answering, none is declared DEAD."""
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch._private.gcs import GcsService
+    from ray_tpu_torch._private.ids import NodeID
+
+    class Pool:
+        def __init__(self, stall_s=0.0):
+            self.stall_s, self.probes = stall_s, 0
+
+        def live_process_count(self):
+            self.probes += 1
+            if self.probes == 3:
+                time.sleep(self.stall_s)     # the loop's one long stall
+            return 2
+
+    class FakeWorker:
+        def __init__(self):
+            self.deaths = []
+
+        def on_node_failure(self, node_id, reason=""):
+            self.deaths.append(reason)
+            gcs.mark_node_dead(node_id, reason)
+
+    GLOBAL_CONFIG.set("node_heartbeat_timeout_s", 0.5)
+    w = FakeWorker()
+    gcs = GcsService(w)
+    try:
+        slow, other = Pool(stall_s=1.2), Pool()
+        gcs.register_node(NodeID.from_random(), 1, {"CPU": 1},
+                          kind="process", pool=slow)
+        gcs.register_node(NodeID.from_random(), 2, {"CPU": 1},
+                          kind="process", pool=other)
+        gcs.start_health_checks(interval=0.05)
+        assert wait_for(lambda: other.probes >= 10, timeout=10)
+        assert slow.probes > 3            # the stall happened and ended
+        assert w.deaths == []
+        assert [e.state for e in gcs.node_table()] == ["ALIVE", "ALIVE"]
+    finally:
+        gcs.shutdown()
+        GLOBAL_CONFIG.reset()

@@ -185,7 +185,7 @@ def test_bf16_forward_reaches_the_sm90_entry_with_byte_strides(recorded):
     o, lse = tf.flash_fwd(q, k, v)
     assert tf.flash_fwd.launches == before + 1
     (name, args), = recorded.calls
-    assert name == "flash_attention_fwd_sm90"
+    assert name == "flash_attention_fwd_bf16"
     # B, H, S, D; byte strides of [B, S, H, D] bf16; causal, device, stream
     assert args[5:] == (2, 4, 37, 128, 37 * 4 * 256, 256, 1024, 1, 0, 0)
     assert o.dtype == torch.bfloat16 and o.stride() == q.stride()
@@ -207,11 +207,11 @@ def _call(kernel, dtype):
 
 
 @pytest.mark.parametrize("dtype, kernel, entry, n_ptrs, tail", [
-    # bf16 backward: the sm90 entries, byte strides of [B, S, H, D] bf16,
+    # bf16 backward: the bf16 entries, byte strides of [B, S, H, D] bf16,
     # no dtype code; causal, device, stream
-    (torch.bfloat16, "flash_bwd_dq", "flash_attention_bwd_dq_sm90", 7,
+    (torch.bfloat16, "flash_bwd_dq", "flash_attention_bwd_dq_bf16", 7,
      (37 * 4 * 256, 256, 1024, 1, 0, 0)),
-    (torch.bfloat16, "flash_bwd_dkv", "flash_attention_bwd_dkv_sm90", 8,
+    (torch.bfloat16, "flash_bwd_dkv", "flash_attention_bwd_dkv_bf16", 8,
      (37 * 4 * 256, 256, 1024, 1, 0, 0)),
     # f32: the FMA entries, element strides, dtype code 0
     (torch.float32, "flash_fwd", "flash_attention_fwd", 5,
@@ -222,7 +222,7 @@ def _call(kernel, dtype):
      (37 * 4 * 128, 128, 512, 1, 0, 0, 0))])
 def test_kernels_reach_their_entries(recorded, dtype, kernel, entry, n_ptrs,
                                      tail):
-    """bf16 dq and dk/dv reach the sm90 entries with byte strides; f32
+    """bf16 dq and dk/dv reach the bf16 entries with byte strides; f32
     stays on the FMA entries. Each wrapper counts one launch and returns
     outputs in q's dtype and strides."""
     wrapper = getattr(tf, kernel)

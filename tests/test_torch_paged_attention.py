@@ -279,7 +279,7 @@ def test_split_plan_reads_shapes_only(recorded):
     """split_plan takes shapes, not tensors; the wrapper's launch is the
     same whatever the lengths hold (here: none at all, on meta)."""
     params = list(inspect.signature(tpa.split_plan).parameters)
-    assert params == ["B", "H", "KV", "MP", "page", "elt"]
+    assert params == ["B", "H", "KV", "MP", "page", "elt", "D"]
     for _ in range(2):
         tpa.paged_attention(*_meta())
     (_n1, a1), (_n2, a2) = recorded.calls
@@ -288,7 +288,7 @@ def test_split_plan_reads_shapes_only(recorded):
 
 @pytest.mark.parametrize("kw, call, match", [
     (dict(H=16, KV=1), {}, "group <= 8"),
-    (dict(D=64), {}, "head_dim"),
+    (dict(D=48), {}, "head_dim"),
     (dict(page=256, dtype=torch.float32), {}, "shared memory"),
     ({}, dict(pages_per_split=17), "pages per split"),
     (dict(MP=40, page=4), dict(pages_per_split=33), "pages per split"),

@@ -7,8 +7,7 @@
   takes ``system_config`` (``{"worker_mode": ...}``) in place of
   ``mode``; sections that touch the card take ``device`` (None: the
   card), sections that start a runtime take ``system_config`` (the tests
-  pass ``{"sched_device": "cpu"}``), and ``serving_ab`` takes ``model``
-  (kernel 1 is built for head_dim 128; the reference's A/B model has 16).
+  pass ``{"sched_device": "cpu"}``).
   The port's ``flops_per_step`` is the reference's private
   ``_flops_per_step`` without a compiler to ask.
 - Every key a section returns beyond the reference's is named in its
@@ -56,7 +55,7 @@ ADDED = {
     "model_mfu": ("device",),
     "model_time_sinks": ("device",),
     "llm_decode_throughput": ("device",),
-    "serving_ab": ("device", "system_config", "model"),
+    "serving_ab": ("device", "system_config"),
 }
 # own_runtime=True is the reference's behaviour (start and stop a runtime)
 ADDED_DEFAULTS = {("data_pipeline_throughput", "own_runtime"): True}

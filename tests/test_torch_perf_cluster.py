@@ -8,6 +8,14 @@ counted quantities (bounds: equal, exactly): the actor's ``total`` and
 the nested tasks' ``n_submit``; the calls routed and dispatched are
 held to the reference's rules. Then the reference's guard on the port
 (tests/test_benchmarks.py), its correctness checks unconditional.
+
+Under load (the suite's workers beside it) the reference's default arm
+can time out in its nested submit lane (a ``GetTimeoutError`` inside
+``submitter``: 6 of 79 runs with 8 copies of this case at once on one
+CPU host, the port's arm never): its
+arm runs as the reference's own guard runs its arms, a fresh arm a
+retry, at most REFERENCE_ATTEMPTS, and its last run is held to the same
+rules. The port's arm runs once and its checks are unconditional.
 """
 
 import pytest
@@ -19,15 +27,47 @@ from ray_tpu_torch._private import perf  # noqa: E402
 from test_torch_perf import added_keys  # noqa: E402
 
 CPU = {"sched_device": "cpu"}
+REFERENCE_ATTEMPTS = 3
+
+
+def _routing_problems(r, n_calls, n_submit):
+    """The reference's rules for an arm's routed and dispatched counts."""
+    if r["p2p"]:
+        return [what for what, bad in (
+            ("calls_p2p", r["calls_p2p"] < 0.9 * n_calls - 1),
+            ("head_fallback", r["head_fallback"] != 0),
+            ("local_dispatch", r["local_dispatch"] < n_submit)) if bad]
+    return [what for what, bad in (
+        ("calls_p2p", r["calls_p2p"] != 0),
+        ("local_dispatch", r["local_dispatch"] != 0)) if bad]
+
+
+def _reference_arm(p2p, n_calls, n_submit):
+    """The reference's arm, a fresh one a retry (at most
+    REFERENCE_ATTEMPTS) while it times out or misses its routing rules.
+    Returns the last run; raises the last timeout if every attempt timed
+    out."""
+    from ray_tpu import exceptions as rex
+    from ray_tpu._private import perf as rperf
+
+    for attempt in range(REFERENCE_ATTEMPTS):
+        try:
+            r = rperf.head_bypass_ab(p2p, n_calls=n_calls,
+                                     n_submit=n_submit)
+        except (rex.TaskError, rex.GetTimeoutError):
+            if attempt + 1 == REFERENCE_ATTEMPTS:
+                raise
+            continue
+        if not _routing_problems(r, n_calls, n_submit):
+            break
+    return r
 
 
 @pytest.mark.parametrize("p2p", [True, False, None],
                          ids=["on", "off", "default"])
 def test_head_bypass_ab_matches_the_reference(p2p):
-    from ray_tpu._private import perf as rperf
-
     n_calls, n_submit = 10, 6
-    want = rperf.head_bypass_ab(p2p, n_calls=n_calls, n_submit=n_submit)
+    want = _reference_arm(p2p, n_calls, n_submit)
     got = perf.head_bypass_ab(p2p, n_calls=n_calls, n_submit=n_submit,
                               system_config=CPU)
     assert set(got) == set(want)

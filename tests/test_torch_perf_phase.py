@@ -53,16 +53,17 @@ def test_flash_ops_finds_each_kernel_by_its_device_name():
 def test_perf_phase_sizes():
     """The decode width's parameter count is the reference's (held to
     flax's count in tests/test_torch_perf.py); the serving A/B's model is
-    the reference's with kernel 1's head_dim; the forward reruns in the
-    remat recompute, so the time sinks' flash counts are 48 / 24 / 24."""
+    the reference's own, whose head_dim 16 kernel 1 is built for; the
+    forward reruns in the remat recompute, so the time sinks' flash
+    counts are 48 / 24 / 24."""
     from ray_tpu_torch._private import perf
     from ray_tpu_torch.models.transformer import TransformerConfig
     from ray_tpu_torch.ops import paged_attention as pa
 
     assert chip_smoke.PERF_DECODE_PARAMS == 127_157_248
-    cfg = TransformerConfig(**{**perf.SERVING_AB_MODEL,
-                               **chip_smoke.PERF_SERVING_MODEL})
-    assert cfg.head_dim in pa._HEAD_DIMS
+    cfg = TransformerConfig(**perf.SERVING_AB_MODEL)
+    assert not hasattr(chip_smoke, "PERF_SERVING_MODEL")
+    assert cfg.head_dim == 16 and cfg.head_dim in pa._HEAD_DIMS
     assert cfg.n_heads == perf.SERVING_AB_MODEL["n_heads"]
     assert cfg.vocab_size == perf.SERVING_AB_MODEL["vocab_size"]
     assert chip_smoke.PERF_SINK_STEPS == 3
@@ -76,6 +77,8 @@ def test_host_state_lists_threads_and_live_children():
     import subprocess
     import sys
     import threading
+    import time
+    from pathlib import Path
 
     gate = threading.Event()
     t = threading.Thread(target=gate.wait, name="perf-phase-probe")
@@ -83,6 +86,12 @@ def test_host_state_lists_threads_and_live_children():
     child = subprocess.Popen([sys.executable, "-c",
                               "import time; time.sleep(30)"])
     try:
+        # Popen can return while the child is still inside execve, its
+        # new argv not yet in /proc (read there as empty): wait for it
+        deadline = time.monotonic() + 10
+        while b"sleep" not in Path(f"/proc/{child.pid}/cmdline").read_bytes():
+            assert time.monotonic() < deadline, "the child never exec'd"
+            time.sleep(0.01)
         state = chip_smoke.host_state()
         assert "perf-phase-probe" in state["threads"]
         assert child.pid in [c["pid"] for c in state["children"]]
@@ -116,8 +125,7 @@ def test_serving_streams_hold_to_the_plain_model(disagg, serving_oracle):
     from ray_tpu_torch._private import perf
 
     r = perf.serving_ab(disagg, sessions=2, turns=2, max_new=8,
-                        device="cpu", system_config=CPU,
-                        model=chip_smoke.PERF_SERVING_MODEL)
+                        device="cpu", system_config=CPU)
     assert [(s["session"], s["turn"]) for s in r["streams"]] == [
         (0, 0), (0, 1), (1, 0), (1, 1)]
     assert sum(len(s["tokens"]) for s in r["streams"]) == r["total_tokens"]

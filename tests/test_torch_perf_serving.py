@@ -49,15 +49,6 @@ def test_serving_ab_matches_the_reference(disagg):
         assert got["affinity_hit_rate"] is want["affinity_hit_rate"] is None
 
 
-def test_serving_ab_model_override_keeps_the_rest():
-    """``model`` overrides fields of the reference's model: d_model 256 over
-    2 heads is kernel 1's head_dim 128, the A/B's counts unchanged."""
-    got = _port_arm(False, sessions=2, turns=1, max_new=4,
-                    model={"d_model": 256, "d_ff": 512})
-    assert got["head_dim"] == 128
-    assert got["n_streams"] == 2 and got["total_tokens"] == 8
-
-
 def test_serving_split_ttft_never_slower_than_mono():
     """The reference's guard (tests/test_benchmarks.py) on the port: under
     a concurrent-streams load that oversubscribes the mono arm's

@@ -277,7 +277,7 @@ def test_bf16_block_reaches_the_sm90_entry_with_byte_strides(recorded):
     o, m, l = tra.block_attention(q, k, v, 32, 0, True)
     assert tra.block_attention.launches == before + 1
     (name, args), = recorded.calls
-    assert name == "ring_block_attention_sm90"
+    assert name == "ring_block_attention_bf16"
     assert args[6:14] == (2, 4, 2, 32, 32, 128, 32, 0)
     # [B, S, H, D] bf16: batch 64*H*128*2 bytes, head 256, sequence H*256
     assert args[14:23] == (65536, 256, 1024, 32768, 256, 512,
