@@ -80,7 +80,9 @@ Phases, each printing one JSON line:
                warm steps, then 5 timed steps with the flash launch counters
                zeroed just before; every loss finite, the last below the
                first, and every layer of every step launched the three flash
-               kernels. One more step runs under torch.profiler.
+               kernels. One more step runs under torch.profiler. Then the
+               same with its heads regrouped as 8 x 256 (TRAIN_D256), at
+               the same batch, steps and profile.
   8. ring    — sequence parallelism: the train configuration's width and depth
                at 32768 tokens (batch 1, bf16, max_seq_len 32768) through
                models.train_step.make_forward under use_mesh with a seq=4
@@ -489,7 +491,12 @@ RING_REF_SEQ = RING_T + RING_T // 4
 # (ring_path_shapes)
 DEFAULT_RING_SEQ = 8192
 TRAIN_D256 = dict(TRAIN, n_heads=8, n_kv_heads=4)
-TRAIN_D256_BATCH, TRAIN_D256_WARMUP, TRAIN_D256_STEPS = 8, 1, 3
+TRAIN_D256_BATCH, TRAIN_D256_WARMUP, TRAIN_D256_STEPS = (
+    TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS)
+# the flash kernels at 256 (phase kernel): the train path's shape, and
+# bf16 also at batch 8, where PERF.md's earlier times at 256 were taken
+FLASH_D256_BATCH = {"bfloat16": TRAIN_D256_BATCH, "bfloat16@batch8": 8,
+                    "float32": FLASH_BATCH["float32"]}
 WIDTH_SLOTS, WIDTH_NEW, WIDTH_RING_SEQ = 8, 32, 2048
 DEFAULT = {}   # TransformerConfig()'s own fields
 
@@ -1236,11 +1243,9 @@ def phase_flash_kernel(torch, dev, timed=True):
                           readings[kname])})
         del q, k, v, do, readings, _lse, _di
     # the train steps' shapes: TRAIN's heads at head_dim 128 (batch
-    # FLASH_BATCH), TRAIN_D256's at 256 (batch TRAIN_D256_BATCH in bf16)
+    # FLASH_BATCH), TRAIN_D256's at 256 (FLASH_D256_BATCH)
     shapes = {FLASH_D: (FLASH_H, FLASH_BATCH),
-              256: (TRAIN_D256["n_heads"],
-                    {"bfloat16": TRAIN_D256_BATCH,
-                     "float32": FLASH_BATCH["float32"]})}
+              256: (TRAIN_D256["n_heads"], FLASH_D256_BATCH)}
     rows = {D: flash_train_shape(torch, dev, fl, D, *shapes[D], timed,
                                  check, failed)
             for D in head_dims.FLASH}
@@ -1253,12 +1258,14 @@ def flash_train_shape(torch, dev, fl, D, H, batches, timed, check, failed):
     """The three flash kernels at a train step's attention shape
     ([B, FLASH_S, H, D] views, causal; f32 also non-causal), each output
     against the plain version's; timed: two launches bit-identical, times,
-    the SDPA yardstick and the bound. Returns {kernel: {dtype: row}}."""
+    the SDPA yardstick and the bound. batches: {label: B}, a label being
+    the dtype's name or the name and "@" and what the batch is for.
+    Returns {kernel: {label: row}}."""
     F = torch.nn.functional
     rows = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).replace("torch.", "")
-        B = batches[name]
+    for label, B in batches.items():
+        name = label.split("@")[0]
+        dtype = getattr(torch, name)
         g = torch.Generator(device=dev).manual_seed(2)
         q, k, v, do = (torch.randn((B, FLASH_S, H, D),
                                    generator=g, device=dev).to(dtype)
@@ -1277,7 +1284,7 @@ def flash_train_shape(torch, dev, fl, D, H, batches, timed, check, failed):
             for kname in FLASH_NAMES:
                 emit({"phase": "kernel", "name": kname, "dtype": name,
                       "batch": B, "heads": H, "head_dim": D, "causal": True,
-                      **check(kname, f"{name}, head_dim {D}", True,
+                      **check(kname, f"{label}, head_dim {D}", True,
                               readings[kname])})
             continue
         # two launches on the same inputs give the same bits (the forward's
@@ -1296,7 +1303,7 @@ def flash_train_shape(torch, dev, fl, D, H, batches, timed, check, failed):
                 bool(torch.equal(a, b)) for a, b in zip(first, second))
             if not deterministic[kname]:
                 failed.append(f"{kname}: two launches on the same inputs "
-                              f"differ ({name}, head_dim {D})")
+                              f"differ ({label}, head_dim {D})")
             del first, second
         # yardstick only (the port never calls it): SDPA forward, and its
         # backward alone (one call computing dq, dk and dv together)
@@ -1327,7 +1334,7 @@ def flash_train_shape(torch, dev, fl, D, H, batches, timed, check, failed):
             t_ops = flops / PEAK_FLOPS[name] * 1e3
             row = {"dtype": name, "batch": B, "heads": H,
                    "seq": FLASH_S, "head_dim": D, "causal": True,
-                   **check(kname, f"{name}, head_dim {D}", True,
+                   **check(kname, f"{label}, head_dim {D}", True,
                            readings[kname]),
                    "ms": cuda_ms(torch, kernel, 10),
                    "plain_ms": cuda_ms(torch, plain, 2),
@@ -1336,7 +1343,9 @@ def flash_train_shape(torch, dev, fl, D, H, batches, timed, check, failed):
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "bytes": nbytes, "flops": flops}
             row["deterministic"] = deterministic[kname]
-            rows.setdefault(kname, {})[name] = row
+            if label != name:
+                row["shape"] = label
+            rows.setdefault(kname, {})[label] = row
             emit({"phase": "kernel", "name": kname, **row})
         del q, k, v, do, lse_ref, di, readings, calls
         torch.cuda.empty_cache()
@@ -2150,14 +2159,15 @@ def phase_train_parity(torch):
 
 def phase_train(torch):
     """The train main path: the flagship configuration through the
-    trainer's entry points (5 timed steps at [16, 2048], head_dim 128,
-    profiled), then its heads regrouped as 8 x 256 (TRAIN_D256, 3 steps at
-    [8, 2048]). Returns each flash kernel's launches in the timed steps:
+    trainer's entry points (5 timed steps at [16, 2048], head_dim 128),
+    then its heads regrouped as 8 x 256 (TRAIN_D256, the same depth), each
+    profiled. Returns each flash kernel's launches in the timed steps:
     {head_dim: {kernel: launches}}."""
     return {FLASH_D: train_run(torch, TRAIN, TRAIN_BATCH, TRAIN_WARMUP,
                                TRAIN_STEPS, profile=True),
             256: train_run(torch, TRAIN_D256, TRAIN_D256_BATCH,
-                           TRAIN_D256_WARMUP, TRAIN_D256_STEPS)}
+                           TRAIN_D256_WARMUP, TRAIN_D256_STEPS,
+                           profile=True)}
 
 
 def train_run(torch, fields, batch_size, warmup, steps, profile=False):

@@ -64,6 +64,23 @@ MUTANTS = {
         "const float bulk = (hi ? row_hi : row_lo) < 1024 ? 1.f : 0.98f;\n"
         "          da[i] = pack_p(bulk * p0 * (dp[2 * i] - dr),\n"
         "                         bulk * p1 * (dp[2 * i + 1] - dr));"),
+    "dq256_v_slot": (
+        "the bf16 dQ kernel at head_dim 256 multiplies dS by the V tile's "
+        "slot of its three-slot ring, not by K's",
+        BWD, "value_tile(dq[ch], dsa, sm.kv[ks][2 * ch], kSmallBoxBytes);",
+        "value_tile(dq[ch], dsa, sm.kv[vs][2 * ch], kSmallBoxBytes);"),
+    "dkv256_pt_lane": (
+        "the bf16 dK/dV kernel at head_dim 256: warpgroup 1 takes P^T from "
+        "the hand-off at the column of another thread (the key 1 row on)",
+        BWD, "const float pe = sm.pt[4 * n + e][w];",
+        "const float pe = sm.pt[4 * n + e][w ^ 4];"),
+    "dkv256_half_swap": (
+        "the bf16 dK/dV kernel at head_dim 256 writes each column half of "
+        "dK and dV at the other half's columns",
+        BWD, "store_rows(out + 128 * ch, pr.ss, acc[ch], key_lo, key_hi, t, "
+             "pr.S,",
+        "store_rows(out + 128 * (ch ^ 1), pr.ss, acc[ch], key_lo, key_hi, "
+        "t, pr.S,"),
     "swap_dkdv": (
         "the autograd Function returns dv as k's gradient and dk as v's",
         "ray_tpu_torch/ops/flash.py", "return dq, dk, dv, None",

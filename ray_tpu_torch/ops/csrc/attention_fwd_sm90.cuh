@@ -666,7 +666,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 // Returns 0, a cudaError_t, or kEncodeError + the encoder's CUresult.
 inline int encode_map(CUtensorMap* map, const void* base, int B, int H,
                       int T, long long sb, long long sh, long long st,
-                      int box_rows, int D = kD) {
+                      int box_rows, int D) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;

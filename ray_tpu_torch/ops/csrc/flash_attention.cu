@@ -43,18 +43,18 @@
 // Every output element is written by exactly one block and summed in a
 // fixed order: no atomics, so a launch is deterministic and the forward
 // recomputed under activation checkpointing is bit-identical.
-// bf16 (the _bf16 entries) runs on wgmma + TMA:
+// bf16 (the _bf16 entries) runs on wgmma + TMA at both widths:
 //   - the forward: the template of
 //     attention_fwd_sm90.cuh (128-query blocks, 128-key tiles, 64 at
 //     D = 256, P in registers) with the epilogue FlashFwdOut below, which
 //     writes o / l in bf16 and lse = m + log(l);
-//   - the backward at D = 128: the kernels of attention_bwd_sm90.cuh
-//     (128-query dQ blocks over 128-key tiles; 128-key dK/dV blocks over
+//   - the backward: the kernels of attention_bwd_sm90.cuh. At D = 128,
+//     128-query dQ blocks over 128-key tiles and 128-key dK/dV blocks over
 //     64-query tiles, computed transposed so that P^T and dS^T stay in
-//     registers). At D = 256 the backward runs the FMA kernels below on
-//     bf16 tiles (RAY_TPU_SM90_BACKWARD 0 in that library), P and
-//     dS rounded to bf16 for their products as the sm90 backward rounds
-//     them.
+//     registers; at D = 256 (namespace d256 there), dQ over 64-key tiles
+//     with K and V in slots of their own, and 64-key dK/dV blocks whose two
+//     consumer warpgroups own dV and dK, the first handing P^T to the
+//     second through shared memory.
 // f32 (all three kernels) stages 64-row tiles global -> shared memory with
 // 16-byte loads (the loop's tiles 32 rows at D = 256); 8 warps each
 // compute a 16-row slice of every product as f32 FMAs (mma_tiles.cuh, no
@@ -376,12 +376,12 @@ struct Geometry {
   long long sb, sh, ss;
 };
 
-// the bf16 forward runs the sm90 template at every width flash takes; the
-// bf16 backward's wgmma template is written for head_dim kD alone
+// bf16 runs the sm90 kernels at every width flash takes: the forward's
+// template, and the backward's kernels for head_dim 128 and 256
 static_assert(RAY_TPU_SM90_FORWARD && kHeadDim % 64 == 0,
               "flash's bf16 forward is the sm90 template");
-static_assert(!RAY_TPU_SM90_BACKWARD || kHeadDim == kD,
-              "the sm90 backward takes head_dim 128 alone");
+static_assert(RAY_TPU_SM90_BACKWARD && (kHeadDim == 128 || kHeadDim == 256),
+              "flash's bf16 backward is the sm90 kernels at 128 and 256");
 
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
@@ -479,10 +479,8 @@ struct FlashFwdOut {
 // f32 entries take the strides in elements and a dtype code that must be
 // 0 (float32); the _bf16 entries take them in BYTES (each a positive
 // multiple of 16, bases 16-byte aligned: what TMA takes) and run the
-// route this library is built for (RAY_TPU_SM90_BACKWARD for the
-// backward, from ops/head_dims.py). Each returns a cudaError_t, the _bf16
-// entries also sm90::kEncodeError + the encoder's CUresult when a TMA map
-// is refused.
+// sm90 kernels. Each returns a cudaError_t, the _bf16 entries also
+// sm90::kEncodeError + the encoder's CUresult when a TMA map is refused.
 
 // the forward in f32 (dtype 0); bf16 takes flash_attention_fwd_bf16
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -542,7 +540,6 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                                 g, scale, s));
 }
 
-#if RAY_TPU_SM90_BACKWARD
 // the bf16 backward's problem: element strides for the outputs' stores
 static sm90::BwdProblem bwd_problem(int H, int S, int D, const void* lse,
                                     const void* di, void* out0, void* out1,
@@ -555,7 +552,6 @@ static sm90::BwdProblem bwd_problem(int H, int S, int D, const void* lse,
                           static_cast<bf16*>(out0), static_cast<bf16*>(out1),
                           sb / elt, sh / elt, ss / elt};
 }
-#endif
 
 // backward dQ in bf16
 extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k,
@@ -568,21 +564,14 @@ extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k,
   cudaError_t err = check(B, H, S, D, device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#if RAY_TPU_SM90_BACKWARD
   const sm90::BwdProblem pr =
       bwd_problem(H, S, D, lse, di, dq, nullptr, sb, sh, ss);
   const long long st[3] = {sb, sh, ss};
-  return causal ? sm90::launch_bwd<false, true>(q, k, v, dout, B, st, pr, s)
-                : sm90::launch_bwd<false, false>(q, k, v, dout, B, st, pr, s);
-#else
-  const long long e = (long long)sizeof(bf16);
-  const Geometry g{B, H, S, sb / e, sh / e, ss / e};
-  const float scale = 1.0f / sqrtf((float)D);
-  return (int)(causal ? launch_dq<bf16, true>(q, k, v, dout, lse, di, dq, g,
-                                              scale, s)
-                      : launch_dq<bf16, false>(q, k, v, dout, lse, di, dq, g,
-                                               scale, s));
-#endif
+  return causal
+             ? sm90::launch_bwd<kHeadDim, false, true>(q, k, v, dout, B, st,
+                                                       pr, s)
+             : sm90::launch_bwd<kHeadDim, false, false>(q, k, v, dout, B, st,
+                                                        pr, s);
 }
 
 // backward dK/dV in f32 (dtype 0); bf16 takes flash_attention_bwd_dkv_bf16
@@ -618,21 +607,14 @@ extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k,
   cudaError_t err = check(B, H, S, D, device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#if RAY_TPU_SM90_BACKWARD
   const sm90::BwdProblem pr =
       bwd_problem(H, S, D, lse, di, dk, dv, sb, sh, ss);
   const long long st[3] = {sb, sh, ss};
-  return causal ? sm90::launch_bwd<true, true>(q, k, v, dout, B, st, pr, s)
-                : sm90::launch_bwd<true, false>(q, k, v, dout, B, st, pr, s);
-#else
-  const long long e = (long long)sizeof(bf16);
-  const Geometry g{B, H, S, sb / e, sh / e, ss / e};
-  const float scale = 1.0f / sqrtf((float)D);
-  return (int)(causal ? launch_dkv<bf16, true>(q, k, v, dout, lse, di, dk,
-                                               dv, g, scale, s)
-                      : launch_dkv<bf16, false>(q, k, v, dout, lse, di, dk,
-                                                dv, g, scale, s));
-#endif
+  return causal
+             ? sm90::launch_bwd<kHeadDim, true, true>(q, k, v, dout, B, st,
+                                                      pr, s)
+             : sm90::launch_bwd<kHeadDim, true, false>(q, k, v, dout, B, st,
+                                                       pr, s);
 }
 
 extern "C" const char* error_string(int code) {

@@ -1,8 +1,8 @@
 // Tile routines of the FMA attention kernels: the flash forward, dQ and
 // dK/dV (flash_attention.cu) and ring attention's block kernel
 // (ring_attention.cu) in f32 at every head_dim, and in bf16 where the
-// wgmma templates do not take the width (kernel 2 at head_dim 16 and 32,
-// the flash backward at 256). The other bf16 kernels run on wgmma
+// wgmma templates do not take the width (kernel 2 at head_dim 16 and 32).
+// The other bf16 kernels run on wgmma
 // (attention_fwd_sm90.cuh, attention_bwd_sm90.cuh); the constants, the
 // causal rule and the bf16 pair store here are shared with them.
 //
@@ -32,7 +32,6 @@
 namespace {
 
 constexpr int kHeadDim = RAY_TPU_HEAD_DIM;   // this library's width
-constexpr int kD = 128;        // the width of the bf16 wgmma backward
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 256;

@@ -15,8 +15,8 @@ computes it outside its kernels. In bf16 the three take byte strides
 (``flash_attention_*_bf16``) and run where the width's library was built
 to (``head_dims.SM90_FORWARD``, ``head_dims.SM90_BACKWARD``): the forward
 on Hopper's wgmma with TMA-fed tiles, on the kernel shared with ring
-attention's block; the backward on ``csrc/attention_bwd_sm90.cuh`` at
-head_dim 128 and on the FMA kernels' bf16 tiles at 256. In f32 all three
+attention's block; the backward on the wgmma kernels of
+``csrc/attention_bwd_sm90.cuh``, at 128 and 256 each. In f32 all three
 run on FMA kernels (wgmma has no f32). Each of the three wrappers
 takes its plain PyTorch version (``_flash_fwd_reference``,
 ``_flash_bwd_dq_reference``, ``_flash_bwd_dkv_reference``) for a CPU
@@ -206,8 +206,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_bwd_dq(q, k, v, do, lse, di, causal: bool = True) -> torch.Tensor:
-    """Kernel 3c: dq, in q's dtype and strides. bf16 at head_dim 128 runs
-    the Hopper kernel; f32, and bf16 at 256, the FMA kernel."""
+    """Kernel 3c: dq, in q's dtype and strides. bf16 runs the Hopper
+    kernel, f32 the FMA kernel."""
     if q.device.type == "cpu":
         return _flash_bwd_dq_reference(q, k, v, do, lse, di, causal)
     _check("flash_bwd_dq", (q, k, v, do), (lse, di))
@@ -219,8 +219,8 @@ def flash_bwd_dq(q, k, v, do, lse, di, causal: bool = True) -> torch.Tensor:
 
 def flash_bwd_dkv(q, k, v, do, lse, di, causal: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 3b: (dk, dv), in q's dtype and strides. bf16 at head_dim 128
-    runs the Hopper kernel; f32, and bf16 at 256, the FMA kernel."""
+    """Kernel 3b: (dk, dv), in q's dtype and strides. bf16 runs the
+    Hopper kernel, f32 the FMA kernel."""
     if q.device.type == "cpu":
         return _flash_bwd_dkv_reference(q, k, v, do, lse, di, causal)
     _check("flash_bwd_dkv", (q, k, v, do), (lse, di))

@@ -15,13 +15,15 @@ Each width is a library of its own: ``ops/_build.py`` compiles
 widths compile in parallel ``nvcc`` processes.
 
 Routes in bf16, decided here alone and compiled into each width's library
-(``RAY_TPU_SM90_FORWARD``, ``RAY_TPU_SM90_BACKWARD``): the forwards (kernel 2, kernel 3a) run the wgmma + TMA
-template (``csrc/attention_fwd_sm90.cuh``) at ``SM90_FORWARD``; kernel 2
-at 16 and 32, whose 32- and 64-byte rows are narrower than the template's
-128-byte swizzled box, runs the FMA tiles of ``csrc/mma_tiles.cuh``. The
-flash backward (3b, 3c) runs ``csrc/attention_bwd_sm90.cuh`` at
-``SM90_BACKWARD`` and the FMA tiles at 256. f32 runs the FMA tiles at
-every width (wgmma has no f32).
+(``RAY_TPU_SM90_FORWARD``, ``RAY_TPU_SM90_BACKWARD``): the forwards
+(kernel 2, kernel 3a) run the wgmma + TMA template
+(``csrc/attention_fwd_sm90.cuh``) at ``SM90_FORWARD``; kernel 2 at 16 and
+32, whose 32- and 64-byte rows are narrower than the template's 128-byte
+swizzled box, runs the FMA tiles of ``csrc/mma_tiles.cuh``. The flash
+backward (3b, 3c) runs the wgmma + TMA kernels of
+``csrc/attention_bwd_sm90.cuh`` at ``SM90_BACKWARD``, every width flash
+takes: one design at 128 and one for 256's register and shared-memory
+budgets. f32 runs the FMA tiles at every width (wgmma has no f32).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ SOURCES = {"paged_attention": PAGED_ATTENTION,
 # bf16 widths on the wgmma + TMA templates; the other bf16 widths of a
 # kernel run its FMA tiles
 SM90_FORWARD: Tuple[int, ...] = (64, 128, 256)
-SM90_BACKWARD: Tuple[int, ...] = (128,)
+SM90_BACKWARD: Tuple[int, ...] = (128, 256)
 
 # the width whose library takes the source's own name
 DEFAULT_HEAD_DIM = 128

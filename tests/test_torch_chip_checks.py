@@ -244,6 +244,31 @@ def test_every_flash_kernel_is_checked_as_sm90():
     assert chip_smoke.SM90_MIN_REGISTERS == 168
 
 
+def test_the_256_backward_is_build_checked_as_sm90():
+    """The head_dim-256 flash library's build check holds its forward and
+    both backward kernels (3c, 3b) to HGMMA and UTMALDG, no spills and
+    the registers of the setmaxnreg split: their warpgroups split as the
+    128 instances' do (two consumers at 240, a producer at 24), so the
+    same floor, 168."""
+    checks = chip_smoke.width_build_checks()
+    d256 = [(kernel, how) for lib, kernel, how in checks
+            if lib == "flash_attention_d256"]
+    assert d256 == [("attention_fwd_kernel", {}),
+                    ("attention_bwd_dq_kernel", {}),
+                    ("attention_bwd_dkv_kernel", {})]
+    body = "UTMALDG.4D [UR8] ;\nHGMMA.64x64x16.F32.BF16 R24 ;"
+    report = {"attention_bwd_dkv_kernel<true>": (
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; "
+        "Used 168 registers, used 3 barriers")}
+    row, found = chip_smoke.sm90_instances(
+        "attention_bwd_dkv_kernel", _sass((_BWD_DKV, body)), report, "")
+    assert found == [] and row["hgmma"] and row["utmaldg"]
+    report["attention_bwd_dkv_kernel<true>"] = "Used 160 registers"
+    _row, found = chip_smoke.sm90_instances(
+        "attention_bwd_dkv_kernel", _sass((_BWD_DKV, body)), report, "")
+    assert found == ["attention_bwd_dkv_kernel: registers [160] (need 168)"]
+
+
 @pytest.mark.parametrize("name, group", [
     ("void (anonymous namespace)::sm90::attention_bwd_dq_kernel<true>"
      "(CUtensorMap_st, CUtensorMap_st)", "flash attention"),

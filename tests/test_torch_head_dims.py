@@ -402,7 +402,16 @@ def test_block_attention_routes_by_width(recorded, D, dtype):
 @pytest.mark.parametrize("D", head_dims.FLASH)
 def test_bf16_flash_routes_by_width(recorded, D, kernel):
     """bf16 reaches each flash kernel's bf16 entry with byte strides and
-    no dtype code, in its width's library, at every width."""
+    no dtype code, in its width's library, at every width; that library
+    routes the kernel through the wgmma + TMA kernels (the forward's
+    template, the backward's kernels at 128 and 256), none through the
+    FMA tiles."""
+    from ray_tpu_torch.ops import _build
+
+    route = "FORWARD" if kernel == "flash_fwd" else "BACKWARD"
+    _path, defines = _build.sources()[head_dims.library("flash_attention",
+                                                        D)]
+    assert f"-DRAY_TPU_SM90_{route}=1" in defines
     q = _meta(2, 37, 4, D).transpose(1, 2)
     rows = _meta(2, 4, 37, dtype=torch.float32)
     if kernel == "flash_fwd":
@@ -420,7 +429,8 @@ def test_bf16_flash_routes_by_width(recorded, D, kernel):
 def test_each_width_builds_with_its_routes(D):
     """Each width's library is its source compiled with the width and its
     bf16 routes: the forward on wgmma at head_dims.SM90_FORWARD, the flash
-    backward at head_dims.SM90_BACKWARD, the FMA tiles elsewhere."""
+    backward at head_dims.SM90_BACKWARD (128 and 256, every width flash
+    takes), the FMA tiles elsewhere."""
     from ray_tpu_torch.ops import _build
 
     srcs = _build.sources()
@@ -433,4 +443,4 @@ def test_each_width_builds_with_its_routes(D):
         assert defines == (
             f"-DRAY_TPU_HEAD_DIM={D}",
             f"-DRAY_TPU_SM90_FORWARD={int(D >= 64)}",
-            f"-DRAY_TPU_SM90_BACKWARD={int(D == 128)}")
+            f"-DRAY_TPU_SM90_BACKWARD={int(D in (128, 256))}")
