@@ -447,6 +447,11 @@ RING_SMALL = {"odd_gqa": (16, 8, 333, 200, 101, 37, True),
               "late_keys": (16, 8, 300, 129, 5, 70, True),
               "non_causal_mha": (8, 8, 257, 190, 3, 11, False)}
 RING_SMALL_BATCH = 2
+# kernel 2's and SDPA's calls captured in one CUDA graph to time them by
+# replay; the kernels line's kernel-2 rows carry these of the full block
+# beside the eager times
+RING_GRAPH_CALLS = 20
+RING_ROW_KEYS = ("graph_ms", "library_graph_ms", "splits", "blocks")
 # kernel 2's o (f32, unnormalised) is held to FLASH_BOUNDS: in bf16 it rounds
 # P to bf16 before P v, as the flash forward does. m and l are f32 in both
 # dtypes, from scores whose bf16 products are exact in f32: the same sums in
@@ -794,6 +799,9 @@ SM90_KERNELS = {
     "flash_attention": ("attention_fwd_kernel", "attention_bwd_dq_kernel",
                         "attention_bwd_dkv_kernel")}
 SM90_MIN_REGISTERS = (24 * 128 + 240 * 256) // 384
+# kernel 2's split kernel (attention_fwd_sm90.cuh): 160 threads, no
+# setmaxnreg, so no floor on its registers; HGMMA, UTMALDG, no spills
+SPLIT_KERNEL = "attention_fwd_split_kernel"
 # kernel 1 (ops/csrc/paged_attention.cu, both dtypes) has neither wgmma nor
 # a tensor map: its split kernel must copy each page tile with one
 # cp.async.bulk, which sm_90a's SASS names UBLKCP; neither of its kernels
@@ -856,19 +864,24 @@ def sm90_instances(kernel, sass, ptxas, log, ops=("HGMMA", "UTMALDG"),
 
 
 def width_build_checks():
-    """The build checks of the head widths' libraries other than 128
-    (ops/head_dims.py): each width of kernel 1 as BULK_KERNELS's, and the
-    sm90 templates' instances of kernel 2 and the flash kernels at the
-    widths that route bf16 through them. [(library, kernel, how)]"""
+    """The build checks of the head widths' libraries (ops/head_dims.py)
+    beyond SM90_KERNELS' (the 128 libraries): each width of kernel 1 as
+    BULK_KERNELS's, the sm90 instances of kernel 2 (the template's at 64
+    and 256, the split kernel's at every width) and of the flash kernels
+    at the widths that route bf16 through them. [(library, kernel, how)]"""
     from ray_tpu_torch.ops import head_dims as hd
 
     checks = [(hd.library("paged_attention", D), kernel,
                {"ops": ops, "min_registers": None})
               for D in hd.PAGED_ATTENTION if D != hd.DEFAULT_HEAD_DIM
               for kernel, ops in BULK_KERNELS["paged_attention"].items()]
-    checks += [(hd.library("ring_attention", D), "attention_fwd_kernel", {})
-               for D in hd.BLOCK_ATTENTION
-               if D != hd.DEFAULT_HEAD_DIM and D in hd.SM90_FORWARD]
+    # kernel 2: the template's instances at the widths it takes (128's is
+    # SM90_KERNELS'), and the split kernel's at every width
+    for D in hd.BLOCK_ATTENTION:
+        lib = hd.library("ring_attention", D)
+        if D != hd.DEFAULT_HEAD_DIM and D % 64 == 0:
+            checks.append((lib, "attention_fwd_kernel", {}))
+        checks.append((lib, SPLIT_KERNEL, {"min_registers": None}))
     for D in hd.FLASH:
         if D == hd.DEFAULT_HEAD_DIM:
             continue
@@ -951,6 +964,31 @@ def graph_ms(torch, calls, n_replay: int = 50):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (n_replay * len(calls)), outs
+
+
+def profiled_ms(torch, fn, n_calls: int = 20):
+    """fn() n_calls times under torch.profiler, after a warm call: (the
+    device time per call of every kernel it launched, from the device's own
+    kernel events, and {kernel name: device ms per call})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name[:80]
+            by_name[name] = by_name.get(name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / n_calls
+    if not by_name:
+        raise AssertionError("the profiler recorded no device activity")
+    return sum(by_name.values()), by_name
 
 
 def paged_lengths(page, pps, MP):
@@ -1396,27 +1434,33 @@ def ring_block_check(torch, name, got, want, neg_inf):
 
 def phase_ring_kernel(torch, dev, timed=True):
     """Kernel 2 against its plain version at each head_dim it is built for:
-    on small ragged blocks (f32 and bf16), then on a ring path's three
-    kinds of block (bf16, with times, bound and an SDPA yardstick;
-    timed=False: the checks alone), at each width the shards and heads
-    its ring path in phase ring gives it (ring_path_shapes). The inputs are
-    [B, T, H, D] tensors seen as [B, H, T, D] views, as the ring passes
-    the model's. Returns {head_dim: {block: row}}. Raises after every
-    check has printed if any is out of bounds."""
+    on small ragged blocks (f32, and bf16 under its launch plan and each
+    launch of ring_launches), then on a ring path's three kinds of block
+    (bf16, with times, bound and an SDPA yardstick; timed=False: the checks
+    alone), at each width the shards and heads its ring path in phase ring
+    gives it (ring_path_shapes). The inputs are [B, T, H, D] tensors seen
+    as [B, H, T, D] views, as the ring passes the model's. Returns
+    {head_dim: {block: row}}. Raises after every check has printed if any
+    is out of bounds."""
     from ray_tpu_torch.ops import head_dims
     from ray_tpu_torch.ops import ring_attention as ra
 
     failed = []
 
-    def check(label, dtype, qkv, q_off, k_off, causal):
+    def check(label, dtype, qkv, q_off, k_off, causal, splits=None):
         name = str(dtype).replace("torch.", "")
-        got = ra.block_attention(*qkv, q_off, k_off, causal)
+        got = ra.block_attention(*qkv, q_off, k_off, causal, splits)
         want = ra._block_attention_reference(*qkv, q_off, k_off, causal)
         torch.cuda.synchronize()
         result = ring_block_check(torch, name, got, want, ra.NEG_INF)
+        if dtype == torch.bfloat16:
+            result["splits"] = (ra.block_plan(*qkv[0].shape[:3],
+                                              qkv[1].shape[2],
+                                              qkv[0].shape[-1])
+                                if splits is None else splits)
         if not result["ok"]:
-            failed.append(f"{label} ({name}, head_dim "
-                          f"{qkv[0].shape[-1]})")
+            failed.append(f"{label} ({name}, head_dim {qkv[0].shape[-1]}"
+                          f"{', splits ' + str(splits) if splits is not None else ''})")
         return result
 
     rows = {}
@@ -1429,19 +1473,39 @@ def phase_ring_kernel(torch, dev, timed=True):
                         causal) in RING_SMALL.items():
                 qkv = ring_inputs(torch, dev, g, RING_SMALL_BATCH, h, kv, tq,
                                   tk, D, dtype)
-                emit({"phase": "kernel", "name": "ring_block_attention",
-                      "block": label, "dtype": name, "head_dim": D,
-                      "batch": RING_SMALL_BATCH, "heads": h, "kv_heads": kv,
-                      "tq": tq, "tk": tk, "q_offset": q_off,
-                      "k_offset": k_off, "causal": causal,
-                      **check(label, dtype, qkv, q_off, k_off, causal)})
+                plans = ([None] + list(ring_launches(D))
+                         if dtype == torch.bfloat16 else [None])
+                for splits in plans:
+                    emit({"phase": "kernel", "name": "ring_block_attention",
+                          "block": label, "dtype": name, "head_dim": D,
+                          "batch": RING_SMALL_BATCH, "heads": h,
+                          "kv_heads": kv, "tq": tq, "tk": tk,
+                          "q_offset": q_off, "k_offset": k_off,
+                          "causal": causal,
+                          **check(label, dtype, qkv, q_off, k_off, causal,
+                                  splits)})
         H, KV, T = shapes[D]
         rows[D] = ring_path_blocks(torch, dev, ra, g, D, H, KV, T,
-                                   ring_blocks(T), timed, check)
+                                   ring_blocks(T), timed, check, failed)
     if failed:
         raise AssertionError(f"ring block kernel vs plain out of bounds: "
                              f"{failed}")
     return rows
+
+
+def ring_launches(D):
+    """The bf16 launches of kernel 2 that phase kernel checks beside its
+    plan's: the 128-query template where head_dim takes it (0), and the
+    split kernel at 1, 2, 4 and 8 splits."""
+    return ((0,) if D % 64 == 0 else ()) + (1, 2, 4, 8)
+
+
+def ring_blocks_launched(B, H, Tq, splits):
+    """Blocks of a kernel-2 launch: B * H * 128-query tiles (splits 0), or
+    B * H * 64-query tiles * splits."""
+    if splits == 0:
+        return B * H * -(-Tq // 128)
+    return B * H * -(-Tq // 64) * splits
 
 
 def ring_path_shapes():
@@ -1469,19 +1533,39 @@ def ring_inputs(torch, dev, g, B, h, kv, tq, tk, D, dtype):
     return tuple(x.to(dtype).transpose(1, 2) for x in (q, k, v))
 
 
-def ring_path_blocks(torch, dev, ra, g, D, H, KV, T, blocks, timed, check):
+def ring_path_blocks(torch, dev, ra, g, D, H, KV, T, blocks, timed, check,
+                     failed):
     """Kernel 2 on a ring path's kinds of block ({label: (q_offset,
-    k_offset)}) of T-token shards, bf16, causal: the check, and timed the
-    kernel's, the plain version's and SDPA's times and the bound. Returns
-    {label: row}."""
+    k_offset)}) of T-token shards, bf16, causal: the check under the
+    launch plan, two launches bit for bit, and where the plain version's
+    scores fit (every width but the 32k ring's 128) the check under each
+    launch of ring_launches; timed, the kernel's, the plain version's and
+    SDPA's times and the bound, and on the full block the graph time of
+    each launch. Returns {label: row}."""
     F = torch.nn.functional
     rows = {}
     q, k, v = ring_inputs(torch, dev, g, 1, H, KV, T, T, D, torch.bfloat16)
+    plan = ra.block_plan(1, H, T, T, D)
+    sweep = [] if D == FLASH_D else [
+        s for s in ring_launches(D)
+        if s <= max(1, -(-T // ra.split_keys(D)))]
     for label, (q_off, k_off) in blocks.items():
         row = {"block": label, "dtype": "bfloat16", "head_dim": D,
                "batch": 1, "heads": H, "kv_heads": KV, "tq": T, "tk": T,
                "q_offset": q_off, "k_offset": k_off, "causal": True,
+               "blocks": ring_blocks_launched(1, H, T, plan),
                **check(label, torch.bfloat16, (q, k, v), q_off, k_off, True)}
+        first = ra.block_attention(q, k, v, q_off, k_off)
+        again = ra.block_attention(q, k, v, q_off, k_off)
+        row["deterministic"] = all(torch.equal(a, b)
+                                   for a, b in zip(first, again))
+        if not row["deterministic"]:
+            failed.append(f"{label} (bfloat16, head_dim {D}): two launches "
+                          f"differ")
+        del first, again
+        row["launches_checked"] = {
+            s: check(label, torch.bfloat16, (q, k, v), q_off, k_off, True,
+                     s)["ok"] for s in sweep}
         if not timed:
             emit({"phase": "kernel", "name": "ring_block_attention", **row})
             continue
@@ -1489,17 +1573,41 @@ def ring_path_blocks(torch, dev, ra, g, D, H, KV, T, blocks, timed, check):
                                          q.element_size(), D)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        row["ms"] = cuda_ms(torch, lambda i: ra.block_attention(
-            q, k, v, q_off, k_off), 10)
+
+        # each call three ways: eager (CUDA events around a loop of
+        # wrapper calls, so host time where the host is the slower side),
+        # by replays of RING_GRAPH_CALLS calls captured in one CUDA graph
+        # (device time and the gaps between kernels), and by the profiler
+        # (the device time of the kernels alone, by name)
+        def kernel(splits=None):
+            return ra.block_attention(q, k, v, q_off, k_off, True, splits)
+
+        row["ms"] = cuda_ms(torch, lambda i: kernel(), 10)
+        row["graph_ms"] = graph_ms(torch, [kernel] * RING_GRAPH_CALLS)[0]
+        row["profiled_ms"], row["profiled_kernels"] = profiled_ms(torch,
+                                                                  kernel)
+        if label == "full":
+            # the launch plan's choice against the other launches
+            row["graph_ms_by_splits"] = {
+                s: graph_ms(torch, [lambda s=s: kernel(s)]
+                            * RING_GRAPH_CALLS)[0] for s in sweep}
         row["plain_ms"] = cuda_ms(torch, lambda i: (
             ra._block_attention_reference(q, k, v, q_off, k_off, True)), 2)
         # yardstick only (the port never calls it): one SDPA call on the
-        # same block, GQA unrepeated. It returns normalised o alone (no m,
-        # l), so it does slightly less; it has no counterpart of a block
-        # that sees no key
-        row["library_ms"] = None if label == "masked" else cuda_ms(
-            torch, lambda i: F.scaled_dot_product_attention(
-                q, k, v, is_causal=label == "diagonal", enable_gqa=True), 10)
+        # same block, GQA unrepeated, timed the same three ways. It returns
+        # normalised o alone (no m, l), so it does slightly less; it has no
+        # counterpart of a block that sees no key
+        row["library_ms"] = None
+        if label != "masked":
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=label == "diagonal", enable_gqa=True)
+
+            row["library_ms"] = cuda_ms(torch, lambda i: sdpa(), 10)
+            row["library_graph_ms"] = graph_ms(
+                torch, [sdpa] * RING_GRAPH_CALLS)[0]
+            (row["library_profiled_ms"],
+             row["library_profiled_kernels"]) = profiled_ms(torch, sdpa)
         row.update(bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=nbytes, flops=flops)
@@ -8604,13 +8712,12 @@ def width_table(kernel_rows, flash_rows, ring_rows, engine, train, ring,
         rows.append({
             "name": f"ring_block_attention_d{D}", "route": "cuda",
             "head_dim": D,
-            "source": csrc + ("attention_fwd_sm90.cuh" if D in hd.SM90_FORWARD
-                              else "mma_tiles.cuh"),
+            "source": csrc + "attention_fwd_sm90.cuh",
             "replaces": "ray_tpu/ops/ring_attention.py:64",
             "launches": ring[D], "launches_by_path": {"ring": ring[D]},
             "max_abs_err": max(r["max_abs_err"]
                                for r in ring_rows[D].values()),
-            **{k: full[k] for k in keys}})
+            **{k: full[k] for k in keys + RING_ROW_KEYS}})
     lines = {"flash_fwd": 758, "flash_bwd_dq": 1456, "flash_bwd_dkv": 1121}
     for D in hd.FLASH:
         if D == hd.DEFAULT_HEAD_DIM:
@@ -8792,7 +8899,7 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"]
                            for r in ring_rows[FLASH_D].values()),
         **{k: full[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")}})
+                                "library_ms") + RING_ROW_KEYS}})
     table += width_table(kernel_rows, flash_rows, ring_rows, launches,
                          train_launches, ring_launches, perf)
     table += sched_table(sched_rows, star_rows, sched_launches)

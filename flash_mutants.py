@@ -2,8 +2,10 @@
 """Mutation check of chip_smoke.py's attention checks, on one NVIDIA GPU.
 
     python3 flash_mutants.py     # one card
+    python3 flash_mutants.py split_stride split_boundary   # those, and sound
 
-Copies ray_tpu_torch and chip_smoke.py once per variant into
+Copies ray_tpu_torch and chip_smoke.py once per variant (those named on
+the command line and "sound", or all of MUTANTS) into
 ray_tpu_torch/_build/mutants/<variant>/ (listed in .gitignore), breaks each
 copy in one place (MUTANTS), builds every copy's paged, flash and ring
 kernels at once, and runs chip_smoke's paged attention checks, flash kernel
@@ -81,18 +83,44 @@ MUTANTS = {
              "pr.S,",
         "store_rows(out + 128 * (ch ^ 1), pr.ss, acc[ch], key_lo, key_hi, "
         "t, pr.S,"),
+    "split_stride": (
+        "kernel 2's split kernel steps 8 rows by 1024 bytes at every width: "
+        "4 and 2 row groups too far at head_dim 16 and 32",
+        SM90, "static constexpr uint32_t kGroupBytes = 8 * kRowBytes;",
+        "static constexpr uint32_t kGroupBytes = 8 * 128;"),
+    "split_no_rescale": (
+        "kernel 2's split merge sums the splits' o and l without rescaling "
+        "each to the row's largest m",
+        SM90, "mj[j] > 0.5f * kNegInf ? fast_exp2((mj[j] - m) * c) : 0.f;",
+        "mj[j] > 0.5f * kNegInf ? 1.f : 0.f;"),
+    "split_boundary": (
+        "kernel 2's split kernel ends each split one key tile late: the "
+        "first tile of the next split is counted twice",
+        SM90, "const int kt1 = (split + 1) * kt_end / splits;",
+        "const int kt1 = min(kt_end, (split + 1) * kt_end / splits + 1);"),
+    "split_gqa_mod": (
+        "kernel 2's split kernel maps query head h to KV head h % Hkv, not "
+        "h / (H / Hkv)",
+        SM90, "h = bh % pr.H, hk = h / pr.rep;",
+        "h = bh % pr.H, hk = h % (pr.H / pr.rep);"),
+    "split_dead_rows": (
+        "kernel 2's split kernel drops the guard of rows that have seen no "
+        "key: p = 2^0 = 1 for each of their masked columns",
+        SM90, "const float mc_lo = m_lo > 0.5f * kNegInf ? m_lo * c : 0.f;",
+        "const float mc_lo = m_lo * c;"),
     "swap_dkdv": (
         "the autograd Function returns dv as k's gradient and dk as v's",
         "ray_tpu_torch/ops/flash.py", "return dq, dk, dv, None",
         "return dq, dv, dk, None"),
     "dead_rows": (
-        "the bf16 forwards drop the guard of rows that have seen no key: "
-        "p = exp(0) = 1 for each of their masked columns",
+        "the 128-query template (3a, kernel 2's long shards) drops the guard "
+        "of rows that have seen no key: p = exp(0) = 1 for each of their "
+        "masked columns",
         SM90, "const bool live_lo = m_lo > 0.5f * kNegInf;\n"
               "  const bool live_hi = m_hi > 0.5f * kNegInf;",
         "const bool live_lo = true;\n  const bool live_hi = true;"),
     "gqa_mod": (
-        "the bf16 forwards map query head h to KV head h % Hkv, not "
+        "the 128-query template maps query head h to KV head h % Hkv, not "
         "h / (H / Hkv)",
         SM90, "const int hk = h / pr.rep;",
         "const int hk = h % (pr.H / pr.rep);"),
@@ -216,7 +244,12 @@ def main() -> int:
         print("flash_mutants: no CUDA device; nothing was run",
               file=sys.stderr)
         return 1
-    roots = {name: make_copy(name) for name in MUTANTS}
+    names = ["sound"] + [n for n in (sys.argv[1:] or MUTANTS) if n != "sound"]
+    unknown = set(names) - set(MUTANTS)
+    if unknown:
+        print(f"flash_mutants: no variant {sorted(unknown)}", file=sys.stderr)
+        return 1
+    roots = {name: make_copy(name) for name in names}
     # every head width's library of the attention kernels
     build = ("import sys; sys.path.insert(0, sys.argv[1]); "
              "from ray_tpu_torch.ops import _build; "

@@ -327,7 +327,13 @@ class _ActorRuntime:
         tp.record_failed(call.task_id, type(exc).__name__)
 
     def _execute_call(self, call: _Call):
-        method = getattr(self.instance, call.method_name)
+        instance = self.instance
+        if instance is None:
+            # the actor died while this call waited for its thread
+            self._store_error(call, self.death_cause or rex.ActorDiedError(
+                actor_id=self.actor_id))
+            return
+        method = getattr(instance, call.method_name)
         pg_token = self._capture_pg_token()
         env_saved = self._env_apply()
         try:
@@ -351,7 +357,13 @@ class _ActorRuntime:
             self.num_executed += 1
 
     async def _execute_call_async(self, call: _Call):
-        method = getattr(self.instance, call.method_name)
+        instance = self.instance
+        if instance is None:
+            # the actor died while this call waited for its thread
+            self._store_error(call, self.death_cause or rex.ActorDiedError(
+                actor_id=self.actor_id))
+            return
+        method = getattr(instance, call.method_name)
         pg_token = self._capture_pg_token()
         env_saved = self._env_apply()
         try:
@@ -476,13 +488,19 @@ class _ActorRuntime:
         # fail the queued calls first, then wake each thread with its
         # sentinel: draining after the sentinels (as the reference does)
         # swallows them, and the threads then block forever, holding the
-        # instance (and whatever it holds on the card)
+        # instance (and whatever it holds on the card). One sentinel for
+        # each thread the actor has by its options, not for each thread in
+        # self._threads: start() may still be starting them, and a thread
+        # started but not yet listed would find no sentinel
         self._drain_with_error()
-        for _ in self._threads:
+        for _ in range(1 if self._is_async else self._concurrency):
             self.inbox.put(None)
         for g, n in self._group_sizes.items():
             for _ in range(n):
                 self._group_inboxes[g].put(None)
+        # and the instance goes now, not with the last reference to this
+        # runtime: a call still running keeps it until it returns
+        self.instance = None
         # lifetime-held resources released at death
         if self._explicit_resources:
             self.worker.scheduler.notify_task_finished(
@@ -844,9 +862,10 @@ class _ProcessActorRuntime(_ActorRuntime):
                                       actor_id=self.actor_id)
             self._stopped.set()
             # fail the queued calls first, then wake each thread with its
-            # sentinel (see _ActorRuntime.stop)
+            # sentinel, one for each thread by the options (see
+            # _ActorRuntime.stop)
             self._drain_with_error()
-            for _ in self._threads:
+            for _ in range(self._concurrency):
                 self.inbox.put(None)
             for g, n in self._group_sizes.items():
                 for _ in range(n):

@@ -1,10 +1,8 @@
 // Tile routines of the FMA attention kernels: the flash forward, dQ and
 // dK/dV (flash_attention.cu) and ring attention's block kernel
-// (ring_attention.cu) in f32 at every head_dim, and in bf16 where the
-// wgmma templates do not take the width (kernel 2 at head_dim 16 and 32).
-// The other bf16 kernels run on wgmma
-// (attention_fwd_sm90.cuh, attention_bwd_sm90.cuh); the constants, the
-// causal rule and the bf16 pair store here are shared with them.
+// (ring_attention.cu) in f32 at every head_dim. Every bf16 kernel runs on
+// wgmma (attention_fwd_sm90.cuh, attention_bwd_sm90.cuh); the constants,
+// the causal rule and the bf16 pair store here are shared with them.
 //
 // Shapes: head_dim D (a template parameter; each library builds one width,
 // kHeadDim below); a block owns a 64-row tile and loops over tiles of

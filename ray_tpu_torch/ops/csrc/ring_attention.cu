@@ -22,13 +22,16 @@
 // and contiguous. A row with no visible key gets o = 0, m = -1e30, l = 0:
 // the merge of the ring then scales it away.
 //
-// Bound: operations. On the ring's path (q [1, 16, 8192, 128], k/v
-// [1, 8, 8192, 128], bf16) a block below the diagonal does two products of
-// 2*B*H*Tq*Tk*D flops each (5.5e11 together) against ~0.13 GB of operands
-// and outputs: ~4000 flops per byte, far above the H100's ~295 bf16 flops
-// per byte, so the least time is flops / 989 TFLOP/s. A diagonal block
-// does half that; a block whose keys all follow its queries does no
-// arithmetic and only writes its outputs.
+// Bound: operations on a long shard, launch and latency on a short one.
+// On the 32k ring's path (q [1, 16, 8192, 128], k/v [1, 8, 8192, 128],
+// bf16) a block below the diagonal does two products of 2*B*H*Tq*Tk*D
+// flops each (5.5e11 together) against ~0.13 GB of operands and outputs:
+// ~4000 flops per byte, far above the H100's ~295 bf16 flops per byte, so
+// the least time is flops / 989 TFLOP/s. A diagonal block does half that;
+// a block whose keys all follow its queries does no arithmetic and only
+// writes its outputs. The smaller models' shards (512 or 2048 tokens of 4
+// or 8 heads) bound at 0.08-8.7 us: there the card must be filled, and at
+// head_dim 16-64 the exponential (one ex2 a score) outweighs the products.
 //
 // Design. The TPU kernel runs a grid (batch, head, query tile) and holds
 // the whole local KV block in VMEM (:117-119), computing one [Tq, Tk]
@@ -40,19 +43,22 @@
 // fully-masked values. Inside a tile, a row whose visible columns have not
 // started yet keeps m = -1e30 and takes p = 0 (the reference's
 // `where(m > NEG_INF/2, p, 0)`, :84-85), not exp(0) = 1 per masked column.
-// Three entry points, chosen by the wrapper from the dtype and width:
-//   - bf16 at D = 64, 128, 256: ring_block_attention_sm90, the wgmma + TMA
-//     template of attention_fwd_sm90.cuh (128-query blocks, 128-key tiles,
-//     64-key tiles at D = 256, 3 warpgroups) with the epilogue RingBlockOut
-//     below. The bf16 products are exact in f32, so scores, m and l match
-//     the reference's f32 cast up to summation order; P is rounded to bf16
-//     for the P v product, l sums the f32 P.
-//   - bf16 at D = 16, 32: ring_block_attention_bf16, ring_block_kernel
-//     below on bf16 tiles: a 32- or 64-byte row is narrower than the
-//     template's 128-byte swizzled box. P is rounded to bf16 as above.
+// Two entry points, chosen by the wrapper from the dtype:
+//   - bf16, every width: ring_block_attention_bf16, the wgmma + TMA kernels
+//     of attention_fwd_sm90.cuh with the epilogue RingBlockOut below, as
+//     the wrapper's launch plan (ops/ring_attention.py::block_plan) says:
+//     splits = 0, the 128-query template (3 warpgroups, 128-key tiles, 64
+//     at D = 256; at D = 64, 128, 256 where B * H * 128-query tiles fill
+//     the card: 1024 blocks on the 32k ring), or splits = n >= 1, the split
+//     kernel (64-query blocks of one consumer warpgroup, the key tiles of a
+//     query tile split over a cluster of n blocks and merged in split order
+//     through distributed shared memory). The bf16 products are exact in
+//     f32, so scores, m and l match the reference's f32 cast up to
+//     summation order; P is rounded to bf16 for the P v product, l sums the
+//     f32 P.
 //   - f32: ring_block_attention, ring_block_kernel below: 64-query blocks,
 //     64-key tiles (32 at D = 256), f32 FMAs in the mma.sync register
-//     layout of mma_tiles.cuh (no TF32).
+//     layout of mma_tiles.cuh (no TF32: wgmma has no f32).
 // Every output element is written by one block in a fixed order: launches
 // are deterministic.
 
@@ -67,8 +73,7 @@ struct Strides {
 };
 
 // ----------------------------------------------------------------------
-// kernel 2 on FMA tiles (f32; bf16 at D = 16, 32): block = (64-query
-// tile, b*H + h)
+// kernel 2 in f32 on FMA tiles: block = (64-query tile, b*H + h)
 // ----------------------------------------------------------------------
 
 template <typename T, int D, bool CAUSAL>
@@ -246,10 +251,32 @@ struct RingBlockOut {
   }
 };
 
-// the sm90 template's box is 64 bf16 columns (128 swizzled bytes): a row
-// of 16 or 32 values is narrower, and those widths run the FMA tiles
-static_assert(!RAY_TPU_SM90_FORWARD || kHeadDim % 64 == 0,
-              "the sm90 forward takes head_dim a multiple of 64");
+// every width runs bf16 on the wgmma + TMA kernels
+static_assert(RAY_TPU_SM90_FORWARD,
+              "kernel 2 runs bf16 on the sm90 forward at every head_dim");
+
+// the bf16 launch the plan names: splits = 0, the 128-query template
+// (head_dim a multiple of 64), else the split kernel
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, int B,
+                const long long (&sq)[3], const long long (&sk)[3],
+                const long long (&sv)[3], const sm90::Problem& pr,
+                const RingBlockOut<D>& epi, bool causal, int splits,
+                cudaStream_t s) {
+  if (splits == 0) {
+    if constexpr (D % 64 == 0) {
+      return causal ? sm90::launch<true, D>(q, k, v, B, sq, sk, sv, pr, epi,
+                                            s)
+                    : sm90::launch<false, D>(q, k, v, B, sq, sk, sv, pr, epi,
+                                             s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  return causal ? sm90::launch_split<true, D>(q, k, v, B, sq, sk, sv, pr,
+                                              epi, splits, s)
+                : sm90::launch_split<false, D>(q, k, v, B, sq, sk, sv, pr,
+                                               epi, splits, s);
+}
 
 bool bad_geometry(int B, int H, int Hkv, int Tq, int Tk, int D) {
   return B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Tq <= 0 ||
@@ -265,29 +292,6 @@ bool bad_geometry(int B, int H, int Hkv, int Tq, int Tk, int D) {
 // launch's cudaError_t (or, for the bf16 one, sm90::kEncodeError + the
 // encoder's CUresult when a TMA map is refused).
 
-namespace {
-
-// the FMA kernel's entries: (batch, head, seq) strides in elements
-template <typename T>
-int fma_entry(const void* q, const void* k, const void* v, void* o, void* m,
-              void* l, int B, int H, int Hkv, int Tq, int Tk, int D,
-              int q_offset, int k_offset, const long long (&st)[9],
-              int causal, int device, void* stream) {
-  if (bad_geometry(B, H, Hkv, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const Geometry g{B,        H,        H / Hkv,
-                   Tq,       Tk,       q_offset,
-                   k_offset, {st[0], st[1], st[2]}, {st[3], st[4], st[5]},
-                   {st[6], st[7], st[8]}};
-  const float scale = 1.0f / sqrtf((float)D);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(causal ? launch<T, true>(q, k, v, o, m, l, g, scale, s)
-                      : launch<T, false>(q, k, v, o, m, l, g, scale, s));
-}
-
-}  // namespace
-
 // f32 inputs; (batch, head, seq) strides of q, k and v in elements
 extern "C" int ring_block_attention(
     const void* q, const void* k, const void* v, void* o, void* m, void* l,
@@ -295,23 +299,30 @@ extern "C" int ring_block_attention(
     long long sqb, long long sqh, long long sqs, long long skb, long long skh,
     long long sks, long long svb, long long svh, long long svs, int causal,
     int device, void* stream) {
-  const long long st[9] = {sqb, sqh, sqs, skb, skh, sks, svb, svh, svs};
-  return fma_entry<float>(q, k, v, o, m, l, B, H, Hkv, Tq, Tk, D, q_offset,
-                          k_offset, st, causal, device, stream);
+  if (bad_geometry(B, H, Hkv, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Geometry g{B,        H,        H / Hkv,
+                   Tq,       Tk,       q_offset,
+                   k_offset, {sqb, sqh, sqs}, {skb, skh, sks},
+                   {svb, svh, svs}};
+  const float scale = 1.0f / sqrtf((float)D);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(causal ? launch<float, true>(q, k, v, o, m, l, g, scale, s)
+                      : launch<float, false>(q, k, v, o, m, l, g, scale, s));
 }
 
 // bf16 inputs; (batch, head, seq) strides of q, k and v in BYTES, each a
-// positive multiple of 16, and 16-byte aligned bases (what TMA takes). The
-// route is the one this library is built for (RAY_TPU_SM90_FORWARD, from
-// ops/head_dims.py): the sm90 template, or the FMA tiles on the strides
-// in elements
+// positive multiple of 16, and 16-byte aligned bases (what TMA takes).
+// splits: the launch plan's (ops/ring_attention.py::block_plan): 0 for the
+// 128-query template (head_dim a multiple of 64), 1 to sm90::kMaxSplits
+// for the split kernel
 extern "C" int ring_block_attention_bf16(
     const void* q, const void* k, const void* v, void* o, void* m, void* l,
     int B, int H, int Hkv, int Tq, int Tk, int D, int q_offset, int k_offset,
     long long sqb, long long sqh, long long sqs, long long skb, long long skh,
     long long sks, long long svb, long long svh, long long svs, int causal,
-    int device, void* stream) {
-#if RAY_TPU_SM90_FORWARD
+    int splits, int device, void* stream) {
   if (bad_geometry(B, H, Hkv, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -323,18 +334,8 @@ extern "C" int ring_block_attention_bf16(
                                    static_cast<float*>(l), H, Tq};
   const long long sq[3] = {sqb, sqh, sqs}, sk[3] = {skb, skh, sks},
                   sv[3] = {svb, svh, svs};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return causal ? sm90::launch<true, kHeadDim>(q, k, v, B, sq, sk, sv, pr,
-                                               epi, s)
-                : sm90::launch<false, kHeadDim>(q, k, v, B, sq, sk, sv, pr,
-                                                epi, s);
-#else
-  const long long e = (long long)sizeof(bf16);
-  const long long st[9] = {sqb / e, sqh / e, sqs / e, skb / e, skh / e,
-                           sks / e, svb / e, svh / e, svs / e};
-  return fma_entry<bf16>(q, k, v, o, m, l, B, H, Hkv, Tq, Tk, D, q_offset,
-                         k_offset, st, causal, device, stream);
-#endif
+  return launch_bf16<kHeadDim>(q, k, v, B, sq, sk, sv, pr, epi, causal != 0,
+                               splits, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* error_string(int code) {

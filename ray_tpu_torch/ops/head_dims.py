@@ -16,14 +16,16 @@ widths compile in parallel ``nvcc`` processes.
 
 Routes in bf16, decided here alone and compiled into each width's library
 (``RAY_TPU_SM90_FORWARD``, ``RAY_TPU_SM90_BACKWARD``): the forwards
-(kernel 2, kernel 3a) run the wgmma + TMA template
-(``csrc/attention_fwd_sm90.cuh``) at ``SM90_FORWARD``; kernel 2 at 16 and
-32, whose 32- and 64-byte rows are narrower than the template's 128-byte
-swizzled box, runs the FMA tiles of ``csrc/mma_tiles.cuh``. The flash
+(kernel 2, kernel 3a) run the wgmma + TMA kernels of
+``csrc/attention_fwd_sm90.cuh`` at ``SM90_FORWARD``, every width each
+takes: 3a the 128-query template; kernel 2 the template or the split
+kernel, whose boxes take the 32- and 64-byte rows of 16 and 32 under the
+swizzle of their width, as ``ring_attention.block_plan`` picks. The flash
 backward (3b, 3c) runs the wgmma + TMA kernels of
 ``csrc/attention_bwd_sm90.cuh`` at ``SM90_BACKWARD``, every width flash
 takes: one design at 128 and one for 256's register and shared-memory
-budgets. f32 runs the FMA tiles at every width (wgmma has no f32).
+budgets. f32 runs the FMA tiles of ``csrc/mma_tiles.cuh`` at every width
+(wgmma has no f32).
 """
 
 from __future__ import annotations
@@ -42,9 +44,8 @@ SOURCES = {"paged_attention": PAGED_ATTENTION,
            "ring_attention": BLOCK_ATTENTION,
            "flash_attention": FLASH}
 
-# bf16 widths on the wgmma + TMA templates; the other bf16 widths of a
-# kernel run its FMA tiles
-SM90_FORWARD: Tuple[int, ...] = (64, 128, 256)
+# bf16 widths on the wgmma + TMA kernels (every width each kernel takes)
+SM90_FORWARD: Tuple[int, ...] = (16, 32, 64, 128, 256)
 SM90_BACKWARD: Tuple[int, ...] = (128, 256)
 
 # the width whose library takes the source's own name

@@ -15,10 +15,12 @@ The block step, ``block_attention``, is kernel 2: hand-written CUDA C++
 or raises, and counts its launches in ``block_attention.launches``. It
 takes head_dim 16, 32, 64, 128 and 256 (``ops/head_dims.py``), one
 library a width. bf16 goes to ``ring_block_attention_bf16`` (byte
-strides), which runs the Hopper kernel (wgmma, TMA-fed K/V tiles) at
-64-256 and the FMA kernel on bf16 tiles at 16 and 32, as the width's
-library was built (``head_dims.SM90_FORWARD``); f32 goes to the FMA
-kernel (``ring_block_attention``). The kernel has no backward, as
+strides), the Hopper kernels (wgmma, TMA-fed tiles) at every width, with
+the launch ``block_plan`` picks from the shapes: the 128-query template
+where its blocks fill the card, else the split kernel (64-query blocks,
+each query tile's key tiles split over a cluster of blocks and merged in
+a fixed order); f32 goes to the FMA kernel (``ring_block_attention``).
+The kernel has no backward, as
 ``pallas_call`` has no VJP in the reference: on the card the ring is
 forward only, and a call that autograd would have to differentiate
 raises. On the CPU the plain version is differentiable.
@@ -44,7 +46,7 @@ from __future__ import annotations
 import ctypes
 import itertools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,6 +60,16 @@ from ray_tpu_torch.parallel.mesh import (AXIS_SEQ, Mesh,
 NEG_INF = -1e30
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# the bf16 launch plan (block_plan): the H100's SMs; 128-query blocks of
+# the template that fill them (one resident an SM: 384 threads of up to 240
+# registers); the keys x head_dim a split of the split kernel must keep to
+# pay for its merge (two cluster barriers and reads of every split's share:
+# on the card a 512-token shard gains from 2 splits at 256 and loses from
+# any at 16-64, PERF.md section 6); its largest cluster (the portable size)
+SMS = 132
+FILL_BLOCKS = SMS
+SPLIT_WORK = 32768
+MAX_SPLITS = 8
 _INT32_MAX = 2 ** 31 - 1
 _TMA_MAX_STRIDE = 2 ** 40   # bytes
 # the device type the kernel runs on (tests point it at "meta" to reach
@@ -96,6 +108,44 @@ def _block_attention_reference(q: torch.Tensor, k: torch.Tensor,
     l = p.sum(-1)
     o = torch.matmul(p, v.float())
     return o, m, l
+
+
+def split_keys(head_dim: int) -> int:
+    """Keys a tile of the split kernel: 128, or 64 at head_dim 256 (its
+    128-register O)."""
+    return 64 if head_dim > 128 else 128
+
+
+def block_plan(B: int, H: int, Tq: int, Tk: int, head_dim: int) -> int:
+    """The bf16 launch of kernel 2 for a block of these shapes (shapes
+    only, so a ring's steps all launch alike): 0, the 128-query template,
+    where head_dim is a multiple of 64 and its B * H * ceil(Tq / 128)
+    blocks fill the card (FILL_BLOCKS; the 32k ring's 1024 at 128); else
+    n >= 1, the split kernel with each 64-query tile's key tiles split n
+    ways: as many as keep the B * H * ceil(Tq / 64) * n blocks within one
+    an SM and Tk * head_dim / n at SPLIT_WORK or more, at most
+    MAX_SPLITS."""
+    if head_dim % 64 == 0 and B * H * -(-Tq // 128) >= FILL_BLOCKS:
+        return 0
+    tiles = B * H * -(-Tq // 64)
+    return max(1, min(MAX_SPLITS, SMS // tiles, Tk * head_dim // SPLIT_WORK))
+
+
+def split_key_tiles(q0: int, Tq: int, Tk: int, head_dim: int,
+                    q_offset: int, k_offset: int, causal: bool,
+                    splits: int):
+    """The split kernel's key tiles for the 64-query tile at row q0, as it
+    computes them: the tiles up to the last one holding a key the tile's
+    last row sees, [0, kt_end), and block s of the cluster's even share,
+    [s * kt_end // splits, (s + 1) * kt_end // splits). Returns [(kt0,
+    kt1)] a split."""
+    keys = split_keys(head_dim)
+    kt_end = -(-Tk // keys)
+    if causal:
+        last_key = q_offset + min(q0 + 64, Tq) - 1 - k_offset
+        kt_end = 0 if last_key < 0 else min(kt_end, last_key // keys + 1)
+    return [(s * kt_end // splits, (s + 1) * kt_end // splits)
+            for s in range(splits)]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -143,13 +193,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: int = 0, k_offset: int = 0,
-                    causal: bool = True
+                    causal: bool = True, splits: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One blockwise attention step (kernel 2). q [B, H, Tq, D], k/v
     [B, Hkv, Tk, D]; offsets are the GLOBAL sequence positions of the first
     row and column (host ints). Returns (o unnormalised, m, l), all f32.
     CPU tensor: the plain version (differentiable). CUDA tensor: the kernel,
-    forward only."""
+    forward only; in bf16 with ``block_plan``'s launch, or ``splits`` (0 or
+    1 to MAX_SPLITS, as block_plan returns) in its place."""
     if q.device.type == "cpu":
         return _block_attention_reference(q, k, v, q_offset, k_offset, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -170,15 +221,24 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.library(head_dims.library("ring_attention", D),
                          _SIGNATURES)
     if q.dtype == torch.bfloat16:
-        # byte strides (the unit of the Hopper kernel's TMA maps)
+        # byte strides (the unit of the Hopper kernel's TMA maps), then
+        # the launch plan
         fn = lib.ring_block_attention_bf16
         strides = [s * t.element_size() for t in (q, k, v)
                    for s in t.stride()[:3]]
+        if splits is None:
+            splits = block_plan(B, H, Tq, Tk, D)
+        elif not (0 <= splits <= MAX_SPLITS and (splits or D % 64 == 0)):
+            raise ValueError(f"block_attention: splits {splits} is not a "
+                             f"launch of head_dim {D} (0 at a multiple of "
+                             f"64, or 1 to {MAX_SPLITS})")
+        tail = (int(causal), splits)
     else:
         fn = lib.ring_block_attention
         strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+        tail = (int(causal),)
     rc = fn(*(t.data_ptr() for t in (q, k, v, o, m, l)), B, H, Hkv, Tq, Tk,
-            D, q_offset, k_offset, *strides, int(causal),
+            D, q_offset, k_offset, *strides, *tail,
             q.device.index or 0, _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: "
@@ -196,14 +256,15 @@ def _stream(device: torch.device) -> int:
 
 # C signatures of csrc/ring_attention.cu's entry points: q, k, v, o, m, l;
 # B, H, Hkv, Tq, Tk, D, q_offset, k_offset; the (batch, head, seq) strides
-# of q, k and v (elements for f32, bytes for bf16);
-# causal, device index; stream.
+# of q, k and v (elements for f32, bytes for bf16); causal, and for bf16
+# the launch plan's splits; device index; stream.
 _BLOCK_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
                + [ctypes.c_void_p])
 _SIGNATURES = {
     "ring_block_attention": (ctypes.c_int, _BLOCK_ARGS),
-    "ring_block_attention_bf16": (ctypes.c_int, _BLOCK_ARGS),
+    "ring_block_attention_bf16": (ctypes.c_int, _BLOCK_ARGS[:-2]
+                                  + [ctypes.c_int] + _BLOCK_ARGS[-2:]),
 }
 
 

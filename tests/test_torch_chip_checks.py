@@ -237,6 +237,39 @@ def test_sm90_instances(case, problems):
     assert len(row["ptxas_warnings"]) == (case == "few_registers")
 
 
+def test_kernel_2_is_build_checked_at_every_width():
+    """Phase build_sm90 holds kernel 2's library at every width to the
+    split kernel's instances (HGMMA, UTMALDG, no spills; no register floor:
+    no setmaxnreg), and at 64 and 256 also to the 128-query template's (128
+    is SM90_KERNELS'): the 16 and 32 libraries by themselves."""
+    from ray_tpu_torch.ops import head_dims
+
+    checks = chip_smoke.width_build_checks()
+    ring = {(lib, kernel): how for lib, kernel, how in checks
+            if lib.startswith("ring_attention")}
+    want = {}
+    for D in head_dims.BLOCK_ATTENTION:
+        lib = head_dims.library("ring_attention", D)
+        want[(lib, chip_smoke.SPLIT_KERNEL)] = {"min_registers": None}
+        if D in (64, 256):
+            want[(lib, "attention_fwd_kernel")] = {}
+    assert ring == want
+    assert chip_smoke.SM90_KERNELS["ring_attention"] == (
+        "attention_fwd_kernel",)
+    name = ("_ZN3sm9026attention_fwd_split_kernelILb1ELi16EN12_GLOBAL__N_1"
+            "12RingBlockOutILi16EEEEEvv")
+    report = {"attention_fwd_split_kernel<true, 16, RingBlockOut<16> >":
+              "0 bytes spill stores, 0 bytes spill loads; Used 132 registers"}
+    row, found = chip_smoke.sm90_instances(
+        chip_smoke.SPLIT_KERNEL, _sass((name, "UTMALDG.4D ;\nHGMMA.64x128x16 ;")),
+        report, "", min_registers=None)
+    assert found == [] and row["instances"] == 1
+    # the template's name does not match the split kernel's
+    row, found = chip_smoke.sm90_instances(
+        "attention_fwd_kernel", _sass((name, "HGMMA UTMALDG")), report, "")
+    assert row["instances"] == 0 and found
+
+
 def test_every_flash_kernel_is_checked_as_sm90():
     assert chip_smoke.SM90_KERNELS["flash_attention"] == (
         "attention_fwd_kernel", "attention_bwd_dq_kernel",

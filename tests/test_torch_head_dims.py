@@ -382,9 +382,9 @@ def test_paged_attention_loads_its_width(recorded, D):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", WIDTHS)
 def test_block_attention_routes_by_width(recorded, D, dtype):
-    """bf16 reaches the bf16 entry with byte strides, f32 the FMA entry
-    with element strides, each in its width's library (which runs bf16 on
-    the route head_dims.defines compiled into it)."""
+    """bf16 reaches the bf16 entry with byte strides and the launch plan's
+    splits (the sm90 kernels at every width, head_dims.SM90_FORWARD), f32
+    the FMA entry with element strides, each in its width's library."""
     q = _meta(2, 64, 4, D, dtype=dtype)[:, 32:].transpose(1, 2)
     kv = _meta(2, 64, 2, D, dtype=dtype)[:, 32:].transpose(1, 2)
     tra.block_attention(q, kv, kv, 32, 0, True)
@@ -395,6 +395,10 @@ def test_block_attention_routes_by_width(recorded, D, dtype):
                      else "ring_block_attention") and args[11] == D
     unit = 2 if bf16 else 1
     assert args[14:17] == (64 * 4 * D * unit, D * unit, 4 * D * unit)
+    # causal, then in bf16 the plan: 8 64-query tiles, one key tile, so
+    # the split kernel unsplit at every width
+    assert args[23:-2] == ((1, 1) if bf16 else (1,))
+    assert D in head_dims.SM90_FORWARD
 
 
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
@@ -428,9 +432,9 @@ def test_bf16_flash_routes_by_width(recorded, D, kernel):
 @pytest.mark.parametrize("D", WIDTHS)
 def test_each_width_builds_with_its_routes(D):
     """Each width's library is its source compiled with the width and its
-    bf16 routes: the forward on wgmma at head_dims.SM90_FORWARD, the flash
-    backward at head_dims.SM90_BACKWARD (128 and 256, every width flash
-    takes), the FMA tiles elsewhere."""
+    bf16 routes: the forwards on wgmma at head_dims.SM90_FORWARD (every
+    width: kernel 2 at 16 and 32 too), the flash backward at
+    head_dims.SM90_BACKWARD (128 and 256, every width flash takes)."""
     from ray_tpu_torch.ops import _build
 
     srcs = _build.sources()
@@ -442,5 +446,20 @@ def test_each_width_builds_with_its_routes(D):
         assert path == _build.CSRC / f"{source}.cu"
         assert defines == (
             f"-DRAY_TPU_HEAD_DIM={D}",
-            f"-DRAY_TPU_SM90_FORWARD={int(D >= 64)}",
+            "-DRAY_TPU_SM90_FORWARD=1",
             f"-DRAY_TPU_SM90_BACKWARD={int(D in (128, 256))}")
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_narrow_ring_libraries_build_the_sm90_forward(D):
+    """Kernel 2's libraries at 16 and 32 build with
+    -DRAY_TPU_SM90_FORWARD=1: bf16 runs the wgmma + TMA split kernel there
+    (32- and 64-byte swizzled boxes), and no bf16 call reaches the FMA
+    tiles (ring_attention.cu asserts the define at compile time)."""
+    from ray_tpu_torch.ops import _build
+
+    path, defines = _build.sources()[head_dims.library("ring_attention", D)]
+    assert "-DRAY_TPU_SM90_FORWARD=1" in defines
+    source = path.read_text()
+    assert "static_assert(RAY_TPU_SM90_FORWARD," in source
+    assert "ring_block_kernel<bf16" not in source

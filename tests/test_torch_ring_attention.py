@@ -282,7 +282,9 @@ def test_bf16_block_reaches_the_sm90_entry_with_byte_strides(recorded):
     # [B, S, H, D] bf16: batch 64*H*128*2 bytes, head 256, sequence H*256
     assert args[14:23] == (65536, 256, 1024, 32768, 256, 512,
                            32768, 256, 512)
-    assert args[23:] == (1, 0, 0)
+    # causal, the launch plan's splits (one: 8 blocks of the template
+    # would not fill the card, and there is one key tile), device, stream
+    assert args[23:] == (1, 1, 0, 0)
     assert o.shape == (2, 4, 32, 128) and m.shape == l.shape == (2, 4, 32)
     assert {t.dtype for t in (o, m, l)} == {torch.float32}
 
@@ -314,3 +316,157 @@ def test_bf16_block_rejects_strides_tma_cannot_take(recorded, case):
     with pytest.raises(ValueError, match="16"):
         tra.block_attention(q, kv, kv)
     assert not recorded.calls and tra.block_attention.launches == before
+
+
+# ----------------------------------------------------------------------
+# the bf16 launch plan (block_plan) and the split kernel's key ranges
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape, splits", [
+    # the 32k ring at head_dim 128 (16 / 8 heads, 8192-token shards):
+    # 1024 blocks of the 128-query template, today's launch
+    ((1, 16, 8192, 8192, 128), 0),
+    # the ring paths of the smaller models: 512-token shards of 4 or 8
+    # heads at 16, 32 and 256, 2048-token shards of 8 heads at 64. Only
+    # 256 keeps work enough a split (512 x 256 / 2 keys x head_dim) in
+    # one block an SM (8 x 8 tiles x 2)
+    ((1, 4, 512, 512, 16), 1),
+    ((1, 8, 512, 512, 32), 1),
+    ((1, 8, 512, 512, 256), 2),
+    ((1, 8, 2048, 2048, 64), 1),
+    # long shards fill the card: the template where the width takes it,
+    # else the split kernel unsplit
+    ((1, 16, 8192, 8192, 64), 0),
+    ((2, 8, 8192, 8192, 16), 1),
+    # few tiles and long keys: up to MAX_SPLITS
+    ((1, 1, 64, 8192, 32), 8),
+    ((1, 4, 100, 2048, 128), 8),
+    ((1, 4, 100, 1024, 64), 2),
+])
+def test_block_plan_cases(shape, splits):
+    assert tra.block_plan(*shape) == splits
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+def test_block_plan_keeps_one_split_where_the_grid_fills_the_card(D):
+    """Wherever the 64-query tiles alone fill the card (an SM each) the
+    plan splits nothing, and wherever the 128-query template fills it at
+    a width it takes, the plan is the template; otherwise at most
+    MAX_SPLITS and the key tiles there are, within one block an SM."""
+    rng = np.random.default_rng(D)
+    for _ in range(400):
+        B, H = (int(x) for x in rng.integers(1, 17, 2))
+        Tq, Tk = (int(x) for x in rng.integers(1, 20000, 2))
+        plan = tra.block_plan(B, H, Tq, Tk, D)
+        tiles = B * H * -(-Tq // 64)
+        if D % 64 == 0 and B * H * -(-Tq // 128) >= tra.FILL_BLOCKS:
+            assert plan == 0
+        else:
+            assert 1 <= plan <= min(tra.MAX_SPLITS,
+                                    max(1, -(-Tk // tra.split_keys(D))))
+            assert plan == 1 or tiles * plan <= tra.SMS
+            if tiles >= tra.SMS:
+                assert plan == 1
+
+
+@pytest.mark.parametrize("D", [16, 256])
+@pytest.mark.parametrize("q_offset, k_offset, Tq, Tk, causal", [
+    (512, 512, 512, 512, True),     # the diagonal block
+    (1024, 0, 512, 512, True),      # every key visible
+    (0, 1536, 512, 512, True),      # none visible
+    (101, 37, 333, 200, True),      # ragged, offset
+    (3, 11, 257, 190, False),
+    (0, 64, 200, 700, True),        # the first rows see no key
+])
+def test_split_key_tiles_cover_each_visible_key_once(D, q_offset, k_offset,
+                                                     Tq, Tk, causal):
+    """Oracle of the split kernel's key ranges: for each 64-query tile and
+    each split count, the splits' tiles are disjoint, each holds a key some
+    row of the tile sees, and together they hold every such key."""
+    keys = tra.split_keys(D)
+    for splits in range(1, tra.MAX_SPLITS + 1):
+        for q0 in range(0, Tq, 64):
+            rows = q_offset + np.arange(q0, min(q0 + 64, Tq))
+            cols = k_offset + np.arange(Tk)
+            seen = ((rows[:, None] >= cols[None, :]) if causal
+                    else np.ones((len(rows), Tk), bool)).any(0)
+            ranges = tra.split_key_tiles(q0, Tq, Tk, D, q_offset, k_offset,
+                                         causal, splits)
+            assert len(ranges) == splits
+            tiles = [kt for kt0, kt1 in ranges for kt in range(kt0, kt1)]
+            assert len(tiles) == len(set(tiles))
+            covered = np.zeros(Tk, bool)
+            for kt in tiles:
+                block = slice(kt * keys, min((kt + 1) * keys, Tk))
+                assert seen[block].any(), (splits, q0, kt)
+                covered[block] = True
+            assert covered[seen].all()
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("case", ["diagonal", "ragged_gqa", "fully_masked",
+                                  "non_causal"])
+def test_split_merge_matches_xla(case, splits):
+    """The split kernel's function in plain ops: each split's share of a
+    64-query tile's key tiles through the plain block, merged as the kernel
+    merges (m the largest, w_j = exp(m_j - m) or 0 for a split that saw no
+    key, o and l the w-weighted sums in split order), against the
+    reference's XLA block on all keys, f32, 1e-5."""
+    q_off, k_off, tq, tk, kv, causal = BLOCKS[case]
+    rng = np.random.default_rng(11)
+    Dh = 16
+    q = _normal(rng, 2, H, tq, Dh)
+    k, v = (_normal(rng, 2, kv, tk, Dh) for _ in range(2))
+    keys = tra.split_keys(Dh)
+    qt, kt_, vt = (torch.from_numpy(x) for x in (q, k, v))
+    o = torch.zeros((2, H, tq, Dh))
+    m = torch.full((2, H, tq), tra.NEG_INF)
+    l = torch.zeros((2, H, tq))
+    for q0 in range(0, tq, 64):
+        rows = slice(q0, min(q0 + 64, tq))
+        parts = []
+        for kt0, kt1 in tra.split_key_tiles(q0, tq, tk, Dh, q_off, k_off,
+                                            causal, splits):
+            n = min(kt1 * keys, tk) - kt0 * keys
+            if n <= 0:
+                shape = qt[:, :, rows].shape
+                parts.append((torch.zeros(shape),
+                              torch.full(shape[:-1], tra.NEG_INF),
+                              torch.zeros(shape[:-1])))
+                continue
+            cut = slice(kt0 * keys, kt0 * keys + n)
+            parts.append(tra._block_attention_reference(
+                qt[:, :, rows], kt_[:, :, cut], vt[:, :, cut],
+                q_off + q0, k_off + kt0 * keys, causal))
+        m_t = torch.stack([p[1] for p in parts]).amax(0)
+        for o_j, m_j, l_j in parts:
+            w = torch.where(m_j > tra.NEG_INF / 2, torch.exp(m_j - m_t), 0.0)
+            o[:, :, rows] += w[..., None] * o_j
+            l[:, :, rows] += w * l_j
+        m[:, :, rows] = m_t
+    want = jra._block_attention_xla(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), q_off, k_off, causal)
+    for out, g, w in zip(("o", "m", "l"), (o, m, l), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=BLOCK_ATOL,
+                                   rtol=BLOCK_ATOL, err_msg=out)
+
+
+@pytest.mark.parametrize("splits", [None, 0, 3])
+def test_bf16_block_passes_its_launch_plan(recorded, splits):
+    """The bf16 entry takes the plan's splits after causal (block_plan's,
+    or the caller's): B=2, H=4, Tq=32 at 128 is 8 blocks of the template,
+    so the plan is the split kernel, one split (one key tile)."""
+    q = _ring_shard(torch.bfloat16, 4)
+    kv = _ring_shard(torch.bfloat16, 2)
+    tra.block_attention(q, kv, kv, 32, 0, True, splits)
+    (name, args), = recorded.calls
+    assert tra.block_plan(2, 4, 32, 32, 128) == 1
+    assert args[23:] == (1, 1 if splits is None else splits, 0, 0)
+
+
+@pytest.mark.parametrize("D, splits", [(16, 0), (128, 9), (32, -1)])
+def test_bf16_block_refuses_a_launch_its_width_has_not(recorded, D, splits):
+    q = torch.empty((1, 2, 64, D), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="splits"):
+        tra.block_attention(q, q, q, 0, 0, True, splits)
+    assert not recorded.calls

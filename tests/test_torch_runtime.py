@@ -456,6 +456,43 @@ def test_kill_ends_the_actors_threads_and_frees_its_instance(rt):
     assert held() is None
 
 
+def test_kill_wakes_the_threads_start_has_not_listed_yet(rt):
+    """kill() may run while the runtime's start() has started an actor's
+    threads but not yet listed them all (the first thread runs __init__
+    and the first calls meanwhile): stop() wakes one thread for each of
+    the actor's max_concurrency, not for each thread listed, and drops the
+    instance, so every thread ends and the instance is freed."""
+    import gc
+    import weakref
+
+    import torch
+
+    @ray.remote(max_concurrency=4)
+    class Holder:
+        def __init__(self):
+            self.model = torch.zeros(1 << 16)
+
+        def ref(self):
+            return weakref.ref(self.model)
+
+    a = Holder.remote()
+    held = ray.get(a.ref.remote(), timeout=T)
+    runtime = a._runtime()
+    # as if start() were still listing threads 1-3 when kill() came
+    del runtime._threads[1:]
+    del runtime
+    prefix = f"actor-{a._actor_id.hex()[:8]}"
+    ray.kill(a)
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline and (
+            held() is not None
+            or any(t.name.startswith(prefix) for t in threading.enumerate())):
+        gc.collect()
+        time.sleep(0.02)
+    assert not any(t.name.startswith(prefix) for t in threading.enumerate())
+    assert held() is None
+
+
 def test_concurrent_puts_outside_tasks_get_their_own_objects(rt):
     """put() from concurrent actor calls (max_concurrency > 1) and from
     plain driver threads: every ref reads back its own value. Outside a
