@@ -48,6 +48,16 @@ Phases, each printing one JSON line:
                above it (no key visible, checked for exact zeros) — and at
                small ragged shapes with odd offsets, causal and not, GQA and
                MHA, in f32 and bf16; o, m and l each held to their bounds.
+               Kernels 1 and 2 at the head widths between the built ones
+               (ANY_WIDTHS, 8 to 200, each on its class's library): kernel
+               1 over pages 4 and 16 and where a page's tile is not whole
+               16-byte units (PAGED_ROWWISE), kernel 2 on the small blocks
+               under each launch and on a ring's three kinds of block, also
+               at RING_PADDED (3 and 99 in f32, 99 in bf16: rows not whole
+               16-byte units, so the call's zero-padded copy), both dtypes, two bf16 launches bit for bit; at ANY_TIMED (80, 96,
+               100, 112, 192) both timed at Phi-3-mini's path shapes, eager
+               and by graph replay, beside SDPA and the bound at the true
+               width (100: kernel 2 through its zero-padded copy).
                The scheduler (phase sched_kernel, ops/csrc/scheduler_tick.cu):
                the CUDA tick stepped from the start on each BASELINE graph at
                full size (1M-task fan-out, 64 waves of 1M tasks, map_reduce,
@@ -63,10 +73,16 @@ Phases, each printing one JSON line:
                before the timed round; every layer of every decode step must have
                launched the paged-attention kernel. A third round runs under
                torch.profiler: device time by kernel and the device's busy share.
+               Then the same load on the default config (head_dim 64) and on
+               Phi-3-mini-4k's published widths (PHI3_MINI: vocab 32064,
+               d_model 3072, 32 layers, 32 / 32 heads of 96, d_ff 8192,
+               3.72B parameters, kernel 1 on its 128 class), and the other
+               widths' models at 8 x 32 tokens.
   5. parity  — the same width in f32 (TF32 off): the engine's greedy tokens must
                equal the full-context model's, re-run each step without the
                kernel; a mismatch passes only at a true near-tie (top-2 gap
-               below 1e-3).
+               below 1e-3). Also the default config and Phi-3-mini's widths
+               at 2 layers.
   6. train_parity — the model's flash branch against its einsum branch at
                the train width (below), batch 2, one forward and backward on
                the same params and tokens, in f32 and bf16: loss, gradient
@@ -93,7 +109,11 @@ Phases, each printing one JSON line:
                einsum branch; the first three shards' logits bit-identical
                when the last shard's tokens change; a call under autograd
                raises (kernel 2 has no backward). One more call runs under
-               torch.profiler.
+               torch.profiler. Then each other width's model through the
+               same mesh against its einsum branch: the default config at
+               8192 tokens, Phi-3-mini's widths at 8 layers and 4096 tokens
+               (1024-token shards, kernel 2 on its 128 class, 8 x 16
+               launches), the 16-, 32- and 256-wide models at 2048.
   9. north_star — the scheduler's main path: every BASELINE graph driven to
                completion through benchmarks.run_graph (one Drive, eager and
                then captured in a CUDA graph: device ms per replay, host ms
@@ -504,6 +524,53 @@ FLASH_D256_BATCH = {"bfloat16": TRAIN_D256_BATCH, "bfloat16@batch8": 8,
                     "float32": FLASH_BATCH["float32"]}
 WIDTH_SLOTS, WIDTH_NEW, WIDTH_RING_SEQ = 8, 32, 2048
 DEFAULT = {}   # TransformerConfig()'s own fields
+# Phi-3-mini-4k's published widths (microsoft/Phi-3-mini-4k-instruct,
+# config.json: vocab_size 32064, hidden_size 3072, num_hidden_layers 32,
+# num_attention_heads 32, num_key_value_heads 32, intermediate_size 8192,
+# max_position_embeddings 4096, rope_theta 10000, rms_norm_eps 1e-5)
+# through the repo's own TransformerConfig, and nothing else of the model:
+# head_dim 96 (kernels 1 and 2 on their 128 class), group 1, 3.72B
+# parameters (the published 3.82B less the untied output head: the repo's
+# model reads its logits off the embedding), seeded random weights.
+# Served (phase engine) at SLOTS x NEW_TOKENS and all 32 layers; its f32
+# greedy parity (phase parity) at PHI3_PARITY_LAYERS; its ring forward
+# (phase ring) at PHI3_RING_SEQ tokens over RING_SHARDS (1024-token
+# shards) at PHI3_RING_LAYERS
+PHI3_MINI = dict(vocab_size=32064, d_model=3072, n_layers=32, n_heads=32,
+                 n_kv_heads=32, d_ff=8192, max_seq_len=4096,
+                 rope_theta=10000.0, norm_eps=1e-5)
+PHI3_PARITY_LAYERS, PHI3_RING_LAYERS, PHI3_RING_SEQ = 2, 8, 4096
+PHI3_HEAD_DIM = PHI3_MINI["d_model"] // PHI3_MINI["n_heads"]
+# head widths below their class (ops/head_dims.py: kernels 1 and 2 take
+# every head_dim from 1 to 256, each on the library of the smallest built
+# width at or above it). Phases kernel and ring_kernel hold both kernels to
+# their plain versions at ANY_WIDTHS in both dtypes: kernel 1 over
+# PAGED_ANY_SWEEP (pages 4 and 16) and at PAGED_ROWWISE, the (head_dim,
+# page) pairs whose K/V tiles are not whole 16-byte units (loaded value by
+# value: 99 x 4 and 100 x 1 in bf16, 3 x 1 in both); kernel 2 on
+# RING_SMALL's blocks under each launch and on a ring's three kinds of
+# block of ANY_RING_SHAPE's shards, and the same at RING_PADDED's widths of
+# each dtype, whose rows are not whole 16-byte units (the wrapper's
+# zero-padded copy, counted in padded_calls); two bf16 launches bit for
+# bit. At
+# ANY_TIMED both are also timed, eager and by graph replay, beside SDPA
+# and the bound at the true width (at 100 kernel 2's bf16 call goes
+# through its zero-padded copy, whose cost PERF.md states), at
+# Phi-3-mini's path shapes with their own width (ANY_PATH: 32 query and 32 KV heads; kernel 1 over SLOTS
+# sequences of MAX_PAGES pages of PAGE, kernel 2 on PHI3_RING_SEQ /
+# RING_SHARDS-token shards)
+ANY_WIDTHS = (8, 24, 40, 48, 72, 80, 96, 100, 112, 160, 192, 200)
+ANY_TIMED = (80, 96, 100, 112, 192)
+# RING_PADDED: 3 and 99 in f32, 99 in bf16. Not 3 in bf16: there P rounded
+# to bf16, which the kernel does by design, alone exceeds FLASH_BOUNDS'
+# element-wise bound on o (a row's rms over 3 values is often far below
+# the rounding error of its sums), while its rel L2 stays inside
+# (tests/test_torch_chip_checks.py shows both on the CPU)
+RING_PADDED = {"float32": (3, 99), "bfloat16": (99,)}
+PAGED_ANY_SWEEP = ((1, 4, 7), (2, 16, 16), (4, 4, 16), (8, 16, 7))
+PAGED_ROWWISE = ((99, 4), (100, 1), (3, 1))
+ANY_PATH = (PHI3_MINI["n_heads"], PHI3_MINI["n_kv_heads"])
+ANY_RING_SHAPE = (8, 4, 512)   # heads, kv heads, shard tokens
 
 # the scheduler (phases sched_kernel and north_star): the BASELINE graphs of
 # ray_tpu_torch/_private/benchmarks.py at their full sizes (64 nodes x 4
@@ -999,16 +1066,17 @@ def paged_lengths(page, pps, MP):
             MP * page + 5]
 
 
-def paged_sweep(torch, dev, pa, D=128):
+def paged_sweep(torch, dev, pa, D=128, sweep=PAGED_SWEEP):
     """The kernel against its plain version at small shapes, head_dim D:
-    every (dtype, group, page, MP) of PAGED_SWEEP, each with split_plan's
+    every (dtype, group, page, MP) of `sweep`, each with split_plan's
     pages per split and with 2, 3 and MP (one split) pages per split where
-    a block's shared memory allows, lengths from paged_lengths. Returns
-    (cases checked, worst max abs error, failed cases)."""
+    a block's shared memory allows, lengths from paged_lengths; in bf16
+    two launches bit for bit. Returns (cases checked, worst max abs error,
+    failed cases)."""
     g = torch.Generator(device=dev).manual_seed(5)
     checked, worst, failed = 0, 0.0, []
     for dtype in (torch.bfloat16, torch.float32):
-        for G, page, MP in PAGED_SWEEP:
+        for G, page, MP in sweep:
             KV = 2
             H, B = G * KV, len(paged_lengths(page, 1, MP))
             elt = torch.tensor([], dtype=dtype).element_size()
@@ -1027,54 +1095,71 @@ def paged_sweep(torch, dev, pa, D=128):
                 ker = pa.paged_attention(q, kp, vp, table, lens,
                                          pages_per_split=pps)
                 ref = pa.paged_attention_reference(q, kp, vp, table, lens)
+                twice = dtype == torch.float32 or torch.equal(
+                    ker, pa.paged_attention(q, kp, vp, table, lens,
+                                            pages_per_split=pps))
                 torch.cuda.synchronize()
                 err = float((ker - ref).abs().max())
                 checked += 1
                 worst = max(worst, err)
-                if not (bool(torch.isfinite(ker).all()) and err <= PAGED_TOL):
+                if not (bool(torch.isfinite(ker).all()) and err <= PAGED_TOL
+                        and twice):
                     failed.append({"dtype": str(dtype), "head_dim": D,
                                    "group": G,
                                    "page": page, "max_pages": MP,
-                                   "pages_per_split": pps, "err": err})
+                                   "pages_per_split": pps, "err": err,
+                                   "deterministic": twice})
     return checked, worst, failed
 
 
 def phase_kernel(torch, dev, timed=True):
     """Paged attention at each head_dim it is built for: the kernel
     against its plain version on the small shapes of paged_sweep, then at
-    the serving shapes (paged_serving). Returns {head_dim: {dtype: row}}.
-    Raises after every check has printed if any failed."""
+    the serving shapes (paged_serving); at each of ANY_WIDTHS and
+    PAGED_ROWWISE on their sweeps, and at ANY_TIMED at the path shape of
+    ANY_PATH's heads. Returns {head_dim: {dtype: row}}. Raises after
+    every check has printed if any failed."""
     from ray_tpu_torch.ops import head_dims
     from ray_tpu_torch.ops import paged_attention as pa
 
     problems = []
-    for D in head_dims.PAGED_ATTENTION:
-        checked, worst, failed = paged_sweep(torch, dev, pa, D)
+    sweeps = ([(D, PAGED_SWEEP) for D in head_dims.PAGED_ATTENTION]
+              + [(D, PAGED_ANY_SWEEP) for D in ANY_WIDTHS]
+              + [(D, ((1, page, 7), (2, page, 16)))
+                 for D, page in PAGED_ROWWISE])
+    for D, sweep in sweeps:
+        checked, worst, failed = paged_sweep(torch, dev, pa, D, sweep)
         emit({"phase": "kernel", "name": "paged_decode_attention",
-              "shape": "sweep", "head_dim": D, "cases": checked,
+              "shape": "sweep", "head_dim": D,
+              "width_class": head_dims.width_class(D),
+              "pages": sorted({page for _g, page, _m in sweep}),
+              "cases": checked,
               "max_abs_err": worst, "tolerance": PAGED_TOL,
               "failed": failed, "ok": not failed})
         if failed:
             problems.append(f"sweep at head_dim {D}: {len(failed)} cases "
-                            f"over {PAGED_TOL}")
+                            f"over {PAGED_TOL} or not deterministic")
     rows = {D: paged_serving(torch, dev, pa, D, timed, problems)
             for D in head_dims.PAGED_ATTENTION}
+    rows.update({D: paged_serving(torch, dev, pa, D, timed, problems,
+                                  *ANY_PATH) for D in ANY_TIMED})
     if problems:
         raise AssertionError(f"paged_attention kernel: {problems}")
     return rows
 
 
-def paged_serving(torch, dev, pa, D, timed, problems):
-    """Kernel 1 at the serving shapes with head_dim D over one cache per
-    layer (8 x 16 MiB per K or V in bf16 at D = 128), cycled as the decode
-    step does, so timings do not sit in L2: max abs error, two launches
-    bit-identical, the 8 per-layer calls captured in one CUDA graph giving
-    the eager calls' bits. timed: the eager time (a loop of wrapper calls,
-    host included), the device time (graph replays), the plain version's,
-    the SDPA yardstick's both ways, and at D = 128 the device time at each
+def paged_serving(torch, dev, pa, D, timed, problems, H=8, KV=4):
+    """Kernel 1 at the serving shapes with head_dim D (H query over KV
+    heads, SERVE's by default) over one cache per layer (8 x 16 MiB per K
+    or V in bf16 at D = 128), cycled as the decode step does, so timings
+    do not sit in L2: max abs error, two launches bit-identical, the 8
+    per-layer calls captured in one CUDA graph giving the eager calls'
+    bits. timed: the eager time (a loop of wrapper calls, host included),
+    the device time (graph replays), the plain version's, the SDPA
+    yardstick's both ways, and at D = 128 the device time at each
     pages-per-split of PAGED_SPLITS. Appends what failed to problems;
     returns {dtype: row}."""
-    B, H, KV, MP, P, L = SLOTS, 8, 4, MAX_PAGES, NUM_PAGES, 8
+    B, MP, P, L = SLOTS, MAX_PAGES, NUM_PAGES, 8
     g = torch.Generator(device=dev).manual_seed(0)
     table = torch.randperm(P, generator=g, device=dev).reshape(B, MP).to(
         torch.int32).contiguous()
@@ -1107,8 +1192,8 @@ def paged_serving(torch, dev, pa, D, timed, problems):
         captured = all(bool(torch.equal(a, b)) for a, b in zip(graphed,
                                                                 eager))
         pps, splits = pa.split_plan(B, H, KV, MP, PAGE, q.element_size(), D)
-        row = {"dtype": name, "head_dim": D, "max_abs_err": err,
-               "tolerance": PAGED_TOL,
+        row = {"dtype": name, "head_dim": D, "heads": H, "kv_heads": KV,
+               "max_abs_err": err, "tolerance": PAGED_TOL,
                "finite": finite, "deterministic": twice,
                "graph_bit_identical": captured, "pages_per_split": pps,
                "splits": splits}
@@ -1438,10 +1523,14 @@ def phase_ring_kernel(torch, dev, timed=True):
     launch of ring_launches), then on a ring path's three kinds of block
     (bf16, with times, bound and an SDPA yardstick; timed=False: the checks
     alone), at each width the shards and heads its ring path in phase ring
-    gives it (ring_path_shapes). The inputs are [B, T, H, D] tensors seen
-    as [B, H, T, D] views, as the ring passes the model's. Returns
-    {head_dim: {block: row}}. Raises after every check has printed if any
-    is out of bounds."""
+    gives it (ring_path_shapes); then the same at each of ANY_WIDTHS and
+    RING_PADDED's widths of each dtype (where each call must go through its
+    zero-padded copy exactly where a row is not whole 16-byte units), the
+    three kinds of block at ANY_RING_SHAPE (bf16), or timed at Phi-3-mini's ring
+    shards at ANY_TIMED (any_ring_shapes). The inputs are [B, T, H, D]
+    tensors seen as [B, H, T, D] views, as the ring passes the model's.
+    Returns {head_dim: {block: row}}. Raises after every check has printed
+    if any is out of bounds."""
     from ray_tpu_torch.ops import head_dims
     from ray_tpu_torch.ops import ring_attention as ra
 
@@ -1456,7 +1545,8 @@ def phase_ring_kernel(torch, dev, timed=True):
         if dtype == torch.bfloat16:
             result["splits"] = (ra.block_plan(*qkv[0].shape[:3],
                                               qkv[1].shape[2],
-                                              qkv[0].shape[-1])
+                                              head_dims.width_class(
+                                                  qkv[0].shape[-1]))
                                 if splits is None else splits)
         if not result["ok"]:
             failed.append(f"{label} ({name}, head_dim {qkv[0].shape[-1]}"
@@ -1464,11 +1554,15 @@ def phase_ring_kernel(torch, dev, timed=True):
         return result
 
     rows = {}
-    shapes = ring_path_shapes()
-    for D in head_dims.BLOCK_ATTENTION:
+    shapes = {**ring_path_shapes(), **any_ring_shapes()}
+    for D in (*head_dims.BLOCK_ATTENTION, *ANY_WIDTHS, *ring_padded()):
         g = torch.Generator(device=dev).manual_seed(3)
-        for dtype in (torch.float32, torch.bfloat16):
+        dtypes = [dt for dt in (torch.float32, torch.bfloat16)
+                  if D not in ring_padded() or D in RING_PADDED[
+                      str(dt).replace("torch.", "")]]
+        for dtype in dtypes:
             name = str(dtype).replace("torch.", "")
+            padded = ra.block_attention.padded_calls
             for label, (h, kv, tq, tk, q_off, k_off,
                         causal) in RING_SMALL.items():
                 qkv = ring_inputs(torch, dev, g, RING_SMALL_BATCH, h, kv, tq,
@@ -1484,9 +1578,17 @@ def phase_ring_kernel(torch, dev, timed=True):
                           "causal": causal,
                           **check(label, dtype, qkv, q_off, k_off, causal,
                                   splits)})
+            copies = ra.block_attention.padded_calls > padded
+            if copies != (D % (16 // dtype.itemsize) != 0):
+                failed.append(f"{name} at head_dim {D}: zero-padded copy "
+                              f"{'made' if copies else 'not made'}")
+        if torch.bfloat16 not in dtypes:
+            continue
         H, KV, T = shapes[D]
-        rows[D] = ring_path_blocks(torch, dev, ra, g, D, H, KV, T,
-                                   ring_blocks(T), timed, check, failed)
+        rows[D] = ring_path_blocks(
+            torch, dev, ra, g, D, H, KV, T, ring_blocks(T),
+            timed and (D in head_dims.BLOCK_ATTENTION or D in ANY_TIMED),
+            check, failed)
     if failed:
         raise AssertionError(f"ring block kernel vs plain out of bounds: "
                              f"{failed}")
@@ -1495,9 +1597,12 @@ def phase_ring_kernel(torch, dev, timed=True):
 
 def ring_launches(D):
     """The bf16 launches of kernel 2 that phase kernel checks beside its
-    plan's: the 128-query template where head_dim takes it (0), and the
-    split kernel at 1, 2, 4 and 8 splits."""
-    return ((0,) if D % 64 == 0 else ()) + (1, 2, 4, 8)
+    plan's: the 128-query template where head_dim's class takes it (0), and
+    the split kernel at 1, 2, 4 and 8 splits."""
+    from ray_tpu_torch.ops import head_dims
+
+    template = head_dims.width_class(D) % 64 == 0
+    return ((0,) if template else ()) + (1, 2, 4, 8)
 
 
 def ring_blocks_launched(B, H, Tq, splits):
@@ -1524,13 +1629,36 @@ def ring_path_shapes():
     return shapes
 
 
+def any_ring_shapes():
+    """{head_dim: (heads, kv heads, shard tokens)} of ANY_WIDTHS and
+    RING_PADDED: Phi-3-mini's ring path's shards and heads at ANY_TIMED,
+    ANY_RING_SHAPE at the others."""
+    return {D: ((*ANY_PATH, PHI3_RING_SEQ // RING_SHARDS) if D in ANY_TIMED
+                else ANY_RING_SHAPE) for D in (*ANY_WIDTHS, *ring_padded())}
+
+
+def ring_padded():
+    """RING_PADDED's widths, each once, in order."""
+    return tuple(sorted({D for ws in RING_PADDED.values() for D in ws}))
+
+
 def ring_inputs(torch, dev, g, B, h, kv, tq, tk, D, dtype):
     """Seeded q [B, tq, h, D] and k, v [B, tk, kv, D] as [B, heads, T, D]
-    views, as the ring passes the model's."""
+    views, as the ring passes the model's. Each lies in a buffer one token
+    longer than itself: a TMA map that reads past a row's D columns (the
+    map mutants of flash_mutants.py) then reads the next token's values,
+    never memory past the allocation, where it would fault the card."""
     q = torch.randn((B, tq, h, D), generator=g, device=dev)
     k, v = (torch.randn((B, tk, kv, D), generator=g, device=dev)
             for _ in range(2))
-    return tuple(x.to(dtype).transpose(1, 2) for x in (q, k, v))
+
+    def placed(x):
+        buf = torch.zeros((x.shape[0], x.shape[1] + 1, *x.shape[2:]),
+                          dtype=dtype, device=dev)
+        buf[:, :x.shape[1]] = x
+        return buf[:, :x.shape[1]].transpose(1, 2)
+
+    return tuple(placed(x) for x in (q, k, v))
 
 
 def ring_path_blocks(torch, dev, ra, g, D, H, KV, T, blocks, timed, check,
@@ -1542,13 +1670,16 @@ def ring_path_blocks(torch, dev, ra, g, D, H, KV, T, blocks, timed, check,
     launch of ring_launches; timed, the kernel's, the plain version's and
     SDPA's times and the bound, and on the full block the graph time of
     each launch. Returns {label: row}."""
+    from ray_tpu_torch.ops import head_dims
+
     F = torch.nn.functional
     rows = {}
     q, k, v = ring_inputs(torch, dev, g, 1, H, KV, T, T, D, torch.bfloat16)
-    plan = ra.block_plan(1, H, T, T, D)
+    width = head_dims.width_class(D)
+    plan = ra.block_plan(1, H, T, T, width)
     sweep = [] if D == FLASH_D else [
         s for s in ring_launches(D)
-        if s <= max(1, -(-T // ra.split_keys(D)))]
+        if s <= max(1, -(-T // ra.split_keys(width)))]
     for label, (q_off, k_off) in blocks.items():
         row = {"block": label, "dtype": "bfloat16", "head_dim": D,
                "batch": 1, "heads": H, "kv_heads": KV, "tq": T, "tk": T,
@@ -1577,15 +1708,25 @@ def ring_path_blocks(torch, dev, ra, g, D, H, KV, T, blocks, timed, check,
         # each call three ways: eager (CUDA events around a loop of
         # wrapper calls, so host time where the host is the slower side),
         # by replays of RING_GRAPH_CALLS calls captured in one CUDA graph
-        # (device time and the gaps between kernels), and by the profiler
-        # (the device time of the kernels alone, by name)
+        # (device time and the gaps between kernels), and at the built
+        # widths by the profiler (the device time of the kernels alone, by
+        # name)
+        profiled = D in head_dims.BLOCK_ATTENTION
+
         def kernel(splits=None):
             return ra.block_attention(q, k, v, q_off, k_off, True, splits)
 
         row["ms"] = cuda_ms(torch, lambda i: kernel(), 10)
         row["graph_ms"] = graph_ms(torch, [kernel] * RING_GRAPH_CALLS)[0]
-        row["profiled_ms"], row["profiled_kernels"] = profiled_ms(torch,
-                                                                  kernel)
+        if profiled:
+            row["profiled_ms"], row["profiled_kernels"] = profiled_ms(
+                torch, kernel)
+        if label == "full" and D % 8:
+            # a bf16 row that is not whole 16-byte units: the call's
+            # zero-padded copy of q, k and v alone
+            row["padded_copy_graph_ms"] = graph_ms(torch, [lambda: [
+                F.pad(t, (0, -D % 8)) for t in (q, k, v)]]
+                * RING_GRAPH_CALLS)[0]
         if label == "full":
             # the launch plan's choice against the other launches
             row["graph_ms_by_splits"] = {
@@ -1606,8 +1747,9 @@ def ring_path_blocks(torch, dev, ra, g, D, H, KV, T, blocks, timed, check,
             row["library_ms"] = cuda_ms(torch, lambda i: sdpa(), 10)
             row["library_graph_ms"] = graph_ms(
                 torch, [sdpa] * RING_GRAPH_CALLS)[0]
-            (row["library_profiled_ms"],
-             row["library_profiled_kernels"]) = profiled_ms(torch, sdpa)
+            if profiled:
+                (row["library_profiled_ms"],
+                 row["library_profiled_kernels"]) = profiled_ms(torch, sdpa)
         row.update(bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=nbytes, flops=flops)
@@ -1937,13 +2079,17 @@ def phase_north_star(torch, dev):
 def phase_engine(torch):
     """The main path: the engine at full width, bf16: the serving model
     (SERVE, head_dim 128, profiled), the default TransformerConfig()
-    (head_dim 64) at the same load, and each configuration of
-    width_models at WIDTH_SLOTS x WIDTH_NEW. Returns kernel 1's launches
-    of each timed round: {"serve": n, "default": n, head_dim: n}."""
+    (head_dim 64) and Phi-3-mini's widths at all 32 layers (PHI3_MINI,
+    head_dim 96) at the same load, and each configuration of width_models
+    at WIDTH_SLOTS x WIDTH_NEW. Returns kernel 1's launches of each timed
+    round: {"serve": n, "default": n, head_dim: n}."""
     launches = {
         "serve": engine_run(torch, "serve", SERVE, SLOTS, NEW_TOKENS,
                             profile=True),
-        "default": engine_run(torch, "default", DEFAULT, SLOTS, NEW_TOKENS)}
+        "default": engine_run(torch, "default", DEFAULT, SLOTS, NEW_TOKENS),
+        PHI3_HEAD_DIM: engine_run(torch, "phi3_mini", PHI3_MINI, SLOTS,
+                                  NEW_TOKENS)}
+    torch.cuda.empty_cache()
     for D, fields in width_models().items():
         launches[D] = engine_run(torch, f"head_dim_{D}", fields, WIDTH_SLOTS,
                                  WIDTH_NEW)
@@ -2156,10 +2302,13 @@ def parity_setup(torch, fields=SERVE):
 def phase_parity(torch):
     """f32 greedy parity: the engine (through the kernel) vs the
     full-context model (no kernel), re-run at every step, at the serving
-    width (head_dim 128) and the default TransformerConfig's (64)."""
+    width (head_dim 128), the default TransformerConfig's (64) and
+    Phi-3-mini's (96, at PHI3_PARITY_LAYERS layers)."""
     from ray_tpu_torch.models.inference import InferenceEngine
 
-    for label, fields in (("serve", SERVE), ("default", DEFAULT)):
+    for label, fields in (("serve", SERVE), ("default", DEFAULT),
+                          ("phi3_mini", {**PHI3_MINI,
+                                         "n_layers": PHI3_PARITY_LAYERS})):
         mcfg, params, icfg, logits_of = parity_setup(torch, fields)
         engine = InferenceEngine(params, mcfg, icfg)
         try:
@@ -2375,9 +2524,10 @@ def phase_ring(torch, dev):
     """The ring main path, through ring_width_run at each width: the train
     configuration's forward at RING_SEQ tokens through make_forward under
     a seq=4 mesh on one card, with what only that run checks (ring_extras);
-    then the default TransformerConfig() (head_dim 64) at DEFAULT_RING_SEQ
-    and each configuration of width_models at WIDTH_RING_SEQ. Returns
-    kernel 2's launches in each timed call: {head_dim: n}."""
+    then the default TransformerConfig() (head_dim 64) at DEFAULT_RING_SEQ,
+    Phi-3-mini's widths (96) at PHI3_RING_LAYERS layers and PHI3_RING_SEQ
+    tokens, and each configuration of width_models at WIDTH_RING_SEQ.
+    Returns kernel 2's launches in each timed call: {head_dim: n}."""
     from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
     mesh = make_mesh(MeshConfig(seq=RING_SHARDS), [dev] * RING_SHARDS)
@@ -2386,7 +2536,10 @@ def phase_ring(torch, dev):
         ref_seq=RING_REF_SEQ,
         extras=lambda *a: ring_extras(torch, mesh, *a)),
         64: ring_width_run(torch, dev, mesh, "default", DEFAULT,
-                           DEFAULT_RING_SEQ, f32_seq=RING_F32_SEQ)}
+                           DEFAULT_RING_SEQ, f32_seq=RING_F32_SEQ),
+        PHI3_HEAD_DIM: ring_width_run(
+            torch, dev, mesh, "phi3_mini",
+            {**PHI3_MINI, "n_layers": PHI3_RING_LAYERS}, PHI3_RING_SEQ)}
     for D, fields in width_models().items():
         out[D] = ring_width_run(torch, dev, mesh, f"head_dim_{D}", fields,
                                 WIDTH_RING_SEQ)
@@ -8705,7 +8858,21 @@ def width_table(kernel_rows, flash_rows, ring_rows, engine, train, ring,
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_device_ms"]})
-    for D in hd.BLOCK_ATTENTION:
+    # Phi-3-mini's width, on its 128 class (phase kernel's row at its path
+    # shape, ANY_PATH)
+    row = kernel_rows[PHI3_HEAD_DIM]["bfloat16"]
+    rows.append({
+        "name": f"paged_decode_attention_d{PHI3_HEAD_DIM}", "route": "cuda",
+        "head_dim": PHI3_HEAD_DIM, "width_class": hd.width_class(
+            PHI3_HEAD_DIM),
+        "source": csrc + "paged_attention.cu",
+        "replaces": "ray_tpu/ops/paged_attention.py:76",
+        "launches": engine[PHI3_HEAD_DIM],
+        "launches_by_path": {"engine_phi3_mini": engine[PHI3_HEAD_DIM]},
+        "max_abs_err": row["max_abs_err"], "ms": row["device_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_device_ms"]})
+    for D in (*hd.BLOCK_ATTENTION, PHI3_HEAD_DIM):
         if D == hd.DEFAULT_HEAD_DIM:
             continue
         full = ring_rows[D]["full"]

@@ -4,6 +4,7 @@
     python3 flash_ab.py PARENT_DIR CHANGE_DIR            # flash backward
     python3 flash_ab.py PARENT_DIR CHANGE_DIR --ring     # kernel 2
     python3 flash_ab.py PARENT_DIR CHANGE_DIR --ring --cells
+    python3 flash_ab.py PARENT_DIR CHANGE_DIR --sass     # SASS alone
 
 Each directory is a checkout of this repository, for example a commit
 unpacked with `git archive` into a directory that .gitignore lists. For
@@ -26,9 +27,14 @@ the source's text):
   but 128; with --cells also the cells that run those kernels, once a
   run: chip_smoke's phase train (the step ms at 128 and at 8 x 256) and
   phase ring (the forward ms at each width).
-The trees run parent, change, change, parent, parent, change. Prints one
-JSON line a run, then a summary: whether each instance's SASS is the same
-in both trees, and each side's range of readings. Exits 1 without a card.
+- with --sass, no timing: every attention library's instances of SASS_ALL
+  (kernel 1's split and merge kernels at each width, kernel 2's template
+  and split kernel at each width, the flash forward at 128 and 256), one
+  run a tree.
+The trees run parent, change, change, parent, parent, change (--sass:
+parent, change). Prints one JSON line a run, then a summary: whether each
+instance's SASS is the same in both trees (an instance the parent has),
+and each side's range of readings. Exits 1 without a card.
 """
 
 from __future__ import annotations
@@ -51,10 +57,18 @@ ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_[0-9]+_\w+?_cu_[0-9a-f]+")
 RING_SASS = {"ring_attention": "attention_fwd_kernel",
              "flash_attention": "attention_fwd_kernel",
              "flash_attention_d256": "attention_fwd_kernel"}
+# --sass: {source: the kernels of each of its libraries whose instances'
+# SASS is compared}
+SASS_ALL = {"paged_attention": ("paged_decode_split_kernel",
+                                "paged_decode_merge_kernel"),
+            "ring_attention": ("attention_fwd_kernel",
+                               "attention_fwd_split_kernel"),
+            "flash_attention": ("attention_fwd_kernel",)}
 
 
 def sass_hashes(lib, match: str) -> dict:
-    """{instance: hash of its SASS} of a library's kernels whose name holds
+    """{instance: hash of its SASS (instructions and encodings, runs of
+    blanks as one)} of a library's kernels whose name holds
     `match` (and not the split kernel's name, which holds no `match` of the
     template's: attention_fwd_split_kernel)."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -62,11 +76,31 @@ def sass_hashes(lib, match: str) -> dict:
                           text=True, check=True, timeout=300).stdout
     hashes = {}
     for func in sass.split("Function : ")[1:]:
-        func = ANON.sub("", func)
+        # cuobjdump pads each line to the library's longest instruction:
+        # the instructions and their encodings, not the padding, are hashed
+        func = re.sub(r"[ \t]+", " ", ANON.sub("", func))
         name = func.split("\n", 1)[0].strip()
         if match in name:
             hashes[name] = hashlib.sha256(func.encode()).hexdigest()[:16]
     return hashes
+
+
+def sass_child(root: str) -> int:
+    """--sass in one tree: the SASS of SASS_ALL's kernels in every width's
+    library."""
+    sys.path.insert(0, root)
+    from ray_tpu_torch.ops import _build
+
+    here = Path(_build.__file__).resolve()
+    if not here.is_relative_to(Path(root).resolve()):
+        raise SystemExit(f"imported {here}, not the tree {root}")
+    names = [n for n in _build.sources() if n.split("_d")[0] in SASS_ALL]
+    libs = _build.build_all(names)
+    hashes = {f"{lib}/{k}": v for lib in names
+              for match in SASS_ALL[lib.split("_d")[0]]
+              for k, v in sass_hashes(libs[lib], match).items()}
+    print(json.dumps({"sass": hashes, "ms": {}}), flush=True)
+    return 0
 
 
 def ring_child(root: str, cells: bool) -> int:
@@ -177,10 +211,13 @@ def main() -> int:
         return 1
     trees = dict(zip(("parent", "change"), sys.argv[1:3]))
     mode = ["--ring-child"] if "--ring" in sys.argv[3:] else ["--child"]
+    order = ORDER
+    if "--sass" in sys.argv[3:]:
+        mode, order = ["--sass-child"], ("parent", "change")
     if "--cells" in sys.argv[3:]:
         mode.append("--cells")
     runs = {"parent": [], "change": []}
-    for side in ORDER:
+    for side in order:
         proc = subprocess.run([sys.executable, __file__, *mode,
                                trees[side]], capture_output=True, text=True,
                               timeout=900)
@@ -210,6 +247,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         sys.exit(child(sys.argv[2]))
+    if sys.argv[1:2] == ["--sass-child"]:
+        sys.exit(sass_child(sys.argv[2]))
     if sys.argv[1:2] == ["--ring-child"]:
         sys.exit(ring_child(sys.argv[-1], "--cells" in sys.argv[2:-1]))
     sys.exit(main())

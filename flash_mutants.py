@@ -32,6 +32,7 @@ TILES = CSRC + "mma_tiles.cuh"        # the f32 kernels' routines, the mask
 SM90 = CSRC + "attention_fwd_sm90.cuh"   # the bf16 forwards (2 and 3a)
 BWD = CSRC + "attention_bwd_sm90.cuh"    # the bf16 backward (3c and 3b)
 PAGED = CSRC + "paged_attention.cu"      # kernel 1: split and merge
+RING = CSRC + "ring_attention.cu"        # kernel 2: entries, epilogues
 # copies built at once (each runs one nvcc per head width's library)
 BUILD_COPIES = 2
 
@@ -142,6 +143,48 @@ MUTANTS = {
         "entry of the row for the last page)",
         PAGED, "? page_table[(size_t)b * MP + first + lane]",
         "? page_table[(size_t)b * MP + min(first + lane + 1, MP - 1)]"),
+    # the head widths below their class (ops/head_dims.py)
+    "paged_scale_class": (
+        "kernel 1 below its class scales q by 1 / sqrt of the class width, "
+        "not of the true head_dim",
+        PAGED, "1.4426950408889634f / sqrtf((float)d);",
+        "1.4426950408889634f / sqrtf((float)D);"),
+    "paged_rowwise_tail": (
+        "kernel 1's value-by-value tile load (a K/V tile that is not whole "
+        "16-byte units) skips the values of the last partial unit of 8",
+        PAGED, "for (int e = tid; e < tile; e += kThreads) {",
+        "for (int e = tid; e < tile / 8 * 8; e += kThreads) {"),
+    "ring_scale_class": (
+        "kernel 2 in bf16 below its class scales the scores by 1 / sqrt of "
+        "the class width, not of the true head_dim",
+        RING, "1.0f / sqrtf((float)D)};",
+        "1.0f / sqrtf((float)kHeadDim)};"),
+    "ring_store_past": (
+        "kernel 2's bf16 epilogue below its class stores the padded "
+        "columns past the true head_dim: their zeros over the next row's "
+        "first columns (each (batch, head)'s last row excepted, which would "
+        "write past the tensor)",
+        RING, "if (col < d) p[0] = x0;",
+        "if (col < d || row + 1 < Tq) p[0] = x0;"),
+    "split_map_class": (
+        "the split kernel's q and K maps below its class describe the class "
+        "width: each row's boxes read on into the next row's columns, so "
+        "the padded columns of q k multiply non-zero values",
+        SM90, "kSplitRows, cols, F::kCols);\n  if (rc == 0) {\n"
+        "    rc = encode_map(&k_map, k, B, Hkv, pr.Tk, sk[0], sk[1], sk[2], "
+        "F::kKeys,\n                    cols, F::kCols);",
+        "kSplitRows, D, F::kCols);\n  if (rc == 0) {\n"
+        "    rc = encode_map(&k_map, k, B, Hkv, pr.Tk, sk[0], sk[1], sk[2], "
+        "F::kKeys,\n                    D, F::kCols);"),
+    "template_map_class": (
+        "the 128-query template's q and K maps below its class describe the "
+        "class width (kernel 2 at splits 0; 3a passes its own width)",
+        SM90, "kRows,\n                      cols);\n  if (rc == 0) {\n"
+        "    rc = encode_map(&k_map, k, B, Hkv, pr.Tk, sk[0], sk[1], sk[2], "
+        "keys,\n                    cols);",
+        "kRows,\n                      D);\n  if (rc == 0) {\n"
+        "    rc = encode_map(&k_map, k, B, Hkv, pr.Tk, sk[0], sk[1], sk[2], "
+        "keys,\n                    D);"),
 }
 
 

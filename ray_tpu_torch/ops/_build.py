@@ -42,13 +42,13 @@ _lock = threading.Lock()
 _count_lock = threading.Lock()
 
 
-def count_launch(fn) -> None:
-    """Add one to ``fn.launches``, the wrapper's launch counter. Under a
-    lock: ``+=`` on an attribute is a read and then a write, and the
-    wrappers launch from several threads at once (Tune's trials, Serve's
-    replicas)."""
+def count_launch(fn, counter: str = "launches") -> None:
+    """Add one to ``fn.launches`` (or another counter of the wrapper's).
+    Under a lock: ``+=`` on an attribute is a read and then a write, and
+    the wrappers launch from several threads at once (Tune's trials,
+    Serve's replicas)."""
     with _count_lock:
-        fn.launches += 1
+        setattr(fn, counter, getattr(fn, counter) + 1)
 
 
 def _nvcc() -> str:

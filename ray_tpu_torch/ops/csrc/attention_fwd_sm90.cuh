@@ -1187,7 +1187,10 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 // The TMA map of a bf16 [B, H, T, D] tensor with byte strides (sb, sh,
 // st) over (batch, head, sequence) and unit stride over head_dim, read in
 // boxes of box_rows rows x box_cols columns (16, 32 or 64), swizzled as
-// wide as a box's row (32, 64 or 128 bytes), zeros past the end.
+// wide as a box's row (32, 64 or 128 bytes), zeros past the end: past T,
+// and past D where the kernel's tiles are wider than the tensor (a head
+// width below its class, whose padded columns then add 0 to q k and
+// receive 0 from P v).
 // Returns 0, a cudaError_t, or kEncodeError + the encoder's CUresult.
 inline int encode_map(CUtensorMap* map, const void* base, int B, int H,
                       int T, long long sb, long long sh, long long st,
@@ -1246,23 +1249,26 @@ inline cudaError_t reserve_smem(const void* kernel, size_t bytes,
   return err;
 }
 
-// maps for q [B, H, Tq, D] and k, v [B, H / rep, Tk, D], then one
-// launch of B * H * (128-query tiles) blocks
+// maps for q [B, H, Tq, cols] and k, v [B, H / rep, Tk, cols] (cols: the
+// tensors' head_dim, D or below it), then one launch of B * H * (128-query
+// tiles) blocks of the D-wide kernel
 template <bool CAUSAL, int D, class Epilogue>
 int launch(const void* q, const void* k, const void* v, int B,
            const long long (&sq)[3], const long long (&sk)[3],
            const long long (&sv)[3], const Problem& pr, const Epilogue& epi,
-           cudaStream_t stream) {
+           cudaStream_t stream, int cols = D) {
   CUtensorMap q_map, k_map, v_map;
   const int Hkv = pr.H / pr.rep;
   constexpr int keys = Fwd<D>::kKeys;
   int rc = encode_map(&q_map, q, B, pr.H, pr.Tq, sq[0], sq[1], sq[2], kRows,
-                      D);
+                      cols);
   if (rc == 0) {
-    rc = encode_map(&k_map, k, B, Hkv, pr.Tk, sk[0], sk[1], sk[2], keys, D);
+    rc = encode_map(&k_map, k, B, Hkv, pr.Tk, sk[0], sk[1], sk[2], keys,
+                    cols);
   }
   if (rc == 0) {
-    rc = encode_map(&v_map, v, B, Hkv, pr.Tk, sv[0], sv[1], sv[2], keys, D);
+    rc = encode_map(&v_map, v, B, Hkv, pr.Tk, sv[0], sv[1], sv[2], keys,
+                    cols);
   }
   if (rc != 0) return rc;
   auto kernel = attention_fwd_kernel<CAUSAL, D, Epilogue>;
@@ -1278,28 +1284,29 @@ int launch(const void* q, const void* k, const void* v, int B,
   return (int)cudaGetLastError();
 }
 
-// maps for q (64-row boxes) and k, v (Split<D>::kKeys-row boxes), boxes
-// min(D, 64) columns wide, then one launch of the split kernel: B * H *
-// (64-query tiles) * splits blocks in clusters of `splits` (1 to
-// kMaxSplits)
+// maps for q (64-row boxes) and k, v (Split<D>::kKeys-row boxes) of
+// tensors cols wide (D or below it), boxes min(D, 64) columns wide, then
+// one launch of the split kernel: B * H * (64-query tiles) * splits blocks
+// in clusters of `splits` (1 to kMaxSplits)
 template <bool CAUSAL, int D, class Epilogue>
 int launch_split(const void* q, const void* k, const void* v, int B,
                  const long long (&sq)[3], const long long (&sk)[3],
                  const long long (&sv)[3], const Problem& pr,
-                 const Epilogue& epi, int splits, cudaStream_t stream) {
+                 const Epilogue& epi, int splits, cudaStream_t stream,
+                 int cols = D) {
   using F = Split<D>;
   if (splits < 1 || splits > kMaxSplits) return (int)cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
   const int Hkv = pr.H / pr.rep;
   int rc = encode_map(&q_map, q, B, pr.H, pr.Tq, sq[0], sq[1], sq[2],
-                      kSplitRows, D, F::kCols);
+                      kSplitRows, cols, F::kCols);
   if (rc == 0) {
     rc = encode_map(&k_map, k, B, Hkv, pr.Tk, sk[0], sk[1], sk[2], F::kKeys,
-                    D, F::kCols);
+                    cols, F::kCols);
   }
   if (rc == 0) {
     rc = encode_map(&v_map, v, B, Hkv, pr.Tk, sv[0], sv[1], sv[2], F::kKeys,
-                    D, F::kCols);
+                    cols, F::kCols);
   }
   if (rc != 0) return rc;
   auto kernel = attention_fwd_split_kernel<CAUSAL, D, Epilogue>;

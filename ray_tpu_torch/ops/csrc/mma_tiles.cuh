@@ -127,6 +127,28 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
   }
 }
 
+// load_tile of a head width d up to the tile's D (kernel 2 in f32 at
+// every width): the 16-byte vectors from column d on read as zeros. A vector that d cuts reads on past d, so
+// each row must hold whole vectors (a width that is not a multiple of 16
+// bytes' values comes zero-padded to one: ops/ring_attention.py)
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_tile_cols(T* dst, const T* src,
+                                               long long stride_s, int row0,
+                                               int S, int d) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  constexpr int kVecPerRow = D / kVec;
+  constexpr int ld = tile_ld<T>(D);
+  for (int i = threadIdx.x; i < ROWS * kVecPerRow; i += kThreads) {
+    const int r = i / kVecPerRow;
+    const int c = (i % kVecPerRow) * kVec;
+    int4 val = make_int4(0, 0, 0, 0);
+    if (row0 + r < S && c < d) {
+      val = *reinterpret_cast<const int4*>(src + (row0 + r) * stride_s + c);
+    }
+    *reinterpret_cast<int4*>(dst + r * ld + c) = val;
+  }
+}
+
 __device__ __forceinline__ void store_pair(float* p, float x0, float x1) {
   *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
 }
@@ -154,6 +176,30 @@ __device__ __forceinline__ void store_acc(T* dst, long long stride_s,
     if (hi < S) {
       store_pair(dst + hi * stride_s + c, acc[n][2] * mul_hi,
                  acc[n][3] * mul_hi);
+    }
+  }
+}
+
+// store_acc (f32, unscaled) at a head width d up to the accumulator's
+// columns: rows of d values, each value stored alone where its column is
+// below d
+template <int NT>
+__device__ __forceinline__ void store_acc_cols(float* dst, long long stride_s,
+                                               const float (&acc)[NT][4],
+                                               int row0, int r0, int c0,
+                                               int S, int d) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int c = c0 + 8 * n + 2 * t;
+    const int lo = row0 + r0 + g, hi = lo + 8;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (c + e < d) {
+        if (lo < S) dst[lo * stride_s + c + e] = acc[n][e];
+        if (hi < S) dst[hi * stride_s + c + e] = acc[n][2 + e];
+      }
     }
   }
 }

@@ -64,6 +64,20 @@
 // and the columns per thread follow from D (Cols below). Shared memory
 // grows with D (K and V tiles of page x D each), so the wrapper's
 // split_plan caps pages per split by a block's bytes at this D and dtype.
+//
+// Any head_dim d from 1 to the library's width D (its class: the wrapper
+// sends d to the library of the smallest built width at or above it). At
+// d == D the kernels above run. At d < D an instance of their own (PAD, in
+// the kernels named *_padded) runs the class's lanes and columns with the
+// columns at or past d masked: q and K read as zeros there, P V skips
+// them, only d columns are stored, and q's scale is log2(e) / sqrt(d).
+// Shared memory holds the tiles at their true width (page x d contiguous
+// values, as the cache holds them), so a tile comes in by cp.async.bulk
+// where it is whole 16-byte units (page x d x elt a multiple of 16: every
+// page offset is then 16-byte aligned too); else the block's threads copy
+// it value by value after the length is known. The rows are read 8 values
+// at a time by one vector load where a row is whole 16-byte units, else
+// value by value. The cache is never copied or padded.
 // The kernels allocate nothing and launch on the caller's stream.
 
 #include <cuda_bf16.h>
@@ -104,17 +118,20 @@ struct Cols {
 // are multiples of 32 bytes (page x D x elt with D >= 16), so each starts
 // 16-byte aligned and is a whole number of 16-byte units, as
 // cp.async.bulk requires.
+// At a padded width the tiles are page x d and need not end 16-byte
+// aligned: the probabilities then start at the next multiple of 16.
 struct Layout {
   size_t v, probs, bars, rows, total;
 };
 
-template <int D>
+template <int D, bool PAD = false>
 __host__ __device__ inline Layout split_layout(int pps, int page, int G,
-                                               int elt) {
-  const size_t tile = (size_t)page * D * elt;
+                                               int elt, int d = D) {
+  const size_t tile = (size_t)page * (PAD ? d : D) * elt;
   Layout L;
   L.v = (size_t)pps * tile;
-  L.probs = 2 * (size_t)pps * tile;
+  L.probs = PAD ? (2 * (size_t)pps * tile + 15) / 16 * 16
+                : 2 * (size_t)pps * tile;
   L.bars = L.probs + ((size_t)G * pps * page * sizeof(float) + 7) / 8 * 8;
   L.rows = L.bars + 2 * (size_t)pps * sizeof(uint64_t);
   L.total = L.rows + (2 * (size_t)G + 1) * sizeof(float);
@@ -193,6 +210,20 @@ __device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
+// the first n of 8 consecutive elements -> f32, zeros after them (n <= 0:
+// all zeros, nothing read): one vector load where all 8 are there and the
+// row is whole 16-byte units (vec), else value by value
+template <typename T>
+__device__ __forceinline__ void load8_cols(const T* p, float (&f)[8], int n,
+                                           bool vec) {
+  if (vec && n >= 8) {
+    load8(p, f);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) f[j] = j < n ? to_float(p[j]) : 0.f;
+}
+
 // The split kernel's bounds: 128 threads; at the widths other than 128
 // also at least one block an SM, which lets ptxas give the group-5
 // instances the registers that keep them from spilling (without it they
@@ -203,17 +234,17 @@ __device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
 #define PAGED_SPLIT_BOUNDS __launch_bounds__(kThreads, 1)
 #endif
 
-template <typename T, int D, int G>
-__global__ void PAGED_SPLIT_BOUNDS
-paged_decode_split_kernel(const T* __restrict__ q,
-                          const T* __restrict__ k_pages,
-                          const T* __restrict__ v_pages,
-                          const int* __restrict__ page_table,
-                          const int* __restrict__ seq_lens,
-                          float* __restrict__ out,
-                          float* __restrict__ work, int H, int KV, int page,
-                          int MP, int pps, float q_scale) {
+// The split kernel's body at the class width D; PAD: the true width d < D
+// (the columns at or past d masked), else d == D. Its pointers are the
+// kernels' own __restrict__ parameters
+template <typename T, int D, int G, bool PAD>
+__device__ __forceinline__ void split_body(
+    const T* q, const T* k_pages, const T* v_pages, const int* page_table,
+    const int* seq_lens, float* out, float* work, int H, int KV, int page,
+    int MP, int pps, float q_scale, int d) {
   using C = Cols<D>;
+  // the row stride and the columns stored: D, or the true width
+  const int dd = PAD ? d : D;
   const int s = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int S = gridDim.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -221,8 +252,12 @@ paged_decode_split_kernel(const T* __restrict__ q,
   auto head = [&](int g) { return kvh * G + g; };
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = split_layout<D>(pps, page, G, sizeof(T));
-  const int tile = page * D;
+  const Layout L = split_layout<D, PAD>(pps, page, G, sizeof(T), dd);
+  const int tile = page * dd;
+  // a tile of whole 16-byte units comes in by one bulk copy (its page
+  // offsets are then 16-byte aligned too); a row of them by vector loads
+  const bool bulk = !PAD || tile * sizeof(T) % 16 == 0;
+  const bool vec = !PAD || dd * sizeof(T) % 16 == 0;
   T* k_tiles = reinterpret_cast<T*>(smem);
   T* v_tiles = reinterpret_cast<T*>(smem + L.v);
   float* probs = reinterpret_cast<float*>(smem + L.probs);
@@ -233,7 +268,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
   // partials: o [B, H, S, D], then m [B, H, S], then l [B, H, S]
   const size_t n_rows = (size_t)gridDim.z * H * S;
   float* part_o = work;
-  float* part_m = work + n_rows * D;
+  float* part_m = work + n_rows * dd;
   float* part_l = part_m + n_rows;
 
   const int first = s * pps;            // first logical page of the split
@@ -254,11 +289,13 @@ paged_decode_split_kernel(const T* __restrict__ q,
     const int n_pages = pages_for(len);
     if (lane == 0) {
       *len_s = len;
-      for (int i = 0; i < 2 * n_pages; ++i) mbar_init(&bars[i]);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      if (bulk) {
+        for (int i = 0; i < 2 * n_pages; ++i) mbar_init(&bars[i]);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      }
     }
     __syncwarp();
-    if (lane < n_pages) {
+    if (bulk && lane < n_pages) {
       const size_t off = ((size_t)phys * KV + kvh) * (size_t)tile;
       const uint32_t bytes = (uint32_t)(tile * sizeof(T));
       mbar_expect_tx(&bars[lane], bytes);
@@ -275,7 +312,12 @@ paged_decode_split_kernel(const T* __restrict__ q,
   float qr[G][8];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    load8(q + ((size_t)b * H + head(g)) * D + chunk * 8, qr[g]);
+    if constexpr (PAD) {
+      load8_cols(q + ((size_t)b * H + head(g)) * dd + chunk * 8, qr[g],
+                 dd - chunk * 8, vec);
+    } else {
+      load8(q + ((size_t)b * H + head(g)) * D + chunk * 8, qr[g]);
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j) qr[g][j] *= q_scale;
   }
@@ -289,14 +331,22 @@ paged_decode_split_kernel(const T* __restrict__ q,
       if (S == 1) {
 #pragma unroll
         for (int c = 0; c < C::kPerThread; ++c) {
-          if (D >= kThreads || tid < D) {
+          if constexpr (PAD) {
+            if (tid + c * kThreads < dd) {
+              out[row * dd + tid + c * kThreads] = 0.f;
+            }
+          } else if (D >= kThreads || tid < D) {
             out[row * D + tid + c * kThreads] = 0.f;
           }
         }
       } else {
 #pragma unroll
         for (int c = 0; c < C::kPerThread; ++c) {
-          if (D >= kThreads || tid < D) {
+          if constexpr (PAD) {
+            if (tid + c * kThreads < dd) {
+              part_o[(row * S + s) * dd + tid + c * kThreads] = 0.f;
+            }
+          } else if (D >= kThreads || tid < D) {
             part_o[(row * S + s) * D + tid + c * kThreads] = 0.f;
           }
         }
@@ -312,10 +362,24 @@ paged_decode_split_kernel(const T* __restrict__ q,
   const int n_pages = pages_for(len);
   const int n_tok = min(len - start, n_pages * page);
   const int n_max = pps * page;         // stride of a probability row
+  if (!bulk) {
+    // the tiles value by value: page x d values are not whole 16-byte
+    // units, so neither a bulk copy nor an aligned vector takes them
+    for (int i = 0; i < n_pages; ++i) {
+      const size_t off =
+          ((size_t)page_table[(size_t)b * MP + first + i] * KV + kvh) *
+          (size_t)tile;
+      for (int e = tid; e < tile; e += kThreads) {
+        k_tiles[(size_t)i * tile + e] = k_pages[off + e];
+        v_tiles[(size_t)i * tile + e] = v_pages[off + e];
+      }
+    }
+    __syncthreads();
+  }
 
   // scores, page by page as the K tiles land: probs[g][t] = q_g . k_t
   for (int i = 0; i < n_pages; ++i) {
-    mbar_wait0(&bars[i]);
+    if (bulk) mbar_wait0(&bars[i]);
     const int valid = min(n_tok - i * page, page);
     const T* kt = k_tiles + (size_t)i * tile;
     for (int t0 = 0; t0 < valid; t0 += C::kTokensPerPass) {
@@ -323,7 +387,12 @@ paged_decode_split_kernel(const T* __restrict__ q,
       const bool live = t < valid;
       float kf[8];
       if (live) {
-        load8(kt + (size_t)t * D + chunk * 8, kf);
+        if constexpr (PAD) {
+          load8_cols(kt + (size_t)t * dd + chunk * 8, kf, dd - chunk * 8,
+                     vec);
+        } else {
+          load8(kt + (size_t)t * D + chunk * 8, kf);
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < 8; ++j) kf[j] = 0.f;
@@ -379,7 +448,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
     for (int c = 0; c < kPer; ++c) acc[g][c] = 0.f;
   }
   for (int i = 0; i < n_pages; ++i) {
-    mbar_wait0(&bars[n_pages + i]);
+    if (bulk) mbar_wait0(&bars[n_pages + i]);
     const int valid = min(n_tok - i * page, page);
     const T* vt = v_tiles + (size_t)i * tile + col;
     const float* pi = probs + i * page;
@@ -387,7 +456,10 @@ paged_decode_split_kernel(const T* __restrict__ q,
     for (int t = part; t < valid; t += kShare) {
 #pragma unroll
       for (int c = 0; c < kPer; ++c) {
-        const float v = to_float(vt[(size_t)t * D + c * kThreads]);
+        if constexpr (PAD) {
+          if (col + c * kThreads >= dd) continue;   // a masked column
+        }
+        const float v = to_float(vt[(size_t)t * dd + c * kThreads]);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           acc[g][c] = fmaf(pi[g * n_max + t], v, acc[g][c]);
@@ -413,7 +485,10 @@ paged_decode_split_kernel(const T* __restrict__ q,
       if (part == 0) {
 #pragma unroll
         for (int c = 0; c < kPer; ++c) {
-          out[row * D + col + c * kThreads] =
+          if constexpr (PAD) {
+            if (col + c * kThreads >= dd) continue;
+          }
+          out[row * dd + col + c * kThreads] =
               acc[g][c] / fmaxf(row_l[g], 1e-30f);
         }
       }
@@ -421,7 +496,10 @@ paged_decode_split_kernel(const T* __restrict__ q,
       if (part == 0) {
 #pragma unroll
         for (int c = 0; c < kPer; ++c) {
-          part_o[(row * S + s) * D + col + c * kThreads] = acc[g][c];
+          if constexpr (PAD) {
+            if (col + c * kThreads >= dd) continue;
+          }
+          part_o[(row * S + s) * dd + col + c * kThreads] = acc[g][c];
         }
       }
       if (tid == 0) {
@@ -432,82 +510,170 @@ paged_decode_split_kernel(const T* __restrict__ q,
   }
 }
 
+template <typename T, int D, int G>
+__global__ void PAGED_SPLIT_BOUNDS
+paged_decode_split_kernel(const T* __restrict__ q,
+                          const T* __restrict__ k_pages,
+                          const T* __restrict__ v_pages,
+                          const int* __restrict__ page_table,
+                          const int* __restrict__ seq_lens,
+                          float* __restrict__ out,
+                          float* __restrict__ work, int H, int KV, int page,
+                          int MP, int pps, float q_scale) {
+  split_body<T, D, G, false>(q, k_pages, v_pages, page_table, seq_lens, out,
+                             work, H, KV, page, MP, pps, q_scale, D);
+}
+
+// the same at a true width d below the class D
+template <typename T, int D, int G>
+__global__ void PAGED_SPLIT_BOUNDS
+paged_decode_split_kernel_padded(const T* __restrict__ q,
+                                 const T* __restrict__ k_pages,
+                                 const T* __restrict__ v_pages,
+                                 const int* __restrict__ page_table,
+                                 const int* __restrict__ seq_lens,
+                                 float* __restrict__ out,
+                                 float* __restrict__ work, int H, int KV,
+                                 int page, int MP, int pps, float q_scale,
+                                 int d) {
+  split_body<T, D, G, true>(q, k_pages, v_pages, page_table, seq_lens, out,
+                            work, H, KV, page, MP, pps, q_scale, d);
+}
+
 // One block per (b, head), one column per thread (min(D, 128) threads;
 // at D = 256 a thread takes columns d and d + 128): the splits' partials
 // combined in the fixed order s = 0 .. S - 1 (online: each step rescales
 // the sum by exp2(m - m_new) and the partial by exp2(m_s - m_new)). An
 // empty split (m = -1e30, l = 0, o = 0) adds nothing; a row with no token
-// at all gives 0 / 1e-30 = 0.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_merge_kernel(const float* __restrict__ work,
-                          float* __restrict__ out, int n_rows, int S) {
+// at all gives 0 / 1e-30 = 0. PAD: the partials and the output rows are
+// dd < D wide, the threads past it idle.
+template <int D, bool PAD>
+__device__ __forceinline__ void merge_body(const float* work, float* out,
+                                           int n_rows, int S, int dd) {
   const size_t row = blockIdx.x;
-  const float* part_o = work + row * S * D;
-  const float* part_m = work + (size_t)n_rows * S * D + row * S;
+  const float* part_o = work + row * S * dd;
+  const float* part_m = work + (size_t)n_rows * S * dd + row * S;
   const float* part_l = part_m + (size_t)n_rows * S;
 #pragma unroll
   for (int c = 0; c < Cols<D>::kPerThread; ++c) {
     const int d = threadIdx.x + c * kThreads;
+    if constexpr (PAD) {
+      if (d >= dd) continue;
+    }
     // a running max; the loads do not depend on it, so they issue together
     float m = kNegInf, l = 0.f, acc = 0.f;
 #pragma unroll 8
     for (int s = 0; s < S; ++s) {
       const float ms = part_m[s], ls = part_l[s];
-      const float os = part_o[(size_t)s * D + d];
+      const float os = part_o[(size_t)s * dd + d];
       const float m_new = fmaxf(m, ms);
       const float alpha = exp2f(m - m_new), w = exp2f(ms - m_new);
       acc = acc * alpha + w * os;
       l = l * alpha + w * ls;
       m = m_new;
     }
-    out[row * D + d] = acc / fmaxf(l, 1e-30f);
+    out[row * dd + d] = acc / fmaxf(l, 1e-30f);
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_merge_kernel(const float* __restrict__ work,
+                          float* __restrict__ out, int n_rows, int S) {
+  merge_body<D, false>(work, out, n_rows, S, D);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_merge_kernel_padded(const float* __restrict__ work,
+                                 float* __restrict__ out, int n_rows, int S,
+                                 int d) {
+  merge_body<D, true>(work, out, n_rows, S, d);
+}
+
+// one launch of `kernel` with `smem` bytes of dynamic shared memory
+template <typename Kernel, typename... Args>
+cudaError_t run(Kernel kernel, dim3 grid, int threads, size_t smem,
+                cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
 // the split kernel's instance for group G = H / KV (1 .. kMaxGroup) at
-// head_dim D, then the merge
-template <typename T, int D, int G = 1>
+// head_dim D (PAD: at the true width d < D), then the merge
+template <typename T, int D, bool PAD, int G = 1>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const void* page_table, const void* seq_lens, void* out,
                    void* work, int B, int H, int KV, int page, int MP,
-                   int pps, cudaStream_t stream) {
+                   int pps, int d, cudaStream_t stream) {
   if constexpr (G < kMaxGroup) {
     if (H / KV != G) {
-      return launch<T, D, G + 1>(q, k_pages, v_pages, page_table, seq_lens,
-                                 out, work, B, H, KV, page, MP, pps, stream);
+      return launch<T, D, PAD, G + 1>(q, k_pages, v_pages, page_table,
+                                      seq_lens, out, work, B, H, KV, page,
+                                      MP, pps, d, stream);
     }
   }
   const int S = (MP + pps - 1) / pps;
-  const size_t smem = split_layout<D>(pps, page, G, sizeof(T)).total;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_split_kernel<T, D, G>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+  const size_t smem = split_layout<D, PAD>(pps, page, G, sizeof(T), d).total;
+  // exp2(q . k * q_scale) = exp(q . k / sqrt(d)) at the true width
+  const float q_scale = 1.4426950408889634f / sqrtf((float)d);
+  const dim3 grid(S, KV, B);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k_pages);
+  const T* vp = static_cast<const T*>(v_pages);
+  const int* table = static_cast<const int*>(page_table);
+  const int* lens = static_cast<const int*>(seq_lens);
+  float* o = static_cast<float*>(out);
+  float* w = static_cast<float*>(work);
+  cudaError_t err;
+  if constexpr (PAD) {
+    err = run(paged_decode_split_kernel_padded<T, D, G>, grid, kThreads,
+              smem, stream, qp, kp, vp, table, lens, o, w, H, KV, page, MP,
+              pps, q_scale, d);
+  } else {
+    err = run(paged_decode_split_kernel<T, D, G>, grid, kThreads, smem,
+              stream, qp, kp, vp, table, lens, o, w, H, KV, page, MP, pps,
+              q_scale);
   }
-  const float q_scale = 1.4426950408889634f / sqrtf((float)D);
-  paged_decode_split_kernel<T, D, G><<<dim3(S, KV, B), kThreads, smem,
-                                        stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(page_table),
-      static_cast<const int*>(seq_lens), static_cast<float*>(out),
-      static_cast<float*>(work), H, KV, page, MP, pps, q_scale);
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return err;
-  paged_decode_merge_kernel<D><<<B * H, D < kThreads ? D : kThreads, 0,
-                                 stream>>>(
-      static_cast<const float*>(work), static_cast<float*>(out), B * H, S);
-  return cudaGetLastError();
+  const int threads = D < kThreads ? D : kThreads;
+  const float* parts = w;
+  if constexpr (PAD) {
+    return run(paged_decode_merge_kernel_padded<D>, dim3(B * H), threads, 0,
+               stream, parts, o, B * H, S, d);
+  }
+  return run(paged_decode_merge_kernel<D>, dim3(B * H), threads, 0, stream,
+             parts, o, B * H, S);
+}
+
+template <typename T>
+cudaError_t launch_width(const void* q, const void* k_pages,
+                         const void* v_pages, const void* page_table,
+                         const void* seq_lens, void* out, void* work, int B,
+                         int H, int KV, int D, int page, int MP, int pps,
+                         cudaStream_t stream) {
+  if (D == kHeadDim) {
+    return launch<T, kHeadDim, false>(q, k_pages, v_pages, page_table,
+                                      seq_lens, out, work, B, H, KV, page,
+                                      MP, pps, D, stream);
+  }
+  return launch<T, kHeadDim, true>(q, k_pages, v_pages, page_table, seq_lens,
+                                   out, work, B, H, KV, page, MP, pps, D,
+                                   stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim D must be this library's
-// (kHeadDim). pps: pages per split; S = ceil(MP / pps) splits. work: f32
-// workspace of B * H * S * (D + 2) values when S > 1 (unused when S == 1).
-// Launches the split kernel and, when S > 1, the merge kernel on `stream`.
-// Returns the first failed launch's cudaError_t, else 0.
+// dtype: 0 = float32, 1 = bfloat16. head_dim D: 1 to this library's width
+// (kHeadDim, D's class). pps: pages per split; S = ceil(MP / pps) splits.
+// work: f32 workspace of B * H * S * (D + 2) values when S > 1 (unused when
+// S == 1). Launches the split kernel and, when S > 1, the merge kernel on
+// `stream`. Returns the first failed launch's cudaError_t, else 0.
 extern "C" int paged_decode_attention(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const void* page_table,
@@ -517,21 +683,21 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pages,
                                       int dtype, int device, void* stream) {
   if (B <= 0 || B > 65535 || KV <= 0 || KV > 65535 || H % KV != 0 ||
       H / KV > kMaxGroup || page <= 0 || MP <= 0 || pps <= 0 || pps > MP ||
-      pps > kMaxPagesPerSplit || D != kHeadDim) {
+      pps > kMaxPagesPerSplit || D < 1 || D > kHeadDim) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)launch<float, kHeadDim>(q, k_pages, v_pages, page_table,
-                                        seq_lens, out, work, B, H, KV, page,
-                                        MP, pps, s);
+    return (int)launch_width<float>(q, k_pages, v_pages, page_table,
+                                    seq_lens, out, work, B, H, KV, D, page,
+                                    MP, pps, s);
   }
   if (dtype == 1) {
-    return (int)launch<__nv_bfloat16, kHeadDim>(
-        q, k_pages, v_pages, page_table, seq_lens, out, work, B, H, KV, page,
-        MP, pps, s);
+    return (int)launch_width<__nv_bfloat16>(q, k_pages, v_pages, page_table,
+                                            seq_lens, out, work, B, H, KV, D,
+                                            page, MP, pps, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -14,13 +14,26 @@
 // q: logical [B, H, Tq, D]; k, v: [B, Hkv, Tk, D] with Hkv dividing H
 // (query head j reads KV head j / (H / Hkv): grouped-query attention
 // without repeating K and V). Any strides over B, H and the sequence (one
-// set each for q, k, v), unit stride over D; D must be this library's
+// set each for q, k, v), unit stride over D; D from 1 to this library's
 // width (kHeadDim: RAY_TPU_HEAD_DIM, 16, 32, 64, 128 or 256, which
-// ops/_build.py sets for each width's library). Offsets are any
-// host ints; Tq may differ from Tk. Ragged tails are masked by bounds,
+// ops/_build.py sets for each width's library; the wrapper sends a width
+// to the library of its class, the smallest at or above it). Offsets are
+// any host ints; Tq may differ from Tk. Ragged tails are masked by bounds,
 // nothing is padded. Outputs o [B, H, Tq, D], m and l [B, H, Tq], all f32
 // and contiguous. A row with no visible key gets o = 0, m = -1e30, l = 0:
 // the merge of the ring then scales it away.
+//
+// A width D below the class runs the class's kernels unchanged: in bf16
+// the TMA maps describe the tensors at D columns, so the boxes' columns
+// past D arrive as zeros (they add 0 to q k, and P v writes 0 there), and
+// the epilogue RingBlockCols stores D columns. In f32 the one FMA kernel
+// of the class takes the width at run time at every D: it loads whole
+// 16-byte vectors below D and zeros past it, and stores D columns.
+// The scale is 1 / sqrt(D) of the true D either way. TMA's strides must be
+// multiples of 16 bytes and the f32 loads read whole 16-byte vectors, so
+// a width that is not a multiple of 16 bytes' values (8 in bf16, 4 in
+// f32) comes from the wrapper zero-padded to a multiple of 8 columns,
+// still with the true D.
 //
 // Bound: operations on a long shard, launch and latency on a short one.
 // On the 32k ring's path (q [1, 16, 8192, 128], k/v [1, 8, 8192, 128],
@@ -76,13 +89,14 @@ struct Strides {
 // kernel 2 in f32 on FMA tiles: block = (64-query tile, b*H + h)
 // ----------------------------------------------------------------------
 
+// d: the tensors' head width, D or below it (the columns past it masked)
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 ring_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, float* __restrict__ o,
                   float* __restrict__ m_out, float* __restrict__ l_out, int H,
                   int rep, int Tq, int Tk, int q_offset, int k_offset,
-                  Strides sq, Strides sk, Strides sv, float scale) {
+                  Strides sq, Strides sk, Strides sv, float scale, int d) {
   using Sh = Tiles<T, D>;
   constexpr int kKeys = Sh::kLoop;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -117,7 +131,7 @@ ring_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
     kt_end = last_key < 0 ? 0
                           : (int)min((long long)n_k, last_key / kKeys + 1);
   }
-  if (kt_end > 0) load_tile<T, D, kBlockQ>(qs, qb, sq.s, q0, Tq);
+  if (kt_end > 0) load_tile_cols<T, D, kBlockQ>(qs, qb, sq.s, q0, Tq, d);
 
   float m_run = kNegInf, l_run = 0.f;   // row sr's stats (all 4 threads)
   float acc[Sh::kOutNT][4];
@@ -126,8 +140,8 @@ ring_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < kt_end; ++kt) {
     const int k0 = kt * kKeys;
     __syncthreads();   // the last tile's readers are done
-    load_tile<T, D, kKeys>(ks, kb, sk.s, k0, Tk);
-    load_tile<T, D, kKeys>(vs, vb, sv.s, k0, Tk);
+    load_tile_cols<T, D, kKeys>(ks, kb, sk.s, k0, Tk, d);
+    load_tile_cols<T, D, kKeys>(vs, vb, sv.s, k0, Tk, d);
     __syncthreads();
 
     float sc[Sh::kScoreNT][4];
@@ -196,7 +210,7 @@ ring_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m_out[(long long)bh * Tq + q0 + sr] = m_run;
     l_out[(long long)bh * Tq + q0 + sr] = l_run;
   }
-  store_acc(o + (long long)bh * Tq * D, D, acc, q0, wr, wco, Tq, 1.f, 1.f);
+  store_acc_cols(o + (long long)bh * Tq * d, d, acc, q0, wr, wco, Tq, d);
 }
 
 // ----------------------------------------------------------------------
@@ -210,7 +224,7 @@ struct Geometry {
 
 template <typename T, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* m, void* l, const Geometry& g, float scale,
+                   void* m, void* l, const Geometry& g, float scale, int d,
                    cudaStream_t stream) {
   const size_t smem = fwd_smem<T, kHeadDim>();
   auto kernel = ring_block_kernel<T, kHeadDim, CAUSAL>;
@@ -222,7 +236,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<float*>(o), static_cast<float*>(m),
       static_cast<float*>(l), g.H, g.rep, g.Tq, g.Tk, g.q_offset, g.k_offset,
-      g.sq, g.sk, g.sv, scale);
+      g.sq, g.sk, g.sv, scale, d);
   return cudaGetLastError();
 }
 
@@ -251,42 +265,71 @@ struct RingBlockOut {
   }
 };
 
+// RingBlockOut at a head width d below the kernel's: o [B, H, Tq, d], each
+// value stored alone where its column is below d (the columns past it
+// hold P v's zeros)
+struct RingBlockCols {
+  float* o;
+  float* m;
+  float* l;
+  int H, Tq, d;
+
+  __device__ __forceinline__ float out_scale(float) const { return 1.f; }
+  __device__ __forceinline__ long long row_index(int b, int h,
+                                                 int row) const {
+    return ((long long)b * H + h) * Tq + row;
+  }
+  __device__ __forceinline__ void row_stats(int b, int h, int row,
+                                            float m_row, float l_row) const {
+    m[row_index(b, h, row)] = m_row;
+    l[row_index(b, h, row)] = l_row;
+  }
+  __device__ __forceinline__ void store(int b, int h, int row, int col,
+                                        float x0, float x1) const {
+    float* p = o + row_index(b, h, row) * d + col;
+    if (col < d) p[0] = x0;
+    if (col + 1 < d) p[1] = x1;
+  }
+};
+
 // every width runs bf16 on the wgmma + TMA kernels
 static_assert(RAY_TPU_SM90_FORWARD,
               "kernel 2 runs bf16 on the sm90 forward at every head_dim");
 
 // the bf16 launch the plan names: splits = 0, the 128-query template
-// (head_dim a multiple of 64), else the split kernel
-template <int D>
+// (head_dim a multiple of 64), else the split kernel; D the kernels'
+// width, cols the tensors' (D, or below it with the epilogue
+// RingBlockCols)
+template <int D, class Epilogue>
 int launch_bf16(const void* q, const void* k, const void* v, int B,
                 const long long (&sq)[3], const long long (&sk)[3],
                 const long long (&sv)[3], const sm90::Problem& pr,
-                const RingBlockOut<D>& epi, bool causal, int splits,
-                cudaStream_t s) {
+                const Epilogue& epi, bool causal, int splits, cudaStream_t s,
+                int cols) {
   if (splits == 0) {
     if constexpr (D % 64 == 0) {
       return causal ? sm90::launch<true, D>(q, k, v, B, sq, sk, sv, pr, epi,
-                                            s)
+                                            s, cols)
                     : sm90::launch<false, D>(q, k, v, B, sq, sk, sv, pr, epi,
-                                             s);
+                                             s, cols);
     }
     return (int)cudaErrorInvalidValue;
   }
   return causal ? sm90::launch_split<true, D>(q, k, v, B, sq, sk, sv, pr,
-                                              epi, splits, s)
+                                              epi, splits, s, cols)
                 : sm90::launch_split<false, D>(q, k, v, B, sq, sk, sv, pr,
-                                               epi, splits, s);
+                                               epi, splits, s, cols);
 }
 
 bool bad_geometry(int B, int H, int Hkv, int Tq, int Tk, int D) {
   return B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Tq <= 0 ||
-         Tk <= 0 || D != kHeadDim;
+         Tk <= 0 || D < 1 || D > kHeadDim;
 }
 
 }  // namespace
 
 // The entry points. q [B, H, Tq, D], k and v [B, Hkv, Tk, D], unit stride
-// over D; D must be this library's width (kHeadDim) and Hkv must divide
+// over D; D from 1 to this library's width (kHeadDim) and Hkv must divide
 // H. o [B, H, Tq, D], m and l
 // [B, H, Tq] are f32 and contiguous. causal: 0 or 1. Each returns the
 // launch's cudaError_t (or, for the bf16 one, sm90::kEncodeError + the
@@ -308,12 +351,15 @@ extern "C" int ring_block_attention(
                    {svb, svh, svs}};
   const float scale = 1.0f / sqrtf((float)D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(causal ? launch<float, true>(q, k, v, o, m, l, g, scale, s)
-                      : launch<float, false>(q, k, v, o, m, l, g, scale, s));
+  return (int)(causal ? launch<float, true>(q, k, v, o, m, l, g, scale, D, s)
+                      : launch<float, false>(q, k, v, o, m, l, g, scale, D,
+                                             s));
 }
 
 // bf16 inputs; (batch, head, seq) strides of q, k and v in BYTES, each a
 // positive multiple of 16, and 16-byte aligned bases (what TMA takes).
+// Below the library's width, the maps read D columns (TMA fills the rest
+// of each box with zeros) and RingBlockCols stores D.
 // splits: the launch plan's (ops/ring_attention.py::block_plan): 0 for the
 // 128-query template (head_dim a multiple of 64), 1 to sm90::kMaxSplits
 // for the split kernel
@@ -329,13 +375,19 @@ extern "C" int ring_block_attention_bf16(
   const sm90::Problem pr{H,        H / Hkv,  Tq,
                          Tk,       q_offset, k_offset,
                          1.0f / sqrtf((float)D)};
-  const RingBlockOut<kHeadDim> epi{static_cast<float*>(o),
-                                   static_cast<float*>(m),
-                                   static_cast<float*>(l), H, Tq};
   const long long sq[3] = {sqb, sqh, sqs}, sk[3] = {skb, skh, sks},
                   sv[3] = {svb, svh, svs};
+  float* out[3] = {static_cast<float*>(o), static_cast<float*>(m),
+                   static_cast<float*>(l)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == kHeadDim) {
+    const RingBlockOut<kHeadDim> epi{out[0], out[1], out[2], H, Tq};
+    return launch_bf16<kHeadDim>(q, k, v, B, sq, sk, sv, pr, epi,
+                                 causal != 0, splits, s, D);
+  }
+  const RingBlockCols epi{out[0], out[1], out[2], H, Tq, D};
   return launch_bf16<kHeadDim>(q, k, v, B, sq, sk, sv, pr, epi, causal != 0,
-                               splits, static_cast<cudaStream_t>(stream));
+                               splits, s, D);
 }
 
 extern "C" const char* error_string(int code) {

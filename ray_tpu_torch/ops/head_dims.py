@@ -1,16 +1,23 @@
-"""The head widths the port's attention kernels are built for.
+"""The head widths the port's attention kernels take and are built for.
 
 One table for the three wrappers (``paged_attention``, ``block_attention``,
 the ``flash`` kernels), ``perf.serving_ab`` and the tests. The reference's
 kernels take any head_dim (kernels 1 and 2) or any multiple of 128 (the
-flash rule); the port builds each kernel for the widths the JAX package's
-configurations use: 16 (``tiny``, the smoke decode model, the serving A/B
-model), 32 (the smoke model), 64 (the default ``TransformerConfig``), 128
-(the flagship) and 256 (the widest the flash rule picks in practice).
-Any other width raises ``ValueError`` naming the kernel's set (ROADMAP.md,
-Queue C).
+flash rule). The port builds each kernel at the widths of its *classes*:
+16 (``tiny``, the smoke decode model, the serving A/B model), 32 (the
+smoke model), 64 (the default ``TransformerConfig``), 128 (the flagship)
+and 256 (the widest the flash rule picks in practice).
 
-Each width is a library of its own: ``ops/_build.py`` compiles
+Kernels 1 and 2 take every head_dim from 1 to 256: a width runs on the
+library of its class (``width_class``: the smallest built width at or
+above it), which gets the true head_dim at run time, masks the columns
+past it and takes its softmax scale from it; where the width equals its
+class the library runs the code it always ran. The flash kernels take
+128 and 256 alone. A wider head raises ``ValueError`` naming the queue of
+ROADMAP.md that holds it (B4: flash at 384, 512, ...; B5: kernels 1 and 2
+above 256).
+
+Each class is a library of its own: ``ops/_build.py`` compiles
 ``csrc/<source>.cu`` once a width of ``SOURCES`` with ``defines``, so the
 widths compile in parallel ``nvcc`` processes.
 
@@ -32,9 +39,15 @@ from __future__ import annotations
 
 from typing import Tuple
 
+# the widths each kernel's libraries are built for (its classes)
 PAGED_ATTENTION: Tuple[int, ...] = (16, 32, 64, 128, 256)   # kernel 1
 BLOCK_ATTENTION: Tuple[int, ...] = (16, 32, 64, 128, 256)   # kernel 2
 FLASH: Tuple[int, ...] = (128, 256)                         # kernels 3a-3c
+# kernels 1 and 2 take every head_dim up to the widest class; the flash
+# kernels their built widths alone
+ANY_WIDTH = ("paged_attention", "block_attention")
+# the queue of ROADMAP.md that holds a wider head
+WIDER = {"paged_attention": "B5", "block_attention": "B5", "flash": "B4"}
 
 KERNEL_HEAD_DIMS = {"paged_attention": PAGED_ATTENTION,
                     "block_attention": BLOCK_ATTENTION,
@@ -53,13 +66,24 @@ DEFAULT_HEAD_DIM = 128
 
 
 def check(kernel: str, head_dim: int, who: str = "") -> None:
-    """Raises ValueError unless ``kernel`` (a key of KERNEL_HEAD_DIMS) is
-    built for ``head_dim``. ``who`` names the caller in the message."""
+    """Raises ValueError unless ``kernel`` (a key of KERNEL_HEAD_DIMS)
+    takes ``head_dim``. ``who`` names the caller in the message."""
     widths = KERNEL_HEAD_DIMS[kernel]
-    if head_dim not in widths:
+    if kernel in ANY_WIDTH:
+        ok, takes = 1 <= head_dim <= widths[-1], f"1 to {widths[-1]}"
+    else:
+        ok, takes = head_dim in widths, f"in {widths}"
+    if not ok:
         raise ValueError(f"{who or kernel}: head_dim {head_dim} has no "
-                         f"{kernel} kernel; it is built for head_dim in "
-                         f"{widths} (ROADMAP.md, Queue C)")
+                         f"{kernel} kernel; it takes head_dim {takes} "
+                         f"(ROADMAP.md, Queue B, {WIDER[kernel]})")
+
+
+def width_class(head_dim: int, kernel: str = "paged_attention") -> int:
+    """The built width whose library runs ``head_dim`` for ``kernel``:
+    the smallest of its widths at or above it. Raises as ``check``."""
+    check(kernel, head_dim)
+    return next(w for w in KERNEL_HEAD_DIMS[kernel] if w >= head_dim)
 
 
 def library(source: str, head_dim: int) -> str:

@@ -16,7 +16,10 @@ granularity.
     version; a CUDA tensor launches the hand-written kernels
     (``csrc/paged_attention.cu``) or raises. There is no silent fallback
     and no length-based path choice: on the card the kernel always runs,
-    split over pages by ``split_plan``, which reads shapes only.
+    split over pages by ``split_plan``, which reads shapes only, at every
+    head_dim from 1 to 256: a width runs on the library of its class
+    (``head_dims.width_class``), which masks the columns past it and reads
+    the cache where it lies, never a padded copy.
     ``paged_attention.launches`` counts wrapper calls that launched; one
     call launches the split kernel and, when there is more than one
     split, the merge kernel.
@@ -46,7 +49,7 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = head_dims.PAGED_ATTENTION   # one library a width
+_HEAD_DIMS = head_dims.PAGED_ATTENTION   # one library a width class
 _MAX_GROUP = 8
 _MAX_PAGES_PER_SPLIT = 32   # one lane of the kernel's first warp per page
 MAX_SMEM = 232448     # shared memory one block may take on an H100
@@ -154,10 +157,11 @@ def merge_splits(o: torch.Tensor, m: torch.Tensor,
 def split_smem_bytes(pps: int, page: int, group: int, elt: int,
                      D: int = 128) -> int:
     """Shared memory of one split block (``split_layout`` in
-    csrc/paged_attention.cu): K and V tiles [pps, page, D], f32
-    probabilities [group, pps * page] padded to 8 bytes, 2 * pps
-    mbarriers, the group's f32 m and l, the length."""
-    tiles = 2 * pps * page * D * elt
+    csrc/paged_attention.cu) at the true head_dim D: K and V tiles [pps,
+    page, D] padded to 16 bytes (only a width that is not a multiple of 8
+    pads), f32 probabilities [group, pps * page] padded to 8 bytes, 2 *
+    pps mbarriers, the group's f32 m and l, the length."""
+    tiles = (2 * pps * page * D * elt + 15) // 16 * 16
     probs = (group * pps * page * 4 + 7) // 8 * 8
     return tiles + probs + 2 * pps * 8 + (2 * group + 1) * 4
 
@@ -230,7 +234,8 @@ def _check_kernel_args(q, k_pages, v_pages, page_table, seq_lens,
                          f"memory (max {MAX_SMEM})")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention: tensors must be contiguous")
-    # each K/V tile and q row is one bulk copy or 16-byte loads
+    # a K/V tile or q row of whole 16-byte units is one bulk copy or
+    # 16-byte loads
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("paged_attention: q and the pages must be 16-byte "
                          "aligned")
@@ -267,8 +272,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return out
     work = None if S == 1 else torch.empty(
         B * H * S * (D + 2), dtype=torch.float32, device=q.device)
-    lib = _build.library(head_dims.library("paged_attention", D),
-                         _SIGNATURES)
+    lib = _build.library(head_dims.library(
+        "paged_attention", head_dims.width_class(D)), _SIGNATURES)
     rc = lib.paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),

@@ -13,8 +13,14 @@ The block step, ``block_attention``, is kernel 2: hand-written CUDA C++
 ``_block_kernel``. For a CPU tensor it takes its plain PyTorch version
 (``_block_attention_reference``); for a CUDA tensor it launches the kernel
 or raises, and counts its launches in ``block_attention.launches``. It
-takes head_dim 16, 32, 64, 128 and 256 (``ops/head_dims.py``), one
-library a width. bf16 goes to ``ring_block_attention_bf16`` (byte
+takes every head_dim from 1 to 256 (``ops/head_dims.py``): a width runs
+on the library of its class (16, 32, 64, 128 or 256, the smallest at or
+above it), which masks the columns past it. Where a row is not whole
+16-byte units (a width not a multiple of 8 in bf16, of 4 in f32: TMA's
+strides and the f32 loads need them) the call first copies q, k and v
+zero-padded to a multiple of 8 columns, and counts it in
+``block_attention.padded_calls``; no configuration of the repo makes
+such a call. bf16 goes to ``ring_block_attention_bf16`` (byte
 strides), the Hopper kernels (wgmma, TMA-fed tiles) at every width, with
 the launch ``block_plan`` picks from the shapes: the 128-query template
 where its blocks fill the card, else the split kernel (64-query blocks,
@@ -151,12 +157,9 @@ def split_key_tiles(q0: int, Tq: int, Tk: int, head_dim: int,
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_offset: int, k_offset: int) -> None:
     """What kernel 2 takes: one CUDA device and dtype, q [B, H, Tq, D]
-    and k, v [B, Hkv, Tk, D] with D in ``head_dims.BLOCK_ATTENTION`` and
-    Hkv dividing H, unit head_dim stride, 16-byte aligned rows, and
-    offsets that keep every position in int32. The bf16 entry takes what
-    TMA takes at every width, where it reads through it or not: every
-    (batch, head, sequence) stride must also be positive and below 2^40
-    bytes."""
+    and k, v [B, Hkv, Tk, D] with D from 1 to 256 and Hkv dividing H,
+    and offsets that keep every position in int32 (the rows' layout:
+    ``_check_rows``)."""
     if q.device.type != _KERNEL_DEVICE:
         raise ValueError(f"block_attention: no kernel for {q.device}")
     if k.device != q.device or v.device != q.device:
@@ -173,6 +176,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"[B, Hkv, Tk, D] with Hkv dividing H, got "
                          f"{[tuple(t.shape) for t in (q, k, v)]}")
     head_dims.check("block_attention", q.shape[-1])
+    if any(abs(off) + t > _INT32_MAX
+           for off, t in ((q_offset, q.shape[2]), (k_offset, k.shape[2]))):
+        raise ValueError("block_attention: offsets out of int32 range")
+
+
+def _check_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Unit head_dim stride and 16-byte aligned rows. The bf16 entry takes
+    what TMA takes at every width, where it reads through it or not: every
+    (batch, head, sequence) stride must also be positive and below 2^40
+    bytes."""
     vec = 16 // q.element_size()
     for t in (q, k, v):
         if (t.stride(-1) != 1 or any(s % vec for s in t.stride()[:3])
@@ -186,9 +199,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"TMA takes, (batch, head, sequence) strides "
                              f"of 16 to 2^40 bytes, got "
                              f"{t.stride()[:3]} elements")
-    if any(abs(off) + t > _INT32_MAX
-           for off, t in ((q_offset, q.shape[2]), (k_offset, k.shape[2]))):
-        raise ValueError("block_attention: offsets out of int32 range")
 
 
 def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -200,7 +210,8 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row and column (host ints). Returns (o unnormalised, m, l), all f32.
     CPU tensor: the plain version (differentiable). CUDA tensor: the kernel,
     forward only; in bf16 with ``block_plan``'s launch, or ``splits`` (0 or
-    1 to MAX_SPLITS, as block_plan returns) in its place."""
+    1 to MAX_SPLITS, as block_plan returns) in its place, both at the
+    width class's tiles."""
     if q.device.type == "cpu":
         return _block_attention_reference(q, k, v, q_offset, k_offset, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -214,11 +225,19 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from ray_tpu_torch.ops import _build
 
     B, H, Tq, D = q.shape
+    width = head_dims.width_class(D, "block_attention")
+    if D % (16 // q.element_size()):
+        # rows of whole 16-byte units: the kernel reads the padded copies'
+        # zeros past D and still takes D as the width
+        q, k, v = (torch.nn.functional.pad(t, (0, -D % 8))
+                   for t in (q, k, v))
+        _build.count_launch(block_attention, "padded_calls")
+    _check_rows(q, k, v)
     Hkv, Tk = k.shape[1], k.shape[2]
     o = torch.empty((B, H, Tq, D), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    lib = _build.library(head_dims.library("ring_attention", D),
+    lib = _build.library(head_dims.library("ring_attention", width),
                          _SIGNATURES)
     if q.dtype == torch.bfloat16:
         # byte strides (the unit of the Hopper kernel's TMA maps), then
@@ -227,11 +246,12 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         strides = [s * t.element_size() for t in (q, k, v)
                    for s in t.stride()[:3]]
         if splits is None:
-            splits = block_plan(B, H, Tq, Tk, D)
-        elif not (0 <= splits <= MAX_SPLITS and (splits or D % 64 == 0)):
+            splits = block_plan(B, H, Tq, Tk, width)
+        elif not (0 <= splits <= MAX_SPLITS and (splits or width % 64 == 0)):
             raise ValueError(f"block_attention: splits {splits} is not a "
-                             f"launch of head_dim {D} (0 at a multiple of "
-                             f"64, or 1 to {MAX_SPLITS})")
+                             f"launch of head_dim {D} (0 at a width class "
+                             f"that is a multiple of 64, or 1 to "
+                             f"{MAX_SPLITS})")
         tail = (int(causal), splits)
     else:
         fn = lib.ring_block_attention
@@ -248,6 +268,7 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 block_attention.launches = 0
+block_attention.padded_calls = 0
 
 
 def _stream(device: torch.device) -> int:

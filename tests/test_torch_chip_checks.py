@@ -3,7 +3,8 @@ and flash_mutants.py's mutations, on the CPU: the check passes rounding at
 its dtype's level and rejects a small bias and a wrong row, and every
 mutation still finds the one place it breaks in the current source. Also
 the ring block check (kernel 2's o, m, l, with exact rows where no key is
-visible), the work counted for a block's bound, the logit comparison of
+visible; the head widths where it holds a bf16 kernel's rounding of P),
+the work counted for a block's bound, the logit comparison of
 the ring phase, the SASS build check of the sm90 templates and of kernel
 1's bulk-copy kernels and of the scheduler's kernels, the paged sweep's
 shapes and lengths, and the scheduler phases' helpers: the bytes a tick or
@@ -125,6 +126,44 @@ def test_ring_block_check(name, ok):
     assert all(np.isfinite(x["err_over_bound"]) for x in r["outputs"])
     assert r["dead_rows"] > 0
     assert r["ok"] is ok, r
+
+
+def _bf16_p_block(D, label, seed=0):
+    """(outputs, plain outputs) of kernel 2 in bf16 emulated on the CPU on
+    one of RING_SMALL's blocks at head_dim D: the plain version's o with P
+    rounded to bf16 before P v, the one rounding the kernel makes by
+    design, and its m and l."""
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    h, kv, tq, tk, q_off, k_off, causal = chip_smoke.RING_SMALL[label]
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(chip_smoke.RING_SMALL_BATCH,
+                                                 n, t, D)).astype(np.float32))
+               .bfloat16().float() for n, t in ((h, tq), (kv, tk), (kv, tk)))
+    want = ra._block_attention_reference(q, k, v, q_off, k_off, causal)
+    k, v = (t.repeat_interleave(h // kv, 1) for t in (k, v))
+    s = q @ k.transpose(-1, -2) / D ** 0.5
+    if causal:
+        s = s.masked_fill(torch.arange(tk) + k_off
+                          > torch.arange(tq)[:, None] + q_off, float("-inf"))
+    p = torch.exp(s - want[1][..., None]).nan_to_num(0.0)
+    return (p.bfloat16().float() @ v, want[1], want[2]), want
+
+
+@pytest.mark.parametrize("D", [3, 8, *chip_smoke.RING_PADDED["bfloat16"]])
+@pytest.mark.parametrize("label", list(chip_smoke.RING_SMALL))
+def test_ring_bf16_bound_holds_p_rounding_from_head_dim_8(D, label):
+    """Why phase ring_kernel holds bf16 at RING_PADDED's bf16 widths and at
+    8 and up, not at 3: a kernel whose one error is P in bf16 is inside
+    FLASH_BOUNDS on every output there, and at 3 only its rel L2 is (the
+    element-wise bound over a row of 3 values is out of reach)."""
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    got, want = _bf16_p_block(D, label)
+    r = chip_smoke.ring_block_check(torch, "bfloat16", got, want, ra.NEG_INF)
+    o = r["outputs"][0]
+    assert o["rel_l2"] <= o["rel_l2_bound"] / 4, o
+    assert r["ok"] is (D >= 8), o
 
 
 @pytest.mark.parametrize("q_offset, k_offset, causal, pairs", [

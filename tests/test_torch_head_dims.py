@@ -9,8 +9,10 @@ kernels at 128 and 256 (the multiples of 128 the flash rule picks). At each
 width the port's plain versions (what each CUDA kernel is held against on
 the card) match the reference's Pallas kernels in interpret mode; at 256
 the port's plain flash forward and backward, inside the model, match the
-JAX model's einsum attention; the engine at head_dim 16 and 64 gives
-exactly the JAX engine's greedy tokens. Inputs are seeded numpy arrays (or
+JAX model's einsum attention; the engine at head_dim 16, 64, 80, 96 and
+100 gives exactly the JAX engine's greedy tokens; and each width, those
+below a class too (tests/test_torch_head_dims_any.py), reaches its class's
+library with its true head_dim. Inputs are seeded numpy arrays (or
 flax-initialised params through ``params_from_jax``) handed to both.
 
 Tolerances, f32 throughout, as the head_dim-128 tests state them:
@@ -21,6 +23,7 @@ and gradients (tests/test_torch_transformer.py). Greedy tokens are equal.
 """
 
 import importlib
+import re
 import types
 
 import numpy as np
@@ -46,6 +49,7 @@ jra = importlib.import_module("ray_tpu.ops.ring_attention")
 ATOL = 1e-5
 MODEL_ATOL = 2e-4
 WIDTHS = (16, 32, 64, 128, 256)
+ANY = ("block_attention", "paged_attention")   # every width up to 256
 
 
 def _normal(rng, *shape, scale=1.0):
@@ -63,12 +67,21 @@ def test_the_kernels_widths():
         "paged_attention_d16", "paged_attention"]
 
 
-@pytest.mark.parametrize("kernel", sorted(head_dims.KERNEL_HEAD_DIMS))
-@pytest.mark.parametrize("width", [8, 48, 96, 384, 512])
+# kernels 1 and 2 take every head_dim from 1 to 256, flash 128 and 256
+_REFUSED = ([(kernel, width) for kernel in ANY
+             for width in (0, 257, 264, 384, 512, 1024)]
+            + [("flash", width) for width in (8, 48, 96, 100, 192, 384, 512)])
+
+
+@pytest.mark.parametrize("kernel, width", _REFUSED)
 def test_other_widths_raise_naming_the_set(kernel, width):
-    with pytest.raises(ValueError, match=str(
-            head_dims.KERNEL_HEAD_DIMS[kernel]).replace("(", r"\(")
-            .replace(")", r"\)")):
+    """A width a kernel does not take raises, naming what it takes and the
+    queue of ROADMAP.md that holds wider heads (B5 for kernels 1 and 2,
+    B4 for flash)."""
+    takes = ("head_dim 1 to 256" if kernel in ANY
+             else "head_dim in (128, 256)")
+    queue = "B5" if kernel in ANY else "B4"
+    with pytest.raises(ValueError, match=re.escape(takes) + ".*" + queue):
         head_dims.check(kernel, width)
 
 
@@ -230,13 +243,21 @@ def test_transformer_forward_and_loss_at_256(model_256, monkeypatch):
 
 
 # ----------------------------------------------------------------------
-# the engine at head_dim 16 and 64
+# the engine at head_dim 16, 64, 80, 96 and 100
 # ----------------------------------------------------------------------
 
 ENGINES = {16: dict(vocab_size=64, d_model=64, n_layers=2, n_heads=4,
                     n_kv_heads=2, d_ff=64, max_seq_len=128),
            64: dict(vocab_size=64, d_model=128, n_layers=2, n_heads=2,
-                    n_kv_heads=1, d_ff=64, max_seq_len=128)}
+                    n_kv_heads=1, d_ff=64, max_seq_len=128),
+           # widths below their class: Phi-2's 80, Phi-3-mini's 96 (group
+           # 1), and 100, whose rows are not whole 16-byte units in bf16
+           80: dict(vocab_size=64, d_model=160, n_layers=2, n_heads=2,
+                    n_kv_heads=1, d_ff=64, max_seq_len=128),
+           96: dict(vocab_size=64, d_model=192, n_layers=2, n_heads=2,
+                    n_kv_heads=2, d_ff=64, max_seq_len=128),
+           100: dict(vocab_size=64, d_model=200, n_layers=2, n_heads=2,
+                     n_kv_heads=1, d_ff=64, max_seq_len=128)}
 
 
 @pytest.mark.parametrize("D", sorted(ENGINES))
@@ -399,6 +420,83 @@ def test_block_attention_routes_by_width(recorded, D, dtype):
     # the split kernel unsplit at every width
     assert args[23:-2] == ((1, 1) if bf16 else (1,))
     assert D in head_dims.SM90_FORWARD
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [1, 8, 37, 96, 100, 192])
+def test_paged_attention_loads_its_class(recorded, D, dtype):
+    """The class's library gets the true head_dim, a workspace of
+    B x H x S x (D + 2) values and split_plan's pages per split at D; the
+    cache goes in as it is."""
+    kp = _meta(1024, 4, 16, D, dtype=dtype)
+    out = tpa.paged_attention(_meta(64, 8, D, dtype=dtype), kp, kp,
+                              _meta(64, 16, dtype=torch.int32),
+                              _meta(64, dtype=torch.int32))
+    (lib, entry, args), = recorded.calls
+    assert lib == head_dims.library("paged_attention",
+                                    head_dims.width_class(D))
+    assert entry == "paged_decode_attention" and args[10] == D
+    assert args[1] == kp.data_ptr() and out.shape == (64, 8, D)
+    elt = kp.element_size()
+    pps, splits = tpa.split_plan(64, 8, 4, 16, 16, elt, D)
+    assert args[13] == pps
+    assert tpa.split_smem_bytes(pps, 16, 2, elt, D) <= 48 * 1024
+
+
+@pytest.mark.parametrize("D", [8, 40, 96, 100, 112, 200])
+def test_bf16_block_routes_by_class(recorded, D):
+    """bf16 at a width below its class: the class's library, the true D,
+    the launch plan at the class's tiles. A width that is a multiple of 8
+    goes in as the ring's views (byte strides of the views); 100 comes as
+    a zero-padded copy of 104 columns, counted in padded_calls."""
+    q = _meta(2, 64, 4, D)[:, 32:].transpose(1, 2)
+    kv = _meta(2, 64, 2, D)[:, 32:].transpose(1, 2)
+    before = tra.block_attention.padded_calls
+    o, m, l = tra.block_attention(q, kv, kv, 32, 0, True)
+    (lib, entry, args), = recorded.calls
+    cls = head_dims.width_class(D, "block_attention")
+    assert lib == head_dims.library("ring_attention", cls)
+    assert entry == "ring_block_attention_bf16" and args[11] == D
+    assert o.shape == (2, 4, 32, D) and m.shape == l.shape == (2, 4, 32)
+    padded = D % 8 != 0
+    assert tra.block_attention.padded_calls == before + padded
+    if padded:
+        row = -(-D // 8) * 8
+        assert args[14:17] == (4 * 32 * row * 2, 32 * row * 2, row * 2)
+    else:
+        assert args[14:17] == (64 * 4 * D * 2, D * 2, 4 * D * 2)
+    assert args[23] == 1
+    assert args[24] == tra.block_plan(2, 4, 32, 32, cls)
+
+
+@pytest.mark.parametrize("D, padded", [(100, False), (36, False),
+                                       (99, True), (6, True)])
+def test_f32_block_pads_only_rows_of_partial_vectors(recorded, D, padded):
+    """f32 reads whole 16-byte vectors: a multiple of 4 goes in as it is,
+    any other width as a zero-padded copy to a multiple of 8, still with
+    the true D."""
+    q = _meta(1, 2, 16, D, dtype=torch.float32)
+    before = tra.block_attention.padded_calls
+    tra.block_attention(q, q, q, 0, 0, False)
+    (lib, entry, args), = recorded.calls
+    assert entry == "ring_block_attention" and args[11] == D
+    assert tra.block_attention.padded_calls == before + padded
+    row = -(-D // 8) * 8 if padded else D
+    assert args[14:17] == (2 * 16 * row, 16 * row, row)
+
+
+@pytest.mark.parametrize("D", [257, 384])
+def test_wider_than_256_raises_before_any_launch(recorded, D):
+    before = (tpa.paged_attention.launches, tra.block_attention.launches)
+    with pytest.raises(ValueError, match="B5"):
+        tpa.paged_attention(_meta(2, 2, D), _meta(4, 1, 4, D),
+                            _meta(4, 1, 4, D), _meta(2, 2, dtype=torch.int32),
+                            _meta(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="B5"):
+        tra.block_attention(*(_meta(1, 2, 8, D) for _ in range(3)))
+    assert not recorded.calls
+    assert (tpa.paged_attention.launches,
+            tra.block_attention.launches) == before
 
 
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",

@@ -288,7 +288,7 @@ def test_split_plan_reads_shapes_only(recorded):
 
 @pytest.mark.parametrize("kw, call, match", [
     (dict(H=16, KV=1), {}, "group <= 8"),
-    (dict(D=48), {}, "head_dim"),
+    (dict(D=320), {}, "head_dim"),
     (dict(page=256, dtype=torch.float32), {}, "shared memory"),
     ({}, dict(pages_per_split=17), "pages per split"),
     (dict(MP=40, page=4), dict(pages_per_split=33), "pages per split"),
